@@ -1,0 +1,173 @@
+"""Typed columns: name + logical dtype + device buffer + (optional) dictionary.
+
+The port of ``polars_tpu/core/column.py``, trimmed to the construction this
+slice needs: numpy arrays (float, int, bool, ``datetime64[D]``) and object or
+str arrays / Python lists of strings, numbers, bools and dates. String columns
+hold int32 dictionary codes in the buffer and the values in ``table``.
+"""
+
+from __future__ import annotations
+
+import datetime as _dt
+from typing import Any
+
+import numpy as np
+import torch
+
+from polars_tpu_torch import datatypes as dt
+from polars_tpu_torch.core.buffer import Buffer
+from polars_tpu_torch.errors import InvalidOperationError, ShapeError
+from polars_tpu_torch.utils import strtable
+
+_EPOCH_DATE = _dt.date(1970, 1, 1)
+
+
+def _needs_table(dtype: dt.DataType) -> bool:
+    return isinstance(dtype, (dt.String, dt.Categorical, dt.Enum, dt.Binary))
+
+
+class Column:
+    """One named, typed column over a device buffer."""
+
+    __slots__ = ("name", "dtype", "buffer", "table")
+
+    def __init__(self, name: str, dtype: dt.DataType, buffer: Buffer, table: strtable.StringTable | None = None) -> None:
+        self.name = name
+        self.dtype = dtype
+        self.buffer = buffer
+        self.table = table
+        if _needs_table(dtype) and table is None:
+            self.table = strtable.empty_table()
+
+    @staticmethod
+    def from_values(name: str, values: Any, dtype: dt.DataType | None = None, *, device) -> Column:
+        """Build a column on ``device`` from a numpy array or Python sequence."""
+        if dtype is not None:
+            dtype = dt.parse_into_dtype(dtype)
+        if isinstance(values, np.ndarray) and values.dtype.kind not in ("O", "U", "S"):
+            col = _from_numpy(name, values, device)
+        else:
+            col = _from_pylist(name, values, dtype, device)
+        if dtype is not None and dtype != col.dtype:
+            raise NotImplementedError(
+                f"casting column {name!r} from {col.dtype!r} to {dtype!r} at construction "
+                "is not ported yet (port queue: expression breadth)"
+            )
+        return col
+
+    def __len__(self) -> int:
+        return self.buffer.length
+
+    def to_numpy(self) -> np.ndarray:
+        """Materialize as numpy; nulls -> NaN for floats, None otherwise."""
+        vals, validity = self.buffer.to_numpy()
+        if _needs_table(self.dtype):
+            return self.table.take(np.where(validity, vals, -1) if validity is not None else vals)
+        if isinstance(self.dtype, dt.Date):
+            out = vals.astype("datetime64[D]").astype(object)
+            return _mask_to_object(out, validity)
+        if validity is None:
+            return vals
+        if vals.dtype.kind == "f":
+            return np.where(validity, vals, np.nan)
+        return _mask_to_object(vals.astype(object), validity)
+
+    def to_pylist(self) -> list:
+        if isinstance(self.dtype, dt.FloatType):
+            # NaN is a VALUE for float columns (distinct from null)
+            vals, validity = self.buffer.to_numpy()
+            lst = vals.tolist()
+            if validity is None:
+                return lst
+            return [v if ok else None for v, ok in zip(lst, validity.tolist())]
+        arr = self.to_numpy()
+        return arr.tolist() if arr.dtype != object else list(arr)
+
+    def __repr__(self) -> str:
+        return f"Column(name={self.name!r}, dtype={self.dtype!r}, len={len(self)})"
+
+
+def _mask_to_object(out: np.ndarray, validity: np.ndarray | None) -> np.ndarray:
+    if validity is not None:
+        out = out.astype(object)
+        out[~validity] = None
+    return out
+
+
+def _from_numpy(name: str, arr: np.ndarray, device) -> Column:
+    if arr.ndim != 1:
+        raise ShapeError(f"Column values must be 1-D, got shape {arr.shape}")
+    validity = None
+    if arr.dtype.kind == "f":
+        # NaN in numpy input means null, as in polars_tpu
+        nulls = np.isnan(arr)
+        if nulls.any():
+            validity = ~nulls
+            arr = np.where(validity, arr, 0)
+    if arr.dtype.kind == "M":
+        logical = dt.numpy_to_dtype(arr.dtype)
+        if not isinstance(logical, dt.Date):
+            raise NotImplementedError("Datetime columns are not ported yet (port queue: rest of PDS-H)")
+        nat = np.isnat(arr)
+        validity = ~nat if nat.any() else None
+        ints = arr.astype("datetime64[D]").astype(np.int64).astype(np.int32)
+        if validity is not None:
+            ints = np.where(validity, ints, 0)
+        return Column(name, logical, Buffer.from_numpy(ints, validity, dtype=torch.int32, device=device))
+    if arr.dtype.kind == "m":
+        raise NotImplementedError("Duration columns are not ported yet (port queue: rest of PDS-H)")
+    logical = dt.numpy_to_dtype(arr.dtype)
+    return Column(name, logical, Buffer.from_numpy(arr, validity, dtype=dt.dtype_to_torch(logical), device=device))
+
+
+def _infer_pylist_dtype(seq: list) -> dt.DataType:
+    kinds = {type(v) for v in seq if v is not None}
+    if not kinds:
+        return dt.Null()
+    if kinds <= {str, np.str_}:
+        return dt.String()
+    if kinds == {bool}:
+        return dt.Boolean()
+    if kinds <= {int}:
+        return dt.Int64()
+    if kinds <= {int, float}:
+        return dt.Float64()
+    if kinds == {_dt.date}:
+        return dt.Date()
+    raise NotImplementedError(
+        f"building a column from Python values of types {sorted(k.__name__ for k in kinds)} "
+        "is not ported yet (port queue: expression breadth)"
+    )
+
+
+def _from_pylist(name: str, seq: Any, dtype: dt.DataType | None, device) -> Column:
+    arr = np.asarray(seq, dtype=object) if not isinstance(seq, np.ndarray) else seq
+    if arr.dtype.kind in ("U", "S"):
+        arr = arr.astype(object)
+    logical = dtype if dtype is not None else _infer_pylist_dtype(arr.tolist() if arr.size < 4096 else _sample(arr))
+    if isinstance(logical, dt.String):
+        codes, validity, table = strtable.encode_strings(arr)
+        return Column(name, logical, Buffer.from_numpy(codes, validity, dtype=torch.int32, device=device), table)
+    validity = np.fromiter((v is not None for v in arr), bool, len(arr))
+    if isinstance(logical, dt.Null):
+        zeros = np.zeros(len(arr), np.int32)
+        return Column(name, logical, Buffer.from_numpy(zeros, validity, dtype=torch.int32, device=device))
+    if isinstance(logical, dt.Date):
+        days = np.fromiter(
+            ((v - _EPOCH_DATE).days if v is not None else 0 for v in arr), np.int32, len(arr)
+        )
+        return Column(name, logical, Buffer.from_numpy(days, validity, dtype=torch.int32, device=device))
+    if isinstance(logical, (dt.Boolean, dt.IntegerType, dt.FloatType)):
+        np_d = dt.dtype_to_numpy(logical)
+        vals = np.asarray([v if v is not None else 0 for v in arr], dtype=np_d)
+        return Column(name, logical, Buffer.from_numpy(vals, validity, dtype=dt.dtype_to_torch(logical), device=device))
+    raise InvalidOperationError(f"cannot build a {logical!r} column from Python values")
+
+
+def _sample(arr: np.ndarray) -> list:
+    """Dtype inference on a large object array looks at its non-null values
+    through a bounded prefix plus the full type scan only when mixed."""
+    head = [v for v in arr[:4096].tolist() if v is not None]
+    if head and all(isinstance(v, str) for v in head):
+        return head
+    return arr.tolist()

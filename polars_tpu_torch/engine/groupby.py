@@ -1,0 +1,142 @@
+"""Group machinery: key -> group-id assignment + segmented reductions (the
+port of ``polars_tpu/engine/groupby.py``).
+
+The dense (perfect-hash) path maps dictionary-coded and bool keys to slots
+of a small key domain, ranks the occupied slots and never sorts. Group sums
+and counts go through kernel K1 (``kernels/groupagg.py``); min/max use
+``Tensor.scatter_reduce``, as the JAX package has no kernel for them. The
+only data-dependent value, ``num_groups``, stays on the device until the
+segment's compaction.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from polars_tpu_torch.engine.common import GroupCtx, Val
+from polars_tpu_torch.kernels.fastmath import div_any
+from polars_tpu_torch.kernels.groupagg import groupagg_sums
+
+
+def _big(dtype: torch.dtype):
+    if dtype == torch.bool:
+        return True
+    if dtype.is_floating_point:
+        return float("inf")
+    return torch.iinfo(dtype).max
+
+
+def _small(dtype: torch.dtype):
+    if dtype == torch.bool:
+        return False
+    if dtype.is_floating_point:
+        return float("-inf")
+    return torch.iinfo(dtype).min
+
+
+# ---------------------------------------------------------------------------
+# group id assignment
+# ---------------------------------------------------------------------------
+
+
+def dense_group_ctx(keys: list[Val], rowmask: torch.Tensor, sizes: list[int]) -> GroupCtx:
+    """Perfect-hash grouping for small dictionary-coded key domains.
+
+    ``sizes[i]`` is the exclusive upper bound of key i's code (+1 slot for
+    null). Capacity = prod(sizes[i] + 1); the caller bounds it.
+    """
+    cap = 1
+    gid = torch.zeros(rowmask.shape, dtype=torch.int32, device=rowmask.device)
+    for k, size in zip(keys, sizes):
+        code = k.values.to(torch.int32) + 1  # 0 reserved for null
+        if k.validity is not None:
+            code = torch.where(k.validity, code, 0)
+        gid = gid * (size + 1) + code.clamp(0, size)
+        cap *= size + 1
+    # occupied slots (one K1 count pass), ranked to dense group ids
+    slot_counts = seg_count(rowmask, gid, cap)
+    occupied = slot_counts > 0
+    rank = torch.cumsum(occupied, 0, dtype=torch.int32) - 1
+    num_groups = rank[-1] + 1
+    dense_gid = rank.index_select(0, gid)
+    group_valid = torch.arange(cap, device=rowmask.device) < num_groups
+    # slot of each dense group: occupied slots first, in slot order
+    slots = torch.argsort((~occupied).to(torch.int8), stable=True)
+    return GroupCtx(
+        gids=dense_gid,
+        num_groups=num_groups,
+        capacity=cap,
+        group_valid=group_valid,
+        counts=slot_counts.index_select(0, slots),  # the row counts, kept for len/count/mean
+        slots=slots,
+    )
+
+
+def sorted_group_ctx(keys: list[Val], rowmask: torch.Tensor) -> GroupCtx:
+    raise NotImplementedError(
+        "sort-based group-by (keys that are not dictionary-coded or bool, or key "
+        "domains above the dense capacity) is not ported yet (port queue: Q3/Q4 slice)"
+    )
+
+
+# ---------------------------------------------------------------------------
+# segmented reductions (GroupedReduction analogue, polars-expr/src/reduce/)
+# ---------------------------------------------------------------------------
+
+
+def seg_sum(values: torch.Tensor, mask: torch.Tensor, gids: torch.Tensor, cap: int) -> torch.Tensor:
+    """Per-group sum of ``values`` over ``mask``, in the input dtype (floats
+    accumulate in f64, integers in i64 and wrap back like a native sum)."""
+    acc = torch.float64 if values.dtype.is_floating_point else torch.int64
+    return groupagg_sums(gids, [values.to(acc).contiguous()], mask, cap)[:, 0].to(values.dtype)
+
+
+def seg_count(mask: torch.Tensor, gids: torch.Tensor, cap: int) -> torch.Tensor:
+    """Per-group count of ``mask`` rows, int64."""
+    return groupagg_sums(gids, [None], mask, cap)[:, 0]
+
+
+def _scatter_extreme(x: torch.Tensor, gids: torch.Tensor, mask: torch.Tensor, cap: int, reduce: str, ident):
+    work = x.to(torch.uint8) if x.dtype == torch.bool else x
+    idx = torch.where(mask, gids, 0).long()
+    out = torch.full((cap,), ident, dtype=work.dtype, device=x.device)
+    out.scatter_reduce_(0, idx, work, reduce, include_self=True)
+    return out.to(x.dtype)
+
+
+def seg_min(values: torch.Tensor, mask: torch.Tensor, gids: torch.Tensor, cap: int) -> torch.Tensor:
+    big = _big(values.dtype)
+    x = torch.where(mask, values, big)
+    if values.dtype.is_floating_point:
+        # NaN is greatest (total order): never the min unless the group is all-NaN
+        x = torch.where(torch.isnan(x), big, x)
+    return _scatter_extreme(x, gids, mask, cap, "amin", big)
+
+
+def seg_max(values: torch.Tensor, mask: torch.Tensor, gids: torch.Tensor, cap: int) -> torch.Tensor:
+    small = _small(values.dtype)
+    x = torch.where(mask, values, small)
+    if not values.dtype.is_floating_point:
+        return _scatter_extreme(x, gids, mask, cap, "amax", small)
+    # NaN is greatest: a group containing NaN has max NaN
+    has_nan = seg_count(mask & torch.isnan(values), gids, cap) > 0
+    x = torch.where(torch.isnan(x), small, x)
+    out = _scatter_extreme(x, gids, mask, cap, "amax", small)
+    return torch.where(has_nan, float("nan"), out)
+
+
+def seg_first_idx(mask: torch.Tensor, gids: torch.Tensor, cap: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(row index of the first masked row per group, has_any mask)."""
+    big = 2**31 - 1
+    iota = torch.arange(mask.shape[0], dtype=torch.int32, device=mask.device)
+    idx = _scatter_extreme(torch.where(mask, iota, big), gids, mask, cap, "amin", big)
+    has = idx != big
+    return torch.where(has, idx, 0), has
+
+
+def seg_mean(values: torch.Tensor, mask: torch.Tensor, gids: torch.Tensor, cap: int):
+    """(per-group mean, has_any): f64 unless the input is f32."""
+    acc_t = torch.float32 if values.dtype == torch.float32 else torch.float64
+    s = seg_sum(values.to(acc_t), mask, gids, cap)
+    c = seg_count(mask, gids, cap)
+    return div_any(s, c.clamp(min=1).to(acc_t)), c > 0

@@ -1,0 +1,187 @@
+"""The port's kernel modules against the JAX package's reference functions.
+
+K1 (``polars_tpu_torch.kernels.groupagg``) is held against
+``groupagg_sums_xla`` and ``np.add.at``; K2 (``polars_tpu_torch.kernels.compact``)
+against ``compact_columns_xla``. On CPU tensors the wrappers run their plain
+PyTorch versions, so these tests check the arithmetic those versions share
+with the CUDA kernels and the routing; ``chip_smoke.py`` holds the kernels
+themselves against the plain versions on the card.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import functools
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from polars_tpu.kernels.pallas_compact import compact_columns_xla
+from polars_tpu.kernels.pallas_groupagg import groupagg_sums_xla
+from polars_tpu_torch.kernels.compact import compact, compact_plain
+from polars_tpu_torch.kernels.groupagg import MODE_GLOBAL, MODE_PRIVATE, MODE_SHARED, groupagg_sums, plan
+
+
+@pytest.fixture(autouse=True)
+def _launch_counters():
+    groupagg_sums.launches = 0
+    compact.launches = 0
+    yield
+
+
+def _groupagg_inputs(seed: int, n: int, cap: int, k: int):
+    rng = np.random.default_rng(seed)
+    gids = rng.integers(0, cap, n).astype(np.int32)
+    mask = rng.random(n) < 0.8
+    vals = rng.normal(size=(n, k)) * 1000.0
+    return gids, mask, vals
+
+
+@pytest.mark.parametrize("n,cap,k", [(1000, 12, 5), (777, 1, 3), (4096, 64, 2)])
+def test_groupagg_f64_matches_xla(n, cap, k):
+    gids, mask, vals = _groupagg_inputs(n + cap, n, cap, k)
+    want = np.asarray(groupagg_sums_xla(jnp.asarray(gids), jnp.asarray(vals), jnp.asarray(mask), cap))
+    got = groupagg_sums(
+        torch.from_numpy(gids), [torch.from_numpy(np.ascontiguousarray(vals[:, c])) for c in range(k)],
+        torch.from_numpy(mask), cap,
+    )
+    assert got.dtype == torch.float64 and got.shape == (cap, k)
+    # both sum in f64 in a different order: rtol 1e-12
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-12, atol=1e-9)
+
+
+@pytest.mark.parametrize("n,cap", [(1000, 12), (0, 4), (513, 1)])
+def test_groupagg_i64_exact(n, cap):
+    rng = np.random.default_rng(n)
+    gids = rng.integers(0, cap, n).astype(np.int32)
+    mask = rng.random(n) < 0.6
+    v = rng.integers(-(2**50), 2**50, n)
+    want = np.zeros((cap, 2), np.int64)
+    np.add.at(want[:, 0], gids[mask], v[mask])
+    np.add.at(want[:, 1], gids[mask], 1)
+    got = groupagg_sums(torch.from_numpy(gids), [torch.from_numpy(v), None], torch.from_numpy(mask), cap)
+    assert got.dtype == torch.int64
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_groupagg_drops_out_of_range_ids():
+    gids = torch.tensor([0, 1, -1, 5, 2], dtype=torch.int32)
+    mask = torch.ones(5, dtype=torch.bool)
+    got = groupagg_sums(gids, [torch.arange(5, dtype=torch.int64)], mask, 3)
+    assert got[:, 0].tolist() == [0, 1, 4]
+
+
+@pytest.mark.parametrize(
+    "cap,k,mode",
+    [(12, 10, MODE_PRIVATE), (1024, 5, MODE_SHARED), (65536, 3, MODE_GLOBAL)],
+)
+def test_groupagg_plan_covers_dense_capacities(cap, k, mode):
+    got_mode, kt, blocks = plan(cap, k, 132, 60_000_000)
+    assert got_mode == mode and 1 <= kt <= k and blocks >= 1
+    per_block = {MODE_PRIVATE: 128 * cap * kt * 8, MODE_SHARED: 4 * cap * kt * 8, MODE_GLOBAL: 0}[mode]
+    assert per_block <= 232448
+
+
+def _compact_reference(vals: np.ndarray, mask: np.ndarray):
+    out, cnt = compact_columns_xla(jnp.asarray(vals[None, :]), jnp.asarray(mask))
+    cnt = int(cnt)
+    return np.asarray(out)[0, :cnt], cnt
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.int64, np.int32, np.int8, np.bool_])
+@pytest.mark.parametrize("density", [0.0, 0.5, 1.0])
+def test_compact_matches_xla(dtype, density):
+    rng = np.random.default_rng(7)
+    n = 1000
+    if dtype == np.bool_:
+        vals = rng.random(n) < 0.5
+    elif dtype == np.float64:
+        vals = rng.normal(size=n)
+    else:
+        info = np.iinfo(dtype)
+        vals = rng.integers(info.min, info.max, n, dtype=dtype, endpoint=True)
+    mask = rng.random(n) < density
+    want, wcnt = _compact_reference(vals, mask)
+    (got,), cnt = compact([torch.from_numpy(vals)], torch.from_numpy(mask))
+    assert cnt == wcnt == int(mask.sum())
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_compact_empty_and_multi_column():
+    mask = torch.zeros(0, dtype=torch.bool)
+    outs, cnt = compact([torch.zeros(0, dtype=torch.float64), torch.zeros(0, dtype=torch.bool)], mask)
+    assert cnt == 0 and [o.shape[0] for o in outs] == [0, 0]
+    mask = torch.tensor([True, False, True, True])
+    cols = [torch.tensor([1.5, 2.5, 3.5, 4.5]), torch.tensor([1, 2, 3, 4], dtype=torch.int16),
+            torch.tensor([True, True, False, True])]
+    outs, cnt = compact(cols, mask)
+    assert cnt == 3
+    assert [o.tolist() for o in outs] == [[1.5, 3.5, 4.5], [1, 3, 4], [True, False, True]]
+
+
+@contextlib.contextmanager
+def _pallas_interpret():
+    """Run the JAX package's Pallas kernels in interpret mode (the pattern of
+    tests/test_kernels.py)."""
+    import jax.experimental.pallas as jpl
+
+    orig = jpl.pallas_call
+    jpl.pallas_call = functools.partial(orig, interpret=True)
+    try:
+        yield
+    finally:
+        jpl.pallas_call = orig
+
+
+def test_groupagg_matches_pallas_kernel_in_interpret_mode():
+    from polars_tpu.kernels import pallas_groupagg as PG
+
+    gids, mask, vals = _groupagg_inputs(21, PG.BLOCK * 2, 100, 3)
+    with _pallas_interpret():
+        want = np.asarray(PG.groupagg_sums_pallas(jnp.asarray(gids), jnp.asarray(vals), jnp.asarray(mask), 128))
+    got = groupagg_sums(
+        torch.from_numpy(gids), [torch.from_numpy(np.ascontiguousarray(vals[:, c])) for c in range(3)],
+        torch.from_numpy(mask), 128,
+    )
+    # the TPU kernel sums hi/lo f32 planes: tests/test_kernels.py's tolerance
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-5)
+
+
+def test_compact_matches_pallas_kernel_in_interpret_mode():
+    from polars_tpu.kernels import pallas_compact as PC
+
+    rng = np.random.default_rng(22)
+    k, n = 3, PC.BLOCK * 4
+    vals = rng.normal(size=(k, n))
+    mask = rng.random(n) > 0.4
+    with _pallas_interpret():
+        packed, cnt = PC.compact_columns_pallas(jnp.asarray(vals), jnp.asarray(mask))
+    outs, got_cnt = compact([torch.from_numpy(vals[c].copy()) for c in range(k)], torch.from_numpy(mask))
+    assert got_cnt == int(cnt)
+    np.testing.assert_allclose(torch.stack(outs).numpy(), np.asarray(packed)[:, :got_cnt], rtol=1e-12)
+
+
+def test_cpu_tensors_route_to_plain_versions():
+    gids = torch.tensor([0, 1, 1], dtype=torch.int32)
+    mask = torch.tensor([True, True, False])
+    out = groupagg_sums(gids, [torch.tensor([1.0, 2.0, 3.0], dtype=torch.float64)], mask, 2)
+    assert out[:, 0].tolist() == [1.0, 2.0]
+    outs, cnt = compact([torch.tensor([1, 2, 3])], mask)
+    assert compact_plain([torch.tensor([1, 2, 3])], mask)[1] == cnt == 2
+    assert groupagg_sums.launches == 0 and compact.launches == 0
+
+
+def test_wrappers_reject_bad_inputs():
+    mask = torch.ones(3, dtype=torch.bool)
+    with pytest.raises(TypeError):
+        groupagg_sums(torch.zeros(3, dtype=torch.int64), [torch.zeros(3, dtype=torch.float64)], mask, 2)
+    with pytest.raises(TypeError):
+        groupagg_sums(torch.zeros(3, dtype=torch.int32), [torch.zeros(3, dtype=torch.float32)], mask, 2)
+    with pytest.raises(TypeError):
+        groupagg_sums(torch.zeros(3, dtype=torch.int32), [torch.zeros(4, dtype=torch.float64)], mask, 2)
+    with pytest.raises(TypeError):
+        compact([torch.zeros(3, dtype=torch.complex128)], mask)
+    with pytest.raises(TypeError):
+        compact([torch.zeros(3)], torch.ones(3, dtype=torch.int8))
