@@ -4,10 +4,11 @@
 Phases, each printed as one JSON line:
   1. build    — compile the CUDA kernels from polars_tpu_torch/csrc with nvcc;
   2. kernels  — hold each kernel against its plain PyTorch version at the
-                main path's shapes and at ragged ones, and time it (CUDA
-                events, median of 11 runs after warm-up) beside the plain
-                version, the one PyTorch call that computes the same function
-                and the least time the card could take;
+                main path's shapes and at ragged, misaligned and poisoned
+                ones, and time it (CUDA events, median of 11 runs after
+                warm-up; 5 runs for K1's plain version and ``index_add_``)
+                beside the plain version, the one PyTorch call that computes
+                the same function and the least time the card could take;
   3. q1       — PDS-H Q1 end to end at SF10 (60M lineitem rows) through the
                 port's public API, against a numpy oracle written here, with
                 the kernels' launch counters read around the run;
@@ -98,21 +99,42 @@ def k1_agree(torch, got, want) -> tuple[float, bool]:
     return err, bool(torch.equal(got, want))
 
 
-def check_groupagg(torch, rng, n, cap, k, i64_cols, density, dev) -> dict:
+def check_groupagg(torch, rng, n, cap, k, i64_cols, density, dev, offsets=(0, 0, 0), poison=False) -> dict:
     """K1 against its plain version: ``k`` f64 columns to rtol 1e-9, and the
     i64 columns ``i64_cols`` (``"int"`` = random integers, None = a count)
-    exactly."""
+    exactly. ``offsets`` makes the ids, the mask and the columns contiguous
+    views that start that many elements into their storage; ``poison`` puts
+    NaN, inf and ids out of range into the rows the mask leaves out."""
     from polars_tpu_torch.kernels.groupagg import groupagg_sums, groupagg_sums_plain, plan
 
-    gids = torch.as_tensor(rng.integers(0, cap, n, dtype=np.int32)).to(dev)
-    mask = torch.as_tensor(rng.random(n) < density).to(dev)
-    fcols = [torch.as_tensor(rng.uniform(1.0, 1000.0, n)).to(dev) for _ in range(k)]
-    icols = [None if c is None else torch.as_tensor(rng.integers(-(2**40), 2**40, n)).to(dev) for c in i64_cols]
+    def put(arr, off):
+        if not off:
+            return torch.as_tensor(arr).to(dev)
+        pad = np.zeros(off, arr.dtype)
+        return torch.as_tensor(np.concatenate([pad, arr])).to(dev)[off:]
+
+    keep = rng.random(n) < density
+    ids = rng.integers(0, cap, n, dtype=np.int32)
+    fvals = [rng.uniform(1.0, 1000.0, n) for _ in range(k)]
+    ivals = [None if c is None else rng.integers(-(2**40), 2**40, n) for c in i64_cols]
+    if poison:
+        out = ~keep
+        ids[out] = rng.choice(np.asarray([-1, -(2**31), cap, 2**31 - 1], np.int32), int(out.sum()))
+        for v in fvals:
+            v[out] = rng.choice(np.asarray([np.nan, np.inf, -np.inf, 1e308]), int(out.sum()))
+        for v in ivals:
+            if v is not None:
+                v[out] = 2**62
+    gids, mask = put(ids, offsets[0]), put(keep, offsets[1])
+    fcols = [put(v, offsets[2]) for v in fvals]
+    icols = [None if v is None else put(v, offsets[2]) for v in ivals]
     err_f, ok_f = k1_agree(torch, groupagg_sums(gids, fcols, mask, cap), groupagg_sums_plain(gids, fcols, mask, cap))
     err_i, ok_i = k1_agree(torch, groupagg_sums(gids, icols, mask, cap), groupagg_sums_plain(gids, icols, mask, cap))
+    torch.cuda.synchronize()
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     res = {"n": n, "cap": cap, "k_f64": k, "i64_cols": ["count" if c is None else c for c in i64_cols],
-           "plan_f64": plan(cap, k, sms, n), "plan_i64": plan(cap, len(i64_cols), sms, n), "density": density,
+           "plan_f64": plan(cap, k, sms, n)._asdict(), "plan_i64": plan(cap, len(i64_cols), sms, n)._asdict(), "density": density,
+           "offsets": list(offsets), "poison": poison,
            "max_abs_err_f64": err_f, "max_abs_err_i64": err_i, "f64_rtol_1e-9": ok_f, "i64_exact": ok_i}
     if not (ok_f and ok_i):
         raise AssertionError(f"groupagg_sums disagrees with its plain version: {res}")
@@ -166,9 +188,12 @@ def check_compact(torch, rng, n, mask, dtypes, dev, label="") -> dict:
 
 def phase_kernels(torch, dev, seed: int, q1_density: float, n_main: int) -> dict:
     from polars_tpu_torch.kernels.compact import compact, compact_plain
-    from polars_tpu_torch.kernels.groupagg import groupagg_sums, groupagg_sums_plain
+    from polars_tpu_torch.kernels.groupagg import MODE_PRIVATE, groupagg_sums, groupagg_sums_plain, plan
 
     rng = np.random.default_rng(seed)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    tile = plan(12, 5, sms, n_main).tile_rows  # rows per tile of Q1's f64 batch
+    both = ("int", None)
     checks_k1 = [
         # Q1's two K1 calls: the occupancy count over 12 key slots and the
         # batch of 5 distinct f64 columns
@@ -179,6 +204,27 @@ def phase_kernels(torch, dev, seed: int, q1_density: float, n_main: int) -> dict
         check_groupagg(torch, rng, 2_000_001, 1024, 5, ("int", None), 0.7, dev),
         check_groupagg(torch, rng, 3_000_001, 65536, 2, ("int", None), 0.7, dev),  # global-memory path
         check_groupagg(torch, rng, 0, 12, 2, ("int", None), 0.5, dev),
+        # the ring's edges: one tile less a row, one tile, one tile and a row,
+        # a single row, and a few tiles with a ragged end on every block
+        *[check_groupagg(torch, rng, n, 12, 5, both, q1_density, dev) for n in (tile - 1, tile, tile + 1, 1)],
+        check_groupagg(torch, rng, tile * (sms + 3) + 77, 12, 5, both, q1_density, dev),
+        # contiguous views that start 1, 3 and 5 elements into their storage:
+        # every operand misaligned, then one kind at a time
+        *[check_groupagg(torch, rng, 1_000_003, 12, 5, both, q1_density, dev, offsets=(o, o, o)) for o in (1, 3, 5)],
+        check_groupagg(torch, rng, 1_000_003, 12, 5, both, q1_density, dev, offsets=(1, 0, 0)),
+        check_groupagg(torch, rng, 1_000_003, 12, 5, both, q1_density, dev, offsets=(0, 3, 0)),
+        check_groupagg(torch, rng, 1_000_003, 1024, 5, both, q1_density, dev, offsets=(0, 16, 5)),
+        check_groupagg(torch, rng, 1_000_003, 65536, 2, both, 0.7, dev, offsets=(4, 0, 1)),
+        # nothing or almost nothing selected
+        check_groupagg(torch, rng, 1_000_003, 12, 5, both, 0.0, dev),
+        check_groupagg(torch, rng, 1_000_003, 12, 5, both, 0.01, dev),
+        # NaN, inf and ids out of range under a false mask, in every mode
+        check_groupagg(torch, rng, 1_000_003, 12, 5, both, 0.5, dev, poison=True),
+        check_groupagg(torch, rng, 1_000_003, 1024, 5, both, 0.5, dev, poison=True),
+        check_groupagg(torch, rng, 1_000_003, 65536, 2, both, 0.5, dev, poison=True, offsets=(1, 1, 1)),
+        # more columns than one launch takes
+        check_groupagg(torch, rng, 1_000_003, 12, 17, both, q1_density, dev),
+        check_groupagg(torch, rng, 300_007, 4096, 17, both, 0.7, dev),
     ]
     emit({"phase": "kernels.groupagg_checks", "checks": checks_k1})
     payloads = [torch.bool, torch.int16, torch.int32, torch.float64]
@@ -197,35 +243,45 @@ def phase_kernels(torch, dev, seed: int, q1_density: float, n_main: int) -> dict
 
     # K1 timing at the main path's shapes, cap 12: Q1's f64 batch (5
     # distinct columns read in place, dense group ids) and its occupancy
-    # count (key slot ids); each timed run is held against the plain version
+    # count (key slot ids); then two shapes off the main path, one for each
+    # of the other accumulator modes. Each timed run is held against the
+    # plain version, beside ``index_add_`` and the least time the card needs
     n = n_main
     mask = torch.as_tensor(rng.random(n) < q1_density).to(dev)
     n_sel = int(mask.sum())
+    f64_cols = [torch.as_tensor(rng.uniform(1.0, 1e5, n)).to(dev) for _ in range(5)]
     timings = {}
-    for label, cols, ids in (
-        ("f64_k5", [torch.as_tensor(rng.uniform(1.0, 1e5, n)).to(dev) for _ in range(5)], 6),
-        ("i64_count", [None], 12),
+    for label, cols, ids, cap in (
+        ("f64_k5", f64_cols, 6, 12),
+        ("i64_count", [None], 12, 12),
+        ("f64_k5_cap1024", f64_cols, 1024, 1024),
+        ("f64_k2_cap65536", f64_cols[:2], 65536, 65536),
     ):
         k = len(cols)
         gids = torch.as_tensor(rng.integers(0, ids, n, dtype=np.int32)).to(dev)
-        got = groupagg_sums(gids, cols, mask, 12)
-        err, ok = k1_agree(torch, got, groupagg_sums_plain(gids, cols, mask, 12))
+        got = groupagg_sums(gids, cols, mask, cap)
+        err, ok = k1_agree(torch, got, groupagg_sums_plain(gids, cols, mask, cap))
         if not ok:
             raise AssertionError(f"groupagg_sums {label} disagrees with its plain version (max err {err})")
-        ms = cuda_ms(torch, lambda: groupagg_sums(gids, cols, mask, 12))
-        plain_ms = cuda_ms(torch, lambda: groupagg_sums_plain(gids, cols, mask, 12))
+        p = plan(cap, k, sms, n)
+        if p.mode == MODE_PRIVATE and not torch.equal(got, groupagg_sums(gids, cols, mask, cap)):
+            raise AssertionError(f"groupagg_sums {label}: two runs with private accumulators differ in their bits")
+        ms = cuda_ms(torch, lambda: groupagg_sums(gids, cols, mask, cap))
+        plain_ms = cuda_ms(torch, lambda: groupagg_sums_plain(gids, cols, mask, cap), reps=5, warmup=1)
         g_sel = gids[mask].long()
         acc = torch.float64 if cols[0] is not None else torch.int64
         v_sel = torch.stack(
             [c[mask] if c is not None else torch.ones(n_sel, dtype=acc, device=dev) for c in cols], 1
         )
-        out = torch.zeros((12, k), dtype=acc, device=dev)
-        library_ms = cuda_ms(torch, lambda: out.index_add_(0, g_sel, v_sel))
+        out = torch.zeros((cap, k), dtype=acc, device=dev)
+        library_ms = cuda_ms(torch, lambda: out.index_add_(0, g_sel, v_sel), reps=5, warmup=1)
         del g_sel, v_sel, gids
         vbytes = sum(8 for c in cols if c is not None)
-        b_ms, b_by = bound(n * 1 + n_sel * (4 + vbytes) + 12 * k * 8, n_sel * k, FP64_OPS_PER_S)
-        timings[label] = {"n": n, "n_selected": n_sel, "cap": 12, "k": k, "ms": ms, "plain_ms": plain_ms,
-                          "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err}
+        b_ms, b_by = bound(n * 1 + n_sel * (4 + vbytes) + cap * k * 8, n_sel * k, FP64_OPS_PER_S)
+        timings[label] = {"n": n, "n_selected": n_sel, "cap": cap, "k": k, "plan": p._asdict(), "ms": ms,
+                          "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
+                          "max_abs_err": err, "repeats_bit_for_bit": True if p.mode == MODE_PRIVATE else None}
+    del f64_cols
     emit({"phase": "kernels.groupagg_timing", **timings})
 
     # K2 timing: one f64 column and Q1's seven columns, 60M rows, Q1 density

@@ -58,9 +58,20 @@ class Column:
     def __len__(self) -> int:
         return self.buffer.length
 
+    def _host(self) -> tuple[np.ndarray, np.ndarray | None]:
+        """(values, validity or None) on the host, the values in the logical
+        numpy dtype: UInt16/UInt32 narrow from their wider signed tensor and
+        UInt64 reinterprets the bits of its int64 tensor."""
+        vals, validity = self.buffer.to_numpy()
+        if isinstance(self.dtype, dt.UInt64):
+            vals = vals.view(np.uint64)
+        elif isinstance(self.dtype, (dt.UInt16, dt.UInt32)):
+            vals = vals.astype(dt.dtype_to_numpy(self.dtype))
+        return vals, validity
+
     def to_numpy(self) -> np.ndarray:
         """Materialize as numpy; nulls -> NaN for floats, None otherwise."""
-        vals, validity = self.buffer.to_numpy()
+        vals, validity = self._host()
         if _needs_table(self.dtype):
             return self.table.take(np.where(validity, vals, -1) if validity is not None else vals)
         if isinstance(self.dtype, dt.Date):
@@ -75,7 +86,7 @@ class Column:
     def to_pylist(self) -> list:
         if isinstance(self.dtype, dt.FloatType):
             # NaN is a VALUE for float columns (distinct from null)
-            vals, validity = self.buffer.to_numpy()
+            vals, validity = self._host()
             lst = vals.tolist()
             if validity is None:
                 return lst

@@ -3,182 +3,395 @@
 // Replaces the TPU kernel polars_tpu/kernels/pallas_groupagg.py `_kernel`
 // (launched by `groupagg_sums_pallas` through `_call`), which contracted a
 // one-hot (BLOCK, cap) matrix against hi/lo f32 planes of the values on the
-// MXU. None of that carries over: Hopper adds f64 and i64 natively.
+// MXU. None of that carries over: Hopper adds f64 and i64 natively, and the
+// work is bound by bytes about ten times over, so the tensor cores stay idle.
 //
 // What bounds it on an H100: bytes. Per row it reads a 1-byte mask, a 4-byte
-// group id and 8 bytes per column, and does one add per column; at 3.35 TB/s
-// the reads take ~10x longer than the adds. So the design is about reading
-// every byte once and never stalling on the accumulators:
-//   * the k column pointers are read in place (no (n, k) stack, no masked
-//     copies); a null pointer stands for a column of ones, so counts read
-//     nothing but the mask and the ids;
-//   * each thread loads U rows of all KT columns before it adds any of them,
-//     so many loads are in flight per thread at low occupancy;
-//   * accumulators live in shared memory. With cap = 12 (PDS-H Q1) every
-//     thread owns a private (cap, kt) slice: no atomics, no contention, and
-//     the per-block result is a fixed-order sum, so f64 results repeat
-//     bit for bit. Larger caps fall back to one slice per warp with shared
-//     atomics (MODE_SHARED), and caps whose single column exceeds shared
-//     memory accumulate in the block's own slice of global scratch with
-//     global atomics (MODE_GLOBAL). In those two modes the f64 summation
-//     order varies from run to run (results agree to rtol 1e-9); i64 stays
-//     exact in every mode.
-//   * blocks write per-block partials; a second kernel reduces them over the
-//     blocks in a fixed order.
+// group id and 8 bytes per column, and does one add per column. The card
+// streams at its memory rate only with tens of kilobytes in flight per SM all
+// the time, so the design keeps the loads independent of the adds:
+//   * persistent blocks, one per SM, walk the row tiles b, b + G, b + 2G, ...
+//     of a fixed number of rows. The assignment is static, so a block always
+//     sums the same rows in the same order;
+//   * a ring of 2-8 stages in shared memory. One producer thread fills a
+//     stage with 1-D bulk copies (cp.async.bulk, the TMA unit, no tensor
+//     map: every operand is a contiguous array) of the tile's mask bytes,
+//     ids and column slices, which complete on the stage's `full` mbarrier;
+//     the consumer warps add the stage that has arrived and release it
+//     through its `empty` mbarrier. Nothing a consumer does delays a load;
+//   * all rows of a tile are copied, masked or not; a value enters a sum
+//     only under a select on `mask && 0 <= id < cap`, so masked-out rows may
+//     hold NaN, inf or ids out of range;
+//   * a bulk copy needs a 16-byte aligned source. Tiles start at multiples of
+//     512 rows, so an operand is aligned in every tile or in none: one whose
+//     pointer is not 16-byte aligned (a view with a storage offset) is read
+//     with plain loads straight from global memory by the thread that adds
+//     it, and so is the ragged last tile. A null column pointer stands for a
+//     column of ones and is neither copied nor read;
+//   * accumulators: MODE_PRIVATE gives every consumer thread its own
+//     (cap, kt) slice of shared memory (no atomics, conflict-free banks, a
+//     fixed order, so f64 sums repeat bit for bit); MODE_SHARED keeps a few
+//     slices per block and adds with shared atomics; MODE_GLOBAL, for a
+//     column that does not fit shared memory, adds with global atomics into
+//     slices of zeroed scratch that the blocks share round robin. In both
+//     atomic modes the f64 order varies from run to run (rtol 1e-9); i64 is
+//     exact in every mode;
+//   * each block leaves one partial slice; a small second kernel sums the
+//     slices in slice order, one thread per output.
+// The Python side (kernels/groupagg.py `plan`) sizes threads, tile rows,
+// stages, replicas, blocks and slices; `layout_bytes` here must agree with it.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -shared (plain C ABI,
 // loaded with ctypes by polars_tpu_torch/kernels/groupagg.py).
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int THREADS = 128;
-constexpr int U = 4;          // rows per thread per iteration
-constexpr int MAX_KT = 16;    // columns per launch
-constexpr int REPL = THREADS / 32;  // MODE_SHARED: one slice per warp
+constexpr int MAX_KT = 16;       // columns per launch
+constexpr int MAX_STAGES = 8;    // ring depth
+constexpr int U = 4;             // consecutive rows per consumer thread per step
+constexpr int MAX_CONSUMERS = 512;
+constexpr int PRODUCER_THREADS = 32;
+constexpr int HEADER = 128;      // bytes of mbarriers ahead of the accumulators
+constexpr int SMEM_MAX = 232448;
+constexpr unsigned VIA_IDS = 1u << 30;
+constexpr unsigned VIA_MASK = 1u << 31;
+constexpr unsigned FULL_WARP = 0xffffffffu;
 
 enum { MODE_PRIVATE = 0, MODE_SHARED = 1, MODE_GLOBAL = 2 };
 
 template <typename T>
-struct Cols {
-  const T* p[MAX_KT];
+struct Args {
+  const int* gids;
+  const unsigned char* mask;
+  const T* cols[MAX_KT];
+  long long n;
+  int kt, cap;
+  int ct;        // consumer threads
+  int tile;      // rows per tile, a multiple of ct * U
+  int stages;
+  int repl;      // MODE_SHARED: accumulator slices per block
+  int slices;    // partial slices in `partials`
+  unsigned acc_bytes;  // shared-memory bytes of accumulators, a multiple of 128
+  T* partials;
 };
+
+template <typename T>
+struct alignas(16) Pair {
+  T a, b;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+// Spins until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// 1-D bulk copy global -> shared; `bytes` and both addresses are multiples of 16.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::"r"(dst),
+      "l"(__cvta_generic_to_global(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
 
 __device__ __forceinline__ void atomic_add(double* a, double v) { atomicAdd(a, v); }
 __device__ __forceinline__ void atomic_add(long long* a, long long v) {
   atomicAdd(reinterpret_cast<unsigned long long*>(a), static_cast<unsigned long long>(v));
 }
 
-template <typename T, int MODE, int KT>
-__global__ void __launch_bounds__(THREADS)
-groupagg_pass1(const int* __restrict__ gids, const unsigned char* __restrict__ mask,
-               Cols<T> cols, int kt, long long n, int cap, T* __restrict__ partials) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* acc = reinterpret_cast<T*>(smem_raw);
-  const int tid = threadIdx.x;
-  const long long slice = static_cast<long long>(cap) * kt;
-  T* part = partials + blockIdx.x * slice;
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
 
-  if (MODE == MODE_GLOBAL) {
-    for (long long e = tid; e < slice; e += THREADS) part[e] = T(0);
-  } else {
-    const long long acc_elems = slice * (MODE == MODE_PRIVATE ? THREADS : REPL);
-    for (long long e = tid; e < acc_elems; e += THREADS) acc[e] = T(0);
-  }
-  __syncthreads();
+// Adds rows [r0, r0 + rows) to the accumulators. An operand whose bit is set
+// in `via` is read from the stage at `st` (the whole tile is there); any other
+// is read from global memory under the row's predicate. Offsets are 32-bit:
+// the launcher checks that cap * kt * ct fits.
+template <typename T, int MODE, int CCH>
+__device__ __forceinline__ void consume(const Args<T>& a, long long r0, int rows, const unsigned char* st,
+                                        unsigned via, T* my, int tid) {
+  const int kt = a.kt, ct = a.ct, tile = a.tile;
+  const T* s_cols = reinterpret_cast<const T*>(st);
+  const int* s_ids = reinterpret_cast<const int*>(st + static_cast<size_t>(tile) * 8 * kt);
+  const unsigned char* s_mask = st + static_cast<size_t>(tile) * (8 * kt + 4);
+  const unsigned cap = static_cast<unsigned>(a.cap);
+  // elements between two accumulators of one thread: private slices interleave the threads
+  const int stride = MODE == MODE_PRIVATE ? ct : 1;
+  const int row_step = kt * stride;
 
-  const int rep = tid >> 5;
-  const long long step = static_cast<long long>(gridDim.x) * THREADS * U;
-  for (long long base = static_cast<long long>(blockIdx.x) * THREADS * U; base < n; base += step) {
+  for (int base = 0; base < rows; base += ct * U) {
+    const int i = base + tid * U;
+    unsigned m4 = 0;
+    if (via & VIA_MASK) {
+      m4 = *reinterpret_cast<const unsigned*>(s_mask + i);
+    } else {
+#pragma unroll
+      for (int j = 0; j < U; ++j) {
+        if (i + j < rows && a.mask[r0 + i + j] != 0) m4 |= 0xffu << (8 * j);
+      }
+    }
     int g[U];
+    if (via & VIA_IDS) {
+      const int4 q = *reinterpret_cast<const int4*>(s_ids + i);
+      g[0] = q.x, g[1] = q.y, g[2] = q.z, g[3] = q.w;
+    } else {
+#pragma unroll
+      for (int j = 0; j < U; ++j) g[j] = ((m4 >> (8 * j)) & 0xffu) ? a.gids[r0 + i + j] : -1;
+    }
+    // element offset of each row's group, or -1 for a row that is dropped
+    int off[U];
 #pragma unroll
     for (int j = 0; j < U; ++j) {
-      const long long r = base + j * THREADS + tid;
-      int gg = -1;
-      if (r < n && mask[r]) {
-        gg = gids[r];
-        if (static_cast<unsigned>(gg) >= static_cast<unsigned>(cap)) gg = -1;  // dropped
-      }
-      g[j] = gg;
+      const bool ok = ((m4 >> (8 * j)) & 0xffu) != 0 && static_cast<unsigned>(g[j]) < cap;
+      off[j] = ok ? g[j] * row_step : -1;
     }
-    T v[KT][U];
+#pragma unroll 1
+    for (int c0 = 0; c0 < kt; c0 += CCH) {
+      T v[CCH][U];
 #pragma unroll
-    for (int c = 0; c < KT; ++c) {
+      for (int cc = 0; cc < CCH; ++cc) {
+        const int c = c0 + cc;
+        if (c >= kt) break;
+        if (a.cols[c] == nullptr) {
 #pragma unroll
-      for (int j = 0; j < U; ++j) {
-        const long long r = base + j * THREADS + tid;
-        T x = T(0);
-        if (c < kt && g[j] >= 0) x = cols.p[c] ? cols.p[c][r] : T(1);
-        v[c][j] = x;
-      }
-    }
-#pragma unroll
-    for (int c = 0; c < KT; ++c) {
-      if (c >= kt) continue;
-#pragma unroll
-      for (int j = 0; j < U; ++j) {
-        if (g[j] < 0) continue;
-        const long long e = static_cast<long long>(g[j]) * kt + c;
-        if (MODE == MODE_PRIVATE) {
-          acc[e * THREADS + tid] += v[c][j];
-        } else if (MODE == MODE_SHARED) {
-          atomic_add(&acc[rep * slice + e], v[c][j]);
+          for (int j = 0; j < U; ++j) v[cc][j] = T(1);
+        } else if ((via >> c) & 1u) {
+          const Pair<T>* sp = reinterpret_cast<const Pair<T>*>(s_cols + c * tile + i);
+          const Pair<T> lo = sp[0], hi = sp[1];
+          v[cc][0] = lo.a, v[cc][1] = lo.b, v[cc][2] = hi.a, v[cc][3] = hi.b;
         } else {
-          atomic_add(&part[e], v[c][j]);
+          const T* p = a.cols[c] + r0 + i;
+#pragma unroll
+          for (int j = 0; j < U; ++j) v[cc][j] = off[j] >= 0 ? p[j] : T(0);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < U; ++j) {
+        if (off[j] < 0) continue;
+        T* dst = my + off[j] + c0 * stride;
+#pragma unroll
+        for (int cc = 0; cc < CCH; ++cc) {
+          if (c0 + cc >= kt) break;
+          if (MODE == MODE_PRIVATE) {
+            dst[cc * stride] += v[cc][j];
+          } else {
+            atomic_add(&dst[cc * stride], v[cc][j]);
+          }
         }
       }
     }
   }
+}
+
+template <typename T, int MODE, int CCH>
+__global__ void __launch_bounds__(MAX_CONSUMERS + PRODUCER_THREADS, 1)
+groupagg_main(const __grid_constant__ Args<T> a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + MAX_STAGES;
+  T* acc = reinterpret_cast<T*>(smem + HEADER);
+  unsigned char* ring = smem + HEADER + a.acc_bytes;
+
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int ct = a.ct, kt = a.kt, tile = a.tile, stages = a.stages;
+  const size_t stage_bytes = static_cast<size_t>(tile) * (8 * kt + 5);
+  const long long slice = static_cast<long long>(a.cap) * kt;
+  T* part = a.partials + (blockIdx.x % a.slices) * slice;
+
+  // operands that ride the ring: the 16-byte aligned ones
+  unsigned via = 0;
+  for (int c = 0; c < kt; ++c) {
+    if (a.cols[c] != nullptr && aligned16(a.cols[c])) via |= 1u << c;
+  }
+  if (aligned16(a.gids)) via |= VIA_IDS;
+  if (aligned16(a.mask)) via |= VIA_MASK;
+
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(smem_u32(&full[s]), 1);
+      mbar_init(smem_u32(&empty[s]), ct / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  }
+  if (MODE != MODE_GLOBAL) {
+    const long long acc_elems = slice * (MODE == MODE_PRIVATE ? ct : a.repl);
+    for (long long e = tid; e < acc_elems; e += blockDim.x) acc[e] = T(0);
+  }
+  __syncthreads();
+
+  // where this thread adds: its private slice, its warp's replica, or the block's global slice
+  T* my = part;
+  if (MODE == MODE_PRIVATE) my = acc + tid;
+  if (MODE == MODE_SHARED) my = acc + ((tid >> 5) % a.repl) * slice;
+
+  const long long n_full = a.n / tile;
+  if (tid >= ct) {
+    // producer warp: one thread keeps the ring full
+    if (tid == ct) {
+      uint32_t bytes = 0;
+      for (int c = 0; c < kt; ++c) bytes += ((via >> c) & 1u) ? tile * 8u : 0u;
+      if (via & VIA_IDS) bytes += tile * 4u;
+      if (via & VIA_MASK) bytes += tile;
+      int s = 0;
+      uint32_t phase = 0;
+      for (long long t = blockIdx.x; t < n_full; t += gridDim.x) {
+        mbar_wait(smem_u32(&empty[s]), phase ^ 1u);
+        const uint32_t bar = smem_u32(&full[s]);
+        mbar_arrive_expect_tx(bar, bytes);
+        const long long r0 = t * tile;
+        const uint32_t dst = smem_u32(ring + s * stage_bytes);
+        for (int c = 0; c < kt; ++c) {
+          if ((via >> c) & 1u) bulk_load(dst + static_cast<uint32_t>(c) * tile * 8u, a.cols[c] + r0, tile * 8u, bar);
+        }
+        if (via & VIA_IDS) bulk_load(dst + static_cast<uint32_t>(kt) * tile * 8u, a.gids + r0, tile * 4u, bar);
+        if (via & VIA_MASK) bulk_load(dst + static_cast<uint32_t>(tile) * (8u * kt + 4u), a.mask + r0, tile, bar);
+        if (++s == stages) s = 0, phase ^= 1u;
+      }
+    }
+    __syncwarp();
+  } else {
+    int s = 0;
+    uint32_t phase = 0;
+    for (long long t = blockIdx.x; t < n_full; t += gridDim.x) {
+      mbar_wait(smem_u32(&full[s]), phase);
+      consume<T, MODE, CCH>(a, t * tile, tile, ring + s * stage_bytes, via, my, tid);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(smem_u32(&empty[s]));
+      if (++s == stages) s = 0, phase ^= 1u;
+    }
+    // the ragged last tile goes to the block next in turn, with plain loads
+    if (n_full % gridDim.x == blockIdx.x) {
+      consume<T, MODE, CCH>(a, n_full * tile, static_cast<int>(a.n - n_full * tile), ring, 0u, my, tid);
+    }
+  }
   if (MODE == MODE_GLOBAL) return;
   __syncthreads();
-  for (long long e = tid; e < slice; e += THREADS) {
-    T s = T(0);
-    if (MODE == MODE_PRIVATE) {
-      // rotated start: lanes read different banks; the order is fixed per e
-      for (int i = 0; i < THREADS; ++i) s += acc[e * THREADS + ((i + e) & (THREADS - 1))];
-    } else {
-      for (int r = 0; r < REPL; ++r) s += acc[r * slice + e];
+  if (tid >= ct) return;
+  if (MODE == MODE_PRIVATE) {
+    // one warp per output: lanes stride the thread slices, then a butterfly;
+    // the order is fixed, so the block's sum repeats bit for bit
+    for (long long e = tid >> 5; e < slice; e += ct / 32) {
+      T s = T(0);
+      for (int i = lane; i < ct; i += 32) s += acc[e * ct + i];
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(FULL_WARP, s, off);
+      if (lane == 0) part[e] = s;
     }
-    part[e] = s;
+  } else {
+    for (long long e = tid; e < slice; e += ct) {
+      T s = T(0);
+      for (int r = 0; r < a.repl; ++r) s += acc[r * slice + e];
+      part[e] = s;
+    }
   }
 }
 
 template <typename T>
-__global__ void groupagg_pass2(const T* __restrict__ partials, int blocks, long long slice,
-                               int kt, T* __restrict__ out, int out_ld, int col0) {
+__global__ void groupagg_zero(T* __restrict__ p, long long count) {
+  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long e = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; e < count; e += step) p[e] = T(0);
+}
+
+// out[g, col0 + c] = the partial slices summed in slice order.
+template <typename T>
+__global__ void groupagg_finish(const T* __restrict__ partials, int slices, long long slice, int kt,
+                                T* __restrict__ out, int out_ld, int col0) {
   const long long e = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (e >= slice) return;
   T s = T(0);
-  for (int b = 0; b < blocks; ++b) s += partials[b * slice + e];
+#pragma unroll 4
+  for (int b = 0; b < slices; ++b) s += partials[b * slice + e];
   out[(e / kt) * out_ld + col0 + (e % kt)] = s;
 }
 
-template <typename T, int MODE, int KT>
-int launch_pass1(const int* gids, const unsigned char* mask, const Cols<T>& cols, int kt,
-                 long long n, int cap, int blocks, T* partials, cudaStream_t stream) {
-  size_t smem = 0;
-  if (MODE == MODE_PRIVATE) smem = sizeof(T) * static_cast<size_t>(cap) * kt * THREADS;
-  if (MODE == MODE_SHARED) smem = sizeof(T) * static_cast<size_t>(cap) * kt * REPL;
-  auto kern = groupagg_pass1<T, MODE, KT>;
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+// Shared-memory bytes of one block; kernels/groupagg.py `plan` computes the same.
+long long layout_bytes(int mode, int cap, int kt, int ct, int tile, int stages, int repl, unsigned* acc_bytes) {
+  long long acc = 0;
+  if (mode == MODE_PRIVATE) acc = 8LL * cap * kt * ct;
+  if (mode == MODE_SHARED) acc = 8LL * cap * kt * repl;
+  acc = (acc + 127) / 128 * 128;
+  const long long total = HEADER + acc + static_cast<long long>(stages) * tile * (8 * kt + 5);
+  *acc_bytes = static_cast<unsigned>(acc <= SMEM_MAX ? acc : 0);
+  return total;
+}
+
+template <typename T, int MODE, int CCH>
+int launch_main(const Args<T>& a, int blocks, size_t smem, cudaStream_t stream) {
+  auto kern = groupagg_main<T, MODE, CCH>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
   if (err != cudaSuccess) return err;
-  kern<<<blocks, THREADS, smem, stream>>>(gids, mask, cols, kt, n, cap, partials);
+  kern<<<blocks, a.ct + PRODUCER_THREADS, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
 template <typename T, int MODE>
-int dispatch_kt(const int* gids, const unsigned char* mask, const Cols<T>& cols, int kt,
-                long long n, int cap, int blocks, T* partials, cudaStream_t stream) {
-  if (kt <= 1) return launch_pass1<T, MODE, 1>(gids, mask, cols, kt, n, cap, blocks, partials, stream);
-  if (kt <= 4) return launch_pass1<T, MODE, 4>(gids, mask, cols, kt, n, cap, blocks, partials, stream);
-  return launch_pass1<T, MODE, MAX_KT>(gids, mask, cols, kt, n, cap, blocks, partials, stream);
+int dispatch_width(const Args<T>& a, int blocks, size_t smem, cudaStream_t stream) {
+  if (a.kt == 1) return launch_main<T, MODE, 1>(a, blocks, smem, stream);
+  return launch_main<T, MODE, 4>(a, blocks, smem, stream);
 }
 
 template <typename T>
-int groupagg(const int* gids, const unsigned char* mask, const void* const* col_ptrs, int kt,
-             long long n, int cap, int mode, int blocks, T* partials, T* out, int out_ld,
-             int col0, cudaStream_t stream) {
-  if (kt < 1 || kt > MAX_KT || cap < 1 || blocks < 1 || mode < 0 || mode > 2) {
+int groupagg(const int* gids, const unsigned char* mask, const void* const* col_ptrs, int kt, long long n,
+             int cap, int mode, int threads, int tile, int stages, int repl, int blocks, int slices,
+             int smem_bytes, T* partials, T* out, int out_ld, int col0, cudaStream_t stream) {
+  if (kt < 1 || kt > MAX_KT || cap < 1 || n < 0 || mode < 0 || mode > 2 || threads < 32 ||
+      threads > MAX_CONSUMERS || threads % 32 != 0 || tile < threads * U || tile % (threads * U) != 0 ||
+      stages < 2 || stages > MAX_STAGES || blocks < 1 || slices < 1 || slices > blocks ||
+      (mode != MODE_GLOBAL && slices != blocks) || (mode == MODE_SHARED && repl < 1) ||
+      static_cast<long long>(cap) * kt * (mode == MODE_PRIVATE ? threads : 1) > 0x7fffffffLL) {
     return cudaErrorInvalidValue;
   }
-  Cols<T> cols;
-  for (int c = 0; c < MAX_KT; ++c) cols.p[c] = c < kt ? static_cast<const T*>(col_ptrs[c]) : nullptr;
+  Args<T> a;
+  a.gids = gids, a.mask = mask, a.n = n, a.kt = kt, a.cap = cap, a.ct = threads, a.tile = tile;
+  a.stages = stages, a.repl = repl, a.slices = slices, a.partials = partials;
+  for (int c = 0; c < MAX_KT; ++c) a.cols[c] = c < kt ? static_cast<const T*>(col_ptrs[c]) : nullptr;
+  const long long smem = layout_bytes(mode, cap, kt, threads, tile, stages, repl, &a.acc_bytes);
+  if (smem > SMEM_MAX || smem != smem_bytes) return cudaErrorInvalidValue;
+
+  const long long slice = static_cast<long long>(cap) * kt;
   int err;
   if (mode == MODE_PRIVATE) {
-    err = dispatch_kt<T, MODE_PRIVATE>(gids, mask, cols, kt, n, cap, blocks, partials, stream);
+    err = dispatch_width<T, MODE_PRIVATE>(a, blocks, smem, stream);
   } else if (mode == MODE_SHARED) {
-    err = dispatch_kt<T, MODE_SHARED>(gids, mask, cols, kt, n, cap, blocks, partials, stream);
+    err = dispatch_width<T, MODE_SHARED>(a, blocks, smem, stream);
   } else {
-    err = dispatch_kt<T, MODE_GLOBAL>(gids, mask, cols, kt, n, cap, blocks, partials, stream);
+    const long long count = slice * slices;
+    const long long zb = (count + 1023) / 1024;
+    groupagg_zero<T><<<static_cast<unsigned>(zb < 1024 ? zb : 1024), 256, 0, stream>>>(partials, count);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    err = dispatch_width<T, MODE_GLOBAL>(a, blocks, smem, stream);
   }
   if (err != cudaSuccess) return err;
-  const long long slice = static_cast<long long>(cap) * kt;
   const int t2 = 256;
   const long long b2 = (slice + t2 - 1) / t2;
-  groupagg_pass2<T><<<static_cast<unsigned>(b2), t2, 0, stream>>>(partials, blocks, slice, kt, out,
-                                                                out_ld, col0);
+  groupagg_finish<T><<<static_cast<unsigned>(b2), t2, 0, stream>>>(partials, slices, slice, kt, out, out_ld, col0);
   return cudaGetLastError();
 }
 
@@ -188,19 +401,24 @@ extern "C" {
 
 // out[g, col0 + c] = sum of col_ptrs[c][r] over rows r with mask[r] and
 // gids[r] == g, for c < kt. `out` is (cap, out_ld) row-major; `partials`
-// holds blocks * cap * kt elements of scratch. Returns a cudaError_t.
-int groupagg_sums_f64(const int* gids, const unsigned char* mask, const void* const* col_ptrs,
-                      int kt, long long n, int cap, int mode, int blocks, double* partials,
-                      double* out, int out_ld, int col0, void* stream) {
-  return groupagg<double>(gids, mask, col_ptrs, kt, n, cap, mode, blocks, partials, out, out_ld,
-                          col0, static_cast<cudaStream_t>(stream));
+// holds slices * cap * kt elements of scratch. The launch shape (threads,
+// tile, stages, repl, blocks, slices, smem_bytes) comes from `plan` in
+// kernels/groupagg.py. Returns a cudaError_t.
+int groupagg_sums_f64(const int* gids, const unsigned char* mask, const void* const* col_ptrs, int kt,
+                      long long n, int cap, int mode, int threads, int tile, int stages, int repl,
+                      int blocks, int slices, int smem_bytes, double* partials, double* out, int out_ld,
+                      int col0, void* stream) {
+  return groupagg<double>(gids, mask, col_ptrs, kt, n, cap, mode, threads, tile, stages, repl, blocks,
+                          slices, smem_bytes, partials, out, out_ld, col0, static_cast<cudaStream_t>(stream));
 }
 
-int groupagg_sums_i64(const int* gids, const unsigned char* mask, const void* const* col_ptrs,
-                      int kt, long long n, int cap, int mode, int blocks, long long* partials,
-                      long long* out, int out_ld, int col0, void* stream) {
-  return groupagg<long long>(gids, mask, col_ptrs, kt, n, cap, mode, blocks, partials, out,
-                             out_ld, col0, static_cast<cudaStream_t>(stream));
+int groupagg_sums_i64(const int* gids, const unsigned char* mask, const void* const* col_ptrs, int kt,
+                      long long n, int cap, int mode, int threads, int tile, int stages, int repl,
+                      int blocks, int slices, int smem_bytes, long long* partials, long long* out,
+                      int out_ld, int col0, void* stream) {
+  return groupagg<long long>(gids, mask, col_ptrs, kt, n, cap, mode, threads, tile, stages, repl, blocks,
+                             slices, smem_bytes, partials, out, out_ld, col0,
+                             static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

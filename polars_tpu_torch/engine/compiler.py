@@ -16,10 +16,10 @@ import torch
 
 from polars_tpu_torch import datatypes as dt
 from polars_tpu_torch.engine import groupby as G
-from polars_tpu_torch.engine.cast import cast_val
+from polars_tpu_torch.engine.cast import cast_val, float_values, int_scalar, order_word, wrap_unsigned
 from polars_tpu_torch.engine.common import GROUP, ROW, SCALAR, EvalCtx, Val, broadcast_pair, combine_validity
 from polars_tpu_torch.errors import ColumnNotFoundError, InvalidOperationError
-from polars_tpu_torch.kernels.fastmath import div_any, floordiv_any, mod_any
+from polars_tpu_torch.kernels.fastmath import div_any, floordiv_any, floordiv_u64, mod_any, mod_u64
 from polars_tpu_torch.plan import exprs as E
 from polars_tpu_torch.plan.schema_resolve import binary_dtype, dyn_literal_value, fit_dyn_dtype, supertype
 
@@ -68,6 +68,8 @@ def _lit_dtype(value) -> dt.DataType:
     if isinstance(value, bool):
         return dt.Boolean()
     if isinstance(value, int):
+        if 2**63 <= value < 2**64:
+            return dt.UInt64()  # the one integer type that holds it
         return dt.Int32() if -(2**31) <= value < 2**31 else dt.Int64()
     if isinstance(value, float):
         return dt.Float64()
@@ -92,7 +94,7 @@ def _eval_literal(node: E.ELiteral, ctx: EvalCtx) -> Val:
             return Val(torch.tensor([days], dtype=torch.int32, device=ctx.device), None, dtype, None, SCALAR)
         raise NotImplementedError("string literals are not ported yet (port queue: rest of PDS-H)")
     d = dtype if dtype is not None else _lit_dtype(value)
-    return Val(torch.tensor([value], dtype=dt.dtype_to_torch(d), device=ctx.device), None, d, None, SCALAR)
+    return Val(int_scalar(value, d, ctx.device), None, d, None, SCALAR)
 
 
 # ---------------------------------------------------------------------------
@@ -117,10 +119,7 @@ def _adapt_dyn_literal_vals(nodes, vals):
             continue
         nd = fit_dyn_dtype(lv, target)
         if nd is not None and nd != out[i].dtype:
-            out[i] = Val(
-                torch.tensor([lv], dtype=dt.dtype_to_torch(nd), device=out[i].values.device),
-                None, nd, None, SCALAR,
-            )
+            out[i] = Val(int_scalar(lv, nd, out[i].values.device), None, nd, None, SCALAR)
     return out
 
 
@@ -166,20 +165,23 @@ def _arith(op: str, a: Val, b: Val, out_dt: dt.DataType):
         if st.is_float():
             values = floordiv_any(av, bv)
         else:
-            values = floordiv_any(av, torch.where(bv == 0, 1, bv))
+            div = floordiv_u64 if isinstance(st, dt.UInt64) else floordiv_any
+            values = div(av, torch.where(bv == 0, 1, bv))
             validity = combine_validity(validity, bv != 0)
     elif op == "%":
         if st.is_float():
             values = mod_any(av, bv)
         else:
-            values = mod_any(av, torch.where(bv == 0, 1, bv))
+            mod = mod_u64 if isinstance(st, dt.UInt64) else mod_any
+            values = mod(av, torch.where(bv == 0, 1, bv))
             validity = combine_validity(validity, bv != 0)
     else:
         raise NotImplementedError(f"operator {op!r} is not ported yet (port queue: expression breadth)")
     tdt = dt.dtype_to_torch(out_dt)
     if values.dtype != tdt:
         values = values.to(tdt)
-    return values, validity
+    # UInt16/UInt32 live in a wider signed tensor: wrap like the native type
+    return wrap_unsigned(values, out_dt), validity
 
 
 def _eval_compare(op: str, a: Val, b: Val, dom: str) -> Val:
@@ -193,7 +195,8 @@ def _eval_compare(op: str, a: Val, b: Val, dom: str) -> Val:
         av, bv = a.values, b.values
     else:
         st = supertype(a.dtype, b.dtype)
-        av, bv = cast_val(a, st).values, cast_val(b, st).values
+        # UInt64 bit patterns compare as unsigned once their sign bit is flipped
+        av, bv = order_word(cast_val(a, st).values, st), order_word(cast_val(b, st).values, st)
     fn = {"==": torch.eq, "!=": torch.ne, "<": torch.lt, "<=": torch.le, ">": torch.gt, ">=": torch.ge}[op]
     values = fn(av, bv)
     validity = combine_validity(a.validity, b.validity)
@@ -254,17 +257,17 @@ def _eval_agg(node: E.EAgg, ctx: EvalCtx) -> Val:
     if kind == "sum":
         out_dt = _agg_out_dtype(node, v.dtype)
         s = G.seg_sum(v.values.to(dt.dtype_to_torch(out_dt)), data_mask, gids, cap)
-        return Val(s, None, out_dt, None, GROUP)  # polars: sum of all-null/empty = 0
+        return Val(wrap_unsigned(s, out_dt), None, out_dt, None, GROUP)  # polars: sum of all-null/empty = 0
     if kind == "mean":
-        m, has = G.seg_mean(v.values, data_mask, gids, cap)
+        vals = float_values(v.values, v.dtype, torch.float64) if v.dtype.is_integer() else v.values
+        m, has = G.seg_mean(vals, data_mask, gids, cap)
         out_dt = _agg_out_dtype(node, v.dtype)
         return Val(m.to(dt.dtype_to_torch(out_dt)), has, out_dt, None, GROUP)
     if kind in ("min", "max"):
         if v.table is not None and not v.table.sorted_order:
             raise NotImplementedError("min/max over an unordered dictionary is not ported yet")
-        fn = G.seg_min if kind == "min" else G.seg_max
         has = G.seg_count(data_mask, gids, cap) > 0
-        return Val(fn(v.values, data_mask, gids, cap), has, v.dtype, v.table, GROUP)
+        return Val(G.seg_extreme(kind, v, data_mask, gids, cap), has, v.dtype, v.table, GROUP)
     raise NotImplementedError(f"aggregation {kind!r} is not ported yet (port queue: expression breadth)")
 
 

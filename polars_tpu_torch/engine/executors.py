@@ -24,6 +24,7 @@ from polars_tpu_torch.core.column import Column
 from polars_tpu_torch.core.frame import DataFrame
 from polars_tpu_torch.core.schema import Schema
 from polars_tpu_torch.engine import groupby as G
+from polars_tpu_torch.engine.cast import float_values, wrap_unsigned
 from polars_tpu_torch.engine.common import GROUP, ROW, SCALAR, EvalCtx, Val
 from polars_tpu_torch.engine.compiler import _agg_out_dtype, eval_expr
 from polars_tpu_torch.engine.sort import apply_perm, sort_perm
@@ -244,7 +245,7 @@ def _batch_aggs(aggs, ctx: EvalCtx) -> dict:
         key = ("value", batch, id(v.values), None if v.validity is None else id(v.validity))
 
         def make():
-            x = v.values.to(acc)
+            x = float_values(v.values, v.dtype, acc) if batch == "f" else v.values.to(acc)
             if v.validity is not None:
                 x = torch.where(v.validity, x, torch.zeros((), dtype=acc, device=x.device))
             return x.contiguous()
@@ -307,13 +308,13 @@ def _batch_aggs(aggs, ctx: EvalCtx) -> dict:
             )
         else:
             out_dt = _agg_out_dtype(node_a, v.dtype)
-            out[node_a] = Val(col(slots[0]).to(dt.dtype_to_torch(out_dt)), None, out_dt, None, GROUP)
+            s = wrap_unsigned(col(slots[0]).to(dt.dtype_to_torch(out_dt)), out_dt)
+            out[node_a] = Val(s, None, out_dt, None, GROUP)
 
     for node_a, v in minmax:
         m = ctx.rowmask if v.validity is None else (ctx.rowmask & v.validity)
-        fn = G.seg_min if node_a.kind == "min" else G.seg_max
         has = (gctx.counts if v.validity is None else G.seg_count(m, gctx.gids, cap)) > 0
-        out[node_a] = Val(fn(v.values, m, gctx.gids, cap), has, v.dtype, v.table, GROUP)
+        out[node_a] = Val(G.seg_extreme(node_a.kind, v, m, gctx.gids, cap), has, v.dtype, v.table, GROUP)
     return out
 
 

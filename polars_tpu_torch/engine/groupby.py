@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from polars_tpu_torch.engine.cast import order_word
 from polars_tpu_torch.engine.common import GroupCtx, Val
 from polars_tpu_torch.kernels.fastmath import div_any
 from polars_tpu_torch.kernels.groupagg import groupagg_sums
@@ -123,6 +124,13 @@ def seg_max(values: torch.Tensor, mask: torch.Tensor, gids: torch.Tensor, cap: i
     x = torch.where(torch.isnan(x), small, x)
     out = _scatter_extreme(x, gids, mask, cap, "amax", small)
     return torch.where(has_nan, float("nan"), out)
+
+
+def seg_extreme(kind: str, v: Val, mask: torch.Tensor, gids: torch.Tensor, cap: int) -> torch.Tensor:
+    """Per-group ``"min"`` or ``"max"`` of a value in its logical order:
+    UInt64 bit patterns reduce with their sign bit flipped, and flip back."""
+    fn = seg_min if kind == "min" else seg_max
+    return order_word(fn(order_word(v.values, v.dtype), mask, gids, cap), v.dtype)
 
 
 def seg_first_idx(mask: torch.Tensor, gids: torch.Tensor, cap: int) -> tuple[torch.Tensor, torch.Tensor]:

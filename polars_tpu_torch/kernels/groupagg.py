@@ -10,22 +10,27 @@ id lies outside ``[0, cap)`` are dropped, like the JAX scatter's
 
 :func:`groupagg_sums` launches the kernel for CUDA tensors and runs
 :func:`groupagg_sums_plain` for CPU tensors; it never falls back from one to
-the other.
+the other. :func:`plan` is the one place that sizes a launch: persistent
+blocks (one per SM) that walk fixed row tiles, a ring of bulk-copy stages in
+shared memory, and the accumulator mode; ``csrc/groupagg.cu`` lays shared
+memory out by the same arithmetic and refuses a launch that disagrees.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
-THREADS = 128  # csrc/groupagg.cu THREADS
-ROWS_PER_THREAD = 4  # csrc/groupagg.cu U
-MAX_KT = 16
-REPL = THREADS // 32
+ROWS_PER_THREAD = 4  # csrc/groupagg.cu U: consecutive rows a consumer thread takes per step
+CONSUMER_THREADS = (512, 256, 128)  # candidate consumer counts, widest first (one producer warp rides along)
+MAX_KT = 16  # columns per launch
+MIN_STAGES, MAX_STAGES = 2, 8  # ring depth
+HEADER = 128  # bytes of mbarriers ahead of the accumulators
 SMEM_MAX = 232448  # bytes of dynamic shared memory a block may opt into on sm_90
-SMEM_PER_SM = 233472
-GLOBAL_SCRATCH_MAX = 64 << 20
+GLOBAL_SCRATCH_MAX = 16 << 20  # global accumulator slices stay inside the L2 (32 MB of them measured slower: PERF.md)
 MODE_PRIVATE, MODE_SHARED, MODE_GLOBAL = 0, 1, 2
 
 _ACC = {torch.float64: "f64", torch.int64: "i64"}
@@ -56,24 +61,58 @@ def _acc_dtype(columns: list) -> torch.dtype:
     return dtype
 
 
-def plan(cap: int, k: int, sms: int, n: int) -> tuple[int, int, int]:
-    """(mode, columns per launch, blocks) for one call."""
-    per_col = cap * 8
-    kt = min(k, MAX_KT, SMEM_MAX // (THREADS * per_col))
-    if kt >= 1:
-        mode, smem = MODE_PRIVATE, THREADS * per_col * kt
-    else:
-        kt = min(k, MAX_KT, SMEM_MAX // (REPL * per_col))
-        if kt >= 1:
-            mode, smem = MODE_SHARED, REPL * per_col * kt
-        else:
-            mode, smem, kt = MODE_GLOBAL, 0, min(k, MAX_KT)
-    per_sm = 16 if smem == 0 else max(1, min(16, SMEM_PER_SM // smem))
-    want = -(-max(n, 1) // (THREADS * ROWS_PER_THREAD))
-    blocks = max(1, min(sms * per_sm, want))
+class Plan(NamedTuple):
+    """The launch shape of one call (every field an argument of the kernel)."""
+
+    mode: int
+    kt: int  # columns per launch
+    threads: int  # consumer threads of a block
+    tile_rows: int  # rows per tile, a multiple of threads * ROWS_PER_THREAD
+    stages: int  # ring depth
+    repl: int  # MODE_SHARED: accumulator slices per block
+    blocks: int  # persistent blocks; block b walks tiles b, b + blocks, ...
+    slices: int  # partial slices the finish kernel sums
+    smem: int  # bytes of shared memory per block
+
+
+def _acc_bytes(mode: int, cap: int, kt: int, threads: int, repl: int) -> int:
+    units = {MODE_PRIVATE: threads, MODE_SHARED: repl, MODE_GLOBAL: 0}[mode]
+    return -(-8 * cap * kt * units // 128) * 128
+
+
+def _stage_bytes(threads: int, kt: int) -> int:
+    return threads * ROWS_PER_THREAD * (8 * kt + 5)  # per row: kt values, a 4-byte id, a mask byte
+
+
+def _fits(mode: int, cap: int, kt: int, threads: int, repl: int) -> bool:
+    return HEADER + _acc_bytes(mode, cap, kt, threads, repl) + MIN_STAGES * _stage_bytes(threads, kt) <= SMEM_MAX
+
+
+@functools.lru_cache(maxsize=256)
+def plan(cap: int, k: int, sms: int, n: int) -> Plan:
+    """Size one call: the first mode in which a column fits (private slices,
+    shared slices, global scratch), the most columns per launch that leave
+    room for a ring of ``MIN_STAGES`` stages, the most consumer threads that
+    still fit, and then as deep a ring as the rest of shared memory holds."""
+    narrow = CONSUMER_THREADS[-1]
+    kmax = min(k, MAX_KT)
+    for mode in (MODE_PRIVATE, MODE_SHARED, MODE_GLOBAL):
+        kt = next((c for c in range(kmax, 0, -1) if _fits(mode, cap, c, narrow, 1)), 0)
+        if kt:
+            break
+    threads = next(t for t in CONSUMER_THREADS if _fits(mode, cap, kt, t, 1))
+    repl = 0
+    if mode == MODE_SHARED:
+        repl = next(r for r in range(threads // 32, 0, -1) if _fits(mode, cap, kt, threads, r))
+    acc = _acc_bytes(mode, cap, kt, threads, repl)
+    stage = _stage_bytes(threads, kt)
+    stages = min(MAX_STAGES, (SMEM_MAX - HEADER - acc) // stage)
+    tile_rows = threads * ROWS_PER_THREAD
+    blocks = max(1, min(sms, n // tile_rows))
+    slices = blocks
     if mode == MODE_GLOBAL:
-        blocks = max(1, min(blocks, GLOBAL_SCRATCH_MAX // (per_col * kt)))
-    return mode, kt, blocks
+        slices = max(1, min(blocks, GLOBAL_SCRATCH_MAX // (8 * cap * kt)))
+    return Plan(mode, kt, threads, tile_rows, stages, repl, blocks, slices, HEADER + acc + stages * stage)
 
 
 def _check(gids, columns, mask, cap) -> torch.dtype:
@@ -99,37 +138,48 @@ def groupagg_sums(gids: torch.Tensor, columns: list, mask: torch.Tensor, cap: in
     """(cap, k) sums of ``columns[c]`` over rows with ``mask`` by ``gids``.
 
     Columns are 1-D float64 or int64 tensors of one dtype (``None`` = ones);
-    the result has that dtype."""
+    the result has that dtype. Every operand is read in place. The kernel
+    streams an operand through its bulk-copy ring only if its address is a
+    multiple of 16 bytes; a contiguous view with a storage offset that breaks
+    that (``x[1:]``) is taken as it is and read with plain loads, which is
+    slower, rather than copied."""
     dtype = _check(gids, columns, mask, cap)
     if gids.device.type == "cpu":
         return groupagg_sums_plain(gids, columns, mask, cap)
     if gids.device.type != "cuda":
         raise TypeError(f"groupagg_sums: unsupported device {gids.device}")
-    from polars_tpu_torch.kernels.build import load
-
-    lib = load("groupagg")
-    fn = getattr(lib, f"groupagg_sums_{_ACC[dtype]}")
-    fn.restype = ctypes.c_int
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-    ]
     n, k = gids.shape[0], len(columns)
-    sms = torch.cuda.get_device_properties(gids.device).multi_processor_count
-    mode, kt, blocks = plan(cap, k, sms, n)
+    p = plan(cap, k, torch.cuda.get_device_properties(gids.device).multi_processor_count, n)
+    fn = _entry(dtype)
     out = torch.empty((cap, k), dtype=dtype, device=gids.device)
-    partials = torch.empty(blocks * cap * kt, dtype=dtype, device=gids.device)
+    partials = torch.empty(p.slices * cap * p.kt, dtype=dtype, device=gids.device)
     stream = torch.cuda.current_stream(gids.device).cuda_stream
-    for c0 in range(0, k, kt):
-        tile = columns[c0:c0 + kt]
-        ptrs = (ctypes.c_void_p * len(tile))(*[None if c is None else c.data_ptr() for c in tile])
-        err = fn(gids.data_ptr(), mask.data_ptr(), ptrs, len(tile), n, cap, mode, blocks,
-                 partials.data_ptr(), out.data_ptr(), k, c0, stream)
+    for c0 in range(0, k, p.kt):  # one launch per p.kt columns
+        tile = columns[c0:c0 + p.kt]
+        kt = len(tile)
+        ptrs = (ctypes.c_void_p * kt)(*[None if c is None else c.data_ptr() for c in tile])
+        # a narrower last launch keeps the plan's threads, tile and stages: its
+        # accumulators and stages only shrink
+        smem = HEADER + _acc_bytes(p.mode, cap, kt, p.threads, p.repl) + p.stages * _stage_bytes(p.threads, kt)
+        err = fn(gids.data_ptr(), mask.data_ptr(), ptrs, kt, n, cap, p.mode, p.threads, p.tile_rows,
+                 p.stages, p.repl, p.blocks, p.slices, smem, partials.data_ptr(), out.data_ptr(), k, c0, stream)
         if err != 0:
-            raise RuntimeError(f"groupagg_sums kernel launch failed: cudaError {err}")
+            raise RuntimeError(f"groupagg_sums kernel launch failed: cudaError {err} with {p}")
     groupagg_sums.launches += 1
     return out
 
 
 groupagg_sums.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _entry(dtype: torch.dtype):
+    """The library's entry point for one accumulation dtype, built at first use."""
+    from polars_tpu_torch.kernels.build import load
+
+    fn = getattr(load("groupagg"), f"groupagg_sums_{_ACC[dtype]}")
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_longlong] + [ctypes.c_int] * 9 + [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ]
+    return fn

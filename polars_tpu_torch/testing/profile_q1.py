@@ -63,7 +63,8 @@ def main() -> int:
 
     def label(name: str) -> str:
         if "groupagg" in name:
-            return "K1 " + ("pass2" if "pass2" in name else "pass1") + ": " + name[:90]
+            part = next((p for p in ("main", "finish", "zero") if f"groupagg_{p}" in name), "kernel")
+            return f"K1 {part}: " + name[:90]
         if "compact" in name:
             return "K2: " + name[:90]
         return name[:110]

@@ -21,6 +21,7 @@ import torch
 from polars_tpu.kernels.pallas_compact import compact_columns_xla
 from polars_tpu.kernels.pallas_groupagg import groupagg_sums_xla
 from polars_tpu_torch.kernels.compact import compact, compact_plain
+from polars_tpu_torch.kernels import groupagg as K1
 from polars_tpu_torch.kernels.groupagg import MODE_GLOBAL, MODE_PRIVATE, MODE_SHARED, groupagg_sums, plan
 
 
@@ -73,15 +74,117 @@ def test_groupagg_drops_out_of_range_ids():
     assert got[:, 0].tolist() == [0, 1, 4]
 
 
+def _check_plan(p, cap, k, sms, n):
+    """What every launch shape must satisfy: see csrc/groupagg.cu ``groupagg``."""
+    assert 1 <= p.kt <= min(k, K1.MAX_KT)
+    assert p.threads in K1.CONSUMER_THREADS and p.threads % 32 == 0
+    # tiles start at multiples of tile_rows: 16-row (and 16-byte) aligned for every operand
+    assert p.tile_rows % 16 == 0 and p.tile_rows % (p.threads * K1.ROWS_PER_THREAD) == 0
+    assert K1.MIN_STAGES <= p.stages <= K1.MAX_STAGES
+    assert 1 <= p.blocks <= sms and 1 <= p.slices <= p.blocks
+    acc = {MODE_PRIVATE: p.threads, MODE_SHARED: p.repl, MODE_GLOBAL: 0}[p.mode] * cap * p.kt * 8
+    ring = p.stages * p.tile_rows * (8 * p.kt + 4 + 1)
+    assert K1.HEADER + acc + ring <= p.smem <= K1.SMEM_MAX == 232448
+    if p.mode == MODE_SHARED:
+        assert 1 <= p.repl <= p.threads // 32
+    if p.mode == MODE_GLOBAL:
+        assert p.slices * cap * p.kt * 8 <= max(K1.GLOBAL_SCRATCH_MAX, cap * p.kt * 8)
+    else:
+        assert p.slices == p.blocks
+    if n < p.tile_rows:
+        assert p.blocks == 1  # no full tile: one block takes the ragged rows
+
+
 @pytest.mark.parametrize(
     "cap,k,mode",
-    [(12, 10, MODE_PRIVATE), (1024, 5, MODE_SHARED), (65536, 3, MODE_GLOBAL)],
+    [(12, 10, MODE_PRIVATE), (1024, 5, MODE_SHARED), (65536, 3, MODE_GLOBAL),
+     (12, 5, MODE_PRIVATE), (12, 1, MODE_PRIVATE), (1, 1, MODE_PRIVATE), (65536, 17, MODE_GLOBAL)],
 )
 def test_groupagg_plan_covers_dense_capacities(cap, k, mode):
-    got_mode, kt, blocks = plan(cap, k, 132, 60_000_000)
-    assert got_mode == mode and 1 <= kt <= k and blocks >= 1
-    per_block = {MODE_PRIVATE: 128 * cap * kt * 8, MODE_SHARED: 4 * cap * kt * 8, MODE_GLOBAL: 0}[mode]
-    assert per_block <= 232448
+    p = plan(cap, k, 132, 60_000_000)
+    assert p.mode == mode
+    _check_plan(p, cap, k, 132, 60_000_000)
+    assert p.blocks == 132  # persistent: one block per SM, however many rows
+
+
+@pytest.mark.parametrize("k", [1, 2, 5, 16, 17, 40])
+def test_groupagg_plan_sweep_fits_shared_memory(k):
+    modes = set()
+    for cap in [1, 2, 3, 12, 13, 100, 213, 214, 500, 1024, 4095, 4096, 4097, 20000, 29000, 65535, 65536]:
+        for sms, n in [(132, 60_000_000), (132, 0), (132, 1), (132, 2047), (132, 2048), (132, 100_000), (7, 5_000)]:
+            p = plan(cap, k, sms, n)
+            _check_plan(p, cap, k, sms, n)
+            modes.add(p.mode)
+    assert modes == {MODE_PRIVATE, MODE_SHARED, MODE_GLOBAL}
+
+
+def test_groupagg_plan_q1_shapes():
+    """PDS-H Q1's two calls: the f64 batch keeps private slices for 256
+    threads beside a two-stage ring; the count has room for 512."""
+    batch, count = plan(12, 5, 132, 60_000_000), plan(12, 1, 132, 60_000_000)
+    assert (batch.mode, batch.kt, batch.threads, batch.tile_rows, batch.stages) == (MODE_PRIVATE, 5, 256, 1024, 2)
+    assert (count.mode, count.kt, count.threads, count.tile_rows) == (MODE_PRIVATE, 1, 512, 2048)
+    assert count.stages >= 4
+
+
+def test_groupagg_masked_rows_may_hold_anything():
+    """NaN, inf and ids out of range under a false mask never reach a sum
+    (the kernel selects, it does not multiply by the mask)."""
+    rng = np.random.default_rng(41)
+    n, cap, k = 3000, 12, 3
+    gids = rng.integers(0, cap, n).astype(np.int32)
+    mask = rng.random(n) < 0.6
+    vals = rng.normal(size=(n, k)) * 100.0
+    want = np.asarray(groupagg_sums_xla(jnp.asarray(gids), jnp.asarray(vals), jnp.asarray(mask), cap))
+    bad = ~mask
+    gids[bad] = rng.choice(np.asarray([-1, -(2**31), cap, 2**31 - 1], np.int32), int(bad.sum()))
+    vals[bad] = rng.choice(np.asarray([np.nan, np.inf, -np.inf, 1e308]), (int(bad.sum()), k))
+    ints = rng.integers(-(2**40), 2**40, n)
+    ints[bad] = 2**62
+    cols = [torch.from_numpy(np.ascontiguousarray(vals[:, c])) for c in range(k)]
+    got = groupagg_sums(torch.from_numpy(gids), cols, torch.from_numpy(mask), cap)
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-12, atol=1e-9)
+    got_i = groupagg_sums(torch.from_numpy(gids), [torch.from_numpy(ints), None], torch.from_numpy(mask), cap)
+    want_i = np.zeros((cap, 2), np.int64)
+    np.add.at(want_i[:, 0], gids[mask], ints[mask])
+    np.add.at(want_i[:, 1], gids[mask], 1)
+    np.testing.assert_array_equal(got_i.numpy(), want_i)
+
+
+@pytest.mark.parametrize("offsets", [(1, 0, 0), (0, 3, 0), (0, 0, 5), (1, 3, 5)])
+def test_groupagg_takes_views_with_a_storage_offset(offsets):
+    """Contiguous views that start inside their storage (``x[1:]``) are taken
+    as they are: their data pointers are not 16-byte aligned."""
+    n, cap, k = 1000, 12, 2
+    gids, mask, vals = _groupagg_inputs(sum(offsets), n, cap, k)
+    want = np.asarray(groupagg_sums_xla(jnp.asarray(gids), jnp.asarray(vals), jnp.asarray(mask), cap))
+
+    def view(arr, off):
+        return torch.from_numpy(np.concatenate([np.zeros(off, arr.dtype), arr]))[off:]
+
+    tg, tm = view(gids, offsets[0]), view(mask, offsets[1])
+    cols = [view(np.ascontiguousarray(vals[:, c]), offsets[2]) for c in range(k)]
+    assert tg.storage_offset() == offsets[0] and tm.storage_offset() == offsets[1]
+    assert all(c.storage_offset() == offsets[2] and c.is_contiguous() for c in cols)
+    got = groupagg_sums(tg, cols, tm, cap)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-12, atol=1e-9)
+    # what the wrapper does refuse: a strided view
+    with pytest.raises(TypeError):
+        groupagg_sums(tg, [c[::2] for c in cols], tm, cap)
+
+
+@pytest.mark.parametrize("k", [K1.MAX_KT + 1, 2 * K1.MAX_KT + 3])
+def test_groupagg_more_columns_than_one_launch(k):
+    n, cap = 600, 7
+    gids, mask, vals = _groupagg_inputs(k, n, cap, k)
+    want = np.asarray(groupagg_sums_xla(jnp.asarray(gids), jnp.asarray(vals), jnp.asarray(mask), cap))
+    cols = [torch.from_numpy(np.ascontiguousarray(vals[:, c])) for c in range(k)]
+    got = groupagg_sums(torch.from_numpy(gids), cols, torch.from_numpy(mask), cap)
+    assert got.shape == (cap, k)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-12, atol=1e-9)
+    p = plan(cap, k, 132, n)
+    assert p.kt <= K1.MAX_KT < k and -(-k // p.kt) >= 2  # the call takes several launches on the card
 
 
 def _compact_reference(vals: np.ndarray, mask: np.ndarray):
