@@ -3,16 +3,27 @@
 
 Phases, each printed as one JSON line:
   1. build    — compile the CUDA kernels from polars_tpu_torch/csrc with nvcc;
-  2. kernels  — hold each kernel against its plain PyTorch version at the
-                main path's shapes and at ragged, misaligned and poisoned
-                ones, and time it (CUDA events, median of 11 runs after
-                warm-up; 5 runs for K1's plain version and ``index_add_``)
-                beside the plain version, the one PyTorch call that computes
-                the same function and the least time the card could take;
-  3. q1       — PDS-H Q1 end to end at SF10 (60M lineitem rows) through the
+  2. kernels  — hold each kernel against its plain PyTorch version at Q1's
+                shapes and at ragged, misaligned and poisoned ones, and time
+                it (CUDA events, median of 11 runs after warm-up; 5 runs for
+                the plain and library versions of K1) beside the plain
+                version, the PyTorch calls that compute the same function
+                (the row selection and the zeroed output included) and the
+                least time the card could take;
+  3. frames   — the lineitem (Q1's, Q3's and Q4's columns, built once),
+                orders and customer frames on the card;
+  4. q1       — PDS-H Q1 end to end at SF10 (60M lineitem rows) through the
                 port's public API, against a numpy oracle written here, with
-                the kernels' launch counters read around the run;
-  4. filter   — Q1's filter alone (compaction of 60M rows), against numpy;
+                the kernels' launch counters set to 0 just before the first
+                collect and read just after;
+  5. filter   — Q1's filter alone (compaction of 60M rows), against numpy;
+  6. q3, q4   — PDS-H Q3 (two fused 1:m joins, a sort-based group-by over
+                the 60M joined rows, top 10) and Q4 (a semi join, a dense
+                group-by), each against its numpy oracle, launches counted
+                the same way.
+Each query phase then collects once more with the engine's kernel calls
+kept, and holds every one of them against its plain version on the very
+inputs the query gave it, and times it there (``kernel_calls``);
 then the kernels line, the card's name and power limit, and the final line
 {"ok": true, "device": {...}}. Any failure exits non-zero before that line.
 
@@ -40,6 +51,17 @@ Q1_COLS = [
     "l_shipdate", "l_returnflag", "l_linestatus", "l_quantity",
     "l_extendedprice", "l_discount", "l_tax",
 ]
+# the columns each query reads (bench.py's lists); one lineitem frame holds
+# the union of Q1's, Q3's and Q4's
+Q3_LINE_COLS = ["l_orderkey", "l_shipdate", "l_extendedprice", "l_discount"]
+Q3_ORD_COLS = ["o_orderkey", "o_custkey", "o_orderdate", "o_shippriority"]
+Q3_CUST_COLS = ["c_custkey", "c_mktsegment"]
+Q4_ORD_COLS = ["o_orderkey", "o_orderdate", "o_orderpriority"]
+Q4_LINE_COLS = ["l_orderkey", "l_commitdate", "l_receiptdate"]
+LINE_COLS = list(dict.fromkeys(Q1_COLS + Q3_LINE_COLS + Q4_LINE_COLS))
+EPOCH = dtm.date(1970, 1, 1)
+Q3_DAYS = (dtm.date(1995, 3, 15) - EPOCH).days
+Q4_FROM, Q4_TO = (dtm.date(1993, 7, 1) - EPOCH).days, (dtm.date(1993, 10, 1) - EPOCH).days
 
 
 def emit(obj: dict) -> None:
@@ -99,6 +121,66 @@ def k1_agree(torch, got, want) -> tuple[float, bool]:
     return err, bool(torch.equal(got, want))
 
 
+def k1_library(torch, gids, cols, mask, cap):
+    """K1's whole function as PyTorch calls (the library version that is
+    timed): select the rows, zero the ``(cap, k)`` output, ``index_add_``."""
+    g = gids[mask].long()
+    acc = next((c.dtype for c in cols if c is not None), torch.int64)
+    vals = torch.stack([c[mask] if c is not None else torch.ones(g.shape[0], dtype=acc, device=g.device) for c in cols], 1)
+    return torch.zeros((cap, len(cols)), dtype=acc, device=g.device).index_add_(0, g, vals)
+
+
+def k1_bound(torch, gids, cols, mask, cap) -> tuple[float, str]:
+    """K1's least time on this run's data: every mask byte, the selected
+    rows' ids and values, the whole output; one add per selected value."""
+    n, k, n_sel = gids.shape[0], len(cols), int(mask.sum())
+    vbytes = sum(c.element_size() for c in cols if c is not None)
+    return bound(n + n_sel * (4 + vbytes) + cap * k * 8, n_sel * k, FP64_OPS_PER_S)
+
+
+def hold_k1(torch, gids, cols, mask, cap, label) -> dict:
+    """K1 on these inputs against its plain version (and the library
+    version against the plain one, so that it computes the same function),
+    then each of the three timed, beside the bound."""
+    from polars_tpu_torch.kernels.groupagg import groupagg_sums, groupagg_sums_plain, plan
+
+    want = groupagg_sums_plain(gids, cols, mask, cap)
+    err, ok = k1_agree(torch, groupagg_sums(gids, cols, mask, cap), want)
+    if not ok:
+        raise AssertionError(f"groupagg_sums {label} disagrees with its plain version (max err {err})")
+    if not k1_agree(torch, k1_library(torch, gids, cols, mask, cap), want)[1]:
+        raise AssertionError(f"the library version of groupagg_sums {label} disagrees with the plain version")
+    del want
+    n, k = gids.shape[0], len(cols)
+    sms = torch.cuda.get_device_properties(gids.device).multi_processor_count
+    ms = cuda_ms(torch, lambda: groupagg_sums(gids, cols, mask, cap))
+    plain_ms = cuda_ms(torch, lambda: groupagg_sums_plain(gids, cols, mask, cap), reps=5, warmup=1)
+    library_ms = cuda_ms(torch, lambda: k1_library(torch, gids, cols, mask, cap), reps=5, warmup=1)
+    b_ms, b_by = k1_bound(torch, gids, cols, mask, cap)
+    return {"n": n, "n_selected": int(mask.sum()), "cap": cap, "k": k,
+            "dtype": "i64" if all(c is None or c.dtype == torch.int64 for c in cols) else "f64",
+            "plan": plan(cap, k, sms, n)._asdict(), "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err}
+
+
+def hold_k2(torch, cols, mask, label) -> dict:
+    """K2 on these inputs against its plain version, bit for bit, then both
+    timed beside ``masked_select`` (one column only) and the bound."""
+    from polars_tpu_torch.kernels.compact import compact, compact_plain
+
+    cnt, err, mismatches = compact_diff(torch, cols, mask, label)
+    if mismatches:
+        raise AssertionError(f"compact {label} disagrees with its plain version in {mismatches} elements")
+    n = mask.shape[0]
+    ms = cuda_ms(torch, lambda: compact(cols, mask))
+    plain_ms = cuda_ms(torch, lambda: compact_plain(cols, mask))
+    library_ms = cuda_ms(torch, lambda: torch.masked_select(cols[0], mask)) if len(cols) == 1 else None
+    b_ms, b_by = bound(n + 2 * cnt * sum(c.element_size() for c in cols), cnt, FP64_OPS_PER_S)
+    return {"n": n, "count": cnt, "dtypes": [str(c.dtype).replace("torch.", "") for c in cols], "ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "max_abs_err_bits": err, "mismatches": mismatches}
+
+
 def check_groupagg(torch, rng, n, cap, k, i64_cols, density, dev, offsets=(0, 0, 0), poison=False) -> dict:
     """K1 against its plain version: ``k`` f64 columns to rtol 1e-9, and the
     i64 columns ``i64_cols`` (``"int"`` = random integers, None = a count)
@@ -147,11 +229,29 @@ def _bits(torch, t):
     return t.view(view) if t.dtype != torch.bool else t.to(torch.int8)
 
 
+def compact_diff(torch, cols, mask, label) -> tuple[int, float, int]:
+    """K2 and its plain version on the same inputs: (count, largest
+    difference of the bit patterns, wrapping for 8-byte payloads; number of
+    elements whose bits differ). Raises if the counts or shapes differ."""
+    from polars_tpu_torch.kernels.compact import compact, compact_plain
+
+    got, cnt = compact(cols, mask)
+    want, cnt_p = compact_plain(cols, mask)
+    torch.cuda.synchronize()
+    if cnt != cnt_p or any(a.shape != b.shape for a, b in zip(got, want)):
+        raise AssertionError(f"compact count {cnt} != plain {cnt_p} ({label})")
+    err, mismatches = 0.0, 0
+    for a, b in zip(got, want):
+        if a.numel():
+            d = _bits(torch, a).long() - _bits(torch, b).long()
+            err = max(err, float(d.double().abs().max()))
+            mismatches += int((d != 0).sum())
+    return cnt, err, mismatches
+
+
 def check_compact(torch, rng, n, mask, dtypes, dev, label="") -> dict:
     """K2 against its plain version, bit for bit, on one column per entry of
     ``dtypes`` (random bit patterns: NaN payloads must survive)."""
-    from polars_tpu_torch.kernels.compact import compact, compact_plain
-
     if not isinstance(mask, np.ndarray):
         mask = rng.random(n) < mask
     width = {torch.bool: 1, torch.int16: 2, torch.int32: 4, torch.int64: 8, torch.float64: 8}
@@ -165,19 +265,7 @@ def check_compact(torch, rng, n, mask, dtypes, dev, label="") -> dict:
         raw = rng.integers(-(2 ** (8 * w - 1)), 2 ** (8 * w - 1) - 1, n, dtype=ints[w])
         cols.append(torch.as_tensor(raw).to(dev).view(d))
     mask_t = torch.as_tensor(mask).to(dev)
-    got, cnt = compact(cols, mask_t)
-    want, cnt_p = compact_plain(cols, mask_t)
-    torch.cuda.synchronize()
-    if cnt != cnt_p or any(a.shape != b.shape for a, b in zip(got, want)):
-        raise AssertionError(f"compact count {cnt} != plain {cnt_p} (n={n}, {label})")
-    # largest difference of the bit patterns (wrapping for 8-byte payloads)
-    # and the number of elements whose bits differ
-    err, mismatches = 0.0, 0
-    for a, b in zip(got, want):
-        if a.numel():
-            d = _bits(torch, a).long() - _bits(torch, b).long()
-            err = max(err, float(d.double().abs().max()))
-            mismatches += int((d != 0).sum())
+    cnt, err, mismatches = compact_diff(torch, cols, mask_t, f"n={n}, {label}")
     res = {"n": n, "label": label, "density": float(mask.mean()) if n else 0.0, "count": cnt,
            "dtypes": [str(d).replace("torch.", "") for d in dtypes], "max_abs_err_bits": err,
            "mismatches": mismatches}
@@ -187,17 +275,15 @@ def check_compact(torch, rng, n, mask, dtypes, dev, label="") -> dict:
 
 
 def phase_kernels(torch, dev, seed: int, q1_density: float, n_main: int) -> dict:
-    from polars_tpu_torch.kernels.compact import compact, compact_plain
-    from polars_tpu_torch.kernels.groupagg import MODE_PRIVATE, groupagg_sums, groupagg_sums_plain, plan
+    from polars_tpu_torch.kernels.groupagg import MODE_PRIVATE, groupagg_sums, plan
 
     rng = np.random.default_rng(seed)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     tile = plan(12, 5, sms, n_main).tile_rows  # rows per tile of Q1's f64 batch
     both = ("int", None)
+    # the main path's own calls are held in the query phases; these cover
+    # the rest of the input space
     checks_k1 = [
-        # Q1's two K1 calls: the occupancy count over 12 key slots and the
-        # batch of 5 distinct f64 columns
-        check_groupagg(torch, rng, n_main, 12, 5, (None,), q1_density, dev),
         check_groupagg(torch, rng, n_main, 12, 10, ("int", None), q1_density, dev),  # JAX batch width
         check_groupagg(torch, rng, 1_000_003, 1, 3, ("int", None), 0.5, dev),
         check_groupagg(torch, rng, 1_000_003, 12, 5, ("int", None), q1_density, dev),
@@ -228,17 +314,12 @@ def phase_kernels(torch, dev, seed: int, q1_density: float, n_main: int) -> dict
     ]
     emit({"phase": "kernels.groupagg_checks", "checks": checks_k1})
     payloads = [torch.bool, torch.int16, torch.int32, torch.float64]
-    # Q1's segment-end compaction: 12 group slots, the 6 groups (every
-    # returnflag x linestatus pair of the generator) a prefix after the
-    # sort; 2 int32 key codes, 4 f64 sums, 3 f64 means each with its bool
-    # validity, and the int64 count
+    # Q1's output columns (2 int32 key codes, 4 f64 sums, 3 f64 means each
+    # with its bool validity, the int64 count) under a random mask
     q1_out = [torch.int32, torch.int32] + [torch.float64] * 4 + [torch.float64, torch.bool] * 3 + [torch.int64]
     checks_k2 = [check_compact(torch, rng, n_main, d, payloads, dev, "payloads") for d in (0.0, 0.5, q1_density, 1.0)]
     checks_k2 += [check_compact(torch, rng, n, 0.5, payloads, dev, "payloads") for n in (0, 1, 4097)]
-    checks_k2 += [
-        check_compact(torch, rng, 12, np.arange(12) < 6, q1_out, dev, "q1 output"),
-        check_compact(torch, rng, 12, 0.5, q1_out, dev, "q1 output"),
-    ]
+    checks_k2.append(check_compact(torch, rng, 12, 0.5, q1_out, dev, "q1 output"))
     emit({"phase": "kernels.compact_checks", "checks": checks_k2})
 
     # K1 timing at the main path's shapes, cap 12: Q1's f64 batch (5
@@ -248,7 +329,6 @@ def phase_kernels(torch, dev, seed: int, q1_density: float, n_main: int) -> dict
     # plain version, beside ``index_add_`` and the least time the card needs
     n = n_main
     mask = torch.as_tensor(rng.random(n) < q1_density).to(dev)
-    n_sel = int(mask.sum())
     f64_cols = [torch.as_tensor(rng.uniform(1.0, 1e5, n)).to(dev) for _ in range(5)]
     timings = {}
     for label, cols, ids, cap in (
@@ -257,55 +337,27 @@ def phase_kernels(torch, dev, seed: int, q1_density: float, n_main: int) -> dict
         ("f64_k5_cap1024", f64_cols, 1024, 1024),
         ("f64_k2_cap65536", f64_cols[:2], 65536, 65536),
     ):
-        k = len(cols)
         gids = torch.as_tensor(rng.integers(0, ids, n, dtype=np.int32)).to(dev)
+        p = plan(cap, len(cols), sms, n)
         got = groupagg_sums(gids, cols, mask, cap)
-        err, ok = k1_agree(torch, got, groupagg_sums_plain(gids, cols, mask, cap))
-        if not ok:
-            raise AssertionError(f"groupagg_sums {label} disagrees with its plain version (max err {err})")
-        p = plan(cap, k, sms, n)
         if p.mode == MODE_PRIVATE and not torch.equal(got, groupagg_sums(gids, cols, mask, cap)):
             raise AssertionError(f"groupagg_sums {label}: two runs with private accumulators differ in their bits")
-        ms = cuda_ms(torch, lambda: groupagg_sums(gids, cols, mask, cap))
-        plain_ms = cuda_ms(torch, lambda: groupagg_sums_plain(gids, cols, mask, cap), reps=5, warmup=1)
-        g_sel = gids[mask].long()
-        acc = torch.float64 if cols[0] is not None else torch.int64
-        v_sel = torch.stack(
-            [c[mask] if c is not None else torch.ones(n_sel, dtype=acc, device=dev) for c in cols], 1
-        )
-        out = torch.zeros((cap, k), dtype=acc, device=dev)
-        library_ms = cuda_ms(torch, lambda: out.index_add_(0, g_sel, v_sel), reps=5, warmup=1)
-        del g_sel, v_sel, gids
-        vbytes = sum(8 for c in cols if c is not None)
-        b_ms, b_by = bound(n * 1 + n_sel * (4 + vbytes) + cap * k * 8, n_sel * k, FP64_OPS_PER_S)
-        timings[label] = {"n": n, "n_selected": n_sel, "cap": cap, "k": k, "plan": p._asdict(), "ms": ms,
-                          "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
-                          "max_abs_err": err, "repeats_bit_for_bit": True if p.mode == MODE_PRIVATE else None}
+        timings[label] = {**hold_k1(torch, gids, cols, mask, cap, label),
+                          "repeats_bit_for_bit": True if p.mode == MODE_PRIVATE else None}
+        del gids, got
     del f64_cols
     emit({"phase": "kernels.groupagg_timing", **timings})
 
-    # K2 timing: one f64 column and Q1's seven columns, 60M rows, Q1 density
+    # K2 timing: one f64 column, 60M rows, Q1 density (the filter phase
+    # times its own call over Q1's seven columns)
     col8 = torch.as_tensor(rng.uniform(1.0, 1e5, n)).to(dev)
-    ms = cuda_ms(torch, lambda: compact([col8], mask))
-    plain_ms = cuda_ms(torch, lambda: compact_plain([col8], mask))
-    library_ms = cuda_ms(torch, lambda: torch.masked_select(col8, mask))
-    b_ms, b_by = bound(n + 2 * n_sel * 8, n_sel, FP64_OPS_PER_S)
-    k2_one = {"n": n, "n_selected": n_sel, "columns": "1 x f64", "ms": ms, "plain_ms": plain_ms,
-              "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by}
-    q1cols = [col8, col8.clone(), col8.clone(), col8.clone()] + [
-        torch.as_tensor(rng.integers(0, 3, n, dtype=np.int32)).to(dev) for _ in range(3)
-    ]
-    ms7 = cuda_ms(torch, lambda: compact(q1cols, mask))
-    plain7 = cuda_ms(torch, lambda: compact_plain(q1cols, mask))
-    b7, b7_by = bound(n + 2 * n_sel * (4 * 8 + 3 * 4), n_sel, FP64_OPS_PER_S)
-    k2_seven = {"n": n, "n_selected": n_sel, "columns": "4 x f64 + 3 x i32", "ms": ms7, "plain_ms": plain7,
-                "library_ms": None, "bound_ms": b7, "bound_by": b7_by}
-    emit({"phase": "kernels.compact_timing", "one_column": k2_one, "q1_columns": k2_seven})
-    del col8, q1cols, mask
+    k2_one = hold_k2(torch, [col8], mask, "one column")
+    emit({"phase": "kernels.compact_timing", "one_column": k2_one})
+    del col8, mask
     torch.cuda.empty_cache()
     k1_err = max([t["max_abs_err"] for t in timings.values()]
                  + [max(c["max_abs_err_f64"], c["max_abs_err_i64"]) for c in checks_k1])
-    k2_err = max(c["max_abs_err_bits"] for c in checks_k2)
+    k2_err = max([k2_one["max_abs_err_bits"]] + [c["max_abs_err_bits"] for c in checks_k2])
     return {"k1_err": k1_err, "k1": timings["f64_k5"], "k2_err": k2_err, "k2": k2_one}
 
 
@@ -343,46 +395,127 @@ def q1_oracle(raw: dict) -> dict:
 
 
 def generate(scale: float, seed: int) -> tuple[dict, float]:
-    """The seven Q1 columns of PDS-H lineitem at ``scale`` (host numpy)."""
+    """The columns Q1, Q3 and Q4 read of PDS-H customer, orders and lineitem
+    at ``scale`` (host numpy)."""
     from polars_tpu_torch.testing import pdsh
 
     t0 = time.perf_counter()
-    full = pdsh.generate_pdsh(scale, seed=seed, tables=("lineitem",))["lineitem"]
-    return {c: full[c] for c in Q1_COLS}, time.perf_counter() - t0
+    full = pdsh.generate_pdsh(scale, seed=seed, tables=("customer", "orders", "lineitem"))
+    raw = {
+        "lineitem": {c: full["lineitem"][c] for c in LINE_COLS},
+        "orders": {c: full["orders"][c] for c in dict.fromkeys(Q3_ORD_COLS + Q4_ORD_COLS)},
+        "customer": {c: full["customer"][c] for c in Q3_CUST_COLS},
+    }
+    return raw, time.perf_counter() - t0
 
 
-def phase_q1(torch, pl, dev, raw: dict, t_gen: float, scale: float) -> tuple[dict, object]:
+def phase_frames(torch, pl, dev, raw: dict) -> tuple[dict, dict]:
+    """The frames on the card: one lineitem frame for all three queries, and
+    orders and customer with the columns each query reads."""
+    frames, seconds = {}, {}
+    for name, table, cols in (
+        ("lineitem", "lineitem", LINE_COLS),
+        ("orders_q3", "orders", Q3_ORD_COLS),
+        ("orders_q4", "orders", Q4_ORD_COLS),
+        ("customer", "customer", Q3_CUST_COLS),
+    ):
+        t0 = time.perf_counter()
+        frames[name] = pl.DataFrame({c: raw[table][c] for c in cols}, device=dev)
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+    res = {"phase": "frames", "build_s": seconds, "rows": {k: f.height for k, f in frames.items()},
+           "device_bytes": torch.cuda.memory_allocated()}
+    emit(res)
+    return frames, res
+
+
+def record_kernel_calls(torch, run) -> list:
+    """One more collect of the query with the engine's K1 and K2 wrappers
+    swapped, for that collect only, for ones that keep each call's inputs
+    and then launch as before. Fails unless every launch of that collect was
+    kept, so that no call site of the engine is missed."""
+    import polars_tpu_torch.engine.executors as executors
+    import polars_tpu_torch.engine.groupby as groupby
     from polars_tpu_torch.kernels.compact import compact
     from polars_tpu_torch.kernels.groupagg import groupagg_sums
-    from polars_tpu_torch.testing import pdsh
 
-    t0 = time.perf_counter()
-    df = pl.DataFrame(raw, device=dev)
-    torch.cuda.synchronize()
-    t_frame = time.perf_counter() - t0
-    n = df.height
+    calls = []
 
-    # the main path: counters at 0 just before, read just after
+    def k1(gids, columns, mask, cap):
+        calls.append(("groupagg_sums", (gids, list(columns), mask, cap)))
+        return groupagg_sums(gids, columns, mask, cap)
+
+    def k2(columns, mask):
+        calls.append(("compact", (list(columns), mask)))
+        return compact(columns, mask)
+
+    sites = [(executors, "groupagg_sums", k1, groupagg_sums), (groupby, "groupagg_sums", k1, groupagg_sums),
+             (executors, "compact", k2, compact)]
+    before = groupagg_sums.launches + compact.launches
+    for module, name, recorder, _ in sites:
+        setattr(module, name, recorder)
+    try:
+        run().collect()
+        torch.cuda.synchronize()
+    finally:
+        for module, name, _, wrapper in sites:
+            setattr(module, name, wrapper)
+    if groupagg_sums.launches + compact.launches - before != len(calls):
+        raise AssertionError(f"{len(calls)} kernel calls kept of {groupagg_sums.launches + compact.launches - before}")
+    return calls
+
+
+def hold_kernel_calls(torch, calls: list, query: str) -> list:
+    """Each kept call again on its own inputs: the kernel against its plain
+    version, and its times (these launches come after the counts were read)."""
+    out = []
+    for i, (name, args) in enumerate(calls):
+        label = f"{query} call {i}"
+        held = hold_k1(torch, *args, label) if name == "groupagg_sums" else hold_k2(torch, *args, label)
+        out.append({"kernel": name, **held})
+    return out
+
+
+def run_query(torch, query: str, run, need=("groupagg_sums", "compact")) -> dict:
+    """The main path for one query: every launch counter at 0 just before the
+    first collect (the warm-up), read just after; then five warm collects
+    timed on the host clock around ``collect()`` and a synchronize; then one
+    more collect whose kernel calls are kept and held against the plain
+    versions on the very same inputs."""
+    from polars_tpu_torch.kernels.compact import compact
+    from polars_tpu_torch.kernels.groupagg import groupagg_sums
+
     groupagg_sums.launches = 0
     compact.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    out = pdsh.q1(df).collect()
+    out = run().collect()
     torch.cuda.synchronize()
     t_first = time.perf_counter() - t0
     launches = {"groupagg_sums": groupagg_sums.launches, "compact": compact.launches}
-    peak = torch.cuda.max_memory_allocated()
-    if not all(launches.values()):
-        raise AssertionError(f"Q1 did not launch every kernel of its path: {launches}")
-
+    if not all(launches[k] for k in need):
+        raise AssertionError(f"the query did not launch every kernel of its path: {launches}")
     walls = []
     for _ in range(5):
         t0 = time.perf_counter()
-        pdsh.q1(df).collect()
+        run().collect()
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-    wall = statistics.median(walls)
+    peak = torch.cuda.max_memory_allocated()
+    calls = record_kernel_calls(torch, run)
+    kept = {k: sum(1 for c in calls if c[0] == k) for k in launches}
+    if kept != launches:
+        raise AssertionError(f"the kept collect launched {kept}, the counted one {launches}")
+    return {"out": out, "first_collect_s": t_first, "warm_walls_s": walls, "warm_wall_s": statistics.median(walls),
+            "launches": launches, "peak_device_bytes": peak, "kernel_calls": hold_kernel_calls(torch, calls, query)}
 
+
+def phase_q1(torch, raw: dict, df, t_gen: float, t_frame: float, scale: float) -> dict:
+    from polars_tpu_torch.testing import pdsh
+
+    n = df.height
+    r = run_query(torch, "q1", lambda: pdsh.q1(df))
+    out = r["out"]
     want = q1_oracle(raw)
     got = out.to_dict(as_series=False)
     schema = [(k, repr(v)) for k, v in out.schema.items()]
@@ -405,33 +538,19 @@ def phase_q1(torch, pl, dev, raw: dict, t_gen: float, scale: float) -> tuple[dic
         worst = max(worst, float(np.max(np.abs(g - w) / np.abs(w))) if len(w) else 0.0)
     res = {
         "phase": "q1", "scale": scale, "rows": n, "groups": out.height, "datagen_s": t_gen,
-        "frame_build_s": t_frame, "first_collect_s": t_first, "warm_wall_s": wall, "warm_walls_s": walls,
-        "rows_per_s": n / wall, "launches": launches, "peak_device_bytes": peak,
-        "max_rel_err_vs_numpy": worst, "matches_numpy_oracle": True,
+        "frame_build_s": t_frame, "first_collect_s": r["first_collect_s"], "warm_wall_s": r["warm_wall_s"],
+        "warm_walls_s": r["warm_walls_s"], "rows_per_s": n / r["warm_wall_s"], "launches": r["launches"],
+        "peak_device_bytes": r["peak_device_bytes"],
+        "max_rel_err_vs_numpy": worst, "matches_numpy_oracle": True, "kernel_calls": r["kernel_calls"],
     }
     emit(res)
-    return res, df
+    return res
 
 
 def phase_filter(torch, pl, raw: dict, df) -> dict:
-    from polars_tpu_torch.kernels.compact import compact
-    from polars_tpu_torch.kernels.groupagg import groupagg_sums
-
-    lf = df.lazy().filter(pl.col("l_shipdate") <= Q1_DATE)
-    groupagg_sums.launches = 0
-    compact.launches = 0
-    out = lf.collect()
-    torch.cuda.synchronize()
-    launches = {"groupagg_sums": groupagg_sums.launches, "compact": compact.launches}
-    if launches["compact"] < 1:
-        raise AssertionError(f"the filter did not launch compact: {launches}")
-    walls = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        lf.collect()
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-
+    lf = df.lazy().select(Q1_COLS).filter(pl.col("l_shipdate") <= Q1_DATE)
+    r = run_query(torch, "filter", lambda: lf, need=("compact",))
+    out = r["out"]
     ship = raw["l_shipdate"].astype("datetime64[D]").astype(np.int64)
     m = ship <= Q1_DAYS
     if out.height != int(m.sum()):
@@ -453,8 +572,132 @@ def phase_filter(torch, pl, raw: dict, df) -> dict:
         checks[name] = {"exact": bool(ok), "checksum": float(got.astype(np.float64).sum())}
         if not ok:
             raise AssertionError(f"filter column {name} differs from numpy")
-    res = {"phase": "filter", "rows_in": df.height, "rows_out": out.height, "launches": launches,
-           "warm_wall_s": statistics.median(walls), "warm_walls_s": walls, "columns": checks}
+    res = {"phase": "filter", "rows_in": df.height, "rows_out": out.height, "launches": r["launches"],
+           "warm_wall_s": r["warm_wall_s"], "warm_walls_s": r["warm_walls_s"], "columns": checks,
+           "kernel_calls": r["kernel_calls"]}
+    emit(res)
+    return res
+
+
+def _days(a: np.ndarray) -> np.ndarray:
+    return a.astype("datetime64[D]").astype(np.int64)
+
+
+def q3_rows(raw: dict) -> dict:
+    """Q3's joined rows in numpy, independent of the port: the lineitem rows
+    that survive both joins and the three filters, with their order's date
+    and ship priority."""
+    cust, orders, line = raw["customer"], raw["orders"], raw["lineitem"]
+    good = cust["c_custkey"][cust["c_mktsegment"].astype("U") == "BUILDING"]
+    odate = _days(orders["o_orderdate"])
+    okeep = np.isin(orders["o_custkey"], good) & (odate < Q3_DAYS)
+    by_key = np.argsort(orders["o_orderkey"], kind="stable")
+    skeys = orders["o_orderkey"][by_key]
+    lkey = line["l_orderkey"]
+    pos = np.clip(np.searchsorted(skeys, lkey), 0, len(skeys) - 1)
+    oi = by_key[pos]
+    mask = (skeys[pos] == lkey) & okeep[oi] & (_days(line["l_shipdate"]) > Q3_DAYS)
+    return {"mask": mask, "order_row": oi}
+
+
+def q3_oracle(raw: dict, rows: dict) -> dict:
+    """PDS-H Q3 in numpy: every group's revenue (o_orderkey is unique, so it
+    alone is the group), sorted by revenue descending, then date."""
+    orders, line = raw["orders"], raw["lineitem"]
+    m = rows["mask"]
+    rev = line["l_extendedprice"][m] * (1 - line["l_discount"][m])
+    keys, inv = np.unique(line["l_orderkey"][m], return_inverse=True)
+    revenue = np.bincount(inv.reshape(-1), weights=rev, minlength=len(keys))
+    first = np.zeros(len(keys), np.int64)
+    first[inv] = rows["order_row"][m]  # each group's order row (one order per group)
+    date = _days(orders["o_orderdate"])[first]
+    prio = orders["o_shippriority"][first]
+    order = np.lexsort((date, -revenue))
+    return {"l_orderkey": keys[order], "revenue": revenue[order], "o_orderdate": date[order],
+            "o_shippriority": prio[order], "groups": len(keys), "rows": int(m.sum())}
+
+
+def check_q3(out, want: dict) -> float:
+    """Keys, dates and priorities exact, revenue to rtol 1e-9. Where the
+    oracle's neighbouring revenues lie within that tolerance of each other,
+    the rows of that run are compared as a set."""
+    got = out.to_dict(as_series=False)
+    k = min(10, len(want["revenue"]))
+    if out.height != k or list(got) != ["l_orderkey", "revenue", "o_orderdate", "o_shippriority"]:
+        raise AssertionError(f"Q3 shape {out.height} x {list(got)}, want {k} rows")
+    r = want["revenue"]
+    run_of = np.zeros(len(r), np.int64)  # run id of each oracle position
+    for i in range(1, len(r)):
+        run_of[i] = run_of[i - 1] + (abs(r[i] - r[i - 1]) > 1e-9 * abs(r[i - 1]))
+    worst = 0.0
+    seen = set()
+    for i in range(k):
+        row = (got["l_orderkey"][i], (got["o_orderdate"][i] - EPOCH).days, got["o_shippriority"][i])
+        members = {(int(want["l_orderkey"][j]), int(want["o_orderdate"][j]), int(want["o_shippriority"][j]))
+                   for j in np.nonzero(run_of == run_of[i])[0]}
+        if row not in members or row in seen:
+            raise AssertionError(f"Q3 row {i} {row} is not the oracle's {sorted(members)[:4]}")
+        seen.add(row)
+        g, w = got["revenue"][i], r[i]
+        if not np.isfinite(g) or abs(g - w) > 1e-9 * abs(w):
+            raise AssertionError(f"Q3 revenue at {i}: {g} != {w}")
+        worst = max(worst, abs(g - w) / abs(w))
+    return worst
+
+
+def q4_oracle(raw: dict) -> dict:
+    """PDS-H Q4 in numpy: orders of the quarter with a late line, counted by
+    priority."""
+    orders, line = raw["orders"], raw["lineitem"]
+    odate = _days(orders["o_orderdate"])
+    late = np.unique(line["l_orderkey"][_days(line["l_commitdate"]) < _days(line["l_receiptdate"])])
+    sel = (odate >= Q4_FROM) & (odate < Q4_TO) & np.isin(orders["o_orderkey"], late)
+    prio, inv = np.unique(orders["o_orderpriority"].astype("U"), return_inverse=True)
+    cnt = np.bincount(inv.reshape(-1)[sel], minlength=len(prio))
+    present = np.nonzero(cnt)[0]
+    return {"o_orderpriority": [str(prio[i]) for i in present], "order_count": [int(cnt[i]) for i in present]}
+
+
+def phase_q3(torch, frames: dict, want: dict) -> dict:
+    from polars_tpu_torch.testing import pdsh
+
+    cust, orders, line = frames["customer"], frames["orders_q3"], frames["lineitem"]
+    r = run_query(torch, "q3", lambda: pdsh.q3(cust, orders, line))
+    schema = [(k, repr(v)) for k, v in r["out"].schema.items()]
+    expect = [("l_orderkey", "Int64"), ("revenue", "Float64"), ("o_orderdate", "Date"), ("o_shippriority", "Int64")]
+    if schema != expect:
+        raise AssertionError(f"Q3 schema {schema} != {expect}")
+    worst = check_q3(r["out"], want)
+    n = line.height
+    res = {"phase": "q3", "rows": {"lineitem": n, "orders": orders.height, "customer": cust.height},
+           "joined_rows": want["rows"], "groups": want["groups"], "first_collect_s": r["first_collect_s"],
+           "warm_wall_s": r["warm_wall_s"], "warm_walls_s": r["warm_walls_s"],
+           "rows_per_s": (n + orders.height + cust.height) / r["warm_wall_s"],  # input rows of all tables
+           "launches": r["launches"], "peak_device_bytes": r["peak_device_bytes"],
+           "max_rel_err_vs_numpy": worst, "matches_numpy_oracle": True,
+           "top": r["out"].to_dict(as_series=False)["l_orderkey"], "kernel_calls": r["kernel_calls"]}
+    emit(res)
+    return res
+
+
+def phase_q4(torch, frames: dict, raw: dict) -> dict:
+    from polars_tpu_torch.testing import pdsh
+
+    orders, line = frames["orders_q4"], frames["lineitem"]
+    r = run_query(torch, "q4", lambda: pdsh.q4(orders, line))
+    want = q4_oracle(raw)
+    schema = [(k, repr(v)) for k, v in r["out"].schema.items()]
+    if schema != [("o_orderpriority", "String"), ("order_count", "UInt32")]:
+        raise AssertionError(f"Q4 schema {schema}")
+    got = r["out"].to_dict(as_series=False)
+    if got != want:
+        raise AssertionError(f"Q4 {got} != {want}")
+    res = {"phase": "q4", "rows": {"orders": orders.height, "lineitem": line.height},
+           "first_collect_s": r["first_collect_s"], "warm_wall_s": r["warm_wall_s"],
+           "warm_walls_s": r["warm_walls_s"],
+           "rows_per_s": (orders.height + line.height) / r["warm_wall_s"],  # input rows of both tables
+           "launches": r["launches"], "peak_device_bytes": r["peak_device_bytes"], "result": got,
+           "matches_numpy_oracle": True, "kernel_calls": r["kernel_calls"]}
     emit(res)
     return res
 
@@ -484,33 +727,44 @@ def main() -> int:
     card = card_line()
     phase_build()
     raw, t_gen = generate(args.scale, args.seed)
-    ship = raw["l_shipdate"].astype("datetime64[D]").astype(np.int64)
-    q1_density = float(np.mean(ship <= Q1_DAYS))  # Q1's own filter density
-    kern = phase_kernels(torch, dev, args.seed, q1_density, len(ship))
-    del ship
-    q1, df = phase_q1(torch, pl, dev, raw, t_gen, args.scale)
-    phase_filter(torch, pl, raw, df)
-    del df, raw
+    line = raw["lineitem"]
+    q1_density = float(np.mean(_days(line["l_shipdate"]) <= Q1_DAYS))  # Q1's own filter density
+    kern = phase_kernels(torch, dev, args.seed, q1_density, len(line["l_shipdate"]))
+    frames, fr = phase_frames(torch, pl, dev, raw)
+    q1 = phase_q1(torch, line, frames["lineitem"], t_gen, fr["build_s"]["lineitem"], args.scale)
+    flt = phase_filter(torch, pl, line, frames["lineitem"])
+    q3 = phase_q3(torch, frames, q3_oracle(raw, q3_rows(raw)))
+    q4 = phase_q4(torch, frames, raw)
+    del frames, raw, line
 
+    runs = {"q1": q1, "filter": flt, "q3": q3, "q4": q4}
+    # every call the main path made, as held above: the shape and the times
+    calls = {name: [{"query": q, **{key: c[key] for key in c if key not in ("kernel", "plan")}}
+                    for q, r in runs.items() for c in r["kernel_calls"] if c["kernel"] == name]
+             for name in ("groupagg_sums", "compact")}
     k1, k2 = kern["k1"], kern["k2"]
+    k1_q3 = next(c for c in calls["groupagg_sums"] if c["query"] == "q3")
     kernels = [
         {
             "name": "groupagg_sums", "route": "cuda", "source": "polars_tpu_torch/csrc/groupagg.cu",
             "replaces": "polars_tpu/kernels/pallas_groupagg.py:49",
-            "launches": q1["launches"]["groupagg_sums"],
-            "max_abs_err": kern["k1_err"],
+            "launches": sum(r["launches"]["groupagg_sums"] for r in runs.values()),
+            "launches_per_query": {q: r["launches"]["groupagg_sums"] for q, r in runs.items()},
+            "max_abs_err": max([kern["k1_err"]] + [c["max_abs_err"] for c in calls["groupagg_sums"]]),
             "ms": k1["ms"], "kernel_ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
             "bound_by": k1["bound_by"], "library_ms": k1["library_ms"],
             "shape": f"n={k1['n']} cap=12 k=5 f64 (Q1's float batch)",
+            "q3_shape": k1_q3, "main_path_calls": calls["groupagg_sums"],
         },
         {
             "name": "compact", "route": "cuda", "source": "polars_tpu_torch/csrc/compact.cu",
             "replaces": "polars_tpu/kernels/pallas_compact.py:49",
-            "launches": q1["launches"]["compact"],
-            "max_abs_err": kern["k2_err"],
+            "launches": sum(r["launches"]["compact"] for r in runs.values()),
+            "launches_per_query": {q: r["launches"]["compact"] for q, r in runs.items()},
+            "max_abs_err": max([kern["k2_err"]] + [c["max_abs_err_bits"] for c in calls["compact"]]),
             "ms": k2["ms"], "kernel_ms": k2["ms"], "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
             "bound_by": k2["bound_by"], "library_ms": k2["library_ms"],
-            "shape": f"n={k2['n']} 1 x f64, Q1 filter density",
+            "shape": f"n={k2['n']} 1 x f64, Q1 filter density", "main_path_calls": calls["compact"],
         },
     ]
     emit({"kernels": kernels})

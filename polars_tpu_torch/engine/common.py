@@ -41,7 +41,10 @@ class GroupCtx:
     num_groups: torch.Tensor  # 0-d int32 tensor, stays on the device
     capacity: int  # static upper bound on the group count
     group_valid: torch.Tensor  # (capacity,) bool — slot < num_groups
-    counts: torch.Tensor  # (capacity,) int64 — rowmask rows per group (0 past num_groups)
+    # (capacity,) int64 — rowmask rows per group (0 past num_groups); the
+    # dense path has them from its occupancy pass, the sorted path takes them
+    # on first use (groupby.group_counts)
+    counts: torch.Tensor | None = None
     # dense path: the key slot of each group (decodes the key codes without
     # a pass over the rows)
     slots: torch.Tensor | None = None
@@ -71,6 +74,13 @@ class EvalCtx:
     def add_flag(self, flag: torch.Tensor, msg: str) -> None:
         if self.flags is not None:
             self.flags.append((flag, msg))
+
+
+def take_lut(lut, codes: torch.Tensor) -> torch.Tensor:
+    """``lut[codes]`` for a host lookup table (a numpy array indexed by
+    dictionary code), on the codes' device; codes are clamped into it."""
+    t = torch.as_tensor(lut).to(codes.device)
+    return t.index_select(0, codes.clamp(0, max(len(lut) - 1, 0)).reshape(-1).long()).reshape(codes.shape)
 
 
 def combine_validity(*vals: torch.Tensor | None) -> torch.Tensor | None:

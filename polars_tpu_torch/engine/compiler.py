@@ -1,8 +1,9 @@
 """Expression evaluator: AST node -> tensors (the port of
 ``polars_tpu/engine/compiler.py``'s ``eval_expr``, trimmed to columns,
-literals (numeric, bool, null and date), arithmetic and comparison with
-Polars type promotion, Kleene ``&``/``|``, aliases and the sum, mean, min,
-max, count and len aggregations).
+literals (numeric, bool, null, date and string), arithmetic and comparison
+with Polars type promotion, string comparison across dictionaries, Kleene
+``&``/``|``, aliases and the sum, mean, min, max, count and len
+aggregations).
 
 Where the JAX package traces into one XLA program, the port runs each op
 eagerly on the tensors of the segment; ``Val.domain`` still tracks per-row,
@@ -17,11 +18,12 @@ import torch
 from polars_tpu_torch import datatypes as dt
 from polars_tpu_torch.engine import groupby as G
 from polars_tpu_torch.engine.cast import cast_val, float_values, int_scalar, order_word, wrap_unsigned
-from polars_tpu_torch.engine.common import GROUP, ROW, SCALAR, EvalCtx, Val, broadcast_pair, combine_validity
+from polars_tpu_torch.engine.common import GROUP, ROW, SCALAR, EvalCtx, Val, broadcast_pair, combine_validity, take_lut
 from polars_tpu_torch.errors import ColumnNotFoundError, InvalidOperationError
 from polars_tpu_torch.kernels.fastmath import div_any, floordiv_any, floordiv_u64, mod_any, mod_u64
 from polars_tpu_torch.plan import exprs as E
 from polars_tpu_torch.plan.schema_resolve import binary_dtype, dyn_literal_value, fit_dyn_dtype, supertype
+from polars_tpu_torch.utils import strtable
 
 _CMP = {"==", "!=", "<", "<=", ">", ">="}
 
@@ -55,7 +57,7 @@ def _eval_expr_uncached(node: E.ENode, ctx: EvalCtx) -> Val:
     if isinstance(node, E.ELen):
         if ctx.groups is None:
             raise NotImplementedError("pl.len() outside a group-by is not ported yet (port queue: expression breadth)")
-        return Val(ctx.groups.counts, None, dt.UInt32(), None, GROUP)
+        return Val(G.group_counts(ctx.groups, ctx.rowmask), None, dt.UInt32(), None, GROUP)
     raise InvalidOperationError(f"cannot evaluate {type(node).__name__}")
 
 
@@ -92,7 +94,11 @@ def _eval_literal(node: E.ELiteral, ctx: EvalCtx) -> Val:
         if isinstance(dtype, dt.Date):
             days = int(np.datetime64(value, "D").astype(np.int64))
             return Val(torch.tensor([days], dtype=torch.int32, device=ctx.device), None, dtype, None, SCALAR)
-        raise NotImplementedError("string literals are not ported yet (port queue: rest of PDS-H)")
+        if dtype is not None and not isinstance(dtype, dt.String):
+            raise NotImplementedError(f"{dtype!r} literals are not ported yet (port queue: rest of PDS-H)")
+        # a one-entry sorted dictionary; code 0
+        table = strtable.StringTable(np.asarray([value], object), sorted_order=True)
+        return Val(torch.zeros(1, dtype=torch.int32, device=ctx.device), None, dt.String(), table, SCALAR)
     d = dtype if dtype is not None else _lit_dtype(value)
     return Val(int_scalar(value, d, ctx.device), None, d, None, SCALAR)
 
@@ -184,15 +190,51 @@ def _arith(op: str, a: Val, b: Val, out_dt: dt.DataType):
     return wrap_unsigned(values, out_dt), validity
 
 
+def _scalar_one_table(v: Val) -> bool:
+    """A SCALAR with a one-entry dictionary: a string literal."""
+    return v.domain == SCALAR and v.table is not None and len(v.table) == 1
+
+
+def _compare_vs_scalar_lut(op: str, a: Val, b: Val, dom: str) -> Val:
+    """Ordering compare of a dictionary column against ONE host-known string
+    through a host bool table over the dictionary (O(|dict|) compares)."""
+    flip = {"<": ">", ">": "<", "<=": ">=", ">=": "<="}
+    if _scalar_one_table(b) and not _scalar_one_table(a):
+        col, lit, opx = a, b.table.values[0], op
+    else:
+        col, lit, opx = b, a.table.values[0], flip[op]
+    vals = col.table.values
+    lut = {"<": vals < lit, "<=": vals <= lit, ">": vals > lit, ">=": vals >= lit}[opx]
+    values = take_lut(np.asarray(lut, dtype=bool), col.values)
+    validity = combine_validity(a.validity, b.validity)
+    if validity is not None and validity.shape != values.shape:
+        validity = validity.expand(values.shape)
+    return Val(values, validity, dt.Boolean(), None, dom)
+
+
+def _string_codes(op: str, a: Val, b: Val) -> tuple[torch.Tensor, torch.Tensor]:
+    """The two operands' codes in one code space. Equality probes the smaller
+    dictionary into the larger one's codes (-1 = absent, never equal to a
+    valid code); ordering unifies both into one sorted dictionary."""
+    if a.table is b.table:
+        return a.values, b.values
+    if op in ("==", "!="):
+        if len(a.table) == 0 or len(b.table) == 0:  # an empty dictionary: codes never equal
+            return a.values, torch.full_like(b.values, -1)
+        if len(b.table) <= len(a.table):
+            return a.values, take_lut(strtable.index_in(b.table.values, a.table.values), b.values)
+        return take_lut(strtable.index_in(a.table.values, b.table.values), a.values), b.values
+    _, lmap, rmap = strtable.unify(a.table, b.table, require_ordinal=True)
+    return take_lut(lmap, a.values), take_lut(rmap, b.values)
+
+
 def _eval_compare(op: str, a: Val, b: Val, dom: str) -> Val:
     if (a.table is not None) != (b.table is not None):
         raise InvalidOperationError(f"cannot compare {a.dtype!r} with {b.dtype!r}")
     if a.table is not None:
-        if a.table is not b.table:
-            raise NotImplementedError(
-                "comparing strings across dictionaries is not ported yet (port queue: rest of PDS-H)"
-            )
-        av, bv = a.values, b.values
+        if op not in ("==", "!=") and (_scalar_one_table(a) or _scalar_one_table(b)):
+            return _compare_vs_scalar_lut(op, a, b, dom)
+        av, bv = _string_codes(op, a, b)
     else:
         st = supertype(a.dtype, b.dtype)
         # UInt64 bit patterns compare as unsigned once their sign bit is flipped
@@ -239,7 +281,7 @@ def _eval_agg(node: E.EAgg, ctx: EvalCtx) -> Val:
     gids, rowmask, cap = ctx.groups.gids, ctx.rowmask, ctx.groups.capacity
     kind = node.kind
     if kind == "len":
-        return Val(ctx.groups.counts, None, dt.UInt32(), None, GROUP)
+        return Val(G.group_counts(ctx.groups, ctx.rowmask), None, dt.UInt32(), None, GROUP)
     v = eval_expr(node.input, ctx)
     if v.domain == GROUP:
         raise InvalidOperationError("nested aggregations are not supported")

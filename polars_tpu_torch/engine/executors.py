@@ -2,8 +2,10 @@
 ``polars_tpu/engine/executors.py``: ``TTable``, ``trace_node``,
 ``_trace_groupby``, ``_batch_aggs`` and ``run_segment``).
 
-A segment is a chain of filter/select/with_columns/group-by/sort nodes over
-its leaf frames. Filters only narrow a row mask; group-by outputs stay
+A segment is a tree of filter/select/with_columns/group-by/sort/slice nodes
+and validated joins over its leaf frames. Filters, slices and semi/anti joins
+only narrow a row mask; a 1:m or m:1 join gathers the build side's columns to
+the probe rows (``engine/join_traced.py``); group-by outputs stay
 capacity-sized with the group count on the device. The segment ends in one
 compaction of every output column (kernel K2), whose survivor count is the
 segment's single host read-back. The JAX package compiles each segment into
@@ -27,13 +29,14 @@ from polars_tpu_torch.engine import groupby as G
 from polars_tpu_torch.engine.cast import float_values, wrap_unsigned
 from polars_tpu_torch.engine.common import GROUP, ROW, SCALAR, EvalCtx, Val
 from polars_tpu_torch.engine.compiler import _agg_out_dtype, eval_expr
+from polars_tpu_torch.engine.join_traced import trace_join
 from polars_tpu_torch.engine.sort import apply_perm, sort_perm
 from polars_tpu_torch.errors import ComputeError, InvalidOperationError, ShapeError
 from polars_tpu_torch.kernels.compact import compact
 from polars_tpu_torch.kernels.groupagg import groupagg_sums
 from polars_tpu_torch.plan import exprs as E
 from polars_tpu_torch.plan import logical as L
-from polars_tpu_torch.plan.schema_resolve import expand_exprs, node_schema
+from polars_tpu_torch.plan.schema_resolve import expand_exprs, expr_dtype, node_schema
 
 # ---------------------------------------------------------------------------
 # segment table
@@ -49,11 +52,28 @@ class TTable:
         return Schema([(n, v.dtype) for n, v in self.cols.items()])
 
 
-_FUSABLE = (L.LFilter, L.LSelect, L.LWithColumns, L.LSort, L.LGroupBy)
+_FUSABLE = (L.LFilter, L.LSelect, L.LWithColumns, L.LSlice, L.LSort, L.LGroupBy, L.LJoin)
+
+
+def _join_fusable(node: L.LJoin) -> bool:
+    """Joins whose output has a static size run inside the segment: m:1/1:1
+    (and inner 1:m, flipped) have at most one build row per probe row, and a
+    semi/anti join keeps a subset of the left rows. An unvalidated semi/anti
+    join needs an exact key comparison (one non-float key): the matcher
+    verifies only the first candidate of a run of equal hashes."""
+    if node.validate in ("m:1", "1:1"):
+        return node.how in ("inner", "left", "semi", "anti")
+    if node.validate == "1:m":
+        return node.how == "inner"
+    if node.how in ("semi", "anti") and len(node.left_on) == 1 and not node.nulls_equal:
+        lt = expr_dtype(node.left_on[0], node_schema(node.input_left))
+        rt = expr_dtype(node.right_on[0], node_schema(node.input_right))
+        return not lt.is_float() and not rt.is_float()
+    return False
 
 
 def _is_fusable(node: L.LNode) -> bool:
-    return isinstance(node, _FUSABLE)
+    return isinstance(node, _FUSABLE) and (not isinstance(node, L.LJoin) or _join_fusable(node))
 
 
 class _TraceCtx:
@@ -61,7 +81,9 @@ class _TraceCtx:
 
     def __init__(self, leaf_tables: dict[int, TTable]):
         self.leaf_tables = leaf_tables  # id(node) -> TTable
-        self.flags: list = []  # (bool 0-d tensor, message): validation failures
+        # validation failures: (bool 0-d tensor, message); a message of None
+        # is a join's cardinality check
+        self.flags: list = []
 
 
 def _eval_ctx(tt: TTable, tc: _TraceCtx) -> EvalCtx:
@@ -81,6 +103,28 @@ def _as_rows(v: Val, rows: int) -> Val:
 def trace_node(node: L.LNode, tc: _TraceCtx) -> TTable:
     if id(node) in tc.leaf_tables:
         return tc.leaf_tables[id(node)]
+
+    if isinstance(node, L.LJoin):
+        tt_l = trace_node(node.input_left, tc)
+        tt_r = trace_node(node.input_right, tc)
+
+        def eval_key(e, tt):
+            return eval_expr(expand_exprs((e,), tt.schema())[0], _eval_ctx(tt, tc))
+
+        cols, rowmask, bad = trace_join(node, tt_l, tt_r, eval_key)
+        tc.flags.append((bad, None))
+        return TTable(cols, rowmask)
+
+    if isinstance(node, L.LSlice):
+        tt = trace_node(node.input, tc)
+        rank = torch.cumsum(tt.rowmask, 0, dtype=torch.int64)  # 1-based among the rows kept
+        total = rank[-1:] if rank.shape[0] else torch.zeros(1, dtype=torch.int64, device=rank.device)
+        if node.offset < 0:
+            start = (total + node.offset).clamp(min=0)
+        else:
+            start = total.clamp(max=node.offset)
+        stop = total if node.length is None else torch.minimum(start + node.length, total)
+        return TTable(tt.cols, tt.rowmask & (rank > start) & (rank <= stop))
 
     if isinstance(node, L.LFilter):
         tt = trace_node(node.input, tc)
@@ -115,7 +159,10 @@ def trace_node(node: L.LNode, tc: _TraceCtx) -> TTable:
         perm = sort_perm(key_vals, desc, nl, tt.rowmask)
         cols = {n: apply_perm(v, perm) for n, v in tt.cols.items()}
         # masked-out rows sort last, so the mask becomes a prefix
-        return TTable(cols, tt.rowmask.index_select(0, perm))
+        mask = tt.rowmask.index_select(0, perm)
+        if node.limit is not None:
+            mask[node.limit:] = False
+        return TTable(cols, mask)
 
     if isinstance(node, L.LGroupBy):
         return _trace_groupby(trace_node(node.input, tc), node, tc)
@@ -176,20 +223,28 @@ def _trace_groupby(tt: TTable, node: L.LGroupBy, tc: _TraceCtx) -> TTable:
         for s in sizes:
             prod *= s + 1
         dense_ok = prod <= DENSE_MAX_CAP
-    if not dense_ok:
-        G.sorted_group_ctx([kv for _, kv in key_vals], tt.rowmask)  # raises: later slice
+    if dense_ok:
+        gctx = G.dense_group_ctx([kv for _, kv in key_vals], tt.rowmask, sizes)
+    else:
+        gctx = G.sorted_group_ctx([kv for _, kv in key_vals], tt.rowmask)
     if node.maintain_order:
-        raise NotImplementedError(
-            "group_by(maintain_order=True) is not ported yet (port queue: Q3/Q4 slice)"
-        )
-    gctx = G.dense_group_ctx([kv for _, kv in key_vals], tt.rowmask, sizes)
+        gctx = G.reorder_by_first_occurrence(gctx, tt.rowmask)
 
     out_cols: dict[str, Val] = {}
-    for i, (name, kv) in enumerate(key_vals):
-        code = _decode_dense_key(gctx, sizes, i)
-        values = (code.clamp(min=0) > 0) if isinstance(kv.dtype, dt.Boolean) else code.clamp(min=0).to(kv.values.dtype)
-        validity = None if kv.validity is None else code >= 0
-        out_cols[name] = Val(values, validity, kv.dtype, kv.table, ROW)
+    if dense_ok:
+        # keys decoded from each group's dense slot: no pass over the rows
+        for i, (name, kv) in enumerate(key_vals):
+            code = _decode_dense_key(gctx, sizes, i)
+            values = (code.clamp(min=0) > 0) if isinstance(kv.dtype, dt.Boolean) else code.clamp(min=0).to(kv.values.dtype)
+            validity = None if kv.validity is None else code >= 0
+            out_cols[name] = Val(values, validity, kv.dtype, kv.table, ROW)
+    else:
+        # keys read at each group's first row
+        rep_idx, rep_has = G.seg_first_idx(tt.rowmask, gctx.gids, gctx.capacity)
+        for name, kv in key_vals:
+            values = kv.values.index_select(0, rep_idx)
+            validity = None if kv.validity is None else kv.validity.index_select(0, rep_idx) & rep_has
+            out_cols[name] = Val(values, validity, kv.dtype, kv.table, ROW)
 
     gctx_ctx = EvalCtx(
         cols=dict(tt.cols), rowmask=tt.rowmask, groups=gctx, memo={}, flags=tc.flags,
@@ -218,9 +273,10 @@ def _batch_aggs(aggs, ctx: EvalCtx) -> dict:
     The JAX version materializes ``where(mask, v, 0)`` per column and a
     column of ones per mean. Here the kernel applies the segment's row mask
     itself; a column with its own validity is ``where``-masked before the
-    call, and every count over the row mask reads the group counts that
-    ``dense_group_ctx`` already took. Columns that evaluate to the same
-    tensor under the same mask are summed once.
+    call, and every count over the row mask reads the group counts
+    (``groupby.group_counts``: the dense path's occupancy pass already took
+    them). Columns that evaluate to the same tensor under the same mask are
+    summed once.
     """
     gctx = ctx.groups
     cap = gctx.capacity
@@ -286,7 +342,7 @@ def _batch_aggs(aggs, ctx: EvalCtx) -> dict:
             else:  # exact integer/bool sums in i64
                 jobs.append((sub, "sum", v, (value_slot(v, "i"),)))
 
-    tables = {"rows": gctx.counts[:, None]}
+    tables = {}
     if f_cols:
         tables["f"] = groupagg_sums(gctx.gids, f_cols, ctx.rowmask, cap)
     if i_cols:
@@ -294,6 +350,8 @@ def _batch_aggs(aggs, ctx: EvalCtx) -> dict:
 
     def col(s):
         batch, idx = s
+        if batch == "rows":
+            return G.group_counts(gctx, ctx.rowmask)
         return tables[batch][:, idx]
 
     out: dict = {}
@@ -313,7 +371,7 @@ def _batch_aggs(aggs, ctx: EvalCtx) -> dict:
 
     for node_a, v in minmax:
         m = ctx.rowmask if v.validity is None else (ctx.rowmask & v.validity)
-        has = (gctx.counts if v.validity is None else G.seg_count(m, gctx.gids, cap)) > 0
+        has = (G.group_counts(gctx, ctx.rowmask) if v.validity is None else G.seg_count(m, gctx.gids, cap)) > 0
         out[node_a] = Val(G.seg_extreme(node_a.kind, v, m, gctx.gids, cap), has, v.dtype, v.table, GROUP)
     return out
 
@@ -333,15 +391,21 @@ def _raise_flags(tt: TTable, flags: list) -> None:
     the flag's index in the high word (earliest flag wins), as in the JAX
     package: one host read for all of them. Each flag encodes the TRUE count:
     the JAX loop re-negates an already negated count, so two raised flags
-    cancel there."""
+    cancel there. A flag with a message raises InvalidOperationError; a
+    join's cardinality flag (no message) raises ComputeError, as in the JAX
+    package."""
     count = tt.rowmask.sum().to(torch.int64)
     code = count
     for i in range(len(flags) - 1, -1, -1):
         code = torch.where(flags[i][0], -(count + 1 + (i << 32)), code)
     n = int(code)
     if n < 0:
-        idx = (-n - 1) >> 32
-        raise InvalidOperationError(flags[idx][1])
+        msg = flags[(-n - 1) >> 32][1]
+        if msg is not None:
+            raise InvalidOperationError(msg)
+        raise ComputeError(
+            "in-trace validation failed: join keys do not satisfy the declared m:1/1:1/1:m cardinality"
+        )
 
 
 def run_segment(node: L.LNode, leaf_dfs: list[tuple[L.LNode, DataFrame]]) -> DataFrame:

@@ -2,8 +2,11 @@
 port of ``polars_tpu/engine/groupby.py``).
 
 The dense (perfect-hash) path maps dictionary-coded and bool keys to slots
-of a small key domain, ranks the occupied slots and never sorts. Group sums
-and counts go through kernel K1 (``kernels/groupagg.py``); min/max use
+of a small key domain, ranks the occupied slots and never sorts. The sorted
+path (any other keys) sorts the rows by their order-encoded key words, marks
+where a key differs from the previous row and numbers the groups in key
+order; its capacity is the row count. Group sums and counts go through
+kernel K1 (``kernels/groupagg.py``); min/max and first rows use
 ``Tensor.scatter_reduce``, as the JAX package has no kernel for them. The
 only data-dependent value, ``num_groups``, stays on the device until the
 segment's compaction.
@@ -15,6 +18,7 @@ import torch
 
 from polars_tpu_torch.engine.cast import order_word
 from polars_tpu_torch.engine.common import GroupCtx, Val
+from polars_tpu_torch.kernels.argsort import boundaries_from_words, key_words, stable_argsort_words
 from polars_tpu_torch.kernels.fastmath import div_any
 from polars_tpu_torch.kernels.groupagg import groupagg_sums
 
@@ -74,10 +78,64 @@ def dense_group_ctx(keys: list[Val], rowmask: torch.Tensor, sizes: list[int]) ->
 
 
 def sorted_group_ctx(keys: list[Val], rowmask: torch.Tensor) -> GroupCtx:
-    raise NotImplementedError(
-        "sort-based group-by (keys that are not dictionary-coded or bool, or key "
-        "domains above the dense capacity) is not ported yet (port queue: Q3/Q4 slice)"
+    """Sort-based grouping over order-encoded key words: rows outside the
+    mask sort last, nulls first within a key. Groups are numbered in key
+    order; capacity is the row count.
+
+    A key without nulls contributes no null word (a constant word does not
+    change the stable sort or the boundaries), and a null key's value word is
+    zeroed, so that all its nulls form one group whatever lies under them."""
+    n = rowmask.shape[0]
+    words: list[torch.Tensor] = [(~rowmask).to(torch.int8)]  # masked rows last
+    for k in keys:
+        kw = key_words(k.values, k.dtype)
+        if k.validity is not None:
+            words.append((~k.validity).to(torch.int8))  # nulls first
+            kw = [torch.where(k.validity, w, torch.zeros((), dtype=w.dtype, device=w.device)) for w in kw]
+        words.extend(kw)
+    perm = stable_argsort_words(words)
+    valid_sorted = rowmask.index_select(0, perm)
+    boundary = valid_sorted & boundaries_from_words(words[1:], perm)
+    # rows outside the mask (sorted last) keep their own position as id:
+    # never a group's, and spread over the slots for the scatters that
+    # read every row
+    pos = torch.arange(n, dtype=torch.int32, device=rowmask.device)
+    gid_sorted = torch.where(valid_sorted, torch.cumsum(boundary, 0, dtype=torch.int32) - 1, pos)
+    num_groups = boundary.sum(dtype=torch.int32)
+    gids = torch.empty(n, dtype=torch.int32, device=rowmask.device).index_copy_(0, perm, gid_sorted)
+    return GroupCtx(
+        gids=gids,
+        num_groups=num_groups,
+        capacity=n,
+        group_valid=torch.arange(n, device=rowmask.device) < num_groups,
     )
+
+
+def reorder_by_first_occurrence(ctx: GroupCtx, rowmask: torch.Tensor) -> GroupCtx:
+    """Renumber the groups by their first row (``maintain_order=True``);
+    per-group tables the context carries are permuted alike."""
+    cap = ctx.capacity
+    first_row, has = seg_first_idx(rowmask, ctx.gids, cap)
+    first_row = torch.where(has, first_row, 2**31 - 1)
+    order = stable_argsort_words([first_row])  # new id -> old id; empty slots last
+    inv = torch.empty(cap, dtype=torch.int32, device=rowmask.device).index_copy_(
+        0, order, torch.arange(cap, dtype=torch.int32, device=rowmask.device)
+    )
+    return GroupCtx(
+        gids=inv.index_select(0, ctx.gids.clamp(0, cap - 1)),  # ids of masked rows are never read
+        num_groups=ctx.num_groups,
+        capacity=cap,
+        group_valid=ctx.group_valid,
+        counts=None if ctx.counts is None else ctx.counts.index_select(0, order),
+        slots=None if ctx.slots is None else ctx.slots.index_select(0, order),
+    )
+
+
+def group_counts(ctx: GroupCtx, rowmask: torch.Tensor) -> torch.Tensor:
+    """Rows per group (int64), from one K1 count pass on first use."""
+    if ctx.counts is None:
+        ctx.counts = seg_count(rowmask, ctx.gids, ctx.capacity)
+    return ctx.counts
 
 
 # ---------------------------------------------------------------------------
@@ -98,8 +156,11 @@ def seg_count(mask: torch.Tensor, gids: torch.Tensor, cap: int) -> torch.Tensor:
 
 
 def _scatter_extreme(x: torch.Tensor, gids: torch.Tensor, mask: torch.Tensor, cap: int, reduce: str, ident):
+    """Per-group ``reduce`` of ``x``; callers put ``ident`` in the rows outside
+    ``mask``, so those rows may land in any slot: their ids are only clamped
+    into range, not sent to one slot, whose atomics would serialize."""
     work = x.to(torch.uint8) if x.dtype == torch.bool else x
-    idx = torch.where(mask, gids, 0).long()
+    idx = gids.clamp(0, cap - 1).long()
     out = torch.full((cap,), ident, dtype=work.dtype, device=x.device)
     out.scatter_reduce_(0, idx, work, reduce, include_self=True)
     return out.to(x.dtype)

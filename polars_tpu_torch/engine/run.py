@@ -1,6 +1,9 @@
 """Plan execution entry (the port of ``polars_tpu/engine/run.py``'s
 ``execute_plan`` and ``_execute_node``, for in-memory scans and fused
-segments; every other node kind belongs to a later slice)."""
+segments; every other node kind belongs to a later slice).
+
+A segment's leaves are the nearest non-fusable nodes below it, each run once
+(a frame joined with itself is one leaf), on both sides of every join."""
 
 from __future__ import annotations
 
@@ -35,4 +38,9 @@ def _execute_node(node: L.LNode) -> DataFrame:
         collect(node)
         return run_segment(node, leaves)
 
+    if isinstance(node, L.LJoin):
+        raise NotImplementedError(
+            f"a {node.how} join with validate={node.validate!r} sizes its output on the host, "
+            "which is not ported yet (port queue: host-sized joins)"
+        )
     raise NotImplementedError(f"executing {type(node).__name__} is not ported yet")

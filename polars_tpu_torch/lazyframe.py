@@ -1,9 +1,11 @@
 """LazyFrame: the lazy query builder (the port of
 ``polars_tpu/lazyframe.py``, trimmed to ``filter``, ``select``,
-``with_columns``, ``group_by().agg``, ``sort`` and ``collect``).
+``with_columns``, ``group_by().agg``, ``sort``, ``join``, ``slice``/``head``/
+``limit`` and ``collect``).
 
 ``collect`` runs the plan as written: the port has no optimizer yet, and no
-rewrite in the JAX package's optimizer changes what Q1 computes.
+rewrite in the JAX package's optimizer changes what Q1, Q3 or Q4 compute
+(inside one fused segment a filter is a row mask above or below a join alike).
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from typing import Any
 
 from polars_tpu_torch.core.frame import DataFrame
 from polars_tpu_torch.core.schema import Schema
+from polars_tpu_torch.errors import InvalidOperationError
 from polars_tpu_torch.expr.expr import parse_into_expr_list
 from polars_tpu_torch.plan import exprs as E
 from polars_tpu_torch.plan import logical as L
@@ -89,6 +92,43 @@ class LazyFrame:
 
     def group_by(self, *by: Any, maintain_order: bool = False) -> LazyGroupBy:
         return LazyGroupBy(self, tuple(parse_into_expr_list(list(by))), maintain_order)
+
+    def slice(self, offset: int, length: int | None = None) -> LazyFrame:
+        return self._wrap(L.LSlice(self._node, offset, length))
+
+    def head(self, n: int = 5) -> LazyFrame:
+        return self.slice(0, n)
+
+    def limit(self, n: int = 5) -> LazyFrame:
+        return self.head(n)
+
+    def join(
+        self,
+        other: LazyFrame,
+        on: Any = None,
+        how: str = "inner",
+        *,
+        left_on: Any = None,
+        right_on: Any = None,
+        suffix: str = "_right",
+        validate: str = "m:m",
+        nulls_equal: bool = False,
+        coalesce: bool | None = None,
+        maintain_order: str | None = None,
+    ) -> LazyFrame:
+        if how not in ("inner", "left", "semi", "anti"):
+            raise NotImplementedError(f"how={how!r} joins are not ported yet (port queue: host-sized joins)")
+        if on is not None:
+            lo = ro = tuple(parse_into_expr_list([on]))
+        elif left_on is not None and right_on is not None:
+            lo = tuple(parse_into_expr_list([left_on]))
+            ro = tuple(parse_into_expr_list([right_on]))
+        else:
+            raise InvalidOperationError("join requires `on` or `left_on`+`right_on`")
+        return self._wrap(
+            L.LJoin(self._node, other._node, lo, ro, how, suffix, nulls_equal, coalesce,
+                    maintain_order or "none", validate)
+        )
 
 
 class LazyGroupBy:

@@ -87,9 +87,40 @@ class LSort(LNode):
     descending: tuple[bool, ...]
     nulls_last: tuple[bool, ...]
     maintain_order: bool = False
+    limit: int | None = None  # fused top-k; only the optimizer's top-k fusion (not ported yet) sets it
 
     def inputs(self) -> tuple[LNode, ...]:
         return (self.input,)
 
     def exprs(self) -> tuple[ENode, ...]:
         return self.by
+
+
+@dataclass(frozen=True)
+class LJoin(LNode):
+    input_left: LNode
+    input_right: LNode
+    left_on: tuple[ENode, ...]
+    right_on: tuple[ENode, ...]
+    how: str = "inner"  # inner|left|semi|anti in this slice
+    suffix: str = "_right"
+    nulls_equal: bool = False
+    coalesce: bool | None = None
+    maintain_order: str = "none"
+    validate: str = "m:m"  # m:1/1:1 (and inner 1:m) unlock the fused join
+
+    def inputs(self) -> tuple[LNode, ...]:
+        return (self.input_left, self.input_right)
+
+    def exprs(self) -> tuple[ENode, ...]:
+        return (*self.left_on, *self.right_on)
+
+
+@dataclass(frozen=True)
+class LSlice(LNode):
+    input: LNode
+    offset: int
+    length: int | None
+
+    def inputs(self) -> tuple[LNode, ...]:
+        return (self.input,)

@@ -361,8 +361,10 @@ def node_schema(node: L.LNode) -> Schema:
         for n in expand_exprs(node.expressions, in_s):
             out[E.output_name(n) or "literal"] = expr_dtype(n, in_s)
         return out
-    if isinstance(node, (L.LFilter, L.LSort)):
+    if isinstance(node, (L.LFilter, L.LSort, L.LSlice)):
         return node_schema(node.input)
+    if isinstance(node, L.LJoin):
+        return _join_schema(node)
     if isinstance(node, L.LGroupBy):
         in_s = node_schema(node.input)
         out = Schema()
@@ -380,3 +382,30 @@ def node_schema(node: L.LNode) -> Schema:
             out[name] = expr_dtype(a, in_s)
         return out
     raise NotImplementedError(f"{type(node).__name__} is not ported yet")
+
+
+def _join_schema(node: L.LJoin) -> Schema:
+    """Left columns, then right columns: a right key coalesces into its left
+    key, and a name the left side already has takes ``suffix``."""
+    ls = node_schema(node.input_left)
+    rs = node_schema(node.input_right)
+    out = ls.copy()
+    if node.how in ("semi", "anti"):
+        return out
+    coalesce = node.coalesce
+    if coalesce is None:
+        coalesce = node.how in ("inner", "left")
+    right_keys = [E.output_name(e) for e in node.right_on]
+    left_keys = [E.output_name(e) for e in node.left_on]
+    for n, d in rs.items():
+        if coalesce and n in right_keys and left_keys[right_keys.index(n)] in out:
+            continue
+        if n in out:
+            if n + node.suffix in out:
+                raise DuplicateError(
+                    f"column with name {n + node.suffix!r} already exists; pass a different `suffix`"
+                )
+            out[n + node.suffix] = d
+        else:
+            out[n] = d
+    return out

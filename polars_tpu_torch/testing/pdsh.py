@@ -1,6 +1,6 @@
 """PDS-H (TPC-H-derived) data generator + reference queries (copied from
-polars_tpu/testing/pdsh.py: ``generate_pdsh`` unchanged, ``q1`` on this
-package).
+polars_tpu/testing/pdsh.py: ``generate_pdsh`` unchanged, ``q1``, ``q3`` and
+``q4`` on this package).
 
 Seeded numpy generator producing the TPC-H schema at a given scale factor
 (reference test pattern: py-polars/tests/benchmark/data/ + the pdsh logic
@@ -208,4 +208,49 @@ def q1(lineitem):
             count_order=pl.len(),
         )
         .sort("l_returnflag", "l_linestatus")
+    )
+
+
+def q3(customer, orders, lineitem):
+    import polars_tpu_torch as pl
+
+    d = dtm.date(1995, 3, 15)
+    return (
+        customer.lazy()
+        .filter(pl.col("c_mktsegment") == "BUILDING")
+        .join(orders.lazy(), left_on="c_custkey", right_on="o_custkey", validate="1:m")
+        .filter(pl.col("o_orderdate") < d)
+        .join(lineitem.lazy(), left_on="o_orderkey", right_on="l_orderkey", validate="1:m")
+        .filter(pl.col("l_shipdate") > d)
+        .group_by("o_orderkey", "o_orderdate", "o_shippriority")
+        .agg(revenue=(pl.col("l_extendedprice") * (1 - pl.col("l_discount"))).sum())
+        .select(
+            pl.col("o_orderkey").alias("l_orderkey"),
+            "revenue",
+            "o_orderdate",
+            "o_shippriority",
+        )
+        .sort(["revenue", "o_orderdate"], descending=[True, False])
+        .head(10)
+    )
+
+
+def q4(orders, lineitem):
+    import polars_tpu_torch as pl
+
+    return (
+        orders.lazy()
+        .filter(
+            (pl.col("o_orderdate") >= dtm.date(1993, 7, 1))
+            & (pl.col("o_orderdate") < dtm.date(1993, 10, 1))
+        )
+        .join(
+            lineitem.lazy().filter(pl.col("l_commitdate") < pl.col("l_receiptdate")),
+            left_on="o_orderkey",
+            right_on="l_orderkey",
+            how="semi",
+        )
+        .group_by("o_orderpriority")
+        .agg(order_count=pl.len())
+        .sort("o_orderpriority")
     )

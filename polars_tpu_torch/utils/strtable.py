@@ -1,7 +1,7 @@
 """Host-side dictionary value tables for String columns.
 
-Copied from ``polars_tpu/utils/strtable.py`` and trimmed to what this slice
-uses. Device tensors only ever hold dense int32 *codes*; the variable-length
+Copied from ``polars_tpu/utils/strtable.py`` and trimmed to what the ported
+queries use (encoding, ``index_in`` and ``unify``). Device tensors only ever hold dense int32 *codes*; the variable-length
 UTF-8 payload lives on the host in an immutable ``StringTable``. Codes are
 ordinal (code order == lexicographic order), so sorting and comparing codes on
 the device matches string semantics.
@@ -26,12 +26,13 @@ class StringTable:
     lexicographic order.
     """
 
-    __slots__ = ("values", "sorted_order", "ident")
+    __slots__ = ("values", "sorted_order", "ident", "_unify_cache")
 
     def __init__(self, values: np.ndarray, *, sorted_order: bool = False) -> None:
         self.values = np.asarray(values, dtype=object)
         self.sorted_order = sorted_order
         self.ident = next(_NEXT_IDENT)
+        self._unify_cache: dict | None = None  # other table's ident -> unify() result
 
     def __len__(self) -> int:
         return len(self.values)
@@ -87,3 +88,67 @@ def encode_strings(values: np.ndarray) -> tuple[np.ndarray, np.ndarray | None, S
         codes = inv.astype(np.int32).reshape(arr.shape)
     table = StringTable(uniques.astype(object), sorted_order=True)
     return codes, (validity if has_null else None), table
+
+
+def index_in(needles: np.ndarray, haystack: np.ndarray) -> np.ndarray:
+    """Position of each needle in ``haystack`` (-1 if absent), int32: a host
+    hash probe (the JAX package's ``index_in`` uses pyarrow where it can; the
+    machine with the card has none, so this is its dictionary fallback)."""
+    needles = np.asarray(needles, dtype=object)
+    haystack = np.asarray(haystack, dtype=object)
+    if len(needles) == 0:
+        return np.empty(0, np.int32)
+    lk = {v: i for i, v in enumerate(haystack.tolist())}
+    return np.fromiter((lk.get(v, -1) for v in needles.tolist()), np.int32, len(needles))
+
+
+# sorted-merge unification sorts (l + r) strings on the host; above this size
+# unify() switches to the O(l + r) insertion-order merge and returns an
+# unordered table (as polars_tpu/utils/strtable.py does)
+_UNIFY_SORTED_MAX = 1 << 16
+
+
+def unify(
+    left: StringTable, right: StringTable, *, require_ordinal: bool = False
+) -> tuple[StringTable, np.ndarray, np.ndarray]:
+    """Merge two tables; returns (merged, left_remap, right_remap).
+
+    The remaps map old codes to new codes; an EMPTY remap means identity. The
+    merged table is ordinal when both inputs are sorted and small, or when
+    ``require_ordinal`` is set; otherwise it is the insertion-order merge
+    anchored on the older table, so that unify(A, B) and unify(B, A) give
+    every value the same code (join keys unify each side on its own)."""
+    if left is right:
+        ident = np.arange(len(left), dtype=np.int32)
+        return left, ident, ident
+    big = len(left) + len(right) > _UNIFY_SORTED_MAX
+    if not require_ordinal and (big or not (left.sorted_order and right.sorted_order)):
+        if right.ident < left.ident:
+            merged, rmap, lmap = unify(right, left)
+            return merged, lmap, rmap
+        if left._unify_cache is None:
+            left._unify_cache = {}
+        hit = left._unify_cache.get(right.ident)
+        if hit is not None:
+            return hit
+        rpos = index_in(right.values, left.values)
+        missing = rpos < 0
+        n_new = int(missing.sum())
+        rmap = rpos.copy()
+        if n_new:
+            rmap[missing] = len(left) + np.arange(n_new, dtype=np.int32)
+            merged = StringTable(np.concatenate([left.values, right.values[missing]]), sorted_order=False)
+        else:
+            merged = left  # right is a subset of left: keep the left table
+        out = (merged, np.empty(0, np.int32), rmap)
+        left._unify_cache[right.ident] = out
+        return out
+    if not (left.sorted_order and right.sorted_order):
+        raise NotImplementedError(
+            "ordering strings across unordered dictionaries is not ported yet (port queue: rest of PDS-H)"
+        )
+    lv = left.values.astype(str)
+    rv = right.values.astype(str)
+    merged, inv = np.unique(np.concatenate([lv, rv]), return_inverse=True)
+    inv = inv.astype(np.int32).reshape(-1)
+    return StringTable(merged.astype(object), sorted_order=True), inv[: len(lv)], inv[len(lv):]

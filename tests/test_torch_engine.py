@@ -138,5 +138,16 @@ def test_validation_flags_ride_the_count_readback():
 
 
 def test_sorted_group_ctx_names_its_slice():
-    with pytest.raises(NotImplementedError, match="Q3/Q4"):
-        GT.sorted_group_ctx([], torch.ones(3, dtype=torch.bool))
+    """The sort-based group-by (ported with Q3/Q4): without keys every kept
+    row is one group, as in the JAX package; a host-sized join still names
+    its port queue item."""
+    rowmask = np.asarray([False, True, True, False, True])
+    g = GT.sorted_group_ctx([], torch.from_numpy(rowmask))
+    gids_j, num_j, valid_j = jax.jit(lambda m: (lambda c: (c.gids, c.num_groups, c.group_valid))(
+        GJ.sorted_group_ctx([], m)))(jnp.asarray(rowmask))
+    assert int(g.num_groups) == int(num_j) == 1
+    np.testing.assert_array_equal(g.group_valid.numpy(), np.asarray(valid_j))
+    np.testing.assert_array_equal(g.gids.numpy()[rowmask], np.asarray(gids_j)[rowmask])
+    df = polars_tpu_torch.DataFrame({"k": [1, 1, 2]}, device="cpu")
+    with pytest.raises(NotImplementedError, match="host-sized joins"):
+        df.lazy().join(df.lazy(), on="k").collect()
