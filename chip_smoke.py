@@ -23,7 +23,10 @@ Phases, each printed as one JSON line:
                 the same way.
 Each query phase then collects once more with the engine's kernel calls
 kept, and holds every one of them against its plain version on the very
-inputs the query gave it, and times it there (``kernel_calls``);
+inputs the query gave it, and times it there (``kernel_calls``); K2's
+count-and-scan and scatter halves make one kept call, its offsets held
+against the plain count, and at Q3's and the filter's call K2 runs 50 times,
+each run bit for bit against the first;
 then the kernels line, the card's name and power limit, and the final line
 {"ok": true, "device": {...}}. Any failure exits non-zero before that line.
 
@@ -163,22 +166,35 @@ def hold_k1(torch, gids, cols, mask, cap, label) -> dict:
             "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err}
 
 
-def hold_k2(torch, cols, mask, label) -> dict:
-    """K2 on these inputs against its plain version, bit for bit, then both
-    timed beside ``masked_select`` (one column only) and the bound."""
-    from polars_tpu_torch.kernels.compact import compact, compact_plain
+def k2_library(torch, cols, mask):
+    """K2's function as PyTorch calls (the library version that is timed):
+    ``masked_select`` of every column of the call."""
+    return [torch.masked_select(c, mask) for c in cols]
 
-    cnt, err, mismatches = compact_diff(torch, cols, mask, label)
+
+def hold_k2(torch, cols, mask, label, main_offs=None, repeats: int = 1) -> dict:
+    """K2 on these inputs against its plain version, bit for bit (``repeats``
+    runs, each held against the first: a look-back ordering fault shows only
+    now and then), the main path's own offsets ``main_offs`` against the plain
+    count; then the whole compaction (count, host read, scatter), the count
+    alone, the plain version and ``masked_select`` over every column timed
+    beside the bound."""
+    from polars_tpu_torch.kernels.compact import compact, compact_count, compact_count_plain, compact_plain
+
+    cnt, err, mismatches = compact_diff(torch, cols, mask, label, repeats)
     if mismatches:
         raise AssertionError(f"compact {label} disagrees with its plain version in {mismatches} elements")
+    if main_offs is not None and not torch.equal(main_offs, compact_count_plain(mask)):
+        raise AssertionError(f"compact_count {label}: the main path's offsets differ from the plain count")
     n = mask.shape[0]
     ms = cuda_ms(torch, lambda: compact(cols, mask))
+    count_ms = cuda_ms(torch, lambda: compact_count(mask))
     plain_ms = cuda_ms(torch, lambda: compact_plain(cols, mask))
-    library_ms = cuda_ms(torch, lambda: torch.masked_select(cols[0], mask)) if len(cols) == 1 else None
+    library_ms = cuda_ms(torch, lambda: k2_library(torch, cols, mask))
     b_ms, b_by = bound(n + 2 * cnt * sum(c.element_size() for c in cols), cnt, FP64_OPS_PER_S)
     return {"n": n, "count": cnt, "dtypes": [str(c.dtype).replace("torch.", "") for c in cols], "ms": ms,
-            "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "max_abs_err_bits": err, "mismatches": mismatches}
+            "count_ms": count_ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "max_abs_err_bits": err, "mismatches": mismatches, "repeats_bit_for_bit": repeats}
 
 
 def check_groupagg(torch, rng, n, cap, k, i64_cols, density, dev, offsets=(0, 0, 0), poison=False) -> dict:
@@ -229,15 +245,29 @@ def _bits(torch, t):
     return t.view(view) if t.dtype != torch.bool else t.to(torch.int8)
 
 
-def compact_diff(torch, cols, mask, label) -> tuple[int, float, int]:
+def compact_diff(torch, cols, mask, label, repeats: int = 1) -> tuple[int, float, int]:
     """K2 and its plain version on the same inputs: (count, largest
     difference of the bit patterns, wrapping for 8-byte payloads; number of
-    elements whose bits differ). Raises if the counts or shapes differ."""
-    from polars_tpu_torch.kernels.compact import compact, compact_plain
+    elements whose bits differ). The kernel's offsets must equal the plain
+    count's; ``repeats`` - 1 further runs must repeat the first bit for bit.
+    Raises if counts, offsets, shapes or repeats differ."""
+    from polars_tpu_torch.kernels.compact import compact_count, compact_count_plain, compact_plain, compact_scatter
 
-    got, cnt = compact(cols, mask)
+    want_offs = compact_count_plain(mask)
     want, cnt_p = compact_plain(cols, mask)
-    torch.cuda.synchronize()
+    first = None
+    for rep in range(repeats):
+        offs = compact_count(mask)
+        cnt = int(offs[-1])
+        got = compact_scatter(cols, mask, offs, cnt)
+        torch.cuda.synchronize()
+        if not torch.equal(offs, want_offs):
+            raise AssertionError(f"compact_count offsets differ from the plain count ({label}, run {rep})")
+        if first is None:
+            first = got
+        elif not all(torch.equal(_bits(torch, a), _bits(torch, b)) for a, b in zip(got, first)):
+            raise AssertionError(f"compact run {rep} differs from run 0 in its bits ({label})")
+    got = first
     if cnt != cnt_p or any(a.shape != b.shape for a, b in zip(got, want)):
         raise AssertionError(f"compact count {cnt} != plain {cnt_p} ({label})")
     err, mismatches = 0.0, 0
@@ -249,32 +279,36 @@ def compact_diff(torch, cols, mask, label) -> tuple[int, float, int]:
     return cnt, err, mismatches
 
 
-def check_compact(torch, rng, n, mask, dtypes, dev, label="") -> dict:
+def check_compact(torch, rng, n, mask, dtypes, dev, label="", offset=0) -> dict:
     """K2 against its plain version, bit for bit, on one column per entry of
-    ``dtypes`` (random bit patterns: NaN payloads must survive)."""
+    ``dtypes`` (random bit patterns: NaN payloads must survive). ``offset``
+    makes the mask and every column contiguous views that start that many
+    elements into their storage (that many bytes for the mask and the 1-byte
+    columns)."""
     if not isinstance(mask, np.ndarray):
         mask = rng.random(n) < mask
-    width = {torch.bool: 1, torch.int16: 2, torch.int32: 4, torch.int64: 8, torch.float64: 8}
+    width = {torch.bool: 1, torch.int8: 1, torch.int16: 2, torch.int32: 4, torch.int64: 8, torch.float64: 8}
     ints = {1: np.int8, 2: np.int16, 4: np.int32, 8: np.int64}
     cols = []
     for d in dtypes:
         if d == torch.bool:
-            cols.append(torch.as_tensor(rng.random(n) < 0.5).to(dev))
+            cols.append(torch.as_tensor(rng.random(n + offset) < 0.5).to(dev)[offset:])
             continue
         w = width[d]
-        raw = rng.integers(-(2 ** (8 * w - 1)), 2 ** (8 * w - 1) - 1, n, dtype=ints[w])
-        cols.append(torch.as_tensor(raw).to(dev).view(d))
-    mask_t = torch.as_tensor(mask).to(dev)
+        raw = rng.integers(-(2 ** (8 * w - 1)), 2 ** (8 * w - 1) - 1, n + offset, dtype=ints[w])
+        cols.append(torch.as_tensor(raw).to(dev).view(d)[offset:])
+    mask_t = torch.as_tensor(np.concatenate([np.zeros(offset, bool), mask])).to(dev)[offset:]
     cnt, err, mismatches = compact_diff(torch, cols, mask_t, f"n={n}, {label}")
-    res = {"n": n, "label": label, "density": float(mask.mean()) if n else 0.0, "count": cnt,
-           "dtypes": [str(d).replace("torch.", "") for d in dtypes], "max_abs_err_bits": err,
-           "mismatches": mismatches}
+    res = {"n": n, "label": label, "offset": offset, "density": float(mask.mean()) if n else 0.0, "count": cnt,
+           "k": len(dtypes), "dtypes": sorted({str(d).replace("torch.", "") for d in dtypes}),
+           "max_abs_err_bits": err, "mismatches": mismatches}
     if mismatches:
         raise AssertionError(f"compact disagrees with its plain version: {res}")
     return res
 
 
 def phase_kernels(torch, dev, seed: int, q1_density: float, n_main: int) -> dict:
+    from polars_tpu_torch.kernels.compact import CHUNK_ROWS as compact_chunk, TILE_ROWS as compact_tile
     from polars_tpu_torch.kernels.groupagg import MODE_PRIVATE, groupagg_sums, plan
 
     rng = np.random.default_rng(seed)
@@ -318,7 +352,20 @@ def phase_kernels(torch, dev, seed: int, q1_density: float, n_main: int) -> dict
     # with its bool validity, the int64 count) under a random mask
     q1_out = [torch.int32, torch.int32] + [torch.float64] * 4 + [torch.float64, torch.bool] * 3 + [torch.int64]
     checks_k2 = [check_compact(torch, rng, n_main, d, payloads, dev, "payloads") for d in (0.0, 0.5, q1_density, 1.0)]
-    checks_k2 += [check_compact(torch, rng, n, 0.5, payloads, dev, "payloads") for n in (0, 1, 4097)]
+    # edges of a chunk (one offset), of a scatter block (32 chunks) and of a
+    # count tile (one status word), a ragged last tile and a run of many
+    # tiles, at three densities
+    chunk, tile = compact_chunk, compact_tile
+    edges = (0, 1, chunk - 1, chunk, chunk + 1, 32 * chunk - 1, 32 * chunk, 32 * chunk + 1, tile - 1, tile, tile + 1,
+             5 * tile + 77, 1_000_003)
+    checks_k2 += [check_compact(torch, rng, n, d, payloads, dev, "payloads") for n in edges for d in (0.0, 0.5, 1.0)]
+    # mask and columns misaligned: views 1-15 bytes into their storage (the
+    # kernel's byte path), 8-byte columns 1 and 3 elements in
+    checks_k2 += [check_compact(torch, rng, 3 * tile + 5, 0.5, [torch.bool, torch.int8], dev, "view", o)
+                  for o in range(1, 16)]
+    checks_k2 += [check_compact(torch, rng, 3 * tile + 5, 0.5, payloads, dev, "view", o) for o in (1, 3)]
+    # more columns than one launch takes
+    checks_k2.append(check_compact(torch, rng, 1_000_003, q1_density, q1_out * 3, dev, "39 columns"))
     checks_k2.append(check_compact(torch, rng, 12, 0.5, q1_out, dev, "q1 output"))
     emit({"phase": "kernels.compact_checks", "checks": checks_k2})
 
@@ -432,11 +479,13 @@ def phase_frames(torch, pl, dev, raw: dict) -> tuple[dict, dict]:
 def record_kernel_calls(torch, run) -> list:
     """One more collect of the query with the engine's K1 and K2 wrappers
     swapped, for that collect only, for ones that keep each call's inputs
-    and then launch as before. Fails unless every launch of that collect was
-    kept, so that no call site of the engine is missed."""
+    and then launch as before (K2's two halves make one kept call: its mask,
+    the offsets the main path counted, its columns). Fails unless every
+    launch of that collect was kept, so that no call site of the engine is
+    missed."""
     import polars_tpu_torch.engine.executors as executors
     import polars_tpu_torch.engine.groupby as groupby
-    from polars_tpu_torch.kernels.compact import compact
+    from polars_tpu_torch.kernels.compact import compact, compact_count, compact_scatter
     from polars_tpu_torch.kernels.groupagg import groupagg_sums
 
     calls = []
@@ -445,12 +494,19 @@ def record_kernel_calls(torch, run) -> list:
         calls.append(("groupagg_sums", (gids, list(columns), mask, cap)))
         return groupagg_sums(gids, columns, mask, cap)
 
-    def k2(columns, mask):
-        calls.append(("compact", (list(columns), mask)))
-        return compact(columns, mask)
+    def k2_count(mask):
+        offs = compact_count(mask)
+        calls.append(("compact", {"mask": mask, "offs": offs.clone(), "cols": None}))
+        return offs
+
+    def k2_scatter(columns, mask, offs, count):
+        kept = next(c[1] for c in reversed(calls) if c[0] == "compact" and c[1]["mask"] is mask)
+        kept["cols"] = list(columns)
+        return compact_scatter(columns, mask, offs, count)
 
     sites = [(executors, "groupagg_sums", k1, groupagg_sums), (groupby, "groupagg_sums", k1, groupagg_sums),
-             (executors, "compact", k2, compact)]
+             (executors, "compact_count", k2_count, compact_count),
+             (executors, "compact_scatter", k2_scatter, compact_scatter)]
     before = groupagg_sums.launches + compact.launches
     for module, name, recorder, _ in sites:
         setattr(module, name, recorder)
@@ -462,37 +518,45 @@ def record_kernel_calls(torch, run) -> list:
             setattr(module, name, wrapper)
     if groupagg_sums.launches + compact.launches - before != len(calls):
         raise AssertionError(f"{len(calls)} kernel calls kept of {groupagg_sums.launches + compact.launches - before}")
+    if any(c[0] == "compact" and c[1]["cols"] is None for c in calls):
+        raise AssertionError("a K2 count was kept without its scatter")
     return calls
 
 
-def hold_kernel_calls(torch, calls: list, query: str) -> list:
+def hold_kernel_calls(torch, calls: list, query: str, k2_repeats: int = 1) -> list:
     """Each kept call again on its own inputs: the kernel against its plain
-    version, and its times (these launches come after the counts were read)."""
+    version, and its times (these launches come after the counts were read).
+    K2 runs ``k2_repeats`` times, each run held against the first."""
     out = []
     for i, (name, args) in enumerate(calls):
         label = f"{query} call {i}"
-        held = hold_k1(torch, *args, label) if name == "groupagg_sums" else hold_k2(torch, *args, label)
+        if name == "groupagg_sums":
+            held = hold_k1(torch, *args, label)
+        else:
+            held = hold_k2(torch, args["cols"], args["mask"], label, args["offs"], k2_repeats)
         out.append({"kernel": name, **held})
     return out
 
 
-def run_query(torch, query: str, run, need=("groupagg_sums", "compact")) -> dict:
+def run_query(torch, query: str, run, need=("groupagg_sums", "compact", "compact_scatter"), k2_repeats=1) -> dict:
     """The main path for one query: every launch counter at 0 just before the
     first collect (the warm-up), read just after; then five warm collects
     timed on the host clock around ``collect()`` and a synchronize; then one
     more collect whose kernel calls are kept and held against the plain
     versions on the very same inputs."""
-    from polars_tpu_torch.kernels.compact import compact
+    from polars_tpu_torch.kernels.compact import compact, compact_scatter
     from polars_tpu_torch.kernels.groupagg import groupagg_sums
 
     groupagg_sums.launches = 0
     compact.launches = 0
+    compact_scatter.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     out = run().collect()
     torch.cuda.synchronize()
     t_first = time.perf_counter() - t0
-    launches = {"groupagg_sums": groupagg_sums.launches, "compact": compact.launches}
+    launches = {"groupagg_sums": groupagg_sums.launches, "compact": compact.launches,
+                "compact_scatter": compact_scatter.launches}
     if not all(launches[k] for k in need):
         raise AssertionError(f"the query did not launch every kernel of its path: {launches}")
     walls = []
@@ -503,11 +567,12 @@ def run_query(torch, query: str, run, need=("groupagg_sums", "compact")) -> dict
         walls.append(time.perf_counter() - t0)
     peak = torch.cuda.max_memory_allocated()
     calls = record_kernel_calls(torch, run)
-    kept = {k: sum(1 for c in calls if c[0] == k) for k in launches}
-    if kept != launches:
+    kept = {k: sum(1 for c in calls if c[0] == k) for k in ("groupagg_sums", "compact")}
+    if kept != {k: launches[k] for k in kept}:
         raise AssertionError(f"the kept collect launched {kept}, the counted one {launches}")
     return {"out": out, "first_collect_s": t_first, "warm_walls_s": walls, "warm_wall_s": statistics.median(walls),
-            "launches": launches, "peak_device_bytes": peak, "kernel_calls": hold_kernel_calls(torch, calls, query)}
+            "launches": launches, "peak_device_bytes": peak,
+            "kernel_calls": hold_kernel_calls(torch, calls, query, k2_repeats)}
 
 
 def phase_q1(torch, raw: dict, df, t_gen: float, t_frame: float, scale: float) -> dict:
@@ -549,7 +614,7 @@ def phase_q1(torch, raw: dict, df, t_gen: float, t_frame: float, scale: float) -
 
 def phase_filter(torch, pl, raw: dict, df) -> dict:
     lf = df.lazy().select(Q1_COLS).filter(pl.col("l_shipdate") <= Q1_DATE)
-    r = run_query(torch, "filter", lambda: lf, need=("compact",))
+    r = run_query(torch, "filter", lambda: lf, need=("compact", "compact_scatter"), k2_repeats=50)
     out = r["out"]
     ship = raw["l_shipdate"].astype("datetime64[D]").astype(np.int64)
     m = ship <= Q1_DAYS
@@ -662,7 +727,7 @@ def phase_q3(torch, frames: dict, want: dict) -> dict:
     from polars_tpu_torch.testing import pdsh
 
     cust, orders, line = frames["customer"], frames["orders_q3"], frames["lineitem"]
-    r = run_query(torch, "q3", lambda: pdsh.q3(cust, orders, line))
+    r = run_query(torch, "q3", lambda: pdsh.q3(cust, orders, line), k2_repeats=50)
     schema = [(k, repr(v)) for k, v in r["out"].schema.items()]
     expect = [("l_orderkey", "Int64"), ("revenue", "Float64"), ("o_orderdate", "Date"), ("o_shippriority", "Int64")]
     if schema != expect:
@@ -761,9 +826,10 @@ def main() -> int:
             "replaces": "polars_tpu/kernels/pallas_compact.py:49",
             "launches": sum(r["launches"]["compact"] for r in runs.values()),
             "launches_per_query": {q: r["launches"]["compact"] for q, r in runs.items()},
+            "scatter_launches_per_query": {q: r["launches"]["compact_scatter"] for q, r in runs.items()},
             "max_abs_err": max([kern["k2_err"]] + [c["max_abs_err_bits"] for c in calls["compact"]]),
-            "ms": k2["ms"], "kernel_ms": k2["ms"], "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
-            "bound_by": k2["bound_by"], "library_ms": k2["library_ms"],
+            "ms": k2["ms"], "kernel_ms": k2["ms"], "count_ms": k2["count_ms"], "plain_ms": k2["plain_ms"],
+            "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"], "library_ms": k2["library_ms"],
             "shape": f"n={k2['n']} 1 x f64, Q1 filter density", "main_path_calls": calls["compact"],
         },
     ]

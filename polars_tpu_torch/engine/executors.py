@@ -32,7 +32,7 @@ from polars_tpu_torch.engine.compiler import _agg_out_dtype, eval_expr
 from polars_tpu_torch.engine.join_traced import trace_join
 from polars_tpu_torch.engine.sort import apply_perm, sort_perm
 from polars_tpu_torch.errors import ComputeError, InvalidOperationError, ShapeError
-from polars_tpu_torch.kernels.compact import compact
+from polars_tpu_torch.kernels.compact import compact_count, compact_scatter
 from polars_tpu_torch.kernels.groupagg import groupagg_sums
 from polars_tpu_torch.plan import exprs as E
 from polars_tpu_torch.plan import logical as L
@@ -386,15 +386,14 @@ def _df_to_ttable(df: DataFrame) -> TTable:
     return TTable(cols, torch.ones(df.height, dtype=torch.bool, device=df.device))
 
 
-def _raise_flags(tt: TTable, flags: list) -> None:
-    """Validation failures ride the count read-back as a negated count with
-    the flag's index in the high word (earliest flag wins), as in the JAX
-    package: one host read for all of them. Each flag encodes the TRUE count:
-    the JAX loop re-negates an already negated count, so two raised flags
-    cancel there. A flag with a message raises InvalidOperationError; a
-    join's cardinality flag (no message) raises ComputeError, as in the JAX
-    package."""
-    count = tt.rowmask.sum().to(torch.int64)
+def _read_count(count: torch.Tensor, flags: list) -> int:
+    """The segment's one host read: the survivor count (K2's device total),
+    with the validation flags riding it as in the JAX package. A raised flag
+    turns the count negative with its index in the high word (the earliest
+    raised flag wins). Each flag encodes the TRUE count: the JAX loop
+    re-negates an already negated count, so two raised flags cancel there. A
+    flag with a message raises InvalidOperationError; a join's cardinality
+    flag (no message) raises ComputeError, as in the JAX package."""
     code = count
     for i in range(len(flags) - 1, -1, -1):
         code = torch.where(flags[i][0], -(count + 1 + (i << 32)), code)
@@ -406,19 +405,19 @@ def _raise_flags(tt: TTable, flags: list) -> None:
         raise ComputeError(
             "in-trace validation failed: join keys do not satisfy the declared m:1/1:1/1:m cardinality"
         )
+    return n
 
 
 def run_segment(node: L.LNode, leaf_dfs: list[tuple[L.LNode, DataFrame]]) -> DataFrame:
     """Run one fused segment rooted at ``node`` over its materialized leaf
-    frames ``leaf_dfs``, ending in one compaction."""
+    frames ``leaf_dfs``, ending in one compaction and one host read."""
     out_schema = node_schema(node)
     tc = _TraceCtx({id(lnode): _df_to_ttable(df) for lnode, df in leaf_dfs})
     tt = trace_node(node, tc)
-    if tc.flags:
-        _raise_flags(tt, tc.flags)
 
     # compact: surviving rows first, every output column (values and
-    # validity) in one kernel K2 pass over the row mask
+    # validity) in one kernel K2 pass over the row mask; K2's device total,
+    # with the flags on it, is the one value read to the host
     names = out_schema.names()
     inputs = []
     for name in names:
@@ -426,7 +425,10 @@ def run_segment(node: L.LNode, leaf_dfs: list[tuple[L.LNode, DataFrame]]) -> Dat
         inputs.append(v.values.to(dt.dtype_to_torch(out_schema[name])).contiguous())
         if v.validity is not None:
             inputs.append(v.validity.contiguous())
-    outs, n = compact(inputs, tt.rowmask.contiguous())
+    mask = tt.rowmask.contiguous()
+    offs = compact_count(mask)
+    n = _read_count(offs[-1], tc.flags)
+    outs = compact_scatter(inputs, mask, offs, n)
     it = iter(outs)
     cols = []
     for name in names:

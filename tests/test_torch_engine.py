@@ -127,14 +127,14 @@ def test_integer_seg_sum_is_exact():
 
 
 def test_validation_flags_ride_the_count_readback():
-    from polars_tpu_torch.engine.executors import TTable, _raise_flags
+    from polars_tpu_torch.engine.executors import _read_count
     from polars_tpu_torch.errors import InvalidOperationError
 
-    tt = TTable({}, torch.ones(4, dtype=torch.bool))
-    _raise_flags(tt, [(torch.tensor(False), "never")])
+    count = torch.tensor(4, dtype=torch.int64)  # K2's device total
+    assert _read_count(count, [(torch.tensor(False), "never")]) == 4
     flags = [(torch.tensor(False), "first"), (torch.tensor(True), "second"), (torch.tensor(True), "third")]
     with pytest.raises(InvalidOperationError, match="second"):  # the earliest raised flag wins
-        _raise_flags(tt, flags)
+        _read_count(count, flags)
 
 
 def test_sorted_group_ctx_names_its_slice():

@@ -196,7 +196,7 @@ def test_join_kernel_calls(sides, monkeypatch):
     segment, ends in one K2 compaction."""
     from polars_tpu_torch.engine import executors as X
     from polars_tpu_torch.engine import groupby as G
-    from polars_tpu_torch.kernels.compact import compact
+    from polars_tpu_torch.kernels.compact import compact_scatter
     from polars_tpu_torch.kernels.groupagg import groupagg_sums
 
     calls = []
@@ -205,12 +205,12 @@ def test_join_kernel_calls(sides, monkeypatch):
         calls.append(("K1", cap))
         return groupagg_sums(gids, cols, mask, cap)
 
-    def k2(cols, mask):
+    def k2(cols, mask, offs, count):
         calls.append(("K2", mask.shape[0]))
-        return compact(cols, mask)
+        return compact_scatter(cols, mask, offs, count)
 
     monkeypatch.setattr(G, "groupagg_sums", k1)
-    monkeypatch.setattr(X, "compact", k2)
+    monkeypatch.setattr(X, "compact_scatter", k2)
     _, (_, rt) = sides
     rt.lazy().select("k", "v").join(rt.lazy().select("k", "w"), on="k", validate="1:1").collect()
     assert calls == [("K1", rt.height), ("K2", rt.height)]

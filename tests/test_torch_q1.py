@@ -114,7 +114,7 @@ def test_q1_kernel_calls(frames, monkeypatch):
     and K2 once, over the 12 group slots."""
     from polars_tpu_torch.engine import executors as X
     from polars_tpu_torch.engine import groupby as G
-    from polars_tpu_torch.kernels.compact import compact
+    from polars_tpu_torch.kernels.compact import compact_scatter
     from polars_tpu_torch.kernels.groupagg import groupagg_sums
 
     calls = []
@@ -123,13 +123,13 @@ def test_q1_kernel_calls(frames, monkeypatch):
         calls.append(("K1", cap, [None if c is None else c.dtype for c in cols]))
         return groupagg_sums(gids, cols, mask, cap)
 
-    def k2(cols, mask):
+    def k2(cols, mask, offs, count):
         calls.append(("K2", mask.shape[0], len(cols)))
-        return compact(cols, mask)
+        return compact_scatter(cols, mask, offs, count)
 
     monkeypatch.setattr(X, "groupagg_sums", k1)
     monkeypatch.setattr(G, "groupagg_sums", k1)
-    monkeypatch.setattr(X, "compact", k2)
+    monkeypatch.setattr(X, "compact_scatter", k2)
     pdsh_torch.q1(frames[1]).collect()
     assert calls == [("K1", 12, [None]), ("K1", 12, [torch.float64] * 5), ("K2", 12, 13)]
 

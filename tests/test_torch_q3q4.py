@@ -92,7 +92,7 @@ def test_q3_q4_kernel_calls(monkeypatch):
     once; Q4 counts 6 dense key slots with K1 and compacts them with K2."""
     from polars_tpu_torch.engine import executors as X
     from polars_tpu_torch.engine import groupby as G
-    from polars_tpu_torch.kernels.compact import compact
+    from polars_tpu_torch.kernels.compact import compact_scatter
     from polars_tpu_torch.kernels.groupagg import groupagg_sums
 
     calls = []
@@ -101,13 +101,13 @@ def test_q3_q4_kernel_calls(monkeypatch):
         calls.append(("K1", cap, [None if c is None else c.dtype for c in cols]))
         return groupagg_sums(gids, cols, mask, cap)
 
-    def k2(cols, mask):
+    def k2(cols, mask, offs, count):
         calls.append(("K2", mask.shape[0], len(cols)))
-        return compact(cols, mask)
+        return compact_scatter(cols, mask, offs, count)
 
     monkeypatch.setattr(X, "groupagg_sums", k1)
     monkeypatch.setattr(G, "groupagg_sums", k1)
-    monkeypatch.setattr(X, "compact", k2)
+    monkeypatch.setattr(X, "compact_scatter", k2)
     _, ft = _tables(42, {**Q3_COLS, "orders": Q3_COLS["orders"] + ["o_orderpriority"],
                          "lineitem": Q3_COLS["lineitem"] + ["l_commitdate", "l_receiptdate"]})
     n = ft["lineitem"].height
