@@ -20,8 +20,15 @@ Phases, each printed as one JSON line:
   6. q3, q4   — PDS-H Q3 (two fused 1:m joins, a sort-based group-by over
                 the 60M joined rows, top 10) and Q4 (a semi join, a dense
                 group-by), each against its numpy oracle, launches counted
-                the same way.
-Each query phase then collects once more with the engine's kernel calls
+                the same way;
+  7. q5, q6, q10, q12, q14, q18, q19 — the rest of the JAX package's first
+                PDS-H file: joins of up to six tables, is_in, is_between,
+                when/then, str.starts_with, casts and one-row aggregate
+                selects (K1 at capacity 1), each against a numpy oracle,
+                launches counted the same way.
+Each query reads frames of only its own columns (``pdsh.QUERY_COLUMNS``),
+cut from one frame per table that is built once (string encoding timed per
+column). Each query phase then collects once more with the engine's kernel calls
 kept, and holds every one of them against its plain version on the very
 inputs the query gave it, and times it there (``kernel_calls``); K2's
 count-and-scan and scatter halves make one kept call, its offsets held
@@ -30,8 +37,11 @@ each run bit for bit against the first;
 then the kernels line, the card's name and power limit, and the final line
 {"ok": true, "device": {...}}. Any failure exits non-zero before that line.
 
-Run from the repository root:  python3 chip_smoke.py [--scale 10] [--seed 42]
-It needs a CUDA device and nvcc; it never imports JAX or polars_tpu.
+Run from the repository root:
+    python3 chip_smoke.py [--scale 10] [--seed 42] [--only q1 filter q3 q4]
+(``--only`` runs the build and kernel phases and the named query phases, for
+an A/B of a few queries against a parent tree). It needs a CUDA device and
+nvcc; it never imports JAX or polars_tpu.
 """
 
 from __future__ import annotations
@@ -54,17 +64,16 @@ Q1_COLS = [
     "l_shipdate", "l_returnflag", "l_linestatus", "l_quantity",
     "l_extendedprice", "l_discount", "l_tax",
 ]
-# the columns each query reads (bench.py's lists); one lineitem frame holds
-# the union of Q1's, Q3's and Q4's
-Q3_LINE_COLS = ["l_orderkey", "l_shipdate", "l_extendedprice", "l_discount"]
-Q3_ORD_COLS = ["o_orderkey", "o_custkey", "o_orderdate", "o_shippriority"]
-Q3_CUST_COLS = ["c_custkey", "c_mktsegment"]
-Q4_ORD_COLS = ["o_orderkey", "o_orderdate", "o_orderpriority"]
-Q4_LINE_COLS = ["l_orderkey", "l_commitdate", "l_receiptdate"]
-LINE_COLS = list(dict.fromkeys(Q1_COLS + Q3_LINE_COLS + Q4_LINE_COLS))
 EPOCH = dtm.date(1970, 1, 1)
-Q3_DAYS = (dtm.date(1995, 3, 15) - EPOCH).days
-Q4_FROM, Q4_TO = (dtm.date(1993, 7, 1) - EPOCH).days, (dtm.date(1993, 10, 1) - EPOCH).days
+
+
+def day(y: int, m: int, d: int) -> int:
+    return (dtm.date(y, m, d) - EPOCH).days
+
+
+Q3_DAYS = day(1995, 3, 15)
+Q4_FROM, Q4_TO = day(1993, 7, 1), day(1993, 10, 1)
+PHASES = ["q1", "filter", "q3", "q4", "q5", "q6", "q10", "q12", "q14", "q18", "q19"]
 
 
 def emit(obj: dict) -> None:
@@ -126,7 +135,11 @@ def k1_agree(torch, got, want) -> tuple[float, bool]:
 
 def k1_library(torch, gids, cols, mask, cap):
     """K1's whole function as PyTorch calls (the library version that is
-    timed): select the rows, zero the ``(cap, k)`` output, ``index_add_``."""
+    timed): at capacity 1 a masked sum per column (``torch.where(mask, x,
+    0).sum()``; a count is ``mask.sum()``), else select the rows, zero the
+    ``(cap, k)`` output, ``index_add_``."""
+    if cap == 1:
+        return torch.stack([mask.sum() if c is None else torch.where(mask, c, 0).sum() for c in cols]).reshape(1, -1)
     g = gids[mask].long()
     acc = next((c.dtype for c in cols if c is not None), torch.int64)
     vals = torch.stack([c[mask] if c is not None else torch.ones(g.shape[0], dtype=acc, device=g.device) for c in cols], 1)
@@ -160,10 +173,13 @@ def hold_k1(torch, gids, cols, mask, cap, label) -> dict:
     plain_ms = cuda_ms(torch, lambda: groupagg_sums_plain(gids, cols, mask, cap), reps=5, warmup=1)
     library_ms = cuda_ms(torch, lambda: k1_library(torch, gids, cols, mask, cap), reps=5, warmup=1)
     b_ms, b_by = k1_bound(torch, gids, cols, mask, cap)
-    return {"n": n, "n_selected": int(mask.sum()), "cap": cap, "k": k,
-            "dtype": "i64" if all(c is None or c.dtype == torch.int64 for c in cols) else "f64",
-            "plan": plan(cap, k, sms, n)._asdict(), "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err}
+    out = {"n": n, "n_selected": int(mask.sum()), "cap": cap, "k": k,
+           "dtype": "i64" if all(c is None or c.dtype == torch.int64 for c in cols) else "f64",
+           "plan": plan(cap, k, sms, n)._asdict(), "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err}
+    if cap == 1:  # what the all-zero ids of a one-group call cost to make
+        out["ids_fill_ms"] = cuda_ms(torch, lambda: torch.zeros(n, dtype=torch.int32, device=gids.device))
+    return out
 
 
 def k2_library(torch, cols, mask):
@@ -441,37 +457,43 @@ def q1_oracle(raw: dict) -> dict:
     }
 
 
-def generate(scale: float, seed: int) -> tuple[dict, float]:
-    """The columns Q1, Q3 and Q4 read of PDS-H customer, orders and lineitem
-    at ``scale`` (host numpy)."""
+def generate(scale: float, seed: int, queries) -> tuple[dict, float]:
+    """Every column one of ``queries`` reads (``pdsh.QUERY_COLUMNS``), of
+    each PDS-H table at ``scale`` (host numpy)."""
     from polars_tpu_torch.testing import pdsh
 
     t0 = time.perf_counter()
-    full = pdsh.generate_pdsh(scale, seed=seed, tables=("customer", "orders", "lineitem"))
-    raw = {
-        "lineitem": {c: full["lineitem"][c] for c in LINE_COLS},
-        "orders": {c: full["orders"][c] for c in dict.fromkeys(Q3_ORD_COLS + Q4_ORD_COLS)},
-        "customer": {c: full["customer"][c] for c in Q3_CUST_COLS},
-    }
+    need: dict[str, dict] = {}
+    for q in queries:
+        for t, cols in pdsh.QUERY_COLUMNS[q].items():
+            need.setdefault(t, {}).update(dict.fromkeys(cols))
+    full = pdsh.generate_pdsh(scale, seed=seed, tables=tuple(need))
+    raw = {t: {c: full[t][c] for c in cols} for t, cols in need.items()}
     return raw, time.perf_counter() - t0
 
 
-def phase_frames(torch, pl, dev, raw: dict) -> tuple[dict, dict]:
-    """The frames on the card: one lineitem frame for all three queries, and
-    orders and customer with the columns each query reads."""
-    frames, seconds = {}, {}
-    for name, table, cols in (
-        ("lineitem", "lineitem", LINE_COLS),
-        ("orders_q3", "orders", Q3_ORD_COLS),
-        ("orders_q4", "orders", Q4_ORD_COLS),
-        ("customer", "customer", Q3_CUST_COLS),
-    ):
+def phase_frames(torch, pl, dev, raw: dict, queries) -> tuple[dict, dict]:
+    """One frame per table on the card, built column by column (the host
+    encodes each string column), then each query's frames: its own columns
+    of those tables, sharing their device columns (``pdsh.frames_for``)."""
+    from polars_tpu_torch.core.frame import DataFrame
+    from polars_tpu_torch.testing import pdsh
+
+    tables, seconds, string_s = {}, {}, {}
+    for t, cols in raw.items():
         t0 = time.perf_counter()
-        frames[name] = pl.DataFrame({c: raw[table][c] for c in cols}, device=dev)
-        torch.cuda.synchronize()
-        seconds[name] = time.perf_counter() - t0
-    res = {"phase": "frames", "build_s": seconds, "rows": {k: f.height for k, f in frames.items()},
-           "device_bytes": torch.cuda.memory_allocated()}
+        built = []
+        for c, values in cols.items():
+            t1 = time.perf_counter()
+            built.append(pl.DataFrame({c: values}, device=dev)._get(c))
+            torch.cuda.synchronize()
+            if values.dtype == object:
+                string_s[c] = time.perf_counter() - t1
+        tables[t] = DataFrame._from_columns(built)
+        seconds[t] = time.perf_counter() - t0
+    frames = {q: pdsh.frames_for(q, tables) for q in queries}
+    res = {"phase": "frames", "build_s": seconds, "string_encode_s": string_s,
+           "rows": {t: f.height for t, f in tables.items()}, "device_bytes": torch.cuda.memory_allocated()}
     emit(res)
     return frames, res
 
@@ -648,69 +670,62 @@ def _days(a: np.ndarray) -> np.ndarray:
     return a.astype("datetime64[D]").astype(np.int64)
 
 
-def q3_rows(raw: dict) -> dict:
-    """Q3's joined rows in numpy, independent of the port: the lineitem rows
-    that survive both joins and the three filters, with their order's date
-    and ship priority."""
+def q3_oracle(raw: dict):
+    """PDS-H Q3 in numpy: the lineitem rows that survive both joins and the
+    three filters; every group's revenue (o_orderkey is unique, so it alone
+    is the group), sorted by revenue descending, then date."""
     cust, orders, line = raw["customer"], raw["orders"], raw["lineitem"]
     good = cust["c_custkey"][cust["c_mktsegment"].astype("U") == "BUILDING"]
     odate = _days(orders["o_orderdate"])
     okeep = np.isin(orders["o_custkey"], good) & (odate < Q3_DAYS)
-    by_key = np.argsort(orders["o_orderkey"], kind="stable")
-    skeys = orders["o_orderkey"][by_key]
-    lkey = line["l_orderkey"]
-    pos = np.clip(np.searchsorted(skeys, lkey), 0, len(skeys) - 1)
-    oi = by_key[pos]
-    mask = (skeys[pos] == lkey) & okeep[oi] & (_days(line["l_shipdate"]) > Q3_DAYS)
-    return {"mask": mask, "order_row": oi}
-
-
-def q3_oracle(raw: dict, rows: dict) -> dict:
-    """PDS-H Q3 in numpy: every group's revenue (o_orderkey is unique, so it
-    alone is the group), sorted by revenue descending, then date."""
-    orders, line = raw["orders"], raw["lineitem"]
-    m = rows["mask"]
+    lo = line["l_orderkey"] - 1  # o_orderkey = row + 1
+    m = okeep[lo] & (_days(line["l_shipdate"]) > Q3_DAYS)
     rev = line["l_extendedprice"][m] * (1 - line["l_discount"][m])
     keys, inv = np.unique(line["l_orderkey"][m], return_inverse=True)
     revenue = np.bincount(inv.reshape(-1), weights=rev, minlength=len(keys))
-    first = np.zeros(len(keys), np.int64)
-    first[inv] = rows["order_row"][m]  # each group's order row (one order per group)
-    date = _days(orders["o_orderdate"])[first]
-    prio = orders["o_shippriority"][first]
-    order = np.lexsort((date, -revenue))
-    return {"l_orderkey": keys[order], "revenue": revenue[order], "o_orderdate": date[order],
-            "o_shippriority": prio[order], "groups": len(keys), "rows": int(m.sum())}
+    first = keys - 1
+    order = np.lexsort((odate[first], -revenue))
+    want = {"l_orderkey": keys[order], "revenue": revenue[order], "o_orderdate": odate[first][order],
+            "o_shippriority": orders["o_shippriority"][first][order]}
+    return want, "revenue", 10, ("revenue",), {"joined_rows": int(m.sum()), "groups": len(keys)}
 
 
-def check_q3(out, want: dict) -> float:
-    """Keys, dates and priorities exact, revenue to rtol 1e-9. Where the
-    oracle's neighbouring revenues lie within that tolerance of each other,
-    the rows of that run are compared as a set."""
+def _host_value(v):
+    """A frame value as the oracles hold it: a date as its day count."""
+    return (v - EPOCH).days if isinstance(v, dtm.date) else v
+
+
+def check_top(out, want: dict, sort_col: str, k: int, floats=(), label: str = "") -> float:
+    """The first ``k`` rows of ``out`` against the oracle's rows, sorted as
+    the query sorts them: ``want`` holds every column in order. Where the
+    oracle's neighbouring ``sort_col`` values lie within rtol 1e-9 of each
+    other, the rows of that run are compared as a set; every column but the
+    ``floats`` exactly, those to rtol 1e-9 of the same row of the oracle.
+    Returns the largest relative float error."""
     got = out.to_dict(as_series=False)
-    k = min(10, len(want["revenue"]))
-    if out.height != k or list(got) != ["l_orderkey", "revenue", "o_orderdate", "o_shippriority"]:
-        raise AssertionError(f"Q3 shape {out.height} x {list(got)}, want {k} rows")
-    r = want["revenue"]
-    run_of = np.zeros(len(r), np.int64)  # run id of each oracle position
-    for i in range(1, len(r)):
-        run_of[i] = run_of[i - 1] + (abs(r[i] - r[i - 1]) > 1e-9 * abs(r[i - 1]))
-    worst = 0.0
-    seen = set()
+    k = min(k, len(want[sort_col]))
+    if out.height != k or list(got) != list(want):
+        raise AssertionError(f"{label} shape {out.height} x {list(got)}, want {k} x {list(want)}")
+    r = np.asarray(want[sort_col], np.float64)
+    run_of = np.concatenate([[0], np.cumsum(np.abs(np.diff(r)) > 1e-9 * np.abs(r[:-1]))])
+    exact = [c for c in want if c not in floats]
+    worst, seen = 0.0, set()
     for i in range(k):
-        row = (got["l_orderkey"][i], (got["o_orderdate"][i] - EPOCH).days, got["o_shippriority"][i])
-        members = {(int(want["l_orderkey"][j]), int(want["o_orderdate"][j]), int(want["o_shippriority"][j]))
-                   for j in np.nonzero(run_of == run_of[i])[0]}
+        row = tuple(_host_value(got[c][i]) for c in exact)
+        members = {tuple(_host_value(want[c][j]) for c in exact): j for j in np.nonzero(run_of == run_of[i])[0]}
         if row not in members or row in seen:
-            raise AssertionError(f"Q3 row {i} {row} is not the oracle's {sorted(members)[:4]}")
+            raise AssertionError(f"{label} row {i} {row} is not the oracle's {sorted(members)[:4]}")
         seen.add(row)
-        g, w = got["revenue"][i], r[i]
-        if not np.isfinite(g) or abs(g - w) > 1e-9 * abs(w):
-            raise AssertionError(f"Q3 revenue at {i}: {g} != {w}")
-        worst = max(worst, abs(g - w) / abs(w))
+        j = members[row]
+        for c in floats:
+            g, w = got[c][i], float(want[c][j])
+            if g is None or not np.isfinite(g) or abs(g - w) > 1e-9 * abs(w):
+                raise AssertionError(f"{label} {c} at row {i}: {g} != {w}")
+            worst = max(worst, abs(g - w) / abs(w) if w else 0.0)
     return worst
 
 
-def q4_oracle(raw: dict) -> dict:
+def q4_oracle(raw: dict):
     """PDS-H Q4 in numpy: orders of the quarter with a late line, counted by
     priority."""
     orders, line = raw["orders"], raw["lineitem"]
@@ -720,49 +735,207 @@ def q4_oracle(raw: dict) -> dict:
     prio, inv = np.unique(orders["o_orderpriority"].astype("U"), return_inverse=True)
     cnt = np.bincount(inv.reshape(-1)[sel], minlength=len(prio))
     present = np.nonzero(cnt)[0]
-    return {"o_orderpriority": [str(prio[i]) for i in present], "order_count": [int(cnt[i]) for i in present]}
+    want = {"o_orderpriority": [str(prio[i]) for i in present], "order_count": [int(cnt[i]) for i in present]}
+    return want, None, 0, (), {}
 
 
-def phase_q3(torch, frames: dict, want: dict) -> dict:
+def _revenue(line: dict, m: np.ndarray) -> np.ndarray:
+    return line["l_extendedprice"][m] * (1 - line["l_discount"][m])
+
+
+def q5_oracle(raw: dict):
+    """PDS-H Q5 in numpy: revenue of the lines of 1994 orders whose customer
+    and supplier share a nation of ASIA, by nation, largest first."""
+    reg, nat, cust, orders, line, supp = (raw[t] for t in ("region", "nation", "customer", "orders", "lineitem",
+                                                           "supplier"))
+    in_asia = np.isin(nat["n_regionkey"], reg["r_regionkey"][reg["r_name"] == "ASIA"])  # n_nationkey = row
+    onat = cust["c_nationkey"][orders["o_custkey"] - 1]
+    odate = _days(orders["o_orderdate"])
+    okeep = (odate >= day(1994, 1, 1)) & (odate < day(1995, 1, 1)) & in_asia[onat]
+    lo = line["l_orderkey"] - 1
+    lnat = onat[lo]
+    m = okeep[lo] & (supp["s_nationkey"][line["l_suppkey"] - 1] == lnat)
+    sums = np.bincount(lnat[m], weights=_revenue(line, m), minlength=len(in_asia))
+    present = np.nonzero(np.bincount(lnat[m], minlength=len(in_asia)))[0]
+    order = present[np.argsort(-sums[present], kind="stable")]
+    want = {"n_name": [str(nat["n_name"][i]) for i in order], "revenue": sums[order]}
+    return want, "revenue", 25, ("revenue",), {"joined_rows": int(m.sum())}
+
+
+def q6_oracle(raw: dict):
+    """PDS-H Q6 in numpy: one sum over the lines of 1994 with a discount in
+    [0.05, 0.07] and a quantity under 24."""
+    line = raw["lineitem"]
+    ship, disc = _days(line["l_shipdate"]), line["l_discount"]
+    m = (ship >= day(1994, 1, 1)) & (ship < day(1995, 1, 1)) & (disc >= 0.05) & (disc <= 0.07)
+    m &= line["l_quantity"] < 24
+    return {"revenue": [float(np.sum(line["l_extendedprice"][m] * disc[m]))]}, None, 0, ("revenue",), {
+        "selected_rows": int(m.sum())}
+
+
+def q10_oracle(raw: dict):
+    """PDS-H Q10 in numpy: returned lines of the quarter's orders, revenue by
+    customer (c_custkey decides the other six keys), sorted by revenue
+    descending, then key."""
+    cust, orders, line, nat = (raw[t] for t in ("customer", "orders", "lineitem", "nation"))
+    odate = _days(orders["o_orderdate"])
+    okeep = (odate >= day(1993, 10, 1)) & (odate < day(1994, 1, 1))
+    lo = line["l_orderkey"] - 1
+    m = okeep[lo]
+    idx = np.nonzero(m)[0]
+    m[idx] = line["l_returnflag"][idx] == "R"  # the string compare only where the date holds
+    ci = orders["o_custkey"][lo[m]] - 1
+    sums = np.bincount(ci, weights=_revenue(line, m), minlength=len(cust["c_custkey"]))
+    present = np.nonzero(np.bincount(ci, minlength=len(cust["c_custkey"])))[0]
+    order = present[np.lexsort((cust["c_custkey"][present], -sums[present]))]
+    want = {"c_custkey": cust["c_custkey"][order], "c_name": cust["c_name"][order], "revenue": sums[order],
+            "c_acctbal": cust["c_acctbal"][order], "n_name": nat["n_name"][cust["c_nationkey"][order]],
+            "c_address": cust["c_address"][order], "c_phone": cust["c_phone"][order],
+            "c_comment": cust["c_comment"][order]}
+    return want, "revenue", 20, ("revenue", "c_acctbal"), {"joined_rows": int(m.sum()), "groups": len(present)}
+
+
+def q12_oracle(raw: dict):
+    """PDS-H Q12 in numpy: lines shipped by MAIL or SHIP, late but shipped
+    before their commit date, received in 1994; high- and low-priority
+    counts by ship mode."""
+    orders, line = raw["orders"], raw["lineitem"]
+    commit, receipt = _days(line["l_commitdate"]), _days(line["l_receiptdate"])
+    base = (commit < receipt) & (_days(line["l_shipdate"]) < commit)
+    base &= (receipt >= day(1994, 1, 1)) & (receipt < day(1995, 1, 1))
+    idx = np.nonzero(base)[0]
+    mode = line["l_shipmode"][idx]
+    prio = orders["o_orderpriority"]
+    high = ((prio == "1-URGENT") | (prio == "2-HIGH"))[line["l_orderkey"][idx] - 1]
+    want = {"l_shipmode": [], "high_line_count": [], "low_line_count": []}
+    for name in ("MAIL", "SHIP"):
+        sel = mode == name
+        if sel.any():
+            want["l_shipmode"].append(name)
+            want["high_line_count"].append(int((sel & high).sum()))
+            want["low_line_count"].append(int((sel & ~high).sum()))
+    return want, None, 0, (), {"selected_rows": sum(want["high_line_count"]) + sum(want["low_line_count"])}
+
+
+def q14_oracle(raw: dict):
+    """PDS-H Q14 in numpy: the share of September 1995's revenue from PROMO
+    parts, in percent."""
+    line, part = raw["lineitem"], raw["part"]
+    ship = _days(line["l_shipdate"])
+    m = (ship >= day(1995, 9, 1)) & (ship < day(1995, 10, 1))
+    promo = np.char.startswith(part["p_type"].astype(str), "PROMO")[line["l_partkey"][m] - 1]
+    rev = _revenue(line, m)
+    return {"promo_revenue": [100.0 * float(np.sum(rev[promo])) / float(np.sum(rev))]}, None, 0, (
+        "promo_revenue",), {"selected_rows": int(m.sum())}
+
+
+def q18_oracle(raw: dict):
+    """PDS-H Q18 in numpy: orders of more than 300 units, with their
+    customer, largest total price first, then date, top 100."""
+    cust, orders, line = raw["customer"], raw["orders"], raw["lineitem"]
+    qty = np.bincount(line["l_orderkey"] - 1, weights=line["l_quantity"], minlength=len(orders["o_orderkey"]))
+    big = np.nonzero(qty > 300)[0]
+    odate = _days(orders["o_orderdate"])
+    order = big[np.lexsort((odate[big], -orders["o_totalprice"][big]))]
+    ck = orders["o_custkey"][order]
+    want = {"c_name": cust["c_name"][ck - 1], "c_custkey": ck, "o_orderkey": orders["o_orderkey"][order],
+            "o_orderdate": odate[order], "o_totalprice": orders["o_totalprice"][order], "col_qty": qty[order]}
+    return want, "o_totalprice", 100, ("o_totalprice", "col_qty"), {"big_orders": len(big)}
+
+
+def q19_oracle(raw: dict):
+    """PDS-H Q19 in numpy: revenue of the lines that meet one of three
+    container, quantity and size rules, shipped by air in person."""
+    line, part = raw["lineitem"], raw["part"]
+    pi = line["l_partkey"] - 1
+    size, qty = part["p_size"][pi], line["l_quantity"]
+    cont = part["p_container"]
+    m = ((cont == "SM CASE")[pi] & (qty >= 1) & (qty <= 11) & (size <= 5)) | (
+        (cont == "MED BAG")[pi] & (qty >= 10) & (qty <= 20) & (size <= 10)) | (
+        (cont == "LG BOX")[pi] & (qty >= 20) & (qty <= 30) & (size <= 15))
+    idx = np.nonzero(m)[0]
+    mode = line["l_shipmode"][idx]
+    m[idx] = ((mode == "AIR") | (mode == "REG AIR")) & (line["l_shipinstruct"][idx] == "DELIVER IN PERSON")
+    return {"revenue": [float(np.sum(_revenue(line, m)))]}, None, 0, ("revenue",), {"selected_rows": int(m.sum())}
+
+
+ORACLES = {"q3": q3_oracle, "q4": q4_oracle, "q5": q5_oracle, "q6": q6_oracle, "q10": q10_oracle,
+           "q12": q12_oracle, "q14": q14_oracle, "q18": q18_oracle, "q19": q19_oracle}
+# each query's result schema, as polars_tpu gives it
+SCHEMAS = {
+    "q3": [("l_orderkey", "Int64"), ("revenue", "Float64"), ("o_orderdate", "Date"), ("o_shippriority", "Int64")],
+    "q4": [("o_orderpriority", "String"), ("order_count", "UInt32")],
+    "q5": [("n_name", "String"), ("revenue", "Float64")],
+    "q6": [("revenue", "Float64")],
+    "q10": [("c_custkey", "Int64"), ("c_name", "String"), ("revenue", "Float64"), ("c_acctbal", "Float64"),
+            ("n_name", "String"), ("c_address", "String"), ("c_phone", "String"), ("c_comment", "String")],
+    "q12": [("l_shipmode", "String"), ("high_line_count", "Int64"), ("low_line_count", "Int64")],
+    "q14": [("promo_revenue", "Float64")],
+    "q18": [("c_name", "String"), ("c_custkey", "Int64"), ("o_orderkey", "Int64"), ("o_orderdate", "Date"),
+            ("o_totalprice", "Float64"), ("col_qty", "Float64")],
+    "q19": [("revenue", "Float64")],
+}
+
+
+def check_dense_keys(raw: dict) -> None:
+    """The oracles join by position: PDS-H's keys are dense (a key is its
+    row, plus 1 where the table counts from 1)."""
+    for t, col, base in (("nation", "n_nationkey", 0), ("region", "r_regionkey", 0), ("customer", "c_custkey", 1),
+                         ("orders", "o_orderkey", 1), ("part", "p_partkey", 1), ("supplier", "s_suppkey", 1)):
+        if t not in raw:
+            continue
+        keys = raw[t][col]
+        if not np.array_equal(keys, np.arange(base, base + len(keys))):
+            raise AssertionError(f"{t}.{col} is not dense from {base}")
+
+
+def check_exact(out, want: dict, floats=(), label: str = "") -> float:
+    """Every row of ``out`` in order: floats to rtol 1e-9, the rest exactly.
+    Returns the largest relative float error."""
+    got = out.to_dict(as_series=False)
+    n = len(next(iter(want.values())))
+    if list(got) != list(want) or out.height != n:
+        raise AssertionError(f"{label} shape {out.height} x {list(got)}, want {n} x {list(want)}")
+    worst = 0.0
+    for c, w in want.items():
+        g = [_host_value(v) for v in got[c]]
+        if c not in floats:
+            if g != list(w):
+                raise AssertionError(f"{label} {c}: {g} != {list(w)}")
+            continue
+        g, w = np.asarray(g, np.float64), np.asarray(w, np.float64)
+        if not np.all(np.isfinite(g)):
+            raise AssertionError(f"{label} {c}: {g} is not finite")
+        np.testing.assert_allclose(g, w, rtol=1e-9, atol=0, err_msg=f"{label} {c}")
+        worst = max(worst, float(np.max(np.abs(g - w) / np.abs(w))) if n else 0.0)
+    return worst
+
+
+def phase_query(torch, name: str, frames: dict, raw: dict, k2_repeats: int = 1) -> dict:
+    """One query phase at the frames of its own columns: the main path
+    (``run_query``), the schema, and the result against its numpy oracle."""
     from polars_tpu_torch.testing import pdsh
 
-    cust, orders, line = frames["customer"], frames["orders_q3"], frames["lineitem"]
-    r = run_query(torch, "q3", lambda: pdsh.q3(cust, orders, line), k2_repeats=50)
-    schema = [(k, repr(v)) for k, v in r["out"].schema.items()]
-    expect = [("l_orderkey", "Int64"), ("revenue", "Float64"), ("o_orderdate", "Date"), ("o_shippriority", "Int64")]
-    if schema != expect:
-        raise AssertionError(f"Q3 schema {schema} != {expect}")
-    worst = check_q3(r["out"], want)
-    n = line.height
-    res = {"phase": "q3", "rows": {"lineitem": n, "orders": orders.height, "customer": cust.height},
-           "joined_rows": want["rows"], "groups": want["groups"], "first_collect_s": r["first_collect_s"],
+    want, sort_col, k, floats, extra = ORACLES[name](raw)
+    f = frames[name]
+    r = run_query(torch, name, lambda: pdsh.query(name, f), k2_repeats=k2_repeats)
+    out = r["out"]
+    schema = [(c, repr(d)) for c, d in out.schema.items()]
+    if schema != SCHEMAS[name]:
+        raise AssertionError(f"{name} schema {schema} != {SCHEMAS[name]}")
+    if sort_col is None:
+        worst = check_exact(out, want, floats, name)
+    else:
+        worst = check_top(out, want, sort_col, k, floats, name)
+    rows = {t: d.height for t, d in f.items()}
+    got = out.to_dict(as_series=False)
+    res = {"phase": name, "rows": rows, **extra, "result_rows": out.height, "first_collect_s": r["first_collect_s"],
            "warm_wall_s": r["warm_wall_s"], "warm_walls_s": r["warm_walls_s"],
-           "rows_per_s": (n + orders.height + cust.height) / r["warm_wall_s"],  # input rows of all tables
+           "rows_per_s": sum(rows.values()) / r["warm_wall_s"],  # input rows of every table it reads
            "launches": r["launches"], "peak_device_bytes": r["peak_device_bytes"],
            "max_rel_err_vs_numpy": worst, "matches_numpy_oracle": True,
-           "top": r["out"].to_dict(as_series=False)["l_orderkey"], "kernel_calls": r["kernel_calls"]}
-    emit(res)
-    return res
-
-
-def phase_q4(torch, frames: dict, raw: dict) -> dict:
-    from polars_tpu_torch.testing import pdsh
-
-    orders, line = frames["orders_q4"], frames["lineitem"]
-    r = run_query(torch, "q4", lambda: pdsh.q4(orders, line))
-    want = q4_oracle(raw)
-    schema = [(k, repr(v)) for k, v in r["out"].schema.items()]
-    if schema != [("o_orderpriority", "String"), ("order_count", "UInt32")]:
-        raise AssertionError(f"Q4 schema {schema}")
-    got = r["out"].to_dict(as_series=False)
-    if got != want:
-        raise AssertionError(f"Q4 {got} != {want}")
-    res = {"phase": "q4", "rows": {"orders": orders.height, "lineitem": line.height},
-           "first_collect_s": r["first_collect_s"], "warm_wall_s": r["warm_wall_s"],
-           "warm_walls_s": r["warm_walls_s"],
-           "rows_per_s": (orders.height + line.height) / r["warm_wall_s"],  # input rows of both tables
-           "launches": r["launches"], "peak_device_bytes": r["peak_device_bytes"], "result": got,
-           "matches_numpy_oracle": True, "kernel_calls": r["kernel_calls"]}
+           "result": {c: [str(v) if isinstance(v, dtm.date) else v for v in vals[:5]] for c, vals in got.items()},
+           "kernel_calls": r["kernel_calls"]}
     emit(res)
     return res
 
@@ -779,6 +952,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--scale", type=float, default=10.0, help="PDS-H scale factor (10 = 60M lineitem rows)")
     ap.add_argument("--seed", type=int, default=42, help="data seed")
+    ap.add_argument("--only", nargs="+", choices=PHASES, default=PHASES, help="the query phases to run")
     args = ap.parse_args()
 
     import torch
@@ -791,24 +965,32 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     card = card_line()
     phase_build()
-    raw, t_gen = generate(args.scale, args.seed)
+    queries = list(dict.fromkeys("q1" if p == "filter" else p for p in args.only))  # the filter reads Q1's frame
+    raw, t_gen = generate(args.scale, args.seed, queries)
+    check_dense_keys(raw)
     line = raw["lineitem"]
     q1_density = float(np.mean(_days(line["l_shipdate"]) <= Q1_DAYS))  # Q1's own filter density
     kern = phase_kernels(torch, dev, args.seed, q1_density, len(line["l_shipdate"]))
-    frames, fr = phase_frames(torch, pl, dev, raw)
-    q1 = phase_q1(torch, line, frames["lineitem"], t_gen, fr["build_s"]["lineitem"], args.scale)
-    flt = phase_filter(torch, pl, line, frames["lineitem"])
-    q3 = phase_q3(torch, frames, q3_oracle(raw, q3_rows(raw)))
-    q4 = phase_q4(torch, frames, raw)
+    frames, fr = phase_frames(torch, pl, dev, raw, queries)
+    runs = {}
+    for name in args.only:
+        if name == "q1":
+            runs[name] = phase_q1(torch, line, frames["q1"]["lineitem"], t_gen, fr["build_s"]["lineitem"], args.scale)
+        elif name == "filter":
+            runs[name] = phase_filter(torch, pl, line, frames["q1"]["lineitem"])
+        else:  # Q3's K2 call runs 50 times, each against the first
+            runs[name] = phase_query(torch, name, frames, raw, k2_repeats=50 if name == "q3" else 1)
     del frames, raw, line
 
-    runs = {"q1": q1, "filter": flt, "q3": q3, "q4": q4}
     # every call the main path made, as held above: the shape and the times
     calls = {name: [{"query": q, **{key: c[key] for key in c if key not in ("kernel", "plan")}}
                     for q, r in runs.items() for c in r["kernel_calls"] if c["kernel"] == name]
              for name in ("groupagg_sums", "compact")}
+
+    def k1_call(query):
+        return next((c for c in calls["groupagg_sums"] if c["query"] == query), None)
+
     k1, k2 = kern["k1"], kern["k2"]
-    k1_q3 = next(c for c in calls["groupagg_sums"] if c["query"] == "q3")
     kernels = [
         {
             "name": "groupagg_sums", "route": "cuda", "source": "polars_tpu_torch/csrc/groupagg.cu",
@@ -819,7 +1001,10 @@ def main() -> int:
             "ms": k1["ms"], "kernel_ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
             "bound_by": k1["bound_by"], "library_ms": k1["library_ms"],
             "shape": f"n={k1['n']} cap=12 k=5 f64 (Q1's float batch)",
-            "q3_shape": k1_q3, "main_path_calls": calls["groupagg_sums"],
+            # the global-atomic mode at capacity = the rows (Q3, Q10, Q18)
+            # and one group of capacity 1 (Q6's one-row select)
+            "q3_shape": k1_call("q3"), "q10_shape": k1_call("q10"), "q18_shape": k1_call("q18"),
+            "cap1_shape": k1_call("q6"), "main_path_calls": calls["groupagg_sums"],
         },
         {
             "name": "compact", "route": "cuda", "source": "polars_tpu_torch/csrc/compact.cu",

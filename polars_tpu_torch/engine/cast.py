@@ -1,7 +1,8 @@
 """Value casts (the port of ``polars_tpu/engine/cast.py``, trimmed to the
-casts that type promotion needs in this slice: bool, integer and date values
-to a wider integer or to a float), and the helpers that keep an unsigned
-integer inside its logical width.
+casts the ported queries make: bool, integer and date values to a wider
+integer or to a float, as type promotion and ``cast(pl.Int64)`` of a Boolean
+need them, and a null to any numeric, bool or date type), and the helpers
+that keep an unsigned integer inside its logical width.
 
 PyTorch has no arithmetic for uint16/32/64, so UInt16 and UInt32 live in the
 next wider signed tensor and UInt64 as its bit pattern in int64
@@ -59,6 +60,8 @@ def int_scalar(value: int, dtype: dt.DataType, device) -> torch.Tensor:
 
 
 def _lossless(src: dt.DataType, target: dt.DataType) -> bool:
+    if isinstance(src, dt.Null):  # every value is null: any storage holds it
+        return target.is_numeric() or isinstance(target, (dt.Boolean, dt.Date))
     if target.is_float():
         return src.is_numeric() or isinstance(src, (dt.Boolean, dt.Date))
     if isinstance(src, dt.Boolean):

@@ -19,6 +19,7 @@ from polars_tpu_torch.utils.strtable import StringTable
 ROW = "row"
 GROUP = "group"
 SCALAR = "scalar"
+SERIES = "series"  # a literal Series of its own length (is_in's list)
 
 
 @dataclass
@@ -62,6 +63,9 @@ class EvalCtx:
     # validation flags: (bool 0-d tensor, message); raised at the segment's
     # count read-back
     flags: list | None = None
+    # outside a group-by: the one group of capacity 1 that aggregations
+    # reduce into (made on first use, compiler.group_of)
+    scalar_group: GroupCtx | None = None
 
     @property
     def device(self) -> torch.device:
@@ -92,8 +96,17 @@ def combine_validity(*vals: torch.Tensor | None) -> torch.Tensor | None:
     return out
 
 
+def reject_series(*vals: Val) -> None:
+    """Raise where a literal Series meets anything but ``is_in``."""
+    if any(v.domain == SERIES for v in vals):
+        raise NotImplementedError(
+            "a Series literal is ported only as is_in's right-hand side (port queue: expression breadth)"
+        )
+
+
 def broadcast_pair(a: Val, b: Val) -> tuple[Val, Val, str]:
     """Reconcile domains for an elementwise binary op."""
+    reject_series(a, b)
     if a.domain == b.domain:
         return a, b, a.domain
     if SCALAR in (a.domain, b.domain):

@@ -1,9 +1,11 @@
 """Expression evaluator: AST node -> tensors (the port of
 ``polars_tpu/engine/compiler.py``'s ``eval_expr``, trimmed to columns,
-literals (numeric, bool, null, date and string), arithmetic and comparison
-with Polars type promotion, string comparison across dictionaries, Kleene
-``&``/``|``, aliases and the sum, mean, min, max, count and len
-aggregations).
+literals (numeric, bool, null, date and string; lists as literal Series),
+casts, arithmetic and comparison with Polars type promotion, string
+comparison across dictionaries, Kleene ``&``/``|``, when/then/otherwise,
+registered functions (``engine/registry.py``), aliases and the sum, mean,
+min, max, count and len aggregations, per group or, outside a group-by,
+over one group of capacity 1).
 
 Where the JAX package traces into one XLA program, the port runs each op
 eagerly on the tensors of the segment; ``Val.domain`` still tracks per-row,
@@ -18,8 +20,12 @@ import torch
 from polars_tpu_torch import datatypes as dt
 from polars_tpu_torch.engine import groupby as G
 from polars_tpu_torch.engine.cast import cast_val, float_values, int_scalar, order_word, wrap_unsigned
-from polars_tpu_torch.engine.common import GROUP, ROW, SCALAR, EvalCtx, Val, broadcast_pair, combine_validity, take_lut
-from polars_tpu_torch.errors import ColumnNotFoundError, InvalidOperationError
+from polars_tpu_torch.engine.common import (
+    GROUP, ROW, SCALAR, SERIES, EvalCtx, GroupCtx, Val, broadcast_pair, combine_validity, reject_series, take_lut,
+)
+from polars_tpu_torch.engine.registry import get_spec
+from polars_tpu_torch.engine.strings import unify_vals
+from polars_tpu_torch.errors import ColumnNotFoundError, InvalidOperationError, ShapeError
 from polars_tpu_torch.kernels.fastmath import div_any, floordiv_any, floordiv_u64, mod_any, mod_u64
 from polars_tpu_torch.plan import exprs as E
 from polars_tpu_torch.plan.schema_resolve import binary_dtype, dyn_literal_value, fit_dyn_dtype, supertype
@@ -48,16 +54,26 @@ def eval_expr(node: E.ENode, ctx: EvalCtx) -> Val:
 def _eval_expr_uncached(node: E.ENode, ctx: EvalCtx) -> Val:
     if isinstance(node, E.ELiteral):
         return _eval_literal(node, ctx)
+    if isinstance(node, E.ESeriesLit):
+        return _eval_series_literal(node, ctx)
     if isinstance(node, E.EAlias):
         return eval_expr(node.input, ctx)
+    if isinstance(node, E.ECast):
+        return cast_val(eval_expr(node.input, ctx), dt.parse_into_dtype(node.dtype), strict=node.strict)
     if isinstance(node, E.EBinary):
         return _eval_binary(node, ctx)
+    if isinstance(node, E.ETernary):
+        return _eval_ternary(node, ctx)
     if isinstance(node, E.EAgg):
         return _eval_agg(node, ctx)
     if isinstance(node, E.ELen):
-        if ctx.groups is None:
-            raise NotImplementedError("pl.len() outside a group-by is not ported yet (port queue: expression breadth)")
-        return Val(G.group_counts(ctx.groups, ctx.rowmask), None, dt.UInt32(), None, GROUP)
+        return Val(G.group_counts(group_of(ctx), ctx.rowmask), None, dt.UInt32(), None, _agg_domain(ctx))
+    if isinstance(node, E.EFunction):
+        spec = get_spec(node.name)
+        args = [eval_expr(i, ctx) for i in node.inputs]
+        if len(args) > 1:
+            args = _adapt_dyn_literal_vals(node.inputs, args)
+        return spec.impl(ctx, args, dict(node.options))
     raise InvalidOperationError(f"cannot evaluate {type(node).__name__}")
 
 
@@ -101,6 +117,16 @@ def _eval_literal(node: E.ELiteral, ctx: EvalCtx) -> Val:
         return Val(torch.zeros(1, dtype=torch.int32, device=ctx.device), None, dt.String(), table, SCALAR)
     d = dtype if dtype is not None else _lit_dtype(value)
     return Val(int_scalar(value, d, ctx.device), None, d, None, SCALAR)
+
+
+def _eval_series_literal(node: E.ESeriesLit, ctx: EvalCtx) -> Val:
+    """A literal Series on the frame's device: a scalar when it holds one
+    value (as in the JAX package), else its own (m,) tensor, which only
+    ``is_in`` consumes (the JAX package pads it to the frame's rows)."""
+    col = node.column
+    values = col.buffer.values.to(ctx.device)
+    validity = None if col.buffer.validity is None else col.buffer.validity.to(ctx.device)
+    return Val(values, validity, col.dtype, col.table, SCALAR if len(col) == 1 else SERIES)
 
 
 # ---------------------------------------------------------------------------
@@ -269,20 +295,80 @@ def _kleene(op: str, a: Val, b: Val, dom: str) -> Val:
 
 
 # ---------------------------------------------------------------------------
+# ternary
+# ---------------------------------------------------------------------------
+
+
+def _eval_ternary(node: E.ETernary, ctx: EvalCtx) -> Val:
+    """when/then/otherwise: a null predicate picks the otherwise branch
+    (reference: if_then_else kernels)."""
+    p = eval_expr(node.predicate, ctx)
+    t = eval_expr(node.truthy, ctx)
+    f = eval_expr(node.falsy, ctx)
+    reject_series(p, t, f)
+    t, f = _adapt_dyn_literal_vals((node.truthy, node.falsy), (t, f))
+    t, f = _unify_branches(t, f)
+    doms = {p.domain, t.domain, f.domain} - {SCALAR}
+    if len(doms) > 1:
+        raise ShapeError("mixed domains in when/then/otherwise")
+    dom = doms.pop() if doms else SCALAR
+    pv = p.values.to(torch.bool)
+    if p.validity is not None:
+        pv = pv & p.validity
+    values = torch.where(pv, t.values, f.values)
+    if t.validity is None and f.validity is None:
+        validity = None
+    else:
+        tv = torch.ones_like(t.values, dtype=torch.bool) if t.validity is None else t.validity
+        fv = torch.ones_like(f.values, dtype=torch.bool) if f.validity is None else f.validity
+        validity = torch.where(pv, tv, fv).expand(values.shape)
+    return Val(values, validity, t.dtype, t.table, dom)
+
+
+def _unify_branches(t: Val, f: Val) -> tuple[Val, Val]:
+    """Both branches in one dtype: strings on one merged dictionary, numbers
+    in their supertype; a null literal takes the other branch's type."""
+    if t.table is not None or f.table is not None:
+        if t.table is not None and f.table is not None:
+            return unify_vals(t, f)
+        if isinstance(t.dtype, dt.Null):
+            return t.with_(dtype=f.dtype, table=f.table), f
+        if isinstance(f.dtype, dt.Null):
+            return t, f.with_(dtype=t.dtype, table=t.table)
+        raise InvalidOperationError("when/then branches mix string and non-string")
+    st = supertype(t.dtype, f.dtype)
+    return cast_val(t, st), cast_val(f, st)
+
+
+# ---------------------------------------------------------------------------
 # aggregation
 # ---------------------------------------------------------------------------
 
 
+def group_of(ctx: EvalCtx) -> GroupCtx:
+    """The context's groups; outside a group-by, one group of capacity 1
+    that holds every row (the JAX package's ``_group_of``)."""
+    if ctx.groups is not None:
+        return ctx.groups
+    if ctx.scalar_group is None:
+        ctx.scalar_group = G.one_group_ctx(ctx.rowmask)
+    return ctx.scalar_group
+
+
+def _agg_domain(ctx: EvalCtx) -> str:
+    """An aggregation yields one value per group, or one scalar outside a
+    group-by."""
+    return GROUP if ctx.groups is not None else SCALAR
+
+
 def _eval_agg(node: E.EAgg, ctx: EvalCtx) -> Val:
-    if ctx.groups is None:
-        raise NotImplementedError(
-            "aggregations outside a group-by are not ported yet (port queue: expression breadth)"
-        )
-    gids, rowmask, cap = ctx.groups.gids, ctx.rowmask, ctx.groups.capacity
+    gctx, dom = group_of(ctx), _agg_domain(ctx)
+    gids, rowmask, cap = gctx.gids, ctx.rowmask, gctx.capacity
     kind = node.kind
     if kind == "len":
-        return Val(G.group_counts(ctx.groups, ctx.rowmask), None, dt.UInt32(), None, GROUP)
+        return Val(G.group_counts(gctx, ctx.rowmask), None, dt.UInt32(), None, dom)
     v = eval_expr(node.input, ctx)
+    reject_series(v)
     if v.domain == GROUP:
         raise InvalidOperationError("nested aggregations are not supported")
     if v.domain == SCALAR:
@@ -293,23 +379,23 @@ def _eval_agg(node: E.EAgg, ctx: EvalCtx) -> Val:
         )
     data_mask = rowmask if v.validity is None else (rowmask & v.validity)
     if kind == "count":
-        return Val(G.seg_count(data_mask, gids, cap), None, dt.UInt32(), None, GROUP)
+        return Val(G.seg_count(data_mask, gids, cap), None, dt.UInt32(), None, dom)
     if v.dtype.is_temporal() and kind in ("sum", "mean"):
         raise NotImplementedError(f"{kind} of {v.dtype!r} is not ported yet (port queue: rest of PDS-H)")
     if kind == "sum":
         out_dt = _agg_out_dtype(node, v.dtype)
         s = G.seg_sum(v.values.to(dt.dtype_to_torch(out_dt)), data_mask, gids, cap)
-        return Val(wrap_unsigned(s, out_dt), None, out_dt, None, GROUP)  # polars: sum of all-null/empty = 0
+        return Val(wrap_unsigned(s, out_dt), None, out_dt, None, dom)  # polars: sum of all-null/empty = 0
     if kind == "mean":
         vals = float_values(v.values, v.dtype, torch.float64) if v.dtype.is_integer() else v.values
         m, has = G.seg_mean(vals, data_mask, gids, cap)
         out_dt = _agg_out_dtype(node, v.dtype)
-        return Val(m.to(dt.dtype_to_torch(out_dt)), has, out_dt, None, GROUP)
+        return Val(m.to(dt.dtype_to_torch(out_dt)), has, out_dt, None, dom)
     if kind in ("min", "max"):
         if v.table is not None and not v.table.sorted_order:
             raise NotImplementedError("min/max over an unordered dictionary is not ported yet")
         has = G.seg_count(data_mask, gids, cap) > 0
-        return Val(G.seg_extreme(kind, v, data_mask, gids, cap), has, v.dtype, v.table, GROUP)
+        return Val(G.seg_extreme(kind, v, data_mask, gids, cap), has, v.dtype, v.table, dom)
     raise NotImplementedError(f"aggregation {kind!r} is not ported yet (port queue: expression breadth)")
 
 

@@ -27,8 +27,8 @@ from polars_tpu_torch.core.frame import DataFrame
 from polars_tpu_torch.core.schema import Schema
 from polars_tpu_torch.engine import groupby as G
 from polars_tpu_torch.engine.cast import float_values, wrap_unsigned
-from polars_tpu_torch.engine.common import GROUP, ROW, SCALAR, EvalCtx, Val
-from polars_tpu_torch.engine.compiler import _agg_out_dtype, eval_expr
+from polars_tpu_torch.engine.common import GROUP, ROW, SCALAR, EvalCtx, Val, reject_series
+from polars_tpu_torch.engine.compiler import _agg_domain, _agg_out_dtype, eval_expr, group_of
 from polars_tpu_torch.engine.join_traced import trace_join
 from polars_tpu_torch.engine.sort import apply_perm, sort_perm
 from polars_tpu_torch.errors import ComputeError, InvalidOperationError, ShapeError
@@ -171,17 +171,24 @@ def trace_node(node: L.LNode, tc: _TraceCtx) -> TTable:
 
 
 def _trace_select(tt: TTable, expressions: tuple[E.ENode, ...], tc: _TraceCtx, *, keep_input: bool) -> TTable:
+    """select / with_columns. Aggregations reduce over one group of
+    capacity 1 (``compiler.group_of``), their sums and counts batched into K1
+    calls by :func:`_batch_aggs` as a group-by's are; a select of only
+    scalars is a one-row table."""
     ctx = _eval_ctx(tt, tc)
+    exprs = expand_exprs(expressions, tt.schema())
+    if not all(E.is_elementwise(e) for e in exprs):
+        ctx.precomputed = _batch_aggs(exprs, ctx)
     results: list[tuple[str, Val]] = []
-    for e in expand_exprs(expressions, tt.schema()):
+    for e in exprs:
         v = eval_expr(e, ctx)
+        reject_series(v)
         if v.domain == GROUP:
             raise ShapeError("group-domain expression outside aggregation")
         results.append((E.output_name(e) or "literal", v))
     if not keep_input and results and all(v.domain == SCALAR for _, v in results):
-        raise NotImplementedError(
-            "a select of only scalars (one-row result) is not ported yet (port queue: expression breadth)"
-        )
+        one = torch.ones(1, dtype=torch.bool, device=tt.rowmask.device)
+        return TTable({name: _as_rows(v, 1) for name, v in results}, one)
     cols = dict(tt.cols) if keep_input else {}
     rows = tt.rowmask.shape[0]
     for name, v in results:
@@ -266,9 +273,10 @@ def _trace_groupby(tt: TTable, node: L.LGroupBy, tc: _TraceCtx) -> TTable:
 
 
 def _batch_aggs(aggs, ctx: EvalCtx) -> dict:
-    """Run every sum-class aggregation of a group-by as ONE kernel K1 call
-    per accumulation dtype (f64 for float sums and means, i64 for integer
-    sums and counts), reading the columns in place; min/max follow per column.
+    """Run every sum-class aggregation of a group-by (or, outside one, of a
+    select over its one group) as ONE kernel K1 call per accumulation dtype
+    (f64 for float sums and means, i64 for integer sums and counts), reading
+    the columns in place; min/max follow per column.
 
     The JAX version materializes ``where(mask, v, 0)`` per column and a
     column of ones per mean. Here the kernel applies the segment's row mask
@@ -278,7 +286,7 @@ def _batch_aggs(aggs, ctx: EvalCtx) -> dict:
     them). Columns that evaluate to the same tensor under the same mask are
     summed once.
     """
-    gctx = ctx.groups
+    gctx, dom = group_of(ctx), _agg_domain(ctx)
     cap = gctx.capacity
     f_cols: list = []
     i_cols: list = []
@@ -357,22 +365,22 @@ def _batch_aggs(aggs, ctx: EvalCtx) -> dict:
     out: dict = {}
     for node_a, kind, v, slots in jobs:
         if kind == "count":
-            out[node_a] = Val(col(slots[0]), None, dt.UInt32(), None, GROUP)
+            out[node_a] = Val(col(slots[0]), None, dt.UInt32(), None, dom)
         elif kind == "mean":
             s, c = col(slots[0]), col(slots[1])
             out_dt = _agg_out_dtype(node_a, v.dtype)
             out[node_a] = Val(
-                (s / c.clamp(min=1).to(torch.float64)).to(dt.dtype_to_torch(out_dt)), c > 0, out_dt, None, GROUP,
+                (s / c.clamp(min=1).to(torch.float64)).to(dt.dtype_to_torch(out_dt)), c > 0, out_dt, None, dom,
             )
         else:
             out_dt = _agg_out_dtype(node_a, v.dtype)
             s = wrap_unsigned(col(slots[0]).to(dt.dtype_to_torch(out_dt)), out_dt)
-            out[node_a] = Val(s, None, out_dt, None, GROUP)
+            out[node_a] = Val(s, None, out_dt, None, dom)
 
     for node_a, v in minmax:
         m = ctx.rowmask if v.validity is None else (ctx.rowmask & v.validity)
         has = (G.group_counts(gctx, ctx.rowmask) if v.validity is None else G.seg_count(m, gctx.gids, cap)) > 0
-        out[node_a] = Val(G.seg_extreme(node_a.kind, v, m, gctx.gids, cap), has, v.dtype, v.table, GROUP)
+        out[node_a] = Val(G.seg_extreme(node_a.kind, v, m, gctx.gids, cap), has, v.dtype, v.table, dom)
     return out
 
 

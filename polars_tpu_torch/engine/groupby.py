@@ -77,6 +77,19 @@ def dense_group_ctx(keys: list[Val], rowmask: torch.Tensor, sizes: list[int]) ->
     )
 
 
+def one_group_ctx(rowmask: torch.Tensor) -> GroupCtx:
+    """Every row in group 0 of capacity 1: aggregations outside a group-by
+    (the JAX package's ``_group_of``), so that K1 sums them as it sums a
+    group-by's."""
+    dev = rowmask.device
+    return GroupCtx(
+        gids=torch.zeros(rowmask.shape, dtype=torch.int32, device=dev),
+        num_groups=torch.ones((), dtype=torch.int32, device=dev),
+        capacity=1,
+        group_valid=torch.ones(1, dtype=torch.bool, device=dev),
+    )
+
+
 def sorted_group_ctx(keys: list[Val], rowmask: torch.Tensor) -> GroupCtx:
     """Sort-based grouping over order-encoded key words: rows outside the
     mask sort last, nulls first within a key. Groups are numbered in key

@@ -1,18 +1,37 @@
 """The fluent ``Expr`` wrapper over the expression AST (the port of
-``polars_tpu/expr/expr.py``, trimmed to the operations this slice evaluates:
-arithmetic, comparison, boolean ``&``/``|``, aliasing and the sum, mean, min,
-max, count and len aggregations). Nothing executes until a plan is collected.
+``polars_tpu/expr/expr.py``, trimmed to the operations the ported queries
+evaluate: arithmetic, comparison, boolean ``&``/``|``/``~``, casts, ``is_in``,
+``is_between``, the ``.str`` namespace, aliasing and the sum, mean, min, max,
+count and len aggregations). Nothing executes until a plan is collected.
 """
 
 from __future__ import annotations
 
 import datetime as _pydt
+import itertools
 from typing import Any, Iterable
 
 import numpy as np
 
 from polars_tpu_torch import datatypes as dt
 from polars_tpu_torch.plan import exprs as E
+
+# process-monotonic Series-literal identities (id() can be reused after GC)
+_NEXT_IDENT = itertools.count(1)
+
+
+def series_literal(values: Any) -> E.ESeriesLit:
+    """A list, tuple or 1-D array as a literal Series node. Its column is
+    built on the CPU (it is a handful of values); evaluation moves it to the
+    frame's device."""
+    from polars_tpu_torch.core.column import Column
+
+    vals = values if isinstance(values, np.ndarray) else list(values)
+    return E.ESeriesLit(column=Column.from_values("literal", vals, device="cpu"), ident=next(_NEXT_IDENT))
+
+
+def _opts(**kwargs: Any) -> tuple[tuple[str, Any], ...]:
+    return tuple(sorted(kwargs.items()))
 
 
 def parse_into_expr(value: Any, *, str_as_lit: bool = False) -> E.ENode:
@@ -30,7 +49,7 @@ def parse_into_expr(value: Any, *, str_as_lit: bool = False) -> E.ENode:
     if isinstance(value, np.generic):
         return E.ELiteral(value.item(), dt.numpy_to_dtype(value.dtype))
     if isinstance(value, (list, tuple, np.ndarray)):
-        raise NotImplementedError("Series literals are not ported yet (port queue: expression breadth)")
+        return series_literal(value)
     return E.ELiteral(value)
 
 
@@ -57,8 +76,15 @@ class Expr:
     def __repr__(self) -> str:
         return f"<Expr [{self._node!r}]>"
 
+    def _fn(self, name: str, *inputs: Any, **options: Any) -> Expr:
+        nodes = (self._node, *(parse_into_expr(i, str_as_lit=True) for i in inputs))
+        return Expr(E.EFunction(name, nodes, _opts(**options)))
+
     def alias(self, name: str) -> Expr:
         return Expr(E.EAlias(self._node, name))
+
+    def cast(self, dtype: Any, *, strict: bool = True) -> Expr:
+        return Expr(E.ECast(self._node, dt.parse_into_dtype(dtype), strict))
 
     # -- binary ops -----------------------------------------------------------
 
@@ -127,7 +153,28 @@ class Expr:
     def __ror__(self, other: Any) -> Expr:
         return self._bin("|", other, swap=True)
 
+    def __invert__(self) -> Expr:
+        return self._fn("not")
+
     __hash__ = None  # == builds an expression, so Expr is not hashable
+
+    # -- membership / range ---------------------------------------------------
+
+    def is_in(self, other: Any, *, nulls_equal: bool = False) -> Expr:
+        return self._fn("is_in", other, nulls_equal=nulls_equal)
+
+    def is_between(self, lower_bound: Any, upper_bound: Any, closed: str = "both") -> Expr:
+        if closed not in ("both", "left", "right", "none"):
+            raise ValueError(f"`closed` must be one of 'both', 'left', 'right', 'none', got {closed!r}")
+        return self._fn("is_between", lower_bound, upper_bound, closed=closed)
+
+    # -- namespaces -----------------------------------------------------------
+
+    @property
+    def str(self):
+        from polars_tpu_torch.expr.string import ExprStringNamespace
+
+        return ExprStringNamespace(self)
 
     # -- aggregations ---------------------------------------------------------
 

@@ -1,0 +1,33 @@
+"""String expression namespace (the port of ``polars_tpu/expr/string.py``,
+trimmed to ``starts_with`` with a literal prefix). Ops run once per
+dictionary value on the host and map through the codes on the device (see
+``engine/fn_strings.py``)."""
+
+from __future__ import annotations
+
+from typing import TYPE_CHECKING, Any
+
+if TYPE_CHECKING:
+    from polars_tpu_torch.expr.expr import Expr
+
+
+class ExprStringNamespace:
+    __slots__ = ("_expr",)
+
+    def __init__(self, expr: Expr) -> None:
+        self._expr = expr
+
+    def _fn(self, name: str, *inputs: Any, **options: Any) -> Expr:
+        return self._expr._fn(f"str.{name}", *inputs, **options)
+
+    def starts_with(self, prefix: Any) -> Expr:
+        if not isinstance(prefix, str):
+            raise NotImplementedError(
+                "str.starts_with with an expression prefix is not ported yet (port queue: rest of PDS-H)"
+            )
+        return self._fn("starts_with", prefix=prefix)
+
+    def __getattr__(self, name: str):
+        if name.startswith("_"):
+            raise AttributeError(name)
+        raise NotImplementedError(f"str.{name} is not ported yet (port queue: rest of PDS-H)")

@@ -1,5 +1,5 @@
 """Expression AST nodes (the port of ``polars_tpu/plan/exprs.py``, trimmed to
-the node kinds this slice evaluates).
+the node kinds the ported queries evaluate).
 
 Nodes are immutable, hashable dataclasses, so structurally equal subtrees
 compare equal and evaluate once per context (the compiler's memo).
@@ -7,7 +7,7 @@ compare equal and evaluate once per context (the compiler's memo).
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any
 
 
@@ -31,6 +31,18 @@ class ELiteral(ENode):
 
 
 @dataclass(frozen=True)
+class ESeriesLit(ENode):
+    """A literal Series (identity-hashed; a small column of its own, never
+    padded to the frame's rows)."""
+
+    column: Any = field(hash=False, compare=False)
+    ident: int = 0  # process-unique token of the column
+
+    def __hash__(self) -> int:
+        return hash(("ESeriesLit", self.ident))
+
+
+@dataclass(frozen=True)
 class EBinary(ENode):
     left: ENode
     op: str  # "+", "-", "*", "/", "//", "%", "==", "!=", "<", "<=", ">", ">=", "&", "|"
@@ -38,6 +50,16 @@ class EBinary(ENode):
 
     def children(self) -> tuple[ENode, ...]:
         return (self.left, self.right)
+
+
+@dataclass(frozen=True)
+class ECast(ENode):
+    input: ENode
+    dtype: Any
+    strict: bool = True
+
+    def children(self) -> tuple[ENode, ...]:
+        return (self.input,)
 
 
 @dataclass(frozen=True)
@@ -72,6 +94,35 @@ class ELen(ENode):
     """Row count (pl.len())."""
 
 
+@dataclass(frozen=True)
+class ETernary(ENode):
+    predicate: ENode
+    truthy: ENode
+    falsy: ENode
+
+    def children(self) -> tuple[ENode, ...]:
+        return (self.predicate, self.truthy, self.falsy)
+
+
+@dataclass(frozen=True)
+class EFunction(ENode):
+    """Catch-all op with a string opcode (reference: FunctionExpr), typed and
+    evaluated through ``engine/registry.py``."""
+
+    name: str
+    inputs: tuple[ENode, ...]
+    options: tuple[tuple[str, Any], ...] = ()
+
+    def children(self) -> tuple[ENode, ...]:
+        return self.inputs
+
+    def opt(self, key: str, default: Any = None) -> Any:
+        for k, v in self.options:
+            if k == key:
+                return v
+        return default
+
+
 def walk(node: ENode):
     """Depth-first pre-order traversal."""
     yield node
@@ -89,6 +140,8 @@ def output_name(node: ENode) -> str | None:
         return "len"
     if isinstance(node, ELiteral):
         return "literal"
+    if isinstance(node, ESeriesLit):
+        return node.column.name or "literal"
     for c in node.children():
         n = output_name(c)
         if n is not None:
@@ -99,15 +152,16 @@ def output_name(node: ENode) -> str | None:
 def reduces_in_agg(node: ENode) -> bool:
     """True when the expr yields ONE value per group: an aggregation root, or
     elementwise combinations of aggregations and literals."""
-    while isinstance(node, EAlias):
+    while isinstance(node, (EAlias, ECast)):
         node = node.input
-    if isinstance(node, (EAgg, ELen, ELiteral)):
+    if isinstance(node, (EAgg, ELen, ELiteral, ESeriesLit)):
         return True
-    if isinstance(node, EBinary):
-        return reduces_in_agg(node.left) and reduces_in_agg(node.right)
+    if isinstance(node, (EBinary, ETernary, EFunction)):
+        return all(reduces_in_agg(c) for c in node.children())
     return False
 
 
 def is_elementwise(node: ENode) -> bool:
-    """True if the expr maps rows independently."""
+    """True if the expr maps rows independently (every function the port
+    registers is elementwise)."""
     return not any(isinstance(n, (EAgg, ELen)) for n in walk(node))

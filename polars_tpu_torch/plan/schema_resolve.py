@@ -1,5 +1,6 @@
-"""dsl -> ir machinery for this slice: the supertype lattice, expression
-dtype resolution and node schema resolution.
+"""dsl -> ir machinery for the ported queries: the supertype lattice,
+expression dtype resolution (functions through ``engine/registry.py``) and
+node schema resolution.
 
 The port of ``polars_tpu/plan/schema_resolve.py`` (reference:
 polars-plan/src/plans/conversion/). The slice has no selectors, so
@@ -141,17 +142,32 @@ def expr_dtype(node: E.ENode, schema: Schema) -> dt.DataType:
         if node.dtype is not None:
             return dt.parse_into_dtype(node.dtype)
         return _literal_dtype(node.value)
+    if isinstance(node, E.ESeriesLit):
+        return node.column.dtype
     if isinstance(node, E.EAlias):
         return expr_dtype(node.input, schema)
+    if isinstance(node, E.ECast):
+        return dt.parse_into_dtype(node.dtype)
     if isinstance(node, E.EBinary):
         lt = expr_dtype(node.left, schema)
         rt = expr_dtype(node.right, schema)
         lt, rt = adapt_dyn_literal_dtypes((node.left, node.right), [lt, rt])
         return binary_dtype(node.op, lt, rt)
+    if isinstance(node, E.ETernary):
+        tt = expr_dtype(node.truthy, schema)
+        ft = expr_dtype(node.falsy, schema)
+        tt, ft = adapt_dyn_literal_dtypes((node.truthy, node.falsy), [tt, ft])
+        return supertype(tt, ft)
     if isinstance(node, E.EAgg):
         return agg_dtype(node, schema)
     if isinstance(node, E.ELen):
         return dt.UInt32()
+    if isinstance(node, E.EFunction):
+        from polars_tpu_torch.engine.registry import get_spec
+
+        in_dts = [expr_dtype(i, schema) for i in node.inputs]
+        in_dts = adapt_dyn_literal_dtypes(node.inputs, in_dts)
+        return get_spec(node.name).dtype_rule(in_dts, dict(node.options))
     raise InvalidOperationError(f"cannot resolve dtype of {type(node).__name__}")
 
 

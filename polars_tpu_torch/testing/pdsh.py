@@ -1,6 +1,7 @@
 """PDS-H (TPC-H-derived) data generator + reference queries (copied from
-polars_tpu/testing/pdsh.py: ``generate_pdsh`` unchanged, ``q1``, ``q3`` and
-``q4`` on this package).
+polars_tpu/testing/pdsh.py: ``generate_pdsh`` unchanged, ``q1``, ``q3``,
+``q4``, ``q5``, ``q6``, ``q10``, ``q12``, ``q14``, ``q19`` and ``q18`` on this
+package).
 
 Seeded numpy generator producing the TPC-H schema at a given scale factor
 (reference test pattern: py-polars/tests/benchmark/data/ + the pdsh logic
@@ -187,6 +188,54 @@ def generate_pdsh(scale: float = 0.01, seed: int = 42, tables=None) -> dict:
 # queries — polars_tpu_torch implementations
 # ---------------------------------------------------------------------------
 
+# the tables each ported query reads, in the order its function takes them,
+# and the columns it reads of each (q1's, q3's and q4's are bench.py's lists)
+QUERY_COLUMNS = {
+    "q1": {"lineitem": ["l_shipdate", "l_returnflag", "l_linestatus", "l_quantity", "l_extendedprice",
+                        "l_discount", "l_tax"]},
+    "q3": {"customer": ["c_custkey", "c_mktsegment"],
+           "orders": ["o_orderkey", "o_custkey", "o_orderdate", "o_shippriority"],
+           "lineitem": ["l_orderkey", "l_shipdate", "l_extendedprice", "l_discount"]},
+    "q4": {"orders": ["o_orderkey", "o_orderdate", "o_orderpriority"],
+           "lineitem": ["l_orderkey", "l_commitdate", "l_receiptdate"]},
+    "q5": {"customer": ["c_custkey", "c_nationkey"],
+           "orders": ["o_orderkey", "o_custkey", "o_orderdate"],
+           "lineitem": ["l_orderkey", "l_suppkey", "l_extendedprice", "l_discount"],
+           "supplier": ["s_suppkey", "s_nationkey"],
+           "nation": ["n_nationkey", "n_name", "n_regionkey"],
+           "region": ["r_regionkey", "r_name"]},
+    "q6": {"lineitem": ["l_shipdate", "l_discount", "l_quantity", "l_extendedprice"]},
+    "q10": {"customer": ["c_custkey", "c_name", "c_address", "c_nationkey", "c_phone", "c_acctbal", "c_comment"],
+            "orders": ["o_orderkey", "o_custkey", "o_orderdate"],
+            "lineitem": ["l_orderkey", "l_returnflag", "l_extendedprice", "l_discount"],
+            "nation": ["n_nationkey", "n_name"]},
+    "q12": {"orders": ["o_orderkey", "o_orderpriority"],
+            "lineitem": ["l_orderkey", "l_shipmode", "l_commitdate", "l_receiptdate", "l_shipdate"]},
+    "q14": {"lineitem": ["l_partkey", "l_shipdate", "l_extendedprice", "l_discount"],
+            "part": ["p_partkey", "p_type"]},
+    "q18": {"customer": ["c_custkey", "c_name"],
+            "orders": ["o_orderkey", "o_custkey", "o_orderdate", "o_totalprice"],
+            "lineitem": ["l_orderkey", "l_quantity"]},
+    "q19": {"lineitem": ["l_partkey", "l_quantity", "l_shipmode", "l_shipinstruct", "l_extendedprice",
+                        "l_discount"],
+            "part": ["p_partkey", "p_container", "p_size"]},
+}
+
+
+def query(name: str, frames: dict):
+    """The lazy query ``name`` over ``frames`` (table name -> frame)."""
+    return globals()[name](*(frames[t] for t in QUERY_COLUMNS[name]))
+
+
+def frames_for(name: str, tables: dict) -> dict:
+    """The frames query ``name`` reads: each table's frame cut to the
+    query's columns, sharing the table's device columns."""
+    from polars_tpu_torch.core.frame import DataFrame
+
+    return {t: DataFrame._from_columns([tables[t]._get(c) for c in cols], tables[t].height)
+            for t, cols in QUERY_COLUMNS[name].items()}
+
+
 
 def q1(lineitem):
     import polars_tpu_torch as pl
@@ -253,4 +302,176 @@ def q4(orders, lineitem):
         .group_by("o_orderpriority")
         .agg(order_count=pl.len())
         .sort("o_orderpriority")
+    )
+
+
+def q5(customer, orders, lineitem, supplier, nation, region):
+    import polars_tpu_torch as pl
+
+    return (
+        region.lazy()
+        .filter(pl.col("r_name") == "ASIA")
+        .join(nation.lazy(), left_on="r_regionkey", right_on="n_regionkey", validate="1:m")
+        .join(customer.lazy(), left_on="n_nationkey", right_on="c_nationkey", validate="1:m")
+        .join(orders.lazy(), left_on="c_custkey", right_on="o_custkey", validate="1:m")
+        .filter(
+            (pl.col("o_orderdate") >= dtm.date(1994, 1, 1))
+            & (pl.col("o_orderdate") < dtm.date(1995, 1, 1))
+        )
+        .join(lineitem.lazy(), left_on="o_orderkey", right_on="l_orderkey", validate="1:m")
+        .join(
+            supplier.lazy(),
+            left_on=["l_suppkey", "n_nationkey"],
+            right_on=["s_suppkey", "s_nationkey"],
+            validate="m:1",
+        )
+        .group_by("n_name")
+        .agg(revenue=(pl.col("l_extendedprice") * (1 - pl.col("l_discount"))).sum())
+        .sort("revenue", descending=True)
+    )
+
+
+def q6(lineitem):
+    import polars_tpu_torch as pl
+
+    return (
+        lineitem.lazy()
+        .filter(
+            (pl.col("l_shipdate") >= dtm.date(1994, 1, 1))
+            & (pl.col("l_shipdate") < dtm.date(1995, 1, 1))
+            & (pl.col("l_discount").is_between(0.05, 0.07))
+            & (pl.col("l_quantity") < 24)
+        )
+        .select(revenue=(pl.col("l_extendedprice") * pl.col("l_discount")).sum())
+    )
+
+
+def q10(customer, orders, lineitem, nation):
+    import polars_tpu_torch as pl
+
+    return (
+        customer.lazy()
+        .join(orders.lazy(), left_on="c_custkey", right_on="o_custkey", validate="1:m")
+        .filter(
+            (pl.col("o_orderdate") >= dtm.date(1993, 10, 1))
+            & (pl.col("o_orderdate") < dtm.date(1994, 1, 1))
+        )
+        .join(lineitem.lazy(), left_on="o_orderkey", right_on="l_orderkey", validate="1:m")
+        .filter(pl.col("l_returnflag") == "R")
+        .join(nation.lazy(), left_on="c_nationkey", right_on="n_nationkey", validate="m:1")
+        .group_by(
+            "c_custkey", "c_name", "c_acctbal", "c_phone", "n_name", "c_address", "c_comment"
+        )
+        .agg(revenue=(pl.col("l_extendedprice") * (1 - pl.col("l_discount"))).sum())
+        .select(
+            "c_custkey", "c_name", "revenue", "c_acctbal", "n_name", "c_address",
+            "c_phone", "c_comment",
+        )
+        .sort(["revenue", "c_custkey"], descending=[True, False])
+        .head(20)
+    )
+
+
+def q12(orders, lineitem):
+    import polars_tpu_torch as pl
+
+    return (
+        lineitem.lazy()
+        .filter(
+            pl.col("l_shipmode").is_in(["MAIL", "SHIP"])
+            & (pl.col("l_commitdate") < pl.col("l_receiptdate"))
+            & (pl.col("l_shipdate") < pl.col("l_commitdate"))
+            & (pl.col("l_receiptdate") >= dtm.date(1994, 1, 1))
+            & (pl.col("l_receiptdate") < dtm.date(1995, 1, 1))
+        )
+        .join(orders.lazy(), left_on="l_orderkey", right_on="o_orderkey", validate="m:1")
+        .group_by("l_shipmode")
+        .agg(
+            high_line_count=(
+                pl.col("o_orderpriority").is_in(["1-URGENT", "2-HIGH"]).cast(pl.Int64)
+            ).sum(),
+            low_line_count=(
+                (~pl.col("o_orderpriority").is_in(["1-URGENT", "2-HIGH"])).cast(pl.Int64)
+            ).sum(),
+        )
+        .sort("l_shipmode")
+    )
+
+
+def q14(lineitem, part):
+    import polars_tpu_torch as pl
+
+    return (
+        lineitem.lazy()
+        .filter(
+            (pl.col("l_shipdate") >= dtm.date(1995, 9, 1))
+            & (pl.col("l_shipdate") < dtm.date(1995, 10, 1))
+        )
+        .join(part.lazy(), left_on="l_partkey", right_on="p_partkey", validate="m:1")
+        .select(
+            promo_revenue=(
+                100.0
+                * pl.when(pl.col("p_type").str.starts_with("PROMO"))
+                .then(pl.col("l_extendedprice") * (1 - pl.col("l_discount")))
+                .otherwise(0.0)
+                .sum()
+                / (pl.col("l_extendedprice") * (1 - pl.col("l_discount"))).sum()
+            )
+        )
+    )
+
+
+def q19(lineitem, part):
+    import polars_tpu_torch as pl
+
+    j = lineitem.lazy().join(part.lazy(), left_on="l_partkey", right_on="p_partkey", validate="m:1")
+    cond = (
+        (
+            (pl.col("p_container").is_in(["SM CASE"]))
+            & pl.col("l_quantity").is_between(1, 11)
+            & (pl.col("p_size") <= 5)
+        )
+        | (
+            (pl.col("p_container").is_in(["MED BAG"]))
+            & pl.col("l_quantity").is_between(10, 20)
+            & (pl.col("p_size") <= 10)
+        )
+        | (
+            (pl.col("p_container").is_in(["LG BOX"]))
+            & pl.col("l_quantity").is_between(20, 30)
+            & (pl.col("p_size") <= 15)
+        )
+    )
+    return (
+        j.filter(
+            cond
+            & pl.col("l_shipmode").is_in(["AIR", "REG AIR"])
+            & (pl.col("l_shipinstruct") == "DELIVER IN PERSON")
+        )
+        .select(revenue=(pl.col("l_extendedprice") * (1 - pl.col("l_discount"))).sum())
+    )
+
+
+def q18(customer, orders, lineitem, threshold=300):
+    import polars_tpu_torch as pl
+
+    big_orders = (
+        lineitem.lazy()
+        .group_by("l_orderkey")
+        .agg(sum_qty=pl.col("l_quantity").sum())
+        .filter(pl.col("sum_qty") > threshold)
+    )
+    return (
+        orders.lazy()
+        .join(big_orders, left_on="o_orderkey", right_on="l_orderkey", how="semi", validate="m:1")
+        .join(customer.lazy(), left_on="o_custkey", right_on="c_custkey", validate="m:1")
+        .join(
+            lineitem.lazy().group_by("l_orderkey").agg(col_qty=pl.col("l_quantity").sum()),
+            left_on="o_orderkey",
+            right_on="l_orderkey",
+            validate="m:1",
+        )
+        .select("c_name", pl.col("o_custkey").alias("c_custkey"), "o_orderkey", "o_orderdate", "o_totalprice", "col_qty")
+        .sort(["o_totalprice", "o_orderdate"], descending=[True, False])
+        .head(100)
     )

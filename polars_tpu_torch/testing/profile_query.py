@@ -1,6 +1,8 @@
-"""Where a PDS-H query's time goes on the card (Q1, Q3 or Q4).
+"""Where a PDS-H query's time goes on the card (any query the port runs:
+q1, q3, q4, q5, q6, q10, q12, q14, q18 or q19).
 
-Builds the SF10 frames the query reads as ``chip_smoke.py`` does, warms the
+Builds the SF10 frames of the columns the query reads
+(``pdsh.QUERY_COLUMNS``), as ``chip_smoke.py`` does, warms the
 query up, then:
 
 1. runs ``--runs`` collects under ``torch.profiler`` and prints one JSON line:
@@ -15,8 +17,11 @@ query up, then:
    (a synchronize around each), and prints each sort's caller, rows, word
    types and time.
 
+Several queries in one run share the data, made and loaded once; each gets
+frames of only its own columns (``pdsh.frames_for``).
+
 Run from the repository root on a machine with a CUDA device:
-    python3 -m polars_tpu_torch.testing.profile_query [--query q3] [--scale 10] [--runs 5]
+    python3 -m polars_tpu_torch.testing.profile_query [--query q3 [q5 ...]] [--scale 10] [--runs 5]
 """
 
 from __future__ import annotations
@@ -26,16 +31,6 @@ import json
 import re
 import sys
 import time
-
-COLS = {
-    "q1": {"lineitem": ["l_shipdate", "l_returnflag", "l_linestatus", "l_quantity", "l_extendedprice",
-                        "l_discount", "l_tax"]},
-    "q3": {"customer": ["c_custkey", "c_mktsegment"],
-           "orders": ["o_orderkey", "o_custkey", "o_orderdate", "o_shippriority"],
-           "lineitem": ["l_orderkey", "l_shipdate", "l_extendedprice", "l_discount"]},
-    "q4": {"orders": ["o_orderkey", "o_orderdate", "o_orderpriority"],
-           "lineitem": ["l_orderkey", "l_commitdate", "l_receiptdate"]},
-}
 
 # device kernel name -> kind, first match wins
 KINDS = [
@@ -90,43 +85,20 @@ def timed_sorts(torch, run) -> list[dict]:
     return records
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--query", choices=sorted(COLS), default="q1")
-    ap.add_argument("--scale", type=float, default=10.0)
-    ap.add_argument("--seed", type=int, default=42)
-    ap.add_argument("--runs", type=int, default=5)
-    ap.add_argument("--top", type=int, default=15)
-    args = ap.parse_args()
-
-    import torch
+def profile_query(torch, query: str, run, rows: dict, scale: float, runs: int, top: int) -> None:
+    """Profile ``runs`` warm collects of ``run()`` and print the two lines."""
     from torch.profiler import ProfilerActivity, profile
 
-    if not torch.cuda.is_available():
-        print("profile_query: no CUDA device is available", file=sys.stderr)
-        return 1
-    import polars_tpu_torch as pl
-    from polars_tpu_torch.testing import pdsh
-
-    cols = COLS[args.query]
-    raw = pdsh.generate_pdsh(args.scale, seed=args.seed, tables=tuple(cols))
-    f = {t: pl.DataFrame({c: raw[t][c] for c in cs}, device="cuda") for t, cs in cols.items()}
-    del raw
-    run = {
-        "q1": lambda: pdsh.q1(f["lineitem"]),
-        "q3": lambda: pdsh.q3(f["customer"], f["orders"], f["lineitem"]),
-        "q4": lambda: pdsh.q4(f["orders"], f["lineitem"]),
-    }[args.query]
     for _ in range(2):
         run().collect()
     torch.cuda.synchronize()
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(args.runs):
+        for _ in range(runs):
             run().collect()
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / args.runs
+        wall = (time.perf_counter() - t0) / runs
 
     per_kernel: dict[str, float] = {}
     for ev in prof.key_averages():
@@ -136,7 +108,7 @@ def main() -> int:
         if us is None:
             us = ev.self_cuda_time_total
         if us > 0:
-            per_kernel[ev.key] = per_kernel.get(ev.key, 0.0) + us / 1e3 / args.runs
+            per_kernel[ev.key] = per_kernel.get(ev.key, 0.0) + us / 1e3 / runs
 
     per_op: dict[str, list] = {}  # aten op -> [device ms, calls] per collect, nested ops included
     for ev in prof.key_averages():
@@ -146,24 +118,57 @@ def main() -> int:
         if us is None:
             us = ev.cuda_time_total
         if us > 0:
-            per_op[ev.key] = [us / 1e3 / args.runs, ev.count / args.runs]
+            per_op[ev.key] = [us / 1e3 / runs, ev.count / runs]
 
     by_kind: dict[str, float] = {}
     for name, ms in per_kernel.items():
         by_kind[kind_of(name)] = by_kind.get(kind_of(name), 0.0) + ms
     device_ms = sum(per_kernel.values())
-    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[: args.top]
+    top_kernels = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:top]
     print(json.dumps({
-        "profile": args.query, "scale": args.scale, "rows": {t: d.height for t, d in f.items()}, "runs": args.runs,
+        "profile": query, "scale": scale, "rows": rows, "runs": runs,
         "wall_ms_per_collect": wall * 1e3, "device_ms_per_collect": device_ms,
         "device_busy_share": device_ms / (wall * 1e3), "device_idle_share": 1 - device_ms / (wall * 1e3),
         "by_kind_ms": dict(sorted(by_kind.items(), key=lambda kv: -kv[1])),
-        "kernels": [{"name": name[:110], "kind": kind_of(name), "ms": ms} for name, ms in top],
+        "kernels": [{"name": name[:110], "kind": kind_of(name), "ms": ms} for name, ms in top_kernels],
         "ops": [{"op": op, "device_ms": v[0], "calls": v[1]}
-                for op, v in sorted(per_op.items(), key=lambda kv: -kv[1][0])[: args.top]],
+                for op, v in sorted(per_op.items(), key=lambda kv: -kv[1][0])[: top]],
         "device": torch.cuda.get_device_name(0),
     }), flush=True)
-    print(json.dumps({"profile": args.query, "sorts": timed_sorts(torch, run)}), flush=True)
+    print(json.dumps({"profile": query, "sorts": timed_sorts(torch, run)}), flush=True)
+
+
+def main() -> int:
+    from polars_tpu_torch.testing.pdsh import QUERY_COLUMNS
+
+    ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--query", nargs="+", choices=sorted(QUERY_COLUMNS), default=["q1"],
+                    help="one or more queries; the data is made and loaded once for all")
+    ap.add_argument("--scale", type=float, default=10.0)
+    ap.add_argument("--seed", type=int, default=42)
+    ap.add_argument("--runs", type=int, default=5)
+    ap.add_argument("--top", type=int, default=15)
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("profile_query: no CUDA device is available", file=sys.stderr)
+        return 1
+    import polars_tpu_torch as pl
+    from polars_tpu_torch.testing import pdsh
+
+    need: dict[str, dict] = {}  # table -> the columns any chosen query reads
+    for q in args.query:
+        for t, cs in QUERY_COLUMNS[q].items():
+            need.setdefault(t, {}).update(dict.fromkeys(cs))
+    raw = pdsh.generate_pdsh(args.scale, seed=args.seed, tables=tuple(need))
+    tables = {t: pl.DataFrame({c: raw[t][c] for c in cs}, device="cuda") for t, cs in need.items()}
+    del raw
+    for q in args.query:
+        f = pdsh.frames_for(q, tables)
+        profile_query(torch, q, lambda: pdsh.query(q, f), {t: d.height for t, d in f.items()}, args.scale,
+                      args.runs, args.top)
     return 0
 
 
