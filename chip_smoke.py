@@ -25,7 +25,19 @@ Phases, each printed as one JSON line:
                 PDS-H file: joins of up to six tables, is_in, is_between,
                 when/then, str.starts_with, casts and one-row aggregate
                 selects (K1 at capacity 1), each against a numpy oracle,
-                launches counted the same way.
+                launches counted the same way;
+  8. q11, q15, q17, q20 — a cross join of a one-row aggregate (Q11, Q15),
+                an unvalidated join (Q15), 1:m and two-key joins (Q17,
+                Q20), each against a numpy oracle; Q11 at the TPC-H
+                FRACTION 0.0001 / scale, Q20 with color="part";
+  9. joins    — host-sized joins at SF10, each against a numpy oracle that
+                gives the same rows in the same order (stable argsort +
+                searchsorted): inner m:m (orders x lineitem, 60M rows), left
+                and right (customer and orders), full (Q3's two filtered
+                sides), cross (supplier x nation), a two-key hashed inner
+                join with verification and the same keys as an anti join
+                (lineitem and partsupp); each with its warm median, host
+                reads and peak device memory.
 Each query reads frames of only its own columns (``pdsh.QUERY_COLUMNS``),
 cut from one frame per table that is built once (string encoding timed per
 column). Each query phase then collects once more with the engine's kernel calls
@@ -38,7 +50,7 @@ then the kernels line, the card's name and power limit, and the final line
 {"ok": true, "device": {...}}. Any failure exits non-zero before that line.
 
 Run from the repository root:
-    python3 chip_smoke.py [--scale 10] [--seed 42] [--only q1 filter q3 q4]
+    python3 chip_smoke.py [--scale 10] [--seed 42] [--only q1 filter q3 q4 ... joins]
 (``--only`` runs the build and kernel phases and the named query phases, for
 an A/B of a few queries against a parent tree). It needs a CUDA device and
 nvcc; it never imports JAX or polars_tpu.
@@ -47,12 +59,14 @@ nvcc; it never imports JAX or polars_tpu.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import datetime as dtm
 import json
 import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -73,10 +87,22 @@ def day(y: int, m: int, d: int) -> int:
 
 Q3_DAYS = day(1995, 3, 15)
 Q4_FROM, Q4_TO = day(1993, 7, 1), day(1993, 10, 1)
-PHASES = ["q1", "filter", "q3", "q4", "q5", "q6", "q10", "q12", "q14", "q18", "q19"]
+PHASES = ["q1", "filter", "q3", "q4", "q5", "q6", "q10", "q12", "q14", "q18", "q19", "q11", "q15", "q17", "q20",
+          "joins"]
+# the columns the joins phase reads of each table
+JOIN_COLUMNS = {"customer": ["c_custkey", "c_mktsegment"], "orders": ["o_orderkey", "o_custkey", "o_orderdate"],
+                "lineitem": ["l_orderkey", "l_partkey", "l_suppkey", "l_quantity"],
+                "supplier": ["s_suppkey", "s_nationkey"], "nation": ["n_nationkey", "n_name"],
+                "partsupp": ["ps_partkey", "ps_suppkey", "ps_availqty"]}
+
+
+T0 = time.perf_counter()
 
 
 def emit(obj: dict) -> None:
+    """One JSON line; a phase's line also says when it ended (seconds since the start)."""
+    if "phase" in obj:
+        obj = {**obj, "ended_s": time.perf_counter() - T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -158,25 +184,32 @@ def hold_k1(torch, gids, cols, mask, cap, label) -> dict:
     """K1 on these inputs against its plain version (and the library
     version against the plain one, so that it computes the same function),
     then each of the three timed, beside the bound."""
-    from polars_tpu_torch.kernels.groupagg import groupagg_sums, groupagg_sums_plain, plan
+    from polars_tpu_torch.kernels.groupagg import MODE_SHARED, groupagg_sums, groupagg_sums_plain, plan
 
     want = groupagg_sums_plain(gids, cols, mask, cap)
-    err, ok = k1_agree(torch, groupagg_sums(gids, cols, mask, cap), want)
+    f64 = want.dtype == torch.float64
+    n, k = gids.shape[0], len(cols)
+    sms = torch.cuda.get_device_properties(gids.device).multi_processor_count
+    p = plan(cap, k, sms, n, f64)
+    first = groupagg_sums(gids, cols, mask, cap)
+    err, ok = k1_agree(torch, first, want)
     if not ok:
         raise AssertionError(f"groupagg_sums {label} disagrees with its plain version (max err {err})")
+    repeats = not (f64 and p.mode == MODE_SHARED)  # the shared slices' f64 atomics vary in their last bits
+    if repeats and not torch.equal(_bits(torch, first), _bits(torch, groupagg_sums(gids, cols, mask, cap))):
+        raise AssertionError(f"groupagg_sums {label}: a second run differs from the first in its bits")
+    del first
     if not k1_agree(torch, k1_library(torch, gids, cols, mask, cap), want)[1]:
         raise AssertionError(f"the library version of groupagg_sums {label} disagrees with the plain version")
     del want
-    n, k = gids.shape[0], len(cols)
-    sms = torch.cuda.get_device_properties(gids.device).multi_processor_count
     ms = cuda_ms(torch, lambda: groupagg_sums(gids, cols, mask, cap))
     plain_ms = cuda_ms(torch, lambda: groupagg_sums_plain(gids, cols, mask, cap), reps=5, warmup=1)
     library_ms = cuda_ms(torch, lambda: k1_library(torch, gids, cols, mask, cap), reps=5, warmup=1)
     b_ms, b_by = k1_bound(torch, gids, cols, mask, cap)
     out = {"n": n, "n_selected": int(mask.sum()), "cap": cap, "k": k,
            "dtype": "i64" if all(c is None or c.dtype == torch.int64 for c in cols) else "f64",
-           "plan": plan(cap, k, sms, n)._asdict(), "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-           "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err}
+           "plan": p._asdict(), "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err, "repeats_bit_for_bit": True if repeats else None}
     if cap == 1:  # what the all-zero ids of a one-group call cost to make
         out["ids_fill_ms"] = cuda_ms(torch, lambda: torch.zeros(n, dtype=torch.int32, device=gids.device))
     return out
@@ -247,7 +280,7 @@ def check_groupagg(torch, rng, n, cap, k, i64_cols, density, dev, offsets=(0, 0,
     torch.cuda.synchronize()
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     res = {"n": n, "cap": cap, "k_f64": k, "i64_cols": ["count" if c is None else c for c in i64_cols],
-           "plan_f64": plan(cap, k, sms, n)._asdict(), "plan_i64": plan(cap, len(i64_cols), sms, n)._asdict(), "density": density,
+           "plan_f64": plan(cap, k, sms, n, True)._asdict(), "plan_i64": plan(cap, len(i64_cols), sms, n)._asdict(), "density": density,
            "offsets": list(offsets), "poison": poison,
            "max_abs_err_f64": err_f, "max_abs_err_i64": err_i, "f64_rtol_1e-9": ok_f, "i64_exact": ok_i}
     if not (ok_f and ok_i):
@@ -325,7 +358,7 @@ def check_compact(torch, rng, n, mask, dtypes, dev, label="", offset=0) -> dict:
 
 def phase_kernels(torch, dev, seed: int, q1_density: float, n_main: int) -> dict:
     from polars_tpu_torch.kernels.compact import CHUNK_ROWS as compact_chunk, TILE_ROWS as compact_tile
-    from polars_tpu_torch.kernels.groupagg import MODE_PRIVATE, groupagg_sums, plan
+    from polars_tpu_torch.kernels.groupagg import plan
 
     rng = np.random.default_rng(seed)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -401,13 +434,9 @@ def phase_kernels(torch, dev, seed: int, q1_density: float, n_main: int) -> dict
         ("f64_k2_cap65536", f64_cols[:2], 65536, 65536),
     ):
         gids = torch.as_tensor(rng.integers(0, ids, n, dtype=np.int32)).to(dev)
-        p = plan(cap, len(cols), sms, n)
-        got = groupagg_sums(gids, cols, mask, cap)
-        if p.mode == MODE_PRIVATE and not torch.equal(got, groupagg_sums(gids, cols, mask, cap)):
-            raise AssertionError(f"groupagg_sums {label}: two runs with private accumulators differ in their bits")
-        timings[label] = {**hold_k1(torch, gids, cols, mask, cap, label),
-                          "repeats_bit_for_bit": True if p.mode == MODE_PRIVATE else None}
-        del gids, got
+        # hold_k1 also runs each twice: every call repeats bit for bit but f64 in the shared slices
+        timings[label] = hold_k1(torch, gids, cols, mask, cap, label)
+        del gids
     del f64_cols
     emit({"phase": "kernels.groupagg_timing", **timings})
 
@@ -463,9 +492,9 @@ def generate(scale: float, seed: int, queries) -> tuple[dict, float]:
     from polars_tpu_torch.testing import pdsh
 
     t0 = time.perf_counter()
-    need: dict[str, dict] = {}
+    need: dict[str, dict] = {"lineitem": {"l_shipdate": None}}  # the kernels phase takes Q1's filter density
     for q in queries:
-        for t, cols in pdsh.QUERY_COLUMNS[q].items():
+        for t, cols in (JOIN_COLUMNS if q == "joins" else pdsh.QUERY_COLUMNS[q]).items():
             need.setdefault(t, {}).update(dict.fromkeys(cols))
     full = pdsh.generate_pdsh(scale, seed=seed, tables=tuple(need))
     raw = {t: {c: full[t][c] for c in cols} for t, cols in need.items()}
@@ -491,7 +520,10 @@ def phase_frames(torch, pl, dev, raw: dict, queries) -> tuple[dict, dict]:
                 string_s[c] = time.perf_counter() - t1
         tables[t] = DataFrame._from_columns(built)
         seconds[t] = time.perf_counter() - t0
-    frames = {q: pdsh.frames_for(q, tables) for q in queries}
+    frames = {q: pdsh.frames_for(q, tables) for q in queries if q != "joins"}
+    if "joins" in queries:
+        frames["joins"] = {t: DataFrame._from_columns([tables[t]._get(c) for c in cols], tables[t].height)
+                           for t, cols in JOIN_COLUMNS.items()}
     res = {"phase": "frames", "build_s": seconds, "string_encode_s": string_s,
            "rows": {t: f.height for t, f in tables.items()}, "device_bytes": torch.cuda.memory_allocated()}
     emit(res)
@@ -507,6 +539,7 @@ def record_kernel_calls(torch, run) -> list:
     missed."""
     import polars_tpu_torch.engine.executors as executors
     import polars_tpu_torch.engine.groupby as groupby
+    import polars_tpu_torch.engine.join as join
     from polars_tpu_torch.kernels.compact import compact, compact_count, compact_scatter
     from polars_tpu_torch.kernels.groupagg import groupagg_sums
 
@@ -528,7 +561,8 @@ def record_kernel_calls(torch, run) -> list:
 
     sites = [(executors, "groupagg_sums", k1, groupagg_sums), (groupby, "groupagg_sums", k1, groupagg_sums),
              (executors, "compact_count", k2_count, compact_count),
-             (executors, "compact_scatter", k2_scatter, compact_scatter)]
+             (executors, "compact_scatter", k2_scatter, compact_scatter),
+             (join, "compact_count", k2_count, compact_count), (join, "compact_scatter", k2_scatter, compact_scatter)]
     before = groupagg_sums.launches + compact.launches
     for module, name, recorder, _ in sites:
         setattr(module, name, recorder)
@@ -859,8 +893,82 @@ def q19_oracle(raw: dict):
     return {"revenue": [float(np.sum(_revenue(line, m)))]}, None, 0, ("revenue",), {"selected_rows": int(m.sum())}
 
 
+def q11_oracle(raw: dict, scale: float):
+    """PDS-H Q11 in numpy: the parts whose stock value at GERMANY's
+    suppliers exceeds FRACTION (0.0001 / scale, as TPC-H sets it) of the
+    total, largest first, then key."""
+    nat, supp, ps = raw["nation"], raw["supplier"], raw["partsupp"]
+    german = np.nonzero(nat["n_name"] == "GERMANY")[0]  # n_nationkey = row
+    m = np.isin(supp["s_nationkey"][ps["ps_suppkey"] - 1], german)
+    value = ps["ps_supplycost"][m] * ps["ps_availqty"][m]
+    keys, inv = np.unique(ps["ps_partkey"][m], return_inverse=True)
+    sums = np.bincount(inv.reshape(-1), weights=value, minlength=len(keys))
+    keep = sums > value.sum() * (0.0001 / scale)
+    order = np.lexsort((keys[keep], -sums[keep]))
+    want = {"ps_partkey": keys[keep][order], "value": sums[keep][order]}
+    return want, "value", len(order), ("value",), {"german_rows": int(m.sum())}
+
+
+def q15_oracle(raw: dict):
+    """PDS-H Q15 in numpy: the supplier(s) with the largest revenue of the
+    first quarter of 1996."""
+    line, supp = raw["lineitem"], raw["supplier"]
+    ship = _days(line["l_shipdate"])
+    m = (ship >= day(1996, 1, 1)) & (ship < day(1996, 4, 1))
+    rev = np.bincount(line["l_suppkey"][m], weights=_revenue(line, m), minlength=len(supp["s_suppkey"]) + 1)
+    top = np.nonzero(rev == rev.max())[0]  # s_suppkey = row + 1
+    want = {"supplier_no": top, "s_name": supp["s_name"][top - 1], "s_address": supp["s_address"][top - 1],
+            "s_phone": supp["s_phone"][top - 1], "total_revenue": rev[top]}
+    return want, None, 0, ("total_revenue",), {"selected_rows": int(m.sum())}
+
+
+def q17_oracle(raw: dict):
+    """PDS-H Q17 in numpy: the yearly revenue lost on small orders of
+    Brand#11's SM CASE parts (quantity under 0.2 of the part's average)."""
+    line, part = raw["lineitem"], raw["part"]
+    good = (part["p_brand"] == "Brand#11") & (part["p_container"] == "SM CASE")  # p_partkey = row + 1
+    pk = line["l_partkey"]
+    m = good[pk - 1]
+    n_part = len(good) + 1
+    qty_sum = np.bincount(pk[m], weights=line["l_quantity"][m], minlength=n_part)
+    cnt = np.bincount(pk[m], minlength=n_part)
+    limit = 0.2 * (qty_sum / np.maximum(cnt, 1))  # the mean as the engine takes it: sum / count
+    small = m.copy()
+    idx = np.nonzero(m)[0]
+    small[idx] = line["l_quantity"][idx] < limit[pk[idx]]
+    return {"avg_yearly": [float(line["l_extendedprice"][small].sum()) / 7.0]}, None, 0, ("avg_yearly",), {
+        "eligible_rows": int(m.sum()), "small_rows": int(small.sum())}
+
+
+def q20_oracle(raw: dict):
+    """PDS-H Q20 in numpy (color "part", which every part name starts with):
+    CANADA's suppliers with a part whose stock exceeds half of what was
+    shipped of it in 1994, by name."""
+    nat, supp, ps, part, line = (raw[t] for t in ("nation", "supplier", "partsupp", "part", "lineitem"))
+    stride = len(supp["s_suppkey"]) + 1
+    ship = _days(line["l_shipdate"])
+    m = (ship >= day(1994, 1, 1)) & (ship < day(1995, 1, 1))
+    lkey = line["l_partkey"][m] * stride + line["l_suppkey"][m]
+    keys, inv = np.unique(lkey, return_inverse=True)
+    half = 0.5 * np.bincount(inv.reshape(-1), weights=line["l_quantity"][m], minlength=len(keys))
+    named = np.char.startswith(part["p_name"].astype(str), "part")[ps["ps_partkey"] - 1]
+    pkey = ps["ps_partkey"] * stride + ps["ps_suppkey"]
+    at = np.clip(np.searchsorted(keys, pkey), 0, max(len(keys) - 1, 0))
+    found = (keys[at] == pkey) if len(keys) else np.zeros(len(pkey), bool)
+    ok = named & found & (ps["ps_availqty"] > np.where(found, half[at] if len(keys) else 0.0, np.inf))
+    canada = np.nonzero(nat["n_name"] == "CANADA")[0]
+    sk = np.unique(ps["ps_suppkey"][ok])
+    sk = sk[np.isin(supp["s_nationkey"][sk - 1], canada)]
+    names = supp["s_name"][sk - 1].astype(str)
+    order = np.argsort(names, kind="stable")
+    want = {"s_name": names[order], "s_address": supp["s_address"][sk - 1][order]}
+    return want, None, 0, (), {"qualifying_partsupp": int(ok.sum())}
+
+
 ORACLES = {"q3": q3_oracle, "q4": q4_oracle, "q5": q5_oracle, "q6": q6_oracle, "q10": q10_oracle,
-           "q12": q12_oracle, "q14": q14_oracle, "q18": q18_oracle, "q19": q19_oracle}
+           "q12": q12_oracle, "q14": q14_oracle, "q18": q18_oracle, "q19": q19_oracle, "q15": q15_oracle,
+           "q17": q17_oracle, "q20": q20_oracle}
+
 # each query's result schema, as polars_tpu gives it
 SCHEMAS = {
     "q3": [("l_orderkey", "Int64"), ("revenue", "Float64"), ("o_orderdate", "Date"), ("o_shippriority", "Int64")],
@@ -874,6 +982,11 @@ SCHEMAS = {
     "q18": [("c_name", "String"), ("c_custkey", "Int64"), ("o_orderkey", "Int64"), ("o_orderdate", "Date"),
             ("o_totalprice", "Float64"), ("col_qty", "Float64")],
     "q19": [("revenue", "Float64")],
+    "q11": [("ps_partkey", "Int64"), ("value", "Float64")],
+    "q15": [("supplier_no", "Int64"), ("s_name", "String"), ("s_address", "String"), ("s_phone", "String"),
+            ("total_revenue", "Float64")],
+    "q17": [("avg_yearly", "Float64")],
+    "q20": [("s_name", "String"), ("s_address", "String")],
 }
 
 
@@ -911,18 +1024,22 @@ def check_exact(out, want: dict, floats=(), label: str = "") -> float:
     return worst
 
 
-def phase_query(torch, name: str, frames: dict, raw: dict, k2_repeats: int = 1) -> dict:
+def phase_query(torch, name: str, frames: dict, raw: dict, scale: float, k2_repeats: int = 1) -> dict:
     """One query phase at the frames of its own columns: the main path
     (``run_query``), the schema, and the result against its numpy oracle."""
     from polars_tpu_torch.testing import pdsh
 
-    want, sort_col, k, floats, extra = ORACLES[name](raw)
+    # Q11's FRACTION depends on the scale
+    want, sort_col, k, floats, extra = q11_oracle(raw, scale) if name == "q11" else ORACLES[name](raw)
     f = frames[name]
-    r = run_query(torch, name, lambda: pdsh.query(name, f), k2_repeats=k2_repeats)
+    params = pdsh.run_params(name, scale)
+    r = run_query(torch, name, lambda: pdsh.query(name, f, **params), k2_repeats=k2_repeats)
     out = r["out"]
     schema = [(c, repr(d)) for c, d in out.schema.items()]
     if schema != SCHEMAS[name]:
         raise AssertionError(f"{name} schema {schema} != {SCHEMAS[name]}")
+    if not len(want[next(iter(want))]):
+        raise AssertionError(f"{name}: the oracle's result is empty at this scale")
     if sort_col is None:
         worst = check_exact(out, want, floats, name)
     else:
@@ -936,6 +1053,168 @@ def phase_query(torch, name: str, frames: dict, raw: dict, k2_repeats: int = 1) 
            "max_rel_err_vs_numpy": worst, "matches_numpy_oracle": True,
            "result": {c: [str(v) if isinstance(v, dtm.date) else v for v in vals[:5]] for c, vals in got.items()},
            "kernel_calls": r["kernel_calls"]}
+    emit(res)
+    return res
+
+
+def expand_oracle(pk: np.ndarray, bk: np.ndarray, unmatched: bool) -> tuple[np.ndarray, np.ndarray]:
+    """An equi-join's pairs in the port's order, in numpy: each probe row in
+    order with its build rows in their order (stable argsort +
+    searchsorted); -1 for the build row of an unmatched probe row when
+    ``unmatched``."""
+    perm = np.argsort(bk, kind="stable")
+    sk = bk[perm]
+    lo, hi = np.searchsorted(sk, pk, "left"), np.searchsorted(sk, pk, "right")
+    m = hi - lo
+    counts = np.maximum(m, 1) if unmatched else m
+    pi = np.repeat(np.arange(len(pk)), counts)
+    j = np.arange(len(pi)) - (np.cumsum(counts) - counts)[pi]
+    hit = m[pi] > 0
+    bi = np.full(len(pi), -1, np.int64)
+    bi[hit] = perm[lo[pi[hit]] + j[hit]]
+    return pi, bi
+
+
+def check_join_column(col, src: np.ndarray, rows: np.ndarray, label: str) -> None:
+    """One output column against ``src`` (the table's numpy column) at
+    ``rows`` (-1 = null), value for value and null for null: strings by
+    their codes in the column's dictionary, dates as day counts."""
+    got = col.buffer.values.cpu().numpy()
+    valid = rows >= 0
+    got_valid = np.ones(len(got), bool) if col.buffer.validity is None else col.buffer.validity.cpu().numpy()
+    if len(got) != len(rows) or not np.array_equal(got_valid, valid):
+        raise AssertionError(f"joins {label} {col.name}: {len(got)} rows or nulls differ from the oracle's {len(rows)}")
+    if col.table is not None:  # the source's strings as codes of the column's dictionary, then gathered
+        uniq, inv = np.unique(src.astype(str), return_inverse=True)
+        pos = {v: i for i, v in enumerate(col.table.values.tolist())}
+        src = np.asarray([pos[u] for u in uniq.tolist()], np.int64)[inv.reshape(-1)]
+    want = src[rows[valid]]
+    if want.dtype.kind == "M":
+        want = _days(want)
+    if not np.array_equal(got[valid].astype(np.int64) if want.dtype.kind in "iu" else got[valid], want):
+        raise AssertionError(f"joins {label} {col.name}: values differ from the oracle's")
+
+
+@contextlib.contextmanager
+def count_host_reads(torch):
+    """Host reads during the block: every tensor-to-Python conversion, and
+    every synchronising CUDA call that PyTorch's sync debug mode reports."""
+    seen = {"reads": 0, "syncs": 0}
+    saved = {}
+    for name in ("__int__", "__bool__", "__float__", "__index__", "item", "tolist"):
+        saved[name] = getattr(torch.Tensor, name)
+
+        def counted(self, *a, _orig=saved[name], **kw):
+            seen["reads"] += 1
+            return _orig(self, *a, **kw)
+
+        setattr(torch.Tensor, name, counted)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode(1)
+            try:
+                yield seen
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        # the mode's own notice ("Synchronization debug mode is a prototype ...") is no sync
+        sites = [f"{w.filename.rsplit('/', 1)[-1]}:{w.lineno}" for w in caught
+                 if "called a synchronizing" in str(w.message)]
+        seen["syncs"] = len(sites)
+        seen["sync_sites"] = sorted(set(sites))
+    finally:
+        for name, fn in saved.items():
+            setattr(torch.Tensor, name, fn)
+
+
+def phase_joins(torch, pl, frames: dict, raw: dict) -> dict:
+    """Host-sized joins at SF10, each through ``LazyFrame.join`` on frames of
+    its own columns, against the numpy oracle of its rows in order."""
+    t = frames["joins"]
+    cust, orders, line, supp, nat, ps = (raw[n] for n in ("customer", "orders", "lineitem", "supplier", "nation",
+                                                           "partsupp"))
+    def cut(table, cols):
+        return pl.DataFrame._from_columns([t[table]._get(c) for c in cols], t[table].height).lazy()
+
+    building = cust["c_mktsegment"] == "BUILDING"
+    early = _days(orders["o_orderdate"]) < Q3_DAYS
+    cb, oe = np.nonzero(building)[0], np.nonzero(early)[0]
+    lkey = line["l_partkey"] * (len(supp["s_suppkey"]) + 1) + line["l_suppkey"]
+    pkey = ps["ps_partkey"] * (len(supp["s_suppkey"]) + 1) + ps["ps_suppkey"]
+
+    def cases():
+        """(label, lazy plan, oracle) of each join; the oracle gives each
+        output column's source and its rows."""
+        pi, bi = expand_oracle(orders["o_orderkey"], line["l_orderkey"], False)
+        yield ("inner_mm", lambda: cut("orders", ["o_orderkey", "o_orderdate"]).join(
+            cut("lineitem", ["l_orderkey", "l_quantity"]), left_on="o_orderkey", right_on="l_orderkey"),
+            [("o_orderkey", orders["o_orderkey"], pi), ("o_orderdate", orders["o_orderdate"], pi),
+             ("l_quantity", line["l_quantity"], bi)])
+        pi, bi = expand_oracle(cust["c_custkey"], orders["o_custkey"], True)
+        yield ("left", lambda: cut("customer", ["c_custkey", "c_mktsegment"]).join(
+            cut("orders", ["o_custkey", "o_orderkey"]), left_on="c_custkey", right_on="o_custkey", how="left"),
+            [("c_custkey", cust["c_custkey"], pi), ("c_mktsegment", cust["c_mktsegment"], pi),
+             ("o_orderkey", orders["o_orderkey"], bi)])
+        pi, bi = expand_oracle(cust["c_custkey"], orders["o_custkey"], True)
+        yield ("right", lambda: cut("orders", ["o_custkey", "o_orderkey"]).join(
+            cut("customer", ["c_custkey", "c_mktsegment"]), left_on="o_custkey", right_on="c_custkey", how="right"),
+            [("o_orderkey", orders["o_orderkey"], bi), ("c_custkey", cust["c_custkey"], pi),
+             ("c_mktsegment", cust["c_mktsegment"], pi)])
+        pi, bi = expand_oracle(cust["c_custkey"][cb], orders["o_custkey"][oe], True)
+        pi, bi = cb[pi], np.where(bi >= 0, oe[np.maximum(bi, 0)], -1)
+        extra = np.setdiff1d(oe, bi[bi >= 0])  # the early orders no BUILDING customer placed, in order
+        pi = np.concatenate([pi, np.full(len(extra), -1)])
+        bi = np.concatenate([bi, extra])
+        yield ("full", lambda: cut("customer", ["c_custkey", "c_mktsegment"]).filter(
+            pl.col("c_mktsegment") == "BUILDING").join(
+            cut("orders", ["o_orderkey", "o_custkey", "o_orderdate"]).filter(
+                pl.col("o_orderdate") < dtm.date(1995, 3, 15)),
+            left_on="c_custkey", right_on="o_custkey", how="full"),
+            [("c_custkey", cust["c_custkey"], pi), ("c_mktsegment", cust["c_mktsegment"], pi),
+             ("o_orderkey", orders["o_orderkey"], bi), ("o_custkey", orders["o_custkey"], bi),
+             ("o_orderdate", orders["o_orderdate"], bi)])
+        ns, nn = len(supp["s_suppkey"]), len(nat["n_nationkey"])
+        pi, bi = np.repeat(np.arange(ns), nn), np.tile(np.arange(nn), ns)
+        yield ("cross", lambda: cut("supplier", ["s_suppkey", "s_nationkey"]).join(
+            cut("nation", ["n_nationkey", "n_name"]), how="cross"),
+            [("s_suppkey", supp["s_suppkey"], pi), ("s_nationkey", supp["s_nationkey"], pi),
+             ("n_nationkey", nat["n_nationkey"], bi), ("n_name", nat["n_name"], bi)])
+        pi, bi = expand_oracle(lkey, pkey, False)
+        yield ("hashed_inner", lambda: cut("lineitem", ["l_partkey", "l_suppkey", "l_quantity"]).join(
+            cut("partsupp", ["ps_partkey", "ps_suppkey", "ps_availqty"]), left_on=["l_partkey", "l_suppkey"],
+            right_on=["ps_partkey", "ps_suppkey"]),
+            [("l_partkey", line["l_partkey"], pi), ("l_suppkey", line["l_suppkey"], pi),
+             ("l_quantity", line["l_quantity"], pi), ("ps_availqty", ps["ps_availqty"], bi)])
+        keep = np.nonzero(~np.isin(lkey, pkey))[0]
+        yield ("hashed_anti", lambda: cut("lineitem", ["l_partkey", "l_suppkey", "l_quantity"]).join(
+            cut("partsupp", ["ps_partkey", "ps_suppkey"]), left_on=["l_partkey", "l_suppkey"],
+            right_on=["ps_partkey", "ps_suppkey"], how="anti"),
+            [("l_partkey", line["l_partkey"], keep), ("l_suppkey", line["l_suppkey"], keep),
+             ("l_quantity", line["l_quantity"], keep)])
+
+    res = {"phase": "joins", "cases": {}, "launches": {"groupagg_sums": 0, "compact": 0, "compact_scatter": 0},
+           "kernel_calls": []}
+    for label, run, want in cases():
+        need = ("compact", "compact_scatter") if label in ("full", "hashed_inner", "hashed_anti") else ()
+        r = run_query(torch, f"joins.{label}", run, need=need)
+        out = r["out"]
+        if out.columns != [c for c, _, _ in want]:
+            raise AssertionError(f"joins {label}: columns {out.columns} != {[c for c, _, _ in want]}")
+        for c, src, rows in want:
+            check_join_column(out._get(c), src, rows, label)
+        with count_host_reads(torch) as reads:
+            run().collect()
+            torch.cuda.synchronize()
+        res["cases"][label] = {"rows_out": out.height, "warm_wall_s": r["warm_wall_s"],
+                               "warm_walls_s": r["warm_walls_s"], "first_collect_s": r["first_collect_s"],
+                               "host_reads": reads["reads"], "syncs": reads["syncs"], "sync_sites": reads["sync_sites"],
+                               "peak_device_bytes": r["peak_device_bytes"], "launches": r["launches"],
+                               "matches_numpy_oracle": True}
+        for k, v in r["launches"].items():
+            res["launches"][k] += v
+        res["kernel_calls"] += [{"join": label, **c} for c in r["kernel_calls"]]
+        del out, r
+        torch.cuda.empty_cache()
     emit(res)
     return res
 
@@ -978,8 +1257,10 @@ def main() -> int:
             runs[name] = phase_q1(torch, line, frames["q1"]["lineitem"], t_gen, fr["build_s"]["lineitem"], args.scale)
         elif name == "filter":
             runs[name] = phase_filter(torch, pl, line, frames["q1"]["lineitem"])
+        elif name == "joins":
+            runs[name] = phase_joins(torch, pl, frames, raw)
         else:  # Q3's K2 call runs 50 times, each against the first
-            runs[name] = phase_query(torch, name, frames, raw, k2_repeats=50 if name == "q3" else 1)
+            runs[name] = phase_query(torch, name, frames, raw, args.scale, k2_repeats=50 if name == "q3" else 1)
     del frames, raw, line
 
     # every call the main path made, as held above: the shape and the times
@@ -1004,6 +1285,7 @@ def main() -> int:
             # the global-atomic mode at capacity = the rows (Q3, Q10, Q18)
             # and one group of capacity 1 (Q6's one-row select)
             "q3_shape": k1_call("q3"), "q10_shape": k1_call("q10"), "q18_shape": k1_call("q18"),
+            "q15_shape": k1_call("q15"),
             "cap1_shape": k1_call("q6"), "main_path_calls": calls["groupagg_sums"],
         },
         {

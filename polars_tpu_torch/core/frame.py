@@ -1,7 +1,8 @@
 """Eager DataFrame (the port of ``polars_tpu/core/frame.py``, trimmed).
 
 A height-aligned list of columns on one device. Query operations go through
-the lazy engine (``df.lazy()...collect()``), as in the JAX package.
+the lazy engine (``df.lazy()...collect()``), as in the JAX package;
+``gather`` and ``drop`` work on the columns.
 """
 
 from __future__ import annotations
@@ -112,6 +113,22 @@ class DataFrame:
 
             return {c.name: Series._from_column(c) for c in self._columns}
         return {c.name: c.to_pylist() for c in self._columns}
+
+    def gather(self, indices: Any) -> DataFrame:
+        """The rows at ``indices`` (a sequence or a tensor; negative indices
+        count from the end, ``None`` gives a null row)."""
+        from polars_tpu_torch.engine.gather import gather_frame
+
+        cols = gather_frame(self._columns, indices)
+        height = len(cols[0]) if cols else len(indices)
+        return DataFrame._from_columns(cols, height, device=self._device)
+
+    def drop(self, *columns: str, strict: bool = True) -> DataFrame:
+        names = {n for c in columns for n in ([c] if isinstance(c, str) else c)}
+        if strict and names - set(self.columns):
+            raise ColumnNotFoundError(f"{sorted(names - set(self.columns))} not found")
+        return DataFrame._from_columns([c for c in self._columns if c.name not in names], self._height,
+                                       device=self._device)
 
     def lazy(self) -> LazyFrame:
         from polars_tpu_torch.lazyframe import LazyFrame

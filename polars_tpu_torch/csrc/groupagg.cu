@@ -33,9 +33,22 @@
 //     fixed order, so f64 sums repeat bit for bit); MODE_SHARED keeps a few
 //     slices per block and adds with shared atomics; MODE_GLOBAL, for a
 //     column that does not fit shared memory, adds with global atomics into
-//     slices of zeroed scratch that the blocks share round robin. In both
-//     atomic modes the f64 order varies from run to run (rtol 1e-9); i64 is
-//     exact in every mode;
+//     slices of zeroed scratch that the blocks share round robin. i64 is
+//     exact in every mode. In MODE_SHARED f64 atomics add in an order that
+//     varies from run to run (rtol 1e-9). In MODE_GLOBAL, the mode of the
+//     sorted group-by (capacity = rows), an f64 call adds exact words
+//     instead (four int64 accumulators per sum), so its sums repeat bit for
+//     bit: a first small kernel finds the largest exponent e of each
+//     column's selected finite values, and every value v splits into three
+//     int64 words d_k = trunc of v's remainder * 2^(k w - e), |d_k| < 2^w,
+//     added with integer atomics; w = min(50, 62 - bits(n)), so no sum of n
+//     words overflows. Integer sums do not depend on the order of the adds,
+//     and the finish kernel puts the words together in a fixed order. What
+//     is cut off is below 2^(e - 3w) per value: a group whose values all lie
+//     far below the column's largest loses their low bits (at 60M rows,
+//     w = 36, rtol 1e-9 holds down to about 2^-78 of the largest). A fourth
+//     word counts the non-finite values (+inf in its low 32 bits, -inf in
+//     its high bits, NaN in both);
 //   * each block leaves one partial slice; a small second kernel sums the
 //     slices in slice order, one thread per output.
 // The Python side (kernels/groupagg.py `plan`) sizes threads, tile rows,
@@ -44,8 +57,11 @@
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -shared (plain C ABI,
 // loaded with ctypes by polars_tpu_torch/kernels/groupagg.py).
 
+#include <climits>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -59,6 +75,8 @@ constexpr int SMEM_MAX = 232448;
 constexpr unsigned VIA_IDS = 1u << 30;
 constexpr unsigned VIA_MASK = 1u << 31;
 constexpr unsigned FULL_WARP = 0xffffffffu;
+constexpr int NWORDS = 4;        // exact words per f64 accumulator: three parts and the non-finite counts
+constexpr int EXP_MIN = -800;    // the words' scale: every 2^(+-(k w - e)) stays a normal double
 
 enum { MODE_PRIVATE = 0, MODE_SHARED = 1, MODE_GLOBAL = 2 };
 
@@ -75,7 +93,9 @@ struct Args {
   int repl;      // MODE_SHARED: accumulator slices per block
   int slices;    // partial slices in `partials`
   unsigned acc_bytes;  // shared-memory bytes of accumulators, a multiple of 128
-  T* partials;
+  T* partials;         // exact words: NWORDS long longs per accumulator instead
+  const int* exps;     // exact words: per column, the largest ilogb of its selected finite values
+  int wbits;           // exact words: w
 };
 
 template <typename T>
@@ -124,6 +144,24 @@ __device__ __forceinline__ void atomic_add(long long* a, long long v) {
   atomicAdd(reinterpret_cast<unsigned long long*>(a), static_cast<unsigned long long>(v));
 }
 
+// The exponent e of a column's words: every selected finite |v| < 2^e.
+__device__ __forceinline__ int word_exp(const int* exps, int c) { return max(__ldg(exps + c) + 1, EXP_MIN); }
+
+// Adds v to its accumulator's exact words `w` (scale 2^e, w = `bits` bits a word).
+__device__ __forceinline__ void add_words(unsigned long long* w, double v, int e, int bits) {
+  if (isfinite(v)) {
+    double r = v;
+#pragma unroll
+    for (int k = 1; k < NWORDS; ++k) {
+      const double d = trunc(scalbn(r, k * bits - e));
+      if (d != 0.0) atomicAdd(&w[k - 1], static_cast<unsigned long long>(static_cast<long long>(d)));
+      r -= scalbn(d, e - k * bits);
+    }
+  } else {
+    atomicAdd(&w[NWORDS - 1], isnan(v) ? 0x100000001ULL : (v > 0.0 ? 1ULL : 0x100000000ULL));
+  }
+}
+
 __device__ __forceinline__ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
@@ -132,7 +170,7 @@ __device__ __forceinline__ bool aligned16(const void* p) {
 // in `via` is read from the stage at `st` (the whole tile is there); any other
 // is read from global memory under the row's predicate. Offsets are 32-bit:
 // the launcher checks that cap * kt * ct fits.
-template <typename T, int MODE, int CCH>
+template <typename T, int MODE, int CCH, bool W>
 __device__ __forceinline__ void consume(const Args<T>& a, long long r0, int rows, const unsigned char* st,
                                         unsigned via, T* my, int tid) {
   const int kt = a.kt, ct = a.ct, tile = a.tile;
@@ -197,7 +235,11 @@ __device__ __forceinline__ void consume(const Args<T>& a, long long r0, int rows
 #pragma unroll
         for (int cc = 0; cc < CCH; ++cc) {
           if (c0 + cc >= kt) break;
-          if (MODE == MODE_PRIVATE) {
+          if constexpr (W) {
+            unsigned long long* w = reinterpret_cast<unsigned long long*>(my) +
+                                    (static_cast<long long>(off[j]) + c0 + cc) * NWORDS;
+            add_words(w, static_cast<double>(v[cc][j]), word_exp(a.exps, c0 + cc), a.wbits);
+          } else if (MODE == MODE_PRIVATE) {
             dst[cc * stride] += v[cc][j];
           } else {
             atomic_add(&dst[cc * stride], v[cc][j]);
@@ -208,7 +250,7 @@ __device__ __forceinline__ void consume(const Args<T>& a, long long r0, int rows
   }
 }
 
-template <typename T, int MODE, int CCH>
+template <typename T, int MODE, int CCH, bool W>
 __global__ void __launch_bounds__(MAX_CONSUMERS + PRODUCER_THREADS, 1)
 groupagg_main(const __grid_constant__ Args<T> a) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -221,7 +263,7 @@ groupagg_main(const __grid_constant__ Args<T> a) {
   const int ct = a.ct, kt = a.kt, tile = a.tile, stages = a.stages;
   const size_t stage_bytes = static_cast<size_t>(tile) * (8 * kt + 5);
   const long long slice = static_cast<long long>(a.cap) * kt;
-  T* part = a.partials + (blockIdx.x % a.slices) * slice;
+  T* part = a.partials + (blockIdx.x % a.slices) * slice * (W ? NWORDS : 1);
 
   // operands that ride the ring: the 16-byte aligned ones
   unsigned via = 0;
@@ -280,14 +322,14 @@ groupagg_main(const __grid_constant__ Args<T> a) {
     uint32_t phase = 0;
     for (long long t = blockIdx.x; t < n_full; t += gridDim.x) {
       mbar_wait(smem_u32(&full[s]), phase);
-      consume<T, MODE, CCH>(a, t * tile, tile, ring + s * stage_bytes, via, my, tid);
+      consume<T, MODE, CCH, W>(a, t * tile, tile, ring + s * stage_bytes, via, my, tid);
       __syncwarp();
       if (lane == 0) mbar_arrive(smem_u32(&empty[s]));
       if (++s == stages) s = 0, phase ^= 1u;
     }
     // the ragged last tile goes to the block next in turn, with plain loads
     if (n_full % gridDim.x == blockIdx.x) {
-      consume<T, MODE, CCH>(a, n_full * tile, static_cast<int>(a.n - n_full * tile), ring, 0u, my, tid);
+      consume<T, MODE, CCH, W>(a, n_full * tile, static_cast<int>(a.n - n_full * tile), ring, 0u, my, tid);
     }
   }
   if (MODE == MODE_GLOBAL) return;
@@ -330,6 +372,53 @@ __global__ void groupagg_finish(const T* __restrict__ partials, int slices, long
   out[(e / kt) * out_ld + col0 + (e % kt)] = s;
 }
 
+// out[g, col0 + c] from the exact words of the partial slices: each word
+// summed over the slices, the three parts added in a fixed order, then inf or
+// NaN where non-finite values were added.
+__global__ void groupagg_finish_words(const long long* __restrict__ partials, int slices, long long slice, int kt,
+                                      const int* __restrict__ exps, int bits, double* __restrict__ out, int out_ld,
+                                      int col0) {
+  const long long e = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (e >= slice) return;
+  long long s[NWORDS] = {0, 0, 0, 0};
+  for (int b = 0; b < slices; ++b) {
+#pragma unroll
+    for (int k = 0; k < NWORDS; ++k) s[k] += partials[(b * slice + e) * NWORDS + k];
+  }
+  const int c = static_cast<int>(e % kt);
+  const int ex = word_exp(exps, c);
+  double r = scalbn(static_cast<double>(s[0]), ex - bits) + scalbn(static_cast<double>(s[1]), ex - 2 * bits);
+  r += scalbn(static_cast<double>(s[2]), ex - 3 * bits);
+  const unsigned long long nf = static_cast<unsigned long long>(s[NWORDS - 1]);
+  const bool pos = (nf & 0xffffffffULL) != 0, neg = (nf >> 32) != 0;
+  if (pos && neg) {
+    r = __longlong_as_double(0x7ff8000000000000LL);
+  } else if (pos) {
+    r = __longlong_as_double(0x7ff0000000000000LL);
+  } else if (neg) {
+    r = __longlong_as_double(static_cast<long long>(0xfff0000000000000ULL));
+  }
+  out[(e / kt) * out_ld + col0 + c] = r;
+}
+
+// *e_out = max(*e_out, ilogb |v|) over the selected finite non-zero values v
+// of one column (a null column stands for ones: ilogb 1 = 0).
+__global__ void groupagg_exponent(const unsigned char* __restrict__ mask, const double* __restrict__ col, long long n,
+                                  int* __restrict__ e_out) {
+  if (col == nullptr) {
+    if (blockIdx.x == 0 && threadIdx.x == 0) atomicMax(e_out, 0);
+    return;
+  }
+  int m = INT_MIN;
+  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long r = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; r < n; r += step) {
+    const double v = col[r];
+    if (mask[r] != 0 && isfinite(v) && v != 0.0) m = max(m, ilogb(v));
+  }
+  m = __reduce_max_sync(FULL_WARP, m);
+  if ((threadIdx.x & 31) == 0 && m != INT_MIN) atomicMax(e_out, m);
+}
+
 // Shared-memory bytes of one block; kernels/groupagg.py `plan` computes the same.
 long long layout_bytes(int mode, int cap, int kt, int ct, int tile, int stages, int repl, unsigned* acc_bytes) {
   long long acc = 0;
@@ -341,26 +430,31 @@ long long layout_bytes(int mode, int cap, int kt, int ct, int tile, int stages, 
   return total;
 }
 
-template <typename T, int MODE, int CCH>
+template <typename T, int MODE, int CCH, bool W>
 int launch_main(const Args<T>& a, int blocks, size_t smem, cudaStream_t stream) {
-  auto kern = groupagg_main<T, MODE, CCH>;
+  auto kern = groupagg_main<T, MODE, CCH, W>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
   if (err != cudaSuccess) return err;
   kern<<<blocks, a.ct + PRODUCER_THREADS, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T, int MODE>
+template <typename T, int MODE, bool W = false>
 int dispatch_width(const Args<T>& a, int blocks, size_t smem, cudaStream_t stream) {
-  if (a.kt == 1) return launch_main<T, MODE, 1>(a, blocks, smem, stream);
-  return launch_main<T, MODE, 4>(a, blocks, smem, stream);
+  if (a.kt == 1) return launch_main<T, MODE, 1, W>(a, blocks, smem, stream);
+  return launch_main<T, MODE, 4, W>(a, blocks, smem, stream);
 }
 
 template <typename T>
 int groupagg(const int* gids, const unsigned char* mask, const void* const* col_ptrs, int kt, long long n,
              int cap, int mode, int threads, int tile, int stages, int repl, int blocks, int slices,
-             int smem_bytes, T* partials, T* out, int out_ld, int col0, cudaStream_t stream) {
-  if (kt < 1 || kt > MAX_KT || cap < 1 || n < 0 || mode < 0 || mode > 2 || threads < 32 ||
+             int smem_bytes, T* partials, T* out, int out_ld, int col0, int* exps, int wbits, int sms,
+             cudaStream_t stream) {
+  // f64 in MODE_GLOBAL adds exact words, and nothing else does
+  constexpr bool kWords = std::is_same<T, double>::value;
+  const bool words = kWords && mode == MODE_GLOBAL;
+  if ((exps != nullptr) != words || (words && (wbits < 1 || wbits > 50)) ||
+      kt < 1 || kt > MAX_KT || cap < 1 || n < 0 || mode < 0 || mode > 2 || threads < 32 ||
       threads > MAX_CONSUMERS || threads % 32 != 0 || tile < threads * U || tile % (threads * U) != 0 ||
       stages < 2 || stages > MAX_STAGES || blocks < 1 || slices < 1 || slices > blocks ||
       (mode != MODE_GLOBAL && slices != blocks) || (mode == MODE_SHARED && repl < 1) ||
@@ -370,28 +464,47 @@ int groupagg(const int* gids, const unsigned char* mask, const void* const* col_
   Args<T> a;
   a.gids = gids, a.mask = mask, a.n = n, a.kt = kt, a.cap = cap, a.ct = threads, a.tile = tile;
   a.stages = stages, a.repl = repl, a.slices = slices, a.partials = partials;
+  a.exps = exps, a.wbits = wbits;
   for (int c = 0; c < MAX_KT; ++c) a.cols[c] = c < kt ? static_cast<const T*>(col_ptrs[c]) : nullptr;
   const long long smem = layout_bytes(mode, cap, kt, threads, tile, stages, repl, &a.acc_bytes);
   if (smem > SMEM_MAX || smem != smem_bytes) return cudaErrorInvalidValue;
 
   const long long slice = static_cast<long long>(cap) * kt;
   int err;
+  if (words) {
+    // each column's exponent first: 0x80 bytes make an int below every ilogb
+    err = cudaMemsetAsync(exps, 0x80, sizeof(int) * kt, stream);
+    if (err != cudaSuccess) return err;
+    const long long eb = (n + 1023) / 1024;
+    const unsigned e_blocks = static_cast<unsigned>(eb < 1 ? 1 : (eb < 4LL * sms ? eb : 4LL * sms));
+    for (int c = 0; c < kt; ++c) {
+      groupagg_exponent<<<e_blocks, 256, 0, stream>>>(mask, static_cast<const double*>(col_ptrs[c]), n, exps + c);
+    }
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
   if (mode == MODE_PRIVATE) {
     err = dispatch_width<T, MODE_PRIVATE>(a, blocks, smem, stream);
   } else if (mode == MODE_SHARED) {
     err = dispatch_width<T, MODE_SHARED>(a, blocks, smem, stream);
   } else {
-    const long long count = slice * slices;
+    const long long count = slice * slices * (words ? NWORDS : 1);
     const long long zb = (count + 1023) / 1024;
     groupagg_zero<T><<<static_cast<unsigned>(zb < 1024 ? zb : 1024), 256, 0, stream>>>(partials, count);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    err = dispatch_width<T, MODE_GLOBAL>(a, blocks, smem, stream);
+    err = dispatch_width<T, MODE_GLOBAL, kWords>(a, blocks, smem, stream);
   }
   if (err != cudaSuccess) return err;
   const int t2 = 256;
   const long long b2 = (slice + t2 - 1) / t2;
-  groupagg_finish<T><<<static_cast<unsigned>(b2), t2, 0, stream>>>(partials, slices, slice, kt, out, out_ld, col0);
+  if (words) {
+    groupagg_finish_words<<<static_cast<unsigned>(b2), t2, 0, stream>>>(
+        reinterpret_cast<const long long*>(partials), slices, slice, kt, exps, wbits,
+        reinterpret_cast<double*>(out), out_ld, col0);
+  } else {
+    groupagg_finish<T><<<static_cast<unsigned>(b2), t2, 0, stream>>>(partials, slices, slice, kt, out, out_ld, col0);
+  }
   return cudaGetLastError();
 }
 
@@ -401,23 +514,26 @@ extern "C" {
 
 // out[g, col0 + c] = sum of col_ptrs[c][r] over rows r with mask[r] and
 // gids[r] == g, for c < kt. `out` is (cap, out_ld) row-major; `partials`
-// holds slices * cap * kt elements of scratch. The launch shape (threads,
-// tile, stages, repl, blocks, slices, smem_bytes) comes from `plan` in
-// kernels/groupagg.py. Returns a cudaError_t.
+// holds slices * cap * kt elements of scratch (times NWORDS with exact
+// words). The launch shape (threads, tile, stages, repl, blocks, slices,
+// smem_bytes) comes from `plan` in kernels/groupagg.py. An f64 call in
+// MODE_GLOBAL adds exact words and must pass `exps` (kt ints of scratch) and
+// `wbits` = w; every other call passes a null `exps`. Returns a cudaError_t.
 int groupagg_sums_f64(const int* gids, const unsigned char* mask, const void* const* col_ptrs, int kt,
                       long long n, int cap, int mode, int threads, int tile, int stages, int repl,
                       int blocks, int slices, int smem_bytes, double* partials, double* out, int out_ld,
-                      int col0, void* stream) {
+                      int col0, int* exps, int wbits, int sms, void* stream) {
   return groupagg<double>(gids, mask, col_ptrs, kt, n, cap, mode, threads, tile, stages, repl, blocks,
-                          slices, smem_bytes, partials, out, out_ld, col0, static_cast<cudaStream_t>(stream));
+                          slices, smem_bytes, partials, out, out_ld, col0, exps, wbits, sms,
+                          static_cast<cudaStream_t>(stream));
 }
 
 int groupagg_sums_i64(const int* gids, const unsigned char* mask, const void* const* col_ptrs, int kt,
                       long long n, int cap, int mode, int threads, int tile, int stages, int repl,
                       int blocks, int slices, int smem_bytes, long long* partials, long long* out,
-                      int out_ld, int col0, void* stream) {
+                      int out_ld, int col0, int* exps, int wbits, int sms, void* stream) {
   return groupagg<long long>(gids, mask, col_ptrs, kt, n, cap, mode, threads, tile, stages, repl, blocks,
-                             slices, smem_bytes, partials, out, out_ld, col0,
+                             slices, smem_bytes, partials, out, out_ld, col0, exps, wbits, sms,
                              static_cast<cudaStream_t>(stream));
 }
 

@@ -171,8 +171,11 @@ def seg_count(mask: torch.Tensor, gids: torch.Tensor, cap: int) -> torch.Tensor:
 def _scatter_extreme(x: torch.Tensor, gids: torch.Tensor, mask: torch.Tensor, cap: int, reduce: str, ident):
     """Per-group ``reduce`` of ``x``; callers put ``ident`` in the rows outside
     ``mask``, so those rows may land in any slot: their ids are only clamped
-    into range, not sent to one slot, whose atomics would serialize."""
+    into range, not sent to one slot, whose atomics would serialize. One
+    group (a select's min or max) is a plain reduction for the same reason."""
     work = x.to(torch.uint8) if x.dtype == torch.bool else x
+    if cap == 1 and work.shape[0]:
+        return (work.amax() if reduce == "amax" else work.amin()).reshape(1).to(x.dtype)
     idx = gids.clamp(0, cap - 1).long()
     out = torch.full((cap,), ident, dtype=work.dtype, device=x.device)
     out.scatter_reduce_(0, idx, work, reduce, include_self=True)

@@ -76,14 +76,18 @@ def _values_equal(lv: Val, rv_g: torch.Tensor, rvalid_g, lvalid, nulls_equal: bo
     return same & ~lnull & ~rnull
 
 
-def _side_key(words, rowmask: torch.Tensor, nulls_equal: bool) -> tuple[torch.Tensor, torch.Tensor, bool]:
-    """(one int64 key per row, rows that may match, exact) of one side."""
+def _side_key(words, other_words, rowmask: torch.Tensor,
+              nulls_equal: bool) -> tuple[torch.Tensor, torch.Tensor, bool]:
+    """(one int64 key per row, rows that may match, exact) of one side. With
+    ``nulls_equal`` a single key is hashed (null a key of its own) when
+    either side has nulls, so that both sides hash alike (the JAX package
+    decides per side, and a side without nulls then never matches)."""
     if len(words) == 1:
         w, valid = words[0]
+        if nulls_equal and (valid is not None or other_words[0][1] is not None):
+            return hash_column(w, valid, 7), rowmask, False
         if valid is None:
             return w, rowmask, True
-        if nulls_equal:
-            return hash_column(w, valid, 7), rowmask, False
         return w, rowmask & valid, True
     h = None
     all_valid = None
@@ -123,8 +127,8 @@ def trace_join(node, tt_l, tt_r, eval_key):
         rwords.append((rw, rval))
         exact_all = exact_all and lex and rex
 
-    lk, lmask, l_exact = _side_key(lwords, tt_probe.rowmask, nulls_equal)
-    rk, rmask, r_exact = _side_key(rwords, tt_build.rowmask, nulls_equal)
+    lk, lmask, l_exact = _side_key(lwords, rwords, tt_probe.rowmask, nulls_equal)
+    rk, rmask, r_exact = _side_key(rwords, lwords, tt_build.rowmask, nulls_equal)
     needs_verify = not (exact_all and l_exact and r_exact)
 
     # build side sorted by key word, masked rows at the end

@@ -1,7 +1,7 @@
 """LazyFrame: the lazy query builder (the port of
 ``polars_tpu/lazyframe.py``, trimmed to ``filter``, ``select``,
-``with_columns``, ``group_by().agg``, ``sort``, ``join``, ``slice``/``head``/
-``limit`` and ``collect``).
+``with_columns``, ``group_by().agg``, ``sort``, ``join`` (every ``how``),
+``slice``/``head``/``limit`` and ``collect``).
 
 ``collect`` runs the plan as written: the port has no optimizer yet, and no
 rewrite in the JAX package's optimizer changes what Q1, Q3 or Q4 compute
@@ -115,10 +115,21 @@ class LazyFrame:
         nulls_equal: bool = False,
         coalesce: bool | None = None,
         maintain_order: str | None = None,
+        join_nulls: bool | None = None,
     ) -> LazyFrame:
-        if how not in ("inner", "left", "semi", "anti"):
-            raise NotImplementedError(f"how={how!r} joins are not ported yet (port queue: host-sized joins)")
-        if on is not None:
+        """Equi-join with ``other``: ``how`` is inner, left, right, full (or
+        its alias outer), semi, anti or cross (which takes no keys).
+        ``validate`` declares the key cardinality (m:m, m:1, 1:m, 1:1) and is
+        checked; ``join_nulls`` is the older name of ``nulls_equal``."""
+        if join_nulls is not None:
+            nulls_equal = join_nulls
+        if how == "outer":
+            how = "full"
+        if how not in ("inner", "left", "right", "full", "semi", "anti", "cross"):
+            raise InvalidOperationError(f"unknown join strategy {how!r}")
+        if how == "cross":
+            lo = ro = ()
+        elif on is not None:
             lo = ro = tuple(parse_into_expr_list([on]))
         elif left_on is not None and right_on is not None:
             lo = tuple(parse_into_expr_list([left_on]))
@@ -129,6 +140,12 @@ class LazyFrame:
             L.LJoin(self._node, other._node, lo, ro, how, suffix, nulls_equal, coalesce,
                     maintain_order or "none", validate)
         )
+
+    def join_where(self, other: LazyFrame, *predicates: Any, suffix: str = "_right") -> LazyFrame:
+        raise NotImplementedError("join_where (range joins) is not ported yet (port queue: join_where and join_asof)")
+
+    def join_asof(self, other: LazyFrame, **kwargs: Any) -> LazyFrame:
+        raise NotImplementedError("join_asof is not ported yet (port queue: join_where and join_asof)")
 
 
 class LazyGroupBy:

@@ -401,8 +401,12 @@ def node_schema(node: L.LNode) -> Schema:
 
 
 def _join_schema(node: L.LJoin) -> Schema:
-    """Left columns, then right columns: a right key coalesces into its left
-    key, and a name the left side already has takes ``suffix``."""
+    """Left columns, then right columns, as Polars lays them out: a coalesced
+    right key folds into its left key (inner, left and full joins), a
+    coalesced right join keeps the right keys and drops the left ones, a
+    cross join has no keys, and a right name the output already has takes
+    ``suffix``. ``coalesce=None`` means True for inner, left and right
+    joins and False for full joins."""
     ls = node_schema(node.input_left)
     rs = node_schema(node.input_right)
     out = ls.copy()
@@ -410,11 +414,13 @@ def _join_schema(node: L.LJoin) -> Schema:
         return out
     coalesce = node.coalesce
     if coalesce is None:
-        coalesce = node.how in ("inner", "left")
+        coalesce = node.how in ("inner", "left", "right")
     right_keys = [E.output_name(e) for e in node.right_on]
     left_keys = [E.output_name(e) for e in node.left_on]
+    if node.how == "right" and coalesce:
+        out = Schema([(n, d) for n, d in ls.items() if n not in set(left_keys)])
     for n, d in rs.items():
-        if coalesce and n in right_keys and left_keys[right_keys.index(n)] in out:
+        if coalesce and node.how != "right" and n in right_keys and left_keys[right_keys.index(n)] in out:
             continue
         if n in out:
             if n + node.suffix in out:

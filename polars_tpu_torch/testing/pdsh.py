@@ -1,7 +1,7 @@
 """PDS-H (TPC-H-derived) data generator + reference queries (copied from
 polars_tpu/testing/pdsh.py: ``generate_pdsh`` unchanged, ``q1``, ``q3``,
-``q4``, ``q5``, ``q6``, ``q10``, ``q12``, ``q14``, ``q19`` and ``q18`` on this
-package).
+``q4``, ``q5``, ``q6``, ``q10``, ``q11``, ``q12``, ``q14``, ``q15``, ``q17``,
+``q18``, ``q19`` and ``q20`` on this package).
 
 Seeded numpy generator producing the TPC-H schema at a given scale factor
 (reference test pattern: py-polars/tests/benchmark/data/ + the pdsh logic
@@ -209,22 +209,43 @@ QUERY_COLUMNS = {
             "orders": ["o_orderkey", "o_custkey", "o_orderdate"],
             "lineitem": ["l_orderkey", "l_returnflag", "l_extendedprice", "l_discount"],
             "nation": ["n_nationkey", "n_name"]},
+    "q11": {"nation": ["n_nationkey", "n_name"],
+            "supplier": ["s_suppkey", "s_nationkey"],
+            "partsupp": ["ps_partkey", "ps_suppkey", "ps_availqty", "ps_supplycost"]},
     "q12": {"orders": ["o_orderkey", "o_orderpriority"],
             "lineitem": ["l_orderkey", "l_shipmode", "l_commitdate", "l_receiptdate", "l_shipdate"]},
     "q14": {"lineitem": ["l_partkey", "l_shipdate", "l_extendedprice", "l_discount"],
             "part": ["p_partkey", "p_type"]},
+    "q15": {"lineitem": ["l_suppkey", "l_shipdate", "l_extendedprice", "l_discount"],
+            "supplier": ["s_suppkey", "s_name", "s_address", "s_phone"]},
+    "q17": {"lineitem": ["l_partkey", "l_quantity", "l_extendedprice"],
+            "part": ["p_partkey", "p_brand", "p_container"]},
     "q18": {"customer": ["c_custkey", "c_name"],
             "orders": ["o_orderkey", "o_custkey", "o_orderdate", "o_totalprice"],
             "lineitem": ["l_orderkey", "l_quantity"]},
     "q19": {"lineitem": ["l_partkey", "l_quantity", "l_shipmode", "l_shipinstruct", "l_extendedprice",
                         "l_discount"],
             "part": ["p_partkey", "p_container", "p_size"]},
+    "q20": {"nation": ["n_nationkey", "n_name"],
+            "supplier": ["s_suppkey", "s_name", "s_address", "s_nationkey"],
+            "partsupp": ["ps_partkey", "ps_suppkey", "ps_availqty"],
+            "part": ["p_partkey", "p_name"],
+            "lineitem": ["l_partkey", "l_suppkey", "l_shipdate", "l_quantity"]},
 }
 
 
-def query(name: str, frames: dict):
-    """The lazy query ``name`` over ``frames`` (table name -> frame)."""
-    return globals()[name](*(frames[t] for t in QUERY_COLUMNS[name]))
+def query(name: str, frames: dict, **params):
+    """The lazy query ``name`` over ``frames`` (table name -> frame), with
+    the query's own ``params`` (Q11's ``fraction``, Q20's ``color``)."""
+    return globals()[name](*(frames[t] for t in QUERY_COLUMNS[name]), **params)
+
+
+def run_params(name: str, scale: float) -> dict:
+    """The parameters the SF-scaled runs on the card give query ``name``:
+    Q11's FRACTION as the TPC-H specification scales it (0.0001 / scale;
+    the default 0.0001 finds no part at SF10), Q20's color "part" (every
+    generated part name starts with it, none with the default "forest")."""
+    return {"q11": {"fraction": 0.0001 / scale}, "q20": {"color": "part"}}.get(name, {})
 
 
 def frames_for(name: str, tables: dict) -> dict:
@@ -474,4 +495,91 @@ def q18(customer, orders, lineitem, threshold=300):
         .select("c_name", pl.col("o_custkey").alias("c_custkey"), "o_orderkey", "o_orderdate", "o_totalprice", "col_qty")
         .sort(["o_totalprice", "o_orderdate"], descending=[True, False])
         .head(100)
+    )
+
+
+def q11(nation, supplier, partsupp, nation_name="GERMANY", fraction=0.0001):
+    import polars_tpu_torch as pl
+
+    base = (
+        partsupp.lazy()
+        .join(supplier.lazy(), left_on="ps_suppkey", right_on="s_suppkey", validate="m:1")
+        .join(nation.lazy().filter(pl.col("n_name") == nation_name),
+              left_on="s_nationkey", right_on="n_nationkey", validate="m:1")
+        .with_columns((pl.col("ps_supplycost") * pl.col("ps_availqty")).alias("value"))
+    )
+    return (
+        base.group_by("ps_partkey")
+        .agg(value=pl.col("value").sum())
+        .join(base.select(pl.col("value").sum().alias("__total") * fraction), how="cross")
+        .filter(pl.col("value") > pl.col("__total"))
+        .select("ps_partkey", "value")
+        .sort(["value", "ps_partkey"], descending=[True, False])
+    )
+
+
+def q15(lineitem, supplier, start=dtm.date(1996, 1, 1)):
+    import polars_tpu_torch as pl
+
+    end = dtm.date(1996, 4, 1)
+    revenue = (
+        lineitem.lazy()
+        .filter((pl.col("l_shipdate") >= start) & (pl.col("l_shipdate") < end))
+        .group_by(pl.col("l_suppkey").alias("supplier_no"))
+        .agg(total_revenue=(pl.col("l_extendedprice") * (1 - pl.col("l_discount"))).sum())
+    )
+    return (
+        revenue.join(
+            revenue.select(pl.col("total_revenue").max().alias("__max")), how="cross"
+        )
+        .filter(pl.col("total_revenue") == pl.col("__max"))
+        .join(supplier.lazy(), left_on="supplier_no", right_on="s_suppkey")
+        .select("supplier_no", "s_name", "s_address", "s_phone", "total_revenue")
+        .sort("supplier_no")
+    )
+
+
+def q17(lineitem, part, brand="Brand#11", container="SM CASE"):
+    import polars_tpu_torch as pl
+
+    eligible = (
+        part.lazy()
+        .filter((pl.col("p_brand") == brand) & (pl.col("p_container") == container))
+        .join(lineitem.lazy(), left_on="p_partkey", right_on="l_partkey", validate="1:m")
+    )
+    avg_qty = eligible.group_by("p_partkey").agg(
+        (0.2 * pl.col("l_quantity").mean()).alias("__limit")
+    )
+    return (
+        eligible.join(avg_qty, on="p_partkey", validate="m:1")
+        .filter(pl.col("l_quantity") < pl.col("__limit"))
+        .select((pl.col("l_extendedprice").sum() / 7.0).alias("avg_yearly"))
+    )
+
+
+def q20(nation, supplier, partsupp, part, lineitem, color="forest",
+        start=dtm.date(1994, 1, 1), nation_name="CANADA"):
+    import polars_tpu_torch as pl
+
+    end = dtm.date(1995, 1, 1)
+    shipped = (
+        lineitem.lazy()
+        .filter((pl.col("l_shipdate") >= start) & (pl.col("l_shipdate") < end))
+        .group_by("l_partkey", "l_suppkey")
+        .agg((0.5 * pl.col("l_quantity").sum()).alias("__half"))
+    )
+    qualifying_ps = (
+        partsupp.lazy()
+        .join(part.lazy().filter(pl.col("p_name").str.starts_with(color)),
+              left_on="ps_partkey", right_on="p_partkey", how="semi", validate="m:1")
+        .join(shipped, left_on=["ps_partkey", "ps_suppkey"], right_on=["l_partkey", "l_suppkey"], validate="m:1")
+        .filter(pl.col("ps_availqty") > pl.col("__half"))
+    )
+    return (
+        supplier.lazy()
+        .join(qualifying_ps, left_on="s_suppkey", right_on="ps_suppkey", how="semi")
+        .join(nation.lazy().filter(pl.col("n_name") == nation_name),
+              left_on="s_nationkey", right_on="n_nationkey", validate="m:1")
+        .select("s_name", "s_address")
+        .sort("s_name")
     )

@@ -1,5 +1,6 @@
 """Where a PDS-H query's time goes on the card (any query the port runs:
-q1, q3, q4, q5, q6, q10, q12, q14, q18 or q19).
+q1, q3, q4, q5, q6, q10, q11, q12, q14, q15, q17, q18, q19 or q20, with
+``pdsh.run_params``).
 
 Builds the SF10 frames of the columns the query reads
 (``pdsh.QUERY_COLUMNS``), as ``chip_smoke.py`` does, warms the
@@ -54,7 +55,7 @@ def timed_sorts(torch, run) -> list[dict]:
     """One collect with each call of ``stable_argsort_words`` timed alone."""
     import inspect
 
-    from polars_tpu_torch.engine import groupby, join_traced, sort
+    from polars_tpu_torch.engine import groupby, join, join_traced, sort
     from polars_tpu_torch.kernels import argsort
 
     inner = argsort.stable_argsort_words
@@ -73,7 +74,7 @@ def timed_sorts(torch, run) -> list[dict]:
                         "ms": start.elapsed_time(end)})
         return perm
 
-    mods = (groupby, join_traced, sort)
+    mods = (groupby, join, join_traced, sort)
     for m in mods:
         m.stable_argsort_words = timed
     try:
@@ -167,8 +168,9 @@ def main() -> int:
     del raw
     for q in args.query:
         f = pdsh.frames_for(q, tables)
-        profile_query(torch, q, lambda: pdsh.query(q, f), {t: d.height for t, d in f.items()}, args.scale,
-                      args.runs, args.top)
+        params = pdsh.run_params(q, args.scale)
+        profile_query(torch, q, lambda: pdsh.query(q, f, **params), {t: d.height for t, d in f.items()},
+                      args.scale, args.runs, args.top)
     return 0
 
 

@@ -184,11 +184,14 @@ def test_two_violated_validations_raise_together(sides):
 
 
 def test_host_sized_joins_name_their_queue_item(sides):
-    (_, lt), (_, rt) = sides
-    with pytest.raises(NotImplementedError, match="host-sized joins"):
-        lt.lazy().join(rt.lazy(), on="k").collect()  # m:m inner
-    with pytest.raises(NotImplementedError, match="host-sized joins"):
-        lt.lazy().join(rt.lazy(), on="k", how="full")
+    """The joins that size their output on the host: equi-joins of every
+    ``how`` run (``tests/test_torch_join_host.py``), a range or asof join
+    still names its queue item."""
+    (lj, lt), (rj, rt) = sides
+    want = lj.lazy().join(rj.lazy(), on="k").collect()  # m:m inner
+    _assert_frames_match(lt.lazy().join(rt.lazy(), on="k").collect(), want)
+    with pytest.raises(NotImplementedError, match="join_where and join_asof"):
+        lt.lazy().join_where(rt.lazy(), plt.col("k") < plt.col("k2"))
 
 
 def test_join_kernel_calls(sides, monkeypatch):

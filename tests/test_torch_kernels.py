@@ -82,13 +82,15 @@ def _check_plan(p, cap, k, sms, n):
     assert p.tile_rows % 16 == 0 and p.tile_rows % (p.threads * K1.ROWS_PER_THREAD) == 0
     assert K1.MIN_STAGES <= p.stages <= K1.MAX_STAGES
     assert 1 <= p.blocks <= sms and 1 <= p.slices <= p.blocks
+    words = K1.NWORDS if p.words else 1  # exact words: four int64 accumulators per f64 sum
+    assert not p.words or p.mode == MODE_GLOBAL
     acc = {MODE_PRIVATE: p.threads, MODE_SHARED: p.repl, MODE_GLOBAL: 0}[p.mode] * cap * p.kt * 8
     ring = p.stages * p.tile_rows * (8 * p.kt + 4 + 1)
     assert K1.HEADER + acc + ring <= p.smem <= K1.SMEM_MAX == 232448
     if p.mode == MODE_SHARED:
         assert 1 <= p.repl <= p.threads // 32
     if p.mode == MODE_GLOBAL:
-        assert p.slices * cap * p.kt * 8 <= max(K1.GLOBAL_SCRATCH_MAX, cap * p.kt * 8)
+        assert p.slices * cap * p.kt * 8 * words <= max(K1.GLOBAL_SCRATCH_MAX, cap * p.kt * 8 * words)
     else:
         assert p.slices == p.blocks
     if n < p.tile_rows:
@@ -114,6 +116,26 @@ def test_groupagg_plan_sweep_fits_shared_memory(k):
         for sms, n in [(132, 60_000_000), (132, 0), (132, 1), (132, 2047), (132, 2048), (132, 100_000), (7, 5_000)]:
             p = plan(cap, k, sms, n)
             _check_plan(p, cap, k, sms, n)
+            modes.add(p.mode)
+    assert modes == {MODE_PRIVATE, MODE_SHARED, MODE_GLOBAL}
+
+
+@pytest.mark.parametrize("k", [1, 5, 17])
+def test_groupagg_plan_f64_sweep_adds_exact_words_in_global_scratch(k):
+    """An f64 call runs in the mode that any call of its shape runs in, and
+    adds exact words (``Plan.words``) in global scratch only; the private and
+    shared slices plan as for i64. Within shared memory and the scratch
+    bounds."""
+    modes = set()
+    for cap in [1, 12, 13, 100, 214, 1024, 4096, 4097, 20000, 65536, 60_000_000]:
+        for sms, n in [(132, 60_000_000), (132, 1), (132, 2048), (7, 5_000)]:
+            p, q = plan(cap, k, sms, n, True), plan(cap, k, sms, n)
+            _check_plan(p, cap, k, sms, n)
+            assert p.mode == q.mode and p.words == (p.mode == MODE_GLOBAL) and not q.words
+            if p.words:
+                assert p.slices * cap * p.kt * 8 * K1.NWORDS <= max(K1.WORDS_SCRATCH_MAX, K1.GLOBAL_SCRATCH_MAX)
+            else:
+                assert p == q
             modes.add(p.mode)
     assert modes == {MODE_PRIVATE, MODE_SHARED, MODE_GLOBAL}
 
@@ -288,3 +310,54 @@ def test_wrappers_reject_bad_inputs():
         compact([torch.zeros(3, dtype=torch.complex128)], mask)
     with pytest.raises(TypeError):
         compact([torch.zeros(3)], torch.ones(3, dtype=torch.int8))
+
+
+@pytest.mark.parametrize("case", ["normal", "wide_range", "non_finite", "all_masked", "two_scales",
+                                  "two_scales_60M_rows"])
+def test_groupagg_exact_words_sum_the_same_in_any_order(case):
+    """K1's f64 sums in global scratch go through exact int64 words
+    (``exact_words``/``from_words``): the i64 sums do not depend on the order
+    of the adds, so two runs repeat bit for bit, and the result lies within
+    an ulp or two of the exact sum (``math.fsum``); a group that sums a
+    non-finite value gives inf or NaN as an f64 sum does. Here the i64 sums
+    come from the plain version, in two row orders. In ``two_scales`` one
+    group sums values near 1e12 and another values near 1e-20 in the same
+    column: each value keeps what lies above 2^(e - 3w), 2^e bounding the
+    column's largest, so the small group is held to that bound as well. At
+    this call's 4000 rows (w = 50) that still gives rtol 1e-9; at the word
+    width of a 60M-row call (w = 36) it gives next to nothing (the limit
+    PERF.md section 7 states)."""
+    import math
+
+    rng = np.random.default_rng(17)
+    n, cap = 4000, 23
+    x = rng.normal(size=n) * 1000.0
+    if case == "wide_range":
+        x *= 10.0 ** rng.integers(-200, 200, n)
+    if case == "non_finite":
+        x[[5, 77, 901, 1500]] = [np.inf, -np.inf, np.nan, np.inf]
+    mask = rng.random(n) < (0.0 if case == "all_masked" else 0.7)
+    mask[[5, 77, 901, 1500]] = True if case == "non_finite" else mask[[5, 77, 901, 1500]]
+    gids = rng.integers(0, cap, n).astype(np.int32)
+    if case.startswith("two_scales"):
+        x[gids == 0] = rng.uniform(0.5e12, 2e12, int((gids == 0).sum()))
+        x[gids == 1] = rng.uniform(0.5e-20, 2e-20, int((gids == 1).sum()))
+    rows = 60_000_000 if case == "two_scales_60M_rows" else n
+    got = []
+    for order in (np.arange(n), rng.permutation(n)):
+        xt, mt, gt = (torch.from_numpy(np.ascontiguousarray(a[order])) for a in (x, mask, gids))
+        words, e = K1.exact_words(xt, mt, rows)
+        got.append(K1.from_words(K1.groupagg_sums_plain(gt, words, mt, cap), e, rows))
+    assert torch.equal(got[0].view(torch.int64), got[1].view(torch.int64))
+    cut = math.ldexp(1.0, int(e) - 3 * K1.word_bits(rows))  # what one value may lose
+    for g in range(cap):
+        sel = x[mask & (gids == g)]
+        if not np.all(np.isfinite(sel)):
+            want = float(np.sum(sel))
+            assert (math.isnan(want) and math.isnan(got[0][g])) or want == float(got[0][g])
+            continue
+        want = math.fsum(sel.tolist())
+        tol = 4e-16 * abs(want) + (len(sel) * cut if case.startswith("two_scales") else 0.0)
+        assert abs(float(got[0][g]) - want) <= tol, (g, float(got[0][g]), want)
+        if case == "two_scales":
+            assert abs(float(got[0][g]) - want) <= 1e-9 * abs(want), (g, float(got[0][g]), want)
