@@ -4,7 +4,9 @@
 Phases, each printed as one JSON line:
   1. build    — compile the CUDA kernels from polars_tpu_torch/csrc with nvcc;
   2. kernels  — hold each kernel against its plain PyTorch version at Q1's
-                shapes and at ragged, misaligned and poisoned ones, and time
+                shapes, at ragged, misaligned and poisoned ones, and (K1)
+                at capacity = 60M rows over f64 values of three scales, one
+                far below the column's largest, and time
                 it (CUDA events, median of 11 runs after warm-up; 5 runs for
                 the plain and library versions of K1) beside the plain
                 version, the PyTorch calls that compute the same function
@@ -30,7 +32,13 @@ Phases, each printed as one JSON line:
                 an unvalidated join (Q15), 1:m and two-key joins (Q17,
                 Q20), each against a numpy oracle; Q11 at the TPC-H
                 FRACTION 0.0001 / scale, Q20 with color="part";
-  9. joins    — host-sized joins at SF10, each against a numpy oracle that
+  9. q2, q7, q8, q9, q13, q16, q21, q22 — the rest of PDS-H: str.contains
+                (literal and regex), str.ends_with, str.slice, dt.year,
+                n_unique and first, a join against the query's own
+                group-by (Q2), a left join counted without its nulls (Q13),
+                each against a numpy oracle; Q9 with color="color3", Q13
+                with words "comment" and "7";
+ 10. joins    — host-sized joins at SF10, each against a numpy oracle that
                 gives the same rows in the same order (stable argsort +
                 searchsorted): inner m:m (orders x lineitem, 60M rows), left
                 and right (customer and orders), full (Q3's two filtered
@@ -50,7 +58,7 @@ then the kernels line, the card's name and power limit, and the final line
 {"ok": true, "device": {...}}. Any failure exits non-zero before that line.
 
 Run from the repository root:
-    python3 chip_smoke.py [--scale 10] [--seed 42] [--only q1 filter q3 q4 ... joins]
+    python3 chip_smoke.py [--scale 10] [--seed 42] [--only q1 filter q3 q4 ... q22 joins]
 (``--only`` runs the build and kernel phases and the named query phases, for
 an A/B of a few queries against a parent tree). It needs a CUDA device and
 nvcc; it never imports JAX or polars_tpu.
@@ -62,6 +70,7 @@ import argparse
 import contextlib
 import datetime as dtm
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -88,7 +97,7 @@ def day(y: int, m: int, d: int) -> int:
 Q3_DAYS = day(1995, 3, 15)
 Q4_FROM, Q4_TO = day(1993, 7, 1), day(1993, 10, 1)
 PHASES = ["q1", "filter", "q3", "q4", "q5", "q6", "q10", "q12", "q14", "q18", "q19", "q11", "q15", "q17", "q20",
-          "joins"]
+          "q2", "q7", "q8", "q9", "q13", "q16", "q21", "q22", "joins"]
 # the columns the joins phase reads of each table
 JOIN_COLUMNS = {"customer": ["c_custkey", "c_mktsegment"], "orders": ["o_orderkey", "o_custkey", "o_orderdate"],
                 "lineitem": ["l_orderkey", "l_partkey", "l_suppkey", "l_quantity"],
@@ -438,6 +447,18 @@ def phase_kernels(torch, dev, seed: int, q1_density: float, n_main: int) -> dict
         timings[label] = hold_k1(torch, gids, cols, mask, cap, label)
         del gids
     del f64_cols
+    # the exact words of the sorted group-by's shape (capacity = rows, about
+    # 64 rows a group) over values of three scales, one group in three each:
+    # near 1e12, near 1e-20, and near 2^-80, below 2^-108 of the column's
+    # largest, where one scale per column summed them to 0; held to rtol
+    # 1e-9 of the plain version and run twice, bit for bit
+    gids = torch.as_tensor(rng.integers(0, max(n // 64, 1), n, dtype=np.int32)).to(dev)
+    third = gids.long() % 3
+    u = torch.as_tensor(rng.uniform(0.5, 2.0, n)).to(dev)
+    scales = torch.where(third == 0, u * 1e12, torch.where(third == 1, u * 1e-20, u * 2.0 ** -80))
+    del third, u
+    timings["f64_scales_cap_rows"] = hold_k1(torch, gids, [scales], mask, n, "three scales, capacity = rows")
+    del gids, scales
     emit({"phase": "kernels.groupagg_timing", **timings})
 
     # K2 timing: one f64 column, 60M rows, Q1 density (the filter phase
@@ -450,7 +471,8 @@ def phase_kernels(torch, dev, seed: int, q1_density: float, n_main: int) -> dict
     k1_err = max([t["max_abs_err"] for t in timings.values()]
                  + [max(c["max_abs_err_f64"], c["max_abs_err_i64"]) for c in checks_k1])
     k2_err = max([k2_one["max_abs_err_bits"]] + [c["max_abs_err_bits"] for c in checks_k2])
-    return {"k1_err": k1_err, "k1": timings["f64_k5"], "k2_err": k2_err, "k2": k2_one}
+    return {"k1_err": k1_err, "k1": timings["f64_k5"], "k1_scales": timings["f64_scales_cap_rows"], "k2_err": k2_err,
+            "k2": k2_one}
 
 
 def q1_oracle(raw: dict) -> dict:
@@ -965,9 +987,204 @@ def q20_oracle(raw: dict):
     return want, None, 0, (), {"qualifying_partsupp": int(ok.sum())}
 
 
+def _str_test(arr: np.ndarray, fn) -> np.ndarray:
+    """``fn`` of each string of ``arr`` (bool), run once per distinct value."""
+    vals = arr.tolist()
+    of = {u: bool(fn(u)) for u in set(vals)}
+    return np.fromiter(map(of.__getitem__, vals), bool, len(vals))
+
+
+def _codes(arr: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """(sorted distinct strings, each value's index among them)."""
+    vals = arr.tolist()
+    uniq = sorted(set(vals))
+    rank = {u: i for i, u in enumerate(uniq)}
+    return np.asarray(uniq, object), np.fromiter(map(rank.__getitem__, vals), np.int64, len(vals))
+
+
+def _year(days: np.ndarray) -> np.ndarray:
+    return days.astype("datetime64[D]").astype("datetime64[Y]").astype(np.int64) + 1970
+
+
+def _group_sums(keys: list, weights: np.ndarray) -> tuple[list, np.ndarray]:
+    """(each key column's value per group, sums), groups in lexicographic
+    key order; keys are non-negative int64 columns."""
+    mixed, inv = np.unique(np.stack(keys, 1), axis=0, return_inverse=True)
+    return [mixed[:, i] for i in range(len(keys))], np.bincount(inv.reshape(-1), weights=weights,
+                                                                 minlength=len(mixed))
+
+
+def q2_oracle(raw: dict):
+    """PDS-H Q2 in numpy: the partsupp rows of size-15 BRASS parts whose
+    supplier lies in EUROPE and whose cost is the least among those rows of
+    their part; richest supplier first, then nation, supplier, part; top 100."""
+    reg, nat, supp, ps, part = (raw[t] for t in ("region", "nation", "supplier", "partsupp", "part"))
+    pmask = (part["p_size"] == 15) & _str_test(part["p_type"], lambda s: s.endswith("BRASS"))
+    in_reg = np.isin(nat["n_regionkey"], reg["r_regionkey"][reg["r_name"] == "EUROPE"])  # n_nationkey = row
+    idx = np.nonzero(pmask[ps["ps_partkey"] - 1])[0]
+    idx = idx[in_reg[supp["s_nationkey"][ps["ps_suppkey"][idx] - 1]]]
+    pk, cost = ps["ps_partkey"][idx], ps["ps_supplycost"][idx]
+    order = np.lexsort((cost, pk))
+    keys, start = np.unique(pk[order], return_index=True)
+    least = np.minimum.reduceat(cost[order], start) if len(keys) else cost[:0]
+    keep = idx[cost == least[np.searchsorted(keys, pk)]]
+    s, p = ps["ps_suppkey"][keep] - 1, ps["ps_partkey"][keep] - 1
+    cols = {"s_acctbal": supp["s_acctbal"][s], "s_name": supp["s_name"][s],
+            "n_name": nat["n_name"][supp["s_nationkey"][s]], "p_partkey": part["p_partkey"][p],
+            "p_mfgr": part["p_mfgr"][p], "s_address": supp["s_address"][s], "s_phone": supp["s_phone"][s],
+            "s_comment": supp["s_comment"][s]}
+    order = np.lexsort((cols["p_partkey"], cols["s_name"].astype(str), cols["n_name"].astype(str), -cols["s_acctbal"]))
+    want = {c: v[order] for c, v in cols.items()}
+    return want, "s_acctbal", 100, (), {"eligible_rows": len(idx), "least_cost_rows": len(keep)}
+
+
+def q7_oracle(raw: dict):
+    """PDS-H Q7 in numpy: revenue shipped in 1995-1996 between FRANCE and
+    GERMANY, by supplier nation, customer nation and year."""
+    cust, orders, line, supp, nat = (raw[t] for t in ("customer", "orders", "lineitem", "supplier", "nation"))
+    fr, de = (int(np.nonzero(nat["n_name"] == n)[0][0]) for n in ("FRANCE", "GERMANY"))
+    ship = _days(line["l_shipdate"])
+    idx = np.nonzero((ship >= day(1995, 1, 1)) & (ship <= day(1996, 12, 31)))[0]
+    sn = supp["s_nationkey"][line["l_suppkey"][idx] - 1]
+    cn = cust["c_nationkey"][orders["o_custkey"][line["l_orderkey"][idx] - 1] - 1]
+    ok = ((sn == fr) & (cn == de)) | ((sn == de) & (cn == fr))
+    idx, sn, cn = idx[ok], sn[ok], cn[ok]
+    names = nat["n_name"]
+    rank = np.argsort(np.argsort(names.astype(str)))  # nation -> position of its name in sorted order
+    (rs, rc, yr), rev = _group_sums([rank[sn], rank[cn], _year(ship[idx])], _revenue(line, idx))
+    by_rank = np.argsort(rank)
+    want = {"supp_nation": names[by_rank[rs]], "cust_nation": names[by_rank[rc]], "l_year": yr, "revenue": rev}
+    return want, None, 0, ("revenue",), {"joined_rows": len(idx)}
+
+
+def q8_oracle(raw: dict):
+    """PDS-H Q8 in numpy: BRAZIL's share of the revenue of ECONOMY ANODIZED
+    STEEL parts sold to AMERICA in 1995-1996, by year."""
+    reg, nat, cust, orders, line, supp, part = (raw[t] for t in ("region", "nation", "customer", "orders", "lineitem",
+                                                                 "supplier", "part"))
+    pmask = _str_test(part["p_type"], lambda s: s == "ECONOMY ANODIZED STEEL")
+    idx = np.nonzero(pmask[line["l_partkey"] - 1])[0]
+    oi = line["l_orderkey"][idx] - 1
+    odate = _days(orders["o_orderdate"][oi])
+    in_reg = np.isin(nat["n_regionkey"], reg["r_regionkey"][reg["r_name"] == "AMERICA"])
+    ok = (odate >= day(1995, 1, 1)) & (odate <= day(1996, 12, 31))
+    ok &= in_reg[cust["c_nationkey"][orders["o_custkey"][oi] - 1]]
+    idx, odate = idx[ok], odate[ok]
+    vol = _revenue(line, idx)
+    brazil = nat["n_name"][supp["s_nationkey"][line["l_suppkey"][idx] - 1]] == "BRAZIL"
+    (yr,), total = _group_sums([_year(odate)], vol)
+    _, share = _group_sums([_year(odate)], np.where(brazil, vol, 0.0))
+    return {"o_year": yr, "mkt_share": share / total}, None, 0, ("mkt_share",), {"joined_rows": len(idx)}
+
+
+def q9_oracle(raw: dict):
+    """PDS-H Q9 in numpy (color "color3"): profit on the lines of parts named
+    with the color, whose (part, supplier) is in partsupp, by supplier nation
+    and order year, the newest year first."""
+    nat, orders, line, supp, part, ps = (raw[t] for t in ("nation", "orders", "lineitem", "supplier", "part",
+                                                          "partsupp"))
+    pmask = _str_test(part["p_name"], lambda s: "color3" in s)
+    idx = np.nonzero(pmask[line["l_partkey"] - 1])[0]
+    base = (line["l_partkey"][idx] - 1) * 4  # partsupp holds four rows per part, in part order
+    if not np.array_equal(ps["ps_partkey"][::4], np.arange(1, len(ps["ps_partkey"]) // 4 + 1)):
+        raise AssertionError("partsupp is not four rows per part in part order")
+    hit = ps["ps_suppkey"][base[:, None] + np.arange(4)] == line["l_suppkey"][idx][:, None]
+    found = hit.any(1)
+    idx, psi = idx[found], base[found] + hit[found].argmax(1)
+    amount = _revenue(line, idx) - ps["ps_supplycost"][psi] * line["l_quantity"][idx]
+    names = nat["n_name"]
+    rank = np.argsort(np.argsort(names.astype(str)))
+    year = _year(_days(orders["o_orderdate"][line["l_orderkey"][idx] - 1]))
+    (rn, ny), profit = _group_sums([rank[supp["s_nationkey"][line["l_suppkey"][idx] - 1]], 9999 - year], amount)
+    want = {"nation": names[np.argsort(rank)[rn]], "o_year": 9999 - ny, "sum_profit": profit}
+    return want, None, 0, ("sum_profit",), {"color_rows": int(pmask.sum()), "joined_rows": len(idx)}
+
+
+def q13_oracle(raw: dict):
+    """PDS-H Q13 in numpy (words "comment" and "7"): customers by their number
+    of orders whose comment does not match "comment.*7" (none: 0), counted."""
+    cust, orders = raw["customer"], raw["orders"]
+    rx = re.compile("comment.*7")
+    keep = ~_str_test(orders["o_comment"], lambda s: rx.search(s) is not None)
+    cnt = np.bincount(orders["o_custkey"][keep] - 1, minlength=len(cust["c_custkey"]))  # c_custkey = row + 1
+    dist = np.bincount(cnt)
+    cc = np.nonzero(dist)[0]
+    order = np.lexsort((-cc, -dist[cc]))
+    return {"c_count": cc[order], "custdist": dist[cc][order]}, None, 0, (), {"kept_orders": int(keep.sum())}
+
+
+def q16_oracle(raw: dict):
+    """PDS-H Q16 in numpy: distinct suppliers (none with a complaint comment)
+    of the parts not of Brand#44, not STANDARD, of eight sizes, by brand,
+    type and size, most suppliers first."""
+    supp, ps, part = raw["supplier"], raw["partsupp"], raw["part"]
+    bad = _str_test(supp["s_comment"], lambda s: re.search("Customer.*Complaints", s) is not None)
+    brands, bc = _codes(part["p_brand"])
+    types, tc = _codes(part["p_type"])
+    size = part["p_size"]
+    pmask = (part["p_brand"] != "Brand#44") & ~_str_test(part["p_type"], lambda s: s.startswith("STANDARD"))
+    pmask &= np.isin(size, [49, 14, 23, 45, 19, 3, 36, 9])
+    idx = np.nonzero(pmask[ps["ps_partkey"] - 1])[0]
+    idx = idx[~bad[ps["ps_suppkey"][idx] - 1]]
+    p = ps["ps_partkey"][idx] - 1
+    key = (bc[p] * len(types) + tc[p]) * 64 + size[p]
+    pairs = np.unique(key * (len(supp["s_suppkey"]) + 1) + ps["ps_suppkey"][idx])
+    keys, cnt = np.unique(pairs // (len(supp["s_suppkey"]) + 1), return_counts=True)
+    order = np.lexsort((keys, -cnt))  # key order is brand, type, size order
+    keys, cnt = keys[order], cnt[order]
+    want = {"p_brand": brands[keys // 64 // len(types)], "p_type": types[keys // 64 % len(types)],
+            "p_size": keys % 64, "supplier_cnt": cnt}
+    return want, None, 0, (), {"partsupp_rows": len(idx), "complaining_suppliers": int(bad.sum())}
+
+
+def q21_oracle(raw: dict):
+    """PDS-H Q21 in numpy: SAUDI ARABIA's suppliers that were the only late
+    one of a multi-supplier order of status F, by count, top 100."""
+    nat, supp, line, orders = (raw[t] for t in ("nation", "supplier", "lineitem", "orders"))
+    lk, sk = line["l_orderkey"], line["l_suppkey"]
+    late = _days(line["l_receiptdate"]) > _days(line["l_commitdate"])
+    stride, n_orders = len(supp["s_suppkey"]) + 1, len(orders["o_orderkey"])
+
+    def distinct(sel):
+        """Distinct suppliers of each order over the rows ``sel`` (by order key)."""
+        u = np.sort(lk[sel] * stride + sk[sel], kind="stable")  # lk is sorted: runs of a few rows
+        first = np.concatenate([[True], u[1:] != u[:-1]]) if len(u) else np.zeros(0, bool)
+        return np.bincount(u[first] // stride, minlength=n_orders + 1)
+
+    n_supp, n_late = distinct(slice(None)), distinct(late)
+    idx = np.nonzero(late)[0]
+    ok = (orders["o_orderstatus"][lk[idx] - 1] == "F") & (n_supp[lk[idx]] > 1) & (n_late[lk[idx]] == 1)
+    saudi = np.nonzero(nat["n_name"] == "SAUDI ARABIA")[0]
+    idx = idx[ok]
+    idx = idx[np.isin(supp["s_nationkey"][sk[idx] - 1], saudi)]
+    cnt = np.bincount(sk[idx], minlength=stride)
+    present = np.nonzero(cnt)[0]
+    names = supp["s_name"][present - 1]
+    order = np.lexsort((names.astype(str), -cnt[present]))
+    want = {"s_name": names[order], "numwait": cnt[present][order]}
+    return want, "numwait", 100, (), {"waiting_lines": len(idx)}
+
+
+def q22_oracle(raw: dict):
+    """PDS-H Q22 in numpy: customers of seven country codes with more than
+    the average positive balance and no order, counted and summed by code."""
+    cust, orders = raw["customer"], raw["orders"]
+    codes, cc = _codes(np.asarray([s[:2] for s in cust["c_phone"].tolist()], object))
+    elig = np.isin(codes, ["13", "31", "23", "29", "30", "18", "17"])[cc]
+    bal = cust["c_acctbal"]
+    pos = elig & (bal > 0.0)
+    avg = bal[pos].sum() / pos.sum()
+    none = np.bincount(orders["o_custkey"], minlength=len(bal) + 1)[cust["c_custkey"]] == 0
+    keep = elig & (bal > avg) & none
+    (g,), total = _group_sums([cc[keep]], bal[keep])
+    want = {"cntrycode": codes[g], "numcust": np.bincount(cc[keep], minlength=len(codes))[g], "totacctbal": total}
+    return want, None, 0, ("totacctbal",), {"customers_without_orders": int(none.sum())}
+
+
 ORACLES = {"q3": q3_oracle, "q4": q4_oracle, "q5": q5_oracle, "q6": q6_oracle, "q10": q10_oracle,
            "q12": q12_oracle, "q14": q14_oracle, "q18": q18_oracle, "q19": q19_oracle, "q15": q15_oracle,
-           "q17": q17_oracle, "q20": q20_oracle}
+           "q17": q17_oracle, "q20": q20_oracle, "q2": q2_oracle, "q7": q7_oracle, "q8": q8_oracle, "q9": q9_oracle,
+           "q13": q13_oracle, "q16": q16_oracle, "q21": q21_oracle, "q22": q22_oracle}
 
 # each query's result schema, as polars_tpu gives it
 SCHEMAS = {
@@ -987,6 +1204,15 @@ SCHEMAS = {
             ("total_revenue", "Float64")],
     "q17": [("avg_yearly", "Float64")],
     "q20": [("s_name", "String"), ("s_address", "String")],
+    "q2": [("s_acctbal", "Float64"), ("s_name", "String"), ("n_name", "String"), ("p_partkey", "Int64"),
+           ("p_mfgr", "String"), ("s_address", "String"), ("s_phone", "String"), ("s_comment", "String")],
+    "q7": [("supp_nation", "String"), ("cust_nation", "String"), ("l_year", "Int32"), ("revenue", "Float64")],
+    "q8": [("o_year", "Int32"), ("mkt_share", "Float64")],
+    "q9": [("nation", "String"), ("o_year", "Int32"), ("sum_profit", "Float64")],
+    "q13": [("c_count", "UInt32"), ("custdist", "UInt32")],
+    "q16": [("p_brand", "String"), ("p_type", "String"), ("p_size", "Int64"), ("supplier_cnt", "UInt32")],
+    "q21": [("s_name", "String"), ("numwait", "UInt32")],
+    "q22": [("cntrycode", "String"), ("numcust", "UInt32"), ("totacctbal", "Float64")],
 }
 
 
@@ -995,7 +1221,7 @@ def check_dense_keys(raw: dict) -> None:
     row, plus 1 where the table counts from 1)."""
     for t, col, base in (("nation", "n_nationkey", 0), ("region", "r_regionkey", 0), ("customer", "c_custkey", 1),
                          ("orders", "o_orderkey", 1), ("part", "p_partkey", 1), ("supplier", "s_suppkey", 1)):
-        if t not in raw:
+        if col not in raw.get(t, {}):
             continue
         keys = raw[t][col]
         if not np.array_equal(keys, np.arange(base, base + len(keys))):
@@ -1285,7 +1511,7 @@ def main() -> int:
             # the global-atomic mode at capacity = the rows (Q3, Q10, Q18)
             # and one group of capacity 1 (Q6's one-row select)
             "q3_shape": k1_call("q3"), "q10_shape": k1_call("q10"), "q18_shape": k1_call("q18"),
-            "q15_shape": k1_call("q15"),
+            "q15_shape": k1_call("q15"), "scales_shape": kern["k1_scales"],
             "cap1_shape": k1_call("q6"), "main_path_calls": calls["groupagg_sums"],
         },
         {

@@ -1,10 +1,10 @@
 """polars_tpu_torch: the PyTorch/CUDA port of polars_tpu for one NVIDIA H100.
 
 Same API and query semantics as ``polars_tpu`` (``import polars_tpu_torch as
-pl``), ported slice by slice; it runs PDS-H Q1, Q3, Q4, Q5, Q6, Q10, Q11,
-Q12, Q14, Q15, Q17, Q18, Q19 and Q20 (filters, joins of every ``how``,
-group-bys, one-row aggregate selects, sorts and top-k; a join that sizes
-its output on the host runs between fused segments). Plain tensor work is
+pl``), ported slice by slice; it runs all 22 PDS-H queries (filters, joins
+of every ``how``, group-bys, one-row aggregate selects, sorts and top-k,
+string predicates and slices, the calendar fields of a Date; a join that
+sizes its output on the host runs between fused segments). Plain tensor work is
 PyTorch; the group aggregation (K1) and the segment-end compaction (K2) are
 CUDA kernels written for sm_90a (``csrc/``), built with nvcc at first use.
 

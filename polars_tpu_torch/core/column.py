@@ -118,7 +118,9 @@ def _from_numpy(name: str, arr: np.ndarray, device) -> Column:
     if arr.dtype.kind == "M":
         logical = dt.numpy_to_dtype(arr.dtype)
         if not isinstance(logical, dt.Date):
-            raise NotImplementedError("Datetime columns are not ported yet (port queue: rest of PDS-H)")
+            raise NotImplementedError(
+                "Datetime columns are not ported yet"
+                " (port queue: temporal breadth and asof/range joins)")
         nat = np.isnat(arr)
         validity = ~nat if nat.any() else None
         ints = arr.astype("datetime64[D]").astype(np.int64).astype(np.int32)
@@ -126,7 +128,9 @@ def _from_numpy(name: str, arr: np.ndarray, device) -> Column:
             ints = np.where(validity, ints, 0)
         return Column(name, logical, Buffer.from_numpy(ints, validity, dtype=torch.int32, device=device))
     if arr.dtype.kind == "m":
-        raise NotImplementedError("Duration columns are not ported yet (port queue: rest of PDS-H)")
+        raise NotImplementedError(
+            "Duration columns are not ported yet"
+            " (port queue: temporal breadth and asof/range joins)")
     logical = dt.numpy_to_dtype(arr.dtype)
     return Column(name, logical, Buffer.from_numpy(arr, validity, dtype=dt.dtype_to_torch(logical), device=device))
 

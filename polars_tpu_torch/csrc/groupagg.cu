@@ -37,18 +37,21 @@
 //     exact in every mode. In MODE_SHARED f64 atomics add in an order that
 //     varies from run to run (rtol 1e-9). In MODE_GLOBAL, the mode of the
 //     sorted group-by (capacity = rows), an f64 call adds exact words
-//     instead (four int64 accumulators per sum), so its sums repeat bit for
-//     bit: a first small kernel finds the largest exponent e of each
-//     column's selected finite values, and every value v splits into three
-//     int64 words d_k = trunc of v's remainder * 2^(k w - e), |d_k| < 2^w,
-//     added with integer atomics; w = min(50, 62 - bits(n)), so no sum of n
+//     instead (four int64 words per sum, one 32-byte sector), so its sums
+//     repeat bit for bit: three words hold the parts and the fourth is a
+//     tag. A first small kernel finds, with integer atomicMax into the high
+//     32 bits of slice 0's tags, the largest exponent e of the selected
+//     finite values of each (group, column); every value v then splits into
+//     three int64 words d_k = trunc of v's remainder * 2^(k w - e), |d_k| <
+//     2^w, at its own group's scale, added with integer atomics into the
+//     sector whose tag it read; w = min(50, 62 - bits(n)), so no sum of n
 //     words overflows. Integer sums do not depend on the order of the adds,
-//     and the finish kernel puts the words together in a fixed order. What
-//     is cut off is below 2^(e - 3w) per value: a group whose values all lie
-//     far below the column's largest loses their low bits (at 60M rows,
-//     w = 36, rtol 1e-9 holds down to about 2^-78 of the largest). A fourth
-//     word counts the non-finite values (+inf in its low 32 bits, -inf in
-//     its high bits, NaN in both);
+//     nor does a maximum, and the finish kernel puts the words together in a
+//     fixed order. What is cut off is below 2^(e - 3w) per value, e of the
+//     value's own group: at 60M rows (w = 36) 2^-108 of the group's largest
+//     value, so a group's sum keeps rtol 1e-9 whatever the other groups of
+//     the column hold. Non-finite values set flags in the tag's low bits
+//     (+inf 1, -inf 2, NaN both);
 //   * each block leaves one partial slice; a small second kernel sums the
 //     slices in slice order, one thread per output.
 // The Python side (kernels/groupagg.py `plan`) sizes threads, tile rows,
@@ -75,7 +78,8 @@ constexpr int SMEM_MAX = 232448;
 constexpr unsigned VIA_IDS = 1u << 30;
 constexpr unsigned VIA_MASK = 1u << 31;
 constexpr unsigned FULL_WARP = 0xffffffffu;
-constexpr int NWORDS = 4;        // exact words per f64 accumulator: three parts and the non-finite counts
+constexpr int NWORDS = 4;        // exact words per f64 accumulator: three parts and a tag (exponent, flags)
+constexpr long long TAG_EMPTY = static_cast<long long>(0x8000000000000000ULL);  // exponent below every ilogb, no flags
 constexpr int EXP_MIN = -800;    // the words' scale: every 2^(+-(k w - e)) stays a normal double
 
 enum { MODE_PRIVATE = 0, MODE_SHARED = 1, MODE_GLOBAL = 2 };
@@ -94,7 +98,6 @@ struct Args {
   int slices;    // partial slices in `partials`
   unsigned acc_bytes;  // shared-memory bytes of accumulators, a multiple of 128
   T* partials;         // exact words: NWORDS long longs per accumulator instead
-  const int* exps;     // exact words: per column, the largest ilogb of its selected finite values
   int wbits;           // exact words: w
 };
 
@@ -144,8 +147,14 @@ __device__ __forceinline__ void atomic_add(long long* a, long long v) {
   atomicAdd(reinterpret_cast<unsigned long long*>(a), static_cast<unsigned long long>(v));
 }
 
-// The exponent e of a column's words: every selected finite |v| < 2^e.
-__device__ __forceinline__ int word_exp(const int* exps, int c) { return max(__ldg(exps + c) + 1, EXP_MIN); }
+// A tag whose high 32 bits are `x` and whose flags are clear; tags order as
+// their exponents do under a signed 64-bit atomicMax.
+__device__ __forceinline__ long long exp_tag(int x) {
+  return static_cast<long long>(static_cast<unsigned long long>(static_cast<unsigned>(x)) << 32);
+}
+// The exponent e of a (group, column)'s words from slice 0's tag: every
+// selected finite |v| of that group and column is below 2^e.
+__device__ __forceinline__ int tag_exp(long long tag) { return max(static_cast<int>(tag >> 32) + 1, EXP_MIN); }
 
 // Adds v to its accumulator's exact words `w` (scale 2^e, w = `bits` bits a word).
 __device__ __forceinline__ void add_words(unsigned long long* w, double v, int e, int bits) {
@@ -158,7 +167,7 @@ __device__ __forceinline__ void add_words(unsigned long long* w, double v, int e
       r -= scalbn(d, e - k * bits);
     }
   } else {
-    atomicAdd(&w[NWORDS - 1], isnan(v) ? 0x100000001ULL : (v > 0.0 ? 1ULL : 0x100000000ULL));
+    atomicOr(&w[NWORDS - 1], isnan(v) ? 3ULL : (v > 0.0 ? 1ULL : 2ULL));
   }
 }
 
@@ -228,6 +237,24 @@ __device__ __forceinline__ void consume(const Args<T>& a, long long r0, int rows
           for (int j = 0; j < U; ++j) v[cc][j] = off[j] >= 0 ? p[j] : T(0);
         }
       }
+      // exact words: every tag of the step first (the exponent from slice
+      // 0's tag, the same sector as the words when this block adds into
+      // slice 0, read past L1 as other blocks set flags in its low bits), so
+      // that the loads are in flight together: one row's adds may touch the
+      // next row's sector, so the compiler keeps a later load below them
+      [[maybe_unused]] long long tags[CCH][U];
+      if constexpr (W) {
+#pragma unroll
+        for (int cc = 0; cc < CCH; ++cc) {
+#pragma unroll
+          for (int j = 0; j < U; ++j) {
+            tags[cc][j] = off[j] >= 0 && c0 + cc < kt
+                              ? __ldcg(reinterpret_cast<const long long*>(a.partials) +
+                                       (static_cast<long long>(off[j]) + c0 + cc) * NWORDS + NWORDS - 1)
+                              : TAG_EMPTY;
+          }
+        }
+      }
 #pragma unroll
       for (int j = 0; j < U; ++j) {
         if (off[j] < 0) continue;
@@ -236,9 +263,9 @@ __device__ __forceinline__ void consume(const Args<T>& a, long long r0, int rows
         for (int cc = 0; cc < CCH; ++cc) {
           if (c0 + cc >= kt) break;
           if constexpr (W) {
-            unsigned long long* w = reinterpret_cast<unsigned long long*>(my) +
-                                    (static_cast<long long>(off[j]) + c0 + cc) * NWORDS;
-            add_words(w, static_cast<double>(v[cc][j]), word_exp(a.exps, c0 + cc), a.wbits);
+            const long long el = (static_cast<long long>(off[j]) + c0 + cc) * NWORDS;
+            add_words(reinterpret_cast<unsigned long long*>(my) + el, static_cast<double>(v[cc][j]),
+                      tag_exp(tags[cc][j]), a.wbits);
           } else if (MODE == MODE_PRIVATE) {
             dst[cc * stride] += v[cc][j];
           } else {
@@ -372,25 +399,35 @@ __global__ void groupagg_finish(const T* __restrict__ partials, int slices, long
   out[(e / kt) * out_ld + col0 + (e % kt)] = s;
 }
 
-// out[g, col0 + c] from the exact words of the partial slices: each word
-// summed over the slices, the three parts added in a fixed order, then inf or
-// NaN where non-finite values were added.
+// Exact words: the three parts 0 and every tag TAG_EMPTY.
+__global__ void groupagg_zero_words(long long* __restrict__ p, long long count) {
+  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long e = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; e < count; e += step) {
+    p[e] = e % NWORDS == NWORDS - 1 ? TAG_EMPTY : 0;
+  }
+}
+
+// out[g, col0 + c] from the exact words of the partial slices: each part
+// summed over the slices and the flags of their tags joined, the three parts
+// added in a fixed order at the exponent of slice 0's tag, then inf or NaN
+// where non-finite values were added.
 __global__ void groupagg_finish_words(const long long* __restrict__ partials, int slices, long long slice, int kt,
-                                      const int* __restrict__ exps, int bits, double* __restrict__ out, int out_ld,
-                                      int col0) {
+                                      int bits, double* __restrict__ out, int out_ld, int col0) {
   const long long e = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (e >= slice) return;
-  long long s[NWORDS] = {0, 0, 0, 0};
+  long long s[NWORDS - 1] = {0, 0, 0};
+  long long flags = 0;
   for (int b = 0; b < slices; ++b) {
+    const long long* w = partials + (b * slice + e) * NWORDS;
 #pragma unroll
-    for (int k = 0; k < NWORDS; ++k) s[k] += partials[(b * slice + e) * NWORDS + k];
+    for (int k = 0; k < NWORDS - 1; ++k) s[k] += w[k];
+    flags |= w[NWORDS - 1];
   }
   const int c = static_cast<int>(e % kt);
-  const int ex = word_exp(exps, c);
+  const int ex = tag_exp(partials[e * NWORDS + NWORDS - 1]);
   double r = scalbn(static_cast<double>(s[0]), ex - bits) + scalbn(static_cast<double>(s[1]), ex - 2 * bits);
   r += scalbn(static_cast<double>(s[2]), ex - 3 * bits);
-  const unsigned long long nf = static_cast<unsigned long long>(s[NWORDS - 1]);
-  const bool pos = (nf & 0xffffffffULL) != 0, neg = (nf >> 32) != 0;
+  const bool pos = (flags & 1) != 0, neg = (flags & 2) != 0;
   if (pos && neg) {
     r = __longlong_as_double(0x7ff8000000000000LL);
   } else if (pos) {
@@ -401,22 +438,47 @@ __global__ void groupagg_finish_words(const long long* __restrict__ partials, in
   out[(e / kt) * out_ld + col0 + c] = r;
 }
 
-// *e_out = max(*e_out, ilogb |v|) over the selected finite non-zero values v
-// of one column (a null column stands for ones: ilogb 1 = 0).
-__global__ void groupagg_exponent(const unsigned char* __restrict__ mask, const double* __restrict__ col, long long n,
-                                  int* __restrict__ e_out) {
-  if (col == nullptr) {
-    if (blockIdx.x == 0 && threadIdx.x == 0) atomicMax(e_out, 0);
-    return;
+// The high 32 bits of slice 0's tag of (g, c) = max ilogb |v| over the
+// selected rows of group g (mask set, 0 <= g < cap) and their finite non-zero
+// values v of column c (a null column stands for ones: ilogb 1 = 0). The tags
+// start at TAG_EMPTY, and a maximum does not depend on the order of the
+// atomics. A warp reads 32 consecutive rows; each run of lanes of one group
+// (the rows of a key often lie together, as the lines of an order do) takes
+// its maximum by a scan, and the last lane of the run sends the atomic. A
+// warp with no selected value skips the scan.
+struct ColPtrs {
+  const double* p[MAX_KT];
+};
+
+__global__ void groupagg_exponent(const unsigned char* __restrict__ mask, const int* __restrict__ gids,
+                                  const ColPtrs cols, int kt, long long n, int cap, long long* words) {
+  const int lane = threadIdx.x & 31;
+  const long long warps = static_cast<long long>(gridDim.x) * (blockDim.x >> 5);
+  for (long long base = (static_cast<long long>(blockIdx.x) * (blockDim.x >> 5) + (threadIdx.x >> 5)) * 32;
+       base < n; base += warps * 32) {
+    const long long r = base + lane;
+    int g = -1;
+    if (r < n && mask[r] != 0) g = gids[r];
+    if (static_cast<unsigned>(g) >= static_cast<unsigned>(cap)) g = -1;
+    for (int c = 0; c < kt; ++c) {
+      const double v = g < 0 ? 0.0 : (cols.p[c] == nullptr ? 1.0 : cols.p[c][r]);
+      const int key = isfinite(v) && v != 0.0 ? g : -1;
+      if (!__any_sync(FULL_WARP, key >= 0)) continue;
+      // lanes of one key that a run joins may also take lanes of the same
+      // key further back: a maximum of the same group's values all the same
+      int m = key < 0 ? INT_MIN : ilogb(v);
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int up_m = __shfl_up_sync(FULL_WARP, m, d);
+        const int up_key = __shfl_up_sync(FULL_WARP, key, d);
+        if (lane >= d && up_key == key) m = max(m, up_m);
+      }
+      const int next_key = __shfl_down_sync(FULL_WARP, key, 1);
+      if (key >= 0 && (lane == 31 || next_key != key)) {
+        atomicMax(words + (static_cast<long long>(key) * kt + c) * NWORDS + NWORDS - 1, exp_tag(m));
+      }
+    }
   }
-  int m = INT_MIN;
-  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long r = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; r < n; r += step) {
-    const double v = col[r];
-    if (mask[r] != 0 && isfinite(v) && v != 0.0) m = max(m, ilogb(v));
-  }
-  m = __reduce_max_sync(FULL_WARP, m);
-  if ((threadIdx.x & 31) == 0 && m != INT_MIN) atomicMax(e_out, m);
 }
 
 // Shared-memory bytes of one block; kernels/groupagg.py `plan` computes the same.
@@ -448,12 +510,11 @@ int dispatch_width(const Args<T>& a, int blocks, size_t smem, cudaStream_t strea
 template <typename T>
 int groupagg(const int* gids, const unsigned char* mask, const void* const* col_ptrs, int kt, long long n,
              int cap, int mode, int threads, int tile, int stages, int repl, int blocks, int slices,
-             int smem_bytes, T* partials, T* out, int out_ld, int col0, int* exps, int wbits, int sms,
-             cudaStream_t stream) {
+             int smem_bytes, T* partials, T* out, int out_ld, int col0, int wbits, int sms, cudaStream_t stream) {
   // f64 in MODE_GLOBAL adds exact words, and nothing else does
   constexpr bool kWords = std::is_same<T, double>::value;
   const bool words = kWords && mode == MODE_GLOBAL;
-  if ((exps != nullptr) != words || (words && (wbits < 1 || wbits > 50)) ||
+  if ((words ? (wbits < 1 || wbits > 50) : wbits != 0) ||
       kt < 1 || kt > MAX_KT || cap < 1 || n < 0 || mode < 0 || mode > 2 || threads < 32 ||
       threads > MAX_CONSUMERS || threads % 32 != 0 || tile < threads * U || tile % (threads * U) != 0 ||
       stages < 2 || stages > MAX_STAGES || blocks < 1 || slices < 1 || slices > blocks ||
@@ -464,25 +525,13 @@ int groupagg(const int* gids, const unsigned char* mask, const void* const* col_
   Args<T> a;
   a.gids = gids, a.mask = mask, a.n = n, a.kt = kt, a.cap = cap, a.ct = threads, a.tile = tile;
   a.stages = stages, a.repl = repl, a.slices = slices, a.partials = partials;
-  a.exps = exps, a.wbits = wbits;
+  a.wbits = wbits;
   for (int c = 0; c < MAX_KT; ++c) a.cols[c] = c < kt ? static_cast<const T*>(col_ptrs[c]) : nullptr;
   const long long smem = layout_bytes(mode, cap, kt, threads, tile, stages, repl, &a.acc_bytes);
   if (smem > SMEM_MAX || smem != smem_bytes) return cudaErrorInvalidValue;
 
   const long long slice = static_cast<long long>(cap) * kt;
   int err;
-  if (words) {
-    // each column's exponent first: 0x80 bytes make an int below every ilogb
-    err = cudaMemsetAsync(exps, 0x80, sizeof(int) * kt, stream);
-    if (err != cudaSuccess) return err;
-    const long long eb = (n + 1023) / 1024;
-    const unsigned e_blocks = static_cast<unsigned>(eb < 1 ? 1 : (eb < 4LL * sms ? eb : 4LL * sms));
-    for (int c = 0; c < kt; ++c) {
-      groupagg_exponent<<<e_blocks, 256, 0, stream>>>(mask, static_cast<const double*>(col_ptrs[c]), n, exps + c);
-    }
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
   if (mode == MODE_PRIVATE) {
     err = dispatch_width<T, MODE_PRIVATE>(a, blocks, smem, stream);
   } else if (mode == MODE_SHARED) {
@@ -490,7 +539,19 @@ int groupagg(const int* gids, const unsigned char* mask, const void* const* col_
   } else {
     const long long count = slice * slices * (words ? NWORDS : 1);
     const long long zb = (count + 1023) / 1024;
-    groupagg_zero<T><<<static_cast<unsigned>(zb < 1024 ? zb : 1024), 256, 0, stream>>>(partials, count);
+    const unsigned z_blocks = static_cast<unsigned>(zb < 1024 ? zb : 1024);
+    if (words) {
+      // the tags first, then each (group, column)'s exponent into slice 0's
+      long long* w = reinterpret_cast<long long*>(partials);
+      groupagg_zero_words<<<z_blocks, 256, 0, stream>>>(w, count);
+      ColPtrs cp;
+      for (int c = 0; c < MAX_KT; ++c) cp.p[c] = c < kt ? static_cast<const double*>(col_ptrs[c]) : nullptr;
+      const long long eb = (n + 255) / 256;
+      const unsigned e_blocks = static_cast<unsigned>(eb < 1 ? 1 : (eb < 8LL * sms ? eb : 8LL * sms));
+      groupagg_exponent<<<e_blocks, 256, 0, stream>>>(mask, gids, cp, kt, n, cap, w);
+    } else {
+      groupagg_zero<T><<<z_blocks, 256, 0, stream>>>(partials, count);
+    }
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     err = dispatch_width<T, MODE_GLOBAL, kWords>(a, blocks, smem, stream);
@@ -500,8 +561,8 @@ int groupagg(const int* gids, const unsigned char* mask, const void* const* col_
   const long long b2 = (slice + t2 - 1) / t2;
   if (words) {
     groupagg_finish_words<<<static_cast<unsigned>(b2), t2, 0, stream>>>(
-        reinterpret_cast<const long long*>(partials), slices, slice, kt, exps, wbits,
-        reinterpret_cast<double*>(out), out_ld, col0);
+        reinterpret_cast<const long long*>(partials), slices, slice, kt, wbits, reinterpret_cast<double*>(out),
+        out_ld, col0);
   } else {
     groupagg_finish<T><<<static_cast<unsigned>(b2), t2, 0, stream>>>(partials, slices, slice, kt, out, out_ld, col0);
   }
@@ -517,23 +578,23 @@ extern "C" {
 // holds slices * cap * kt elements of scratch (times NWORDS with exact
 // words). The launch shape (threads, tile, stages, repl, blocks, slices,
 // smem_bytes) comes from `plan` in kernels/groupagg.py. An f64 call in
-// MODE_GLOBAL adds exact words and must pass `exps` (kt ints of scratch) and
-// `wbits` = w; every other call passes a null `exps`. Returns a cudaError_t.
+// MODE_GLOBAL adds exact words and must pass `wbits` = w; every other call
+// passes 0. Returns a cudaError_t.
 int groupagg_sums_f64(const int* gids, const unsigned char* mask, const void* const* col_ptrs, int kt,
                       long long n, int cap, int mode, int threads, int tile, int stages, int repl,
                       int blocks, int slices, int smem_bytes, double* partials, double* out, int out_ld,
-                      int col0, int* exps, int wbits, int sms, void* stream) {
+                      int col0, int wbits, int sms, void* stream) {
   return groupagg<double>(gids, mask, col_ptrs, kt, n, cap, mode, threads, tile, stages, repl, blocks,
-                          slices, smem_bytes, partials, out, out_ld, col0, exps, wbits, sms,
+                          slices, smem_bytes, partials, out, out_ld, col0, wbits, sms,
                           static_cast<cudaStream_t>(stream));
 }
 
 int groupagg_sums_i64(const int* gids, const unsigned char* mask, const void* const* col_ptrs, int kt,
                       long long n, int cap, int mode, int threads, int tile, int stages, int repl,
                       int blocks, int slices, int smem_bytes, long long* partials, long long* out,
-                      int out_ld, int col0, int* exps, int wbits, int sms, void* stream) {
+                      int out_ld, int col0, int wbits, int sms, void* stream) {
   return groupagg<long long>(gids, mask, col_ptrs, kt, n, cap, mode, threads, tile, stages, repl, blocks,
-                             slices, smem_bytes, partials, out, out_ld, col0, exps, wbits, sms,
+                             slices, smem_bytes, partials, out, out_ld, col0, wbits, sms,
                              static_cast<cudaStream_t>(stream));
 }
 

@@ -4,8 +4,8 @@ literals (numeric, bool, null, date and string; lists as literal Series),
 casts, arithmetic and comparison with Polars type promotion, string
 comparison across dictionaries, Kleene ``&``/``|``, when/then/otherwise,
 registered functions (``engine/registry.py``), aliases and the sum, mean,
-min, max, count and len aggregations, per group or, outside a group-by,
-over one group of capacity 1).
+min, max, count, len, first, last and n_unique aggregations, per group or,
+outside a group-by, over one group of capacity 1).
 
 Where the JAX package traces into one XLA program, the port runs each op
 eagerly on the tensors of the segment; ``Val.domain`` still tracks per-row,
@@ -100,7 +100,7 @@ def _eval_literal(node: E.ELiteral, ctx: EvalCtx) -> Val:
     if value is None:
         d = dtype if dtype is not None else dt.Null()
         if isinstance(d, (dt.String, dt.Categorical, dt.Enum, dt.Binary)):
-            raise NotImplementedError("null string literals are not ported yet (port queue: rest of PDS-H)")
+            raise NotImplementedError("null string literals are not ported yet (port queue: expression breadth)")
         tdt = torch.int32 if isinstance(d, dt.Null) else dt.dtype_to_torch(d)
         return Val(
             torch.zeros(1, dtype=tdt, device=ctx.device),
@@ -111,7 +111,9 @@ def _eval_literal(node: E.ELiteral, ctx: EvalCtx) -> Val:
             days = int(np.datetime64(value, "D").astype(np.int64))
             return Val(torch.tensor([days], dtype=torch.int32, device=ctx.device), None, dtype, None, SCALAR)
         if dtype is not None and not isinstance(dtype, dt.String):
-            raise NotImplementedError(f"{dtype!r} literals are not ported yet (port queue: rest of PDS-H)")
+            raise NotImplementedError(
+                f"{dtype!r} literals are not ported yet"
+                " (port queue: temporal breadth and asof/range joins)")
         # a one-entry sorted dictionary; code 0
         table = strtable.StringTable(np.asarray([value], object), sorted_order=True)
         return Val(torch.zeros(1, dtype=torch.int32, device=ctx.device), None, dt.String(), table, SCALAR)
@@ -177,7 +179,8 @@ def _eval_binary(node: E.EBinary, ctx: EvalCtx) -> Val:
 def _arith(op: str, a: Val, b: Val, out_dt: dt.DataType):
     if out_dt.is_temporal() or isinstance(out_dt, dt.Decimal) or a.dtype.is_temporal() or b.dtype.is_temporal():
         raise NotImplementedError(
-            f"{op!r} on {a.dtype!r} and {b.dtype!r} is not ported yet (port queue: rest of PDS-H)"
+            f"{op!r} on {a.dtype!r} and {b.dtype!r} is not ported yet"
+            " (port queue: temporal breadth and asof/range joins)"
         )
     if not out_dt.is_numeric():
         raise InvalidOperationError(f"cannot apply {op!r} to {a.dtype!r} and {b.dtype!r}")
@@ -381,7 +384,9 @@ def _eval_agg(node: E.EAgg, ctx: EvalCtx) -> Val:
     if kind == "count":
         return Val(G.seg_count(data_mask, gids, cap), None, dt.UInt32(), None, dom)
     if v.dtype.is_temporal() and kind in ("sum", "mean"):
-        raise NotImplementedError(f"{kind} of {v.dtype!r} is not ported yet (port queue: rest of PDS-H)")
+        raise NotImplementedError(
+            f"{kind} of {v.dtype!r} is not ported yet"
+            " (port queue: temporal breadth and asof/range joins)")
     if kind == "sum":
         out_dt = _agg_out_dtype(node, v.dtype)
         s = G.seg_sum(v.values.to(dt.dtype_to_torch(out_dt)), data_mask, gids, cap)
@@ -396,6 +401,16 @@ def _eval_agg(node: E.EAgg, ctx: EvalCtx) -> Val:
             raise NotImplementedError("min/max over an unordered dictionary is not ported yet")
         has = G.seg_count(data_mask, gids, cap) > 0
         return Val(G.seg_extreme(kind, v, data_mask, gids, cap), has, v.dtype, v.table, dom)
+    if kind in ("first", "last"):
+        # Polars' first/last include nulls: the row is picked by position
+        # among the group's rows, and its validity goes with it
+        fn = G.seg_first_idx if kind == "first" else G.seg_last_idx
+        idx, has = fn(rowmask, gids, cap)
+        validity = has if v.validity is None else (has & v.validity.index_select(0, idx))
+        return Val(v.values.index_select(0, idx), validity, v.dtype, v.table, dom)
+    if kind == "n_unique":
+        out = G.seg_nunique(v, rowmask, gids, cap)
+        return Val(wrap_unsigned(out, dt.UInt32()), None, dt.UInt32(), None, dom)
     raise NotImplementedError(f"aggregation {kind!r} is not ported yet (port queue: expression breadth)")
 
 

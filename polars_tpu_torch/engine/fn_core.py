@@ -75,7 +75,7 @@ def _is_between(ctx, args, opts):
     supertype; null where any operand is null."""
     v, lo, hi = args
     if any(a.table is not None for a in args):
-        raise NotImplementedError("is_between on strings is not ported yet (port queue: rest of PDS-H)")
+        raise NotImplementedError("is_between on strings is not ported yet (port queue: expression breadth)")
     closed = opts.get("closed", "both")
     st = supertype(supertype(v.dtype, lo.dtype), hi.dtype)
     vv, lv, hv = (order_word(cast_val(a, st).values, st) for a in args)

@@ -6,7 +6,8 @@ of a small key domain, ranks the occupied slots and never sorts. The sorted
 path (any other keys) sorts the rows by their order-encoded key words, marks
 where a key differs from the previous row and numbers the groups in key
 order; its capacity is the row count. Group sums and counts go through
-kernel K1 (``kernels/groupagg.py``); min/max and first rows use
+kernel K1 (``kernels/groupagg.py``), and so do the boundaries that
+``n_unique`` counts after a sort; min/max and the first and last rows use
 ``Tensor.scatter_reduce``, as the JAX package has no kernel for them. The
 only data-dependent value, ``num_groups``, stays on the device until the
 segment's compaction.
@@ -217,6 +218,34 @@ def seg_first_idx(mask: torch.Tensor, gids: torch.Tensor, cap: int) -> tuple[tor
     idx = _scatter_extreme(torch.where(mask, iota, big), gids, mask, cap, "amin", big)
     has = idx != big
     return torch.where(has, idx, 0), has
+
+
+def seg_last_idx(mask: torch.Tensor, gids: torch.Tensor, cap: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(row index of the last masked row per group, has_any mask)."""
+    iota = torch.arange(mask.shape[0], dtype=torch.int32, device=mask.device)
+    idx = _scatter_extreme(torch.where(mask, iota, -1), gids, mask, cap, "amax", -1)
+    has = idx >= 0
+    return torch.where(has, idx, 0), has
+
+
+def seg_nunique(v: Val, mask: torch.Tensor, gids: torch.Tensor, cap: int) -> torch.Tensor:
+    """Distinct values per group (int64), nulls counting as one value: one
+    stable sort by (group, null, key words), whose boundaries K1 counts per
+    group. Rows outside ``mask`` take group ``cap``, sort last and count
+    nowhere; the key words under a null are zeroed, so that all nulls of a
+    group are one value whatever lies under them (the JAX package counts
+    nulls of different storage apart, ROADMAP §3)."""
+    g = torch.where(mask, gids, cap)
+    words = [g]
+    kw = key_words(v.values, v.dtype)
+    if v.validity is not None:
+        words.append((~v.validity).to(torch.int8))
+        kw = [torch.where(v.validity, w, torch.zeros((), dtype=w.dtype, device=w.device)) for w in kw]
+    words.extend(kw)
+    perm = stable_argsort_words(words)
+    gs = g.index_select(0, perm).contiguous()
+    boundary = (gs < cap) & boundaries_from_words(words, perm)
+    return seg_count(boundary, gs, cap)
 
 
 def seg_mean(values: torch.Tensor, mask: torch.Tensor, gids: torch.Tensor, cap: int):

@@ -81,3 +81,4 @@ def _ensure_loaded() -> None:
     _LOADED = True
     import polars_tpu_torch.engine.fn_core  # noqa: F401
     import polars_tpu_torch.engine.fn_strings  # noqa: F401
+    import polars_tpu_torch.engine.fn_temporal  # noqa: F401

@@ -20,7 +20,7 @@ def sort_words_for_key(v: Val, desc: bool, nulls_last: bool, rowmask: torch.Tens
     if v.table is not None and not v.table.sorted_order:
         raise NotImplementedError(
             "sorting a string column with an unordered dictionary is not ported yet "
-            "(port queue: rest of PDS-H)"
+            "(port queue: expression breadth)"
         )
     words = key_words(v.values, v.dtype, descending=desc)
     if v.validity is None and rowmask is None:

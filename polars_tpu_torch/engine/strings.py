@@ -1,5 +1,6 @@
 """Device-side helpers for dictionary-coded string values (the port of
-``polars_tpu/engine/strings.py``, trimmed to :func:`unify_vals`)."""
+``polars_tpu/engine/strings.py``, trimmed to :func:`unify_vals` and
+:func:`map_over_table`)."""
 
 from __future__ import annotations
 
@@ -24,3 +25,18 @@ def _remap(codes: torch.Tensor, remap: np.ndarray) -> torch.Tensor:
     if len(remap) == 0:
         return codes
     return take_lut(remap, codes)
+
+
+def map_over_table(v: Val, fn) -> Val:
+    """A string-valued host function over the dictionary: ``fn`` runs once per
+    dictionary value, its results become a new sorted table of their distinct
+    values (ordinal codes), and the codes are remapped through it by one
+    gather; validity is kept. The JAX package keeps the results of a
+    dictionary above 65536 values in insertion order; here every table comes
+    out sorted, with the same strings per row."""
+    out = [fn(u) for u in v.table.values.tolist()]
+    uniques = sorted(set(out)) or [""]
+    rank = {u: i for i, u in enumerate(uniques)}
+    remap = np.fromiter(map(rank.__getitem__, out), np.int32, count=len(out))
+    table = strtable.StringTable(np.asarray(uniques, dtype=object), sorted_order=True)
+    return v.with_(values=_remap(v.values, remap), table=table)

@@ -1,8 +1,9 @@
 """The fluent ``Expr`` wrapper over the expression AST (the port of
 ``polars_tpu/expr/expr.py``, trimmed to the operations the ported queries
 evaluate: arithmetic, comparison, boolean ``&``/``|``/``~``, casts, ``is_in``,
-``is_between``, the ``.str`` namespace, aliasing and the sum, mean, min, max,
-count and len aggregations). Nothing executes until a plan is collected.
+``is_between``, the ``.str`` and ``.dt`` namespaces, aliasing and the sum,
+mean, min, max, count, len, first, last and n_unique aggregations). Nothing
+executes until a plan is collected.
 """
 
 from __future__ import annotations
@@ -43,7 +44,9 @@ def parse_into_expr(value: Any, *, str_as_lit: bool = False) -> E.ENode:
     if isinstance(value, str) and not str_as_lit:
         return E.EColumn(value)
     if isinstance(value, _pydt.datetime):
-        raise NotImplementedError("Datetime literals are not ported yet (port queue: rest of PDS-H)")
+        raise NotImplementedError(
+            "Datetime literals are not ported yet"
+            " (port queue: temporal breadth and asof/range joins)")
     if isinstance(value, _pydt.date):
         return E.ELiteral(value.isoformat(), dt.Date())
     if isinstance(value, np.generic):
@@ -176,6 +179,12 @@ class Expr:
 
         return ExprStringNamespace(self)
 
+    @property
+    def dt(self):
+        from polars_tpu_torch.expr.datetime import ExprDateTimeNamespace
+
+        return ExprDateTimeNamespace(self)
+
     # -- aggregations ---------------------------------------------------------
 
     def _agg(self, kind: str) -> Expr:
@@ -198,3 +207,12 @@ class Expr:
 
     def len(self) -> Expr:
         return self._agg("len")
+
+    def first(self) -> Expr:
+        return self._agg("first")
+
+    def last(self) -> Expr:
+        return self._agg("last")
+
+    def n_unique(self) -> Expr:
+        return self._agg("n_unique")

@@ -25,7 +25,9 @@ def lit(value: Any, dtype: Any = None) -> Expr:
     if isinstance(value, Expr):
         return value
     if isinstance(value, _pydt.datetime):
-        raise NotImplementedError("Datetime literals are not ported yet (port queue: rest of PDS-H)")
+        raise NotImplementedError(
+            "Datetime literals are not ported yet"
+            " (port queue: temporal breadth and asof/range joins)")
     if isinstance(value, _pydt.date) and dtype is None:
         return Expr(E.ELiteral(value.isoformat(), dt.Date()))
     if isinstance(value, (list, tuple, np.ndarray)):

@@ -15,10 +15,10 @@ blocks (one per SM) that walk fixed row tiles, a ring of bulk-copy stages in
 shared memory, and the accumulator mode; ``csrc/groupagg.cu`` lays shared
 memory out by the same arithmetic and refuses a launch that disagrees.
 An f64 call in global scratch, the mode of the sorted group-by (capacity =
-rows), adds exact int64 words there (``Plan.words``; :func:`exact_words` is
-the same arithmetic in PyTorch): f64 atomics would add in a run-dependent
-order, and a query that compares two evaluations of one sum (PDS-H Q15)
-needs its sums to repeat bit for bit. The shared slices keep f64 atomics,
+rows), adds exact int64 words there, at one scale per group and column
+(``Plan.words``; :func:`exact_words` is the same arithmetic in PyTorch): f64
+atomics would add in a run-dependent order, and a query that compares two
+evaluations of one sum (PDS-H Q15) needs its sums to repeat bit for bit. The shared slices keep f64 atomics,
 whose sums vary from run to run within rtol 1e-9.
 """
 
@@ -103,7 +103,8 @@ def plan(cap: int, k: int, sms: int, n: int, f64: bool = False) -> Plan:
     room for a ring of ``MIN_STAGES`` stages, the most consumer threads that
     still fit, and then as deep a ring as the rest of shared memory holds.
     An ``f64`` call in global scratch adds exact words there (``words``:
-    four int64 accumulators per sum), so that its sums repeat bit for bit."""
+    four int64 words per sum, the exponent of its group in the fourth), so
+    that its sums repeat bit for bit."""
     narrow = CONSUMER_THREADS[-1]
     kmax = min(k, MAX_KT)
     for mode in (MODE_PRIVATE, MODE_SHARED, MODE_GLOBAL):
@@ -168,7 +169,6 @@ def groupagg_sums(gids: torch.Tensor, columns: list, mask: torch.Tensor, cap: in
     fn = _entry(dtype)
     out = torch.empty((cap, k), dtype=dtype, device=gids.device)
     partials = torch.empty(p.slices * cap * p.kt * (NWORDS if p.words else 1), dtype=dtype, device=gids.device)
-    exps = torch.empty(p.kt, dtype=torch.int32, device=gids.device) if p.words else None
     wbits = word_bits(n) if p.words else 0
     stream = torch.cuda.current_stream(gids.device).cuda_stream
     for c0 in range(0, k, p.kt):  # one launch per p.kt columns
@@ -179,8 +179,8 @@ def groupagg_sums(gids: torch.Tensor, columns: list, mask: torch.Tensor, cap: in
         # accumulators and stages only shrink
         smem = HEADER + _acc_bytes(p.mode, cap, kt, p.threads, p.repl) + p.stages * _stage_bytes(p.threads, kt)
         err = fn(gids.data_ptr(), mask.data_ptr(), ptrs, kt, n, cap, p.mode, p.threads, p.tile_rows,
-                 p.stages, p.repl, p.blocks, p.slices, smem, partials.data_ptr(), out.data_ptr(), k, c0,
-                 None if exps is None else exps.data_ptr(), wbits, sms, stream)
+                 p.stages, p.repl, p.blocks, p.slices, smem, partials.data_ptr(), out.data_ptr(), k, c0, wbits,
+                 sms, stream)
         if err != 0:
             raise RuntimeError(f"groupagg_sums kernel launch failed: cudaError {err} with {p}")
     groupagg_sums.launches += 1
@@ -188,18 +188,19 @@ def groupagg_sums(gids: torch.Tensor, columns: list, mask: torch.Tensor, cap: in
 
 
 # The exact words of an f64 call in MODE_GLOBAL, as csrc/groupagg.cu adds
-# them (``add_words``, ``groupagg_finish_words``), in PyTorch: the kernel
-# cannot run on the CPU, so the tests hold this copy of its arithmetic. Each
-# selected finite value v is, to within 2^(e - 3w) where 2^e bounds the
-# column's largest selected finite |v|, the sum of three int64 words
-# d_k * 2^(e - k w), |d_k| < 2^w; w = min(50, 62 - bits(n)), so n of them sum
-# in int64 without overflow and their sums do not depend on the order of the
-# adds. Each value loses what lies below 2^(e - 3w), so a group whose values
-# all lie far below the column's largest loses their low bits: at 60M rows
-# (w = 36) a group's sum keeps rtol 1e-9 down to about 2^-78 of the column's
-# largest value, and sums to 0 below 2^-108 of it; at 4096 rows (w = 49),
-# 2^-117 and 2^-147. A fourth word counts the non-finite
-# values: +inf in its low 32 bits, -inf in its high bits, NaN in both.
+# them (``groupagg_exponent``, ``add_words``, ``groupagg_finish_words``), in
+# PyTorch: the kernel cannot run on the CPU, so the tests hold this copy of
+# its arithmetic. Each selected finite value v of group g is, to within
+# 2^(e_g - 3w) where 2^e_g bounds the largest selected finite |v| of its own
+# group, the sum of three int64 words d_k * 2^(e_g - k w), |d_k| < 2^w;
+# w = min(50, 62 - bits(n)), so n of them sum in int64 without overflow and
+# their sums do not depend on the order of the adds. What a value loses lies
+# below 2^-3w of its group's largest (2^-108 at 60M rows, w = 36), so every
+# group's sum keeps rtol 1e-9 of its own values, whatever the column's other
+# groups hold. A fourth word counts the non-finite values here: +inf in its
+# low 32 bits, -inf in its high bits, NaN in both. (The kernel's fourth word
+# is a tag: the group's exponent in its high 32 bits, flags for +inf and
+# -inf in its low bits; this copy keeps the exponents apart.)
 NWORDS = 4
 _EXP_MIN = -800  # every scale 2^(+-(k w - e)) stays a normal f64 (values under 2^-800 lose precision)
 
@@ -214,20 +215,33 @@ def _pow2(k: torch.Tensor) -> torch.Tensor:
     return ((k + 1023) << 52).view(torch.float64)
 
 
-def exact_words(col: torch.Tensor, mask: torch.Tensor, n: int | None = None) -> tuple[list, torch.Tensor]:
+def group_exponents(col: torch.Tensor, mask: torch.Tensor, gids: torch.Tensor, cap: int) -> torch.Tensor:
+    """(cap,) int64: e_g of each group, every selected finite |v| of group g
+    below 2^e_g (``_EXP_MIN`` for a group with none), as
+    ``groupagg_exponent`` finds it."""
+    keep = mask & (gids >= 0) & (gids < cap) & torch.isfinite(col) & (col != 0)
+    top = torch.zeros(cap, dtype=torch.float64, device=col.device)
+    top.scatter_reduce_(0, gids.clamp(0, cap - 1).long(), torch.where(keep, col.abs(), 0.0), "amax")
+    e = torch.frexp(top)[1].to(torch.int64)
+    return torch.where(top > 0, e.clamp(min=_EXP_MIN), _EXP_MIN)
+
+
+def exact_words(col: torch.Tensor, mask: torch.Tensor, gids: torch.Tensor, cap: int,
+                n: int | None = None) -> tuple[list, torch.Tensor]:
     """([NWORDS] int64 columns, e): the exact words of ``col`` where ``mask``
-    holds (0 elsewhere) and the 0-d exponent ``e`` of their scale, with the
-    word width of a call of ``n`` rows (default: ``col``'s)."""
+    holds (0 elsewhere), each row split at its group's scale, and the (cap,)
+    exponents ``e`` of the groups' scales, with the word width of a call of
+    ``n`` rows (default: ``col``'s)."""
     w = word_bits(col.shape[0] if n is None else n)
+    e = group_exponents(col, mask, gids, cap)
+    er = e.index_select(0, gids.clamp(0, cap - 1).long())
     x = torch.where(mask, col, 0.0)
     r = torch.where(torch.isfinite(x), x, 0.0)
-    e = torch.frexp(r.abs().amax() if col.shape[0] else torch.zeros((), dtype=torch.float64, device=col.device))[1]
-    e = e.to(torch.int64).clamp(min=_EXP_MIN)
     words = []
     for k in range(1, NWORDS):
-        d = torch.trunc(r * _pow2(k * w - e))
+        d = torch.trunc(r * _pow2(k * w - er))
         words.append(d.to(torch.int64))
-        r = r - d * _pow2(e - k * w)
+        r = r - d * _pow2(er - k * w)
     nan = torch.isnan(x)
     pos, neg = (x == float("inf")) | nan, (x == float("-inf")) | nan
     words.append(pos.to(torch.int64) + (neg.to(torch.int64) << 32))
@@ -236,8 +250,8 @@ def exact_words(col: torch.Tensor, mask: torch.Tensor, n: int | None = None) -> 
 
 def from_words(sums: torch.Tensor, e: torch.Tensor, n: int) -> torch.Tensor:
     """(cap,) f64 sums from the (cap, NWORDS) sums of :func:`exact_words`
-    over ``n`` rows: the parts added in a fixed order, then inf or NaN where
-    non-finite values were summed."""
+    over ``n`` rows and the groups' exponents ``e``: the parts added in a
+    fixed order, then inf or NaN where non-finite values were summed."""
     w = word_bits(n)
     out = sums[:, 0].to(torch.float64) * _pow2(e - w) + sums[:, 1].to(torch.float64) * _pow2(e - 2 * w)
     out = out + sums[:, 2].to(torch.float64) * _pow2(e - 3 * w)
@@ -258,7 +272,6 @@ def _entry(dtype: torch.dtype):
     fn = getattr(load("groupagg"), f"groupagg_sums_{_ACC[dtype]}")
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_longlong] + [ctypes.c_int] * 9 + [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
     return fn

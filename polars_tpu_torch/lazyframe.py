@@ -142,10 +142,12 @@ class LazyFrame:
         )
 
     def join_where(self, other: LazyFrame, *predicates: Any, suffix: str = "_right") -> LazyFrame:
-        raise NotImplementedError("join_where (range joins) is not ported yet (port queue: join_where and join_asof)")
+        raise NotImplementedError(
+            "join_where (range joins) is not ported yet"
+            " (port queue: temporal breadth and asof/range joins)")
 
     def join_asof(self, other: LazyFrame, **kwargs: Any) -> LazyFrame:
-        raise NotImplementedError("join_asof is not ported yet (port queue: join_where and join_asof)")
+        raise NotImplementedError("join_asof is not ported yet (port queue: temporal breadth and asof/range joins)")
 
 
 class LazyGroupBy:

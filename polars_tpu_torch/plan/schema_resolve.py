@@ -338,9 +338,9 @@ def agg_dtype(node: E.EAgg, schema: Schema) -> dt.DataType:
         if in_dt.is_temporal():
             return in_dt if name != "Date" else dt.Datetime("ms")
         return dt.Float32() if name == "Float32" else dt.Float64()
-    if k in ("min", "max"):
+    if k in ("min", "max", "first", "last"):
         return in_dt
-    if k in ("count", "len"):
+    if k in ("count", "len", "n_unique"):
         return dt.UInt32()
     raise InvalidOperationError(f"aggregation {k!r} is not ported yet (port queue: expression breadth)")
 

@@ -1,7 +1,6 @@
 """PDS-H (TPC-H-derived) data generator + reference queries (copied from
-polars_tpu/testing/pdsh.py: ``generate_pdsh`` unchanged, ``q1``, ``q3``,
-``q4``, ``q5``, ``q6``, ``q10``, ``q11``, ``q12``, ``q14``, ``q15``, ``q17``,
-``q18``, ``q19`` and ``q20`` on this package).
+polars_tpu/testing/pdsh.py: ``generate_pdsh`` unchanged and all 22
+queries, ``q1`` to ``q22``, on this package).
 
 Seeded numpy generator producing the TPC-H schema at a given scale factor
 (reference test pattern: py-polars/tests/benchmark/data/ + the pdsh logic
@@ -231,6 +230,40 @@ QUERY_COLUMNS = {
             "partsupp": ["ps_partkey", "ps_suppkey", "ps_availqty"],
             "part": ["p_partkey", "p_name"],
             "lineitem": ["l_partkey", "l_suppkey", "l_shipdate", "l_quantity"]},
+    "q2": {"region": ["r_regionkey", "r_name"],
+           "nation": ["n_nationkey", "n_name", "n_regionkey"],
+           "supplier": ["s_suppkey", "s_name", "s_address", "s_nationkey", "s_phone", "s_acctbal", "s_comment"],
+           "partsupp": ["ps_partkey", "ps_suppkey", "ps_supplycost"],
+           "part": ["p_partkey", "p_mfgr", "p_type", "p_size"]},
+    "q7": {"customer": ["c_custkey", "c_nationkey"],
+           "orders": ["o_orderkey", "o_custkey"],
+           "lineitem": ["l_orderkey", "l_suppkey", "l_extendedprice", "l_discount", "l_shipdate"],
+           "supplier": ["s_suppkey", "s_nationkey"],
+           "nation": ["n_nationkey", "n_name"]},
+    "q8": {"region": ["r_regionkey", "r_name"],
+           "nation": ["n_nationkey", "n_name", "n_regionkey"],
+           "customer": ["c_custkey", "c_nationkey"],
+           "orders": ["o_orderkey", "o_custkey", "o_orderdate"],
+           "lineitem": ["l_orderkey", "l_partkey", "l_suppkey", "l_extendedprice", "l_discount"],
+           "supplier": ["s_suppkey", "s_nationkey"],
+           "part": ["p_partkey", "p_type"]},
+    "q9": {"nation": ["n_nationkey", "n_name"],
+           "orders": ["o_orderkey", "o_orderdate"],
+           "lineitem": ["l_orderkey", "l_partkey", "l_suppkey", "l_quantity", "l_extendedprice", "l_discount"],
+           "supplier": ["s_suppkey", "s_nationkey"],
+           "part": ["p_partkey", "p_name"],
+           "partsupp": ["ps_partkey", "ps_suppkey", "ps_supplycost"]},
+    "q13": {"customer": ["c_custkey"],
+            "orders": ["o_orderkey", "o_custkey", "o_comment"]},
+    "q16": {"supplier": ["s_suppkey", "s_comment"],
+            "partsupp": ["ps_partkey", "ps_suppkey"],
+            "part": ["p_partkey", "p_brand", "p_type", "p_size"]},
+    "q21": {"nation": ["n_nationkey", "n_name"],
+            "supplier": ["s_suppkey", "s_name", "s_nationkey"],
+            "lineitem": ["l_orderkey", "l_suppkey", "l_commitdate", "l_receiptdate"],
+            "orders": ["o_orderkey", "o_orderstatus"]},
+    "q22": {"customer": ["c_custkey", "c_phone", "c_acctbal"],
+            "orders": ["o_custkey"]},
 }
 
 
@@ -244,8 +277,17 @@ def run_params(name: str, scale: float) -> dict:
     """The parameters the SF-scaled runs on the card give query ``name``:
     Q11's FRACTION as the TPC-H specification scales it (0.0001 / scale;
     the default 0.0001 finds no part at SF10), Q20's color "part" (every
-    generated part name starts with it, none with the default "forest")."""
-    return {"q11": {"fraction": 0.0001 / scale}, "q20": {"color": "part"}}.get(name, {})
+    generated part name starts with it, none with the default "forest"),
+    Q9's color "color3" (one part in 7; no generated name holds "green")
+    and Q13's words "comment" and "7" (the regex matches the 27% of order
+    comments whose number holds a 7, which Q13 drops; no comment holds
+    "special")."""
+    return {
+        "q9": {"color": "color3"},
+        "q11": {"fraction": 0.0001 / scale},
+        "q13": {"word1": "comment", "word2": "7"},
+        "q20": {"color": "part"},
+    }.get(name, {})
 
 
 def frames_for(name: str, tables: dict) -> dict:
@@ -582,4 +624,218 @@ def q20(nation, supplier, partsupp, part, lineitem, color="forest",
               left_on="s_nationkey", right_on="n_nationkey", validate="m:1")
         .select("s_name", "s_address")
         .sort("s_name")
+    )
+
+
+def q2(region, nation, supplier, partsupp, part, size=15, type_suffix="BRASS", region_name="EUROPE"):
+    import polars_tpu_torch as pl
+
+    eligible = (
+        part.lazy()
+        .filter((pl.col("p_size") == size) & pl.col("p_type").str.ends_with(type_suffix))
+        .join(partsupp.lazy(), left_on="p_partkey", right_on="ps_partkey", validate="1:m")
+        .join(supplier.lazy(), left_on="ps_suppkey", right_on="s_suppkey", validate="m:1")
+        .join(nation.lazy(), left_on="s_nationkey", right_on="n_nationkey", validate="m:1")
+        .join(region.lazy().filter(pl.col("r_name") == region_name),
+              left_on="n_regionkey", right_on="r_regionkey", validate="m:1")
+    )
+    min_cost = eligible.group_by("p_partkey").agg(pl.col("ps_supplycost").min().alias("__min_cost"))
+    return (
+        eligible.join(min_cost, on="p_partkey", validate="m:1")
+        .filter(pl.col("ps_supplycost") == pl.col("__min_cost"))
+        .select(
+            "s_acctbal", "s_name", "n_name", "p_partkey", "p_mfgr",
+            "s_address", "s_phone", "s_comment",
+        )
+        .sort(["s_acctbal", "n_name", "s_name", "p_partkey"], descending=[True, False, False, False])
+        .head(100)
+    )
+
+
+def q7(customer, orders, lineitem, supplier, nation, n1="FRANCE", n2="GERMANY"):
+    import polars_tpu_torch as pl
+
+    na = nation.lazy().filter(pl.col("n_name").is_in([n1, n2]))
+    return (
+        lineitem.lazy()
+        .filter(
+            (pl.col("l_shipdate") >= dtm.date(1995, 1, 1))
+            & (pl.col("l_shipdate") <= dtm.date(1996, 12, 31))
+        )
+        .join(orders.lazy(), left_on="l_orderkey", right_on="o_orderkey", validate="m:1")
+        .join(customer.lazy(), left_on="o_custkey", right_on="c_custkey", validate="m:1")
+        .join(na.select(pl.col("n_nationkey"), pl.col("n_name").alias("cust_nation")),
+              left_on="c_nationkey", right_on="n_nationkey")
+        .join(supplier.lazy(), left_on="l_suppkey", right_on="s_suppkey", validate="m:1")
+        .join(na.select(pl.col("n_nationkey"), pl.col("n_name").alias("supp_nation")),
+              left_on="s_nationkey", right_on="n_nationkey")
+        .filter(
+            ((pl.col("supp_nation") == n1) & (pl.col("cust_nation") == n2))
+            | ((pl.col("supp_nation") == n2) & (pl.col("cust_nation") == n1))
+        )
+        .with_columns(
+            pl.col("l_shipdate").dt.year().alias("l_year"),
+            (pl.col("l_extendedprice") * (1 - pl.col("l_discount"))).alias("volume"),
+        )
+        .group_by("supp_nation", "cust_nation", "l_year")
+        .agg(revenue=pl.col("volume").sum())
+        .sort(["supp_nation", "cust_nation", "l_year"])
+    )
+
+
+def q8(region, nation, customer, orders, lineitem, supplier, part,
+       nation_name="BRAZIL", region_name="AMERICA", ptype="ECONOMY ANODIZED STEEL"):
+    import polars_tpu_torch as pl
+
+    return (
+        part.lazy()
+        .filter(pl.col("p_type") == ptype)
+        .join(lineitem.lazy(), left_on="p_partkey", right_on="l_partkey", validate="1:m")
+        .join(supplier.lazy(), left_on="l_suppkey", right_on="s_suppkey", validate="m:1")
+        .join(orders.lazy(), left_on="l_orderkey", right_on="o_orderkey", validate="m:1")
+        .filter(
+            (pl.col("o_orderdate") >= dtm.date(1995, 1, 1))
+            & (pl.col("o_orderdate") <= dtm.date(1996, 12, 31))
+        )
+        .join(customer.lazy(), left_on="o_custkey", right_on="c_custkey", validate="m:1")
+        .join(nation.lazy().select(pl.col("n_nationkey"), pl.col("n_regionkey")),
+              left_on="c_nationkey", right_on="n_nationkey", validate="m:1")
+        .join(region.lazy().filter(pl.col("r_name") == region_name),
+              left_on="n_regionkey", right_on="r_regionkey", validate="m:1")
+        .join(nation.lazy().select(pl.col("n_nationkey"), pl.col("n_name").alias("supp_nation")),
+              left_on="s_nationkey", right_on="n_nationkey", validate="m:1")
+        .with_columns(
+            pl.col("o_orderdate").dt.year().alias("o_year"),
+            (pl.col("l_extendedprice") * (1 - pl.col("l_discount"))).alias("volume"),
+        )
+        .group_by("o_year")
+        .agg(
+            (
+                pl.when(pl.col("supp_nation") == nation_name)
+                .then(pl.col("volume"))
+                .otherwise(0.0)
+                .sum()
+                / pl.col("volume").sum()
+            ).alias("mkt_share")
+        )
+        .sort("o_year")
+    )
+
+
+def q9(nation, orders, lineitem, supplier, part, partsupp, color="green"):
+    import polars_tpu_torch as pl
+
+    return (
+        part.lazy()
+        .filter(pl.col("p_name").str.contains(color))
+        .join(lineitem.lazy(), left_on="p_partkey", right_on="l_partkey", validate="1:m")
+        .join(supplier.lazy(), left_on="l_suppkey", right_on="s_suppkey", validate="m:1")
+        .join(
+            partsupp.lazy(),
+            left_on=["p_partkey", "l_suppkey"],
+            right_on=["ps_partkey", "ps_suppkey"],
+            validate="m:1",
+        )
+        .join(orders.lazy(), left_on="l_orderkey", right_on="o_orderkey", validate="m:1")
+        .join(nation.lazy(), left_on="s_nationkey", right_on="n_nationkey", validate="m:1")
+        .with_columns(
+            pl.col("o_orderdate").dt.year().alias("o_year"),
+            (
+                pl.col("l_extendedprice") * (1 - pl.col("l_discount"))
+                - pl.col("ps_supplycost") * pl.col("l_quantity")
+            ).alias("amount"),
+        )
+        .group_by(pl.col("n_name").alias("nation"), "o_year")
+        .agg(sum_profit=pl.col("amount").sum())
+        .sort(["nation", "o_year"], descending=[False, True])
+    )
+
+
+def q13(customer, orders, word1="special", word2="requests"):
+    import polars_tpu_torch as pl
+
+    o = orders.lazy().filter(
+        ~pl.col("o_comment").str.contains(f"{word1}.*{word2}")
+    )
+    return (
+        customer.lazy()
+        .join(o, left_on="c_custkey", right_on="o_custkey", how="left")
+        .group_by("c_custkey")
+        .agg(c_count=pl.col("o_orderkey").count())
+        .group_by("c_count")
+        .agg(custdist=pl.len())
+        .sort(["custdist", "c_count"], descending=[True, True])
+    )
+
+
+def q16(supplier, partsupp, part, brand="Brand#44", ptype="STANDARD", sizes=(49, 14, 23, 45, 19, 3, 36, 9)):
+    import polars_tpu_torch as pl
+
+    bad_supp = supplier.lazy().filter(
+        pl.col("s_comment").str.contains("Customer.*Complaints")
+    )
+    return (
+        part.lazy()
+        .filter(
+            (pl.col("p_brand") != brand)
+            & ~pl.col("p_type").str.starts_with(ptype)
+            & pl.col("p_size").is_in(list(sizes))
+        )
+        .join(partsupp.lazy(), left_on="p_partkey", right_on="ps_partkey", validate="1:m")
+        .join(bad_supp, left_on="ps_suppkey", right_on="s_suppkey", how="anti", validate="m:1")
+        .group_by("p_brand", "p_type", "p_size")
+        .agg(supplier_cnt=pl.col("ps_suppkey").n_unique())
+        .sort(["supplier_cnt", "p_brand", "p_type", "p_size"], descending=[True, False, False, False])
+    )
+
+
+def q21(nation, supplier, lineitem, orders, nation_name="SAUDI ARABIA"):
+    import polars_tpu_torch as pl
+
+    late = pl.col("l_receiptdate") > pl.col("l_commitdate")
+    li = lineitem.lazy().select("l_orderkey", "l_suppkey", late.alias("__late"))
+    n_supp = li.group_by("l_orderkey").agg(
+        pl.col("l_suppkey").n_unique().alias("__n_supp"),
+    )
+    late_supp = (
+        li.filter(pl.col("__late"))
+        .group_by("l_orderkey")
+        .agg(
+            pl.col("l_suppkey").n_unique().alias("__n_late"),
+            pl.col("l_suppkey").first().alias("__late_supp"),
+        )
+    )
+    return (
+        lineitem.lazy()
+        .filter(late)
+        .join(orders.lazy().filter(pl.col("o_orderstatus") == "F"),
+              left_on="l_orderkey", right_on="o_orderkey", validate="m:1")
+        .join(n_supp, on="l_orderkey", validate="m:1")
+        .join(late_supp, on="l_orderkey", validate="m:1")
+        .filter((pl.col("__n_supp") > 1) & (pl.col("__n_late") == 1))
+        .join(supplier.lazy(), left_on="l_suppkey", right_on="s_suppkey", validate="m:1")
+        .join(nation.lazy().filter(pl.col("n_name") == nation_name),
+              left_on="s_nationkey", right_on="n_nationkey", validate="m:1")
+        .group_by("s_name")
+        .agg(numwait=pl.len())
+        .sort(["numwait", "s_name"], descending=[True, False])
+        .head(100)
+    )
+
+
+def q22(customer, orders, codes=("13", "31", "23", "29", "30", "18", "17")):
+    import polars_tpu_torch as pl
+
+    cust = customer.lazy().with_columns(pl.col("c_phone").str.slice(0, 2).alias("cntrycode"))
+    eligible = cust.filter(pl.col("cntrycode").is_in(list(codes)))
+    avg_bal = eligible.filter(pl.col("c_acctbal") > 0.0).select(
+        pl.col("c_acctbal").mean().alias("__avg")
+    )
+    return (
+        eligible.join(avg_bal, how="cross")
+        .filter(pl.col("c_acctbal") > pl.col("__avg"))
+        .join(orders.lazy(), left_on="c_custkey", right_on="o_custkey", how="anti")
+        .group_by("cntrycode")
+        .agg(numcust=pl.len(), totacctbal=pl.col("c_acctbal").sum())
+        .sort("cntrycode")
     )

@@ -1,6 +1,5 @@
-"""Where a PDS-H query's time goes on the card (any query the port runs:
-q1, q3, q4, q5, q6, q10, q11, q12, q14, q15, q17, q18, q19 or q20, with
-``pdsh.run_params``).
+"""Where a PDS-H query's time goes on the card (any of the 22, q1 to q22,
+with ``pdsh.run_params``).
 
 Builds the SF10 frames of the columns the query reads
 (``pdsh.QUERY_COLUMNS``), as ``chip_smoke.py`` does, warms the

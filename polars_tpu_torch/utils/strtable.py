@@ -151,7 +151,7 @@ def unify(
         return out
     if not (left.sorted_order and right.sorted_order):
         raise NotImplementedError(
-            "ordering strings across unordered dictionaries is not ported yet (port queue: rest of PDS-H)"
+            "ordering strings across unordered dictionaries is not ported yet (port queue: expression breadth)"
         )
     lv = left.values.astype(str)
     rv = right.values.astype(str)

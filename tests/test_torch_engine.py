@@ -151,5 +151,5 @@ def test_sorted_group_ctx_names_its_slice():
     np.testing.assert_array_equal(g.gids.numpy()[rowmask], np.asarray(gids_j)[rowmask])
     df = polars_tpu_torch.DataFrame({"k": [1, 1, 2]}, device="cpu")
     assert df.lazy().join(df.lazy(), on="k").collect().to_dict(as_series=False) == {"k": [1, 1, 1, 1, 2]}
-    with pytest.raises(NotImplementedError, match="join_where and join_asof"):
+    with pytest.raises(NotImplementedError, match="asof/range joins"):
         df.lazy().join_where(df.lazy(), polars_tpu_torch.col("k") < polars_tpu_torch.col("k"))

@@ -1,6 +1,9 @@
-"""The expressions PDS-H Q5-Q19 need, each case against ``polars_tpu`` on the
-same frame: ``is_in``, ``is_between``, when/then/otherwise, ``str.starts_with``,
-``~``, Boolean casts, and one-row selects of aggregations.
+"""The expressions PDS-H needs, each case against ``polars_tpu`` on the same
+frame: ``is_in``, ``is_between``, when/then/otherwise, ``str.starts_with``,
+``~``, Boolean casts, one-row selects of aggregations; ``str.contains``
+(literal, regex, an invalid pattern), ``starts_with``/``ends_with`` with an
+expression right-hand side, ``str.slice``, and the ``n_unique``, ``first``
+and ``last`` aggregations.
 
 The port runs on the CPU (``device="cpu"``). Keys, strings, booleans and
 counts must be equal; floats agree to rtol 1e-9.
@@ -215,3 +218,100 @@ def test_one_row_select(frame, case, filtered):
 def test_aggregates_broadcast_in_with_columns(frame):
     _check(frame, lambda pl, df: df.lazy().with_columns(
         (pl.col("v") - pl.col("v").mean()).alias("centered"), pl.col("i").max().alias("imax")))
+
+
+# -- str.contains, ends_with, slice ------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def words():
+    """Two string columns with nulls, where ``b`` is now and then a prefix or
+    a suffix of ``a``."""
+    a = ["apple", "apricot", None, "banana", "band", "", "cherry", "ba", "nan", "apple", "grape", "an"]
+    b = ["ap", "cot", "x", None, "ban", "", "rry", "banana", "n", "le", None, "a"]
+    return plj.DataFrame({"a": a, "b": b}), plt.DataFrame({"a": a, "b": b}, device="cpu")
+
+
+def test_string_predicates_and_slices(words):
+    """One select per package: literal and regex ``contains`` (the empty
+    pattern, anchors, alternation), ``starts_with``/``ends_with`` with a
+    literal, a column and a literal expression on the right, and ``slice``
+    with positive and negative offsets, with and without a length."""
+    def plan(pl, df):
+        a = pl.col("a")
+        return df.lazy().select(
+            a.str.contains("an", literal=True).alias("lit"),
+            a.str.contains("", literal=True).alias("lit_empty"),
+            a.str.contains("a.*o").alias("rx"),
+            a.str.contains("^b|y$").alias("rx_anchor"),
+            a.str.contains("(an){2}").alias("rx_group"),
+            a.str.ends_with("e").alias("ew"),
+            a.str.ends_with("").alias("ew_empty"),
+            a.str.starts_with(pl.col("b")).alias("sw_col"),
+            a.str.ends_with(pl.col("b")).alias("ew_col"),
+            a.str.ends_with(pl.lit("na")).alias("ew_lit"),
+            a.str.slice(0, 2).alias("s02"),
+            a.str.slice(1).alias("s1"),
+            a.str.slice(-3).alias("s_m3"),
+            a.str.slice(-3, 2).alias("s_m3_2"),
+            a.str.slice(-2, 5).alias("s_m2_5"),
+            a.str.slice(4, 3).alias("s4_3"),
+            a.str.slice(0, 0).alias("s00"),
+        )
+    _check(words, plan)
+
+
+def test_contains_invalid_pattern(words):
+    """An invalid regex raises ``ComputeError`` by default (``strict``), and
+    gives nulls with ``strict=False``."""
+    for pl, df in zip((plj, plt), words):
+        with pytest.raises(pl.ComputeError, match="invalid regex"):
+            df.lazy().select(pl.col("a").str.contains("(a")).collect()
+    _check(words, lambda pl, df: df.lazy().select(pl.col("a").str.contains("(a", strict=False).alias("c")))
+
+
+def test_slice_result_groups_and_compares(words):
+    """A sliced column is a string column of its own dictionary: it groups,
+    sorts and compares with literals (as Q22's country codes do)."""
+    _check(words, lambda pl, df: df.lazy()
+           .with_columns(pl.col("a").str.slice(0, 2).alias("p"))
+           .filter(pl.col("p").is_in(["ap", "ba", ""]) | (pl.col("p") > "c"))
+           .group_by("p").agg(pl.len()).sort("p"), min_rows=3)
+
+
+# -- n_unique, first, last -----------------------------------------------------------------
+
+NUNIQUE_CASES = {
+    # a dictionary key (the dense group-by), a nullable int key (the sorted
+    # one) and no key (one group)
+    "dense": lambda pl, lf, aggs: lf.group_by("k").agg(aggs).sort("k"),
+    "sorted": lambda pl, lf, aggs: lf.group_by("i").agg(aggs).sort("i"),
+    "one_group": lambda pl, lf, aggs: lf.select(aggs),
+}
+
+
+@pytest.mark.parametrize("case", sorted(NUNIQUE_CASES))
+def test_n_unique_first_last(frame, case):
+    """``n_unique`` counts a null as one value; ``first`` and ``last`` take a
+    group's first and last row in frame order, nulls included; all three
+    after a filter."""
+    def plan(pl, df):
+        aggs = [pl.col("i").n_unique().alias("nu_i"), pl.col("f").n_unique().alias("nu_f"),
+                pl.col("s").n_unique().alias("nu_s"), pl.col("b").n_unique().alias("nu_b"),
+                pl.col("i").first().alias("i0"), pl.col("s").first().alias("s0"), pl.col("f").last().alias("f1"),
+                pl.col("s").last().alias("s1"), pl.col("v").first().alias("v0")]
+        return NUNIQUE_CASES[case](pl, df.lazy().filter(pl.col("v") > -1.0), aggs)
+    _check(frame, plan, min_rows={"dense": 3, "sorted": 4, "one_group": 1}[case])
+
+
+def test_n_unique_counts_nulls_as_one_value():
+    """Nulls are one value to ``n_unique`` whatever their storage holds: an
+    integer division by zero leaves the dividend under each null.
+    ``polars_tpu`` counts such nulls one by one (4 and 5 below; ROADMAP
+    section 3), so the port is held to Polars' answer here."""
+    df = plt.DataFrame({"g": [1, 1, 1, 1, 2], "x": [10, 20, 30, 40, 50], "z": [0, 0, 0, 1, 0]}, device="cpu")
+    q = df.lazy().with_columns((plt.col("x") // plt.col("z")).alias("d"))
+    assert q.collect()["d"].to_list() == [None, None, None, 40, None]
+    got = q.group_by("g").agg(plt.col("d").n_unique().alias("nu")).sort("g").collect()
+    assert got.to_dict(as_series=False) == {"g": [1, 2], "nu": [2, 1]}
+    assert q.select(plt.col("d").n_unique()).collect()["d"].to_list() == [2]

@@ -454,9 +454,9 @@ def test_gather_drop_and_concat_match_polars_tpu(frames):
 
 def test_join_where_and_join_asof_name_their_queue_item(frames):
     lt = _pick(frames, plt, "left")
-    with pytest.raises(NotImplementedError, match="join_where and join_asof"):
+    with pytest.raises(NotImplementedError, match="asof/range joins"):
         lt.lazy().join_where(lt.lazy(), plt.col("k") < plt.col("k"))
-    with pytest.raises(NotImplementedError, match="join_where and join_asof"):
+    with pytest.raises(NotImplementedError, match="asof/range joins"):
         lt.lazy().join_asof(lt.lazy(), on="d")
 
 

@@ -313,7 +313,7 @@ def test_wrappers_reject_bad_inputs():
 
 
 @pytest.mark.parametrize("case", ["normal", "wide_range", "non_finite", "all_masked", "two_scales",
-                                  "two_scales_60M_rows"])
+                                  "two_scales_60M_rows", "tiny_group_60M_rows"])
 def test_groupagg_exact_words_sum_the_same_in_any_order(case):
     """K1's f64 sums in global scratch go through exact int64 words
     (``exact_words``/``from_words``): the i64 sums do not depend on the order
@@ -322,11 +322,11 @@ def test_groupagg_exact_words_sum_the_same_in_any_order(case):
     non-finite value gives inf or NaN as an f64 sum does. Here the i64 sums
     come from the plain version, in two row orders. In ``two_scales`` one
     group sums values near 1e12 and another values near 1e-20 in the same
-    column: each value keeps what lies above 2^(e - 3w), 2^e bounding the
-    column's largest, so the small group is held to that bound as well. At
-    this call's 4000 rows (w = 50) that still gives rtol 1e-9; at the word
-    width of a 60M-row call (w = 36) it gives next to nothing (the limit
-    PERF.md section 7 states)."""
+    column; each value is split at its own group's scale, so both groups
+    keep rtol 1e-9, at this call's 4000 rows (w = 50) and at the word width
+    of a 60M-row call (w = 36). In ``tiny_group_60M_rows`` one group's values
+    lie below 2^-108 of the column's largest, where one scale per column
+    summed them to 0: each group is held to 4e-16 of ``math.fsum``."""
     import math
 
     rng = np.random.default_rng(17)
@@ -339,17 +339,17 @@ def test_groupagg_exact_words_sum_the_same_in_any_order(case):
     mask = rng.random(n) < (0.0 if case == "all_masked" else 0.7)
     mask[[5, 77, 901, 1500]] = True if case == "non_finite" else mask[[5, 77, 901, 1500]]
     gids = rng.integers(0, cap, n).astype(np.int32)
-    if case.startswith("two_scales"):
+    if case.startswith(("two_scales", "tiny_group")):
         x[gids == 0] = rng.uniform(0.5e12, 2e12, int((gids == 0).sum()))
-        x[gids == 1] = rng.uniform(0.5e-20, 2e-20, int((gids == 1).sum()))
-    rows = 60_000_000 if case == "two_scales_60M_rows" else n
+        small = 2.0 ** -80 if case.startswith("tiny_group") else 1e-20  # 2^-80 < 2^-108 of 2^40 (~1e12)
+        x[gids == 1] = rng.uniform(0.5, 2.0, int((gids == 1).sum())) * small
+    rows = 60_000_000 if case.endswith("60M_rows") else n
     got = []
     for order in (np.arange(n), rng.permutation(n)):
         xt, mt, gt = (torch.from_numpy(np.ascontiguousarray(a[order])) for a in (x, mask, gids))
-        words, e = K1.exact_words(xt, mt, rows)
+        words, e = K1.exact_words(xt, mt, gt, cap, rows)
         got.append(K1.from_words(K1.groupagg_sums_plain(gt, words, mt, cap), e, rows))
     assert torch.equal(got[0].view(torch.int64), got[1].view(torch.int64))
-    cut = math.ldexp(1.0, int(e) - 3 * K1.word_bits(rows))  # what one value may lose
     for g in range(cap):
         sel = x[mask & (gids == g)]
         if not np.all(np.isfinite(sel)):
@@ -357,7 +357,8 @@ def test_groupagg_exact_words_sum_the_same_in_any_order(case):
             assert (math.isnan(want) and math.isnan(got[0][g])) or want == float(got[0][g])
             continue
         want = math.fsum(sel.tolist())
-        tol = 4e-16 * abs(want) + (len(sel) * cut if case.startswith("two_scales") else 0.0)
-        assert abs(float(got[0][g]) - want) <= tol, (g, float(got[0][g]), want)
-        if case == "two_scales":
+        assert abs(float(got[0][g]) - want) <= 4e-16 * abs(want), (g, float(got[0][g]), want)
+        if case.startswith("two_scales"):
             assert abs(float(got[0][g]) - want) <= 1e-9 * abs(want), (g, float(got[0][g]), want)
+    if case.startswith("tiny_group"):
+        assert 0.0 < float(got[0][1]) < 2.0 ** -60 * float(got[0][0])

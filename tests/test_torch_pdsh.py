@@ -1,5 +1,5 @@
-"""PDS-H Q5, Q6, Q10, Q11, Q12, Q14, Q15, Q17, Q18, Q19 and Q20 through both
-packages.
+"""PDS-H Q2, Q5-Q22 through both packages (Q1, Q3 and Q4 have their own
+files).
 
 One dataset, made from a numpy seed by ``generate_pdsh``, goes through
 ``polars_tpu`` (JAX on the CPU) and ``polars_tpu_torch`` (``device="cpu"``).
@@ -8,7 +8,17 @@ Keys, dates, strings and counts must be equal; floats agree to rtol 1e-9
 columns (``pdsh.QUERY_COLUMNS``). Q11 and Q15 cross-join a one-row
 aggregate, and Q15 joins its one row to the suppliers without ``validate``:
 host-sized joins between segments. Q20 runs with ``color="part"``: the
-generator's part names never start with the default "forest".
+generator's part names never start with the default "forest". Q9 and Q13
+take their ``run_params``: no generated part name holds "green", no order
+comment "special...requests"; with "color3" and "comment.*7" the string
+filters keep part of the rows and drop the rest. At this size the 30
+suppliers hold none of SAUDI ARABIA (Q21's nation) or BRAZIL (Q8's), and
+no part of size 15 and type BRASS has a supplier in EUROPE (Q2's), so Q21
+and Q8 run for JORDAN and Q2 for ASIA. Every customer has an order here (ten each on average), so
+Q22's anti join would keep none: it reads the first tenth of the orders.
+Q16's pattern "Customer.*Complaints" matches no generated supplier comment
+("supplier comment N") and cannot be passed in, so its anti join removes no
+supplier; its regex still runs over every comment.
 """
 
 from __future__ import annotations
@@ -22,8 +32,10 @@ import polars_tpu_torch as plt
 from polars_tpu.testing import pdsh as pdsh_jax
 from polars_tpu_torch.testing import pdsh as pdsh_torch
 
-QUERIES = ["q5", "q6", "q10", "q11", "q12", "q14", "q15", "q17", "q18", "q19", "q20"]
-PARAMS = {"q20": {"color": "part"}}
+QUERIES = ["q5", "q6", "q10", "q11", "q12", "q14", "q15", "q17", "q18", "q19", "q20",
+           "q2", "q7", "q8", "q9", "q13", "q16", "q21", "q22"]
+PARAMS = {"q20": {"color": "part"}, "q9": {"color": "color3"}, "q13": {"word1": "comment", "word2": "7"},
+          "q2": {"region_name": "ASIA"}, "q8": {"nation_name": "JORDAN"}, "q21": {"nation_name": "JORDAN"}}
 
 
 def _assert_frames_match(got, want, *, rtol=1e-9):
@@ -44,22 +56,30 @@ def frames():
     """Every table at SF 0.003 (seed 7, the data of tests/test_pdsh.py), in
     both packages; the port's frames on the CPU."""
     raw = pdsh_jax.generate_pdsh(0.003, seed=7)
+    # Q22's orders: the first tenth, so that some customers have none
+    tenth = {c: v[: len(v) // 10] for c, v in raw["orders"].items()}
     want = {t: plj.DataFrame(cols) for t, cols in raw.items()}
     got = {t: plt.DataFrame(cols, device="cpu") for t, cols in raw.items()}
+    want["orders_tenth"], got["orders_tenth"] = plj.DataFrame(tenth), plt.DataFrame(tenth, device="cpu")
     return want, got
+
+
+def _frames_of(q: str, frames: dict) -> dict:
+    """The tables query ``q`` reads: Q22's orders are their first tenth."""
+    return {t: frames["orders_tenth" if (q, t) == ("q22", "orders") else t] for t in pdsh_torch.QUERY_COLUMNS[q]}
 
 
 @pytest.mark.parametrize("q", QUERIES)
 def test_query_matches_polars_tpu(frames, q):
-    fj, ft = frames
-    args_j = [fj[t] for t in pdsh_torch.QUERY_COLUMNS[q]]
-    want = getattr(pdsh_jax, q)(*args_j, **PARAMS.get(q, {})).collect()
+    fj, ft = (_frames_of(q, f) for f in frames)
+    want = getattr(pdsh_jax, q)(*fj.values(), **PARAMS.get(q, {})).collect()
     got = pdsh_torch.query(q, ft, **PARAMS.get(q, {})).collect()
     _assert_frames_match(got, want)
     # the result is not trivial at this size: groups present, sums non-zero
-    assert want.height >= {"q5": 2, "q10": 20, "q11": 100, "q12": 2, "q18": 5, "q20": 2}.get(q, 1)
+    assert want.height >= {"q5": 2, "q10": 20, "q11": 100, "q12": 2, "q18": 5, "q20": 2, "q2": 3, "q7": 4, "q8": 2,
+                           "q9": 100, "q13": 10, "q16": 50, "q21": 3, "q22": 5}.get(q, 1)
     for name, d in want.schema.items():
-        if isinstance(d, plj.datatypes.FloatType) or name.endswith("_count"):
+        if isinstance(d, plj.datatypes.FloatType) or name.endswith(("_count", "_cnt", "dist", "numwait", "numcust")):
             assert all(v for v in want[name].to_list()), name
 
 
@@ -68,7 +88,7 @@ def test_query_on_its_own_columns(frames, q):
     """The query over frames of only the columns ``QUERY_COLUMNS`` lists
     (``frames_for``, as the card's runs cut them) gives the same frame as over
     whole tables."""
-    _, ft = frames
+    ft = _frames_of(q, frames[1])
     cut = pdsh_torch.frames_for(q, ft)
     assert {t: f.columns for t, f in cut.items()} == pdsh_torch.QUERY_COLUMNS[q]
     params = PARAMS.get(q, {})
@@ -87,9 +107,31 @@ def test_query_on_its_own_columns(frames, q):
 # suppliers) and the select after its join with the suppliers (a join on
 # exact keys launches no kernel).
 def _expected_calls(q: str, ft: dict) -> list:
-    n_line, n_ps = ft["lineitem"].height, ft["partsupp"].height
+    n_line, n_ps, n_ord = ft["lineitem"].height, ft["partsupp"].height, ft["orders"].height
     f64, i64 = torch.float64, torch.int64
     return {
+        # Q2: the sorted group-by of the min costs counts its rows, its
+        # min is a scatter; the segment's eight output columns
+        "q2": [("K1", n_ps, [None]), ("K2", n_ps, 8)],
+        # Q7: its two joins with the two nations lack validate, so they run
+        # between segments: the filtered lineitem (31 columns of three
+        # whole tables), each nation select, the 352 rows between the two
+        # joins (38 columns); then the three-key sorted group-by
+        "q7": [("K2", n_line, 31), ("K2", 25, 2), ("K2", 352, 38), ("K2", 25, 2), ("K1", 41, [f64]), ("K2", 41, 4)],
+        # Q8: both sums of the ratio in one call (the sorted group-by by year)
+        "q8": [("K1", n_line, [f64, f64]), ("K2", n_line, 2)],
+        "q9": [("K1", n_line, [f64]), ("K2", n_line, 3)],
+        # Q13: the filtered orders end a segment before the left join; the
+        # count of a nullable column sums its validity, the second
+        # group-by counts its rows
+        "q13": [("K2", n_ord, 9), ("K1", 3323, [i64]), ("K1", 3323, [None]), ("K2", 3323, 2)],
+        # Q16 and Q21: n_unique counts the boundaries of its sort
+        "q16": [("K1", n_ps, [None]), ("K2", n_ps, 4)],
+        "q21": [("K1", n_line, [None]), ("K1", n_line, [None]), ("K1", 31, [None]), ("K2", 31, 2)],
+        # Q22: the eligible customers, the one-row mean (sum and count), the
+        # cross join's input, then the dense group-by (len, sum)
+        "q22": [("K2", ft["customer"].height, 9), ("K1", 1, [f64]), ("K1", 1, [None]), ("K2", 1, 2),
+                ("K1", 26, [None]), ("K1", 26, [f64]), ("K2", 26, 3)],
         "q11": [("K1", n_ps, [f64]), ("K2", n_ps, 2), ("K1", 1, [f64]), ("K2", 1, 1), ("K2", 146, 2)],
         "q15": [("K1", n_line, [f64]), ("K2", n_line, 2), ("K1", n_line, [f64]), ("K1", 1, [None]), ("K1", 1, [None]),
                 ("K2", 1, 2), ("K2", ft["supplier"].height, 4), ("K2", 1, 5)],
@@ -130,6 +172,5 @@ def test_query_kernel_calls(frames, monkeypatch, q):
     monkeypatch.setattr(G, "groupagg_sums", k1)
     monkeypatch.setattr(X, "compact_scatter", k2)
     monkeypatch.setattr(J, "compact_scatter", k2)
-    _, ft = frames
-    pdsh_torch.query(q, ft, **PARAMS.get(q, {})).collect()
-    assert calls == _expected_calls(q, ft)
+    pdsh_torch.query(q, _frames_of(q, frames[1]), **PARAMS.get(q, {})).collect()
+    assert calls == _expected_calls(q, frames[1])
