@@ -46,6 +46,20 @@ Phases, each printed as one JSON line:
                 join with verification and the same keys as an anti join
                 (lineitem and partsupp); each with its warm median, host
                 reads and peak device memory.
+ 11. temporal — a Datetime("us") column on SF10 lineitem (l_shipdate plus a
+                time of day from the seed): datetime literals in a filter,
+                dt.truncate("1w"), Date cast to Datetime minus Datetime,
+                dt.hour, offset_by("1mo").month_end(), a group-by of the
+                week with Duration means, maxima and sums (about 104 rows);
+ 12. asof     — one trading day of NYSE TAQ's size (60M quotes, 15M trades,
+                2,000 tickers, 09:30-16:00): join_asof by ticker, backward
+                with tolerance "1s", then per ticker sums, a mean and
+                counts; one more collect with strategy "nearest";
+ 13. range    — twelve monthly windows of 1995 join_where SF10 orders on
+                two date inequalities (about 90M range pairs, 2.3M kept by
+                K2), then a sum and a count per window;
+                each of 11-13 against a numpy oracle written here, with its
+                warm median, peak device memory, result rows and host reads.
 Each query reads frames of only its own columns (``pdsh.QUERY_COLUMNS``),
 cut from one frame per table that is built once (string encoding timed per
 column). Each query phase then collects once more with the engine's kernel calls
@@ -58,7 +72,7 @@ then the kernels line, the card's name and power limit, and the final line
 {"ok": true, "device": {...}}. Any failure exits non-zero before that line.
 
 Run from the repository root:
-    python3 chip_smoke.py [--scale 10] [--seed 42] [--only q1 filter q3 q4 ... q22 joins]
+    python3 chip_smoke.py [--scale 10] [--seed 42] [--only q1 filter q3 q4 ... q22 joins temporal asof range]
 (``--only`` runs the build and kernel phases and the named query phases, for
 an A/B of a few queries against a parent tree). It needs a CUDA device and
 nvcc; it never imports JAX or polars_tpu.
@@ -97,12 +111,17 @@ def day(y: int, m: int, d: int) -> int:
 Q3_DAYS = day(1995, 3, 15)
 Q4_FROM, Q4_TO = day(1993, 7, 1), day(1993, 10, 1)
 PHASES = ["q1", "filter", "q3", "q4", "q5", "q6", "q10", "q12", "q14", "q18", "q19", "q11", "q15", "q17", "q20",
-          "q2", "q7", "q8", "q9", "q13", "q16", "q21", "q22", "joins"]
-# the columns the joins phase reads of each table
-JOIN_COLUMNS = {"customer": ["c_custkey", "c_mktsegment"], "orders": ["o_orderkey", "o_custkey", "o_orderdate"],
-                "lineitem": ["l_orderkey", "l_partkey", "l_suppkey", "l_quantity"],
-                "supplier": ["s_suppkey", "s_nationkey"], "nation": ["n_nationkey", "n_name"],
-                "partsupp": ["ps_partkey", "ps_suppkey", "ps_availqty"]}
+          "q2", "q7", "q8", "q9", "q13", "q16", "q21", "q22", "joins", "temporal", "asof", "range"]
+# the columns the phases outside PDS-H read of each table (asof makes its own)
+PHASE_COLUMNS = {
+    "joins": {"customer": ["c_custkey", "c_mktsegment"], "orders": ["o_orderkey", "o_custkey", "o_orderdate"],
+              "lineitem": ["l_orderkey", "l_partkey", "l_suppkey", "l_quantity"],
+              "supplier": ["s_suppkey", "s_nationkey"], "nation": ["n_nationkey", "n_name"],
+              "partsupp": ["ps_partkey", "ps_suppkey", "ps_availqty"]},
+    "temporal": {"lineitem": ["l_shipdate", "l_commitdate", "l_receiptdate", "l_shipts"]},
+    "range": {"orders": ["o_orderdate", "o_totalprice"]},
+    "asof": {},
+}
 
 
 T0 = time.perf_counter()
@@ -516,10 +535,12 @@ def generate(scale: float, seed: int, queries) -> tuple[dict, float]:
     t0 = time.perf_counter()
     need: dict[str, dict] = {"lineitem": {"l_shipdate": None}}  # the kernels phase takes Q1's filter density
     for q in queries:
-        for t, cols in (JOIN_COLUMNS if q == "joins" else pdsh.QUERY_COLUMNS[q]).items():
-            need.setdefault(t, {}).update(dict.fromkeys(cols))
+        for t, cols in PHASE_COLUMNS.get(q, pdsh.QUERY_COLUMNS.get(q, {})).items():
+            need.setdefault(t, {}).update(dict.fromkeys(c for c in cols if c != "l_shipts"))
     full = pdsh.generate_pdsh(scale, seed=seed, tables=tuple(need))
     raw = {t: {c: full[t][c] for c in cols} for t, cols in need.items()}
+    if "temporal" in queries:
+        _phases().add_shipts(raw["lineitem"], seed)
     return raw, time.perf_counter() - t0
 
 
@@ -542,10 +563,11 @@ def phase_frames(torch, pl, dev, raw: dict, queries) -> tuple[dict, dict]:
                 string_s[c] = time.perf_counter() - t1
         tables[t] = DataFrame._from_columns(built)
         seconds[t] = time.perf_counter() - t0
-    frames = {q: pdsh.frames_for(q, tables) for q in queries if q != "joins"}
-    if "joins" in queries:
-        frames["joins"] = {t: DataFrame._from_columns([tables[t]._get(c) for c in cols], tables[t].height)
-                           for t, cols in JOIN_COLUMNS.items()}
+    frames = {q: pdsh.frames_for(q, tables) for q in queries if q not in PHASE_COLUMNS}
+    for q in queries:
+        if q in PHASE_COLUMNS:
+            frames[q] = {t: DataFrame._from_columns([tables[t]._get(c) for c in cols], tables[t].height)
+                         for t, cols in PHASE_COLUMNS[q].items()}
     res = {"phase": "frames", "build_s": seconds, "string_encode_s": string_s,
            "rows": {t: f.height for t, f in tables.items()}, "device_bytes": torch.cuda.memory_allocated()}
     emit(res)
@@ -1445,6 +1467,222 @@ def phase_joins(torch, pl, frames: dict, raw: dict) -> dict:
     return res
 
 
+# -- temporal, asof and range phases (plans and data: polars_tpu_torch/testing/phases.py) ----------
+
+
+def _phases():
+    from polars_tpu_torch.testing import phases
+
+    return phases
+
+def temporal_oracle(line: dict) -> dict:
+    """The temporal phase in numpy on the microsecond integers: weeks from
+    Monday (1970-01-01 was a Thursday), the lead time, the hour, and the end
+    of the next month at the same time of day."""
+    P = _phases()
+    DAY_US = P.DAY_US
+    ts = line["l_shipts"].astype(np.int64)
+    m = (ts >= P.TEMPORAL_FROM) & (ts < P.TEMPORAL_TO)
+    ts = ts[m]
+    week = (ts + 3 * DAY_US) // (7 * DAY_US) * (7 * DAY_US) - 3 * DAY_US
+    lead = _days(line["l_receiptdate"][m]) * DAY_US - ts
+    tod = ts % DAY_US
+    next_month_end = (ts // DAY_US).astype("datetime64[D]").astype("datetime64[M]") + 2
+    due = (next_month_end.astype("datetime64[D]").astype(np.int64) - 1) * DAY_US + tod
+    keys, inv = np.unique(week, return_inverse=True)
+    inv = inv.reshape(-1)
+    n = np.bincount(inv, minlength=len(keys))
+    lead_sum = np.bincount(inv, weights=lead.astype(np.float64), minlength=len(keys))
+    by_group = np.argsort(inv, kind="stable")
+    lead_max = np.maximum.reduceat(lead[by_group], np.concatenate([[0], np.cumsum(n)[:-1]]))
+    # whole hours, truncated toward zero; each group's sum is far below 2^53, so exact in f64
+    whole = np.where(lead >= 0, lead // 3_600_000_000, -(-lead // 3_600_000_000))
+    hours = np.bincount(inv, weights=whole, minlength=len(keys)).astype(np.int64)
+    return {"week": keys, "lead_mean": lead_sum / n, "lead_max": lead_max, "lead_hours": hours,
+            "morning": np.bincount(inv, weights=tod < 12 * 3_600_000_000, minlength=len(keys)).astype(np.int64),
+            "on_time": np.bincount(inv, weights=_days(line["l_commitdate"][m]) * DAY_US < due,
+                                   minlength=len(keys)).astype(np.int64),
+            "n": n.astype(np.int64), "rows": int(m.sum())}
+
+
+def _storage(out, name: str) -> tuple[np.ndarray, np.ndarray | None]:
+    """A result column's storage values (int64 ticks, codes or floats) and
+    its validity, on the host."""
+    buf = out._get(name).buffer
+    return buf.values.cpu().numpy(), None if buf.validity is None else buf.validity.cpu().numpy()
+
+
+def check_columns(out, want: dict, exact=(), floats=(), means=(), label: str = "") -> float:
+    """Result columns against the oracle's, row for row: ``exact`` equal in
+    storage, ``floats`` to rtol 1e-9; ``means`` (a Duration's mean, a float
+    mean truncated to whole ticks) within 1 tick or rtol 1e-9. Returns the
+    largest relative float error."""
+    worst = 0.0
+    n = len(want[(exact or floats)[0]])
+    if out.height != n:
+        raise AssertionError(f"{label}: {out.height} rows, want {n}")
+    for c in (*exact, *floats, *means):
+        got, valid = _storage(out, c)
+        w = np.asarray(want[c])
+        ok = np.ones(n, bool) if valid is None else valid
+        wok = ~np.isnan(w) if w.dtype.kind == "f" else np.ones(n, bool)
+        if not np.array_equal(ok, wok):
+            raise AssertionError(f"{label} {c}: nulls differ from the oracle's")
+        got, w = got[ok], w[ok]
+        if c in exact:
+            if not np.array_equal(got.astype(np.int64), w.astype(np.int64)):
+                raise AssertionError(f"{label} {c}: {got[:5]} != {w[:5]}")
+        elif c in means:
+            if not np.all(np.abs(got - np.trunc(w)) <= np.maximum(1.0, 1e-9 * np.abs(w))):
+                raise AssertionError(f"{label} {c}: {got[:5]} != {np.trunc(w)[:5]}")
+        else:
+            np.testing.assert_allclose(got, w, rtol=1e-9, atol=0, err_msg=f"{label} {c}")
+            worst = max(worst, float(np.max(np.abs(got - w) / np.maximum(np.abs(w), 1e-300))) if len(w) else 0.0)
+    return worst
+
+
+def run_phase(torch, name: str, run, need=("groupagg_sums", "compact", "compact_scatter")) -> dict:
+    """``run_query`` for a phase outside PDS-H, and the host reads of one
+    more collect."""
+    r = run_query(torch, name, run, need=need)
+    with count_host_reads(torch) as reads:
+        run().collect()
+        torch.cuda.synchronize()
+    r["host_reads"] = {"reads": reads["reads"], "syncs": reads["syncs"], "sync_sites": reads["sync_sites"]}
+    return r
+
+
+def phase_result(name: str, r: dict, out, rows_in: dict, worst: float, **extra) -> dict:
+    res = {"phase": name, "rows": rows_in, **extra, "result_rows": out.height, "first_collect_s": r["first_collect_s"],
+           "warm_wall_s": r["warm_wall_s"], "warm_walls_s": r["warm_walls_s"],
+           "rows_per_s": sum(rows_in.values()) / r["warm_wall_s"], "launches": r["launches"],
+           "peak_device_bytes": r["peak_device_bytes"], "host_reads": r["host_reads"],
+           "max_rel_err_vs_numpy": worst, "matches_numpy_oracle": True, "kernel_calls": r["kernel_calls"]}
+    emit(res)
+    return res
+
+
+def phase_temporal(torch, pl, line_frame, raw: dict) -> dict:
+    """A Datetime column on SF10 lineitem: datetime literals in a filter,
+    ``dt.truncate("1w")``, a Date cast to Datetime minus a Datetime,
+    ``dt.hour``, ``offset_by("1mo").month_end()``, and a group-by of the
+    week with Duration means, maxima and sums."""
+    want = temporal_oracle(raw["lineitem"])
+    r = run_phase(torch, "temporal", lambda: _phases().temporal_plan(pl, line_frame))
+    out = r["out"]
+    schema = [(c, repr(d)) for c, d in out.schema.items()]
+    expect = [("week", "Datetime(time_unit='us', time_zone=None)"), ("lead_mean", "Duration(time_unit='us')"),
+              ("lead_max", "Duration(time_unit='us')"), ("lead_hours", "Int64"), ("morning", "UInt32"),
+              ("on_time", "UInt32"), ("n", "UInt32")]
+    if schema != expect:
+        raise AssertionError(f"temporal schema {schema} != {expect}")
+    worst = check_columns(out, want, exact=("week", "lead_max", "lead_hours", "morning", "on_time", "n"),
+                          means=("lead_mean",), label="temporal")
+    return phase_result("temporal", r, out, {"lineitem": line_frame.height}, worst, filtered_rows=want["rows"])
+
+
+def asof_oracle(data: dict, strategy: str, tolerance_us: int | None) -> dict:
+    """The asof join by ticker in numpy: quotes sorted stably by (ticker,
+    time), each trade's neighbours in its own ticker found by one
+    searchsorted over ticker * 2^36 + time; backward takes the last quote
+    at or before, nearest the nearer of it and the first at or after (the
+    earlier on a tie); then the per-ticker aggregates."""
+    P = _phases()
+    q, t = data["quotes"], data["trades"]
+    order = np.lexsort((q["ts"], q["ticker"]))
+    qk = q["ticker"][order].astype(np.int64) << 36 | (q["ts"][order] - P.ASOF_DAY_US)
+    tk = t["ticker"].astype(np.int64) << 36 | (t["ts"] - P.ASOF_DAY_US)
+    nq = len(qk)
+    prev = np.searchsorted(qk, tk, side="right") - 1
+    nxt = np.searchsorted(qk, tk, side="left")
+    p_ok = (prev >= 0) & ((qk[np.maximum(prev, 0)] >> 36) == t["ticker"])
+    n_ok = (nxt < nq) & ((qk[np.minimum(nxt, nq - 1)] >> 36) == t["ticker"])
+    d_prev = tk - qk[np.maximum(prev, 0)]
+    d_next = qk[np.minimum(nxt, nq - 1)] - tk
+    if strategy == "backward":
+        pick, ok = prev, p_ok
+    else:
+        use_prev = p_ok & (~n_ok | (d_prev <= d_next))
+        pick, ok = np.where(use_prev, prev, nxt), p_ok | n_ok
+    pick = np.clip(pick, 0, nq - 1)
+    if tolerance_us is not None:
+        ok &= np.abs(tk - qk[pick]) <= tolerance_us
+    row = order[pick]
+    mid = (q["ask"][row] + q["bid"][row]) / 2
+    g = t["ticker"]
+    n = np.bincount(g, minlength=P.ASOF_TICKERS)
+    matched = np.bincount(g, weights=ok, minlength=P.ASOF_TICKERS)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        mean = np.bincount(g, weights=np.where(ok, mid, 0.0), minlength=P.ASOF_TICKERS) / matched
+    keep = n > 0
+    return {"ticker": np.nonzero(keep)[0], "notional": np.bincount(g, weights=t["qty"] * t["price"],
+                                                                   minlength=P.ASOF_TICKERS)[keep],
+            "mid": mean[keep], "matched": matched[keep].astype(np.int64), "n": n[keep].astype(np.int64),
+            "matched_trades": int(ok.sum())}
+
+
+def phase_asof(torch, pl, scale: float, seed: int, dev) -> dict:
+    """``trades.join_asof(quotes, on="ts", by="ticker", strategy="backward",
+    tolerance="1s")`` over one trading day, then per ticker the notional,
+    the mean mid of the matched quotes, the matches and the trades; and one
+    collect with ``strategy="nearest"`` and no tolerance, held the same way."""
+    P = _phases()
+    t0 = time.perf_counter()
+    data = P.asof_data(scale, seed)
+    frames = P.asof_frames(pl, data, dev)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    r = run_phase(torch, "asof", lambda: P.asof_plan(pl, frames, "backward", "1s"))
+    out = r["out"]
+    schema = [(c, repr(d)) for c, d in out.schema.items()]
+    expect = [("ticker", "String"), ("notional", "Float64"), ("mid", "Float64"), ("matched", "UInt32"),
+              ("n", "UInt32")]
+    if schema != expect:
+        raise AssertionError(f"asof schema {schema} != {expect}")
+    want = asof_oracle(data, "backward", 1_000_000)
+    tickers = out._get("ticker")
+    got_tickers = [tickers.table.values[i] for i in tickers.buffer.values.cpu().tolist()]
+    if got_tickers != data["names"][want["ticker"]].tolist():
+        raise AssertionError("asof: the tickers differ from the oracle's")
+    worst = check_columns(out, want, exact=("matched", "n"), floats=("notional", "mid"), label="asof")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    near = P.asof_plan(pl, frames, "nearest", None).collect()
+    torch.cuda.synchronize()
+    t_near = time.perf_counter() - t1
+    want_near = asof_oracle(data, "nearest", None)
+    worst = max(worst, check_columns(near, want_near, exact=("matched", "n"), floats=("notional", "mid"),
+                                     label="asof nearest"))
+    return phase_result("asof", r, out, {"quotes": frames["quotes"].height, "trades": frames["trades"].height}, worst,
+                        build_s=t_build, matched_trades=want["matched_trades"],
+                        matched_share=want["matched_trades"] / frames["trades"].height,
+                        nearest={"wall_s": t_near, "matched_trades": want_near["matched_trades"],
+                                 "result_rows": near.height})
+
+
+def phase_range(torch, pl, orders_frame, raw: dict, dev) -> dict:
+    """Twelve monthly windows of 1995 ``join_where`` SF10 orders: the first
+    predicate drives a range join (about 90M pairs), the second filters
+    them through K2; then the sum and count per window."""
+    P = _phases()
+    windows = pl.DataFrame(P.range_windows(), device=dev)
+    od = _days(raw["orders"]["o_orderdate"])
+    price = raw["orders"]["o_totalprice"]
+    starts = [day(1995, m, 1) for m in range(1, 13)] + [day(1996, 1, 1)]
+    pairs = int(sum((od >= s).sum() for s in starts[:12]))
+    want = {"w_id": np.arange(1, 13), "o_totalprice": np.asarray([price[(od >= a) & (od < b)].sum()
+                                                                  for a, b in zip(starts, starts[1:])]),
+            "len": np.asarray([((od >= a) & (od < b)).sum() for a, b in zip(starts, starts[1:])])}
+    r = run_phase(torch, "range", lambda: P.range_plan(pl, windows, orders_frame))
+    out = r["out"]
+    schema = [(c, repr(d)) for c, d in out.schema.items()]
+    if schema != [("w_id", "Int64"), ("o_totalprice", "Float64"), ("len", "UInt32")]:
+        raise AssertionError(f"range schema {schema}")
+    worst = check_columns(out, want, exact=("w_id", "len"), floats=("o_totalprice",), label="range")
+    return phase_result("range", r, out, {"windows": 12, "orders": orders_frame.height}, worst, range_pairs=pairs,
+                        kept_pairs=int(want["len"].sum()))
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1485,6 +1723,12 @@ def main() -> int:
             runs[name] = phase_filter(torch, pl, line, frames["q1"]["lineitem"])
         elif name == "joins":
             runs[name] = phase_joins(torch, pl, frames, raw)
+        elif name == "temporal":
+            runs[name] = phase_temporal(torch, pl, frames["temporal"]["lineitem"], raw)
+        elif name == "asof":
+            runs[name] = phase_asof(torch, pl, args.scale, args.seed, dev)
+        elif name == "range":
+            runs[name] = phase_range(torch, pl, frames["range"]["orders"], raw, dev)
         else:  # Q3's K2 call runs 50 times, each against the first
             runs[name] = phase_query(torch, name, frames, raw, args.scale, k2_repeats=50 if name == "q3" else 1)
     del frames, raw, line

@@ -1,9 +1,13 @@
 """Typed columns: name + logical dtype + device buffer + (optional) dictionary.
 
-The port of ``polars_tpu/core/column.py``, trimmed to the construction this
-slice needs: numpy arrays (float, int, bool, ``datetime64[D]``) and object or
-str arrays / Python lists of strings, numbers, bools and dates. String columns
-hold int32 dictionary codes in the buffer and the values in ``table``.
+The port of ``polars_tpu/core/column.py``, trimmed to the construction the
+ported queries need: numpy arrays (float, int, bool, ``datetime64`` and
+``timedelta64``, NaT as null) and object or str arrays / Python lists of
+strings, numbers, bools, dates, datetimes, timedeltas and times. String
+columns hold int32 dictionary codes in the buffer and the values in
+``table``; Date holds int32 days, Datetime and Duration int64 ticks of their
+time unit, Time int64 nanoseconds since midnight. Time zones are not ported
+(a tz-aware value raises).
 """
 
 from __future__ import annotations
@@ -20,6 +24,9 @@ from polars_tpu_torch.errors import InvalidOperationError, ShapeError
 from polars_tpu_torch.utils import strtable
 
 _EPOCH_DATE = _dt.date(1970, 1, 1)
+_EPOCH_DT = _dt.datetime(1970, 1, 1)
+_NS_PER = (3_600_000_000_000, 60_000_000_000, 1_000_000_000)  # hour, minute, second
+_TZ_ITEM = "port queue: time zones and temporal formatting"
 
 
 def _needs_table(dtype: dt.DataType) -> bool:
@@ -77,6 +84,18 @@ class Column:
         if isinstance(self.dtype, dt.Date):
             out = vals.astype("datetime64[D]").astype(object)
             return _mask_to_object(out, validity)
+        if isinstance(self.dtype, (dt.Datetime, dt.Duration)):
+            kind = "datetime64" if isinstance(self.dtype, dt.Datetime) else "timedelta64"
+            out = vals.astype(f"{kind}[{self.dtype.time_unit}]")
+            if self.dtype.time_unit == "ns":  # Python's datetime and timedelta hold microseconds
+                out = out.astype(f"{kind}[us]")
+            return _mask_to_object(out.astype(object), validity)
+        if isinstance(self.dtype, dt.Time):
+            out = np.empty(len(vals), dtype=object)
+            for i, ns in enumerate(vals.tolist()):
+                out[i] = _dt.time(ns // _NS_PER[0], ns // _NS_PER[1] % 60, ns // _NS_PER[2] % 60,
+                                  ns % 1_000_000_000 // 1000)
+            return _mask_to_object(out, validity)
         if validity is None:
             return vals
         if vals.dtype.kind == "f":
@@ -115,28 +134,27 @@ def _from_numpy(name: str, arr: np.ndarray, device) -> Column:
         if nulls.any():
             validity = ~nulls
             arr = np.where(validity, arr, 0)
-    if arr.dtype.kind == "M":
+    if arr.dtype.kind in ("M", "m"):  # datetime64 / timedelta64; NaT is null
         logical = dt.numpy_to_dtype(arr.dtype)
-        if not isinstance(logical, dt.Date):
-            raise NotImplementedError(
-                "Datetime columns are not ported yet"
-                " (port queue: temporal breadth and asof/range joins)")
         nat = np.isnat(arr)
         validity = ~nat if nat.any() else None
-        ints = arr.astype("datetime64[D]").astype(np.int64).astype(np.int32)
+        if isinstance(logical, dt.Date):
+            ints = arr.astype("datetime64[D]").astype(np.int64).astype(np.int32)
+        else:
+            kind = "datetime64" if arr.dtype.kind == "M" else "timedelta64"
+            ints = arr.astype(f"{kind}[{logical.time_unit}]").astype(np.int64)
         if validity is not None:
             ints = np.where(validity, ints, 0)
-        return Column(name, logical, Buffer.from_numpy(ints, validity, dtype=torch.int32, device=device))
-    if arr.dtype.kind == "m":
-        raise NotImplementedError(
-            "Duration columns are not ported yet"
-            " (port queue: temporal breadth and asof/range joins)")
+        return Column(name, logical, Buffer.from_numpy(ints, validity, dtype=dt.dtype_to_torch(logical),
+                                                       device=device))
     logical = dt.numpy_to_dtype(arr.dtype)
     return Column(name, logical, Buffer.from_numpy(arr, validity, dtype=dt.dtype_to_torch(logical), device=device))
 
 
 def _infer_pylist_dtype(seq: list) -> dt.DataType:
-    kinds = {type(v) for v in seq if v is not None}
+    # numpy scalars count as the Python type they hold
+    kinds = {int if isinstance(v, np.integer) else float if isinstance(v, np.floating) else
+             bool if isinstance(v, np.bool_) else type(v) for v in seq if v is not None}
     if not kinds:
         return dt.Null()
     if kinds <= {str, np.str_}:
@@ -149,6 +167,14 @@ def _infer_pylist_dtype(seq: list) -> dt.DataType:
         return dt.Float64()
     if kinds == {_dt.date}:
         return dt.Date()
+    if kinds <= {_dt.date, _dt.datetime}:
+        if any(isinstance(v, _dt.datetime) and v.tzinfo is not None for v in seq):
+            raise NotImplementedError(f"time-zone-aware datetimes are not ported yet ({_TZ_ITEM})")
+        return dt.Datetime("us")
+    if kinds == {_dt.timedelta}:
+        return dt.Duration("us")
+    if kinds == {_dt.time}:
+        return dt.Time()
     raise NotImplementedError(
         f"building a column from Python values of types {sorted(k.__name__ for k in kinds)} "
         "is not ported yet (port queue: expression breadth)"
@@ -172,11 +198,49 @@ def _from_pylist(name: str, seq: Any, dtype: dt.DataType | None, device) -> Colu
             ((v - _EPOCH_DATE).days if v is not None else 0 for v in arr), np.int32, len(arr)
         )
         return Column(name, logical, Buffer.from_numpy(days, validity, dtype=torch.int32, device=device))
+    if isinstance(logical, (dt.Datetime, dt.Duration, dt.Time)):
+        if isinstance(logical, dt.Datetime) and logical.time_zone:
+            raise NotImplementedError(f"Datetime columns with a time zone are not ported yet ({_TZ_ITEM})")
+        ticks = np.asarray([0 if v is None else _ticks(v, logical) for v in arr], dtype=np.int64)
+        return Column(name, logical, Buffer.from_numpy(ticks, validity, dtype=torch.int64, device=device))
     if isinstance(logical, (dt.Boolean, dt.IntegerType, dt.FloatType)):
         np_d = dt.dtype_to_numpy(logical)
         vals = np.asarray([v if v is not None else 0 for v in arr], dtype=np_d)
         return Column(name, logical, Buffer.from_numpy(vals, validity, dtype=dt.dtype_to_torch(logical), device=device))
     raise InvalidOperationError(f"cannot build a {logical!r} column from Python values")
+
+
+def _micros(delta: _dt.timedelta) -> int:
+    """Exact microseconds of a timedelta (no float on the way)."""
+    return (delta.days * 86_400 + delta.seconds) * 1_000_000 + delta.microseconds
+
+
+def _ticks(v: Any, dtype: dt.DataType) -> int:
+    """One Python value as the int64 storage of a Datetime, Duration or Time
+    column: ticks of the time unit since the epoch (a date counts from its
+    midnight), ticks of a timedelta, nanoseconds since midnight; an int is
+    its storage already. Floor division takes micro- to milliseconds."""
+    if isinstance(v, (int, np.integer)) and not isinstance(v, bool):
+        return int(v)
+    if isinstance(dtype, dt.Time):
+        if not isinstance(v, _dt.time):
+            raise InvalidOperationError(f"cannot build a Time value from {v!r}")
+        if v.tzinfo is not None:
+            raise NotImplementedError(f"time-zone-aware times are not ported yet ({_TZ_ITEM})")
+        return v.hour * _NS_PER[0] + v.minute * _NS_PER[1] + v.second * _NS_PER[2] + v.microsecond * 1000
+    if isinstance(dtype, dt.Duration):
+        if not isinstance(v, _dt.timedelta):
+            raise InvalidOperationError(f"cannot build a Duration value from {v!r}")
+        micros = _micros(v)
+    elif isinstance(v, _dt.datetime):
+        if v.tzinfo is not None:
+            raise NotImplementedError(f"time-zone-aware datetimes are not ported yet ({_TZ_ITEM})")
+        micros = _micros(v - _EPOCH_DT)
+    elif isinstance(v, _dt.date):
+        micros = (v - _EPOCH_DATE).days * 86_400_000_000
+    else:
+        raise InvalidOperationError(f"cannot build a {dtype!r} value from {v!r}")
+    return micros * dt.TICKS_PER_SECOND[dtype.time_unit] // 1_000_000
 
 
 def _sample(arr: np.ndarray) -> list:

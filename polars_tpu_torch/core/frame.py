@@ -1,8 +1,9 @@
 """Eager DataFrame (the port of ``polars_tpu/core/frame.py``, trimmed).
 
 A height-aligned list of columns on one device. Query operations go through
-the lazy engine (``df.lazy()...collect()``), as in the JAX package;
-``gather`` and ``drop`` work on the columns.
+the lazy engine (``df.lazy()...collect()``), as in the JAX package, and
+so do the eager ``join_where`` and ``join_asof``; ``gather`` and ``drop``
+work on the columns.
 """
 
 from __future__ import annotations
@@ -134,6 +135,12 @@ class DataFrame:
         from polars_tpu_torch.lazyframe import LazyFrame
 
         return LazyFrame._from_df(self)
+
+    def join_where(self, other: DataFrame, *predicates: Any, suffix: str = "_right") -> DataFrame:
+        return self.lazy().join_where(other.lazy(), *predicates, suffix=suffix).collect()
+
+    def join_asof(self, other: DataFrame, **kwargs: Any) -> DataFrame:
+        return self.lazy().join_asof(other.lazy(), **kwargs).collect()
 
     def group_by(self, *by: Any, maintain_order: bool = False):
         from polars_tpu_torch.groupby import GroupBy

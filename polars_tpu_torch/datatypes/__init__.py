@@ -354,6 +354,10 @@ class Duration(TemporalType):
         return f"Duration(time_unit='{self.time_unit}')"
 
 
+# ticks of each Datetime/Duration time unit in one second
+TICKS_PER_SECOND = {"ms": 1_000, "us": 1_000_000, "ns": 1_000_000_000}
+
+
 class Time(TemporalType):
     """Nanoseconds since midnight, int64."""
 

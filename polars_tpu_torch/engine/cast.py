@@ -1,8 +1,11 @@
 """Value casts (the port of ``polars_tpu/engine/cast.py``, trimmed to the
 casts the ported queries make: bool, integer and date values to a wider
 integer or to a float, as type promotion and ``cast(pl.Int64)`` of a Boolean
-need them, and a null to any numeric, bool or date type), and the helpers
-that keep an unsigned integer inside its logical width.
+need them; the temporal casts (Date and Datetime both ways, Datetime to
+Time, Time to Duration, between time units with floor division, and
+between temporal and integer storage); and a null to any numeric, bool or
+temporal type), and the helpers that keep an unsigned integer inside its
+logical width.
 
 PyTorch has no arithmetic for uint16/32/64, so UInt16 and UInt32 live in the
 next wider signed tensor and UInt64 as its bit pattern in int64
@@ -18,6 +21,8 @@ import torch
 
 from polars_tpu_torch import datatypes as dt
 from polars_tpu_torch.engine.common import Val
+from polars_tpu_torch.errors import InvalidOperationError
+from polars_tpu_torch.kernels.fastmath import floordiv_const
 
 _BITS = {"Int8": 8, "Int16": 16, "Int32": 32, "Int64": 64, "UInt8": 8, "UInt16": 16, "UInt32": 32, "UInt64": 64}
 _I64_MIN = -(2**63)
@@ -59,16 +64,55 @@ def int_scalar(value: int, dtype: dt.DataType, device) -> torch.Tensor:
     return torch.tensor([value], dtype=dt.dtype_to_torch(dtype), device=device)
 
 
+def tu_convert(values: torch.Tensor, src: str, dst: str) -> torch.Tensor:
+    """Ticks of time unit ``src`` as ticks of ``dst`` (coarser units floor)."""
+    a, b = dt.TICKS_PER_SECOND[src], dt.TICKS_PER_SECOND[dst]
+    if a == b:
+        return values
+    return values * (b // a) if b > a else floordiv_const(values, a // b)
+
+
+def _temporal_cast(v: Val, target: dt.DataType) -> Val | None:
+    """The casts of a temporal value (or to one from an integer), or None
+    where neither side is temporal."""
+    src = v.dtype
+    sn, tn = type(src).__name__, type(target).__name__
+    if not (src.is_temporal() or target.is_temporal()):
+        return None
+    if isinstance(target, dt.Datetime) and target.time_zone:
+        raise NotImplementedError(
+            "casts to a Datetime with a time zone are not ported yet (port queue: time zones and temporal formatting)")
+    x = v.values
+    if sn == "Date" and tn == "Datetime":
+        return v.with_(values=x.to(torch.int64) * (dt.TICKS_PER_SECOND[target.time_unit] * 86_400), dtype=target)
+    if sn == "Datetime" and tn == "Date":
+        days = floordiv_const(x, dt.TICKS_PER_SECOND[src.time_unit] * 86_400)
+        return v.with_(values=days.to(torch.int32), dtype=target)
+    if (sn, tn) in (("Datetime", "Datetime"), ("Duration", "Duration")):
+        return v.with_(values=tu_convert(x, src.time_unit, target.time_unit), dtype=target)
+    if sn == "Datetime" and tn == "Time":  # the time of day, in nanoseconds
+        per_day = dt.TICKS_PER_SECOND[src.time_unit] * 86_400
+        return v.with_(values=tu_convert(x - floordiv_const(x, per_day) * per_day, src.time_unit, "ns"), dtype=target)
+    if sn == "Time" and tn == "Duration":
+        return v.with_(values=tu_convert(x, "ns", target.time_unit), dtype=target)
+    if src.is_temporal() and target.is_numeric():
+        values = x.to(dt.dtype_to_torch(target))
+        return v.with_(values=wrap_unsigned(values, target), dtype=target)
+    if src.is_integer() and target.is_temporal():
+        return v.with_(values=x.to(dt.dtype_to_torch(target)), dtype=target)
+    if isinstance(src, dt.Null):
+        return v.with_(values=x.to(dt.dtype_to_torch(target)), dtype=target)
+    raise InvalidOperationError(f"cannot cast {src!r} to {target!r}")
+
+
 def _lossless(src: dt.DataType, target: dt.DataType) -> bool:
     if isinstance(src, dt.Null):  # every value is null: any storage holds it
-        return target.is_numeric() or isinstance(target, (dt.Boolean, dt.Date))
+        return target.is_numeric() or isinstance(target, dt.Boolean)
     if target.is_float():
-        return src.is_numeric() or isinstance(src, (dt.Boolean, dt.Date))
+        return src.is_numeric() or isinstance(src, dt.Boolean)
     if isinstance(src, dt.Boolean):
         return target.is_integer()
     sn, tn = type(src).__name__, type(target).__name__
-    if isinstance(src, dt.Date):
-        sn = "Int32"
     if sn not in _BITS or tn not in _BITS:
         return False
     if src.is_signed_integer() and target.is_unsigned_integer():
@@ -80,6 +124,9 @@ def _lossless(src: dt.DataType, target: dt.DataType) -> bool:
 def cast_val(v: Val, target: dt.DataType, *, strict: bool = False) -> Val:
     if v.dtype == target:
         return v
+    out = _temporal_cast(v, target)
+    if out is not None:
+        return out
     if not _lossless(v.dtype, target):
         raise NotImplementedError(
             f"cast from {v.dtype!r} to {target!r} is not ported yet (port queue: expression breadth)"

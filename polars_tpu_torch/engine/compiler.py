@@ -1,8 +1,9 @@
 """Expression evaluator: AST node -> tensors (the port of
 ``polars_tpu/engine/compiler.py``'s ``eval_expr``, trimmed to columns,
-literals (numeric, bool, null, date and string; lists as literal Series),
-casts, arithmetic and comparison with Polars type promotion, string
-comparison across dictionaries, Kleene ``&``/``|``, when/then/otherwise,
+literals (numeric, bool, null, temporal and string; lists as literal
+Series), casts, arithmetic (temporal arithmetic on integer epochs, as the
+JAX package's ``_arith`` and ``_temporal_pair``) and comparison with Polars
+type promotion, string comparison across dictionaries, Kleene ``&``/``|``, when/then/otherwise,
 registered functions (``engine/registry.py``), aliases and the sum, mean,
 min, max, count, len, first, last and n_unique aggregations, per group or,
 outside a group-by, over one group of capacity 1).
@@ -107,18 +108,30 @@ def _eval_literal(node: E.ELiteral, ctx: EvalCtx) -> Val:
             torch.zeros(1, dtype=torch.bool, device=ctx.device), d, None, SCALAR,
         )
     if isinstance(value, str):
-        if isinstance(dtype, dt.Date):
-            days = int(np.datetime64(value, "D").astype(np.int64))
-            return Val(torch.tensor([days], dtype=torch.int32, device=ctx.device), None, dtype, None, SCALAR)
+        if dtype is not None and dtype.is_temporal():
+            iv = torch.tensor([parse_temporal_literal(value, dtype)], dtype=dt.dtype_to_torch(dtype), device=ctx.device)
+            return Val(iv, None, dtype, None, SCALAR)
         if dtype is not None and not isinstance(dtype, dt.String):
             raise NotImplementedError(
-                f"{dtype!r} literals are not ported yet"
-                " (port queue: temporal breadth and asof/range joins)")
+                f"{dtype!r} literals are not ported yet (port queue: expression breadth)")
         # a one-entry sorted dictionary; code 0
         table = strtable.StringTable(np.asarray([value], object), sorted_order=True)
         return Val(torch.zeros(1, dtype=torch.int32, device=ctx.device), None, dt.String(), table, SCALAR)
     d = dtype if dtype is not None else _lit_dtype(value)
     return Val(int_scalar(value, d, ctx.device), None, d, None, SCALAR)
+
+
+def parse_temporal_literal(value: str, dtype: dt.DataType) -> int:
+    """An ISO date or datetime string as the epoch integer of ``dtype``."""
+    if isinstance(dtype, dt.Date):
+        return int(np.datetime64(value, "D").astype(np.int64))
+    if isinstance(dtype, dt.Datetime):
+        if dtype.time_zone:
+            raise NotImplementedError(
+                "Datetime literals with a time zone are not ported yet"
+                " (port queue: time zones and temporal formatting)")
+        return int(np.datetime64(value, dtype.time_unit).astype(np.int64))
+    raise InvalidOperationError(f"cannot parse temporal literal for {dtype!r}")
 
 
 def _eval_series_literal(node: E.ESeriesLit, ctx: EvalCtx) -> Val:
@@ -177,11 +190,11 @@ def _eval_binary(node: E.EBinary, ctx: EvalCtx) -> Val:
 
 
 def _arith(op: str, a: Val, b: Val, out_dt: dt.DataType):
-    if out_dt.is_temporal() or isinstance(out_dt, dt.Decimal) or a.dtype.is_temporal() or b.dtype.is_temporal():
+    if isinstance(out_dt, dt.Decimal):
         raise NotImplementedError(
-            f"{op!r} on {a.dtype!r} and {b.dtype!r} is not ported yet"
-            " (port queue: temporal breadth and asof/range joins)"
-        )
+            f"{op!r} on {a.dtype!r} and {b.dtype!r} is not ported yet (port queue: expression breadth)")
+    if out_dt.is_temporal() or a.dtype.is_temporal() or b.dtype.is_temporal():
+        return _temporal_arith(op, a, b, out_dt)
     if not out_dt.is_numeric():
         raise InvalidOperationError(f"cannot apply {op!r} to {a.dtype!r} and {b.dtype!r}")
     validity = combine_validity(a.validity, b.validity)
@@ -217,6 +230,60 @@ def _arith(op: str, a: Val, b: Val, out_dt: dt.DataType):
         values = values.to(tdt)
     # UInt16/UInt32 live in a wider signed tensor: wrap like the native type
     return wrap_unsigned(values, out_dt), validity
+
+
+_US_PER_DAY = 86_400_000_000
+
+
+def _temporal_arith(op: str, a: Val, b: Val, out_dt: dt.DataType):
+    """Temporal arithmetic on integer epochs (the JAX package's ``_arith``):
+    differences and sums of instants and durations on one time scale,
+    ``Date ± Duration`` as a Date through microseconds floored to days, and
+    a Duration times or floor-divided by a number (division by 0 is null)."""
+    an, bn = type(a.dtype).__name__, type(b.dtype).__name__
+    validity = combine_validity(a.validity, b.validity)
+    if isinstance(out_dt, dt.Duration) and op in ("+", "-") and an in ("Date", "Datetime", "Duration", "Time"):
+        av, bv = _temporal_pair(a, b, out_dt)
+        return (av - bv if op == "-" else av + bv), validity
+    if {an, bn} in ({"Date", "Duration"}, {"Datetime", "Duration"}) and op in ("+", "-"):
+        work = dt.Datetime("us") if isinstance(out_dt, dt.Date) else out_dt
+        av, bv = _temporal_pair(a, b, work)
+        values = av + bv if op == "+" else av - bv
+        if isinstance(out_dt, dt.Date):
+            values = floordiv_any(values, _US_PER_DAY).to(torch.int32)
+        return values, validity
+    if isinstance(out_dt, dt.Duration) and op in ("*", "/"):
+        av, bv = a.values.to(torch.int64), b.values
+        if op == "*":
+            return (av * bv).to(torch.int64), validity
+        values = floordiv_any(av, torch.where(bv == 0, torch.ones((), dtype=bv.dtype, device=bv.device), bv))
+        return values.to(torch.int64), combine_validity(validity, bv != 0)
+    if op in ("+", "-") and out_dt.is_temporal():  # e.g. Datetime - Date: both in their supertype
+        st = supertype(a.dtype, b.dtype)
+        av, bv = cast_val(a, st).values, cast_val(b, st).values
+        return (av + bv if op == "+" else av - bv), validity
+    raise InvalidOperationError(f"cannot apply {op!r} to {a.dtype!r} and {b.dtype!r}")
+
+
+def _temporal_pair(a: Val, b: Val, out_dt: dt.DataType) -> tuple[torch.Tensor, torch.Tensor]:
+    """Both operands as int64 ticks of ``out_dt``'s time unit (microseconds
+    without one): days scale up, finer units floor down, Time is
+    nanoseconds."""
+    unit = getattr(out_dt, "time_unit", "us")
+    per = dt.TICKS_PER_SECOND[unit]
+
+    def ticks(v: Val) -> torch.Tensor:
+        x = v.values.to(torch.int64)
+        if isinstance(v.dtype, dt.Date):
+            return x * (86_400 * per)
+        if isinstance(v.dtype, (dt.Datetime, dt.Duration)):
+            src = dt.TICKS_PER_SECOND[v.dtype.time_unit]
+            return x * (per // src) if per >= src else floordiv_any(x, src // per)
+        if isinstance(v.dtype, dt.Time):
+            return floordiv_any(x, 1_000_000_000 // per)
+        return x
+
+    return ticks(a), ticks(b)
 
 
 def _scalar_one_table(v: Val) -> bool:
@@ -383,19 +450,16 @@ def _eval_agg(node: E.EAgg, ctx: EvalCtx) -> Val:
     data_mask = rowmask if v.validity is None else (rowmask & v.validity)
     if kind == "count":
         return Val(G.seg_count(data_mask, gids, cap), None, dt.UInt32(), None, dom)
-    if v.dtype.is_temporal() and kind in ("sum", "mean"):
-        raise NotImplementedError(
-            f"{kind} of {v.dtype!r} is not ported yet"
-            " (port queue: temporal breadth and asof/range joins)")
     if kind == "sum":
         out_dt = _agg_out_dtype(node, v.dtype)
         s = G.seg_sum(v.values.to(dt.dtype_to_torch(out_dt)), data_mask, gids, cap)
         return Val(wrap_unsigned(s, out_dt), None, out_dt, None, dom)  # polars: sum of all-null/empty = 0
     if kind == "mean":
-        vals = float_values(v.values, v.dtype, torch.float64) if v.dtype.is_integer() else v.values
+        as_float = v.dtype.is_integer() or v.dtype.is_temporal()
+        vals = float_values(v.values, v.dtype, torch.float64) if as_float else v.values
         m, has = G.seg_mean(vals, data_mask, gids, cap)
         out_dt = _agg_out_dtype(node, v.dtype)
-        return Val(m.to(dt.dtype_to_torch(out_dt)), has, out_dt, None, dom)
+        return Val(mean_values(m, v.dtype, out_dt), has, out_dt, None, dom)
     if kind in ("min", "max"):
         if v.table is not None and not v.table.sorted_order:
             raise NotImplementedError("min/max over an unordered dictionary is not ported yet")
@@ -412,6 +476,16 @@ def _eval_agg(node: E.EAgg, ctx: EvalCtx) -> Val:
         out = G.seg_nunique(v, rowmask, gids, cap)
         return Val(wrap_unsigned(out, dt.UInt32()), None, dt.UInt32(), None, dom)
     raise NotImplementedError(f"aggregation {kind!r} is not ported yet (port queue: expression breadth)")
+
+
+def mean_values(m: torch.Tensor, in_dt: dt.DataType, out_dt: dt.DataType) -> torch.Tensor:
+    """Float means in the storage of ``out_dt``: a temporal mean truncates
+    to whole ticks, and a Date's mean of days becomes milliseconds (its mean
+    is a ``Datetime("ms")``; the JAX package reads the days as milliseconds,
+    ROADMAP §3)."""
+    if isinstance(in_dt, dt.Date):
+        m = m * 86_400_000.0
+    return m.to(dt.dtype_to_torch(out_dt))
 
 
 def _agg_out_dtype(node: E.EAgg, in_dt: dt.DataType) -> dt.DataType:

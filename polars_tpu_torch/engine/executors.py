@@ -28,7 +28,7 @@ from polars_tpu_torch.core.schema import Schema
 from polars_tpu_torch.engine import groupby as G
 from polars_tpu_torch.engine.cast import float_values, wrap_unsigned
 from polars_tpu_torch.engine.common import GROUP, ROW, SCALAR, EvalCtx, Val, reject_series
-from polars_tpu_torch.engine.compiler import _agg_domain, _agg_out_dtype, eval_expr, group_of
+from polars_tpu_torch.engine.compiler import _agg_domain, _agg_out_dtype, eval_expr, group_of, mean_values
 from polars_tpu_torch.engine.join_traced import trace_join
 from polars_tpu_torch.engine.sort import apply_perm, sort_perm
 from polars_tpu_torch.errors import ComputeError, InvalidOperationError, ShapeError
@@ -336,7 +336,7 @@ def _batch_aggs(aggs, ctx: EvalCtx) -> dict:
             if not E.is_elementwise(sub.input):
                 continue
             v = eval_expr(sub.input, ctx)
-            if v.domain != ROW or v.table is not None or v.dtype.is_temporal():
+            if v.domain != ROW or v.table is not None or isinstance(v.dtype, dt.Time):
                 continue  # evaluated on its own by compiler._eval_agg
             seen.add(sub)
             if sub.kind in ("min", "max"):
@@ -369,9 +369,8 @@ def _batch_aggs(aggs, ctx: EvalCtx) -> dict:
         elif kind == "mean":
             s, c = col(slots[0]), col(slots[1])
             out_dt = _agg_out_dtype(node_a, v.dtype)
-            out[node_a] = Val(
-                (s / c.clamp(min=1).to(torch.float64)).to(dt.dtype_to_torch(out_dt)), c > 0, out_dt, None, dom,
-            )
+            out[node_a] = Val(mean_values(s / c.clamp(min=1).to(torch.float64), v.dtype, out_dt), c > 0,
+                              out_dt, None, dom)
         else:
             out_dt = _agg_out_dtype(node_a, v.dtype)
             s = wrap_unsigned(col(slots[0]).to(dt.dtype_to_torch(out_dt)), out_dt)

@@ -1,5 +1,6 @@
 """Core elementwise functions (the port of ``polars_tpu/engine/fn_core.py``,
-trimmed to ``not``, ``is_in`` and ``is_between``), registered in
+trimmed to ``not``, ``is_in``, ``is_between`` and the temporal constructors
+``make_date``, ``make_datetime`` and ``make_duration``), registered in
 ``engine/registry.py``."""
 
 from __future__ import annotations
@@ -8,7 +9,7 @@ import torch
 
 from polars_tpu_torch import datatypes as dt
 from polars_tpu_torch.engine.cast import cast_val, order_word, wrap_unsigned
-from polars_tpu_torch.engine.common import SCALAR, SERIES, Val, combine_validity, take_lut
+from polars_tpu_torch.engine.common import ROW, SCALAR, SERIES, Val, combine_validity, take_lut
 from polars_tpu_torch.engine.registry import BOOL, SAME, register
 from polars_tpu_torch.errors import InvalidOperationError
 from polars_tpu_torch.plan.schema_resolve import supertype
@@ -87,3 +88,55 @@ def _is_between(ctx, args, opts):
         validity = validity.expand(out.shape)
     dom = next((a.domain for a in args if a.domain != SCALAR), SCALAR)
     return Val(out, validity, dt.Boolean(), None, dom)
+
+
+# -- temporal constructors ---------------------------------------------------------
+
+
+def _parts_domain(args) -> str:
+    return ROW if any(a.domain == ROW for a in args) else (args[0].domain if args else SCALAR)
+
+
+@register("make_date", dt.Date())
+def _make_date(ctx, args, opts):
+    from polars_tpu_torch.kernels.temporal import days_from_civil
+
+    y, m, d = args
+    return Val(days_from_civil(y.values, m.values, d.values), combine_validity(y.validity, m.validity, d.validity),
+               dt.Date(), None, _parts_domain(args))
+
+
+@register("make_datetime", lambda dts, opts: dt.Datetime(opts.get("time_unit", "us")))
+def _make_datetime(ctx, args, opts):
+    """Days from the civil date, then hours, minutes and seconds in ticks,
+    and the microseconds floored to the unit."""
+    from polars_tpu_torch.kernels.fastmath import floordiv_const
+    from polars_tpu_torch.kernels.temporal import days_from_civil
+
+    tu = opts.get("time_unit", "us")
+    per_s = dt.TICKS_PER_SECOND[tu]
+    y, mo, d = args[:3]
+    out = days_from_civil(y.values, mo.values, d.values).to(torch.int64) * (86_400 * per_s)
+    for a, scale in zip(args[3:6], (3_600 * per_s, 60 * per_s, per_s)):
+        out = out + a.values.to(torch.int64) * scale
+    if len(args) > 6:
+        out = out + floordiv_const(args[6].values.to(torch.int64) * per_s, 1_000_000)
+    return Val(out, combine_validity(*[a.validity for a in args]), dt.Datetime(tu), None, _parts_domain(args))
+
+
+@register("make_duration", lambda dts, opts: dt.Duration(opts.get("time_unit", "us")))
+def _make_duration(ctx, args, opts):
+    """The sum of the given parts in ticks of the time unit (a part finer
+    than the unit counts 0)."""
+    tu = opts.get("time_unit", "us")
+    per_s = dt.TICKS_PER_SECOND[tu]
+    per = {"weeks": 604_800 * per_s, "days": 86_400 * per_s, "hours": 3_600 * per_s, "minutes": 60 * per_s,
+           "seconds": per_s, "milliseconds": per_s // 1_000, "microseconds": per_s // 1_000_000,
+           "nanoseconds": per_s // 1_000_000_000}
+    out = None
+    for unit, a in zip(opts["units"], args):
+        term = a.values.to(torch.int64) * per[unit]
+        out = term if out is None else out + term
+    if out is None:
+        out = torch.zeros(1, dtype=torch.int64, device=ctx.device)
+    return Val(out, combine_validity(*[a.validity for a in args]), dt.Duration(tu), None, _parts_domain(args))

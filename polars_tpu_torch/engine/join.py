@@ -32,19 +32,26 @@ read. Every row index and offset is int64.
 
 from __future__ import annotations
 
+import datetime as _pydt
+import re
+
 import torch
 
+from polars_tpu_torch import datatypes as dt
 from polars_tpu_torch.core.buffer import Buffer
 from polars_tpu_torch.core.column import Column
 from polars_tpu_torch.core.frame import DataFrame
+from polars_tpu_torch.engine.cast import float_values, order_word, tu_convert
 from polars_tpu_torch.engine.common import ROW, Val, take_lut
+from polars_tpu_torch.engine.fn_temporal import _UNIT_NS
 from polars_tpu_torch.engine.gather import gather_frame
 from polars_tpu_torch.engine.join_traced import _key_word as _val_key_word
-from polars_tpu_torch.errors import ComputeError
-from polars_tpu_torch.kernels.argsort import stable_argsort_words
+from polars_tpu_torch.errors import ComputeError, InvalidOperationError
+from polars_tpu_torch.kernels.argsort import key_words, stable_argsort_words
 from polars_tpu_torch.kernels.compact import compact_count, compact_scatter
 from polars_tpu_torch.kernels.hashing import combine_hashes, hash_column
 from polars_tpu_torch.kernels.rowencode import key_bit_width, pack_keys_64
+from polars_tpu_torch.plan.schema_resolve import supertype
 from polars_tpu_torch.utils import strtable
 
 _BIG = 0x7FFFFFFFFFFFFFFF  # sorted word of a build row that cannot match
@@ -366,3 +373,231 @@ def _assemble(left, right, left_keys, right_keys, how, suffix, coalesce, lcols, 
         out = concat([out, DataFrame._from_columns(extra_cols, extra.shape[0], device=left.device)],
                      how="vertical_relaxed")
     return out
+
+
+# ---------------------------------------------------------------------------
+# range joins: the iejoin analogue
+# ---------------------------------------------------------------------------
+
+
+def _range_values(col: Column, other: Column) -> tuple[torch.Tensor, torch.Tensor | None] | None:
+    """(int64 words whose order is the key's, validity or None) of one
+    range-join key against the other side's, or None where the pair cannot
+    be ordered on the card (then the caller crosses and filters).
+    Dictionary codes compare in one sorted code space; floats become
+    order-preserving words with NaN, which matches nothing, invalid; an int
+    against a float compares as f64; a Date against a Datetime, or two time
+    units, in their supertype's ticks."""
+    d, od = col.dtype, other.dtype
+    values, ok = col.buffer.values, col.buffer.validity
+    if col.table is not None:
+        if other.table is None:
+            return None
+        if other.table is col.table:
+            _, mapping = col.table.ordinal()
+        else:
+            _, mapping, _ = strtable.unify(col.table, other.table, require_ordinal=True)
+        return (values if len(mapping) == 0 else take_lut(mapping, values)).to(torch.int64), ok
+    if other.table is not None or not (d.is_numeric() or d.is_temporal() or isinstance(d, dt.Boolean)):
+        return None
+    if d.is_float() or od.is_float():
+        if not (od.is_numeric() and d.is_numeric()) or dt.UInt64() in (d, od):
+            return None
+        v = float_values(values, d, torch.float64)
+        nan = torch.isnan(v)
+        return key_words(v, dt.Float64())[0], ~nan if ok is None else (ok & ~nan)
+    if isinstance(d, dt.UInt64) or isinstance(od, dt.UInt64):
+        return (order_word(values, d), ok) if d == od else None
+    if d.is_temporal() or od.is_temporal():
+        if d == od:
+            return values.to(torch.int64), ok
+        if {type(d).__name__, type(od).__name__} not in ({"Datetime"}, {"Duration"}, {"Date", "Datetime"}):
+            return None
+        st = supertype(d, od)  # Date against Datetime, or two time units: the finer one's ticks
+        if isinstance(d, dt.Date):
+            return values.to(torch.int64) * (dt.TICKS_PER_SECOND[st.time_unit] * 86_400), ok
+        return tu_convert(values, d.time_unit, st.time_unit), ok
+    return values.to(torch.int64), ok
+
+
+_FLIP_OP = {"<": ">", "<=": ">=", ">": "<", ">=": "<="}
+
+
+def _range_bounds(lw, lok, rw, rok, op: str):
+    """The right rows sorted by key (stable: ties in row order; rows without
+    a key last), and for each left row the start and the count of its
+    matches ``lw <op> rw`` in that order."""
+    perm, sk, n_valid = _sort_side(rw, rok)
+    n = sk.shape[0] if n_valid is None else n_valid
+    if op in ("<", "<="):  # the right keys above (from) the left key
+        start = torch.searchsorted(sk, lw, right=op == "<")
+        end = torch.full_like(start, n) if n_valid is None else n_valid.expand(start.shape)
+    else:  # the right keys below (up to) the left key
+        start = torch.zeros(lw.shape, dtype=torch.int64, device=lw.device)
+        end = torch.searchsorted(sk, lw, right=op == ">=")
+        end = end.clamp(max=n) if n_valid is None else torch.minimum(end, n_valid)
+    counts = (end - start).clamp(min=0)
+    if lok is not None:
+        counts = torch.where(lok, counts, 0)
+    return perm, start, counts
+
+
+def range_join_frames(left: DataFrame, right: DataFrame, l_key: Column, r_key: Column, op: str,
+                      suffix: str) -> DataFrame | None:
+    """The pairs of a join on one inequality ``l_key <op> r_key`` (Polars'
+    iejoin, driven by one sorted side): the right keys are sorted once,
+    every left row binary-searches its matching run, and the counts expand
+    into exactly their total of pairs (one host read), each left row in
+    order with its right rows in key order. None where the keys cannot be
+    ordered on the card."""
+    lk, rk = _range_values(l_key, r_key), _range_values(r_key, l_key)
+    if lk is None or rk is None:
+        return None
+    perm, start, counts = _range_bounds(*lk, *rk, op)
+    total = int(counts.sum())
+    li, ri, _, _ = _expand(counts, counts, start, perm, total)
+    names = set(left.columns)
+    cols = gather_frame(left._columns, li)
+    cols += [_renamed(c, c.name + suffix if c.name in names else c.name) for c in gather_frame(right._columns, ri)]
+    return DataFrame._from_columns(cols, total, device=left.device)
+
+
+# ---------------------------------------------------------------------------
+# asof joins
+# ---------------------------------------------------------------------------
+
+
+
+def _tolerance_ticks(tol, key_dtype: dt.DataType) -> int:
+    """A duration string ("1s", "2h30m") or a ``timedelta`` as ticks of the
+    asof key's unit: days for a Date (a whole number of them), the time
+    unit of a Datetime or Duration, nanoseconds for a Time. Calendar units
+    (mo, q, y) are no fixed duration and raise."""
+    if isinstance(tol, _pydt.timedelta):
+        total_ns = ((tol.days * 86_400 + tol.seconds) * 1_000_000 + tol.microseconds) * 1_000
+    else:
+        parts = re.findall(r"(\d+)(ns|us|ms|s|m|h|d|w)", tol)
+        if not parts or "".join(n + u for n, u in parts) != tol.replace(" ", ""):
+            raise InvalidOperationError(
+                f"cannot parse tolerance {tol!r} (calendar units mo/q/y are not fixed durations and are unsupported)")
+        total_ns = sum(int(n) * _UNIT_NS[u] for n, u in parts)
+    if isinstance(key_dtype, dt.Date):
+        if total_ns % _UNIT_NS["d"]:
+            raise InvalidOperationError(f"tolerance {tol!r} is not a whole number of days for Date keys")
+        return total_ns // _UNIT_NS["d"]
+    if isinstance(key_dtype, (dt.Datetime, dt.Duration)):
+        return total_ns // (1_000_000_000 // dt.TICKS_PER_SECOND[key_dtype.time_unit])
+    if isinstance(key_dtype, dt.Time):
+        return total_ns
+    raise InvalidOperationError(f"duration-string tolerance requires a temporal asof key, got {key_dtype!r}")
+
+
+def asof_match(lk: torch.Tensor, rk: torch.Tensor, rmask: torch.Tensor, strategy: str, tolerance):
+    """(right row, matched) of each left key: the right keys are sorted once
+    (stable; unusable rows last), and each left key finds the last right key
+    at or below it (backward), the first at or above it (forward) or the
+    nearer of the two, the earlier on a tie (nearest); beyond ``tolerance``
+    it matches nothing."""
+    nr = rk.shape[0]
+    big = torch.full((), _BIG if not rk.dtype.is_floating_point else float("inf"), dtype=rk.dtype, device=rk.device)
+    rk_m = torch.where(rmask, rk, big)
+    sperm = stable_argsort_words(key_words(rk_m, dt.Float64() if rk.dtype.is_floating_point else dt.Int64()))
+    sk = rk_m.index_select(0, sperm)
+    pos_right = torch.searchsorted(sk, lk, right=True)
+    pos_left = torch.searchsorted(sk, lk)
+    n_valid = rmask.sum()
+    prev, nxt = pos_right - 1, pos_left
+    has_prev, has_next = prev >= 0, nxt < n_valid
+    if strategy == "backward":
+        idx, ok = prev, has_prev
+    elif strategy == "forward":
+        idx, ok = nxt, has_next
+    else:
+        d_prev = lk - sk.index_select(0, prev.clamp(0, nr - 1))
+        d_next = sk.index_select(0, nxt.clamp(0, nr - 1)) - lk
+        use_prev = has_prev & (~has_next | (d_prev <= d_next))
+        idx, ok = torch.where(use_prev, prev, nxt), has_prev | has_next
+    idx = idx.clamp(0, nr - 1)
+    if tolerance is not None:
+        ok = ok & ((lk - sk.index_select(0, idx)).abs() <= tolerance)
+    return sperm.index_select(0, idx), ok
+
+
+def asof_join_frames(left: DataFrame, right: DataFrame, left_on: str, right_on: str, strategy: str, suffix: str,
+                     tolerance, by_left: list[str] | None = None, by_right: list[str] | None = None) -> DataFrame:
+    """Every left row, in order, with the columns of its asof match in the
+    right frame (nulls where there is none). A null key matches nothing on
+    either side: the JAX package matches a right row with a null key as
+    its stored 0 (ROADMAP §3). Keys of two dtypes, one of them temporal,
+    raise, as in Polars. With ``by``, left and right rows of one group
+    (``_side_keys``, ranked among the right side's groups) are searched
+    together through a composite key ``group * K + (t - tmin)``, K greater
+    than any time distance in the data and the tolerance: the time span is
+    one host read, and a span times group count past 2^62 raises."""
+    lcol, rcol = left._get(left_on), right._get(right_on)
+    if lcol.dtype != rcol.dtype and (lcol.dtype.is_temporal() or rcol.dtype.is_temporal()):
+        # days against ticks, or ticks of two units, would compare as raw integers
+        raise InvalidOperationError(f"asof join keys must have one dtype, got {lcol.dtype!r} and {rcol.dtype!r}")
+    if isinstance(tolerance, (str, _pydt.timedelta)):
+        tolerance = _tolerance_ticks(tolerance, lcol.dtype)
+    is_float = lcol.dtype.is_float() or rcol.dtype.is_float()
+    if is_float:
+        lk, rk = float_values(lcol.buffer.values, lcol.dtype, torch.float64), float_values(
+            rcol.buffer.values, rcol.dtype, torch.float64)
+    else:
+        lk, rk = lcol.buffer.values.to(torch.int64), rcol.buffer.values.to(torch.int64)
+    dev = lk.device
+    lmask = torch.ones(left.height, dtype=torch.bool, device=dev)
+    rmask = torch.ones(right.height, dtype=torch.bool, device=dev)
+    if lcol.buffer.validity is not None:
+        lmask &= lcol.buffer.validity
+    if rcol.buffer.validity is not None:
+        rmask &= rcol.buffer.validity
+    if is_float:
+        lmask &= ~torch.isnan(lk)
+        rmask &= ~torch.isnan(rk)
+    gl = gr = None
+    if by_left:
+        if is_float:
+            raise InvalidOperationError("asof join `by` needs an integer or temporal `on` key, not a float one")
+        lcols, rcols = [left._get(n) for n in by_left], [right._get(n) for n in by_right]
+        gl_h, lusable, _ = _side_keys(lcols, rcols, False)
+        gr_h, rusable, _ = _side_keys(rcols, lcols, False)
+        if lusable is not None:
+            lmask &= lusable
+        if rusable is not None:
+            rmask &= rusable
+        # each side's group as its rank among the right side's group words;
+        # a left group no right row has matches nothing
+        sorted_gr = torch.sort(torch.where(rmask, gr_h, _BIG)).values
+        gl = torch.searchsorted(sorted_gr, gl_h)
+        gr = torch.searchsorted(sorted_gr, gr_h)
+        if right.height:
+            lmask &= sorted_gr.index_select(0, gl.clamp(max=right.height - 1)) == gl_h
+        imax = torch.iinfo(torch.int64).max
+        pad = torch.full((1,), imax, device=dev)  # for empty sides
+        lo = torch.cat([torch.where(lmask, lk, imax), torch.where(rmask, rk, imax), pad]).min()
+        neg_hi = torch.cat([torch.where(lmask, -lk, imax), torch.where(rmask, -rk, imax), pad]).min()
+        tmin, tmax = torch.stack([lo, -neg_hi]).tolist()  # one host read: the span sizes the composite key
+        span = max(tmax - tmin, 0)
+        k = span + 2 * abs(int(tolerance or 0)) + 4
+        if (right.height + 2) * k >= 1 << 62:
+            raise InvalidOperationError(
+                "asof join `by`: time span times group count exceeds the composite key range; "
+                "pre-partition the frames instead")
+        lk = torch.where(lmask, gl * k + (lk - tmin), 0)
+        rk = torch.where(rmask, gr * k + (rk - tmin), 0)
+    if right.height:
+        ridx, ok = asof_match(lk, rk, rmask, strategy, tolerance)
+        ok &= lmask
+        if gl is not None:  # a match across a group boundary is none
+            ok &= gr.index_select(0, ridx) == gl
+    else:
+        ridx = torch.zeros(left.height, dtype=torch.int64, device=dev)
+        ok = torch.zeros(left.height, dtype=torch.bool, device=dev)
+    names = set(left.columns)
+    skip = {right_on, *(by_right or [])}
+    rcols = [c for c in right._columns if c.name not in skip]
+    cols = list(left._columns)
+    cols += [_renamed(c, c.name + suffix if c.name in names else c.name) for c in gather_frame(rcols, ridx, ok)]
+    return DataFrame._from_columns(cols, left.height, device=left.device)

@@ -31,6 +31,20 @@ def series_literal(values: Any) -> E.ESeriesLit:
     return E.ESeriesLit(column=Column.from_values("literal", vals, device="cpu"), ident=next(_NEXT_IDENT))
 
 
+def temporal_literal(value: Any) -> E.ELiteral:
+    """A Python date, datetime or timedelta as a literal: a Date, a
+    ``Datetime("us")`` (from its ISO string) or a ``Duration("us")``. Time
+    zones are not ported."""
+    if isinstance(value, _pydt.datetime) and value.tzinfo is not None:
+        raise NotImplementedError(
+            "time-zone-aware literals are not ported yet (port queue: time zones and temporal formatting)")
+    if isinstance(value, _pydt.datetime):
+        return E.ELiteral(value.isoformat(), dt.Datetime("us"))
+    if isinstance(value, _pydt.date):
+        return E.ELiteral(value.isoformat(), dt.Date())
+    return E.ELiteral((value.days * 86_400 + value.seconds) * 1_000_000 + value.microseconds, dt.Duration("us"))
+
+
 def _opts(**kwargs: Any) -> tuple[tuple[str, Any], ...]:
     return tuple(sorted(kwargs.items()))
 
@@ -43,12 +57,8 @@ def parse_into_expr(value: Any, *, str_as_lit: bool = False) -> E.ENode:
         return value
     if isinstance(value, str) and not str_as_lit:
         return E.EColumn(value)
-    if isinstance(value, _pydt.datetime):
-        raise NotImplementedError(
-            "Datetime literals are not ported yet"
-            " (port queue: temporal breadth and asof/range joins)")
-    if isinstance(value, _pydt.date):
-        return E.ELiteral(value.isoformat(), dt.Date())
+    if isinstance(value, (_pydt.date, _pydt.timedelta)):
+        return temporal_literal(value)
     if isinstance(value, np.generic):
         return E.ELiteral(value.item(), dt.numpy_to_dtype(value.dtype))
     if isinstance(value, (list, tuple, np.ndarray)):

@@ -1,5 +1,7 @@
 """Lazy top-level functions (the port of ``polars_tpu/functions/lazy.py``,
-trimmed to ``col``, ``lit``, ``len`` and ``when``/``then``/``otherwise``)."""
+trimmed to ``col``, ``lit``, ``len``, ``when``/``then``/``otherwise``, the
+temporal constructors ``date``, ``datetime`` and ``duration``, and the eager
+``date_range`` and ``datetime_range``)."""
 
 from __future__ import annotations
 
@@ -9,7 +11,7 @@ from typing import Any
 import numpy as np
 
 from polars_tpu_torch import datatypes as dt
-from polars_tpu_torch.expr.expr import Expr, parse_into_expr, series_literal
+from polars_tpu_torch.expr.expr import Expr, parse_into_expr, series_literal, temporal_literal
 from polars_tpu_torch.plan import exprs as E
 
 
@@ -24,12 +26,11 @@ def lit(value: Any, dtype: Any = None) -> Expr:
     """A literal: a scalar, or a list, tuple or 1-D array as a literal Series."""
     if isinstance(value, Expr):
         return value
-    if isinstance(value, _pydt.datetime):
-        raise NotImplementedError(
-            "Datetime literals are not ported yet"
-            " (port queue: temporal breadth and asof/range joins)")
-    if isinstance(value, _pydt.date) and dtype is None:
-        return Expr(E.ELiteral(value.isoformat(), dt.Date()))
+    if isinstance(value, (_pydt.date, _pydt.timedelta)):
+        if dtype is None:
+            return Expr(temporal_literal(value))
+        if isinstance(value, _pydt.date):  # an ISO string, parsed into ``dtype``
+            return Expr(E.ELiteral(value.isoformat(), dt.parse_into_dtype(dtype)))
     if isinstance(value, (list, tuple, np.ndarray)):
         node = series_literal(value)
         return Expr(node if dtype is None else E.ECast(node, dt.parse_into_dtype(dtype), True))
@@ -106,3 +107,103 @@ def _when_condition(predicates: tuple, constraints: dict) -> E.ENode:
 def when(*predicates: Any, **constraints: Any) -> When:
     """Start a when/then/otherwise chain."""
     return When(_when_condition(predicates, constraints))
+
+
+# -- temporal constructors ------------------------------------------------------------
+
+
+def _fn(name: str, inputs, **options: Any) -> Expr:
+    nodes = tuple(parse_into_expr(v, str_as_lit=True) for v in inputs)
+    return Expr(E.EFunction(name, nodes, tuple(sorted(options.items()))))
+
+
+def date(year: Any, month: Any, day: Any) -> Expr:
+    """A Date from year, month and day expressions or values."""
+    return _fn("make_date", (year, month, day)).alias("date")
+
+
+def datetime(year: Any, month: Any, day: Any, hour: Any = 0, minute: Any = 0, second: Any = 0,
+             microsecond: Any = 0, *, time_unit: str = "us", time_zone: str | None = None) -> Expr:
+    """A Datetime from its parts (expressions or values)."""
+    if time_zone is not None:
+        raise NotImplementedError(
+            "datetime(time_zone=...) is not ported yet (port queue: time zones and temporal formatting)")
+    return _fn("make_datetime", (year, month, day, hour, minute, second, microsecond),
+               time_unit=time_unit).alias("datetime")
+
+
+def duration(*, weeks: Any = None, days: Any = None, hours: Any = None, minutes: Any = None, seconds: Any = None,
+             milliseconds: Any = None, microseconds: Any = None, nanoseconds: Any = None,
+             time_unit: str = "us") -> Expr:
+    """A Duration, the sum of the given parts (expressions or values)."""
+    parts = {"weeks": weeks, "days": days, "hours": hours, "minutes": minutes, "seconds": seconds,
+             "milliseconds": milliseconds, "microseconds": microseconds, "nanoseconds": nanoseconds}
+    used = [(k, v) for k, v in parts.items() if v is not None]
+    return _fn("make_duration", [v for _, v in used], units=tuple(k for k, _ in used),
+               time_unit=time_unit).alias("duration")
+
+
+def date_range(start: Any, end: Any, interval: str = "1d", *, closed: str = "both", eager: bool = False):
+    """The Dates from ``start`` to ``end`` by ``interval``, as a Series
+    named "literal" (only the eager form is ported)."""
+    return _temporal_range(start, end, interval, closed, dt.Date(), eager)
+
+
+def datetime_range(start: Any, end: Any, interval: str = "1d", *, closed: str = "both", time_unit: str = "us",
+                   time_zone: str | None = None, eager: bool = False):
+    """The Datetimes from ``start`` to ``end`` by ``interval``, as a Series
+    named "literal" (only the eager form is ported)."""
+    if time_zone is not None:
+        raise NotImplementedError(
+            "datetime_range(time_zone=...) is not ported yet (port queue: time zones and temporal formatting)")
+    return _temporal_range(start, end, interval, closed, dt.Datetime(time_unit), eager)
+
+
+def _temporal_range(start, end, interval: str, closed: str, dtype: dt.DataType, eager: bool):
+    if not eager:
+        raise NotImplementedError(
+            "date_range/datetime_range as a lazy expression is not ported yet (port queue: expression breadth)")
+    from polars_tpu_torch.core.series import Series
+
+    return Series("literal", temporal_range_values(start, end, interval, closed), dtype)
+
+
+def temporal_range_values(start: Any, end: Any, interval: str, closed: str) -> list:
+    """The Python dates or datetimes from ``start`` through ``end`` by
+    ``interval``, honouring ``closed`` (the JAX package's
+    ``engine/run._temporal_range``); a month step keeps the day of the
+    month."""
+    from polars_tpu_torch.engine.fn_temporal import _parse_every
+    from polars_tpu_torch.errors import InvalidOperationError
+
+    n, unit = _parse_every(interval)
+    sub_day = unit in ("h", "m", "s", "ms", "us")
+
+    def parse(x):
+        if isinstance(x, str):
+            x = _pydt.datetime.fromisoformat(x) if len(x) > 10 or "T" in x else _pydt.date.fromisoformat(x)
+        if sub_day and not isinstance(x, _pydt.datetime):
+            x = _pydt.datetime(x.year, x.month, x.day)
+        return x
+
+    start, end = parse(start), parse(end)
+    fixed = {"d": "days", "w": "weeks", "h": "hours", "m": "minutes", "s": "seconds", "ms": "milliseconds",
+             "us": "microseconds"}
+    out, cur = [], start
+    while cur <= end if closed in ("both", "right") else cur < end:
+        prev = cur
+        out.append(cur)
+        if unit in fixed:
+            cur = cur + _pydt.timedelta(**{fixed[unit]: n})
+        elif unit == "mo":
+            months = cur.month - 1 + n
+            cur = cur.replace(year=cur.year + months // 12, month=months % 12 + 1)
+        elif unit == "y":
+            cur = cur.replace(year=cur.year + n)
+        else:
+            raise InvalidOperationError(f"range interval {unit!r}")
+        if cur == prev:
+            raise InvalidOperationError(f"interval {interval!r} makes no progress over {type(prev).__name__} bounds")
+    if closed in ("right", "none") and out and out[0] == start:
+        out = out[1:]
+    return out

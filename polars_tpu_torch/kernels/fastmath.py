@@ -26,6 +26,18 @@ def mod_any(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return torch.remainder(x, y)
 
 
+def floordiv_const(x: torch.Tensor, d: int) -> torch.Tensor:
+    """Floor division of integers by a positive constant, in int64 (negative
+    epochs round down: -1 // 1000 is -1)."""
+    assert d > 0
+    return torch.div(x.to(torch.int64), d, rounding_mode="floor")
+
+
+def mod_const(x: torch.Tensor, d: int) -> torch.Tensor:
+    """``x - floordiv_const(x, d) * d``: in [0, d) for every sign of ``x``."""
+    return x.to(torch.int64) - floordiv_const(x, d) * d
+
+
 _I64_MIN = -(2**63)
 _I64_MAX = 2**63 - 1
 

@@ -1,7 +1,8 @@
 """LazyFrame: the lazy query builder (the port of
 ``polars_tpu/lazyframe.py``, trimmed to ``filter``, ``select``,
 ``with_columns``, ``group_by().agg``, ``sort``, ``join`` (every ``how``),
-``slice``/``head``/``limit`` and ``collect``).
+``join_where``, ``join_asof``, ``slice``/``head``/``limit`` and
+``collect``).
 
 ``collect`` runs the plan as written: the port has no optimizer yet, and no
 rewrite in the JAX package's optimizer changes what Q1, Q3 or Q4 compute
@@ -142,12 +143,37 @@ class LazyFrame:
         )
 
     def join_where(self, other: LazyFrame, *predicates: Any, suffix: str = "_right") -> LazyFrame:
-        raise NotImplementedError(
-            "join_where (range joins) is not ported yet"
-            " (port queue: temporal breadth and asof/range joins)")
+        """Join on predicates between the two sides: equalities make an
+        inner join, the first inequality otherwise a range join; the other
+        predicates filter its output."""
+        preds = tuple(parse_into_expr_list(list(predicates)))
+        return self._wrap(L.LJoinWhere(self._node, other._node, preds, suffix))
 
-    def join_asof(self, other: LazyFrame, **kwargs: Any) -> LazyFrame:
-        raise NotImplementedError("join_asof is not ported yet (port queue: temporal breadth and asof/range joins)")
+    def join_asof(
+        self,
+        other: LazyFrame,
+        *,
+        on: Any = None,
+        left_on: Any = None,
+        right_on: Any = None,
+        by: Any = None,
+        by_left: Any = None,
+        by_right: Any = None,
+        strategy: str = "backward",
+        tolerance: Any = None,
+        suffix: str = "_right",
+    ) -> LazyFrame:
+        """Each left row with the right row whose ``on`` key is nearest
+        (``strategy`` backward, forward or nearest), within ``tolerance`` (a
+        number, a duration string such as "1s" or a timedelta), among the
+        rows of equal ``by`` keys; a null key matches nothing."""
+        if strategy not in ("backward", "forward", "nearest"):
+            raise InvalidOperationError(f"unknown asof strategy {strategy!r}")
+        lo = parse_into_expr_list([on if on is not None else left_on])[0]
+        ro = parse_into_expr_list([on if on is not None else right_on])[0]
+        bl = tuple(parse_into_expr_list([by if by is not None else by_left])) if (by or by_left) else ()
+        br = tuple(parse_into_expr_list([by if by is not None else by_right])) if (by or by_right) else ()
+        return self._wrap(L.LAsofJoin(self._node, other._node, lo, ro, bl, br, strategy, tolerance, suffix))
 
 
 class LazyGroupBy:

@@ -7,7 +7,7 @@ compare equal and evaluate once per context (the compiler's memo).
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, fields, replace
 from typing import Any
 
 
@@ -165,3 +165,17 @@ def is_elementwise(node: ENode) -> bool:
     """True if the expr maps rows independently (every function the port
     registers is elementwise)."""
     return not any(isinstance(n, (EAgg, ELen)) for n in walk(node))
+
+
+def map_columns(node: ENode, fn) -> ENode:
+    """``node`` with every column reference ``c`` replaced by ``fn(c)``."""
+    if isinstance(node, EColumn):
+        return fn(node)
+    changes = {}
+    for f in fields(node):
+        v = getattr(node, f.name)
+        if isinstance(v, ENode):
+            changes[f.name] = map_columns(v, fn)
+        elif isinstance(v, tuple) and v and all(isinstance(x, ENode) for x in v):
+            changes[f.name] = tuple(map_columns(x, fn) for x in v)
+    return replace(node, **changes) if changes else node

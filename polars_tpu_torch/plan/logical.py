@@ -124,3 +124,40 @@ class LSlice(LNode):
 
     def inputs(self) -> tuple[LNode, ...]:
         return (self.input,)
+
+
+@dataclass(frozen=True)
+class LJoinWhere(LNode):
+    """A join on predicates (``join_where``): equalities become an inner
+    join, the first inequality between the sides a range join, the rest a
+    filter of its output."""
+
+    input_left: LNode
+    input_right: LNode
+    predicates: tuple[ENode, ...]
+    suffix: str = "_right"
+
+    def inputs(self) -> tuple[LNode, ...]:
+        return (self.input_left, self.input_right)
+
+    def exprs(self) -> tuple[ENode, ...]:
+        return self.predicates
+
+
+@dataclass(frozen=True)
+class LAsofJoin(LNode):
+    """Each left row with the right row nearest in ``on`` (backward,
+    forward or nearest), within ``tolerance``, among rows of equal ``by``."""
+
+    input_left: LNode
+    input_right: LNode
+    left_on: ENode
+    right_on: ENode
+    by_left: tuple[ENode, ...] = ()
+    by_right: tuple[ENode, ...] = ()
+    strategy: str = "backward"
+    tolerance: Any = None
+    suffix: str = "_right"
+
+    def inputs(self) -> tuple[LNode, ...]:
+        return (self.input_left, self.input_right)

@@ -381,6 +381,17 @@ def node_schema(node: L.LNode) -> Schema:
         return node_schema(node.input)
     if isinstance(node, L.LJoin):
         return _join_schema(node)
+    if isinstance(node, (L.LJoinWhere, L.LAsofJoin)):
+        # every left column, then the right ones (an asof join drops the
+        # right ``on`` and ``by`` keys); a name the left has takes ``suffix``
+        out = node_schema(node.input_left).copy()
+        skip = set()
+        if isinstance(node, L.LAsofJoin):
+            skip = {E.output_name(node.right_on), *(E.output_name(e) for e in node.by_right)}
+        for n, d in node_schema(node.input_right).items():
+            if n not in skip:
+                out[n + node.suffix if n in out else n] = d
+        return out
     if isinstance(node, L.LGroupBy):
         in_s = node_schema(node.input)
         out = Schema()

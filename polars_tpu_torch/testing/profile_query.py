@@ -1,5 +1,7 @@
 """Where a PDS-H query's time goes on the card (any of the 22, q1 to q22,
-with ``pdsh.run_params``).
+with ``pdsh.run_params``), or one of ``chip_smoke.py``'s phases
+``temporal``, ``asof`` (its backward join) and ``range``
+(``testing/phases.py``).
 
 Builds the SF10 frames of the columns the query reads
 (``pdsh.QUERY_COLUMNS``), as ``chip_smoke.py`` does, warms the
@@ -21,7 +23,7 @@ Several queries in one run share the data, made and loaded once; each gets
 frames of only its own columns (``pdsh.frames_for``).
 
 Run from the repository root on a machine with a CUDA device:
-    python3 -m polars_tpu_torch.testing.profile_query [--query q3 [q5 ...]] [--scale 10] [--runs 5]
+    python3 -m polars_tpu_torch.testing.profile_query [--query q3 [q5 ... temporal asof range]] [--scale 10] [--runs 5]
 """
 
 from __future__ import annotations
@@ -138,11 +140,14 @@ def profile_query(torch, query: str, run, rows: dict, scale: float, runs: int, t
     print(json.dumps({"profile": query, "sorts": timed_sorts(torch, run)}), flush=True)
 
 
+PHASES = ("temporal", "asof", "range")
+
+
 def main() -> int:
     from polars_tpu_torch.testing.pdsh import QUERY_COLUMNS
 
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--query", nargs="+", choices=sorted(QUERY_COLUMNS), default=["q1"],
+    ap.add_argument("--query", nargs="+", choices=sorted(QUERY_COLUMNS) + list(PHASES), default=["q1"],
                     help="one or more queries; the data is made and loaded once for all")
     ap.add_argument("--scale", type=float, default=10.0)
     ap.add_argument("--seed", type=int, default=42)
@@ -157,19 +162,36 @@ def main() -> int:
         return 1
     import polars_tpu_torch as pl
     from polars_tpu_torch.testing import pdsh
+    from polars_tpu_torch.testing import phases as P
 
+    own = {"temporal": {"lineitem": P.TEMPORAL_COLUMNS}, "range": {"orders": ["o_orderdate", "o_totalprice"]},
+           "asof": {}}
     need: dict[str, dict] = {}  # table -> the columns any chosen query reads
     for q in args.query:
-        for t, cs in QUERY_COLUMNS[q].items():
+        for t, cs in (own[q] if q in own else QUERY_COLUMNS[q]).items():
             need.setdefault(t, {}).update(dict.fromkeys(cs))
-    raw = pdsh.generate_pdsh(args.scale, seed=args.seed, tables=tuple(need))
+    raw = pdsh.generate_pdsh(args.scale, seed=args.seed, tables=tuple(need)) if need else {}
+    if "temporal" in args.query:
+        P.add_shipts(raw["lineitem"], args.seed)
+        need["lineitem"]["l_shipts"] = None
     tables = {t: pl.DataFrame({c: raw[t][c] for c in cs}, device="cuda") for t, cs in need.items()}
     del raw
     for q in args.query:
-        f = pdsh.frames_for(q, tables)
-        params = pdsh.run_params(q, args.scale)
-        profile_query(torch, q, lambda: pdsh.query(q, f, **params), {t: d.height for t, d in f.items()},
-                      args.scale, args.runs, args.top)
+        if q == "temporal":
+            line = tables["lineitem"]
+            run, rows = (lambda: P.temporal_plan(pl, line)), {"lineitem": line.height}
+        elif q == "range":
+            orders, windows = tables["orders"], pl.DataFrame(P.range_windows(), device="cuda")
+            run, rows = (lambda: P.range_plan(pl, windows, orders)), {"orders": orders.height, "windows": 12}
+        elif q == "asof":
+            frames = P.asof_frames(pl, P.asof_data(args.scale, args.seed), "cuda")
+            run = lambda: P.asof_plan(pl, frames, "backward", "1s")  # noqa: E731
+            rows = {side: f.height for side, f in frames.items()}
+        else:
+            f = pdsh.frames_for(q, tables)
+            params = pdsh.run_params(q, args.scale)
+            run, rows = (lambda: pdsh.query(q, f, **params)), {t: d.height for t, d in f.items()}
+        profile_query(torch, q, run, rows, args.scale, args.runs, args.top)
     return 0
 
 

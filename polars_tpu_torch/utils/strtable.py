@@ -1,8 +1,9 @@
 """Host-side dictionary value tables for String columns.
 
 Copied from ``polars_tpu/utils/strtable.py`` and trimmed to what the ported
-queries use (encoding, ``index_in`` and ``unify``). Device tensors only ever hold dense int32 *codes*; the variable-length
-UTF-8 payload lives on the host in an immutable ``StringTable``. Codes are
+queries use (encoding, ``index_in``, ``unify`` and ``StringTable.ordinal``).
+Device tensors only ever hold dense int32 *codes*; the variable-length UTF-8
+payload lives on the host in an immutable ``StringTable``. Codes are
 ordinal (code order == lexicographic order), so sorting and comparing codes on
 the device matches string semantics.
 
@@ -26,13 +27,14 @@ class StringTable:
     lexicographic order.
     """
 
-    __slots__ = ("values", "sorted_order", "ident", "_unify_cache")
+    __slots__ = ("values", "sorted_order", "ident", "_unify_cache", "_ordinal")
 
     def __init__(self, values: np.ndarray, *, sorted_order: bool = False) -> None:
         self.values = np.asarray(values, dtype=object)
         self.sorted_order = sorted_order
         self.ident = next(_NEXT_IDENT)
         self._unify_cache: dict | None = None  # other table's ident -> unify() result
+        self._ordinal: tuple | None = None  # ordinal() of an unordered table, made once
 
     def __len__(self) -> int:
         return len(self.values)
@@ -45,6 +47,18 @@ class StringTable:
 
     def __eq__(self, other: object) -> bool:
         return self is other
+
+    def ordinal(self) -> tuple[StringTable, np.ndarray]:
+        """(this table's values sorted, old code -> new code): an unordered
+        table sorts on the host once, when an ordering op first needs it."""
+        if self.sorted_order:
+            return self, np.empty(0, np.int32)  # empty remap = identity
+        if self._ordinal is None:
+            order = np.argsort(self.values.astype(str), kind="stable")
+            ranks = np.empty(len(order), np.int32)
+            ranks[order] = np.arange(len(order), dtype=np.int32)
+            self._ordinal = (StringTable(self.values[order], sorted_order=True), ranks)
+        return self._ordinal
 
     def take(self, codes: np.ndarray) -> np.ndarray:
         """Decode codes -> object array of strings (codes < 0 -> None)."""
@@ -150,9 +164,12 @@ def unify(
         left._unify_cache[right.ident] = out
         return out
     if not (left.sorted_order and right.sorted_order):
-        raise NotImplementedError(
-            "ordering strings across unordered dictionaries is not ported yet (port queue: expression breadth)"
-        )
+        # ordinal codes of both tables (each sorted once), then the merge of
+        # two sorted tables below
+        ls, lmap0 = left.ordinal()
+        rs, rmap0 = right.ordinal()
+        merged, lmap1, rmap1 = unify(ls, rs, require_ordinal=True)
+        return merged, (lmap1 if len(lmap0) == 0 else lmap1[lmap0]), (rmap1 if len(rmap0) == 0 else rmap1[rmap0])
     lv = left.values.astype(str)
     rv = right.values.astype(str)
     merged, inv = np.unique(np.concatenate([lv, rv]), return_inverse=True)

@@ -140,8 +140,9 @@ def test_validation_flags_ride_the_count_readback():
 def test_sorted_group_ctx_names_its_slice():
     """The sort-based group-by (ported with Q3/Q4): without keys every kept
     row is one group, as in the JAX package; a host-sized equi-join runs
-    (an m:m self-join: 2 x 2 + 1 pairs) and a range join names its port queue
-    item."""
+    (an m:m self-join: 2 x 2 + 1 pairs), and so does a range join of a frame
+    with itself (a cross join and a filter, as ``k`` names a column of both
+    sides), giving the JAX package's frame."""
     rowmask = np.asarray([False, True, True, False, True])
     g = GT.sorted_group_ctx([], torch.from_numpy(rowmask))
     gids_j, num_j, valid_j = jax.jit(lambda m: (lambda c: (c.gids, c.num_groups, c.group_valid))(
@@ -151,5 +152,10 @@ def test_sorted_group_ctx_names_its_slice():
     np.testing.assert_array_equal(g.gids.numpy()[rowmask], np.asarray(gids_j)[rowmask])
     df = polars_tpu_torch.DataFrame({"k": [1, 1, 2]}, device="cpu")
     assert df.lazy().join(df.lazy(), on="k").collect().to_dict(as_series=False) == {"k": [1, 1, 1, 1, 2]}
-    with pytest.raises(NotImplementedError, match="asof/range joins"):
-        df.lazy().join_where(df.lazy(), polars_tpu_torch.col("k") < polars_tpu_torch.col("k"))
+    import polars_tpu
+
+    got = df.lazy().join_where(df.lazy(), polars_tpu_torch.col("k") < polars_tpu_torch.col("k")).collect()
+    dj = polars_tpu.DataFrame({"k": [1, 1, 2]})
+    want = dj.lazy().join_where(dj.lazy(), polars_tpu.col("k") < polars_tpu.col("k")).collect()
+    assert got.to_dict(as_series=False) == want.to_dict(as_series=False)
+    assert [repr(d) for d in got.schema.values()] == [repr(d) for d in want.schema.values()]

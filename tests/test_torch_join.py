@@ -185,13 +185,14 @@ def test_two_violated_validations_raise_together(sides):
 
 def test_host_sized_joins_name_their_queue_item(sides):
     """The joins that size their output on the host: equi-joins of every
-    ``how`` run (``tests/test_torch_join_host.py``), a range or asof join
-    still names its queue item."""
+    ``how`` run (``tests/test_torch_join_host.py``), and so does a range
+    join (``tests/test_torch_join_range_asof.py``), giving the JAX
+    package's frame."""
     (lj, lt), (rj, rt) = sides
     want = lj.lazy().join(rj.lazy(), on="k").collect()  # m:m inner
     _assert_frames_match(lt.lazy().join(rt.lazy(), on="k").collect(), want)
-    with pytest.raises(NotImplementedError, match="asof/range joins"):
-        lt.lazy().join_where(rt.lazy(), plt.col("k") < plt.col("k2"))
+    want = lj.lazy().join_where(rj.lazy(), plj.col("k") < plj.col("k2")).collect()
+    _assert_frames_match(lt.lazy().join_where(rt.lazy(), plt.col("k") < plt.col("k2")).collect(), want)
 
 
 def test_join_kernel_calls(sides, monkeypatch):

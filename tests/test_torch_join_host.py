@@ -453,11 +453,17 @@ def test_gather_drop_and_concat_match_polars_tpu(frames):
 
 
 def test_join_where_and_join_asof_name_their_queue_item(frames):
-    lt = _pick(frames, plt, "left")
-    with pytest.raises(NotImplementedError, match="asof/range joins"):
-        lt.lazy().join_where(lt.lazy(), plt.col("k") < plt.col("k"))
-    with pytest.raises(NotImplementedError, match="asof/range joins"):
-        lt.lazy().join_asof(lt.lazy(), on="d")
+    """Once raising and naming their queue item, ``join_where`` and
+    ``join_asof`` now run and give the JAX package's frames (a self range
+    join over a column both sides have is a cross join and a filter; the
+    asof join over a date key of the right side sorted, since the reference
+    misreads a null right key, ROADMAP §3)."""
+    lj, lt = _pick(frames, plj, "left"), _pick(frames, plt, "left")
+    _assert_frames_match(lt.lazy().join_where(lt.lazy(), plt.col("k") < plt.col("k")).collect(),
+                         lj.lazy().join_where(lj.lazy(), plj.col("k") < plj.col("k")).collect())
+    rj, rt = (_pick(frames, pl, "right", ["d", "rrow"]) for pl in (plj, plt))
+    rj, rt = (r.lazy().filter(pl.col("d") > dtm.date(1900, 1, 1)) for r, pl in ((rj, plj), (rt, plt)))
+    _assert_frames_match(lt.lazy().join_asof(rt, on="d").collect(), lj.lazy().join_asof(rj, on="d").collect())
 
 
 def test_join_dates_stay_dates(frames):
