@@ -59,7 +59,20 @@ Phases, each printed as one JSON line:
                 two date inequalities (about 90M range pairs, 2.3M kept by
                 K2), then a sum and a count per window;
                 each of 11-13 against a numpy oracle written here, with its
-                warm median, peak device memory, result rows and host reads.
+                warm median, peak device memory, result rows and host reads;
+ 14. frameops — SF10 lineitem: unique by order with keep "first" and
+                "none" (about 15M orders), a lazy concat of the 1995 and
+                1996 lines with with_row_index, rename, drop and a group-by,
+                and the per-order totals joined back to their own mean by
+                line count (a subplan used twice, run once); each against a
+                numpy oracle, a line each.
+Every collect runs the optimized plan. Each PDS-H query and each frameops
+query also runs its plan as written (collect(no_optimization=True)): a
+warm-up, then 6 collects as written and 6 optimized, in turns with the
+side that goes first alternating, each optimized one timed as optimize()
+and the run of the optimized plan; its frame held to the same oracle and
+to the optimized frame's schema and rows, the K1/K2 launches and host
+reads of one collect each way ("unoptimized" on its line).
 Each query reads frames of only its own columns (``pdsh.QUERY_COLUMNS``),
 cut from one frame per table that is built once (string encoding timed per
 column). Each query phase then collects once more with the engine's kernel calls
@@ -72,7 +85,7 @@ then the kernels line, the card's name and power limit, and the final line
 {"ok": true, "device": {...}}. Any failure exits non-zero before that line.
 
 Run from the repository root:
-    python3 chip_smoke.py [--scale 10] [--seed 42] [--only q1 filter q3 q4 ... q22 joins temporal asof range]
+    python3 chip_smoke.py [--scale 10] [--seed 42] [--only q1 filter q3 q4 ... q22 joins temporal asof range frameops]
 (``--only`` runs the build and kernel phases and the named query phases, for
 an A/B of a few queries against a parent tree). It needs a CUDA device and
 nvcc; it never imports JAX or polars_tpu.
@@ -111,7 +124,7 @@ def day(y: int, m: int, d: int) -> int:
 Q3_DAYS = day(1995, 3, 15)
 Q4_FROM, Q4_TO = day(1993, 7, 1), day(1993, 10, 1)
 PHASES = ["q1", "filter", "q3", "q4", "q5", "q6", "q10", "q12", "q14", "q18", "q19", "q11", "q15", "q17", "q20",
-          "q2", "q7", "q8", "q9", "q13", "q16", "q21", "q22", "joins", "temporal", "asof", "range"]
+          "q2", "q7", "q8", "q9", "q13", "q16", "q21", "q22", "joins", "temporal", "asof", "range", "frameops"]
 # the columns the phases outside PDS-H read of each table (asof makes its own)
 PHASE_COLUMNS = {
     "joins": {"customer": ["c_custkey", "c_mktsegment"], "orders": ["o_orderkey", "o_custkey", "o_orderdate"],
@@ -121,6 +134,8 @@ PHASE_COLUMNS = {
     "temporal": {"lineitem": ["l_shipdate", "l_commitdate", "l_receiptdate", "l_shipts"]},
     "range": {"orders": ["o_orderdate", "o_totalprice"]},
     "asof": {},
+    "frameops": {"lineitem": ["l_orderkey", "l_linenumber", "l_shipdate", "l_returnflag", "l_linestatus",
+                              "l_quantity", "l_extendedprice"]},  # testing/phases.FRAMEOPS_COLUMNS
 }
 
 
@@ -675,6 +690,64 @@ def run_query(torch, query: str, run, need=("groupagg_sums", "compact", "compact
             "kernel_calls": hold_kernel_calls(torch, calls, query, k2_repeats)}
 
 
+def run_unoptimized(torch, run, out, check) -> dict:
+    """The query's plan as written (``collect(no_optimization=True)``) beside
+    the optimized one, after the main path: a warm-up, then 6 rounds of one
+    collect as written and one optimized, in turns (as written first in the
+    even rounds, optimized first in the odd ones, so neither side always runs
+    second), each LazyFrame built by ``run()``. Each collect runs as
+    ``collect()`` does and is timed on the host clock in two parts:
+    ``optimize()`` of the plan (nothing as written), then the run of the
+    plan up to a synchronize. The medians: ``warm_wall_s`` (as written),
+    ``optimized_warm_wall_s`` (the optimized whole), ``optimize_s`` and
+    ``optimized_run_s`` (its two parts). The frame as written is held by
+    ``check`` (the optimized frame's oracle, with the same rules) and to the
+    optimized frame's schema and rows; the K1/K2 launches and host reads of
+    one more collect each way."""
+    from polars_tpu_torch.engine.run import execute_plan, plan_cache_scope
+    from polars_tpu_torch.kernels.compact import compact, compact_scatter
+    from polars_tpu_torch.kernels.groupagg import groupagg_sums
+    from polars_tpu_torch.plan.optimizer import optimize
+
+    def timed_collect(no_opt: bool) -> tuple[float, float]:
+        lf = run()
+        t0 = time.perf_counter()
+        node = lf._node if no_opt else optimize(lf._node)
+        t1 = time.perf_counter()
+        with plan_cache_scope():
+            execute_plan(node)
+        torch.cuda.synchronize()
+        return t1 - t0, time.perf_counter() - t1
+
+    lf = run()
+    plain = lf.collect(no_optimization=True)
+    torch.cuda.synchronize()
+    parts: dict[bool, list] = {True: [], False: []}
+    for r in range(6):
+        for no_opt in ((True, False) if r % 2 == 0 else (False, True)):
+            parts[no_opt].append(timed_collect(no_opt))
+    walls = [o + x for o, x in parts[True]]
+    opt_walls = [o + x for o, x in parts[False]]
+    if [(c, repr(d)) for c, d in plain.schema.items()] != [(c, repr(d)) for c, d in out.schema.items()]:
+        raise AssertionError(f"unoptimized schema {plain.schema} != optimized {out.schema}")
+    if plain.height != out.height:
+        raise AssertionError(f"unoptimized rows {plain.height} != optimized {out.height}")
+    check(plain)
+    launches, reads = {}, {}
+    for way, no_opt in (("optimized", False), ("unoptimized", True)):
+        groupagg_sums.launches = compact.launches = compact_scatter.launches = 0
+        with count_host_reads(torch) as seen:
+            lf.collect(no_optimization=no_opt)
+            torch.cuda.synchronize()
+        launches[way] = {"groupagg_sums": groupagg_sums.launches, "compact": compact.launches}
+        reads[way] = seen["reads"]
+    return {"warm_wall_s": statistics.median(walls), "warm_walls_s": walls,
+            "optimized_warm_wall_s": statistics.median(opt_walls), "optimized_warm_walls_s": opt_walls,
+            "optimize_s": statistics.median(o for o, _ in parts[False]),
+            "optimized_run_s": statistics.median(x for _, x in parts[False]),
+            "launches": launches, "host_reads": reads, "equal_to_optimized": True}
+
+
 def phase_q1(torch, raw: dict, df, t_gen: float, t_frame: float, scale: float) -> dict:
     from polars_tpu_torch.testing import pdsh
 
@@ -682,31 +755,38 @@ def phase_q1(torch, raw: dict, df, t_gen: float, t_frame: float, scale: float) -
     r = run_query(torch, "q1", lambda: pdsh.q1(df))
     out = r["out"]
     want = q1_oracle(raw)
-    got = out.to_dict(as_series=False)
-    schema = [(k, repr(v)) for k, v in out.schema.items()]
-    expect_schema = [("l_returnflag", "String"), ("l_linestatus", "String")] + [
-        (k, "Float64") for k in ("sum_qty", "sum_base_price", "sum_disc_price", "sum_charge",
-                                 "avg_qty", "avg_price", "avg_disc")] + [("count_order", "UInt32")]
-    if schema != expect_schema:
-        raise AssertionError(f"Q1 schema {schema} != {expect_schema}")
-    for key in ("l_returnflag", "l_linestatus"):
-        if got[key] != want[key]:
-            raise AssertionError(f"Q1 {key}: {got[key]} != {want[key]}")
-    if got["count_order"] != [int(x) for x in want["count_order"]]:
-        raise AssertionError(f"Q1 count_order: {got['count_order']} != {list(want['count_order'])}")
-    worst = 0.0
-    for key in ("sum_qty", "sum_base_price", "sum_disc_price", "sum_charge", "avg_qty", "avg_price", "avg_disc"):
-        g, w = np.asarray(got[key], np.float64), np.asarray(want[key], np.float64)
-        if g.shape != w.shape or not np.all(np.isfinite(g)):
-            raise AssertionError(f"Q1 {key}: shape or finiteness mismatch {g} vs {w}")
-        np.testing.assert_allclose(g, w, rtol=1e-9, atol=0, err_msg=f"Q1 {key}")
-        worst = max(worst, float(np.max(np.abs(g - w) / np.abs(w))) if len(w) else 0.0)
+
+    def check(out) -> float:
+        got = out.to_dict(as_series=False)
+        schema = [(k, repr(v)) for k, v in out.schema.items()]
+        expect_schema = [("l_returnflag", "String"), ("l_linestatus", "String")] + [
+            (k, "Float64") for k in ("sum_qty", "sum_base_price", "sum_disc_price", "sum_charge",
+                                     "avg_qty", "avg_price", "avg_disc")] + [("count_order", "UInt32")]
+        if schema != expect_schema:
+            raise AssertionError(f"Q1 schema {schema} != {expect_schema}")
+        for key in ("l_returnflag", "l_linestatus"):
+            if got[key] != want[key]:
+                raise AssertionError(f"Q1 {key}: {got[key]} != {want[key]}")
+        if got["count_order"] != [int(x) for x in want["count_order"]]:
+            raise AssertionError(f"Q1 count_order: {got['count_order']} != {list(want['count_order'])}")
+        worst = 0.0
+        for key in ("sum_qty", "sum_base_price", "sum_disc_price", "sum_charge", "avg_qty", "avg_price", "avg_disc"):
+            g, w = np.asarray(got[key], np.float64), np.asarray(want[key], np.float64)
+            if g.shape != w.shape or not np.all(np.isfinite(g)):
+                raise AssertionError(f"Q1 {key}: shape or finiteness mismatch {g} vs {w}")
+            np.testing.assert_allclose(g, w, rtol=1e-9, atol=0, err_msg=f"Q1 {key}")
+            worst = max(worst, float(np.max(np.abs(g - w) / np.abs(w))) if len(w) else 0.0)
+        return worst
+
+    worst = check(out)
+    unopt = run_unoptimized(torch, lambda: pdsh.q1(df), out, check)
     res = {
         "phase": "q1", "scale": scale, "rows": n, "groups": out.height, "datagen_s": t_gen,
         "frame_build_s": t_frame, "first_collect_s": r["first_collect_s"], "warm_wall_s": r["warm_wall_s"],
         "warm_walls_s": r["warm_walls_s"], "rows_per_s": n / r["warm_wall_s"], "launches": r["launches"],
         "peak_device_bytes": r["peak_device_bytes"],
-        "max_rel_err_vs_numpy": worst, "matches_numpy_oracle": True, "kernel_calls": r["kernel_calls"],
+        "max_rel_err_vs_numpy": worst, "matches_numpy_oracle": True, "unoptimized": unopt,
+        "kernel_calls": r["kernel_calls"],
     }
     emit(res)
     return res
@@ -1288,10 +1368,14 @@ def phase_query(torch, name: str, frames: dict, raw: dict, scale: float, k2_repe
         raise AssertionError(f"{name} schema {schema} != {SCHEMAS[name]}")
     if not len(want[next(iter(want))]):
         raise AssertionError(f"{name}: the oracle's result is empty at this scale")
-    if sort_col is None:
-        worst = check_exact(out, want, floats, name)
-    else:
-        worst = check_top(out, want, sort_col, k, floats, name)
+
+    def check(out) -> float:
+        if sort_col is None:
+            return check_exact(out, want, floats, name)
+        return check_top(out, want, sort_col, k, floats, name)
+
+    worst = check(out)
+    unopt = run_unoptimized(torch, lambda: pdsh.query(name, f, **params), out, check)
     rows = {t: d.height for t, d in f.items()}
     got = out.to_dict(as_series=False)
     res = {"phase": name, "rows": rows, **extra, "result_rows": out.height, "first_collect_s": r["first_collect_s"],
@@ -1300,7 +1384,7 @@ def phase_query(torch, name: str, frames: dict, raw: dict, scale: float, k2_repe
            "launches": r["launches"], "peak_device_bytes": r["peak_device_bytes"],
            "max_rel_err_vs_numpy": worst, "matches_numpy_oracle": True,
            "result": {c: [str(v) if isinstance(v, dtm.date) else v for v in vals[:5]] for c, vals in got.items()},
-           "kernel_calls": r["kernel_calls"]}
+           "unoptimized": unopt, "kernel_calls": r["kernel_calls"]}
     emit(res)
     return res
 
@@ -1683,6 +1767,92 @@ def phase_range(torch, pl, orders_frame, raw: dict, dev) -> dict:
                         kept_pairs=int(want["len"].sum()))
 
 
+def frameops_oracle(line: dict) -> dict:
+    """The frameops phase in numpy (``l_orderkey`` comes sorted): the first
+    row of each order and the rows of the orders of one line; the 1995 and
+    1996 rows one after the other, numbered, per (flag, status) the sums,
+    the rows and the last number; the per-order totals above the mean of
+    the orders with as many lines, per line count."""
+    key = line["l_orderkey"]
+    start = np.flatnonzero(np.r_[True, key[1:] != key[:-1]])
+    runs = np.diff(np.r_[start, len(key)])
+    days = _days(line["l_shipdate"])
+    sel = np.concatenate([np.flatnonzero((days >= day(y, 1, 1)) & (days < day(y + 1, 1, 1))) for y in (1995, 1996)])
+    flag, status = line["l_returnflag"][sel], line["l_linestatus"][sel]
+    pairs = sorted(set(zip(flag.tolist(), status.tolist())))
+    concat = {c: [] for c in ("flag", "status", "qty", "price", "n", "last_row")}
+    for f_, s_ in pairs:
+        m = (flag == f_) & (status == s_)
+        for c, v in (("flag", f_), ("status", s_), ("qty", line["l_quantity"][sel][m].sum()),
+                     ("price", line["l_extendedprice"][sel][m].sum()), ("n", int(m.sum())),
+                     ("last_row", int(np.flatnonzero(m)[-1]))):
+            concat[c].append(v)
+    total = np.add.reduceat(line["l_extendedprice"], start)
+    avg = np.bincount(runs, weights=total) / np.maximum(np.bincount(runs), 1)
+    above = total > avg[runs]
+    lines = np.unique(runs[above])
+    cache = {"lines": lines, "orders": np.asarray([int((runs[above] == n).sum()) for n in lines]),
+             "total": np.asarray([total[above & (runs == n)].sum() for n in lines])}
+    return {"first": start, "single": start[runs == 1], "concat": concat, "cache": cache,
+            "orders": len(start), "concat_rows": len(sel)}
+
+
+def phase_frameops(torch, pl, line_frame, raw: dict) -> dict:
+    """The frame operations the optimizer rewrites, on SF10 lineitem, each
+    through its own main path and its plan as written (``run_unoptimized``):
+    ``unique`` by order with ``keep`` first and none (60M rows, K2 only), a
+    lazy concat of two years with a row index, a rename, a drop and a
+    group-by (K1), and the per-order totals joined back to their own mean
+    (a cached subplan: its group-by's K1 launches count once optimized)."""
+    P = _phases()
+    line = raw["lineitem"]
+    want = frameops_oracle(line)
+    out_all = {}
+    for name in ("first", "single", "concat", "cache"):
+        need = ("compact", "compact_scatter") if name in ("first", "single") else ("groupagg_sums", "compact",
+                                                                                   "compact_scatter")
+        r = run_phase(torch, f"frameops.{name}", lambda name=name: P.frameops_plans(pl, line_frame)[name], need)
+        out = r["out"]
+        if name in ("first", "single"):
+            rows = want[name]
+
+            def check(out, rows=rows, name=name) -> float:
+                if out.height != len(rows):
+                    raise AssertionError(f"frameops.{name}: {out.height} rows, want {len(rows)}")
+                for c in ("l_orderkey", "l_linenumber", "l_shipdate"):
+                    got = _storage(out, c)[0].astype(np.int64)
+                    w = line[c][rows]
+                    if not np.array_equal(got, _days(w) if w.dtype.kind == "M" else w.astype(np.int64)):
+                        raise AssertionError(f"frameops.{name} {c}: {got[:5]} differ from the oracle's")
+                return 0.0
+
+            extra = {"distinct_orders": want["orders"], "kept_rows": len(rows)}
+        elif name == "concat":
+            def check(out) -> float:
+                got = out.to_dict(as_series=False)
+                w = want["concat"]
+                for c in ("flag", "status", "n", "last_row"):
+                    if got[c] != list(w[c]):
+                        raise AssertionError(f"frameops.concat {c}: {got[c]} != {list(w[c])}")
+                np.testing.assert_allclose(got["qty"], w["qty"], rtol=1e-9, atol=0, err_msg="frameops.concat qty")
+                np.testing.assert_allclose(got["price"], w["price"], rtol=1e-9, atol=0,
+                                           err_msg="frameops.concat price")
+                return float(max(np.max(np.abs(np.asarray(got[c]) - w[c]) / np.abs(w[c])) for c in ("qty", "price")))
+
+            extra = {"concat_rows": want["concat_rows"]}
+        else:
+            def check(out) -> float:
+                return check_columns(out, want["cache"], exact=("lines", "orders"), floats=("total",),
+                                     label="frameops.cache")
+
+            extra = {"orders_above_mean": int(want["cache"]["orders"].sum())}
+        worst = check(out)
+        unopt = run_unoptimized(torch, lambda name=name: P.frameops_plans(pl, line_frame)[name], out, check)
+        out_all[name] = phase_result(f"frameops.{name}", r, out, {"lineitem": line_frame.height}, worst,
+                                     unoptimized=unopt, **extra)
+    return out_all
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1729,6 +1899,9 @@ def main() -> int:
             runs[name] = phase_asof(torch, pl, args.scale, args.seed, dev)
         elif name == "range":
             runs[name] = phase_range(torch, pl, frames["range"]["orders"], raw, dev)
+        elif name == "frameops":
+            for sub, res in phase_frameops(torch, pl, frames["frameops"]["lineitem"], raw).items():
+                runs[f"frameops.{sub}"] = res
         else:  # Q3's K2 call runs 50 times, each against the first
             runs[name] = phase_query(torch, name, frames, raw, args.scale, k2_repeats=50 if name == "q3" else 1)
     del frames, raw, line

@@ -3,10 +3,13 @@
 Same API and query semantics as ``polars_tpu`` (``import polars_tpu_torch as
 pl``), ported slice by slice; it runs all 22 PDS-H queries (filters, joins
 of every ``how``, group-bys, one-row aggregate selects, sorts and top-k,
-string predicates and slices; Date, Datetime, Duration and Time columns,
+string predicates and slices; ``unique``, ``rename``, ``drop``,
+``with_row_index`` and lazy ``concat``; Date, Datetime, Duration and Time columns,
 their arithmetic and the ``dt`` namespace without time zones; range joins
 (``join_where``) and asof joins; a join that sizes its output on the host
-runs between fused segments). Plain tensor work is
+runs between fused segments). Every collect runs the plan the optimizer
+(``plan/optimizer``) gives, unless the caller asks for the plan as written;
+``LazyFrame.explain`` shows it. Plain tensor work is
 PyTorch; the group aggregation (K1) and the segment-end compaction (K2) are
 CUDA kernels written for sm_90a (``csrc/``), built with nvcc at first use.
 
@@ -52,6 +55,7 @@ from polars_tpu_torch.errors import (
 )
 from polars_tpu_torch.expr.expr import Expr
 from polars_tpu_torch.functions.eager import concat
+from polars_tpu_torch.functions.interop import QueryOptFlags
 from polars_tpu_torch.functions.lazy import (  # noqa: A004
     col, date, date_range, datetime, datetime_range, duration, len, lit, when,
 )
@@ -61,7 +65,7 @@ from polars_tpu_torch.lazyframe import LazyFrame
 __all__ = [
     "Boolean", "ColumnNotFoundError", "ComputeError", "DataFrame", "Date", "Datetime", "DuplicateError",
     "Duration", "Expr", "Float32", "Float64", "Int8", "Int16", "Int32", "Int64", "InvalidOperationError",
-    "LazyFrame", "PolarsError", "Schema", "SchemaError", "Series", "ShapeError", "String", "Time",
+    "LazyFrame", "PolarsError", "QueryOptFlags", "Schema", "SchemaError", "Series", "ShapeError", "String", "Time",
     "UInt8", "UInt16", "UInt32", "UInt64", "Utf8", "business_day_count", "col", "concat", "datatypes",
     "date", "date_range", "datetime", "datetime_range", "duration", "len", "lit", "set_default_device", "when",
 ]

@@ -15,6 +15,7 @@ cache and no formulation toggles.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import torch
@@ -31,12 +32,14 @@ from polars_tpu_torch.engine.common import GROUP, ROW, SCALAR, EvalCtx, Val, rej
 from polars_tpu_torch.engine.compiler import _agg_domain, _agg_out_dtype, eval_expr, group_of, mean_values
 from polars_tpu_torch.engine.join_traced import trace_join
 from polars_tpu_torch.engine.sort import apply_perm, sort_perm
+from polars_tpu_torch.engine.strings import concat_vals
 from polars_tpu_torch.errors import ComputeError, InvalidOperationError, ShapeError
+from polars_tpu_torch.kernels.argsort import boundaries_from_words, key_words, stable_argsort_words
 from polars_tpu_torch.kernels.compact import compact_count, compact_scatter
 from polars_tpu_torch.kernels.groupagg import groupagg_sums
 from polars_tpu_torch.plan import exprs as E
 from polars_tpu_torch.plan import logical as L
-from polars_tpu_torch.plan.schema_resolve import expand_exprs, expr_dtype, node_schema
+from polars_tpu_torch.plan.schema_resolve import expand_exprs, expr_dtype, node_schema, supertype
 
 # ---------------------------------------------------------------------------
 # segment table
@@ -52,7 +55,10 @@ class TTable:
         return Schema([(n, v.dtype) for n, v in self.cols.items()])
 
 
-_FUSABLE = (L.LFilter, L.LSelect, L.LWithColumns, L.LSlice, L.LSort, L.LGroupBy, L.LJoin)
+_FUSABLE = (
+    L.LFilter, L.LSelect, L.LWithColumns, L.LSlice, L.LDistinct, L.LSort, L.LGroupBy, L.LRename, L.LDrop,
+    L.LWithRowIndex, L.LUnion, L.LHConcat, L.LJoin,
+)
 
 
 def _join_fusable(node: L.LJoin) -> bool:
@@ -167,7 +173,100 @@ def trace_node(node: L.LNode, tc: _TraceCtx) -> TTable:
     if isinstance(node, L.LGroupBy):
         return _trace_groupby(trace_node(node.input, tc), node, tc)
 
+    if isinstance(node, L.LRename):
+        tt = trace_node(node.input, tc)
+        mapping = dict(node.mapping)
+        return TTable({mapping.get(n, n): v for n, v in tt.cols.items()}, tt.rowmask)
+
+    if isinstance(node, L.LDrop):
+        tt = trace_node(node.input, tc)
+        return TTable({n: v for n, v in tt.cols.items() if n not in node.columns}, tt.rowmask)
+
+    if isinstance(node, L.LWithRowIndex):
+        tt = trace_node(node.input, tc)
+        rank = torch.cumsum(tt.rowmask, 0, dtype=torch.int64) + (node.offset - 1)  # UInt32 is int64 here
+        return TTable({node.name: Val(rank, None, dt.UInt32(), None, ROW), **tt.cols}, tt.rowmask)
+
+    if isinstance(node, L.LDistinct):
+        tt = trace_node(node.input, tc)
+        subset = node.subset if node.subset is not None else tuple(tt.cols)
+        keep = _distinct_rowmask([tt.cols[c] for c in subset], tt.rowmask, node.keep)
+        return TTable(tt.cols, tt.rowmask & keep)
+
+    if isinstance(node, L.LUnion):
+        return _trace_union([trace_node(i, tc) for i in node.inputs_])
+
+    if isinstance(node, L.LHConcat):
+        return _trace_hconcat([trace_node(i, tc) for i in node.inputs_])
+
     raise InvalidOperationError(f"cannot run {type(node).__name__} in a segment")
+
+
+def _distinct_rowmask(keys: list[Val], rowmask: torch.Tensor, keep: str) -> torch.Tensor:
+    """The rows ``unique`` keeps, in place (no reordering): a stable argsort
+    of the key words puts equal keys next to each other in row order, and a
+    row is kept by its place in its run of equals (``keep`` any or first:
+    the first; last: the last; none: a run of one). A null is one value
+    whatever lies under it; rows outside ``rowmask`` sort last and match
+    nothing."""
+    words = [(~rowmask).to(torch.int8)]
+    for k in keys:
+        kw = key_words(k.values, k.dtype)
+        if k.validity is not None:
+            words.append((~k.validity).to(torch.int8))
+            kw = [torch.where(k.validity, w, torch.zeros((), dtype=w.dtype, device=w.device)) for w in kw]
+        words.extend(kw)
+    perm = stable_argsort_words(words)
+    # the mask word is among the words, so a run never spans kept and
+    # masked rows
+    same_prev = ~boundaries_from_words(words, perm) & rowmask.index_select(0, perm)
+    same_next = torch.zeros_like(same_prev)
+    same_next[:-1] = same_prev[1:]
+    if keep in ("any", "first"):
+        flag = ~same_prev
+    elif keep == "last":
+        flag = ~same_next
+    else:
+        flag = ~(same_prev | same_next)
+    return torch.empty_like(flag).index_copy_(0, perm, flag)
+
+
+def _trace_union(tts: list[TTable]) -> TTable:
+    """The inputs' rows one after another, each column cast to the
+    supertype of its pieces and string columns put on one dictionary."""
+    cols: dict[str, Val] = {}
+    for n in tts[0].cols:
+        vals = [t.cols[n] for t in tts]
+        cols[n] = concat_vals(vals, functools.reduce(supertype, (v.dtype for v in vals)))
+    return TTable(cols, torch.cat([t.rowmask for t in tts]))
+
+
+def _trace_hconcat(tts: list[TTable]) -> TTable:
+    """The inputs' kept rows side by side by rank, without a host read: row
+    r of each input is its r-th kept row (gathered through a scatter of
+    positions by rank), null past its count, as Polars pads a shorter
+    frame."""
+    rows = max(t.rowmask.shape[0] for t in tts)
+    iota = torch.arange(rows, device=tts[0].rowmask.device)
+    cols: dict[str, Val] = {}
+    mask = torch.zeros(rows, dtype=torch.bool, device=iota.device)
+    for t in tts:
+        n = t.rowmask.shape[0]
+        rank = torch.cumsum(t.rowmask, 0, dtype=torch.int64) - 1
+        present = iota < (rank[-1] + 1 if n else 0)
+        pos = torch.zeros(rows + 1, dtype=torch.int64, device=iota.device)
+        pos.index_copy_(0, torch.where(t.rowmask, rank, rows), torch.arange(n, device=iota.device))
+        pos = pos[:rows]
+        mask |= present
+        for name, v in t.cols.items():
+            if n:
+                values = v.values.index_select(0, pos)
+                validity = present if v.validity is None else present & v.validity.index_select(0, pos)
+            else:
+                values = torch.zeros(rows, dtype=v.values.dtype, device=iota.device)
+                validity = present
+            cols[name] = Val(values, validity, v.dtype, v.table, ROW)
+    return TTable(cols, mask)
 
 
 def _trace_select(tt: TTable, expressions: tuple[E.ENode, ...], tc: _TraceCtx, *, keep_input: bool) -> TTable:

@@ -1,15 +1,19 @@
 """Plan execution entry (the port of ``polars_tpu/engine/run.py``'s
 ``execute_plan``, ``_execute_node``, ``_exec_join``, ``_exec_join_where``,
-``_and_all`` and ``_exec_asof``, for in-memory scans, fused segments,
-host-sized joins, range joins and asof joins; every other node kind belongs
-to a later slice).
+``_and_all`` and ``_exec_asof``, and its ``plan_cache_scope``, for in-memory
+scans, fused segments, host-sized joins, range joins, asof joins and
+common subplans; every other node kind belongs to a later slice).
 
 A segment's leaves are the nearest non-fusable nodes below it, each run once
 (a frame joined with itself is one leaf), on both sides of every join. A join
 that sizes its output on the host (``engine/join.py``) runs both inputs as
-leaves, and its output is a leaf of the segment above it."""
+leaves, and its output is a leaf of the segment above it. A common subplan
+(``LCache``) is a leaf too; it runs once per collect, whichever segment
+reads it first, and the others read that frame."""
 
 from __future__ import annotations
+
+import contextlib
 
 from polars_tpu_torch.core.frame import DataFrame
 from polars_tpu_torch.engine.executors import _is_fusable, run_segment
@@ -17,12 +21,33 @@ from polars_tpu_torch.plan import exprs as E
 from polars_tpu_torch.plan import logical as L
 from polars_tpu_torch.plan.schema_resolve import node_schema
 
+# one memo per collect: LCache node (structural key) -> its frame
+_PLAN_CACHES: list[dict] = []
+
+
+@contextlib.contextmanager
+def plan_cache_scope():
+    """The memo of one collect's common subplans (``LCache``): each runs
+    once, and the memo, with its frames, goes when the collect ends."""
+    _PLAN_CACHES.append({})
+    try:
+        yield
+    finally:
+        _PLAN_CACHES.pop()
+
 
 def execute_plan(node: L.LNode) -> DataFrame:
     return _execute_node(node)
 
 
 def _execute_node(node: L.LNode) -> DataFrame:
+    if isinstance(node, L.LCache):
+        cache = _PLAN_CACHES[-1] if _PLAN_CACHES else {}
+        out = cache.get(node)
+        if out is None:
+            out = cache[node] = execute_plan(node.input)
+        return out
+
     if isinstance(node, L.LDataFrameScan):
         df = node.df
         if node.projection is not None:

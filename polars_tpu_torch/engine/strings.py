@@ -1,13 +1,15 @@
 """Device-side helpers for dictionary-coded string values (the port of
-``polars_tpu/engine/strings.py``, trimmed to :func:`unify_vals` and
-:func:`map_over_table`)."""
+``polars_tpu/engine/strings.py``, trimmed to :func:`unify_vals`,
+:func:`concat_vals` and :func:`map_over_table`)."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from polars_tpu_torch.engine.common import Val, take_lut
+from polars_tpu_torch import datatypes as dt
+from polars_tpu_torch.engine.cast import cast_val
+from polars_tpu_torch.engine.common import ROW, Val, take_lut
 from polars_tpu_torch.utils import strtable
 
 
@@ -18,6 +20,27 @@ def unify_vals(a: Val, b: Val) -> tuple[Val, Val]:
         return a, b
     merged, lmap, rmap = strtable.unify(a.table, b.table)
     return a.with_(values=_remap(a.values, lmap), table=merged), b.with_(values=_remap(b.values, rmap), table=merged)
+
+
+def concat_vals(vals: list[Val], target: dt.DataType) -> Val:
+    """Row Vals one after another (a vertical concat's column): each cast to
+    ``target``, dictionary-coded pieces put on one dictionary, the merge of
+    all of theirs, and a validity kept where any piece has one."""
+    vals = [cast_val(v, target) for v in vals]
+    table = vals[0].table
+    if table is not None:
+        for v in vals[1:]:
+            if v.table is not table:
+                table = strtable.unify(table, v.table)[0]
+        vals = [v if v.table is table else
+                v.with_(values=take_lut(strtable.index_in(v.table.values, table.values), v.values), table=table)
+                for v in vals]
+    validity = None
+    if any(v.validity is not None for v in vals):
+        validity = torch.cat([v.validity if v.validity is not None
+                              else torch.ones(v.values.shape[0], dtype=torch.bool, device=v.values.device)
+                              for v in vals])
+    return Val(torch.cat([v.values for v in vals]), validity, target, table, ROW)
 
 
 def _remap(codes: torch.Tensor, remap: np.ndarray) -> torch.Tensor:

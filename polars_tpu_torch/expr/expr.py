@@ -9,16 +9,13 @@ executes until a plan is collected.
 from __future__ import annotations
 
 import datetime as _pydt
-import itertools
 from typing import Any, Iterable
 
 import numpy as np
 
 from polars_tpu_torch import datatypes as dt
 from polars_tpu_torch.plan import exprs as E
-
-# process-monotonic Series-literal identities (id() can be reused after GC)
-_NEXT_IDENT = itertools.count(1)
+from polars_tpu_torch.utils.tokens import next_token
 
 
 def series_literal(values: Any) -> E.ESeriesLit:
@@ -28,7 +25,7 @@ def series_literal(values: Any) -> E.ESeriesLit:
     from polars_tpu_torch.core.column import Column
 
     vals = values if isinstance(values, np.ndarray) else list(values)
-    return E.ESeriesLit(column=Column.from_values("literal", vals, device="cpu"), ident=next(_NEXT_IDENT))
+    return E.ESeriesLit(column=Column.from_values("literal", vals, device="cpu"), ident=next_token())
 
 
 def temporal_literal(value: Any) -> E.ELiteral:

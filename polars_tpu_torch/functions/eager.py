@@ -1,6 +1,6 @@
-"""Eager combination of frames (the port of ``polars_tpu/functions/eager.py``,
-trimmed to the vertical ``concat`` of DataFrames, which a full join's
-appended right rows need).
+"""Combination of frames (the port of ``polars_tpu/functions/eager.py``,
+trimmed to ``concat`` of DataFrames, vertical, and of LazyFrames, vertical
+or horizontal).
 
 ``how="vertical"`` needs equal column names in order; ``"vertical_relaxed"``
 also casts each column to the supertype of its pieces. Either way string
@@ -10,18 +10,18 @@ and a validity is kept where any piece has one.
 
 from __future__ import annotations
 
-from typing import Any
-
-import torch
+from typing import TYPE_CHECKING, Any
 
 from polars_tpu_torch.core.buffer import Buffer
 from polars_tpu_torch.core.column import Column
 from polars_tpu_torch.core.frame import DataFrame
-from polars_tpu_torch.engine.cast import cast_val
-from polars_tpu_torch.engine.common import ROW, Val, take_lut
+from polars_tpu_torch.engine.common import ROW, Val
+from polars_tpu_torch.engine.strings import concat_vals
 from polars_tpu_torch.errors import SchemaError
 from polars_tpu_torch.plan.schema_resolve import supertype
-from polars_tpu_torch.utils import strtable
+
+if TYPE_CHECKING:
+    from polars_tpu_torch.lazyframe import LazyFrame
 
 
 def _concat_columns(cols: list[Column], name: str, relaxed: bool) -> Column:
@@ -30,30 +30,22 @@ def _concat_columns(cols: list[Column], name: str, relaxed: bool) -> Column:
         if c.dtype != target and not relaxed:
             raise SchemaError(f"type {c.dtype!r} of column {name!r} differs from {target!r} in a vertical concat")
         target = supertype(target, c.dtype)
-    vals = [cast_val(Val(c.buffer.values, c.buffer.validity, c.dtype, c.table, ROW), target) for c in cols]
-    if vals[0].table is not None:
-        # one dictionary for every piece: the merge of all, each piece's
-        # codes looked up in it
-        table = vals[0].table
-        for v in vals[1:]:
-            table = strtable.unify(table, v.table)[0]
-        vals = [v if v.table is table else
-                v.with_(values=take_lut(strtable.index_in(v.table.values, table.values), v.values), table=table)
-                for v in vals]
-    values = torch.cat([v.values for v in vals])
-    validity = None
-    if any(v.validity is not None for v in vals):
-        validity = torch.cat([v.validity if v.validity is not None
-                              else torch.ones(v.values.shape[0], dtype=torch.bool, device=v.values.device)
-                              for v in vals])
-    return Column(name, target, Buffer(values, validity), vals[0].table)
+    v = concat_vals([Val(c.buffer.values, c.buffer.validity, c.dtype, c.table, ROW) for c in cols], target)
+    return Column(name, target, Buffer(v.values, v.validity), v.table)
 
 
-def concat(items: Any, *, how: str = "vertical") -> DataFrame:
-    """Stack DataFrames of the same column names vertically."""
+def concat(items: Any, *, how: str = "vertical") -> DataFrame | LazyFrame:
+    """Stack DataFrames of the same column names vertically; LazyFrames
+    vertically (``"vertical"`` and ``"vertical_relaxed"`` alike take each
+    column's supertype, as ``polars_tpu`` does) or side by side
+    (``"horizontal"``), as one plan node."""
+    from polars_tpu_torch.lazyframe import LazyFrame
+
     frames = list(items)
     if not frames:
         raise ValueError("cannot concat an empty list")
+    if isinstance(frames[0], LazyFrame):
+        return frames[0] if len(frames) == 1 else LazyFrame._concat(frames, how=how)
     if not all(isinstance(f, DataFrame) for f in frames):
         raise NotImplementedError(
             "concat of anything but DataFrames is not ported yet (port queue: expression breadth)"

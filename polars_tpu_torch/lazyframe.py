@@ -1,18 +1,18 @@
 """LazyFrame: the lazy query builder (the port of
 ``polars_tpu/lazyframe.py``, trimmed to ``filter``, ``select``,
 ``with_columns``, ``group_by().agg``, ``sort``, ``join`` (every ``how``),
-``join_where``, ``join_asof``, ``slice``/``head``/``limit`` and
+``join_where``, ``join_asof``, ``slice``/``head``/``limit``, ``unique``,
+``rename``, ``drop``, ``with_row_index``, ``cache``, ``explain`` and
 ``collect``).
 
-``collect`` runs the plan as written: the port has no optimizer yet, and no
-rewrite in the JAX package's optimizer changes what Q1, Q3 or Q4 compute
-(inside one fused segment a filter is a row mask above or below a join alike).
+``collect`` runs the optimized plan (``plan/optimizer``), as ``polars_tpu``
+does; ``collect(no_optimization=True)`` runs the plan as written, and
+``optimizations=QueryOptFlags(...)`` turns single passes off.
 """
 
 from __future__ import annotations
 
-import itertools
-from collections.abc import Sequence
+from collections.abc import Callable, Mapping, Sequence
 from typing import Any
 
 from polars_tpu_torch.core.frame import DataFrame
@@ -22,9 +22,7 @@ from polars_tpu_torch.expr.expr import parse_into_expr_list
 from polars_tpu_torch.plan import exprs as E
 from polars_tpu_torch.plan import logical as L
 from polars_tpu_torch.plan.schema_resolve import node_schema
-
-# process-monotonic scan identities (id() can be reused after GC)
-_NEXT_IDENT = itertools.count(1)
+from polars_tpu_torch.utils.tokens import next_token
 
 
 class LazyFrame:
@@ -38,7 +36,7 @@ class LazyFrame:
 
     @classmethod
     def _from_df(cls, df: DataFrame) -> LazyFrame:
-        return cls._from_node(L.LDataFrameScan(df=df, ident=next(_NEXT_IDENT)))
+        return cls._from_node(L.LDataFrameScan(df=df, ident=next_token()))
 
     def _wrap(self, node: L.LNode) -> LazyFrame:
         return LazyFrame._from_node(node)
@@ -54,13 +52,69 @@ class LazyFrame:
     def columns(self) -> list[str]:
         return self.schema.names()
 
-    def collect(self) -> DataFrame:
-        from polars_tpu_torch.engine.run import execute_plan
+    def _plan(self, optimized: bool, optimizations: Any) -> L.LNode:
+        from polars_tpu_torch.plan.optimizer import optimize
 
-        return execute_plan(self._node)
+        return optimize(self._node, optimizations) if optimized else self._node
+
+    def explain(self, *, optimized: bool = True, optimizations: Any = None) -> str:
+        """The plan as text, one node a line, its inputs indented below it:
+        the optimized plan unless ``optimized=False``."""
+        from polars_tpu_torch.plan.fmt import explain_plan
+
+        return explain_plan(self._plan(optimized, optimizations))
+
+    def collect(self, *, no_optimization: bool = False, optimizations: Any = None) -> DataFrame:
+        """Run the plan: optimized (every pass of ``optimizations``, a
+        ``QueryOptFlags``, or all of them) unless ``no_optimization``. Common
+        subplans run once per collect."""
+        from polars_tpu_torch.engine.run import execute_plan, plan_cache_scope
+
+        node = self._plan(not no_optimization, optimizations)
+        with plan_cache_scope():
+            return execute_plan(node)
 
     def lazy(self) -> LazyFrame:
         return self
+
+    def cache(self) -> LazyFrame:
+        """The frame itself: common-subplan elimination finds repeated
+        subplans on its own."""
+        return self
+
+    def drop(self, *columns: Any, strict: bool = True) -> LazyFrame:
+        names = tuple(n for c in columns for n in ([c] if isinstance(c, str) else c))
+        return self._wrap(L.LDrop(self._node, names, strict))
+
+    def rename(self, mapping: Mapping[str, str] | Callable[[str], str], *, strict: bool = True) -> LazyFrame:
+        """Rename columns by a mapping of old to new names, or by a function
+        of the old name."""
+        if callable(mapping):
+            mapping = {n: mapping(n) for n in self.columns}
+        return self._wrap(L.LRename(self._node, tuple(mapping.items()), strict))
+
+    def with_row_index(self, name: str = "index", offset: int = 0) -> LazyFrame:
+        """A first column ``name`` of UInt32 row numbers from ``offset``."""
+        return self._wrap(L.LWithRowIndex(self._node, name, offset))
+
+    def unique(self, subset: Any = None, *, keep: str = "any", maintain_order: bool = False) -> LazyFrame:
+        """One row per distinct value of the ``subset`` columns (every column
+        when None): ``keep`` the first, the last, any (here the first) or
+        none of each value's rows. The rows keep their order either way."""
+        if keep not in ("any", "first", "last", "none"):
+            raise InvalidOperationError(f"unknown keep strategy {keep!r}")
+        names = None
+        if subset is not None:
+            names = (subset,) if isinstance(subset, str) else tuple(subset)
+        return self._wrap(L.LDistinct(self._node, names, keep, maintain_order))
+
+    @staticmethod
+    def _concat(frames: list[LazyFrame], how: str = "vertical") -> LazyFrame:
+        if how in ("vertical", "vertical_relaxed"):
+            return LazyFrame._from_node(L.LUnion(tuple(f._node for f in frames)))
+        if how == "horizontal":
+            return LazyFrame._from_node(L.LHConcat(tuple(f._node for f in frames)))
+        raise NotImplementedError(f"concat how={how!r} is not ported yet (port queue: expression breadth)")
 
     def filter(self, *predicates: Any) -> LazyFrame:
         nodes = parse_into_expr_list(list(predicates))

@@ -24,10 +24,19 @@ class EColumn(ENode):
     name: str
 
 
-@dataclass(frozen=True)
+@dataclass(frozen=True, eq=False)
 class ELiteral(ENode):
     value: Any  # hashable python scalar (or None)
     dtype: Any = None  # optional DataType
+
+    # equal only with a value of the same Python type: True == 1 == 1.0, but
+    # the literals have three dtypes (the compiler's memo keys on equality)
+    def __eq__(self, other: object) -> bool:
+        return (type(other) is ELiteral and type(self.value) is type(other.value)
+                and (self.value is other.value or self.value == other.value) and self.dtype == other.dtype)
+
+    def __hash__(self) -> int:
+        return hash(("ELiteral", type(self.value), self.value, self.dtype))
 
 
 @dataclass(frozen=True)
@@ -147,6 +156,16 @@ def output_name(node: ENode) -> str | None:
         if n is not None:
             return n
     return None
+
+
+def root_column_names(node: ENode) -> list[str]:
+    """Every input column the expression reads, in first-use order (what
+    projection and predicate pushdown keep alive)."""
+    out: list[str] = []
+    for n in walk(node):
+        if isinstance(n, EColumn) and n.name not in out:
+            out.append(n.name)
+    return out
 
 
 def reduces_in_agg(node: ENode) -> bool:

@@ -1,9 +1,10 @@
 """Logical plan nodes (the port of ``polars_tpu/plan/logical.py``, trimmed to
-the node kinds this slice executes)."""
+the node kinds the port executes; file scans, explode, unpivot, map
+functions and sinks come with later slices)."""
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Any
 
 from polars_tpu_torch.plan.exprs import ENode
@@ -87,7 +88,7 @@ class LSort(LNode):
     descending: tuple[bool, ...]
     nulls_last: tuple[bool, ...]
     maintain_order: bool = False
-    limit: int | None = None  # fused top-k; only the optimizer's top-k fusion (not ported yet) sets it
+    limit: int | None = None  # fused top-k; slice pushdown sets it
 
     def inputs(self) -> tuple[LNode, ...]:
         return (self.input,)
@@ -102,7 +103,7 @@ class LJoin(LNode):
     input_right: LNode
     left_on: tuple[ENode, ...]
     right_on: tuple[ENode, ...]
-    how: str = "inner"  # inner|left|semi|anti in this slice
+    how: str = "inner"  # inner|left|right|full|semi|anti|cross
     suffix: str = "_right"
     nulls_equal: bool = False
     coalesce: bool | None = None
@@ -161,3 +162,106 @@ class LAsofJoin(LNode):
 
     def inputs(self) -> tuple[LNode, ...]:
         return (self.input_left, self.input_right)
+
+
+@dataclass(frozen=True)
+class LDistinct(LNode):
+    """``unique``: one row per distinct ``subset`` (every column when None);
+    ``keep`` any, first, last or none."""
+
+    input: LNode
+    subset: tuple[str, ...] | None
+    keep: str = "any"
+    maintain_order: bool = False
+
+    def inputs(self) -> tuple[LNode, ...]:
+        return (self.input,)
+
+
+@dataclass(frozen=True)
+class LUnion(LNode):
+    """Vertical concat: the inputs' rows one after another, each column in
+    the supertype of its pieces."""
+
+    inputs_: tuple[LNode, ...]
+
+    def inputs(self) -> tuple[LNode, ...]:
+        return self.inputs_
+
+
+@dataclass(frozen=True)
+class LHConcat(LNode):
+    """Horizontal concat: the inputs' columns side by side, row by row."""
+
+    inputs_: tuple[LNode, ...]
+
+    def inputs(self) -> tuple[LNode, ...]:
+        return self.inputs_
+
+
+@dataclass(frozen=True)
+class LRename(LNode):
+    input: LNode
+    mapping: tuple[tuple[str, str], ...]
+    strict: bool = True
+
+    def inputs(self) -> tuple[LNode, ...]:
+        return (self.input,)
+
+
+@dataclass(frozen=True)
+class LDrop(LNode):
+    input: LNode
+    columns: tuple[str, ...]
+    strict: bool = True
+
+    def inputs(self) -> tuple[LNode, ...]:
+        return (self.input,)
+
+
+@dataclass(frozen=True)
+class LWithRowIndex(LNode):
+    input: LNode
+    name: str = "index"
+    offset: int = 0
+
+    def inputs(self) -> tuple[LNode, ...]:
+        return (self.input,)
+
+
+@dataclass(frozen=True)
+class LCache(LNode):
+    """A subplan that appears more than once in the query (common-subplan
+    elimination wraps each occurrence in the same node): it runs once per
+    collect, and every consumer reads that frame (``engine/run.py``)."""
+
+    input: LNode
+    ident: int = 0
+
+    def inputs(self) -> tuple[LNode, ...]:
+        return (self.input,)
+
+
+def rebuild(node: LNode, new_inputs: tuple[LNode, ...]) -> LNode:
+    """``node`` over ``new_inputs``, everything else kept."""
+    if node.inputs() == new_inputs:
+        return node
+    if isinstance(node, (LUnion, LHConcat)):
+        return replace(node, inputs_=new_inputs)
+    if isinstance(node, (LJoin, LJoinWhere, LAsofJoin)):
+        return replace(node, input_left=new_inputs[0], input_right=new_inputs[1])
+    return replace(node, input=new_inputs[0])
+
+
+def _same(a: Any, b: Any) -> bool:
+    return a is b or (isinstance(a, tuple) and isinstance(b, tuple) and len(a) == len(b)
+                      and all(x is y for x, y in zip(a, b)))
+
+
+def update(node: LNode, **changes: Any) -> LNode:
+    """``node`` with the fields ``changes`` names set; the node itself when
+    each holds those very objects already, so a pass that changes nothing
+    below a node keeps it (and the schema memo's entry for it)."""
+    if all(_same(v, getattr(node, k)) for k, v in changes.items()):
+        return node
+    return replace(node, **changes)

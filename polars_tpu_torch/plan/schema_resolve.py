@@ -9,6 +9,8 @@ polars-plan/src/plans/conversion/). The slice has no selectors, so
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 from typing import Any
 
 from polars_tpu_torch import datatypes as dt
@@ -125,6 +127,19 @@ def expand_exprs(nodes: tuple[E.ENode, ...], schema: Schema) -> tuple[E.ENode, .
             if isinstance(sub, E.EColumn) and sub.name not in schema:
                 raise ColumnNotFoundError(f"{sub.name!r} not found; available: {schema.names()}")
     return tuple(nodes)
+
+
+def _rebuild_expr(node: E.ENode, kids: tuple[E.ENode, ...]) -> E.ENode:
+    """``node`` over the children ``kids`` (in ``children()`` order)."""
+    if isinstance(node, E.EBinary):
+        return dataclasses.replace(node, left=kids[0], right=kids[1])
+    if isinstance(node, (E.ECast, E.EAlias, E.EAgg)):
+        return dataclasses.replace(node, input=kids[0])
+    if isinstance(node, E.ETernary):
+        return dataclasses.replace(node, predicate=kids[0], truthy=kids[1], falsy=kids[2])
+    if isinstance(node, E.EFunction):
+        return dataclasses.replace(node, inputs=kids)
+    raise InvalidOperationError(f"cannot rebuild {type(node).__name__}")
 
 
 # ---------------------------------------------------------------------------
@@ -360,9 +375,38 @@ def exprs_schema(nodes: tuple[E.ENode, ...], schema: Schema) -> Schema:
     return out
 
 
+_SCHEMA_MEMOS: list[dict] = []
+
+
+@contextlib.contextmanager
+def schema_memo():
+    """Remember each node's schema, by node identity, while the block runs
+    (the optimizer's passes ask for the schema of each node many times). The
+    memo holds its nodes, and through them their frames, only until the block
+    ends; outside such a block every call resolves afresh."""
+    _SCHEMA_MEMOS.append({})
+    try:
+        yield
+    finally:
+        _SCHEMA_MEMOS.pop()
+
+
 def node_schema(node: L.LNode) -> Schema:
-    """Output schema of a plan node (recomputed per call: nodes hold their
-    frames, and a cache keyed on nodes would keep device memory alive)."""
+    """Output schema of a plan node (recomputed per call outside
+    :func:`schema_memo`: nodes hold their frames, and a lasting cache keyed
+    on nodes would keep device memory alive)."""
+    if not _SCHEMA_MEMOS:
+        return _node_schema(node)
+    memo = _SCHEMA_MEMOS[-1]
+    hit = memo.get(id(node))
+    if hit is None:
+        hit = memo[id(node)] = (node, _node_schema(node))
+    return hit[1].copy()
+
+
+def _node_schema(node: L.LNode) -> Schema:
+    if isinstance(node, L.LCache):
+        return node_schema(node.input)
     if isinstance(node, L.LDataFrameScan):
         s = node.df.schema
         if node.projection is not None:
@@ -377,8 +421,54 @@ def node_schema(node: L.LNode) -> Schema:
         for n in expand_exprs(node.expressions, in_s):
             out[E.output_name(n) or "literal"] = expr_dtype(n, in_s)
         return out
-    if isinstance(node, (L.LFilter, L.LSort, L.LSlice)):
+    if isinstance(node, (L.LFilter, L.LSort, L.LSlice, L.LDistinct)):
+        if isinstance(node, L.LDistinct) and node.subset is not None:
+            in_s = node_schema(node.input)
+            missing = [n for n in node.subset if n not in in_s]
+            if missing:
+                raise ColumnNotFoundError(f"{missing[0]!r} not found; available: {in_s.names()}")
+            return in_s
         return node_schema(node.input)
+    if isinstance(node, L.LUnion):
+        schemas = [node_schema(i) for i in node.inputs_]
+        out = schemas[0].copy()
+        for s in schemas[1:]:
+            if s.names() != out.names():
+                raise SchemaError(f"column name mismatch in vertical concat: {out.names()} vs {s.names()}")
+            for n, d in s.items():
+                out[n] = supertype(out[n], d)
+        return out
+    if isinstance(node, L.LHConcat):
+        out = Schema()
+        for i in node.inputs_:
+            for n, d in node_schema(i).items():
+                if n in out:
+                    raise DuplicateError(f"the name {n!r} is duplicate in a horizontal concat")
+                out[n] = d
+        return out
+    if isinstance(node, L.LRename):
+        in_s = node_schema(node.input)
+        mapping = dict(node.mapping)
+        if node.strict:
+            missing = set(mapping) - set(in_s.names())
+            if missing:
+                raise ColumnNotFoundError(f"{sorted(missing)} not found")
+        out = Schema([(mapping.get(n, n), d) for n, d in in_s.items()])
+        if len(out) != len(in_s):
+            raise DuplicateError("rename would create duplicate columns")
+        return out
+    if isinstance(node, L.LDrop):
+        in_s = node_schema(node.input)
+        if node.strict:
+            missing = set(node.columns) - set(in_s.names())
+            if missing:
+                raise ColumnNotFoundError(f"{sorted(missing)} not found")
+        return Schema([(n, d) for n, d in in_s.items() if n not in set(node.columns)])
+    if isinstance(node, L.LWithRowIndex):
+        out = Schema([(node.name, dt.UInt32())])
+        for n, d in node_schema(node.input).items():
+            out[n] = d
+        return out
     if isinstance(node, L.LJoin):
         return _join_schema(node)
     if isinstance(node, (L.LJoinWhere, L.LAsofJoin)):

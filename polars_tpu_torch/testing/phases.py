@@ -11,7 +11,14 @@ with ``testing/profile_query.py``:
   and of pandas' ``merge_asof`` example): ``join_asof`` by ticker, then
   aggregates per ticker;
 - ``range``: twelve monthly windows of 1995 ``join_where`` PDS-H orders on
-  two date inequalities, then a sum and a count per window.
+  two date inequalities, then a sum and a count per window;
+- ``frameops``: the frame operations the optimizer's passes rewrite, on
+  PDS-H lineitem: the first line of each order and the orders of one line
+  (``unique`` by ``l_orderkey``, ``keep`` first and none); a lazy ``concat``
+  of the 1995 and 1996 lines, then ``with_row_index``, ``rename``, ``drop``
+  and a group-by; and the per-order totals joined back to their own mean by
+  line count, a subplan used twice that common-subplan elimination runs
+  once.
 """
 
 from __future__ import annotations
@@ -127,3 +134,36 @@ def range_plan(pl, windows, orders):
             .group_by("w_id")
             .agg(c("o_totalprice").sum(), pl.len())
             .sort("w_id"))
+
+
+FRAMEOPS_COLUMNS = ["l_orderkey", "l_linenumber", "l_shipdate", "l_returnflag", "l_linestatus", "l_quantity",
+                    "l_extendedprice"]
+
+
+def frameops_plans(pl, line) -> dict:
+    """The frameops phase's four queries over a lineitem frame, by name."""
+    c = pl.col
+    orders = line.lazy().select("l_orderkey", "l_linenumber", "l_shipdate")
+
+    def year(y: int):
+        return line.lazy().filter((c("l_shipdate") >= dtm.date(y, 1, 1)) & (c("l_shipdate") < dtm.date(y + 1, 1, 1)))
+
+    per_order = line.lazy().group_by("l_orderkey").agg(total=c("l_extendedprice").sum(), lines=pl.len())
+    return {
+        "first": orders.unique(subset=["l_orderkey"], keep="first", maintain_order=True),
+        "single": orders.unique(subset=["l_orderkey"], keep="none", maintain_order=True),
+        "concat": (pl.concat([year(1995), year(1996)])
+                   .with_row_index("row")
+                   .rename({"l_returnflag": "flag", "l_linestatus": "status"})
+                   .drop("l_shipdate")
+                   .group_by("flag", "status")
+                   .agg(qty=c("l_quantity").sum(), price=c("l_extendedprice").sum(), n=pl.len(),
+                        last_row=c("row").max())
+                   .sort("flag", "status")),
+        "cache": (per_order
+                  .join(per_order.group_by("lines").agg(avg_total=c("total").mean()), on="lines")
+                  .filter(c("total") > c("avg_total"))
+                  .group_by("lines")
+                  .agg(orders=pl.len(), total=c("total").sum())
+                  .sort("lines")),
+    }

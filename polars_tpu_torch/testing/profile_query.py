@@ -20,10 +20,13 @@ query up, then:
    types and time.
 
 Several queries in one run share the data, made and loaded once; each gets
-frames of only its own columns (``pdsh.frames_for``).
+frames of only its own columns (``pdsh.frames_for``). Each collect runs the
+optimized plan, or with ``--no-optimization`` the plan as written
+(``collect(no_optimization=True)``); the first line says which.
 
 Run from the repository root on a machine with a CUDA device:
     python3 -m polars_tpu_torch.testing.profile_query [--query q3 [q5 ... temporal asof range]] [--scale 10] [--runs 5]
+        [--no-optimization]
 """
 
 from __future__ import annotations
@@ -52,7 +55,7 @@ def kind_of(name: str) -> str:
     return next((k for k, pat in KINDS if re.search(pat, name)), "other")
 
 
-def timed_sorts(torch, run) -> list[dict]:
+def timed_sorts(torch, run, no_optimization: bool = False) -> list[dict]:
     """One collect with each call of ``stable_argsort_words`` timed alone."""
     import inspect
 
@@ -79,7 +82,7 @@ def timed_sorts(torch, run) -> list[dict]:
     for m in mods:
         m.stable_argsort_words = timed
     try:
-        run().collect()
+        run().collect(no_optimization=no_optimization)
         torch.cuda.synchronize()
     finally:
         for m in mods:
@@ -87,18 +90,20 @@ def timed_sorts(torch, run) -> list[dict]:
     return records
 
 
-def profile_query(torch, query: str, run, rows: dict, scale: float, runs: int, top: int) -> None:
-    """Profile ``runs`` warm collects of ``run()`` and print the two lines."""
+def profile_query(torch, query: str, run, rows: dict, scale: float, runs: int, top: int,
+                  no_optimization: bool = False) -> None:
+    """Profile ``runs`` warm collects of ``run()`` (its plan as written where
+    ``no_optimization``) and print the two lines."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(2):
-        run().collect()
+        run().collect(no_optimization=no_optimization)
     torch.cuda.synchronize()
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(runs):
-            run().collect()
+            run().collect(no_optimization=no_optimization)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / runs
 
@@ -128,7 +133,7 @@ def profile_query(torch, query: str, run, rows: dict, scale: float, runs: int, t
     device_ms = sum(per_kernel.values())
     top_kernels = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:top]
     print(json.dumps({
-        "profile": query, "scale": scale, "rows": rows, "runs": runs,
+        "profile": query, "optimized": not no_optimization, "scale": scale, "rows": rows, "runs": runs,
         "wall_ms_per_collect": wall * 1e3, "device_ms_per_collect": device_ms,
         "device_busy_share": device_ms / (wall * 1e3), "device_idle_share": 1 - device_ms / (wall * 1e3),
         "by_kind_ms": dict(sorted(by_kind.items(), key=lambda kv: -kv[1])),
@@ -137,7 +142,7 @@ def profile_query(torch, query: str, run, rows: dict, scale: float, runs: int, t
                 for op, v in sorted(per_op.items(), key=lambda kv: -kv[1][0])[: top]],
         "device": torch.cuda.get_device_name(0),
     }), flush=True)
-    print(json.dumps({"profile": query, "sorts": timed_sorts(torch, run)}), flush=True)
+    print(json.dumps({"profile": query, "sorts": timed_sorts(torch, run, no_optimization)}), flush=True)
 
 
 PHASES = ("temporal", "asof", "range")
@@ -153,6 +158,7 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--runs", type=int, default=5)
     ap.add_argument("--top", type=int, default=15)
+    ap.add_argument("--no-optimization", action="store_true", help="run each plan as written, not optimized")
     args = ap.parse_args()
 
     import torch
@@ -191,7 +197,7 @@ def main() -> int:
             f = pdsh.frames_for(q, tables)
             params = pdsh.run_params(q, args.scale)
             run, rows = (lambda: pdsh.query(q, f, **params)), {t: d.height for t, d in f.items()}
-        profile_query(torch, q, run, rows, args.scale, args.runs, args.top)
+        profile_query(torch, q, run, rows, args.scale, args.runs, args.top, args.no_optimization)
     return 0
 
 

@@ -12,12 +12,9 @@ Encoding is numpy-only: the machine with the card has no pyarrow or pandas.
 
 from __future__ import annotations
 
-import itertools
-
 import numpy as np
 
-# process-monotonic identity tokens: unlike id(), never reused after GC
-_NEXT_IDENT = itertools.count(1)
+from polars_tpu_torch.utils.tokens import next_token
 
 
 class StringTable:
@@ -32,7 +29,7 @@ class StringTable:
     def __init__(self, values: np.ndarray, *, sorted_order: bool = False) -> None:
         self.values = np.asarray(values, dtype=object)
         self.sorted_order = sorted_order
-        self.ident = next(_NEXT_IDENT)
+        self.ident = next_token()
         self._unify_cache: dict | None = None  # other table's ident -> unify() result
         self._ordinal: tuple | None = None  # ordinal() of an unordered table, made once
 

@@ -147,11 +147,39 @@ def _expected_calls(q: str, ft: dict) -> list:
     }[q]
 
 
+# what the optimized plan hands K1 and K2 where it differs from the plan as
+# written: projection pushdown leaves fewer columns to compact (Q7's
+# filtered lineitem 31 -> 7, the 352 rows between its joins 38 -> 9; Q13's
+# orders 9 -> 3; Q22's customers 9 -> 4); common-subplan elimination runs
+# Q15's `revenue` group-by once (its second K1 call goes) and caches a
+# small filter used twice (Q2's region, Q7's two nations, Q11's nation,
+# Q17's parts), which then ends a segment of its own (one K2 call) and is
+# read by both users; Q7's two nation selects over that cache are each a
+# segment over its 2 rows; collapse_joins turns Q15's filtered cross join
+# into an inner join on the maximum, whose one-row inputs end in K2 and
+# whose output joins the suppliers (no K2 over the 30 suppliers).
+def _expected_calls_optimized(q: str, ft: dict) -> list:
+    n_line, f64, i64 = ft["lineitem"].height, torch.float64, torch.int64
+    calls = {
+        "q2": [("K2", 5, 2), *_expected_calls(q, ft)],
+        "q7": [("K2", n_line, 7), ("K2", 25, 2), ("K2", 2, 2), ("K2", 352, 9), ("K2", 2, 2), ("K1", 41, [f64]),
+               ("K2", 41, 4)],
+        "q11": [("K2", 25, 2), *_expected_calls(q, ft)],
+        "q13": [("K2", ft["orders"].height, 3), ("K1", 3323, [i64]), ("K1", 3323, [None]), ("K2", 3323, 2)],
+        "q15": [("K1", n_line, [f64]), ("K2", n_line, 2), ("K1", 1, [None]), ("K1", 1, [None]), ("K2", 1, 2),
+                ("K2", 1, 3), ("K2", 1, 5)],
+        "q17": [("K2", ft["part"].height, 3), *_expected_calls(q, ft)],
+        "q22": [("K2", ft["customer"].height, 4), *_expected_calls(q, ft)[1:]],
+    }
+    return calls[q] if q in calls else _expected_calls(q, ft)
+
+
 @pytest.mark.parametrize("q", QUERIES)
 def test_query_kernel_calls(frames, monkeypatch, q):
     """Each query's sums and counts go through K1 (a one-row select's too,
     as one group of capacity 1) and each segment's result through one K2
-    compaction."""
+    compaction: the plan as written (``no_optimization=True``) and the
+    optimized plan, each with its own calls."""
     from polars_tpu_torch.engine import executors as X
     from polars_tpu_torch.engine import groupby as G
     from polars_tpu_torch.engine import join as J
@@ -172,5 +200,9 @@ def test_query_kernel_calls(frames, monkeypatch, q):
     monkeypatch.setattr(G, "groupagg_sums", k1)
     monkeypatch.setattr(X, "compact_scatter", k2)
     monkeypatch.setattr(J, "compact_scatter", k2)
-    pdsh_torch.query(q, _frames_of(q, frames[1]), **PARAMS.get(q, {})).collect()
+    query = pdsh_torch.query(q, _frames_of(q, frames[1]), **PARAMS.get(q, {}))
+    query.collect(no_optimization=True)
     assert calls == _expected_calls(q, frames[1])
+    calls.clear()
+    query.collect()
+    assert calls == _expected_calls_optimized(q, frames[1])
