@@ -66,6 +66,28 @@ Phases, each printed as one JSON line:
                 and the per-order totals joined back to their own mean by
                 line count (a subplan used twice, run once); each against a
                 numpy oracle, a line each.
+ 15. tz       — time zones, formatting and parsing at SF10, two lines:
+                tz.ship: the temporal phase's l_shipts read as New York's
+                wall clock (replace_time_zone, about 7,000 spring-forward
+                rows null, the fall-back hours the earlier instant), shown
+                in Amsterdam (convert_time_zone), its hour, weekday,
+                base_utc_offset and dst_offset, a filter against an aware
+                literal, a group-by of the Amsterdam day (about 2,200 days)
+                labelled by dt.to_string("%Y-%m-%d %z") (a host op);
+                tz.orders: o_orderts, "%Y-%m-%d %H:%M" text of o_orderdate
+                and an hour from the seed (about 58K distinct values, one
+                row in 1,000 "N/A", built and encoded with the frames),
+                parsed with str.strptime(strict=False), localized in New
+                York, coalesced with the order date's midnight, is_null
+                counted, then summed by local year and month behind a year
+                filter; the text outside New York's 01:00 and 02:00
+                hours parsed straight into the zone (strptime to
+                Datetime("us", "America/New_York")); a strict parse of
+                the same column must raise. Each
+                against a numpy oracle whose UTC offsets come from zoneinfo
+                for each distinct local or UTC hour (never the port's
+                transition tables): keys, counts, instants and strings
+                exactly, sums to rtol 1e-9; its plan as written too.
 Every collect runs the optimized plan. Each PDS-H query and each frameops
 query also runs its plan as written (collect(no_optimization=True)): a
 warm-up, then 6 collects as written and 6 optimized, in turns with the
@@ -85,7 +107,7 @@ then the kernels line, the card's name and power limit, and the final line
 {"ok": true, "device": {...}}. Any failure exits non-zero before that line.
 
 Run from the repository root:
-    python3 chip_smoke.py [--scale 10] [--seed 42] [--only q1 filter q3 q4 ... q22 joins temporal asof range frameops]
+    python3 chip_smoke.py [--scale 10] [--seed 42] [--only q1 filter q3 q4 ... q22 joins temporal asof range frameops tz]
 (``--only`` runs the build and kernel phases and the named query phases, for
 an A/B of a few queries against a parent tree). It needs a CUDA device and
 nvcc; it never imports JAX or polars_tpu.
@@ -124,7 +146,7 @@ def day(y: int, m: int, d: int) -> int:
 Q3_DAYS = day(1995, 3, 15)
 Q4_FROM, Q4_TO = day(1993, 7, 1), day(1993, 10, 1)
 PHASES = ["q1", "filter", "q3", "q4", "q5", "q6", "q10", "q12", "q14", "q18", "q19", "q11", "q15", "q17", "q20",
-          "q2", "q7", "q8", "q9", "q13", "q16", "q21", "q22", "joins", "temporal", "asof", "range", "frameops"]
+          "q2", "q7", "q8", "q9", "q13", "q16", "q21", "q22", "joins", "temporal", "asof", "range", "frameops", "tz"]
 # the columns the phases outside PDS-H read of each table (asof makes its own)
 PHASE_COLUMNS = {
     "joins": {"customer": ["c_custkey", "c_mktsegment"], "orders": ["o_orderkey", "o_custkey", "o_orderdate"],
@@ -136,7 +158,9 @@ PHASE_COLUMNS = {
     "asof": {},
     "frameops": {"lineitem": ["l_orderkey", "l_linenumber", "l_shipdate", "l_returnflag", "l_linestatus",
                               "l_quantity", "l_extendedprice"]},  # testing/phases.FRAMEOPS_COLUMNS
+    "tz": {"lineitem": ["l_shipts", "l_quantity"], "orders": ["o_orderdate", "o_totalprice", "o_orderts"]},
 }
+_MADE_COLUMNS = ("l_shipts", "o_orderts")  # made from the generated columns (testing/phases.py)
 
 
 T0 = time.perf_counter()
@@ -551,11 +575,15 @@ def generate(scale: float, seed: int, queries) -> tuple[dict, float]:
     need: dict[str, dict] = {"lineitem": {"l_shipdate": None}}  # the kernels phase takes Q1's filter density
     for q in queries:
         for t, cols in PHASE_COLUMNS.get(q, pdsh.QUERY_COLUMNS.get(q, {})).items():
-            need.setdefault(t, {}).update(dict.fromkeys(c for c in cols if c != "l_shipts"))
+            need.setdefault(t, {}).update(dict.fromkeys(c for c in cols if c not in _MADE_COLUMNS))
+    if "tz" in queries:
+        need["lineitem"]["l_shipdate"] = need["orders"]["o_orderdate"] = None
     full = pdsh.generate_pdsh(scale, seed=seed, tables=tuple(need))
     raw = {t: {c: full[t][c] for c in cols} for t, cols in need.items()}
-    if "temporal" in queries:
+    if "temporal" in queries or "tz" in queries:
         _phases().add_shipts(raw["lineitem"], seed)
+    if "tz" in queries:
+        _phases().add_orderts(raw["orders"], seed)
     return raw, time.perf_counter() - t0
 
 
@@ -1853,6 +1881,220 @@ def phase_frameops(torch, pl, line_frame, raw: dict) -> dict:
     return out_all
 
 
+# -- tz phase (plans and data: polars_tpu_torch/testing/phases.py) ------------------------------
+
+HOUR_US = 3_600_000_000
+
+
+def zone_hours(tz_name: str, first_hour: int, n: int, *, local: bool) -> dict:
+    """zoneinfo's answer for each hour of a contiguous range, asked once per
+    hour (every transition of these zones falls on a whole hour): for local
+    wall hours (``local``), the offset of the earlier instant (``fold=0``)
+    and whether the wall hour exists; for UTC hours, the total and DST
+    offsets of that instant. Microseconds, int64 arrays indexed from
+    ``first_hour``."""
+    from zoneinfo import ZoneInfo
+
+    z = ZoneInfo(tz_name)
+    off, dst, exists = np.zeros(n, np.int64), np.zeros(n, np.int64), np.ones(n, bool)
+    base = dtm.datetime(1970, 1, 1)
+    for i in range(n):
+        wall = base + dtm.timedelta(hours=first_hour + i)
+        if local:
+            aware = wall.replace(tzinfo=z)
+            exists[i] = aware.astimezone(dtm.timezone.utc).astimezone(z).replace(tzinfo=None) == wall
+        else:
+            aware = wall.replace(tzinfo=dtm.timezone.utc).astimezone(z)
+        off[i] = aware.utcoffset() // dtm.timedelta(microseconds=1)
+        dst[i] = (aware.dst() or dtm.timedelta(0)) // dtm.timedelta(microseconds=1)
+    return {"first": first_hour, "off": off, "dst": dst, "exists": exists}
+
+
+def _hours_of(ts: np.ndarray, tz_name: str, *, local: bool) -> tuple[dict, np.ndarray]:
+    """``zone_hours`` over the hours ``ts`` spans, and each value's index."""
+    h = ts // HOUR_US
+    lo = int(h.min())
+    return zone_hours(tz_name, lo, int(h.max()) - lo + 1, local=local), h - lo
+
+
+def tz_ship_oracle(line: dict) -> dict:
+    """Part (a) in numpy: New York wall clock to instants (a skipped hour
+    null, a repeated one the earlier instant), Amsterdam's wall clock of
+    those, the rows kept by the filter, per Amsterdam day (the null group
+    first) the sums, and each day's key (its local midnight's instant) and
+    label, from zoneinfo."""
+    from zoneinfo import ZoneInfo
+
+    P = _phases()
+    DAY_US = P.DAY_US
+    wall = line["l_shipts"].astype(np.int64)
+    ny, i = _hours_of(wall, P.TZ_SHIP, local=True)
+    ok = ny["exists"][i]
+    utc = wall - ny["off"][i]
+    ams, j = _hours_of(utc, P.TZ_SHOWN, local=False)
+    off, dst = ams["off"][j], ams["dst"][j]
+    local = utc + off
+    since = int((P.TZ_SINCE.replace(tzinfo=ZoneInfo(P.TZ_SHOWN)) - dtm.datetime(1970, 1, 1, tzinfo=dtm.timezone.utc))
+                // dtm.timedelta(microseconds=1))
+    keep = ~ok | (utc >= since)
+    ok, local, off, dst, qty = ok[keep], local[keep], off[keep], dst[keep], line["l_quantity"][keep]
+    day = local // DAY_US
+    d0 = int(day[ok].min())
+    g = np.where(ok, day - d0 + 1, 0)  # group 0: the null key
+    size = int(g.max()) + 1
+    n = np.bincount(g, minlength=size)
+    present = np.flatnonzero(n)
+
+    def count(m):
+        return np.bincount(g, weights=m & ok, minlength=size).astype(np.int64)[present]
+
+    hour = local % DAY_US // HOUR_US
+    weekday = (day + 3) % 7 + 1
+    base = np.full(size, np.iinfo(np.int64).min)
+    np.maximum.at(base, g[ok], (off - dst)[ok] // 1000)
+    z = ZoneInfo(P.TZ_SHOWN)
+    keys, labels = [], []
+    for k in present.tolist():
+        if k == 0:
+            keys.append(0)
+            labels.append(None)
+            continue
+        midnight = (dtm.datetime(1970, 1, 1) + dtm.timedelta(days=d0 + k - 1)).replace(tzinfo=z)
+        keys.append((midnight - dtm.datetime(1970, 1, 1, tzinfo=dtm.timezone.utc)) // dtm.timedelta(microseconds=1))
+        labels.append(midnight.strftime("%Y-%m-%d %z"))
+    has_null = bool(n[0])
+    return {"day": np.asarray(keys, np.int64), "day_valid": present != 0, "n": n[present].astype(np.int64),
+            "qty": np.bincount(g, weights=qty, minlength=size)[present],
+            "nulls": np.bincount(g, weights=~ok, minlength=size).astype(np.int64)[present],
+            "evening": count(hour >= 18), "weekend": count(weekday >= 6), "summer": count(dst > 0),
+            "base": base[present], "base_valid": present != 0, "label": labels,
+            "null_rows": int((~ok).sum()), "kept_rows": int(keep.sum()), "has_null_group": has_null}
+
+
+def tz_orders_oracle(orders: dict, seed: int) -> dict:
+    """Part (b) in numpy: each order's wall clock (its date and hour, the
+    "N/A" rows and New York's skipped hours unparsed) to its instant, else
+    its date's local midnight; New York's wall clock of that instant; from
+    ORDERTS_FROM_YEAR on, per local year and month the price, the orders,
+    the unparsed rows and the first instant; offsets from zoneinfo."""
+    P = _phases()
+    DAY_US = P.DAY_US
+    day = _days(orders["o_orderdate"])
+    hour, na = P.orderts_parts(day, seed)
+    wall = day * DAY_US + hour * HOUR_US
+    ny, i = _hours_of(np.concatenate([wall, day * DAY_US]), P.TZ_SHIP, local=True)
+    i_wall, i_mid = i[:len(day)], i[len(day):]
+    parsed = ~na & ny["exists"][i_wall]
+    ts = np.where(parsed, wall - ny["off"][i_wall], day * DAY_US - ny["off"][i_mid])
+    back, j = _hours_of(ts, P.TZ_SHIP, local=False)
+    months = ((ts + back["off"][j]) // DAY_US).astype("datetime64[D]").astype("datetime64[M]").astype(np.int64)
+    year, month = months // 12 + 1970, months % 12 + 1
+    keep = year >= P.ORDERTS_FROM_YEAR
+    keys, inv = np.unique(months[keep], return_inverse=True)
+    inv = inv.reshape(-1)
+    first = np.full(len(keys), np.iinfo(np.int64).max)
+    np.minimum.at(first, inv, ts[keep])
+    return {"year": keys // 12 + 1970, "month": keys % 12 + 1,
+            "price": np.bincount(inv, weights=orders["o_totalprice"][keep], minlength=len(keys)),
+            "n": np.bincount(inv, minlength=len(keys)).astype(np.int64),
+            "unparsed": np.bincount(inv, weights=~parsed[keep], minlength=len(keys)).astype(np.int64),
+            "first": first, "unparsed_rows": int((~parsed).sum()), "na_rows": int(na.sum()),
+            "skipped_rows": int((~na & ~ny["exists"][i_wall]).sum())}
+
+
+def tz_localize_oracle(orders: dict, seed: int) -> dict:
+    """``tz_localize_plan`` in numpy: the rows outside the 01:00 and 02:00
+    hours (and the "N/A" ones), the parsed ones, the nulls, the first and
+    last instant; offsets from zoneinfo."""
+    P = _phases()
+    day = _days(orders["o_orderdate"])
+    hour, na = P.orderts_parts(day, seed)
+    keep = na | ((hour != 1) & (hour != 2))
+    parsed = keep & ~na
+    wall = (day * P.DAY_US + hour * HOUR_US)[parsed]
+    ny, i = _hours_of(wall, P.TZ_SHIP, local=True)
+    ts = wall - ny["off"][i]
+    return {"n": [int(keep.sum())], "same": [int(parsed.sum())], "nulls": [int(na[keep].sum())],
+            "first": [int(ts.min())], "last": [int(ts.max())]}
+
+
+def _check_nullable(out, name: str, values: np.ndarray, valid: np.ndarray, label: str) -> None:
+    """A result column's storage and validity against the oracle's, where
+    int64 ticks would not fit a float (no NaN for null)."""
+    got, ok = _storage(out, name)
+    ok = np.ones(len(got), bool) if ok is None else ok
+    if not np.array_equal(ok, valid) or not np.array_equal(got[valid].astype(np.int64), values[valid]):
+        raise AssertionError(f"{label} {name}: differs from the oracle's")
+
+
+def phase_tz(torch, pl, frames: dict, raw: dict, seed: int) -> dict:
+    """Time zones, formatting and parsing at SF10 (``testing/phases.py``
+    ``tz_ship_plan`` and ``tz_orders_plan``), each part through its main
+    path and its plan as written, against its zoneinfo-built oracle; then
+    the zone-aware parse of the text outside New York's 01:00 and 02:00
+    hours against its oracle; a strict parse of the same text, which must
+    fail."""
+    P = _phases()
+    line, orders = frames["lineitem"], frames["orders"]
+    results = {}
+
+    want = tz_ship_oracle(raw["lineitem"])
+
+    def check_ship(out) -> float:
+        label = "tz.ship"
+        _check_nullable(out, "day", want["day"], want["day_valid"], label)
+        _check_nullable(out, "base", want["base"], want["base_valid"], label)
+        worst = check_columns(out, want, exact=("n", "nulls", "evening", "weekend", "summer"), floats=("qty",),
+                              label=label)
+        if out["label"].to_list() != want["label"]:
+            raise AssertionError(f"{label}: the labels differ from the oracle's")
+        return worst
+
+    r = run_phase(torch, "tz.ship", lambda: P.tz_ship_plan(pl, line))
+    out = r["out"]
+    schema = [(c, repr(d)) for c, d in out.schema.items()]
+    expect = [("day", "Datetime(time_unit='us', time_zone='Europe/Amsterdam')"), ("n", "UInt32"),
+              ("qty", "Float64"), ("nulls", "UInt32"), ("evening", "UInt32"), ("weekend", "UInt32"),
+              ("summer", "UInt32"), ("base", "Duration(time_unit='ms')"), ("label", "String")]
+    if schema != expect:
+        raise AssertionError(f"tz.ship schema {schema} != {expect}")
+    worst = check_ship(out)
+    unopt = run_unoptimized(torch, lambda: P.tz_ship_plan(pl, line), out, check_ship)
+    results["ship"] = phase_result("tz.ship", r, out, {"lineitem": line.height}, worst, unoptimized=unopt,
+                                   null_rows=want["null_rows"], kept_rows=want["kept_rows"])
+
+    want_o = tz_orders_oracle(raw["orders"], seed)
+
+    def check_orders(out) -> float:
+        return check_columns(out, want_o, exact=("year", "month", "n", "unparsed", "first"), floats=("price",),
+                             label="tz.orders")
+
+    r = run_phase(torch, "tz.orders", lambda: P.tz_orders_plan(pl, orders))
+    out = r["out"]
+    schema = [(c, repr(d)) for c, d in out.schema.items()]
+    expect = [("year", "Int32"), ("month", "Int8"), ("price", "Float64"), ("n", "UInt32"), ("unparsed", "UInt32"),
+              ("first", "Datetime(time_unit='us', time_zone='America/New_York')")]
+    if schema != expect:
+        raise AssertionError(f"tz.orders schema {schema} != {expect}")
+    worst = check_orders(out)
+    unopt = run_unoptimized(torch, lambda: P.tz_orders_plan(pl, orders), out, check_orders)
+    try:
+        P.tz_orders_plan(pl, orders, strict=True).collect()
+    except pl.InvalidOperationError as e:
+        strict_error = str(e)
+    else:
+        raise AssertionError("tz.orders: the strict parse of text with 'N/A' did not raise")
+    # the zone-aware parse, over the text where New York skips and repeats no hour
+    check_columns(P.tz_localize_plan(pl, orders).collect(), tz_localize_oracle(raw["orders"], seed),
+                  exact=("n", "same", "nulls", "first", "last"), label="tz.localize")
+    results["orders"] = phase_result("tz.orders", r, out, {"orders": orders.height}, worst, unoptimized=unopt,
+                                     unparsed_rows=want_o["unparsed_rows"], na_rows=want_o["na_rows"],
+                                     skipped_hour_rows=want_o["skipped_rows"], strict_parse_raised=strict_error,
+                                     zone_aware_parse="equal to its oracle")
+    return results
+
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1902,6 +2144,9 @@ def main() -> int:
         elif name == "frameops":
             for sub, res in phase_frameops(torch, pl, frames["frameops"]["lineitem"], raw).items():
                 runs[f"frameops.{sub}"] = res
+        elif name == "tz":
+            for sub, res in phase_tz(torch, pl, frames["tz"], raw, args.seed).items():
+                runs[f"tz.{sub}"] = res
         else:  # Q3's K2 call runs 50 times, each against the first
             runs[name] = phase_query(torch, name, frames, raw, args.scale, k2_repeats=50 if name == "q3" else 1)
     del frames, raw, line

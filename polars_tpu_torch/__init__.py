@@ -5,7 +5,8 @@ pl``), ported slice by slice; it runs all 22 PDS-H queries (filters, joins
 of every ``how``, group-bys, one-row aggregate selects, sorts and top-k,
 string predicates and slices; ``unique``, ``rename``, ``drop``,
 ``with_row_index`` and lazy ``concat``; Date, Datetime, Duration and Time columns,
-their arithmetic and the ``dt`` namespace without time zones; range joins
+their arithmetic, time zones and the ``dt`` namespace with ``to_string``;
+string-to-temporal parsing and the null functions; range joins
 (``join_where``) and asof joins; a join that sizes its output on the host
 runs between fused segments). Every collect runs the plan the optimizer
 (``plan/optimizer``) gives, unless the caller asks for the plan as written;
@@ -57,7 +58,7 @@ from polars_tpu_torch.expr.expr import Expr
 from polars_tpu_torch.functions.eager import concat
 from polars_tpu_torch.functions.interop import QueryOptFlags
 from polars_tpu_torch.functions.lazy import (  # noqa: A004
-    col, date, date_range, datetime, datetime_range, duration, len, lit, when,
+    coalesce, col, date, date_range, datetime, datetime_range, duration, len, lit, when,
 )
 from polars_tpu_torch.functions.parity import business_day_count
 from polars_tpu_torch.lazyframe import LazyFrame
@@ -66,6 +67,6 @@ __all__ = [
     "Boolean", "ColumnNotFoundError", "ComputeError", "DataFrame", "Date", "Datetime", "DuplicateError",
     "Duration", "Expr", "Float32", "Float64", "Int8", "Int16", "Int32", "Int64", "InvalidOperationError",
     "LazyFrame", "PolarsError", "QueryOptFlags", "Schema", "SchemaError", "Series", "ShapeError", "String", "Time",
-    "UInt8", "UInt16", "UInt32", "UInt64", "Utf8", "business_day_count", "col", "concat", "datatypes",
+    "UInt8", "UInt16", "UInt32", "UInt64", "Utf8", "business_day_count", "coalesce", "col", "concat", "datatypes",
     "date", "date_range", "datetime", "datetime_range", "duration", "len", "lit", "set_default_device", "when",
 ]

@@ -6,8 +6,9 @@ ported queries need: numpy arrays (float, int, bool, ``datetime64`` and
 strings, numbers, bools, dates, datetimes, timedeltas and times. String
 columns hold int32 dictionary codes in the buffer and the values in
 ``table``; Date holds int32 days, Datetime and Duration int64 ticks of their
-time unit, Time int64 nanoseconds since midnight. Time zones are not ported
-(a tz-aware value raises).
+time unit, Time int64 nanoseconds since midnight. A Datetime with a time
+zone stores UTC instants; Python datetimes that share one ``tzinfo`` build
+one, and it goes back to Python as datetimes of its zone.
 """
 
 from __future__ import annotations
@@ -25,8 +26,8 @@ from polars_tpu_torch.utils import strtable
 
 _EPOCH_DATE = _dt.date(1970, 1, 1)
 _EPOCH_DT = _dt.datetime(1970, 1, 1)
+_EPOCH_DT_UTC = _dt.datetime(1970, 1, 1, tzinfo=_dt.timezone.utc)
 _NS_PER = (3_600_000_000_000, 60_000_000_000, 1_000_000_000)  # hour, minute, second
-_TZ_ITEM = "port queue: time zones and temporal formatting"
 
 
 def _needs_table(dtype: dt.DataType) -> bool:
@@ -89,7 +90,14 @@ class Column:
             out = vals.astype(f"{kind}[{self.dtype.time_unit}]")
             if self.dtype.time_unit == "ns":  # Python's datetime and timedelta hold microseconds
                 out = out.astype(f"{kind}[us]")
-            return _mask_to_object(out.astype(object), validity)
+            out = out.astype(object)
+            if isinstance(self.dtype, dt.Datetime) and self.dtype.time_zone:
+                from polars_tpu_torch.kernels.timezone import zone
+
+                tz = zone(self.dtype.time_zone)
+                out = np.asarray([None if d is None else d.replace(tzinfo=_dt.timezone.utc).astimezone(tz)
+                                  for d in out], dtype=object)
+            return _mask_to_object(out, validity)
         if isinstance(self.dtype, dt.Time):
             out = np.empty(len(vals), dtype=object)
             for i, ns in enumerate(vals.tolist()):
@@ -168,9 +176,12 @@ def _infer_pylist_dtype(seq: list) -> dt.DataType:
     if kinds == {_dt.date}:
         return dt.Date()
     if kinds <= {_dt.date, _dt.datetime}:
-        if any(isinstance(v, _dt.datetime) and v.tzinfo is not None for v in seq):
-            raise NotImplementedError(f"time-zone-aware datetimes are not ported yet ({_TZ_ITEM})")
-        return dt.Datetime("us")
+        # one zone among the aware values makes an aware Datetime (the JAX
+        # package's rule: naive values read as UTC instants beside them)
+        from polars_tpu_torch.kernels.timezone import zone_name
+
+        zones = {zone_name(v.tzinfo) for v in seq if isinstance(v, _dt.datetime) and v.tzinfo is not None}
+        return dt.Datetime("us", zones.pop() if len(zones) == 1 else None)
     if kinds == {_dt.timedelta}:
         return dt.Duration("us")
     if kinds == {_dt.time}:
@@ -199,8 +210,6 @@ def _from_pylist(name: str, seq: Any, dtype: dt.DataType | None, device) -> Colu
         )
         return Column(name, logical, Buffer.from_numpy(days, validity, dtype=torch.int32, device=device))
     if isinstance(logical, (dt.Datetime, dt.Duration, dt.Time)):
-        if isinstance(logical, dt.Datetime) and logical.time_zone:
-            raise NotImplementedError(f"Datetime columns with a time zone are not ported yet ({_TZ_ITEM})")
         ticks = np.asarray([0 if v is None else _ticks(v, logical) for v in arr], dtype=np.int64)
         return Column(name, logical, Buffer.from_numpy(ticks, validity, dtype=torch.int64, device=device))
     if isinstance(logical, (dt.Boolean, dt.IntegerType, dt.FloatType)):
@@ -226,16 +235,15 @@ def _ticks(v: Any, dtype: dt.DataType) -> int:
         if not isinstance(v, _dt.time):
             raise InvalidOperationError(f"cannot build a Time value from {v!r}")
         if v.tzinfo is not None:
-            raise NotImplementedError(f"time-zone-aware times are not ported yet ({_TZ_ITEM})")
+            raise InvalidOperationError(f"a Time holds no time zone: {v!r}")
         return v.hour * _NS_PER[0] + v.minute * _NS_PER[1] + v.second * _NS_PER[2] + v.microsecond * 1000
     if isinstance(dtype, dt.Duration):
         if not isinstance(v, _dt.timedelta):
             raise InvalidOperationError(f"cannot build a Duration value from {v!r}")
         micros = _micros(v)
     elif isinstance(v, _dt.datetime):
-        if v.tzinfo is not None:
-            raise NotImplementedError(f"time-zone-aware datetimes are not ported yet ({_TZ_ITEM})")
-        micros = _micros(v - _EPOCH_DT)
+        # an aware datetime is its UTC instant; a naive one is read as one
+        micros = _micros(v - _EPOCH_DT_UTC) if v.tzinfo is not None else _micros(v - _EPOCH_DT)
     elif isinstance(v, _dt.date):
         micros = (v - _EPOCH_DATE).days * 86_400_000_000
     else:

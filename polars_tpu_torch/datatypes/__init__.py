@@ -16,6 +16,7 @@ storage:
 
 from __future__ import annotations
 
+import datetime as _pydt
 from typing import Any
 
 import numpy as np
@@ -534,6 +535,10 @@ _PY_TO_DTYPE = {
     float: Float64,
     bool: Boolean,
     str: String,
+    _pydt.datetime: Datetime,
+    _pydt.date: Date,
+    _pydt.time: Time,
+    _pydt.timedelta: Duration,
 }
 
 

@@ -2,10 +2,11 @@
 casts the ported queries make: bool, integer and date values to a wider
 integer or to a float, as type promotion and ``cast(pl.Int64)`` of a Boolean
 need them; the temporal casts (Date and Datetime both ways, Datetime to
-Time, Time to Duration, between time units with floor division, and
-between temporal and integer storage); and a null to any numeric, bool or
-temporal type), and the helpers that keep an unsigned integer inside its
-logical width.
+Time, Time to Duration, between time units with floor division, between
+time zones on the same instants, and between temporal and integer storage;
+a Datetime with a time zone gives the Date and Time of its zone's wall
+clock); and a null to any numeric, bool or temporal type), and the
+helpers that keep an unsigned integer inside its logical width.
 
 PyTorch has no arithmetic for uint16/32/64, so UInt16 and UInt32 live in the
 next wider signed tensor and UInt64 as its bit pattern in int64
@@ -79,16 +80,20 @@ def _temporal_cast(v: Val, target: dt.DataType) -> Val | None:
     sn, tn = type(src).__name__, type(target).__name__
     if not (src.is_temporal() or target.is_temporal()):
         return None
-    if isinstance(target, dt.Datetime) and target.time_zone:
-        raise NotImplementedError(
-            "casts to a Datetime with a time zone are not ported yet (port queue: time zones and temporal formatting)")
     x = v.values
     if sn == "Date" and tn == "Datetime":
         return v.with_(values=x.to(torch.int64) * (dt.TICKS_PER_SECOND[target.time_unit] * 86_400), dtype=target)
+    if sn == "Datetime" and tn in ("Date", "Time") and src.time_zone:
+        # the day and the time of day of the zone's wall clock, as Polars
+        # takes them (the JAX package takes UTC's)
+        from polars_tpu_torch.kernels.timezone import local_from_utc
+
+        x = local_from_utc(x, src.time_unit, src.time_zone)
     if sn == "Datetime" and tn == "Date":
         days = floordiv_const(x, dt.TICKS_PER_SECOND[src.time_unit] * 86_400)
         return v.with_(values=days.to(torch.int32), dtype=target)
     if (sn, tn) in (("Datetime", "Datetime"), ("Duration", "Duration")):
+        # a change of zone, to or from none, keeps the UTC instants
         return v.with_(values=tu_convert(x, src.time_unit, target.time_unit), dtype=target)
     if sn == "Datetime" and tn == "Time":  # the time of day, in nanoseconds
         per_day = dt.TICKS_PER_SECOND[src.time_unit] * 86_400

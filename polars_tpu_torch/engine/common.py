@@ -80,6 +80,19 @@ class EvalCtx:
             self.flags.append((flag, msg))
 
 
+def flag_rows(ctx: EvalCtx | None, v: Val, bad: torch.Tensor, msg: str) -> None:
+    """A validation flag, raised at the segment's count read where ``bad``
+    holds on a row that counts: valid, and kept by the row mask where ``v``
+    is per row."""
+    if ctx is None:
+        return
+    if v.validity is not None:
+        bad = bad & v.validity
+    if v.domain == ROW:
+        bad = bad & ctx.rowmask
+    ctx.add_flag(bad.any(), msg)
+
+
 def take_lut(lut, codes: torch.Tensor) -> torch.Tensor:
     """``lut[codes]`` for a host lookup table (a numpy array indexed by
     dictionary code), on the codes' device; codes are clamped into it."""

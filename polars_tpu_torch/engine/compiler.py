@@ -122,15 +122,28 @@ def _eval_literal(node: E.ELiteral, ctx: EvalCtx) -> Val:
 
 
 def parse_temporal_literal(value: str, dtype: dt.DataType) -> int:
-    """An ISO date or datetime string as the epoch integer of ``dtype``."""
+    """An ISO date or datetime string as the epoch integer of ``dtype``. A
+    string with a UTC offset is that instant; without one, it is the wall
+    clock of ``dtype``'s time zone (the earlier instant where the clock
+    repeats an hour), or naive."""
     if isinstance(dtype, dt.Date):
         return int(np.datetime64(value, "D").astype(np.int64))
     if isinstance(dtype, dt.Datetime):
-        if dtype.time_zone:
-            raise NotImplementedError(
-                "Datetime literals with a time zone are not ported yet"
-                " (port queue: time zones and temporal formatting)")
-        return int(np.datetime64(value, dtype.time_unit).astype(np.int64))
+        import datetime as _pydt
+
+        try:
+            parsed = _pydt.datetime.fromisoformat(value)
+        except ValueError:
+            parsed = None
+        if parsed is None or (parsed.tzinfo is None and not dtype.time_zone):
+            return int(np.datetime64(value, dtype.time_unit).astype(np.int64))
+        if parsed.tzinfo is None:
+            from polars_tpu_torch.kernels.timezone import zone
+
+            parsed = parsed.replace(tzinfo=zone(dtype.time_zone))
+        delta = parsed - _pydt.datetime(1970, 1, 1, tzinfo=_pydt.timezone.utc)
+        micros = (delta.days * 86_400 + delta.seconds) * 1_000_000 + delta.microseconds
+        return micros * dt.TICKS_PER_SECOND[dtype.time_unit] // 1_000_000
     raise InvalidOperationError(f"cannot parse temporal literal for {dtype!r}")
 
 

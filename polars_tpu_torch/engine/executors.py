@@ -79,6 +79,10 @@ def _join_fusable(node: L.LJoin) -> bool:
 
 
 def _is_fusable(node: L.LNode) -> bool:
+    """A node that runs inside a segment: not a host-sized join, nor a
+    select that calls a host function (``engine/hostops.py``)."""
+    if isinstance(node, (L.LSelect, L.LWithColumns)):
+        return not any(E.needs_host(e) for e in node.expressions)
     return isinstance(node, _FUSABLE) and (not isinstance(node, L.LJoin) or _join_fusable(node))
 
 

@@ -1,7 +1,9 @@
 """Core elementwise functions (the port of ``polars_tpu/engine/fn_core.py``,
-trimmed to ``not``, ``is_in``, ``is_between`` and the temporal constructors
-``make_date``, ``make_datetime`` and ``make_duration``), registered in
-``engine/registry.py``."""
+trimmed to ``not``, the null block (``is_null``, ``is_not_null``,
+``is_nan``, ``is_not_nan``, ``is_finite``, ``is_infinite``, ``fill_null``
+with a value, ``fill_nan`` and ``coalesce``), ``is_in``, ``is_between`` and
+the temporal constructors ``make_date``, ``make_datetime`` and
+``make_duration``), registered in ``engine/registry.py``."""
 
 from __future__ import annotations
 
@@ -10,7 +12,7 @@ import torch
 from polars_tpu_torch import datatypes as dt
 from polars_tpu_torch.engine.cast import cast_val, order_word, wrap_unsigned
 from polars_tpu_torch.engine.common import ROW, SCALAR, SERIES, Val, combine_validity, take_lut
-from polars_tpu_torch.engine.registry import BOOL, SAME, register
+from polars_tpu_torch.engine.registry import BOOL, SAME, SUPER, register
 from polars_tpu_torch.errors import InvalidOperationError
 from polars_tpu_torch.plan.schema_resolve import supertype
 from polars_tpu_torch.utils import strtable
@@ -24,6 +26,118 @@ def _not(ctx, args, opts):
     if v.dtype.is_integer():
         return v.with_(values=wrap_unsigned(torch.bitwise_not(v.values), v.dtype))
     raise InvalidOperationError(f"cannot negate {v.dtype!r}")
+
+
+# -- null handling ----------------------------------------------------------------
+
+
+def _valid(v: Val) -> torch.Tensor:
+    """``v``'s validity, all true where it has none."""
+    if v.validity is not None:
+        return v.validity
+    return torch.ones(v.values.shape, dtype=torch.bool, device=v.values.device)
+
+
+def _float_test(v: Val, fn, other: bool) -> Val:
+    """``fn`` of a float column (null stays null), ``other`` for any other."""
+    if v.dtype.is_float():
+        out = fn(v.values)
+    else:
+        out = torch.full(v.values.shape, other, dtype=torch.bool, device=v.values.device)
+    return Val(out, v.validity, dt.Boolean(), None, v.domain)
+
+
+@register("is_null", BOOL)
+def _is_null(ctx, args, opts):
+    return Val(~_valid(args[0]), None, dt.Boolean(), None, args[0].domain)
+
+
+@register("is_not_null", BOOL)
+def _is_not_null(ctx, args, opts):
+    return Val(_valid(args[0]).clone(), None, dt.Boolean(), None, args[0].domain)
+
+
+@register("is_nan", BOOL)
+def _is_nan(ctx, args, opts):
+    return _float_test(args[0], torch.isnan, False)
+
+
+@register("is_not_nan", BOOL)
+def _is_not_nan(ctx, args, opts):
+    return _float_test(args[0], lambda x: ~torch.isnan(x), True)
+
+
+@register("is_finite", BOOL)
+def _is_finite(ctx, args, opts):
+    return _float_test(args[0], torch.isfinite, True)
+
+
+@register("is_infinite", BOOL)
+def _is_infinite(ctx, args, opts):
+    return _float_test(args[0], torch.isinf, False)
+
+
+def _unified(vals: list[Val]) -> list[Val]:
+    """The values in one dtype: strings on one merged dictionary (a null
+    literal takes it), anything else cast to the supertype."""
+    strs = [v for v in vals if v.table is not None]
+    if not strs:
+        st = vals[0].dtype
+        for v in vals[1:]:
+            st = supertype(st, v.dtype)
+        return [cast_val(v, st) for v in vals]
+    if len(strs) + sum(isinstance(v.dtype, dt.Null) for v in vals) != len(vals):
+        raise InvalidOperationError("cannot mix strings with other types here")
+    table = strs[0].table
+    for v in strs[1:]:
+        if v.table is not table:
+            table = strtable.unify(table, v.table)[0]
+    return [v.with_(dtype=strs[0].dtype, table=table,
+                    values=v.values if v.table is None or v.table is table
+                    else take_lut(strtable.index_in(v.table.values, table.values), v.values))
+            for v in vals]
+
+
+def _first_valid(vals: list[Val]) -> Val:
+    """Row by row, the first of ``vals`` that is not null (null where none
+    is; no validity where one of them has none)."""
+    vals = _unified(vals)
+    dom = next((v.domain for v in vals if v.domain != SCALAR), SCALAR)
+    shape = next((v.values.shape for v in vals if v.domain != SCALAR), vals[0].values.shape)
+    values = vals[0].values.expand(shape)
+    valid = _valid(vals[0]).expand(shape)
+    for v in vals[1:]:
+        values = torch.where(valid, values, v.values.expand(shape))
+        valid = valid | _valid(v).expand(shape)
+    validity = None if any(v.validity is None for v in vals) else valid
+    return Val(values, validity, vals[0].dtype, vals[0].table, dom)
+
+
+@register("fill_null", SUPER)
+def _fill_null(ctx, args, opts):
+    """Nulls replaced by the fill value, in the supertype of both (a string
+    column by a string, on one dictionary)."""
+    return _first_valid(list(args))
+
+
+@register("fill_nan", SAME)
+def _fill_nan(ctx, args, opts):
+    """NaN replaced by the fill value (a null fill makes NaN null); a column
+    that is not float is itself."""
+    v, fill = args
+    if not v.dtype.is_float():
+        return v
+    nan = torch.isnan(v.values)
+    values = torch.where(nan, fill.values.to(v.values.dtype).expand(v.values.shape), v.values)
+    validity = v.validity
+    if fill.validity is not None:
+        validity = torch.where(nan, fill.validity.expand(nan.shape), _valid(v))
+    return Val(values, validity, v.dtype, None, v.domain)
+
+
+@register("coalesce", SUPER)
+def _coalesce(ctx, args, opts):
+    return _first_valid(list(args))
 
 
 # -- membership -----------------------------------------------------------------

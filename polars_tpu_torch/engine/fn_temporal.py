@@ -1,17 +1,22 @@
 """Temporal functions of Date, Datetime, Duration and Time columns (the port
-of ``polars_tpu/engine/fn_temporal.py`` without time zones): the calendar
-fields, the time-of-day fields, ``date``/``time``/``datetime``,
-``timestamp``, the casts of time units, ``total_*``, ``truncate``,
-``round``, ``month_start``/``month_end``, ``offset_by``, ``century``,
-``millennium``, ``combine``, ``replace`` and the business-day functions,
-each with the reference's output dtype. Values are integer epochs; every
-division floors (``kernels/fastmath.py``), so days and times of day before
-1970 come out right. The civil-calendar math is ``kernels/temporal.py``; a
-null row keeps its validity.
+of ``polars_tpu/engine/fn_temporal.py``): the calendar fields, the
+time-of-day fields, ``date``/``time``/``datetime``, ``timestamp``, the casts
+of time units, ``total_*``, ``truncate``, ``round``,
+``month_start``/``month_end``, ``offset_by``, ``century``, ``millennium``,
+``combine``, ``replace``, the business-day functions, and the time-zone
+functions ``replace_time_zone``, ``convert_time_zone``, ``base_utc_offset``
+and ``dst_offset``, each with the reference's output dtype. Values are
+integer epochs; every division floors (``kernels/fastmath.py``), so days
+and times of day before 1970 come out right. The civil-calendar math is
+``kernels/temporal.py``; a null row keeps its validity.
 
-A Datetime with a time zone raises ``NotImplementedError`` naming its queue
-item, as ``expr/datetime.py`` does for the time-zone functions and
-``to_string``/``strftime``.
+A Datetime with a time zone stores UTC instants. Its fields read the zone's
+wall clock (``_local``, through ``kernels/timezone.py``); the functions that
+move the wall clock (``truncate``, ``round``, the calendar part of
+``offset_by``, ``month_start``/``month_end``, ``replace``, business days)
+run on the wall clock and map back to instants (``_wall_op``), the earlier
+one where the clock repeats an hour. ``to_string`` is a host op: the
+executor formats its input between segments (``engine/hostops.py``).
 """
 
 from __future__ import annotations
@@ -21,21 +26,37 @@ import re
 import torch
 
 from polars_tpu_torch import datatypes as dt
-from polars_tpu_torch.engine.common import ROW, Val, combine_validity
+from polars_tpu_torch.engine.common import ROW, Val, combine_validity, flag_rows
 from polars_tpu_torch.engine.registry import BOOL, register
 from polars_tpu_torch.errors import InvalidOperationError
 from polars_tpu_torch.kernels import temporal as T
+from polars_tpu_torch.kernels import timezone as TZ
 from polars_tpu_torch.kernels.fastmath import floordiv_any, floordiv_const, mod_any, mod_const
 
 _TU = dt.TICKS_PER_SECOND
-_TZ_ITEM = "port queue: time zones and temporal formatting"
 
 
-def _naive(v: Val) -> torch.Tensor:
-    """The wall-clock values of a Datetime without a time zone."""
-    if isinstance(v.dtype, dt.Datetime) and v.dtype.time_zone:
-        raise NotImplementedError(f"dt functions of a Datetime with a time zone are not ported yet ({_TZ_ITEM})")
-    return v.values
+def _zone(v: Val) -> str | None:
+    return v.dtype.time_zone if isinstance(v.dtype, dt.Datetime) else None
+
+
+def _local(v: Val) -> torch.Tensor:
+    """The wall-clock values: a Datetime with a time zone localizes its UTC
+    instants; anything else is its own values."""
+    tz = _zone(v)
+    return TZ.local_from_utc(v.values, v.dtype.time_unit, tz) if tz else v.values
+
+
+def _wall_op(v: Val, fn) -> Val:
+    """``fn`` on the wall clock of a Datetime with a time zone, mapped back
+    to instants (the earlier one where the clock repeats an hour; a time in
+    a spring-forward gap moves past it); ``fn(v)`` on anything else."""
+    tz = _zone(v)
+    if not tz:
+        return fn(v)
+    tu = v.dtype.time_unit
+    out = fn(v.with_(values=TZ.local_from_utc(v.values, tu, tz), dtype=dt.Datetime(tu)))
+    return out.with_(values=TZ.utc_from_local(out.values, tu, tz, "earliest")[0], dtype=v.dtype)
 
 
 def _days_of(v: Val) -> torch.Tensor:
@@ -43,14 +64,14 @@ def _days_of(v: Val) -> torch.Tensor:
     if isinstance(v.dtype, dt.Date):
         return v.values.to(torch.int64)
     if isinstance(v.dtype, dt.Datetime):
-        return floordiv_const(_naive(v), _TU[v.dtype.time_unit] * 86_400)
+        return floordiv_const(_local(v), _TU[v.dtype.time_unit] * 86_400)
     raise InvalidOperationError(f"expected Date/Datetime, got {v.dtype!r}")
 
 
 def _time_part(v: Val) -> tuple[torch.Tensor, int]:
     """(the intra-day offset, nonnegative for a Datetime; ticks per second)."""
     if isinstance(v.dtype, dt.Datetime):
-        return mod_const(_naive(v), _TU[v.dtype.time_unit] * 86_400), _TU[v.dtype.time_unit]
+        return mod_const(_local(v), _TU[v.dtype.time_unit] * 86_400), _TU[v.dtype.time_unit]
     if isinstance(v.dtype, dt.Time):
         return v.values, 1_000_000_000
     if isinstance(v.dtype, dt.Duration):
@@ -150,10 +171,12 @@ def _time(ctx, args, opts):
 
 @register("dt.datetime", lambda dts, opts: dt.Datetime("us"))
 def _datetime(ctx, args, opts):
+    """The naive local datetime (a zone's wall clock, as Polars gives it;
+    the JAX package keeps the UTC instants)."""
     v = args[0]
     if isinstance(v.dtype, dt.Date):
         return _out(v, v.values.to(torch.int64) * 86_400_000_000, dt.Datetime("us"))
-    return _out(v, _naive(v), dt.Datetime(v.dtype.time_unit))
+    return _out(v, _local(v), dt.Datetime(v.dtype.time_unit))
 
 
 # -- epochs and units -----------------------------------------------------------------
@@ -164,7 +187,7 @@ def _timestamp(ctx, args, opts):
     v = args[0]
     tu = opts.get("time_unit", "us")
     per = {"s": 1, "d": 1, "ms": 1_000, "us": 1_000_000, "ns": 1_000_000_000}[tu]
-    x = _naive(v).to(torch.int64)
+    x = v.values.to(torch.int64)  # an aware value's epoch is its instant's
     if isinstance(v.dtype, dt.Date):
         out = x if tu == "d" else x * (86_400 * per)
     else:
@@ -179,13 +202,16 @@ def _timestamp(ctx, args, opts):
 
 
 def _unit_dtype(dts, opts):
-    return dt.Datetime(opts["time_unit"]) if isinstance(dts[0], dt.Datetime) else dt.Duration(opts["time_unit"])
+    """The same type in another time unit; a Datetime keeps its zone (the
+    JAX package drops it)."""
+    d = dts[0]
+    return dt.Datetime(opts["time_unit"], d.time_zone) if isinstance(d, dt.Datetime) else dt.Duration(opts["time_unit"])
 
 
 @register("dt.with_time_unit", _unit_dtype)
 def _with_time_unit(ctx, args, opts):
     v = args[0]
-    return v.with_(values=_naive(v), dtype=_unit_dtype([v.dtype], opts))
+    return v.with_(dtype=_unit_dtype([v.dtype], opts))
 
 
 @register("dt.cast_time_unit", _unit_dtype)
@@ -193,7 +219,7 @@ def _cast_time_unit(ctx, args, opts):
     from polars_tpu_torch.engine.cast import tu_convert
 
     v = args[0]
-    return _out(v, tu_convert(_naive(v), v.dtype.time_unit, opts["time_unit"]), _unit_dtype([v.dtype], opts))
+    return _out(v, tu_convert(v.values, v.dtype.time_unit, opts["time_unit"]), _unit_dtype([v.dtype], opts))
 
 
 @register("dt.total", dt.Int64())
@@ -250,9 +276,12 @@ def _months_floor(y: torch.Tensor, m: torch.Tensor, n: int, unit: str) -> tuple[
 
 @register("dt.truncate", lambda dts, opts: dts[0])
 def _truncate(ctx, args, opts):
-    v = args[0]
+    return _wall_op(args[0], lambda v: _truncate_wall(v, opts))
+
+
+def _truncate_wall(v: Val, opts) -> Val:
     n, unit = _parse_every(opts["every"])
-    x = _naive(v)
+    x = v.values
     if isinstance(v.dtype, dt.Date):
         if unit in ("d", "w"):
             step = n * (7 if unit == "w" else 1)
@@ -283,9 +312,12 @@ def _truncate(ctx, args, opts):
 @register("dt.dt_round", lambda dts, opts: dts[0])
 def _dt_round(ctx, args, opts):
     """To the nearest multiple of a fixed interval, halves up."""
-    v = args[0]
+    return _wall_op(args[0], lambda v: _round_wall(v, opts))
+
+
+def _round_wall(v: Val, opts) -> Val:
     n, unit = _parse_every(opts["every"])
-    x = _naive(v)
+    x = v.values
     if isinstance(v.dtype, dt.Datetime) and unit in _UNIT_NS:
         tu = v.dtype.time_unit
         step = _fixed_ticks(n, unit, tu)
@@ -304,7 +336,7 @@ def _with_days(v: Val, out_days: torch.Tensor) -> Val:
     if isinstance(v.dtype, dt.Date):
         return v.with_(values=out_days.to(torch.int32))
     per_day = _TU[v.dtype.time_unit] * 86_400
-    return v.with_(values=out_days.to(torch.int64) * per_day + mod_const(_naive(v), per_day))
+    return v.with_(values=out_days.to(torch.int64) * per_day + mod_const(v.values, per_day))
 
 
 def _month_day(v: Val, *, first: bool) -> Val:
@@ -315,12 +347,12 @@ def _month_day(v: Val, *, first: bool) -> Val:
 
 @register("dt.month_start", lambda dts, opts: dts[0])
 def _month_start(ctx, args, opts):
-    return _month_day(args[0], first=True)
+    return _wall_op(args[0], lambda v: _month_day(v, first=True))
 
 
 @register("dt.month_end", lambda dts, opts: dts[0])
 def _month_end(ctx, args, opts):
-    return _month_day(args[0], first=False)
+    return _wall_op(args[0], lambda v: _month_day(v, first=False))
 
 
 @register("dt.offset_by", lambda dts, opts: dts[0])
@@ -328,7 +360,9 @@ def _offset_by(ctx, args, opts):
     """Move by an interval of one or more units ('1mo', '-1y', '3d12h'), as
     Polars adds a duration: the calendar months first, keeping the day of
     the month where the target month has it and clamping it to the month's
-    end where not; then weeks and days; then the fixed units."""
+    end where not; then weeks and days; then the fixed units. With a time
+    zone the months, weeks and days move the wall clock and the fixed units
+    the instant."""
     v = args[0]
     by = opts["by"]
     sign = -1 if by.startswith("-") else 1
@@ -338,18 +372,25 @@ def _offset_by(ctx, args, opts):
     months = sum(int(a) * {"mo": 1, "q": 3, "y": 12}[u] for a, u in parts if u in ("mo", "q", "y"))
     days = sum(int(a) * (7 if u == "w" else 1) for a, u in parts if u in ("w", "d"))
     fixed_ns = sum(int(a) * _UNIT_NS[u] for a, u in parts if u in _UNIT_NS and u not in ("w", "d"))
-    if months:
-        y, m, d = T.civil_from_days(_days_of(v))
-        total = y.to(torch.int64) * 12 + (m.to(torch.int64) - 1) + sign * months
-        y2, m2 = floordiv_const(total, 12), mod_const(total, 12) + 1
-        d2 = torch.minimum(d.to(torch.int64), T.days_in_month(y2, m2).to(torch.int64))
-        v = _with_days(v, T.days_from_civil(y2, m2, d2))
-    if isinstance(v.dtype, dt.Date):
-        if fixed_ns:
-            raise InvalidOperationError("sub-day offsets on Date")
-        return v.with_(values=(v.values.to(torch.int64) + sign * days).to(torch.int32))
-    step = _fixed_ticks(days, "d", v.dtype.time_unit) + _fixed_ticks(fixed_ns, "ns", v.dtype.time_unit)
-    return v.with_(values=_naive(v) + sign * step)
+    if isinstance(v.dtype, dt.Date) and fixed_ns:
+        raise InvalidOperationError("sub-day offsets on Date")
+
+    def calendar(w: Val) -> Val:
+        if months:
+            y, m, d = T.civil_from_days(_days_of(w))
+            total = y.to(torch.int64) * 12 + (m.to(torch.int64) - 1) + sign * months
+            y2, m2 = floordiv_const(total, 12), mod_const(total, 12) + 1
+            d2 = torch.minimum(d.to(torch.int64), T.days_in_month(y2, m2).to(torch.int64))
+            w = _with_days(w, T.days_from_civil(y2, m2, d2))
+        if isinstance(w.dtype, dt.Date):
+            return w.with_(values=(w.values.to(torch.int64) + sign * days).to(torch.int32))
+        return w.with_(values=w.values + sign * _fixed_ticks(days, "d", w.dtype.time_unit))
+
+    if months or days:
+        v = _wall_op(v, calendar)
+    if fixed_ns:
+        v = v.with_(values=v.values + sign * _fixed_ticks(fixed_ns, "ns", v.dtype.time_unit))
+    return v
 
 
 # -- combine and replace -------------------------------------------------------------------
@@ -388,7 +429,7 @@ def _dt_replace(ctx, args, opts):
         return v.with_(values=new_days)
     tu = v.dtype.time_unit
     per_day = _TU[tu] * 86_400
-    tod = mod_const(_naive(v), per_day)
+    tod = mod_const(_local(v), per_day)
     for part, ticks, span in (("hour", _TU[tu] * 3_600, 24), ("minute", _TU[tu] * 60, 60), ("second", _TU[tu], 60),
                               ("microsecond", _TU[tu] // 1_000_000 if _TU[tu] >= 1_000_000 else None, 1_000_000)):
         if opts.get(part) is None:
@@ -396,7 +437,11 @@ def _dt_replace(ctx, args, opts):
         if ticks is None:
             raise InvalidOperationError(f"cannot set {part} on {tu}-unit Datetime")
         tod = tod + (int(opts[part]) - mod_const(floordiv_const(tod, ticks), span)) * ticks
-    return v.with_(values=new_days.to(torch.int64) * per_day + tod)
+    wall = new_days.to(torch.int64) * per_day + tod
+    tz = _zone(v)
+    if tz:  # the new wall clock of the zone; "latest" takes the later instant of a repeated hour
+        wall = TZ.utc_from_local(wall, tu, tz, opts.get("ambiguous") or "earliest")[0]
+    return v.with_(values=wall)
 
 
 # -- business days ------------------------------------------------------------------------
@@ -430,12 +475,15 @@ def _is_business_day(ctx, args, opts):
 
 @register("dt.add_business_days", lambda dts, opts: dts[0])
 def _add_business_days(ctx, args, opts):
+    return _wall_op(args[0], lambda v: _add_business_days_wall(ctx, v, opts))
+
+
+def _add_business_days_wall(ctx, v: Val, opts) -> Val:
     """Move by ``n`` business days. A start on a closed day rolls forward or
     backward, or with ``roll="raise"`` fails at the segment's count read.
     The walk takes one calendar day a step, for as many steps as ``n``
     business days can span: ceil(|n| * 7 / open days) + 7 per holiday and
     week."""
-    v = args[0]
     days = _days_of(v)
     mask, holidays = _bday_setup(opts)
     n = int(opts.get("n", 1))
@@ -444,13 +492,8 @@ def _add_business_days(ctx, args, opts):
         step = 1 if roll == "forward" else -1
         for _ in range(8 + len(holidays)):
             days = torch.where(_is_open(days, mask, holidays), days, days + step)
-    elif ctx is not None:
-        bad = ~_is_open(days, mask, holidays)
-        if v.validity is not None:
-            bad &= v.validity
-        if v.domain == ROW:
-            bad &= ctx.rowmask
-        ctx.add_flag(bad.any(), "non-business day date; use `roll='forward'/'backward'`")
+    else:
+        flag_rows(ctx, v, ~_is_open(days, mask, holidays), "non-business day date; use `roll='forward'/'backward'`")
     step, remaining = (1 if n >= 0 else -1), abs(n)
     cur = days
     left = torch.full_like(days, remaining)
@@ -485,3 +528,83 @@ def _business_day_count(ctx, args, opts):
     total = torch.where(neg, -total, total)
     dom = s_v.domain if s_v.domain == e_v.domain else ROW
     return Val(total.to(torch.int32), combine_validity(s_v.validity, e_v.validity), dt.Int32(), None, dom)
+
+
+# -- time zones -------------------------------------------------------------------------------
+
+_AMBIGUOUS = ("raise", "earliest", "latest", "null")
+_NON_EXISTENT = ("raise", "null")
+
+
+def _with_zone(dts, opts):
+    if not isinstance(dts[0], dt.Datetime):
+        raise InvalidOperationError(f"expected Datetime, got {dts[0]!r}")
+    return dt.Datetime(dts[0].time_unit, opts.get("time_zone"))
+
+
+def localize(ctx, v: Val, tz: str, ambiguous: str = "raise", non_existent: str = "raise") -> Val:
+    """Naive wall-clock values ``v`` of zone ``tz`` as its UTC instants. A
+    wall time the clock shows twice takes the earlier or the later instant,
+    is null, or (``"raise"``) fails the segment at its count read; a wall
+    time the clock skips is null or fails (Polars' ``non_existent``)."""
+    if ambiguous not in _AMBIGUOUS:
+        raise InvalidOperationError(f"ambiguous must be one of {_AMBIGUOUS}, got {ambiguous!r}")
+    if non_existent not in _NON_EXISTENT:
+        raise InvalidOperationError(f"non_existent must be one of {_NON_EXISTENT}, got {non_existent!r}")
+    tu = v.dtype.time_unit
+    utc, amb, nonex = TZ.utc_from_local(v.values, tu, tz, ambiguous)
+    validity = v.validity
+    for kind, mask, how, hint in (("ambiguous", amb, ambiguous, "ambiguous='earliest'/'latest'/'null'"),
+                                  ("non-existent", nonex, non_existent, "non_existent='null'")):
+        if how == "raise":
+            flag_rows(ctx, v, mask, f"datetime is {kind} in time zone {tz!r}; use `{hint}`")
+        elif how == "null":
+            validity = combine_validity(validity, ~mask)
+    return Val(utc, validity, dt.Datetime(tu, tz), None, v.domain)
+
+
+@register("dt.replace_time_zone", _with_zone)
+def _replace_time_zone(ctx, args, opts):
+    """The same wall clock in another zone (or none): the instants move so
+    that the local reading stays."""
+    v = args[0]
+    wall = v.with_(values=_local(v), dtype=dt.Datetime(v.dtype.time_unit))
+    tz = opts.get("time_zone")
+    if tz is None:
+        return wall
+    return localize(ctx, wall, tz, opts.get("ambiguous", "raise"), opts.get("non_existent", "raise"))
+
+
+@register("dt.convert_time_zone", _with_zone)
+def _convert_time_zone(ctx, args, opts):
+    """The same instants shown in another zone: only the dtype changes (a
+    naive value is read as UTC, as in the JAX package)."""
+    v = args[0]
+    TZ.tz_table(opts["time_zone"])  # an unknown zone raises here
+    return v.with_(dtype=_with_zone([v.dtype], opts))
+
+
+def _offset_ms(v: Val, name: str, dst_only: bool) -> Val:
+    tz = _zone(v)
+    if not tz:
+        raise InvalidOperationError(f"{name} expects a Datetime with a time zone, got {v.dtype!r}")
+    tu = v.dtype.time_unit
+    dst = TZ.dst_offset(v.values, tu, tz)
+    ticks = dst if dst_only else TZ.utc_offset(v.values, tu, tz) - dst
+    return _out(v, floordiv_const(ticks, _TU[tu] // 1_000), dt.Duration("ms"))
+
+
+@register("dt.base_utc_offset", dt.Duration("ms"))
+def _base_utc_offset(ctx, args, opts):
+    return _offset_ms(args[0], "base_utc_offset", dst_only=False)
+
+
+@register("dt.dst_offset", dt.Duration("ms"))
+def _dst_offset(ctx, args, opts):
+    return _offset_ms(args[0], "dst_offset", dst_only=True)
+
+
+@register("dt.to_string", dt.String())
+def _to_string(ctx, args, opts):
+    raise InvalidOperationError(
+        "dt.to_string is a host op: it runs in select and with_columns, between segments (engine/hostops.py)")

@@ -387,7 +387,7 @@ def _range_values(col: Column, other: Column) -> tuple[torch.Tensor, torch.Tenso
     Dictionary codes compare in one sorted code space; floats become
     order-preserving words with NaN, which matches nothing, invalid; an int
     against a float compares as f64; a Date against a Datetime, or two time
-    units, in their supertype's ticks."""
+    units, in their supertype's ticks. Datetimes of two time zones raise."""
     d, od = col.dtype, other.dtype
     values, ok = col.buffer.values, col.buffer.validity
     if col.table is not None:
@@ -409,6 +409,9 @@ def _range_values(col: Column, other: Column) -> tuple[torch.Tensor, torch.Tenso
     if isinstance(d, dt.UInt64) or isinstance(od, dt.UInt64):
         return (order_word(values, d), ok) if d == od else None
     if d.is_temporal() or od.is_temporal():
+        if isinstance(d, dt.Datetime) and isinstance(od, dt.Datetime) and d.time_zone != od.time_zone:
+            # as Polars' dtype check: keys of one zone compare their UTC instants
+            raise InvalidOperationError(f"range join keys of two time zones: {d!r} and {od!r}")
         if d == od:
             return values.to(torch.int64), ok
         if {type(d).__name__, type(od).__name__} not in ({"Datetime"}, {"Duration"}, {"Date", "Datetime"}):

@@ -5,8 +5,8 @@ Each opcode registers an implementation (run on :class:`Val` inputs) and a
 dtype rule (used by schema resolution without running anything). Every
 ``EFunction`` is typed and evaluated through this one table; namespaced ops
 use dotted names (``"str.starts_with"``). Every function registered so far
-is elementwise (``plan/exprs.is_elementwise`` relies on it); the JAX
-package's ``elementwise`` flag comes with the first one that is not.
+is elementwise but the host functions of ``plan/exprs.HOST_FNS``, which
+stand for the JAX package's ``elementwise=False`` flag.
 """
 
 from __future__ import annotations

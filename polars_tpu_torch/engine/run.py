@@ -1,8 +1,9 @@
 """Plan execution entry (the port of ``polars_tpu/engine/run.py``'s
 ``execute_plan``, ``_execute_node``, ``_exec_join``, ``_exec_join_where``,
 ``_and_all`` and ``_exec_asof``, and its ``plan_cache_scope``, for in-memory
-scans, fused segments, host-sized joins, range joins, asof joins and
-common subplans; every other node kind belongs to a later slice).
+scans, fused segments, host-sized joins, range joins, asof joins, common
+subplans and selects that call a host function (``engine/hostops.py``);
+every other node kind belongs to a later slice).
 
 A segment's leaves are the nearest non-fusable nodes below it, each run once
 (a frame joined with itself is one leaf), on both sides of every join. A join
@@ -75,6 +76,10 @@ def _execute_node(node: L.LNode) -> DataFrame:
         return _exec_join_where(node)
     if isinstance(node, L.LAsofJoin):
         return _exec_asof(node)
+    if isinstance(node, (L.LSelect, L.LWithColumns)):
+        from polars_tpu_torch.engine.hostops import exec_host_select
+
+        return exec_host_select(node)
     raise NotImplementedError(f"executing {type(node).__name__} is not ported yet")
 
 

@@ -1,7 +1,6 @@
 """Temporal expression namespace (the port of ``polars_tpu/expr/datetime.py``;
-``engine/fn_temporal.py`` evaluates it). The time-zone functions and
-``to_string``/``strftime`` raise ``NotImplementedError`` naming their queue
-item."""
+``engine/fn_temporal.py`` evaluates it, and ``engine/hostops.py`` formats
+``to_string``/``strftime`` on the host)."""
 
 from __future__ import annotations
 
@@ -131,23 +130,25 @@ class ExprDateTimeNamespace:
         return self._fn("total", unit="ns")
 
     def to_string(self, format: str | None = None) -> Expr:
-        raise _not_ported("to_string")
+        """Each value as text in chrono's ``strftime`` format (``None``: the
+        value as Python prints it)."""
+        return self._fn("to_string", format=format)
 
     def strftime(self, format: str) -> Expr:
-        raise _not_ported("strftime")
+        return self._fn("to_string", format=format)
 
     def replace_time_zone(self, time_zone: str | None, *, ambiguous: str = "raise",
                           non_existent: str = "raise") -> Expr:
-        raise _not_ported("replace_time_zone")
+        return self._fn("replace_time_zone", time_zone=time_zone, ambiguous=ambiguous, non_existent=non_existent)
 
     def convert_time_zone(self, time_zone: str) -> Expr:
-        raise _not_ported("convert_time_zone")
+        return self._fn("convert_time_zone", time_zone=time_zone)
 
     def base_utc_offset(self) -> Expr:
-        raise _not_ported("base_utc_offset")
+        return self._fn("base_utc_offset")
 
     def dst_offset(self) -> Expr:
-        raise _not_ported("dst_offset")
+        return self._fn("dst_offset")
 
     def century(self) -> Expr:
         return self._fn("century")
@@ -215,10 +216,6 @@ class ExprDateTimeNamespace:
             week_mask=tuple(bool(b) for b in week_mask),
             holidays=_holidays_to_days(holidays),
         )
-
-
-def _not_ported(name: str) -> NotImplementedError:
-    return NotImplementedError(f"dt.{name} is not ported yet (port queue: time zones and temporal formatting)")
 
 
 def _holidays_to_days(holidays: Any) -> tuple[int, ...]:

@@ -1,7 +1,9 @@
 """The fluent ``Expr`` wrapper over the expression AST (the port of
 ``polars_tpu/expr/expr.py``, trimmed to the operations the ported queries
 evaluate: arithmetic, comparison, boolean ``&``/``|``/``~``, casts, ``is_in``,
-``is_between``, the ``.str`` and ``.dt`` namespaces, aliasing and the sum,
+``is_between``, the null functions (``is_null``, ``fill_null`` with a value,
+``fill_nan``, ``coalesce``, the NaN and finiteness tests), the ``.str`` and
+``.dt`` namespaces, aliasing and the sum,
 mean, min, max, count, len, first, last and n_unique aggregations). Nothing
 executes until a plan is collected.
 """
@@ -14,6 +16,8 @@ from typing import Any, Iterable
 import numpy as np
 
 from polars_tpu_torch import datatypes as dt
+from polars_tpu_torch.errors import InvalidOperationError
+from polars_tpu_torch.kernels.timezone import zone_name
 from polars_tpu_torch.plan import exprs as E
 from polars_tpu_torch.utils.tokens import next_token
 
@@ -30,11 +34,12 @@ def series_literal(values: Any) -> E.ESeriesLit:
 
 def temporal_literal(value: Any) -> E.ELiteral:
     """A Python date, datetime or timedelta as a literal: a Date, a
-    ``Datetime("us")`` (from its ISO string) or a ``Duration("us")``. Time
-    zones are not ported."""
+    ``Datetime("us")`` (from its ISO string; an aware datetime is its UTC
+    instant, with an explicit offset, in a Datetime of its zone) or a
+    ``Duration("us")``."""
     if isinstance(value, _pydt.datetime) and value.tzinfo is not None:
-        raise NotImplementedError(
-            "time-zone-aware literals are not ported yet (port queue: time zones and temporal formatting)")
+        utc = value.astimezone(_pydt.timezone.utc)
+        return E.ELiteral(utc.isoformat(), dt.Datetime("us", zone_name(value.tzinfo)))
     if isinstance(value, _pydt.datetime):
         return E.ELiteral(value.isoformat(), dt.Datetime("us"))
     if isinstance(value, _pydt.date):
@@ -177,6 +182,45 @@ class Expr:
         if closed not in ("both", "left", "right", "none"):
             raise ValueError(f"`closed` must be one of 'both', 'left', 'right', 'none', got {closed!r}")
         return self._fn("is_between", lower_bound, upper_bound, closed=closed)
+
+    # -- null handling ----------------------------------------------------------
+
+    def is_null(self) -> Expr:
+        return self._fn("is_null")
+
+    def is_not_null(self) -> Expr:
+        return self._fn("is_not_null")
+
+    def is_nan(self) -> Expr:
+        return self._fn("is_nan")
+
+    def is_not_nan(self) -> Expr:
+        return self._fn("is_not_nan")
+
+    def is_finite(self) -> Expr:
+        return self._fn("is_finite")
+
+    def is_infinite(self) -> Expr:
+        return self._fn("is_infinite")
+
+    def fill_null(self, value: Any = None, strategy: str | None = None) -> Expr:
+        """Nulls replaced by ``value`` (a literal or an expression; a plain
+        string is a literal). A ``strategy`` fills from neighbouring rows,
+        which needs the positional functions of a later slice."""
+        if strategy is not None:
+            raise NotImplementedError(
+                f"fill_null(strategy={strategy!r}) is not ported yet (port queue: expression breadth)")
+        if value is None:
+            raise InvalidOperationError("must specify either a fill value or a strategy")
+        return self._fn("fill_null", value)
+
+    def fill_nan(self, value: Any) -> Expr:
+        return self._fn("fill_nan", value)
+
+    def coalesce(self, *others: Any) -> Expr:
+        from polars_tpu_torch.functions.lazy import coalesce
+
+        return coalesce(self, *others)
 
     # -- namespaces -----------------------------------------------------------
 

@@ -1,7 +1,7 @@
 """Lazy top-level functions (the port of ``polars_tpu/functions/lazy.py``,
-trimmed to ``col``, ``lit``, ``len``, ``when``/``then``/``otherwise``, the
-temporal constructors ``date``, ``datetime`` and ``duration``, and the eager
-``date_range`` and ``datetime_range``)."""
+trimmed to ``col``, ``lit``, ``len``, ``when``/``then``/``otherwise``,
+``coalesce``, the temporal constructors ``date``, ``datetime`` and
+``duration``, and the eager ``date_range`` and ``datetime_range``)."""
 
 from __future__ import annotations
 
@@ -11,6 +11,7 @@ from typing import Any
 import numpy as np
 
 from polars_tpu_torch import datatypes as dt
+from polars_tpu_torch.errors import InvalidOperationError
 from polars_tpu_torch.expr.expr import Expr, parse_into_expr, series_literal, temporal_literal
 from polars_tpu_torch.plan import exprs as E
 
@@ -29,7 +30,9 @@ def lit(value: Any, dtype: Any = None) -> Expr:
     if isinstance(value, (_pydt.date, _pydt.timedelta)):
         if dtype is None:
             return Expr(temporal_literal(value))
-        if isinstance(value, _pydt.date):  # an ISO string, parsed into ``dtype``
+        if isinstance(value, _pydt.date):  # an ISO string (an aware one in UTC), parsed into ``dtype``
+            if isinstance(value, _pydt.datetime) and value.tzinfo is not None:
+                value = value.astimezone(_pydt.timezone.utc)
             return Expr(E.ELiteral(value.isoformat(), dt.parse_into_dtype(dtype)))
     if isinstance(value, (list, tuple, np.ndarray)):
         node = series_literal(value)
@@ -39,6 +42,15 @@ def lit(value: Any, dtype: Any = None) -> Expr:
         if dtype is None:
             dtype = dt.numpy_to_dtype(np.asarray(value).dtype)
     return Expr(E.ELiteral(value, dt.parse_into_dtype(dtype) if dtype is not None else None))
+
+
+def coalesce(*exprs: Any) -> Expr:
+    """The first non-null value of the expressions, row by row (a plain
+    string is a column name)."""
+    nodes = [parse_into_expr(e) for e in exprs]
+    if not nodes:
+        raise InvalidOperationError("coalesce needs at least one expression")
+    return Expr(E.EFunction("coalesce", tuple(nodes)))
 
 
 def len() -> Expr:  # noqa: A001
@@ -124,12 +136,13 @@ def date(year: Any, month: Any, day: Any) -> Expr:
 
 def datetime(year: Any, month: Any, day: Any, hour: Any = 0, minute: Any = 0, second: Any = 0,
              microsecond: Any = 0, *, time_unit: str = "us", time_zone: str | None = None) -> Expr:
-    """A Datetime from its parts (expressions or values)."""
+    """A Datetime from its parts (expressions or values); with
+    ``time_zone``, the parts are the wall clock of that zone, as Polars
+    reads them (the JAX package drops the zone)."""
+    e = _fn("make_datetime", (year, month, day, hour, minute, second, microsecond), time_unit=time_unit)
     if time_zone is not None:
-        raise NotImplementedError(
-            "datetime(time_zone=...) is not ported yet (port queue: time zones and temporal formatting)")
-    return _fn("make_datetime", (year, month, day, hour, minute, second, microsecond),
-               time_unit=time_unit).alias("datetime")
+        e = e.dt.replace_time_zone(time_zone)
+    return e.alias("datetime")
 
 
 def duration(*, weeks: Any = None, days: Any = None, hours: Any = None, minutes: Any = None, seconds: Any = None,
@@ -152,11 +165,41 @@ def date_range(start: Any, end: Any, interval: str = "1d", *, closed: str = "bot
 def datetime_range(start: Any, end: Any, interval: str = "1d", *, closed: str = "both", time_unit: str = "us",
                    time_zone: str | None = None, eager: bool = False):
     """The Datetimes from ``start`` to ``end`` by ``interval``, as a Series
-    named "literal" (only the eager form is ported)."""
-    if time_zone is not None:
-        raise NotImplementedError(
-            "datetime_range(time_zone=...) is not ported yet (port queue: time zones and temporal formatting)")
-    return _temporal_range(start, end, interval, closed, dt.Datetime(time_unit), eager)
+    named "literal" (only the eager form is ported). With ``time_zone`` (or
+    aware bounds) the range is of that zone, as Polars makes it: naive
+    bounds are its wall clock, days, weeks, months and years step the wall
+    clock, and shorter intervals step the instants (the JAX package returns
+    naive values)."""
+    from polars_tpu_torch.kernels.timezone import zone, zone_name
+
+    tz = time_zone
+    for b in (start, end):
+        if tz is None and isinstance(b, _pydt.datetime) and b.tzinfo is not None:
+            tz = zone_name(b.tzinfo)
+    if tz is None or not eager:
+        return _temporal_range(start, end, interval, closed, dt.Datetime(time_unit), eager)
+    from polars_tpu_torch.core.series import Series
+    from polars_tpu_torch.engine.fn_temporal import _parse_every
+
+    z = zone(tz)
+
+    def wall(b):  # a bound as a naive wall time of the zone
+        if isinstance(b, str):
+            b = _pydt.datetime.fromisoformat(b)
+        if not isinstance(b, _pydt.datetime):
+            b = _pydt.datetime(b.year, b.month, b.day)
+        return b.astimezone(z).replace(tzinfo=None) if b.tzinfo is not None else b
+
+    lo, hi = wall(start), wall(end)
+    if _parse_every(interval)[1] in ("d", "w", "mo", "q", "y"):
+        values = [v.replace(tzinfo=z) for v in temporal_range_values(lo, hi, interval, closed)]
+    else:  # physical steps, between UTC instants
+        def utc(w):
+            return w.replace(tzinfo=z).astimezone(_pydt.timezone.utc).replace(tzinfo=None)
+
+        values = [v.replace(tzinfo=_pydt.timezone.utc).astimezone(z)
+                  for v in temporal_range_values(utc(lo), utc(hi), interval, closed)]
+    return Series("literal", values, dt.Datetime(time_unit, tz))
 
 
 def _temporal_range(start, end, interval: str, closed: str, dtype: dt.DataType, eager: bool):
@@ -174,7 +217,6 @@ def temporal_range_values(start: Any, end: Any, interval: str, closed: str) -> l
     ``engine/run._temporal_range``); a month step keeps the day of the
     month."""
     from polars_tpu_torch.engine.fn_temporal import _parse_every
-    from polars_tpu_torch.errors import InvalidOperationError
 
     n, unit = _parse_every(interval)
     sub_day = unit in ("h", "m", "s", "ms", "us")

@@ -125,6 +125,16 @@ class LazyFrame:
             pred = E.EBinary(pred, "&", p)
         return self._wrap(L.LFilter(self._node, pred))
 
+    def drop_nulls(self, subset: Any = None) -> LazyFrame:
+        """The rows with no null in ``subset`` (a name or a list of names).
+        Without a subset every column counts, which needs the wildcard
+        ``col("*")`` of a later slice."""
+        if subset is None:
+            raise NotImplementedError(
+                "drop_nulls() without a subset is not ported yet (port queue: expression breadth)")
+        names = [subset] if isinstance(subset, str) else list(subset)
+        return self.filter(*[E.EFunction("is_not_null", (E.EColumn(n),)) for n in names])
+
     def select(self, *exprs: Any, **named_exprs: Any) -> LazyFrame:
         return self._wrap(L.LSelect(self._node, tuple(parse_into_expr_list(list(exprs), named_exprs))))
 

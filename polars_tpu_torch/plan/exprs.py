@@ -180,10 +180,21 @@ def reduces_in_agg(node: ENode) -> bool:
     return False
 
 
+# functions that run on the host between segments (``engine/hostops.py``)
+HOST_FNS = frozenset({"dt.to_string"})
+
+
+def needs_host(node: ENode) -> bool:
+    """True if the expr calls a host function."""
+    return any(isinstance(n, EFunction) and n.name in HOST_FNS for n in walk(node))
+
+
 def is_elementwise(node: ENode) -> bool:
-    """True if the expr maps rows independently (every function the port
-    registers is elementwise)."""
-    return not any(isinstance(n, (EAgg, ELen)) for n in walk(node))
+    """True if the expr maps rows independently inside a segment: no
+    aggregation, and no host function (which runs between segments, so no
+    predicate moves past it, as the JAX package's ``elementwise=False``)."""
+    return not any(isinstance(n, (EAgg, ELen)) or (isinstance(n, EFunction) and n.name in HOST_FNS)
+                   for n in walk(node))
 
 
 def map_columns(node: ENode, fn) -> ENode:

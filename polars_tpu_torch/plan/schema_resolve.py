@@ -96,7 +96,7 @@ def supertype(a: dt.DataType, b: dt.DataType) -> dt.DataType:
     if an == "Datetime" and bn == "Datetime":
         units = {"ms": 0, "us": 1, "ns": 2}
         finer = a if units[a.time_unit] >= units[b.time_unit] else b
-        return finer
+        return dt.Datetime(finer.time_unit, datetime_zone(a, b))
     if an == "Duration" and bn == "Duration":
         units = {"ms": 0, "us": 1, "ns": 2}
         return a if units[a.time_unit] >= units[b.time_unit] else b
@@ -113,6 +113,16 @@ def supertype(a: dt.DataType, b: dt.DataType) -> dt.DataType:
     if b.is_numeric() and an == "String":
         return dt.String()
     raise SchemaError(f"no supertype of {a!r} and {b!r}")
+
+def datetime_zone(a: dt.Datetime, b: dt.Datetime) -> str | None:
+    """The time zone of the supertype of two Datetimes: their zone where they
+    share it or one of them is naive (its values read as UTC instants), and
+    UTC between two zones. Either way they meet on UTC instants, which is
+    what a compare or a difference reads."""
+    if a.time_zone == b.time_zone or b.time_zone is None:
+        return a.time_zone
+    return b.time_zone if a.time_zone is None else "UTC"
+
 
 # ---------------------------------------------------------------------------
 # expansion

@@ -18,7 +18,16 @@ with ``testing/profile_query.py``:
   of the 1995 and 1996 lines, then ``with_row_index``, ``rename``, ``drop``
   and a group-by; and the per-order totals joined back to their own mean by
   line count, a subplan used twice that common-subplan elimination runs
-  once.
+  once;
+- ``tz``: time zones, formatting and parsing. Shipments stamped in New
+  York's local time (``l_shipts`` read as its wall clock, the spring-forward
+  hours null, the fall-back hours the earlier instant) shown in Amsterdam:
+  the hour, weekday and offsets, a filter against an aware literal, a
+  group-by of the Amsterdam day, each day labelled by ``to_string``; and
+  order timestamps parsed at ingest (``o_orderts``, ``"%Y-%m-%d %H:%M"``
+  from ``o_orderdate`` and an hour from the seed, one row in 1,000
+  ``"N/A"``), localized in New York, coalesced with the order date's
+  midnight, then summed by local year and month.
 """
 
 from __future__ import annotations
@@ -167,3 +176,91 @@ def frameops_plans(pl, line) -> dict:
                   .agg(orders=pl.len(), total=c("total").sum())
                   .sort("lines")),
     }
+
+
+TZ_SHIP, TZ_SHOWN = "America/New_York", "Europe/Amsterdam"
+TZ_SINCE = dtm.datetime(1993, 1, 1)  # the filter's bound, on Amsterdam's wall clock
+ORDERTS_FORMAT = "%Y-%m-%d %H:%M"
+ORDERTS_FROM_YEAR = 1995
+
+
+def orderts_parts(orderdate: np.ndarray, seed: int) -> tuple[np.ndarray, np.ndarray]:
+    """(the hour of each order's timestamp, the rows whose text is
+    ``"N/A"``), drawn from the seed."""
+    rng = np.random.default_rng(seed + 10)
+    return rng.integers(0, 24, len(orderdate)), rng.random(len(orderdate)) < 0.001
+
+
+def add_orderts(orders: dict, seed: int) -> None:
+    """Add ``o_orderts`` to the orders columns: ``o_orderdate`` and an hour
+    from the seed as ``"%Y-%m-%d %H:%M"`` text, ``"N/A"`` in one row of
+    1,000; each distinct text is made once and the rows take it by index."""
+    day = orders["o_orderdate"].astype("datetime64[D]").astype(np.int64)
+    hour, na = orderts_parts(day, seed)
+    first = int(day.min())
+    uniq, inv = np.unique((day - first) * 24 + hour, return_inverse=True)
+    texts = np.asarray([(EPOCH + dtm.timedelta(days=first + int(k) // 24)).strftime("%Y-%m-%d")
+                        + f" {int(k) % 24:02d}:00" for k in uniq] + ["N/A"], dtype=object)
+    orders["o_orderts"] = texts[np.where(na, len(uniq), inv.reshape(-1))]
+
+
+def tz_ship_plan(pl, line):
+    """Part (a): ``l_shipts`` as New York's wall clock (``non_existent`` null,
+    ``ambiguous`` the earlier instant) shown in Amsterdam, the rows from
+    ``TZ_SINCE`` on and the null ones, per Amsterdam day: the rows, the
+    quantity, the nulls, the rows after 18:00, on a weekend and in summer
+    time, the base offset; each day's label by ``to_string``."""
+    from zoneinfo import ZoneInfo
+
+    c = pl.col
+    ams = (c("l_shipts").dt.replace_time_zone(TZ_SHIP, ambiguous="earliest", non_existent="null")
+           .dt.convert_time_zone(TZ_SHOWN))
+    return (line.lazy()
+            .with_columns(ams=ams)
+            .with_columns(hour=c("ams").dt.hour(), weekday=c("ams").dt.weekday(),
+                          base=c("ams").dt.base_utc_offset(), dst=c("ams").dt.dst_offset())
+            .filter(c("ams").is_null() | (c("ams") >= TZ_SINCE.replace(tzinfo=ZoneInfo(TZ_SHOWN))))
+            .group_by(c("ams").dt.truncate("1d").alias("day"))
+            .agg(n=pl.len(), qty=c("l_quantity").sum(), nulls=c("ams").is_null().sum(),
+                 evening=(c("hour") >= 18).sum(), weekend=(c("weekday") >= 6).sum(),
+                 summer=(c("dst") > dtm.timedelta(0)).sum(), base=c("base").max())
+            .with_columns(label=c("day").dt.to_string("%Y-%m-%d %z"))
+            .sort("day"))
+
+
+def tz_orders_plan(pl, orders, *, strict: bool = False):
+    """Part (b): ``o_orderts`` parsed (``strict=False``: ``"N/A"`` is null)
+    and localized in New York (a skipped hour null), coalesced with the
+    order date's local midnight; from ``ORDERTS_FROM_YEAR`` on, per local
+    year and month: the price, the orders, the failed parses and the
+    first instant."""
+    c = pl.col
+    parsed = (c("o_orderts").str.strptime(pl.Datetime("us"), ORDERTS_FORMAT, strict=strict)
+              .dt.replace_time_zone(TZ_SHIP, ambiguous="earliest", non_existent="null"))
+    midnight = c("o_orderdate").cast(pl.Datetime("us")).dt.replace_time_zone(TZ_SHIP)
+    return (orders.lazy()
+            .with_columns(parsed=parsed)
+            .with_columns(ts=pl.coalesce(c("parsed"), midnight))
+            .filter(c("ts").dt.year() >= ORDERTS_FROM_YEAR)
+            .group_by(c("ts").dt.year().alias("year"), c("ts").dt.month().alias("month"))
+            .agg(price=c("o_totalprice").sum(), n=pl.len(), unparsed=c("parsed").is_null().sum(),
+                 first=c("ts").min())
+            .sort("year", "month"))
+
+
+def tz_localize_plan(pl, orders):
+    """Part (b)'s text parsed straight into New York's zone
+    (``str.strptime(pl.Datetime("us", TZ_SHIP))``), over the rows outside
+    the 01:00 and 02:00 hours, where no local time is skipped or repeated
+    (there the zone-aware parse raises, as in Polars, so part (b) parses
+    naive text and localizes it with ``non_existent="null"``): the rows, the
+    rows equal to part (b)'s localized parse, the nulls, the first and the
+    last instant."""
+    c = pl.col
+    aware = c("o_orderts").str.strptime(pl.Datetime("us", TZ_SHIP), ORDERTS_FORMAT, strict=False)
+    naive = (c("o_orderts").str.strptime(pl.Datetime("us"), ORDERTS_FORMAT, strict=False)
+             .dt.replace_time_zone(TZ_SHIP))
+    return (orders.lazy()
+            .filter(~c("o_orderts").str.contains(" 0[12]:"))
+            .select(n=pl.len(), same=(aware == naive).sum(), nulls=aware.is_null().sum(),
+                    first=aware.min(), last=aware.max()))

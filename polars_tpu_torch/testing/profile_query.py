@@ -1,7 +1,7 @@
 """Where a PDS-H query's time goes on the card (any of the 22, q1 to q22,
 with ``pdsh.run_params``), or one of ``chip_smoke.py``'s phases
-``temporal``, ``asof`` (its backward join) and ``range``
-(``testing/phases.py``).
+``temporal``, ``asof`` (its backward join), ``range``, ``tz.ship`` and
+``tz.orders`` (``testing/phases.py``).
 
 Builds the SF10 frames of the columns the query reads
 (``pdsh.QUERY_COLUMNS``), as ``chip_smoke.py`` does, warms the
@@ -25,7 +25,8 @@ optimized plan, or with ``--no-optimization`` the plan as written
 (``collect(no_optimization=True)``); the first line says which.
 
 Run from the repository root on a machine with a CUDA device:
-    python3 -m polars_tpu_torch.testing.profile_query [--query q3 [q5 ... temporal asof range]] [--scale 10] [--runs 5]
+    python3 -m polars_tpu_torch.testing.profile_query [--query q3 [q5 ... temporal asof range tz.ship tz.orders]]
+        [--scale 10] [--runs 5]
         [--no-optimization]
 """
 
@@ -145,7 +146,7 @@ def profile_query(torch, query: str, run, rows: dict, scale: float, runs: int, t
     print(json.dumps({"profile": query, "sorts": timed_sorts(torch, run, no_optimization)}), flush=True)
 
 
-PHASES = ("temporal", "asof", "range")
+PHASES = ("temporal", "asof", "range", "tz.ship", "tz.orders")
 
 
 def main() -> int:
@@ -171,21 +172,31 @@ def main() -> int:
     from polars_tpu_torch.testing import phases as P
 
     own = {"temporal": {"lineitem": P.TEMPORAL_COLUMNS}, "range": {"orders": ["o_orderdate", "o_totalprice"]},
-           "asof": {}}
+           "asof": {}, "tz.ship": {"lineitem": ["l_shipdate", "l_quantity"]},
+           "tz.orders": {"orders": ["o_orderdate", "o_totalprice"]}}
     need: dict[str, dict] = {}  # table -> the columns any chosen query reads
     for q in args.query:
         for t, cs in (own[q] if q in own else QUERY_COLUMNS[q]).items():
             need.setdefault(t, {}).update(dict.fromkeys(cs))
     raw = pdsh.generate_pdsh(args.scale, seed=args.seed, tables=tuple(need)) if need else {}
-    if "temporal" in args.query:
+    if "temporal" in args.query or "tz.ship" in args.query:
         P.add_shipts(raw["lineitem"], args.seed)
         need["lineitem"]["l_shipts"] = None
+    if "tz.orders" in args.query:
+        P.add_orderts(raw["orders"], args.seed)
+        need["orders"]["o_orderts"] = None
     tables = {t: pl.DataFrame({c: raw[t][c] for c in cs}, device="cuda") for t, cs in need.items()}
     del raw
     for q in args.query:
         if q == "temporal":
             line = tables["lineitem"]
             run, rows = (lambda: P.temporal_plan(pl, line)), {"lineitem": line.height}
+        elif q == "tz.ship":
+            line = tables["lineitem"]
+            run, rows = (lambda: P.tz_ship_plan(pl, line)), {"lineitem": line.height}
+        elif q == "tz.orders":
+            orders = tables["orders"]
+            run, rows = (lambda: P.tz_orders_plan(pl, orders)), {"orders": orders.height}
         elif q == "range":
             orders, windows = tables["orders"], pl.DataFrame(P.range_windows(), device="cuda")
             run, rows = (lambda: P.range_plan(pl, windows, orders)), {"orders": orders.height, "windows": 12}

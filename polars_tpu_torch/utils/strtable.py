@@ -24,7 +24,7 @@ class StringTable:
     lexicographic order.
     """
 
-    __slots__ = ("values", "sorted_order", "ident", "_unify_cache", "_ordinal")
+    __slots__ = ("values", "sorted_order", "ident", "_unify_cache", "_ordinal", "_memo")
 
     def __init__(self, values: np.ndarray, *, sorted_order: bool = False) -> None:
         self.values = np.asarray(values, dtype=object)
@@ -32,6 +32,7 @@ class StringTable:
         self.ident = next_token()
         self._unify_cache: dict | None = None  # other table's ident -> unify() result
         self._ordinal: tuple | None = None  # ordinal() of an unordered table, made once
+        self._memo: dict | None = None  # memo(): host results over the values, by key
 
     def __len__(self) -> int:
         return len(self.values)
@@ -56,6 +57,15 @@ class StringTable:
             ranks[order] = np.arange(len(order), dtype=np.int32)
             self._ordinal = (StringTable(self.values[order], sorted_order=True), ranks)
         return self._ordinal
+
+    def memo(self, key, make):
+        """``make()``, made once per ``key`` for this table: a host
+        function's results over its values, which never change."""
+        if self._memo is None:
+            self._memo = {}
+        if key not in self._memo:
+            self._memo[key] = make()
+        return self._memo[key]
 
     def take(self, codes: np.ndarray) -> np.ndarray:
         """Decode codes -> object array of strings (codes < 0 -> None)."""

@@ -24,6 +24,7 @@ reads as milliseconds; a ``timedelta`` whose float seconds round down.
 from __future__ import annotations
 
 import datetime as dtm
+from zoneinfo import ZoneInfo
 
 import numpy as np
 import pytest
@@ -501,23 +502,35 @@ def test_columns_from_numpy_and_python():
 
 
 def _check_time_zones_name_their_queue_item():
-    """A tz-aware value, the tz functions and formatting raise, naming the
-    queue item that holds them."""
+    """Aware values now build, round-trip and format: a column of aware
+    datetimes, an aware literal, the tz functions, ``to_string`` and a cast
+    to an aware Datetime. What still raises names its queue item:
+    ``fill_null(strategy=)``, the JAX package's other host functions, and
+    ``drop_nulls()`` without a subset."""
+    from polars_tpu_torch.plan import exprs as E
+
     aware = dtm.datetime(2024, 1, 1, tzinfo=dtm.timezone.utc)
-    df = plt.DataFrame({"t": [dtm.datetime(2024, 1, 1)]}, device="cpu")
+    df = plt.DataFrame({"t": [dtm.datetime(2024, 1, 1)], "s": ["a"]}, device="cpu")
+    col = plt.DataFrame({"t": [aware]}, device="cpu")
+    assert col.schema["t"] == plt.Datetime("us", "UTC") and col["t"].to_list() == [aware]
+    out = df.lazy().select(
+        lit=plt.lit(aware), ams=plt.col("t").dt.replace_time_zone("Europe/Amsterdam"),
+        utc=plt.col("t").dt.replace_time_zone("Europe/Amsterdam").dt.convert_time_zone("UTC"),
+        base=plt.col("t").dt.replace_time_zone("Europe/Amsterdam").dt.base_utc_offset(),
+        dst=plt.col("t").dt.replace_time_zone("Europe/Amsterdam").dt.dst_offset(),
+        year=plt.col("t").dt.to_string("%Y"), f=plt.col("t").dt.strftime("%Y"),
+        cast=plt.col("t").cast(plt.Datetime("us", "UTC"))).collect()
+    assert out.to_dict(as_series=False) == {
+        "lit": [aware], "ams": [dtm.datetime(2024, 1, 1, tzinfo=ZoneInfo("Europe/Amsterdam"))],
+        "utc": [dtm.datetime(2023, 12, 31, 23, tzinfo=ZoneInfo("UTC"))], "base": [dtm.timedelta(hours=1)],
+        "dst": [dtm.timedelta(0)], "year": ["2024"], "f": ["2024"], "cast": [aware]}
     calls = [
-        lambda: plt.DataFrame({"t": [aware]}, device="cpu"),
-        lambda: plt.lit(aware),
-        lambda: plt.col("t").dt.replace_time_zone("Europe/Amsterdam"),
-        lambda: plt.col("t").dt.convert_time_zone("UTC"),
-        lambda: plt.col("t").dt.base_utc_offset(),
-        lambda: plt.col("t").dt.dst_offset(),
-        lambda: plt.col("t").dt.to_string("%Y"),
-        lambda: plt.col("t").dt.strftime("%Y"),
-        lambda: df.lazy().select(plt.col("t").cast(plt.Datetime("us", "UTC"))).collect(),
-    ]
+        lambda: df.lazy().select(plt.col("t").fill_null(strategy="forward")).collect(),
+        lambda: df.lazy().drop_nulls().collect(),
+    ] + [lambda name=name: df.lazy().select(plt.Expr(E.EFunction(name, (E.EColumn("s"),), ()))).collect()
+         for name in ("concat_str", "cat.get_categories", "list.join")]
     for call in calls:
-        with pytest.raises(NotImplementedError, match="time zones and temporal formatting"):
+        with pytest.raises(NotImplementedError, match="port queue: expression breadth"):
             call()
 
 
