@@ -88,6 +88,20 @@ Phases, each printed as one JSON line:
                 for each distinct local or UTC hour (never the port's
                 transition tables): keys, counts, instants and strings
                 exactly, sums to rtol 1e-9; its plan as written too.
+ 16. stats    — the eager API and the statistical aggregations at SF10,
+                three lines: stats.flags, through the eager API
+                (DataFrame.group_by().agg()), per (return flag, line
+                status) std, var, median, linear and nearest quantiles,
+                null_count, any, all, arg_max and the count, named by
+                .name.suffix (a dense group-by, capacity 12); stats.supp,
+                std and median per supplier (the sorted group-by over
+                100,000 suppliers); stats.casts, strict and non-strict
+                casts (an Int32 overflow nulls about 28% of rows), a cast
+                through String (a host op) and math functions, summed over
+                pl.all(), with the eager null_count of the cast columns
+                and one strict cast that must raise. Each against the numpy
+                oracle of testing/phases.py (keys, counts and sums
+                exactly, floats to rtol 1e-9).
 Every collect runs the optimized plan. Each PDS-H query and each frameops
 query also runs its plan as written (collect(no_optimization=True)): a
 warm-up, then 6 collects as written and 6 optimized, in turns with the
@@ -107,7 +121,7 @@ then the kernels line, the card's name and power limit, and the final line
 {"ok": true, "device": {...}}. Any failure exits non-zero before that line.
 
 Run from the repository root:
-    python3 chip_smoke.py [--scale 10] [--seed 42] [--only q1 filter q3 q4 ... q22 joins temporal asof range frameops tz]
+    python3 chip_smoke.py [--scale 10] [--seed 42] [--only q1 filter q3 q4 ... q22 joins temporal asof range frameops tz stats]
 (``--only`` runs the build and kernel phases and the named query phases, for
 an A/B of a few queries against a parent tree). It needs a CUDA device and
 nvcc; it never imports JAX or polars_tpu.
@@ -146,7 +160,8 @@ def day(y: int, m: int, d: int) -> int:
 Q3_DAYS = day(1995, 3, 15)
 Q4_FROM, Q4_TO = day(1993, 7, 1), day(1993, 10, 1)
 PHASES = ["q1", "filter", "q3", "q4", "q5", "q6", "q10", "q12", "q14", "q18", "q19", "q11", "q15", "q17", "q20",
-          "q2", "q7", "q8", "q9", "q13", "q16", "q21", "q22", "joins", "temporal", "asof", "range", "frameops", "tz"]
+          "q2", "q7", "q8", "q9", "q13", "q16", "q21", "q22", "joins", "temporal", "asof", "range", "frameops", "tz",
+          "stats"]
 # the columns the phases outside PDS-H read of each table (asof makes its own)
 PHASE_COLUMNS = {
     "joins": {"customer": ["c_custkey", "c_mktsegment"], "orders": ["o_orderkey", "o_custkey", "o_orderdate"],
@@ -159,6 +174,8 @@ PHASE_COLUMNS = {
     "frameops": {"lineitem": ["l_orderkey", "l_linenumber", "l_shipdate", "l_returnflag", "l_linestatus",
                               "l_quantity", "l_extendedprice"]},  # testing/phases.FRAMEOPS_COLUMNS
     "tz": {"lineitem": ["l_shipts", "l_quantity"], "orders": ["o_orderdate", "o_totalprice", "o_orderts"]},
+    "stats": {"lineitem": ["l_returnflag", "l_linestatus", "l_extendedprice", "l_discount", "l_quantity", "l_tax",
+                           "l_suppkey", "l_orderkey", "l_linenumber"]},  # testing/phases.STATS_COLUMNS
 }
 _MADE_COLUMNS = ("l_shipts", "o_orderts")  # made from the generated columns (testing/phases.py)
 
@@ -2095,6 +2112,97 @@ def phase_tz(torch, pl, frames: dict, raw: dict, seed: int) -> dict:
 
 
 
+# -- stats phase (plans and oracle: polars_tpu_torch/testing/phases.py) ------------------------
+
+
+class _Eager:
+    """A query through the eager API where a lazy plan is expected:
+    ``collect`` makes the eager call (``run_query`` collects ``run()``)."""
+
+    def __init__(self, fn) -> None:
+        self._fn = fn
+
+    def collect(self):
+        return self._fn()
+
+
+def _check_schema(out, expect: list, label: str) -> None:
+    schema = [(c, repr(d)) for c, d in out.schema.items()]
+    if schema != expect:
+        raise AssertionError(f"{label} schema {schema} != {expect}")
+
+
+def phase_stats(torch, pl, line, raw: dict, scale: float) -> dict:
+    """The eager API and the statistical aggregations at SF10, each part
+    through its main path against the numpy oracle of
+    ``testing/phases.stats_oracle``: ``stats.flags`` through the eager
+    group-by, ``stats.supp`` per supplier, ``stats.casts`` with the eager
+    ``null_count`` of its cast columns and a strict cast that must raise."""
+    P = _phases()
+    want = P.stats_oracle(raw["lineitem"], scale)
+    results = {}
+
+    w = want["flags"]
+
+    def check_flags(out) -> float:
+        for key in ("l_returnflag", "l_linestatus"):
+            if out[key].to_list() != w[key]:
+                raise AssertionError(f"stats.flags {key}: {out[key].to_list()} != {w[key]}")
+        return check_columns(out, w, exact=("l_tax_nulls", "any_high_disc", "all_taxed", "l_extendedprice_argmax",
+                                            "len"),
+                             floats=("l_extendedprice_std", "l_discount_std", "l_quantity_var", "l_quantity_median",
+                                     "l_extendedprice_p90", "l_discount_p25"), label="stats.flags")
+
+    r = run_phase(torch, "stats.flags", lambda: _Eager(lambda: P.stats_flags(pl, line)))
+    out = r["out"]
+    f64, u32, b = "Float64", "UInt32", "Boolean"
+    _check_schema(out, [("l_returnflag", "String"), ("l_linestatus", "String"), ("l_extendedprice_std", f64),
+                        ("l_discount_std", f64), ("l_quantity_var", f64), ("l_quantity_median", f64),
+                        ("l_extendedprice_p90", f64), ("l_discount_p25", f64), ("l_tax_nulls", u32),
+                        ("any_high_disc", b), ("all_taxed", b), ("l_extendedprice_argmax", u32), ("len", u32)],
+                  "stats.flags")
+    results["flags"] = phase_result("stats.flags", r, out, {"lineitem": line.height}, check_flags(out),
+                                    groups=out.height)
+
+    r = run_phase(torch, "stats.supp", lambda: P.stats_plans(pl, line, scale)["supp"])
+    out = r["out"]
+    _check_schema(out, [("l_suppkey", "Int64"), ("l_extendedprice", f64), ("l_discount", f64), ("len", u32)],
+                  "stats.supp")
+    worst = check_columns(out, want["supp"], exact=("l_suppkey", "len"), floats=("l_extendedprice", "l_discount"),
+                          label="stats.supp")
+    results["supp"] = phase_result("stats.supp", r, out, {"lineitem": line.height}, worst, groups=out.height)
+
+    r = run_phase(torch, "stats.casts", lambda: P.stats_plans(pl, line, scale)["casts"])
+    out = r["out"]
+    _check_schema(out, [("price_i32", "Int32"), ("qty_i8", "Int64"), ("key_i32", "Int32"), ("line_i64", "Int64"),
+                        ("disc_pct", "Int64"), ("net", f64)], "stats.casts")
+    got = out.to_dicts()[0]
+    wc = want["casts"]
+    if {k: v for k, v in got.items() if k != "net"} != {k: v for k, v in wc.items() if k != "net"}:
+        raise AssertionError(f"stats.casts: {got} != {wc}")
+    worst = abs(got["net"] - wc["net"]) / abs(wc["net"])
+    if worst > 1e-9:
+        raise AssertionError(f"stats.casts net: {got['net']} != {wc['net']}")
+    frame = P.stats_plans(pl, line, scale)["cast_frame"].collect()
+    t0 = time.perf_counter()
+    nulls = frame.null_count()  # the eager frame aggregate
+    torch.cuda.synchronize()
+    null_count_s = time.perf_counter() - t0
+    if nulls.to_dicts()[0] != want["cast_nulls"]:
+        raise AssertionError(f"stats.casts null_count: {nulls.to_dicts()[0]} != {want['cast_nulls']}")
+    del frame
+    try:
+        P.stats_plans(pl, line, scale)["strict"].collect()
+    except pl.InvalidOperationError as e:
+        strict_error = str(e)
+    else:
+        raise AssertionError("stats.casts: the strict cast of an overflowing column did not raise")
+    results["casts"] = phase_result("stats.casts", r, out, {"lineitem": line.height}, worst,
+                                    overflow_nulls=want["cast_nulls"]["key_i32"], eager_null_count_s=null_count_s,
+                                    strict_cast_raised=strict_error)
+    return results
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2147,6 +2255,9 @@ def main() -> int:
         elif name == "tz":
             for sub, res in phase_tz(torch, pl, frames["tz"], raw, args.seed).items():
                 runs[f"tz.{sub}"] = res
+        elif name == "stats":
+            for sub, res in phase_stats(torch, pl, frames["stats"]["lineitem"], raw, args.scale).items():
+                runs[f"stats.{sub}"] = res
         else:  # Q3's K2 call runs 50 times, each against the first
             runs[name] = phase_query(torch, name, frames, raw, args.scale, k2_repeats=50 if name == "q3" else 1)
     del frames, raw, line

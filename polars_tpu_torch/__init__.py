@@ -6,7 +6,9 @@ of every ``how``, group-bys, one-row aggregate selects, sorts and top-k,
 string predicates and slices; ``unique``, ``rename``, ``drop``,
 ``with_row_index`` and lazy ``concat``; Date, Datetime, Duration and Time columns,
 their arithmetic, time zones and the ``dt`` namespace with ``to_string``;
-string-to-temporal parsing and the null functions; range joins
+string-to-temporal parsing and the null functions; the eager ``DataFrame``
+and ``Series`` API; math and cast expressions, the statistical aggregations,
+wildcards, selectors and the ``name`` namespace; range joins
 (``join_where``) and asof joins; a join that sizes its output on the host
 runs between fused segments). Every collect runs the plan the optimizer
 (``plan/optimizer``) gives, unless the caller asks for the plan as written;
@@ -21,8 +23,8 @@ never imports JAX or ``polars_tpu``.
 
 from __future__ import annotations
 
-from polars_tpu_torch import datatypes
-from polars_tpu_torch.config import set_default_device
+from polars_tpu_torch import api, datatypes, selectors
+from polars_tpu_torch.config import Config, set_default_device
 from polars_tpu_torch.core.frame import DataFrame
 from polars_tpu_torch.core.schema import Schema
 from polars_tpu_torch.core.series import Series
@@ -58,15 +60,21 @@ from polars_tpu_torch.expr.expr import Expr
 from polars_tpu_torch.functions.eager import concat
 from polars_tpu_torch.functions.interop import QueryOptFlags
 from polars_tpu_torch.functions.lazy import (  # noqa: A004
-    coalesce, col, date, date_range, datetime, datetime_range, duration, len, lit, when,
+    all, all_horizontal, any, any_horizontal, coalesce, col, count, date, date_range, datetime, datetime_range,
+    duration, exclude, first, int_range, last, len, lit, max, max_horizontal, mean, mean_horizontal, median, min,
+    min_horizontal, n_unique, nth, quantile, repeat, select, std, sum, sum_horizontal, var, when,
 )
-from polars_tpu_torch.functions.parity import business_day_count
+from polars_tpu_torch.functions.parity import arctan2, arctan2d, business_day_count
 from polars_tpu_torch.lazyframe import LazyFrame
 
 __all__ = [
-    "Boolean", "ColumnNotFoundError", "ComputeError", "DataFrame", "Date", "Datetime", "DuplicateError",
+    "Boolean", "ColumnNotFoundError", "ComputeError", "Config", "DataFrame", "Date", "Datetime", "DuplicateError",
     "Duration", "Expr", "Float32", "Float64", "Int8", "Int16", "Int32", "Int64", "InvalidOperationError",
     "LazyFrame", "PolarsError", "QueryOptFlags", "Schema", "SchemaError", "Series", "ShapeError", "String", "Time",
-    "UInt8", "UInt16", "UInt32", "UInt64", "Utf8", "business_day_count", "coalesce", "col", "concat", "datatypes",
-    "date", "date_range", "datetime", "datetime_range", "duration", "len", "lit", "set_default_device", "when",
+    "UInt8", "UInt16", "UInt32", "UInt64", "Utf8", "all", "all_horizontal", "any", "any_horizontal", "api", "arctan2",
+    "arctan2d",
+    "business_day_count", "coalesce", "col", "concat", "count", "datatypes", "date", "date_range", "datetime",
+    "datetime_range", "duration", "exclude", "first", "int_range", "last", "len", "lit", "max", "max_horizontal",
+    "mean", "mean_horizontal", "median", "min", "min_horizontal", "n_unique", "nth", "quantile", "repeat", "select",
+    "selectors", "set_default_device", "std", "sum", "sum_horizontal", "var", "when",
 ]

@@ -1,5 +1,6 @@
-"""Process-wide configuration: the dense group-by's capacity limit, and the
-default device of the port's entry points.
+"""Process-wide configuration: the dense group-by's capacity limit, the
+default device of the port's entry points, and the table repr's limits
+(:class:`Config`).
 
 Entry points place data on ``cuda`` unless the caller asks for the CPU, either
 per frame (``DataFrame(..., device="cpu")``) or for the process through
@@ -8,6 +9,9 @@ device raises; nothing falls back to the CPU quietly.
 """
 
 from __future__ import annotations
+
+import os
+from types import SimpleNamespace
 
 import torch
 
@@ -40,3 +44,55 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def _fmt_defaults() -> dict:
+    return {"fmt_max_rows": int(os.environ.get("POLARS_FMT_MAX_ROWS", 10)),
+            "fmt_max_cols": int(os.environ.get("POLARS_FMT_MAX_COLS", 8)),
+            "fmt_str_len": int(os.environ.get("POLARS_FMT_STR_LEN", 30))}
+
+
+_FMT = SimpleNamespace(**_fmt_defaults())
+
+
+def fmt_config() -> SimpleNamespace:
+    """The repr's limits: rows, columns, characters of a string."""
+    return _FMT
+
+
+class Config:
+    """The repr's limits (the JAX package's ``Config``, trimmed to them); as
+    a context manager, the defaults come back at its end."""
+
+    def __init__(self, **options: int) -> None:
+        for k, v in options.items():
+            setter = getattr(self, f"set_{k}", None)
+            if setter is None:
+                raise ValueError(f"unknown Config option {k!r}")
+            setter(v)
+
+    def __enter__(self) -> Config:
+        return self
+
+    def __exit__(self, *exc: object) -> None:
+        self.restore_defaults()
+
+    @classmethod
+    def set_tbl_rows(cls, n: int) -> type[Config]:
+        _FMT.fmt_max_rows = n
+        return cls
+
+    @classmethod
+    def set_tbl_cols(cls, n: int) -> type[Config]:
+        _FMT.fmt_max_cols = n
+        return cls
+
+    @classmethod
+    def set_fmt_str_lengths(cls, n: int) -> type[Config]:
+        _FMT.fmt_str_len = n
+        return cls
+
+    @classmethod
+    def restore_defaults(cls) -> type[Config]:
+        _FMT.__dict__.update(_fmt_defaults())
+        return cls

@@ -56,12 +56,18 @@ class Column:
             col = _from_numpy(name, values, device)
         else:
             col = _from_pylist(name, values, dtype, device)
-        if dtype is not None and dtype != col.dtype:
-            raise NotImplementedError(
-                f"casting column {name!r} from {col.dtype!r} to {dtype!r} at construction "
-                "is not ported yet (port queue: expression breadth)"
-            )
+        if dtype is not None and dtype != col.dtype:  # a strict cast, as a one-column plan
+            from polars_tpu_torch.core.frame import _cast_column
+
+            col = _cast_column(col, dtype, True)
         return col
+
+    def rename(self, name: str) -> Column:
+        return Column(name, self.dtype, self.buffer, self.table)
+
+    def null_count(self) -> int:
+        v = self.buffer.validity
+        return 0 if v is None else int((~v).sum())
 
     def __len__(self) -> int:
         return self.buffer.length

@@ -1,15 +1,22 @@
 """Eager DataFrame (the port of ``polars_tpu/core/frame.py``, trimmed).
 
-A height-aligned list of columns on one device. Query operations go through
-the lazy engine (``df.lazy()...collect()``), as in the JAX package, and
-so do the eager ``join_where`` and ``join_asof``; ``gather`` and ``drop``
-work on the columns.
+A height-aligned list of columns on one device. Every query method builds a
+lazy plan over the frame and collects it (``df.lazy()...collect()``), as the
+JAX package does for its query methods, so that the eager and the lazy API
+cannot drift apart: ``select``, ``with_columns``, ``filter``, ``sort``,
+``group_by``, ``join`` and the asof and range joins, ``unique``, ``head``,
+``tail``, ``slice``, ``reverse``, ``rename``, ``with_row_index``, the null
+and NaN functions, ``cast``, ``top_k``/``bottom_k``, ``gather_every`` and
+the frame aggregates. ``gather``, ``drop``, ``hstack`` and ``vstack`` work
+on the columns; the row accessors read the frame to the host.
 """
 
 from __future__ import annotations
 
-from collections.abc import Mapping
+from collections.abc import Iterable, Mapping, Sequence
 from typing import TYPE_CHECKING, Any
+
+import numpy as np
 
 from polars_tpu_torch import datatypes as dt
 from polars_tpu_torch.core.column import Column
@@ -26,22 +33,42 @@ class DataFrame:
 
     __slots__ = ("_columns", "_height", "_device")
 
-    def __init__(self, data: Mapping[str, Any] | None = None, *, device=None) -> None:
-        """Build a frame from a mapping of column name -> numpy array or list,
-        on ``device`` (default: the package default, ``cuda``)."""
+    def __init__(
+        self,
+        data: Any = None,
+        schema: Any = None,
+        *,
+        schema_overrides: Mapping[str, Any] | None = None,
+        strict: bool = True,
+        orient: str | None = None,
+        device=None,
+    ) -> None:
+        """Build a frame on ``device`` (default: the package default,
+        ``cuda``) from a mapping of name to values (a list, a numpy array or
+        a Series), a sequence of Series, of rows (tuples or lists) or of
+        dicts, or a 2-D numpy array. ``schema`` names the columns, and
+        gives their dtypes where it maps names to them;
+        ``schema_overrides`` gives dtypes too. A column of one value is
+        broadcast to the frame's height. Without data, ``schema`` makes an
+        empty frame."""
         from polars_tpu_torch.config import resolve_device
 
         self._device = resolve_device(device)
         self._columns: list[Column] = []
         self._height = 0
         if data is None:
+            self._columns = [Column.from_values(n, [], d, device=self._device) for n, d in _schema_items(schema)]
             return
-        if not isinstance(data, Mapping):
-            raise NotImplementedError("DataFrame input other than a mapping of columns is not ported yet")
-        cols = [Column.from_values(str(k), v, device=self._device) for k, v in data.items()]
+        cols = _build_columns(data, schema, schema_overrides, strict, orient, self._device)
         heights = {len(c) for c in cols}
         if len(heights) > 1:
-            raise ShapeError(f"could not create DataFrame: columns have differing lengths {sorted(heights)}")
+            top = max(heights)
+            if not heights <= {1, top}:
+                raise ShapeError(f"could not create DataFrame: columns have differing lengths {sorted(heights)}")
+            cols = [c if len(c) == top else _repeat(c, top) for c in cols]
+        names = [c.name for c in cols]
+        if len(set(names)) != len(names):
+            raise DuplicateError(f"duplicate column names in {names}")
         self._columns = cols
         self._height = len(cols[0]) if cols else 0
 
@@ -61,11 +88,18 @@ class DataFrame:
             df._device = resolve_device(device)
         return df
 
+    @classmethod
+    def _empty(cls, schema: Schema, n: int, device) -> DataFrame:
+        """``n`` rows of nulls of ``schema``."""
+        return cls({name: [None] * n for name in schema.names()} if n else None, schema, device=device)
+
     def _get(self, name: str) -> Column:
         for c in self._columns:
             if c.name == name:
                 return c
         raise ColumnNotFoundError(f"{name!r} not found; available: {self.columns}")
+
+    # -- properties -----------------------------------------------------------
 
     @property
     def height(self) -> int:
@@ -91,6 +125,9 @@ class DataFrame:
     def schema(self) -> Schema:
         return Schema([(c.name, c.dtype) for c in self._columns])
 
+    def collect_schema(self) -> Schema:
+        return self.schema
+
     @property
     def device(self):
         return self._device
@@ -98,22 +135,308 @@ class DataFrame:
     def __len__(self) -> int:
         return self._height
 
+    def is_empty(self) -> bool:
+        return self._height == 0
+
+    def __contains__(self, name: str) -> bool:
+        return name in self.columns
+
+    def __iter__(self):
+        return iter(self.get_columns())
+
+    # -- column access --------------------------------------------------------
+
     def get_column(self, name: str) -> Series:
         from polars_tpu_torch.core.series import Series
 
         return Series._from_column(self._get(name))
 
-    def __getitem__(self, key: str) -> Series:
-        if not isinstance(key, str):
-            raise NotImplementedError("DataFrame indexing other than by column name is not ported yet")
-        return self.get_column(key)
+    def get_columns(self) -> list[Series]:
+        from polars_tpu_torch.core.series import Series
 
-    def to_dict(self, *, as_series: bool = True) -> dict:
-        if as_series:
-            from polars_tpu_torch.core.series import Series
+        return [Series._from_column(c) for c in self._columns]
 
-            return {c.name: Series._from_column(c) for c in self._columns}
-        return {c.name: c.to_pylist() for c in self._columns}
+    def get_column_index(self, name: str) -> int:
+        return self.schema.index_of(name)
+
+    def to_series(self, index: int = 0) -> Series:
+        from polars_tpu_torch.core.series import Series
+
+        return Series._from_column(self._columns[index])
+
+    def __getitem__(self, key: Any) -> Any:
+        """A column by name; rows by position, slice, positions or a Boolean
+        Series; columns by a list of names; or a (rows, columns) pair."""
+        from polars_tpu_torch.core.series import Series
+
+        if isinstance(key, str):
+            return self.get_column(key)
+        if isinstance(key, (int, np.integer)):
+            k = int(key)
+            return self.slice(k if k >= 0 else self._height + k, 1)
+        if isinstance(key, slice):
+            start, stop, step = key.indices(self._height)
+            if step == 1:
+                return self.slice(start, max(stop - start, 0))
+            return self.gather(np.arange(start, stop, step))
+        if isinstance(key, Series):
+            if isinstance(key.dtype, dt.Boolean):
+                return self.filter(key)
+            return self.gather(key.to_numpy())
+        if isinstance(key, (list, np.ndarray)):
+            items = key.tolist() if isinstance(key, np.ndarray) else list(key)
+            if items and all(isinstance(k, str) for k in items):
+                return self.select(items)
+            if items and all(isinstance(k, (bool, np.bool_)) for k in items):
+                return self.filter(Series("", items, device=self._device))
+            return self.gather(np.asarray(items, dtype=np.int64))
+        if isinstance(key, tuple) and len(key) == 2:
+            rows, cols = key
+            if isinstance(cols, (int, np.integer)):
+                return Series._from_column(self._columns[int(cols)])[rows]
+            return self[cols][rows]
+        raise TypeError(f"cannot index DataFrame with {key!r}")
+
+    # -- the lazy bridge ------------------------------------------------------
+
+    def lazy(self) -> LazyFrame:
+        from polars_tpu_torch.lazyframe import LazyFrame
+
+        return LazyFrame._from_df(self)
+
+    def _with_series(self, values: Iterable[Any]) -> tuple[DataFrame, list[Any]]:
+        """The frame with each Series among ``values`` added as a hidden
+        column, and ``values`` with those Series replaced by references to
+        their columns (a Series of one value stays a literal)."""
+        from polars_tpu_torch.core.series import Series
+
+        extra, out = [], []
+        for v in values:
+            if isinstance(v, Series) and len(v) != 1:
+                if len(v) != self._height:
+                    raise ShapeError(f"unable to add a column of length {len(v)} to a DataFrame of height "
+                                     f"{self._height}")
+                name = f"__series_{len(extra)}"
+                extra.append(v._column.rename(name))
+                from polars_tpu_torch.expr.expr import Expr
+                from polars_tpu_torch.plan import exprs as E
+
+                out.append(Expr(E.EAlias(E.EColumn(name), v.name)))
+            elif isinstance(v, Series):
+                from polars_tpu_torch.functions.lazy import lit
+
+                out.append(lit(v.to_list()[0], dtype=v.dtype).alias(v.name))
+            else:
+                out.append(v)
+        if not extra:
+            return self, out
+        return DataFrame._from_columns(self._columns + extra, self._height, device=self._device), out
+
+    # -- query methods: a plan and a collect ------------------------------------
+
+    def select(self, *exprs: Any, **named_exprs: Any) -> DataFrame:
+        items = [x for e in exprs for x in (e if isinstance(e, (list, tuple)) else [e])]
+        df, items = self._with_series(items)
+        names = list(named_exprs)
+        df, named = df._with_series(named_exprs.values())
+        return df.lazy().select(*items, **dict(zip(names, named))).collect()
+
+    def select_seq(self, *exprs: Any, **named_exprs: Any) -> DataFrame:
+        return self.select(*exprs, **named_exprs)
+
+    def with_columns(self, *exprs: Any, **named_exprs: Any) -> DataFrame:
+        items = [x for e in exprs for x in (e if isinstance(e, (list, tuple)) else [e])]
+        df, items = self._with_series(items)
+        names = list(named_exprs)
+        df, named = df._with_series(named_exprs.values())
+        out = df.lazy().with_columns(*items, **dict(zip(names, named))).collect()
+        hidden = [n for n in out.columns if n.startswith("__series_")]
+        return out.drop(*hidden) if hidden else out
+
+    def with_columns_seq(self, *exprs: Any, **named_exprs: Any) -> DataFrame:
+        return self.with_columns(*exprs, **named_exprs)
+
+    def filter(self, *predicates: Any, **constraints: Any) -> DataFrame:
+        df, preds = self._with_series(predicates)
+        out = df.lazy().filter(*preds, **constraints).collect()
+        hidden = [n for n in out.columns if n.startswith("__series_")]
+        return out.drop(*hidden) if hidden else out
+
+    def remove(self, *predicates: Any, **constraints: Any) -> DataFrame:
+        return self.lazy().remove(*predicates, **constraints).collect()
+
+    def sort(self, by: Any, *more_by: Any, descending: Any = False, nulls_last: Any = False,
+             maintain_order: bool = False, multithreaded: bool = True) -> DataFrame:
+        return self.lazy().sort(by, *more_by, descending=descending, nulls_last=nulls_last,
+                                maintain_order=maintain_order).collect()
+
+    def group_by(self, *by: Any, maintain_order: bool = False, **named_by: Any):
+        from polars_tpu_torch.groupby import GroupBy
+
+        return GroupBy(self, by, named_by, maintain_order=maintain_order)
+
+    def join(self, other: DataFrame, on: Any = None, how: str = "inner", **kwargs: Any) -> DataFrame:
+        return self.lazy().join(other.lazy(), on, how, **kwargs).collect()
+
+    def join_where(self, other: DataFrame, *predicates: Any, suffix: str = "_right") -> DataFrame:
+        return self.lazy().join_where(other.lazy(), *predicates, suffix=suffix).collect()
+
+    def join_asof(self, other: DataFrame, **kwargs: Any) -> DataFrame:
+        return self.lazy().join_asof(other.lazy(), **kwargs).collect()
+
+    def unique(self, subset: Any = None, *, keep: str = "any", maintain_order: bool = False) -> DataFrame:
+        if subset is not None:
+            subset = flatten_names([subset])
+        return self.lazy().unique(subset, keep=keep, maintain_order=maintain_order).collect()
+
+    def n_unique(self, subset: Any = None) -> int:
+        return self.unique(subset).height
+
+    def slice(self, offset: int, length: int | None = None) -> DataFrame:
+        return self.lazy().slice(offset, length).collect()
+
+    def head(self, n: int = 5) -> DataFrame:
+        return self.lazy().head(n if n >= 0 else max(0, self._height + n)).collect()
+
+    def tail(self, n: int = 5) -> DataFrame:
+        return self.lazy().tail(n if n >= 0 else max(0, self._height + n)).collect()
+
+    def limit(self, n: int = 5) -> DataFrame:
+        return self.head(n)
+
+    def first(self) -> DataFrame:
+        return self.head(1)
+
+    def last(self) -> DataFrame:
+        return self.tail(1)
+
+    def reverse(self) -> DataFrame:
+        return self.lazy().reverse().collect()
+
+    def gather_every(self, n: int, offset: int = 0) -> DataFrame:
+        return self.lazy().gather_every(n, offset).collect()
+
+    def rename(self, mapping: Any, *, strict: bool = True) -> DataFrame:
+        return self.lazy().rename(mapping, strict=strict).collect()
+
+    def with_row_index(self, name: str = "index", offset: int = 0) -> DataFrame:
+        return self.lazy().with_row_index(name, offset).collect()
+
+    def drop_nulls(self, subset: Any = None) -> DataFrame:
+        return self.lazy().drop_nulls(subset).collect()
+
+    def drop_nans(self, subset: Any = None) -> DataFrame:
+        return self.lazy().drop_nans(subset).collect()
+
+    def fill_null(self, value: Any = None, strategy: str | None = None, limit: int | None = None,
+                  **kwargs: Any) -> DataFrame:
+        return self.lazy().fill_null(value, strategy, limit).collect()
+
+    def fill_nan(self, value: Any) -> DataFrame:
+        return self.lazy().fill_nan(value).collect()
+
+    def cast(self, dtypes: Any, *, strict: bool = True) -> DataFrame:
+        return self.lazy().cast(dtypes, strict=strict).collect()
+
+    def top_k(self, k: int, *, by: Any, reverse: Any = False) -> DataFrame:
+        return self.lazy().top_k(k, by=by, reverse=reverse).collect()
+
+    def bottom_k(self, k: int, *, by: Any, reverse: Any = False) -> DataFrame:
+        return self.lazy().bottom_k(k, by=by, reverse=reverse).collect()
+
+    def pipe(self, function: Any, *args: Any, **kwargs: Any):
+        return function(self, *args, **kwargs)
+
+    def partition_by(self, by: Any, *more_by: Any, maintain_order: bool = True, include_key: bool = True,
+                     as_dict: bool = False):
+        """One frame per distinct value of the ``by`` columns (a filter
+        each), in order of first appearance with ``maintain_order``."""
+        from polars_tpu_torch.functions.lazy import col, lit
+
+        names = flatten_names([by, *more_by])
+        keys = self.select(names).unique(maintain_order=maintain_order).rows()
+        parts = {}
+        for row in keys:
+            pred = None
+            for n, v in zip(names, row):
+                p = col(n).eq_missing(lit(v, dtype=self.schema[n]) if v is not None else lit(None))
+                pred = p if pred is None else pred & p
+            sub = self.filter(pred)
+            parts[tuple(row)] = sub.drop(*names) if not include_key else sub
+        return parts if as_dict else list(parts.values())
+
+    def sample(self, n: int | None = None, *, fraction: float | None = None, with_replacement: bool = False,
+               shuffle: bool = False, seed: int | None = None) -> DataFrame:
+        """``n`` rows (or ``fraction`` of them) drawn by numpy's generator
+        from ``seed``, in frame order unless ``shuffle``."""
+        rng = np.random.default_rng(seed)
+        if n is None:
+            n = self._height if fraction is None else int(self._height * fraction)
+        if with_replacement:
+            idx = rng.integers(0, self._height, size=n)
+        else:
+            idx = rng.choice(self._height, size=min(n, self._height), replace=False)
+            if not shuffle:
+                idx = np.sort(idx)
+        return self.gather(idx)
+
+    def describe(self) -> DataFrame:
+        """Count, null count, mean, std, min and max of each column, one
+        row per statistic (as text for a column that is not numeric)."""
+        stats = ["count", "null_count", "mean", "std", "min", "max"]
+        data: dict[str, list] = {"statistic": stats}
+        for s in self.get_columns():
+            numeric = s.dtype.is_numeric()
+            vals = [float(len(s) - s.null_count()), float(s.null_count())]
+            vals += [s.mean() if numeric else None, s.std() if numeric else None]
+            vals += [s.min(), s.max()] if numeric or isinstance(s.dtype, dt.String) else [None, None]
+            data[s.name] = [None if v is None else (float(v) if numeric else str(v)) for v in vals]
+        return DataFrame(data, device=self._device)
+
+    # -- frame aggregates -----------------------------------------------------
+
+    def sum(self) -> DataFrame:
+        return self.lazy().sum().collect()
+
+    def mean(self) -> DataFrame:
+        return self.lazy().mean().collect()
+
+    def min(self) -> DataFrame:
+        return self.lazy().min().collect()
+
+    def max(self) -> DataFrame:
+        return self.lazy().max().collect()
+
+    def median(self) -> DataFrame:
+        return self.lazy().median().collect()
+
+    def std(self, ddof: int = 1) -> DataFrame:
+        return self.lazy().std(ddof).collect()
+
+    def var(self, ddof: int = 1) -> DataFrame:
+        return self.lazy().var(ddof).collect()
+
+    def quantile(self, quantile: float, interpolation: str = "nearest") -> DataFrame:
+        return self.lazy().quantile(quantile, interpolation).collect()
+
+    def count(self) -> DataFrame:
+        return self.lazy().count().collect()
+
+    def null_count(self) -> DataFrame:
+        return self.lazy().null_count().collect()
+
+    def item(self, row: int | None = None, column: int | str | None = None) -> Any:
+        """The one value of a 1x1 frame, or the value at (row, column)."""
+        if row is None and column is None:
+            if self.shape != (1, 1):
+                raise ValueError(f"can only call .item() on a 1x1 frame, got {self.shape}")
+            return self._columns[0].to_pylist()[0]
+        if row is None or column is None:
+            raise ValueError("item() needs both a row and a column, or neither")
+        col = self._columns[column] if isinstance(column, int) else self._get(column)
+        return col.to_pylist()[row]
+
+    # -- column operations ----------------------------------------------------
 
     def gather(self, indices: Any) -> DataFrame:
         """The rows at ``indices`` (a sequence or a tensor; negative indices
@@ -124,29 +447,196 @@ class DataFrame:
         height = len(cols[0]) if cols else len(indices)
         return DataFrame._from_columns(cols, height, device=self._device)
 
-    def drop(self, *columns: str, strict: bool = True) -> DataFrame:
-        names = {n for c in columns for n in ([c] if isinstance(c, str) else c)}
+    def drop(self, *columns: Any, strict: bool = True) -> DataFrame:
+        names = set(flatten_names(columns))
         if strict and names - set(self.columns):
             raise ColumnNotFoundError(f"{sorted(names - set(self.columns))} not found")
         return DataFrame._from_columns([c for c in self._columns if c.name not in names], self._height,
                                        device=self._device)
 
-    def lazy(self) -> LazyFrame:
-        from polars_tpu_torch.lazyframe import LazyFrame
+    def clone(self) -> DataFrame:
+        return DataFrame._from_columns(list(self._columns), self._height, device=self._device)
 
-        return LazyFrame._from_df(self)
+    def clear(self, n: int = 0) -> DataFrame:
+        """An empty frame of the same schema (``n`` rows of nulls)."""
+        return DataFrame._empty(self.schema, n, self._device)
 
-    def join_where(self, other: DataFrame, *predicates: Any, suffix: str = "_right") -> DataFrame:
-        return self.lazy().join_where(other.lazy(), *predicates, suffix=suffix).collect()
+    def hstack(self, columns: Any, *, in_place: bool = False) -> DataFrame:
+        """The columns of ``columns`` (a frame or Series) beside these."""
+        new = columns._columns if isinstance(columns, DataFrame) else [c._column for c in columns]
+        if any(len(c) != self._height for c in new) and self._columns:
+            raise ShapeError("hstack needs columns of the frame's height")
+        height = self._height if self._columns else (len(new[0]) if new else 0)
+        out = DataFrame._from_columns(self._columns + list(new), height, device=self._device)
+        if in_place:
+            self._columns, self._height = out._columns, out._height
+            return self
+        return out
 
-    def join_asof(self, other: DataFrame, **kwargs: Any) -> DataFrame:
-        return self.lazy().join_asof(other.lazy(), **kwargs).collect()
+    def vstack(self, other: DataFrame, *, in_place: bool = False) -> DataFrame:
+        from polars_tpu_torch.functions.eager import concat
 
-    def group_by(self, *by: Any, maintain_order: bool = False):
-        from polars_tpu_torch.groupby import GroupBy
+        out = concat([self, other])
+        if in_place:
+            self._columns, self._height = out._columns, out._height
+            return self
+        return out
 
-        return GroupBy(self, by, maintain_order=maintain_order)
+    def extend(self, other: DataFrame) -> DataFrame:
+        return self.vstack(other, in_place=True)
+
+    # -- to the host ----------------------------------------------------------
+
+    def to_dict(self, *, as_series: bool = True) -> dict:
+        if as_series:
+            return {c.name: s for c, s in zip(self._columns, self.get_columns())}
+        return {c.name: c.to_pylist() for c in self._columns}
+
+    def to_dicts(self) -> list[dict]:
+        lists = [(c.name, c.to_pylist()) for c in self._columns]
+        return [{name: vals[i] for name, vals in lists} for i in range(self._height)]
+
+    def rows(self, *, named: bool = False) -> list:
+        if named:
+            return self.to_dicts()
+        return list(zip(*[c.to_pylist() for c in self._columns])) if self._columns else []
+
+    def iter_rows(self, *, named: bool = False):
+        return iter(self.rows(named=named))
+
+    def row(self, index: int | None = None, *, by_predicate: Any = None, named: bool = False):
+        """One row as a tuple (a dict with ``named``): by position, or the
+        one row ``by_predicate`` keeps."""
+        if by_predicate is not None:
+            sub = self.filter(by_predicate)
+            if sub.height != 1:
+                raise ValueError(f"predicate matched {sub.height} rows, not one")
+            return sub.row(0, named=named)
+        if index is None:
+            raise ValueError("row() needs an index or a predicate")
+        return self.slice(index, 1).rows(named=named)[0]
+
+    def to_numpy(self) -> np.ndarray:
+        arrs = [c.to_numpy() for c in self._columns]
+        if not arrs:
+            return np.empty((0, 0))
+        return np.column_stack(arrs) if len(arrs) > 1 else arrs[0].reshape(-1, 1)
+
+    def equals(self, other: DataFrame, *, null_equal: bool = True) -> bool:
+        """Same columns, dtypes and values (NaN equals NaN; null equals null
+        with ``null_equal``)."""
+        if self.shape != other.shape or self.columns != other.columns or self.dtypes != other.dtypes:
+            return False
+        from polars_tpu_torch.core.series import values_equal
+
+        return all(values_equal(a.to_pylist(), b.to_pylist(), null_equal)
+                   for a, b in zip(self._columns, other._columns))
+
+    def __eq__(self, other: object) -> Any:
+        if isinstance(other, DataFrame):
+            return self.equals(other)
+        return NotImplemented
+
+    __hash__ = None
 
     def __repr__(self) -> str:
-        cols = ", ".join(f"{c.name}: {c.dtype!r}" for c in self._columns)
-        return f"DataFrame(shape={self.shape}, device={self._device}, {{{cols}}})"
+        from polars_tpu_torch.utils.fmt import format_table
+
+        return format_table(self)
+
+    def __str__(self) -> str:
+        return self.__repr__()
+
+
+def _repeat(col: Column, n: int) -> Column:
+    """A column of one value as ``n`` rows of it."""
+    from polars_tpu_torch.core.buffer import Buffer
+
+    buf = col.buffer
+    validity = None if buf.validity is None else buf.validity.expand(n).contiguous()
+    return Column(col.name, col.dtype, Buffer(buf.values.expand(n).contiguous(), validity, n), col.table)
+
+
+def _schema_items(schema: Any) -> list[tuple[str, Any]]:
+    """(name, dtype or None) of a schema given as a mapping or a sequence of
+    names and (name, dtype) pairs."""
+    if schema is None:
+        return []
+    if isinstance(schema, (Schema, Mapping)):
+        return [(n, None if d is None else dt.parse_into_dtype(d)) for n, d in schema.items()]
+    out = []
+    for entry in schema:
+        out.append((entry, None) if isinstance(entry, str) else (entry[0], dt.parse_into_dtype(entry[1])))
+    return out
+
+
+def flatten_names(items: Any) -> list[str]:
+    """The column names in ``items``: strings, or nested sequences of them."""
+    if isinstance(items, str):
+        return [items]
+    out: list[str] = []
+    for it in items:
+        out.extend([it] if isinstance(it, str) else flatten_names(it))
+    return out
+
+
+def _build_columns(data: Any, schema: Any, schema_overrides: Mapping[str, Any] | None, strict: bool,
+                   orient: str | None, device) -> list[Column]:
+    """The columns of the constructor's input (the JAX package's
+    ``_build_columns``), each cast to the dtype ``schema`` or
+    ``schema_overrides`` gives it."""
+    from polars_tpu_torch.core.series import Series
+
+    items = _schema_items(schema)
+    names = [n for n, _ in items]
+    dtypes = {n: d for n, d in items if d is not None}
+    dtypes.update({n: dt.parse_into_dtype(d) for n, d in (schema_overrides or {}).items()})
+
+    def build(name: str, values: Any) -> Column:
+        d = dtypes.get(name)
+        if isinstance(values, Series):
+            col = values._column.rename(name)
+            return col if d is None or d == col.dtype else _cast_column(col, d, strict)
+        return Column.from_values(name, values, d, device=device)
+
+    if isinstance(data, Mapping):
+        cols = [build(str(k), v) for k, v in data.items()]
+        if names and [c.name for c in cols] != names:
+            if len(names) != len(cols):
+                raise ShapeError(f"the schema names {len(names)} columns, the data has {len(cols)}")
+            cols = [build(n, Series._from_column(c)) for n, c in zip(names, cols)]
+        return cols
+    if isinstance(data, np.ndarray):
+        if data.ndim == 1:
+            return [build(names[0] if names else "column_0", data)]
+        if data.ndim != 2:
+            raise ShapeError("numpy input must be 1-D or 2-D")
+        if orient == "col":  # each row of the array is a column
+            data = data.T
+        cols_np = [data[:, i] for i in range(data.shape[1])]
+        return [build(names[i] if names else f"column_{i}", c) for i, c in enumerate(cols_np)]
+    if isinstance(data, Sequence) and not isinstance(data, str):
+        data = list(data)
+        if not data:
+            return [Column.from_values(n, [], dtypes.get(n), device=device) for n in names]
+        first = data[0]
+        if isinstance(first, Series):
+            return [build(names[i] if i < len(names) else (s.name or f"column_{i}"), s) for i, s in enumerate(data)]
+        if isinstance(first, Mapping):
+            keys = names or list(dict.fromkeys(k for row in data for k in row))
+            return [build(k, [row.get(k) for row in data]) for k in keys]
+        if isinstance(first, (list, tuple)) and orient != "col":
+            width = len(first)
+            return [build(names[i] if names else f"column_{i}", [row[i] for row in data]) for i in range(width)]
+        if isinstance(first, (list, tuple)):
+            return [build(names[i] if names else f"column_{i}", list(c)) for i, c in enumerate(data)]
+        return [build(names[0] if names else "column_0", data)]
+    raise TypeError(f"cannot create DataFrame from {type(data).__name__}")
+
+
+def _cast_column(col: Column, dtype: dt.DataType, strict: bool) -> Column:
+    """``col`` cast to ``dtype`` by a one-column plan."""
+    from polars_tpu_torch.plan import exprs as E
+
+    df = DataFrame._from_columns([col], len(col))
+    return df.lazy().select(E.ECast(E.EColumn(col.name), dtype, strict)).collect()._columns[0]

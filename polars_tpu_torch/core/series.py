@@ -1,5 +1,13 @@
-"""Series: one named column with a read-only surface (the port of
-``polars_tpu/core/series.py``, trimmed to conversion and inspection)."""
+"""Series: one named column with an eager method surface (the port of
+``polars_tpu/core/series.py``, trimmed).
+
+As in the JAX package, nearly every operation runs through the expression
+engine over a one-column frame (``_select``, ``_scalar``), so that Series,
+DataFrame and LazyFrame cannot drift apart: the operators, ``cast``, the
+math and null functions, and the aggregations, which return Python values.
+An ``Expr`` method the Series lacks runs the same way (``__getattr__``):
+one that aggregates returns its value, any other a Series.
+"""
 
 from __future__ import annotations
 
@@ -9,23 +17,28 @@ import numpy as np
 
 from polars_tpu_torch import datatypes as dt
 from polars_tpu_torch.core.column import Column
+from polars_tpu_torch.core.frame import DataFrame
 
 
 class Series:
     __slots__ = ("_column",)
 
-    def __init__(self, name: str = "", values: Any = None, dtype: Any = None, *, device=None) -> None:
+    def __init__(self, name: Any = "", values: Any = None, dtype: Any = None, *, strict: bool = True,
+                 device=None) -> None:
         from polars_tpu_torch.config import resolve_device
 
-        self._column = Column.from_values(
-            name, [] if values is None else values, dtype, device=resolve_device(device)
-        )
+        if name is not None and not isinstance(name, str) and values is None:
+            values, name = name, ""
+        self._column = Column.from_values(name or "", [] if values is None else values, dtype,
+                                          device=resolve_device(device))
 
     @classmethod
     def _from_column(cls, column: Column) -> Series:
         s = cls.__new__(cls)
         s._column = column
         return s
+
+    # -- properties -----------------------------------------------------------
 
     @property
     def name(self) -> str:
@@ -39,11 +52,247 @@ class Series:
     def device(self):
         return self._column.buffer.device
 
+    @property
+    def shape(self) -> tuple[int]:
+        return (len(self._column),)
+
     def __len__(self) -> int:
         return len(self._column)
 
     def len(self) -> int:
         return len(self._column)
+
+    def is_empty(self) -> bool:
+        return len(self._column) == 0
+
+    def alias(self, name: str) -> Series:
+        return Series._from_column(self._column.rename(name))
+
+    def rename(self, name: str) -> Series:
+        return self.alias(name)
+
+    def clone(self) -> Series:
+        return Series._from_column(self._column)
+
+    def null_count(self) -> int:
+        return self._column.null_count()
+
+    def has_nulls(self) -> bool:
+        return self.null_count() > 0
+
+    # -- the engine over a one-column frame -----------------------------------
+
+    def _frame(self, *others: Series) -> DataFrame:
+        cols = [self._column, *(o._column.rename(f"__other_{i}") for i, o in enumerate(others))]
+        return DataFrame._from_columns(cols, len(self._column))
+
+    def _expr(self):
+        from polars_tpu_torch.functions.lazy import col
+
+        return col(self.name)
+
+    def _select(self, expr, *others: Series) -> Series:
+        out = self._frame(*others).select(expr)
+        return Series._from_column(out._columns[0].rename(self.name))
+
+    def _scalar(self, expr) -> Any:
+        return self._frame().select(expr).item()
+
+    def _binary(self, method: str, other: Any, *, swap: bool = False) -> Series:
+        """``self <op> other`` (or ``other <op> self``): a Series of the same
+        length is a second column, one of length one a literal."""
+        from polars_tpu_torch.functions.lazy import col, lit
+
+        others: tuple = ()
+        if isinstance(other, Series):
+            if len(other) == len(self) and len(self) != 1:
+                rhs, others = col("__other_0"), (other,)
+            elif len(other) == 1:
+                rhs = lit(other.to_list()[0], dtype=other.dtype)
+            else:
+                from polars_tpu_torch.errors import ShapeError
+
+                raise ShapeError(f"cannot combine Series of lengths {len(self)} and {len(other)}")
+        else:
+            rhs = lit(other)
+        lhs = self._expr()
+        if swap:
+            lhs, rhs = rhs, lhs
+        return self._select(getattr(lhs, method)(rhs).alias(self.name), *others)
+
+    # -- operators ------------------------------------------------------------
+
+    def __add__(self, other: Any) -> Series:
+        return self._binary("__add__", other)
+
+    def __radd__(self, other: Any) -> Series:
+        return self._binary("__add__", other, swap=True)
+
+    def __sub__(self, other: Any) -> Series:
+        return self._binary("__sub__", other)
+
+    def __rsub__(self, other: Any) -> Series:
+        return self._binary("__sub__", other, swap=True)
+
+    def __mul__(self, other: Any) -> Series:
+        return self._binary("__mul__", other)
+
+    def __rmul__(self, other: Any) -> Series:
+        return self._binary("__mul__", other, swap=True)
+
+    def __truediv__(self, other: Any) -> Series:
+        return self._binary("__truediv__", other)
+
+    def __rtruediv__(self, other: Any) -> Series:
+        return self._binary("__truediv__", other, swap=True)
+
+    def __floordiv__(self, other: Any) -> Series:
+        return self._binary("__floordiv__", other)
+
+    def __rfloordiv__(self, other: Any) -> Series:
+        return self._binary("__floordiv__", other, swap=True)
+
+    def __mod__(self, other: Any) -> Series:
+        return self._binary("__mod__", other)
+
+    def __rmod__(self, other: Any) -> Series:
+        return self._binary("__mod__", other, swap=True)
+
+    def __pow__(self, other: Any) -> Series:
+        return self._binary("__pow__", other)
+
+    def __rpow__(self, other: Any) -> Series:
+        return self._binary("__pow__", other, swap=True)
+
+    def __eq__(self, other: Any) -> Series:  # type: ignore[override]
+        return self._binary("__eq__", other)
+
+    def __ne__(self, other: Any) -> Series:  # type: ignore[override]
+        return self._binary("__ne__", other)
+
+    def __lt__(self, other: Any) -> Series:
+        return self._binary("__lt__", other)
+
+    def __le__(self, other: Any) -> Series:
+        return self._binary("__le__", other)
+
+    def __gt__(self, other: Any) -> Series:
+        return self._binary("__gt__", other)
+
+    def __ge__(self, other: Any) -> Series:
+        return self._binary("__ge__", other)
+
+    def __and__(self, other: Any) -> Series:
+        return self._binary("__and__", other)
+
+    def __or__(self, other: Any) -> Series:
+        return self._binary("__or__", other)
+
+    def __xor__(self, other: Any) -> Series:
+        return self._binary("__xor__", other)
+
+    def __neg__(self) -> Series:
+        return self._select(-self._expr())
+
+    def __invert__(self) -> Series:
+        return self._select(~self._expr())
+
+    def __abs__(self) -> Series:
+        return self._select(self._expr().abs())
+
+    __hash__ = None
+
+    # -- rows ------------------------------------------------------------------
+
+    def __getitem__(self, key: Any) -> Any:
+        """A value by position; a Series by slice, positions or a Boolean
+        mask."""
+        if isinstance(key, (int, np.integer)):
+            k = int(key) + (len(self) if key < 0 else 0)
+            if not 0 <= k < len(self):
+                raise IndexError(f"index {key} is out of bounds for a Series of length {len(self)}")
+            return self.gather([k]).to_list()[0]
+        if isinstance(key, slice):
+            start, stop, step = key.indices(len(self))
+            if step == 1:
+                return self.slice(start, max(stop - start, 0))
+            return self.gather(np.arange(start, stop, step))
+        if isinstance(key, Series):
+            key = key.to_numpy()
+        if isinstance(key, (list, np.ndarray)):
+            arr = np.asarray(key)
+            return self.filter(Series("", arr, device=self.device)) if arr.dtype == bool else self.gather(arr)
+        raise TypeError(f"cannot index a Series with {key!r}")
+
+    def __iter__(self):
+        return iter(self.to_list())
+
+    def __contains__(self, item: Any) -> bool:
+        return item in self.to_list()
+
+    def slice(self, offset: int, length: int | None = None) -> Series:
+        return Series._from_column(self._frame().slice(offset, length)._columns[0])
+
+    def head(self, n: int = 10) -> Series:
+        return Series._from_column(self._frame().head(n)._columns[0])
+
+    def tail(self, n: int = 10) -> Series:
+        return Series._from_column(self._frame().tail(n)._columns[0])
+
+    def limit(self, n: int = 10) -> Series:
+        return self.head(n)
+
+    def gather(self, indices: Any) -> Series:
+        if isinstance(indices, Series):
+            indices = indices.to_numpy()
+        return Series._from_column(self._frame().gather(indices)._columns[0])
+
+    def gather_every(self, n: int, offset: int = 0) -> Series:
+        return Series._from_column(self._frame().gather_every(n, offset)._columns[0])
+
+    def filter(self, predicate: Any) -> Series:
+        if isinstance(predicate, Series):
+            from polars_tpu_torch.functions.lazy import col
+
+            out = self._frame(predicate).filter(col("__other_0"))
+            return Series._from_column(out._columns[0])
+        return Series._from_column(self._frame().filter(predicate)._columns[0])
+
+    def drop_nulls(self) -> Series:
+        return Series._from_column(self._frame().drop_nulls()._columns[0])
+
+    def drop_nans(self) -> Series:
+        return Series._from_column(self._frame().drop_nans()._columns[0])
+
+    def reverse(self) -> Series:
+        return Series._from_column(self._frame().reverse()._columns[0])
+
+    def sort(self, *, descending: bool = False, nulls_last: bool = False) -> Series:
+        return Series._from_column(self._frame().sort(self.name, descending=descending,
+                                                      nulls_last=nulls_last)._columns[0])
+
+    def unique(self, *, maintain_order: bool = False) -> Series:
+        return Series._from_column(self._frame().unique(maintain_order=maintain_order)._columns[0])
+
+    def value_counts(self, *, sort: bool = False, name: str | None = None, normalize: bool = False) -> DataFrame:
+        """Each distinct value with its count (or share, ``normalize``)."""
+        from polars_tpu_torch.functions.lazy import len as pl_len
+
+        name = name or ("proportion" if normalize else "count")
+        agg = (pl_len().cast(dt.Float64()) / len(self)) if normalize else pl_len()
+        out = self._frame().group_by(self.name).agg(agg.alias(name))
+        return out.sort(name, descending=True) if sort else out
+
+    def append(self, other: Series) -> Series:
+        from polars_tpu_torch.functions.eager import concat
+
+        self._column = concat([self, other])._column.rename(self.name)
+        return self
+
+    def extend(self, other: Series) -> Series:
+        return self.append(other)
+
+    # -- conversion -------------------------------------------------------------
 
     def to_list(self) -> list:
         return self._column.to_pylist()
@@ -51,5 +300,72 @@ class Series:
     def to_numpy(self) -> np.ndarray:
         return self._column.to_numpy()
 
+    def to_frame(self, name: str | None = None) -> DataFrame:
+        col = self._column if name is None else self._column.rename(name)
+        return DataFrame._from_columns([col], len(col))
+
+    def item(self, index: int | None = None) -> Any:
+        if index is None:
+            if len(self) != 1:
+                raise ValueError(f"can only call .item() on a Series of length 1, got {len(self)}")
+            index = 0
+        return self[index]
+
+    def equals(self, other: Series, *, check_names: bool = False, null_equal: bool = True) -> bool:
+        """Same length, dtype and values (NaN equals NaN; null equals null
+        with ``null_equal``), and name with ``check_names``."""
+        if len(self) != len(other) or self.dtype != other.dtype or (check_names and self.name != other.name):
+            return False
+        return values_equal(self.to_list(), other.to_list(), null_equal)
+
     def __repr__(self) -> str:
-        return f"Series(name={self.name!r}, dtype={self.dtype!r}, len={len(self)})"
+        from polars_tpu_torch.utils.fmt import format_series
+
+        return format_series(self)
+
+    # -- namespaces --------------------------------------------------------------
+
+    @property
+    def str(self):
+        from polars_tpu_torch.core.series_ns import SeriesStringNamespace
+
+        return SeriesStringNamespace(self)
+
+    @property
+    def dt(self):
+        from polars_tpu_torch.core.series_ns import SeriesDateTimeNamespace
+
+        return SeriesDateTimeNamespace(self)
+
+    def __getattr__(self, name: str):
+        """An ``Expr`` method run over the Series: an aggregation returns its
+        value, anything else a Series."""
+        from polars_tpu_torch.expr.expr import Expr
+        from polars_tpu_torch.plan import exprs as E
+
+        if name.startswith("_") or not callable(getattr(Expr, name, None)):
+            raise AttributeError(f"'Series' object has no attribute {name!r}")
+
+        def method(*args: Any, **kwargs: Any) -> Any:
+            e = getattr(self._expr(), name)(*args, **kwargs)
+            if isinstance(e._node, E.EAgg):
+                return self._scalar(e)
+            return self._select(e)
+
+        method.__name__ = name
+        return method
+
+
+def values_equal(left: list, right: list, null_equal: bool) -> bool:
+    """Two value lists equal element by element: NaN equals NaN, and null
+    equals null with ``null_equal``."""
+    for x, y in zip(left, right):
+        if x is None or y is None:
+            if not (null_equal and x is None and y is None):
+                return False
+        elif isinstance(x, float) and isinstance(y, float):
+            if x != y and not (x != x and y != y):
+                return False
+        elif x != y:
+            return False
+    return len(left) == len(right)

@@ -1,0 +1,32 @@
+"""Series namespaces (the port of ``polars_tpu/core/series_ns.py``, trimmed
+to ``str`` and ``dt``): each method runs the ``Expr`` namespace's method
+over a one-column frame."""
+
+from __future__ import annotations
+
+from typing import Any
+
+
+class _SeriesNamespace:
+    _expr_ns: str = ""
+
+    def __init__(self, series) -> None:
+        self._s = series
+
+    def __getattr__(self, name: str):
+        if name.startswith("_"):
+            raise AttributeError(name)
+
+        def method(*args: Any, **kwargs: Any):
+            ns = getattr(self._s._expr(), self._expr_ns)
+            return self._s._select(getattr(ns, name)(*args, **kwargs))
+
+        return method
+
+
+class SeriesStringNamespace(_SeriesNamespace):
+    _expr_ns = "str"
+
+
+class SeriesDateTimeNamespace(_SeriesNamespace):
+    _expr_ns = "dt"

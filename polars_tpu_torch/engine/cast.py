@@ -1,12 +1,22 @@
-"""Value casts (the port of ``polars_tpu/engine/cast.py``, trimmed to the
-casts the ported queries make: bool, integer and date values to a wider
-integer or to a float, as type promotion and ``cast(pl.Int64)`` of a Boolean
-need them; the temporal casts (Date and Datetime both ways, Datetime to
-Time, Time to Duration, between time units with floor division, between
-time zones on the same instants, and between temporal and integer storage;
-a Datetime with a time zone gives the Date and Time of its zone's wall
-clock); and a null to any numeric, bool or temporal type), and the
-helpers that keep an unsigned integer inside its logical width.
+"""Value casts (the port of ``polars_tpu/engine/cast.py`` and of the
+numeric and string logic of ``polars_tpu/ops/cast.py``, rewritten on
+tensors), and the helpers that keep an unsigned integer inside its logical
+width.
+
+The casts: between any numeric and Boolean types (an integer out of the
+target's range, or a float that is NaN, infinite or out of range after
+truncation toward zero, becomes null; ``wrap`` wraps integers instead);
+String to numbers, Boolean, Date and Datetime, one parse per distinct
+dictionary value, kept on the dictionary (``StringTable.memo``); the
+temporal casts (Date and Datetime both ways, Datetime to Time, Time to
+Duration, between time units with floor division, between time zones on
+the same instants, and between temporal and integer storage; a Datetime
+with a time zone gives the Date and Time of its zone's wall clock); and a
+null to any type. A cast to String is a host function
+(``engine/hostops.py``): it formats each distinct value once. A value the
+cast makes null is what a strict cast raises for: the compiler turns it
+into a validation flag on the segment's count read
+(``compiler._eval_cast``), so a cast adds no host read.
 
 PyTorch has no arithmetic for uint16/32/64, so UInt16 and UInt32 live in the
 next wider signed tensor and UInt64 as its bit pattern in int64
@@ -20,8 +30,10 @@ from __future__ import annotations
 
 import torch
 
+import numpy as np
+
 from polars_tpu_torch import datatypes as dt
-from polars_tpu_torch.engine.common import Val
+from polars_tpu_torch.engine.common import Val, combine_validity, take_lut
 from polars_tpu_torch.errors import InvalidOperationError
 from polars_tpu_torch.kernels.fastmath import floordiv_const
 
@@ -110,32 +122,140 @@ def _temporal_cast(v: Val, target: dt.DataType) -> Val | None:
     raise InvalidOperationError(f"cannot cast {src!r} to {target!r}")
 
 
-def _lossless(src: dt.DataType, target: dt.DataType) -> bool:
-    if isinstance(src, dt.Null):  # every value is null: any storage holds it
-        return target.is_numeric() or isinstance(target, dt.Boolean)
-    if target.is_float():
-        return src.is_numeric() or isinstance(src, dt.Boolean)
-    if isinstance(src, dt.Boolean):
-        return target.is_integer()
-    sn, tn = type(src).__name__, type(target).__name__
-    if sn not in _BITS or tn not in _BITS:
-        return False
-    if src.is_signed_integer() and target.is_unsigned_integer():
-        return False
-    need = _BITS[sn] + (1 if src.is_unsigned_integer() and target.is_signed_integer() else 0)
-    return _BITS[tn] >= need
+def int_bounds(dtype: dt.DataType) -> tuple[int, int]:
+    """The logical range of an integer dtype."""
+    bits = _BITS[type(dtype).__name__]
+    if dtype.is_unsigned_integer():
+        return 0, 2**bits - 1
+    return -(2 ** (bits - 1)), 2 ** (bits - 1) - 1
 
 
-def cast_val(v: Val, target: dt.DataType, *, strict: bool = False) -> Val:
-    if v.dtype == target:
+def wrap_int(x: torch.Tensor, target: dt.DataType) -> torch.Tensor:
+    """int64 values (a UInt64's bit pattern) wrapped into ``target``'s width,
+    in its storage dtype (two's complement, as a native cast)."""
+    bits = _BITS[type(target).__name__]
+    if bits < 64:
+        x = x & ((1 << bits) - 1)
+        if target.is_signed_integer():
+            x = torch.where(x >= 2 ** (bits - 1), x - 2**bits, x)
+    return x.to(dt.dtype_to_torch(target))
+
+
+def _int_to_int(v: Val, target: dt.DataType, wrap: bool) -> Val:
+    x = v.values.to(torch.int64)
+    lo, hi = int_bounds(target)
+    if isinstance(v.dtype, dt.UInt64):  # a negative int64 holds 2^63 or more; every other target's hi < 2^63
+        ok = (x >= 0) & (x <= hi)
+    else:
+        slo, shi = int_bounds(v.dtype)
+        ok = None if lo <= slo and shi <= hi else (x >= max(lo, slo)) & (x <= min(hi, shi))
+    validity = v.validity if wrap or ok is None else combine_validity(v.validity, ok)
+    return v.with_(values=wrap_int(x, target), validity=validity, dtype=target, table=None)
+
+
+def _float_to_int(v: Val, target: dt.DataType) -> Val:
+    """Truncation toward zero; NaN, the infinities and what lies out of the
+    target's range after truncation are null."""
+    t = torch.trunc(v.values.to(torch.float64))
+    lo, hi = int_bounds(target)
+    ok = torch.isfinite(t) & (t >= float(lo)) & (t < float(hi) + 1.0)
+    t = torch.where(ok, t, torch.zeros((), dtype=t.dtype, device=t.device))
+    if isinstance(target, dt.UInt64):  # 2^63 and more as their int64 bits
+        big = t >= 2.0**63
+        x = torch.where(big, t - 2.0**64, t).to(torch.int64)
+    else:
+        x = t.to(torch.int64)
+    return v.with_(values=wrap_int(x, target), validity=combine_validity(v.validity, ok), dtype=target, table=None)
+
+
+def _parse_table(v: Val, target: dt.DataType) -> Val:
+    """A dictionary-coded String parsed into ``target``: each distinct value
+    once on the host (kept on the dictionary), gathered by the codes; what
+    does not parse is null."""
+    tn = type(target).__name__
+
+    def parse_one(u):
+        s = str(u).strip()
+        if tn == "Boolean":
+            low = s.lower()
+            if low in ("true", "1"):
+                return True
+            if low in ("false", "0"):
+                return False
+            return None
+        if tn in ("Date", "Datetime"):
+            d = np.datetime64(s, "D" if tn == "Date" else target.time_unit)
+            return None if np.isnat(d) else int(d.astype(np.int64))
+        if target.is_float():
+            return float(dt.dtype_to_numpy(target).type(s))
+        value = int(s)
+        lo, hi = int_bounds(target)
+        return value if lo <= value <= hi else None
+
+    def run():
+        outs, ok = [], []
+        for u in v.table.values:
+            try:
+                r = parse_one(u)
+            except (ValueError, OverflowError, TypeError):
+                r = None
+            ok.append(r is not None)
+            outs.append(0 if r is None else r)
+        if not outs:
+            outs, ok = [0], [False]
+        if target.is_integer():  # storage: a UInt64 of 2^63 or more as its bits
+            arr = np.asarray([x - 2**64 if x > _I64_MAX else x for x in outs], np.int64)
+        else:
+            arr = np.asarray(outs, np.int64 if tn in ("Date", "Datetime") else dt.dtype_to_numpy(target))
+        return arr, np.asarray(ok, bool)
+
+    parsed, ok = v.table.memo(("cast", repr(target)), run)
+    values = take_lut(parsed, v.values).to(dt.dtype_to_torch(target))
+    okv = None if ok.all() else take_lut(ok, v.values)
+    return Val(values, combine_validity(v.validity, okv), target, None, v.domain)
+
+
+def cast_val(v: Val, target: dt.DataType, *, wrap: bool = False) -> Val:
+    """``v`` as ``target``. A value that does not fit becomes null (the
+    caller raises for it when the cast is strict); with ``wrap`` an integer
+    wraps instead. Never raises for a value."""
+    src = v.dtype
+    if src == target:
         return v
+    if isinstance(src, dt.Null):
+        from polars_tpu_torch.utils.strtable import empty_table
+
+        text = _is_text(target)
+        tdt = torch.int32 if text else dt.dtype_to_torch(target)
+        return Val(torch.zeros(v.values.shape, dtype=tdt, device=v.values.device),
+                   torch.zeros(v.values.shape, dtype=torch.bool, device=v.values.device), target,
+                   empty_table() if text else None, v.domain)
+    if _is_text(target):
+        if v.table is not None and isinstance(target, dt.String):
+            return v.with_(dtype=target)
+        raise InvalidOperationError(
+            f"a cast from {src!r} to {target!r} runs on the host: only in a select or with_columns")
+    if v.table is not None:
+        if target.is_numeric() or type(target).__name__ in ("Boolean", "Date", "Datetime"):
+            return _parse_table(v, target)
+        raise InvalidOperationError(f"cannot cast {src!r} to {target!r}")
     out = _temporal_cast(v, target)
     if out is not None:
         return out
-    if not _lossless(v.dtype, target):
-        raise NotImplementedError(
-            f"cast from {v.dtype!r} to {target!r} is not ported yet (port queue: expression breadth)"
-        )
-    tdt = dt.dtype_to_torch(target)
-    values = float_values(v.values, v.dtype, tdt) if target.is_float() else v.values.to(tdt)
-    return v.with_(values=values, dtype=target)
+    if isinstance(src, dt.Decimal) or isinstance(target, dt.Decimal):
+        raise NotImplementedError(f"cast from {src!r} to {target!r} is not ported yet (port queue: item 1b)")
+    if not ((src.is_numeric() or isinstance(src, dt.Boolean)) and (target.is_numeric() or isinstance(target, dt.Boolean))):
+        raise InvalidOperationError(f"cannot cast {src!r} to {target!r}")
+    if isinstance(target, dt.Boolean):
+        return v.with_(values=v.values != 0, dtype=target)
+    if target.is_float():
+        return v.with_(values=float_values(v.values, src, dt.dtype_to_torch(target)), dtype=target)
+    if isinstance(src, dt.Boolean):
+        return v.with_(values=v.values.to(dt.dtype_to_torch(target)), dtype=target)
+    if src.is_float():
+        return _float_to_int(v, target)
+    return _int_to_int(v, target, wrap)
+
+
+def _is_text(d: dt.DataType) -> bool:
+    return isinstance(d, (dt.String, dt.Categorical, dt.Enum, dt.Binary))

@@ -22,7 +22,8 @@ from polars_tpu_torch import datatypes as dt
 from polars_tpu_torch.engine import groupby as G
 from polars_tpu_torch.engine.cast import cast_val, float_values, int_scalar, order_word, wrap_unsigned
 from polars_tpu_torch.engine.common import (
-    GROUP, ROW, SCALAR, SERIES, EvalCtx, GroupCtx, Val, broadcast_pair, combine_validity, reject_series, take_lut,
+    GROUP, ROW, SCALAR, SERIES, EvalCtx, GroupCtx, Val, broadcast_pair, combine_validity, flag_rows, reject_series,
+    take_lut,
 )
 from polars_tpu_torch.engine.registry import get_spec
 from polars_tpu_torch.engine.strings import unify_vals
@@ -60,7 +61,7 @@ def _eval_expr_uncached(node: E.ENode, ctx: EvalCtx) -> Val:
     if isinstance(node, E.EAlias):
         return eval_expr(node.input, ctx)
     if isinstance(node, E.ECast):
-        return cast_val(eval_expr(node.input, ctx), dt.parse_into_dtype(node.dtype), strict=node.strict)
+        return _eval_cast(node, ctx)
     if isinstance(node, E.EBinary):
         return _eval_binary(node, ctx)
     if isinstance(node, E.ETernary):
@@ -76,6 +77,23 @@ def _eval_expr_uncached(node: E.ENode, ctx: EvalCtx) -> Val:
             args = _adapt_dyn_literal_vals(node.inputs, args)
         return spec.impl(ctx, args, dict(node.options))
     raise InvalidOperationError(f"cannot evaluate {type(node).__name__}")
+
+
+def _eval_cast(node: E.ECast, ctx: EvalCtx) -> Val:
+    """A cast; with ``strict``, a non-null value it makes null (out of range,
+    NaN to an integer, text that does not parse) fails the segment at its
+    count read (a validation flag, the JAX package's cast flag channel), so
+    the check adds no host read."""
+    v = eval_expr(node.input, ctx)
+    target = dt.parse_into_dtype(node.dtype)
+    out = cast_val(v, target)
+    if node.strict and out.validity is not None and out.validity is not v.validity:
+        lost = ~out.validity
+        if v.domain == GROUP and ctx.groups is not None:
+            lost = lost & ctx.groups.group_valid
+        flag_rows(ctx, v, lost, f"conversion from `{v.dtype!r}` to `{target!r}` failed in a strict cast "
+                                "(a value out of range or that does not parse); use strict=False for nulls")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -188,21 +206,32 @@ def _eval_binary(node: E.EBinary, ctx: EvalCtx) -> Val:
     a = eval_expr(node.left, ctx)
     b = eval_expr(node.right, ctx)
     a, b = _adapt_dyn_literal_vals((node.left, node.right), (a, b))
+    if {a.domain, b.domain} == {ROW, GROUP}:
+        a, b = _group_to_rows(a, ctx), _group_to_rows(b, ctx)
     a, b, dom = broadcast_pair(a, b)
-    if op in ("&", "|") and all(isinstance(v.dtype, (dt.Boolean, dt.Null)) for v in (a, b)):
+    if op in ("&", "|", "^") and all(isinstance(v.dtype, (dt.Boolean, dt.Null)) for v in (a, b)):
         return _kleene(op, a, b, dom)
+    if op in ("eq_missing", "ne_missing"):
+        return _eq_missing(op, a, b, dom)
     if op in _CMP:
         return _eval_compare(op, a, b, dom)
     if a.table is not None or b.table is not None:
         raise InvalidOperationError(f"operator {op!r} not supported for strings")
     out_dt = binary_dtype(op, a.dtype, b.dtype)
-    values, validity = _arith(op, a, b, out_dt)
+    if op == "**" and out_dt.is_integer():
+        # an integer power has the base's type: a negative exponent fails
+        # the segment at its count read, as in the JAX package
+        flag_rows(ctx, b, b.values < 0, "exponent of an integer pow must be >= 0; cast to Float64 for negative "
+                                        "exponents")
+    lit = dyn_literal_value(node.right)
+    pow_bits = int(lit).bit_length() if op == "**" and isinstance(lit, int) and lit >= 0 else 63
+    values, validity = _arith(op, a, b, out_dt, pow_bits)
     if validity is not None and validity.shape != values.shape:
         validity = validity.expand(values.shape)
     return Val(values, validity, out_dt, None, dom)
 
 
-def _arith(op: str, a: Val, b: Val, out_dt: dt.DataType):
+def _arith(op: str, a: Val, b: Val, out_dt: dt.DataType, pow_bits: int = 63):
     if isinstance(out_dt, dt.Decimal):
         raise NotImplementedError(
             f"{op!r} on {a.dtype!r} and {b.dtype!r} is not ported yet (port queue: expression breadth)")
@@ -211,6 +240,12 @@ def _arith(op: str, a: Val, b: Val, out_dt: dt.DataType):
     if not out_dt.is_numeric():
         raise InvalidOperationError(f"cannot apply {op!r} to {a.dtype!r} and {b.dtype!r}")
     validity = combine_validity(a.validity, b.validity)
+    if op == "**":
+        if out_dt.is_integer():  # exact, wrapping like the native type
+            values = _int_pow(a.values.to(torch.int64), b.values.to(torch.int64).clamp(min=0), pow_bits)
+            return wrap_unsigned(values.to(dt.dtype_to_torch(out_dt)), out_dt), validity
+        ft = dt.dtype_to_torch(out_dt)
+        return torch.pow(float_values(a.values, a.dtype, ft), float_values(b.values, b.dtype, ft)), validity
     st = out_dt if op == "/" else supertype(a.dtype, b.dtype)
     av = cast_val(a, st).values
     bv = cast_val(b, st).values
@@ -236,6 +271,8 @@ def _arith(op: str, a: Val, b: Val, out_dt: dt.DataType):
             mod = mod_u64 if isinstance(st, dt.UInt64) else mod_any
             values = mod(av, torch.where(bv == 0, 1, bv))
             validity = combine_validity(validity, bv != 0)
+    elif op in ("&", "|", "^"):
+        values = {"&": torch.bitwise_and, "|": torch.bitwise_or, "^": torch.bitwise_xor}[op](av, bv)
     else:
         raise NotImplementedError(f"operator {op!r} is not ported yet (port queue: expression breadth)")
     tdt = dt.dtype_to_torch(out_dt)
@@ -243,6 +280,29 @@ def _arith(op: str, a: Val, b: Val, out_dt: dt.DataType):
         values = values.to(tdt)
     # UInt16/UInt32 live in a wider signed tensor: wrap like the native type
     return wrap_unsigned(values, out_dt), validity
+
+
+def _group_to_rows(v: Val, ctx: EvalCtx) -> Val:
+    """A per-group value read at each row's group, where it meets a per-row
+    one inside an aggregation (``col - col.mean()`` in a group-by)."""
+    if v.domain != GROUP or ctx.groups is None:
+        return v
+    ids = ctx.groups.gids.clamp(0, ctx.groups.capacity - 1).long()
+    return v.with_(values=v.values.index_select(0, ids),
+                   validity=None if v.validity is None else v.validity.index_select(0, ids), domain=ROW)
+
+
+def _int_pow(base: torch.Tensor, exp: torch.Tensor, bits: int) -> torch.Tensor:
+    """``base ** exp`` in int64 by repeated squaring over the ``bits`` low
+    bits of ``exp`` (not negative), wrapping as a native integer power; no
+    host read."""
+    out = torch.ones_like(base.expand(torch.broadcast_shapes(base.shape, exp.shape)))
+    b, e = base.expand_as(out), exp.expand_as(out)
+    for i in range(bits):
+        out = torch.where(((e >> i) & 1) == 1, out * b, out)
+        if i + 1 < bits:
+            b = b * b
+    return out
 
 
 _US_PER_DAY = 86_400_000_000
@@ -356,11 +416,23 @@ def _eval_compare(op: str, a: Val, b: Val, dom: str) -> Val:
     return Val(values, validity, dt.Boolean(), None, dom)
 
 
+def _eq_missing(op: str, a: Val, b: Val, dom: str) -> Val:
+    """``==``/``!=`` where null equals null and differs from any value."""
+    eq = _eval_compare("==", a.with_(validity=None), b.with_(validity=None), dom).values
+    if a.validity is not None or b.validity is not None:
+        av = torch.ones_like(eq) if a.validity is None else a.validity.expand(eq.shape)
+        bv = torch.ones_like(eq) if b.validity is None else b.validity.expand(eq.shape)
+        eq = torch.where(av & bv, eq, ~av & ~bv)
+    return Val(eq if op == "eq_missing" else ~eq, None, dt.Boolean(), None, dom)
+
+
 def _kleene(op: str, a: Val, b: Val, dom: str) -> Val:
     """SQL three-valued logic for boolean &/| (reference:
     polars-compute/src/boolean.rs Kleene kernels)."""
     av = a.values.to(torch.bool)
     bv = b.values.to(torch.bool)
+    if op == "^":
+        return Val(av ^ bv, combine_validity(a.validity, b.validity), dt.Boolean(), None, dom)
     if a.validity is None and b.validity is None:
         values = (av & bv) if op == "&" else (av | bv)
         return Val(values, None, dt.Boolean(), None, dom)
@@ -483,12 +555,86 @@ def _eval_agg(node: E.EAgg, ctx: EvalCtx) -> Val:
         # among the group's rows, and its validity goes with it
         fn = G.seg_first_idx if kind == "first" else G.seg_last_idx
         idx, has = fn(rowmask, gids, cap)
+        if v.values.shape[0] == 0:  # no rows: every group is null
+            return Val(torch.zeros(cap, dtype=v.values.dtype, device=v.values.device), has, v.dtype, v.table, dom)
         validity = has if v.validity is None else (has & v.validity.index_select(0, idx))
         return Val(v.values.index_select(0, idx), validity, v.dtype, v.table, dom)
     if kind == "n_unique":
         out = G.seg_nunique(v, rowmask, gids, cap)
         return Val(wrap_unsigned(out, dt.UInt32()), None, dt.UInt32(), None, dom)
+    return _eval_stat_agg(node, ctx, v, data_mask)
+
+
+def _eval_stat_agg(node: E.EAgg, ctx: EvalCtx, v: Val, data_mask: torch.Tensor) -> Val:
+    """The statistical aggregations (the JAX package's ``_eval_agg``, from
+    ``null_count`` on): their sums and counts go through K1
+    (``groupby.seg_sum``/``seg_count``); ``median`` and ``quantile`` sort by
+    (group, value)."""
+    gctx, dom = group_of(ctx), _agg_domain(ctx)
+    gids, rowmask, cap = gctx.gids, ctx.rowmask, gctx.capacity
+    kind = node.kind
+    out_dt = _agg_out_dtype(node, v.dtype)
+    if kind == "null_count":
+        if v.validity is None:
+            return Val(torch.zeros(cap, dtype=torch.int64, device=rowmask.device), None, dt.UInt32(), None, dom)
+        return Val(G.seg_count(rowmask & ~v.validity, gids, cap), None, dt.UInt32(), None, dom)
+    if kind in ("var", "std"):
+        var, ok = G.seg_var(_float_input(v), data_mask, gids, cap, int(node.opt("ddof", 1)))
+        out = torch.sqrt(var) if kind == "std" else var
+        return Val(out.to(dt.dtype_to_torch(out_dt)), ok, out_dt, None, dom)
+    if kind in ("median", "quantile"):
+        q = 0.5 if kind == "median" else float(node.opt("quantile", 0.5))
+        interp = "linear" if kind == "median" else node.opt("interpolation", "nearest")
+        out, has = G.seg_quantile(v, data_mask, gids, cap, q, interp)
+        return Val(mean_values(out, v.dtype, out_dt), has, out_dt, None, dom)
+    if kind == "product":
+        # exact: an integer product wraps as Polars' does, a float product
+        # keeps IEEE's NaN for inf * 0 (the JAX package goes through
+        # exp(sum(log|x|)) and a zero test, ROADMAP section 3)
+        work = dt.dtype_to_torch(out_dt)
+        x = float_values(v.values, v.dtype, work) if out_dt.is_float() else v.values.to(torch.int64)
+        out = G.seg_prod(x, data_mask, gids, cap)
+        return Val(out.to(dt.dtype_to_torch(out_dt)), None, out_dt, None, dom)
+    if kind in ("any", "all"):
+        bv = v.values.to(torch.bool)
+        out = (G.seg_any if kind == "any" else G.seg_all)(bv, data_mask, gids, cap)
+        if node.opt("ignore_nulls", True) or v.validity is None:
+            return Val(out, None, dt.Boolean(), None, dom)
+        # Kleene: any is null where no value is true and some is null; all
+        # where none is false and some is null
+        has_null = G.seg_count(rowmask & ~v.validity, gids, cap) > 0
+        return Val(out, (out if kind == "any" else ~out) | ~has_null, dt.Boolean(), None, dom)
+    if kind in ("arg_min", "arg_max"):
+        return _eval_arg_extreme(kind, v, data_mask, gctx, rowmask, dom)
     raise NotImplementedError(f"aggregation {kind!r} is not ported yet (port queue: expression breadth)")
+
+
+def _float_input(v: Val) -> torch.Tensor:
+    """A numeric or Boolean value as f64 (f32 stays f32)."""
+    if isinstance(v.dtype, dt.Float32):
+        return v.values
+    return float_values(v.values, v.dtype, torch.float64)
+
+
+def _eval_arg_extreme(kind: str, v: Val, data_mask: torch.Tensor, gctx: GroupCtx, rowmask: torch.Tensor,
+                      dom: str) -> Val:
+    """The position within its group of the group's first least
+    (``arg_min``) or greatest (``arg_max``, NaN greatest) value, counting
+    the group's null rows as positions; null for a group without values."""
+    gids, cap = gctx.gids, gctx.capacity
+    if v.table is not None and not v.table.sorted_order:
+        raise NotImplementedError(f"{kind} over an unordered dictionary is not ported yet (port queue: item 3)")
+    ext = G.seg_extreme("min" if kind == "arg_min" else "max", v, data_mask, gids, cap)
+    ids = gids.clamp(0, cap - 1).long()
+    best = ext.index_select(0, ids)
+    is_best = data_mask & (v.values == best)
+    if v.dtype.is_float() and kind == "arg_max":  # a group holding NaN has NaN as its max
+        nan = torch.isnan(v.values)
+        is_best = data_mask & torch.where(torch.isnan(best), nan, v.values == best)
+    idx, has = G.seg_first_idx(is_best, gids, cap)
+    iota = torch.arange(rowmask.shape[0], device=rowmask.device)
+    before = rowmask & (iota < idx.index_select(0, ids))
+    return Val(G.seg_count(before, gids, cap), has, dt.UInt32(), None, dom)
 
 
 def mean_values(m: torch.Tensor, in_dt: dt.DataType, out_dt: dt.DataType) -> torch.Tensor:

@@ -1,5 +1,7 @@
 """Core elementwise functions (the port of ``polars_tpu/engine/fn_core.py``,
-trimmed to ``not``, the null block (``is_null``, ``is_not_null``,
+trimmed to the math block (the float functions, ``arctan2``, ``log`` with a
+base, ``abs``, ``negate``, ``sign``, ``round``, ``floor``, ``ceil`` and
+``clip``), ``to_physical``, ``not``, the null block (``is_null``, ``is_not_null``,
 ``is_nan``, ``is_not_nan``, ``is_finite``, ``is_infinite``, ``fill_null``
 with a value, ``fill_nan`` and ``coalesce``), ``is_in``, ``is_between`` and
 the temporal constructors ``make_date``, ``make_datetime`` and
@@ -10,12 +12,176 @@ from __future__ import annotations
 import torch
 
 from polars_tpu_torch import datatypes as dt
-from polars_tpu_torch.engine.cast import cast_val, order_word, wrap_unsigned
-from polars_tpu_torch.engine.common import ROW, SCALAR, SERIES, Val, combine_validity, take_lut
-from polars_tpu_torch.engine.registry import BOOL, SAME, SUPER, register
+import math
+
+from polars_tpu_torch.engine.cast import cast_val, float_values, order_word, wrap_unsigned
+from polars_tpu_torch.engine.common import ROW, SCALAR, SERIES, Val, broadcast_pair, combine_validity, take_lut
+from polars_tpu_torch.engine.registry import BOOL, FLOAT, SAME, SUPER, register
 from polars_tpu_torch.errors import InvalidOperationError
 from polars_tpu_torch.plan.schema_resolve import supertype
 from polars_tpu_torch.utils import strtable
+
+
+# -- math ---------------------------------------------------------------------------
+
+
+def _float_vals(v: Val) -> tuple[torch.Tensor, dt.DataType]:
+    """``v`` as Float32 if it is one, else as Float64 (the ``FLOAT`` rule)."""
+    if isinstance(v.dtype, dt.Float32):
+        return v.values, dt.Float32()
+    if not (v.dtype.is_numeric() or isinstance(v.dtype, (dt.Boolean, dt.Null))):
+        raise InvalidOperationError(f"a float function expects a number, got {v.dtype!r}")
+    return float_values(v.values, v.dtype, torch.float64), dt.Float64()
+
+
+def _cbrt(x: torch.Tensor) -> torch.Tensor:
+    """The real cube root: in f64, ``|x|^(1/3)`` and one Newton step (1/3
+    is inexact), in ``x``'s float type."""
+    a = torch.abs(x.to(torch.float64))
+    y = torch.pow(a, 1.0 / 3.0)
+    y = torch.where((y > 0) & torch.isfinite(y), y - (y * y * y - a) / (3.0 * y * y), y)
+    return (torch.sign(x.to(torch.float64)) * y).to(x.dtype)
+
+
+def _unary_float(name: str, fn) -> None:
+    @register(name, FLOAT)
+    def _(ctx, args, opts, _fn=fn):
+        v = args[0]
+        x, out_dt = _float_vals(v)
+        return Val(_fn(x), v.validity, out_dt, None, v.domain)
+
+
+for _n, _f in [
+    ("sqrt", torch.sqrt), ("exp", torch.exp), ("log10", torch.log10), ("log1p", torch.log1p),
+    ("cbrt", _cbrt),
+    ("sin", torch.sin), ("cos", torch.cos), ("tan", torch.tan), ("cot", lambda x: 1.0 / torch.tan(x)),
+    ("arcsin", torch.asin), ("arccos", torch.acos), ("arctan", torch.atan),
+    ("sinh", torch.sinh), ("cosh", torch.cosh), ("tanh", torch.tanh),
+    ("arcsinh", torch.asinh), ("arccosh", torch.acosh), ("arctanh", torch.atanh),
+    ("degrees", torch.rad2deg), ("radians", torch.deg2rad),
+]:
+    _unary_float(_n, _f)
+
+
+@register("arctan2", FLOAT)
+def _arctan2(ctx, args, opts):
+    y, x, dom = broadcast_pair(*args)
+    yv, out_dt = _float_vals(y)
+    xv = _float_vals(x)[0].to(yv.dtype)
+    out = torch.atan2(yv, xv)
+    if opts.get("degrees"):
+        out = torch.rad2deg(out)
+    validity = combine_validity(y.validity, x.validity)
+    if validity is not None and validity.shape != out.shape:
+        validity = validity.expand(out.shape)
+    return Val(out, validity, out_dt, None, dom)
+
+
+@register("log", FLOAT)
+def _log(ctx, args, opts):
+    v = args[0]
+    x, out_dt = _float_vals(v)
+    base = opts.get("base")
+    out = torch.log(x) if base is None else torch.log(x) * (1.0 / math.log(base))
+    return Val(out, v.validity, out_dt, None, v.domain)
+
+
+@register("abs", SAME)
+def _abs(ctx, args, opts):
+    v = args[0]
+    if v.dtype.is_unsigned_integer() or isinstance(v.dtype, dt.Boolean):
+        return v
+    if not (v.dtype.is_numeric() or isinstance(v.dtype, dt.Duration)):
+        raise InvalidOperationError(f"`abs` operation not supported for dtype `{v.dtype!r}`")
+    return v.with_(values=torch.abs(v.values))
+
+
+@register("negate", SAME)
+def _negate(ctx, args, opts):
+    """The same dtype; unsigned, Boolean and String are refused, as in the
+    JAX package (Polars: ``FunctionExpr::Negate``)."""
+    v = args[0]
+    d = v.dtype
+    if not ((d.is_integer() and not d.is_unsigned_integer()) or d.is_float() or isinstance(d, dt.Duration)):
+        raise InvalidOperationError(f"`neg` operation not supported for dtype `{d!r}`")
+    return v.with_(values=-v.values)
+
+
+@register("sign", SAME)
+def _sign(ctx, args, opts):
+    v = args[0]
+    if v.dtype.is_unsigned_integer():  # a UInt64 of 2^63 or more is negative in its storage
+        return v.with_(values=(v.values != 0).to(v.values.dtype))
+    x = v.values
+    out = torch.sign(x)
+    if x.is_floating_point():  # the sign of NaN is NaN
+        out = torch.where(torch.isnan(x), x, out)
+    return v.with_(values=out.to(x.dtype))
+
+
+@register("round", SAME)
+def _round(ctx, args, opts):
+    """Half away from zero, as Polars rounds."""
+    v = args[0]
+    if not v.dtype.is_float():
+        return v
+    f = 10.0 ** opts.get("decimals", 0)
+    x = v.values * f
+    return v.with_(values=(torch.sign(x) * torch.floor(torch.abs(x) + 0.5) * (1.0 / f)).to(v.values.dtype))
+
+
+@register("floor", SAME)
+def _floor(ctx, args, opts):
+    v = args[0]
+    return v.with_(values=torch.floor(v.values)) if v.dtype.is_float() else v
+
+
+@register("ceil", SAME)
+def _ceil(ctx, args, opts):
+    v = args[0]
+    return v.with_(values=torch.ceil(v.values)) if v.dtype.is_float() else v
+
+
+@register("clip", SAME)
+def _clip(ctx, args, opts):
+    """Bounded below and above, each bound cast to the input's dtype (a
+    null bound leaves the value as it is)."""
+    v = args[0]
+    rest = list(args[1:])
+    lo = rest.pop(0) if opts.get("has_lower") else None
+    hi = rest.pop(0) if opts.get("has_upper") else None
+    out, dom = order_word(v.values, v.dtype), v.domain
+    for b, pick in ((lo, torch.maximum), (hi, torch.minimum)):
+        if b is None:
+            continue
+        _, b, dom = broadcast_pair(v.with_(domain=dom), b)
+        bv = order_word(cast_val(b, v.dtype).values, v.dtype)
+        clipped = pick(out, bv)
+        out = clipped if b.validity is None else torch.where(b.validity, clipped, out)
+    out = order_word(out, v.dtype)
+    validity = v.validity
+    if validity is not None and validity.shape != out.shape:
+        validity = validity.expand(out.shape)
+    return Val(out, validity, v.dtype, None, dom)
+
+
+@register("cast_wrap", lambda dts, opts: opts["dtype"])
+def _cast_wrap(ctx, args, opts):
+    """``cast(wrap_numerical=True)``: an integer out of the target's range
+    wraps into it, as Polars casts (the JAX package ignores the flag)."""
+    return cast_val(args[0], opts["dtype"], wrap=True)
+
+
+def _physical_dtype(d: dt.DataType) -> dt.DataType:
+    return {"String": dt.UInt32(), "Date": dt.Int32(), "Datetime": dt.Int64(), "Duration": dt.Int64(),
+            "Time": dt.Int64()}.get(type(d).__name__, d)
+
+
+@register("to_physical", lambda dts, opts: _physical_dtype(dts[0]))
+def _to_physical(ctx, args, opts):
+    v = args[0]
+    out_dt = _physical_dtype(v.dtype)
+    return Val(v.values.to(dt.dtype_to_torch(out_dt)), v.validity, out_dt, None, v.domain)
 
 
 @register("not", SAME)

@@ -7,8 +7,12 @@ path (any other keys) sorts the rows by their order-encoded key words, marks
 where a key differs from the previous row and numbers the groups in key
 order; its capacity is the row count. Group sums and counts go through
 kernel K1 (``kernels/groupagg.py``), and so do the boundaries that
-``n_unique`` counts after a sort; min/max and the first and last rows use
-``Tensor.scatter_reduce``, as the JAX package has no kernel for them. The
+``n_unique`` counts after a sort, the two passes of ``var`` and ``std``,
+``any`` and ``all`` (counts of true and false rows) and the group sizes
+that place ``median`` and ``quantile`` in a sort by (group, value); min/max
+and the first and last rows use ``Tensor.scatter_reduce``, as the JAX
+package has no kernel for them, and an integer ``product`` multiplies
+exactly in a segmented scan (:func:`seg_prod`). The
 only data-dependent value, ``num_groups``, stays on the device until the
 segment's compaction.
 """
@@ -17,7 +21,7 @@ from __future__ import annotations
 
 import torch
 
-from polars_tpu_torch.engine.cast import order_word
+from polars_tpu_torch.engine.cast import float_values, order_word
 from polars_tpu_torch.engine.common import GroupCtx, Val
 from polars_tpu_torch.kernels.argsort import boundaries_from_words, key_words, stable_argsort_words
 from polars_tpu_torch.kernels.fastmath import div_any
@@ -279,3 +283,91 @@ def seg_mean(values: torch.Tensor, mask: torch.Tensor, gids: torch.Tensor, cap: 
     s = seg_sum(values.to(acc_t), mask, gids, cap)
     c = seg_count(mask, gids, cap)
     return div_any(s, c.clamp(min=1).to(acc_t)), c > 0
+
+
+def seg_var(values: torch.Tensor, mask: torch.Tensor, gids: torch.Tensor, cap: int, ddof: int):
+    """(per-group variance, defined): two passes, the mean first and then
+    the squares of the differences from it (the JAX package's form; one
+    pass of sums of squares loses digits). Two K1 sums and one K1 count;
+    f64 unless the input is f32. Defined where the group has more than
+    ``ddof`` values."""
+    acc = torch.float32 if values.dtype == torch.float32 else torch.float64
+    v = values.to(acc)
+    c = seg_count(mask, gids, cap)
+    mean = div_any(seg_sum(v, mask, gids, cap), c.clamp(min=1).to(acc))
+    centered = v - mean.index_select(0, gids.clamp(0, cap - 1).long())
+    ss = seg_sum(torch.where(mask, centered * centered, torch.zeros((), dtype=acc, device=v.device)), mask, gids, cap)
+    return div_any(ss, (c - ddof).clamp(min=1).to(acc)), (c - ddof) > 0
+
+
+def seg_any(values: torch.Tensor, mask: torch.Tensor, gids: torch.Tensor, cap: int) -> torch.Tensor:
+    """Per group: some ``mask`` row is true (a K1 count)."""
+    return seg_count(mask & values, gids, cap) > 0
+
+
+def seg_all(values: torch.Tensor, mask: torch.Tensor, gids: torch.Tensor, cap: int) -> torch.Tensor:
+    """Per group: no ``mask`` row is false (a K1 count)."""
+    return seg_count(mask & ~values, gids, cap) == 0
+
+
+def seg_quantile(v: Val, mask: torch.Tensor, gids: torch.Tensor, cap: int, q: float, interpolation: str):
+    """(per-group quantile ``q`` as f64, has_any): one stable sort by (group,
+    value), NaN greatest, with the rows outside ``mask`` last; each group's
+    run starts at the sum of the sizes before it (K1 counts), and the
+    interpolation picks or blends the values at the positions ``(n-1) * q``
+    rounds to (``nearest`` rounds half to even, as the JAX package does)."""
+    n = mask.shape[0]
+    counts = seg_count(mask, gids, cap)
+    if n == 0:
+        return torch.zeros(cap, dtype=torch.float64, device=mask.device), counts > 0
+    g = torch.where(mask, gids, cap)
+    perm = stable_argsort_words([g, *key_words(v.values, v.dtype)])
+    ordered = float_values(v.values.index_select(0, perm), v.dtype, torch.float64)
+    offsets = torch.cumsum(counts, 0) - counts
+    c = counts.clamp(min=1)
+    pos = (c - 1).to(torch.float64) * q
+
+    def at(k: torch.Tensor) -> torch.Tensor:
+        return ordered.index_select(0, (offsets + k.to(torch.int64)).clamp(0, n - 1))
+
+    if interpolation == "nearest":
+        out = at(torch.round(pos))
+    elif interpolation == "lower":
+        out = at(torch.floor(pos))
+    elif interpolation == "higher":
+        out = at(torch.ceil(pos))
+    elif interpolation == "midpoint":
+        out = (at(torch.floor(pos)) + at(torch.ceil(pos))) * 0.5
+    else:  # linear
+        lo_i = torch.floor(pos)
+        lo, hi = at(lo_i), at(torch.minimum(lo_i + 1, (c - 1).to(torch.float64)))
+        out = lo + (hi - lo) * (pos - lo_i)
+    return out, counts > 0
+
+
+def seg_prod(values: torch.Tensor, mask: torch.Tensor, gids: torch.Tensor, cap: int) -> torch.Tensor:
+    """Per-group product of ``values`` (int64, wrapping as a native integer
+    product, or f64 with IEEE's rules: inf * 0 is NaN); 1 for an empty
+    group. A few groups multiply one by one; more groups sort by group and
+    run a segmented scan in log2(rows) doubling steps, whose last row per
+    group is its product. No host read."""
+    one = torch.ones((), dtype=values.dtype, device=values.device)
+    x = torch.where(mask, values, one)
+    if cap <= _FEW_GROUPS:
+        if cap == 1:
+            return torch.prod(x).reshape(1)
+        ids = gids.clamp(0, cap - 1)
+        return torch.stack([torch.prod(torch.where(ids == g, x, one)) for g in range(cap)])
+    n = x.shape[0]
+    g = torch.where(mask, gids, cap)
+    perm = stable_argsort_words([g])
+    gs, xs = g.index_select(0, perm), x.index_select(0, perm)
+    step = 1
+    while step < n:
+        nxt = xs.clone()
+        nxt[step:] = torch.where(gs[step:] == gs[:-step], xs[step:] * xs[:-step], xs[step:])
+        xs, step = nxt, step * 2
+    counts = seg_count(mask, gids, cap)
+    last = (torch.cumsum(counts, 0) - 1).clamp(0, max(n - 1, 0))
+    picked = xs.index_select(0, last) if n else torch.ones(cap, dtype=values.dtype, device=values.device)
+    return torch.where(counts > 0, picked, one)

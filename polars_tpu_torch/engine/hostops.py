@@ -1,6 +1,7 @@
 """Host functions: the expressions that run on the host between segments
 (the port of ``polars_tpu/engine/run.py``'s hoisting of ``HOST_FNS``,
-``_hoist_host_exprs`` and ``_eval_host``, trimmed to ``dt.to_string``).
+``_hoist_host_exprs`` and ``_eval_host``, trimmed to ``dt.to_string`` and
+the casts to String, ``plan/exprs.is_host_call``).
 
 A select or with_columns that calls one (``plan/exprs.HOST_FNS``) is no
 part of a segment (``executors._is_fusable``). Its input runs first; each
@@ -58,7 +59,7 @@ def exec_host_select(node: L.LSelect | L.LWithColumns) -> DataFrame:
     hoisted: list[Column] = []
 
     def hoist(e: E.ENode) -> E.ENode:
-        if isinstance(e, E.EFunction) and e.name in E.HOST_FNS:
+        if E.is_host_call(e):
             out = _host_call(df, e)
             if len(out) == 1:  # an aggregate's or a literal's: a scalar, as in the JAX package
                 return E.ESeriesLit(column=out, ident=next_token())
@@ -85,13 +86,60 @@ def exec_host_select(node: L.LSelect | L.LWithColumns) -> DataFrame:
     return run_segment(L.LSelect(scan, tuple(exprs)), [(scan, frame)])
 
 
-def _host_call(df: DataFrame, node: E.EFunction) -> Column:
+def _host_call(df: DataFrame, node: E.ENode) -> Column:
     from polars_tpu_torch.engine.run import _eval_column
 
+    if isinstance(node, E.ECast):
+        return cast_to_text(_eval_column(df, node.input))
     if node.name != "dt.to_string":
         raise InvalidOperationError(f"unknown host function {node.name!r}")
     col = _eval_column(df, node.inputs[0])
     return to_string_column(col, dict(node.options).get("format"))
+
+
+def _text_of(x, dtype: dt.DataType) -> str:
+    """One value's text as the JAX package's cast gives it (``true`` and
+    ``false`` for a Boolean, Python's ``repr`` of a float)."""
+    if isinstance(dtype, dt.Boolean):
+        return "true" if x else "false"
+    if dtype.is_float():
+        return repr(float(x))
+    return str(x)
+
+
+def cast_to_text(col: Column) -> Column:
+    """``col`` cast to String: each distinct storage value (a float by its
+    bits) formatted once on the host (one read), the strings made a sorted
+    dictionary, the rows gathered by code. A String stays as it is; a
+    Date, Datetime or Time formats as ``dt.to_string`` does without a
+    format."""
+    if isinstance(col.dtype, dt.String):
+        return col
+    if isinstance(col.dtype, (dt.Date, dt.Datetime, dt.Time)):
+        return to_string_column(col, None)
+    if not (col.dtype.is_numeric() or isinstance(col.dtype, (dt.Boolean, dt.Null))):
+        raise InvalidOperationError(f"cannot cast {col.dtype!r} to String")
+    values, validity = col.buffer.values, col.buffer.validity
+    if validity is not None:
+        values = torch.where(validity, values, torch.zeros((), dtype=values.dtype, device=values.device))
+    bits = values.view(torch.int64 if values.dtype == torch.float64 else torch.int32) if values.is_floating_point() \
+        else values
+    uniq, inv = torch.unique(bits, return_inverse=True)
+    host = Column(col.name, col.dtype, Buffer(uniq.view(values.dtype), None, len(uniq)))._host()[0]
+    texts = [_text_of(x, col.dtype) for x in host.tolist()]
+    return _text_column(col, texts, inv, validity)
+
+
+def _text_column(col: Column, texts: list[str], inv: torch.Tensor, validity) -> Column:
+    """A String column of ``col``'s rows from the text of each distinct
+    value and each row's index among them."""
+    table = sorted(set(texts)) or [""]
+    rank = {t: i for i, t in enumerate(table)}
+    remap = np.fromiter((rank[t] for t in texts), np.int32, count=len(texts))
+    codes = take_lut(remap, inv).to(torch.int32) if len(remap) else torch.zeros(len(col), dtype=torch.int32,
+                                                                                 device=col.buffer.device)
+    return Column(col.name, dt.String(), Buffer(codes, validity, len(col)),
+                  strtable.StringTable(np.asarray(table, dtype=object), sorted_order=True))
 
 
 def to_string_column(col: Column, fmt: str | None) -> Column:
@@ -103,13 +151,7 @@ def to_string_column(col: Column, fmt: str | None) -> Column:
     if validity is not None:  # whatever lies under a null formats as the epoch
         values = torch.where(validity, values, torch.zeros((), dtype=values.dtype, device=values.device))
     uniq, inv = torch.unique(values, return_inverse=True)
-    texts = format_values(uniq.cpu().numpy(), col.dtype, fmt)
-    table = sorted(set(texts)) or [""]
-    rank = {t: i for i, t in enumerate(table)}
-    remap = np.fromiter((rank[t] for t in texts), np.int32, count=len(texts))
-    codes = take_lut(remap, inv).to(torch.int32) if len(remap) else torch.zeros_like(values, dtype=torch.int32)
-    return Column(col.name, dt.String(), Buffer(codes, validity, len(col)),
-                  strtable.StringTable(np.asarray(table, dtype=object), sorted_order=True))
+    return _text_column(col, format_values(uniq.cpu().numpy(), col.dtype, fmt), inv, validity)
 
 
 def format_values(storage: np.ndarray, dtype: dt.DataType, fmt: str | None) -> list[str]:

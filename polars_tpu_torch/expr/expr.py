@@ -3,15 +3,18 @@
 evaluate: arithmetic, comparison, boolean ``&``/``|``/``~``, casts, ``is_in``,
 ``is_between``, the null functions (``is_null``, ``fill_null`` with a value,
 ``fill_nan``, ``coalesce``, the NaN and finiteness tests), the ``.str`` and
-``.dt`` namespaces, aliasing and the sum,
-mean, min, max, count, len, first, last and n_unique aggregations). Nothing
-executes until a plan is collected.
+``.dt`` namespaces, aliasing, the unary and math functions, the ``name``
+namespace, ``exclude`` over a wildcard or selector, and the sum, mean, min,
+max, count, len, first, last, n_unique, null_count, std, var, median,
+quantile, product, any, all, arg_min and arg_max aggregations). Nothing
+executes until a plan is collected. The methods of later slices raise
+``NotImplementedError`` naming their queue item (``_LATER``).
 """
 
 from __future__ import annotations
 
 import datetime as _pydt
-from typing import Any, Iterable
+from typing import Any, Callable, Iterable
 
 import numpy as np
 
@@ -65,6 +68,10 @@ def parse_into_expr(value: Any, *, str_as_lit: bool = False) -> E.ENode:
         return E.ELiteral(value.item(), dt.numpy_to_dtype(value.dtype))
     if isinstance(value, (list, tuple, np.ndarray)):
         return series_literal(value)
+    from polars_tpu_torch.core.series import Series
+
+    if isinstance(value, Series):  # a literal Series of its own length
+        return E.ESeriesLit(column=value._column, ident=next_token())
     return E.ELiteral(value)
 
 
@@ -98,8 +105,31 @@ class Expr:
     def alias(self, name: str) -> Expr:
         return Expr(E.EAlias(self._node, name))
 
-    def cast(self, dtype: Any, *, strict: bool = True) -> Expr:
-        return Expr(E.ECast(self._node, dt.parse_into_dtype(dtype), strict))
+    def cast(self, dtype: Any, *, strict: bool = True, wrap_numerical: bool = False) -> Expr:
+        """``dtype`` values: a value that does not fit (an integer out of
+        range, NaN or an infinity to an integer, text that does not parse)
+        fails the query when ``strict``, else is null; ``wrap_numerical``
+        wraps integers and floats into an integer type instead, as Polars
+        does (the JAX package takes the flag and ignores it)."""
+        target = dt.parse_into_dtype(dtype)
+        if wrap_numerical:
+            return self._fn("cast_wrap", dtype=target)
+        return Expr(E.ECast(self._node, target, strict))
+
+    def to_physical(self) -> Expr:
+        return self._fn("to_physical")
+
+    def exclude(self, *names: Any) -> Expr:
+        """A wildcard or selector without the columns ``names``."""
+        flat = [n for x in names for n in ([x] if isinstance(x, str) else x)]
+        node = self._node
+        if isinstance(node, E.EColumns) and node.names:
+            node = E.ESelector("by_name", node.names)
+        elif isinstance(node, E.EDtypeColumns):
+            node = E.ESelector("by_dtype", node.dtypes)
+        elif not isinstance(node, (E.EColumns, E.ESelector)):
+            raise InvalidOperationError("exclude() applies to a wildcard or a selector only")
+        return Expr(E.ESelector("set", (), op="difference", left=node, right=E.ESelector("by_name", tuple(flat))))
 
     # -- binary ops -----------------------------------------------------------
 
@@ -135,8 +165,35 @@ class Expr:
     def __floordiv__(self, other: Any) -> Expr:
         return self._bin("//", other)
 
+    def __rfloordiv__(self, other: Any) -> Expr:
+        return self._bin("//", other, swap=True)
+
     def __mod__(self, other: Any) -> Expr:
         return self._bin("%", other)
+
+    def __rmod__(self, other: Any) -> Expr:
+        return self._bin("%", other, swap=True)
+
+    def __pow__(self, other: Any) -> Expr:
+        return self._bin("**", other)
+
+    def __rpow__(self, other: Any) -> Expr:
+        return self._bin("**", other, swap=True)
+
+    def pow(self, exponent: Any) -> Expr:
+        return self._bin("**", exponent)
+
+    def __neg__(self) -> Expr:
+        return self._fn("negate")
+
+    def __pos__(self) -> Expr:
+        return self
+
+    def eq_missing(self, other: Any) -> Expr:
+        return self._bin("eq_missing", other)
+
+    def ne_missing(self, other: Any) -> Expr:
+        return self._bin("ne_missing", other)
 
     def __eq__(self, other: Any) -> Expr:  # type: ignore[override]
         return self._bin("==", other)
@@ -168,7 +225,13 @@ class Expr:
     def __ror__(self, other: Any) -> Expr:
         return self._bin("|", other, swap=True)
 
+    def __xor__(self, other: Any) -> Expr:
+        return self._bin("^", other)
+
     def __invert__(self) -> Expr:
+        return self._fn("not")
+
+    def not_(self) -> Expr:
         return self._fn("not")
 
     __hash__ = None  # == builds an expression, so Expr is not hashable
@@ -238,8 +301,8 @@ class Expr:
 
     # -- aggregations ---------------------------------------------------------
 
-    def _agg(self, kind: str) -> Expr:
-        return Expr(E.EAgg(self._node, kind))
+    def _agg(self, kind: str, **options: Any) -> Expr:
+        return Expr(E.EAgg(self._node, kind, _opts(**options)))
 
     def sum(self) -> Expr:
         return self._agg("sum")
@@ -267,3 +330,149 @@ class Expr:
 
     def n_unique(self) -> Expr:
         return self._agg("n_unique")
+
+    def null_count(self) -> Expr:
+        return self._agg("null_count")
+
+    def std(self, ddof: int = 1) -> Expr:
+        return self._agg("std", ddof=ddof)
+
+    def var(self, ddof: int = 1) -> Expr:
+        return self._agg("var", ddof=ddof)
+
+    def median(self) -> Expr:
+        return self._agg("median")
+
+    def quantile(self, quantile: float, interpolation: str = "nearest") -> Expr:
+        if interpolation not in ("nearest", "lower", "higher", "midpoint", "linear"):
+            raise InvalidOperationError(f"unknown interpolation {interpolation!r}")
+        if not 0.0 <= float(quantile) <= 1.0:
+            raise InvalidOperationError(f"quantile must lie in [0, 1], got {quantile!r}")
+        return self._agg("quantile", quantile=float(quantile), interpolation=interpolation)
+
+    def product(self) -> Expr:
+        return self._agg("product")
+
+    def any(self, *, ignore_nulls: bool = True) -> Expr:
+        return self._agg("any", ignore_nulls=ignore_nulls)
+
+    def all(self, *, ignore_nulls: bool = True) -> Expr:
+        return self._agg("all", ignore_nulls=ignore_nulls)
+
+    def arg_min(self) -> Expr:
+        return self._agg("arg_min")
+
+    def arg_max(self) -> Expr:
+        return self._agg("arg_max")
+
+    # -- math -----------------------------------------------------------------
+
+    def abs(self) -> Expr:
+        return self._fn("abs")
+
+    def round(self, decimals: int = 0) -> Expr:
+        return self._fn("round", decimals=decimals)
+
+    def floor(self) -> Expr:
+        return self._fn("floor")
+
+    def ceil(self) -> Expr:
+        return self._fn("ceil")
+
+    def log(self, base: float | None = None) -> Expr:
+        return self._fn("log", base=base)
+
+    def sign(self) -> Expr:
+        return self._fn("sign")
+
+    def clip(self, lower_bound: Any = None, upper_bound: Any = None) -> Expr:
+        """Values bounded below and above (literals or expressions; None
+        leaves that side open)."""
+        bounds = [b for b in (lower_bound, upper_bound) if b is not None]
+        return self._fn("clip", *bounds, has_lower=lower_bound is not None, has_upper=upper_bound is not None)
+
+    # -- names ----------------------------------------------------------------
+
+    @property
+    def name(self) -> ExprNameNamespace:
+        return ExprNameNamespace(self)
+
+
+def _unary(fname: str):
+    def method(self: Expr) -> Expr:
+        return self._fn(fname)
+
+    method.__name__ = fname
+    return method
+
+
+# the float functions of ``engine/fn_core.py`` (Float32 stays Float32,
+# anything else gives Float64)
+UNARY_FLOAT = (
+    "sqrt", "cbrt", "exp", "log10", "log1p", "sin", "cos", "tan", "cot", "arcsin", "arccos", "arctan",
+    "sinh", "cosh", "tanh", "arcsinh", "arccosh", "arctanh", "degrees", "radians",
+)
+for _n in UNARY_FLOAT:
+    setattr(Expr, _n, _unary(_n))
+
+
+class ExprNameNamespace:
+    """``expr.name``: the output name from the input's (reference:
+    ``ExprNameNamespace``)."""
+
+    __slots__ = ("_expr",)
+
+    def __init__(self, expr: Expr) -> None:
+        self._expr = expr
+
+    def _rename(self, kind: str, arg: Any = None) -> Expr:
+        return Expr(E.ERenameFn(self._expr._node, kind, arg))
+
+    def keep(self) -> Expr:
+        return Expr(E.EKeepName(self._expr._node))
+
+    def prefix(self, prefix: str) -> Expr:
+        return self._rename("prefix", prefix)
+
+    def suffix(self, suffix: str) -> Expr:
+        return self._rename("suffix", suffix)
+
+    def to_lowercase(self) -> Expr:
+        return self._rename("to_lowercase")
+
+    def to_uppercase(self) -> Expr:
+        return self._rename("to_uppercase")
+
+    def map(self, function: Callable[[str], str]) -> Expr:
+        return self._rename("map", function)
+
+
+# Expr methods of the JAX package that later slices port, by ROADMAP queue
+# item: each raises naming its item
+_LATER = {
+    "1b (replace, hash, horizontal, unique, bitwise, cut, rle, search_sorted)": (
+        "replace", "replace_strict", "hash", "unique", "unique_counts", "bitwise_count_ones",
+        "bitwise_count_zeros", "bitwise_leading_ones", "bitwise_leading_zeros", "bitwise_trailing_ones",
+        "bitwise_trailing_zeros", "cut", "qcut", "rle_id", "search_sorted",
+    ),
+    "2 (window, order and position)": (
+        "min_by", "max_by", "sort", "sort_by", "arg_sort", "reverse", "head", "tail", "slice", "gather",
+        "get", "filter", "over", "shift", "diff", "pct_change", "rank", "cum_sum", "cum_prod", "cum_min",
+        "cum_max", "cum_count", "forward_fill", "backward_fill", "interpolate", "is_duplicated", "is_unique",
+        "is_first_distinct", "is_last_distinct", "top_k", "bottom_k", "drop_nulls", "drop_nans",
+    ),
+}
+
+
+def _later(fname: str, item: str):
+    def method(self: Expr, *args: Any, **kwargs: Any) -> Expr:
+        raise NotImplementedError(f"Expr.{fname} is not ported yet (port queue: item {item})")
+
+    method.__name__ = fname
+    return method
+
+
+for _item, _names in _LATER.items():
+    for _n in _names:
+        if not hasattr(Expr, _n):
+            setattr(Expr, _n, _later(_n, _item))

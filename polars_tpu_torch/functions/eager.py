@@ -1,6 +1,6 @@
 """Combination of frames (the port of ``polars_tpu/functions/eager.py``,
-trimmed to ``concat`` of DataFrames, vertical, and of LazyFrames, vertical
-or horizontal).
+trimmed to ``concat`` of DataFrames, vertical, of Series, and of
+LazyFrames, vertical or horizontal).
 
 ``how="vertical"`` needs equal column names in order; ``"vertical_relaxed"``
 also casts each column to the supertype of its pieces. Either way string
@@ -46,6 +46,12 @@ def concat(items: Any, *, how: str = "vertical") -> DataFrame | LazyFrame:
         raise ValueError("cannot concat an empty list")
     if isinstance(frames[0], LazyFrame):
         return frames[0] if len(frames) == 1 else LazyFrame._concat(frames, how=how)
+    from polars_tpu_torch.core.series import Series
+
+    if all(isinstance(f, Series) for f in frames):  # one after another, in their supertype
+        name = frames[0].name
+        col = _concat_columns([f._column for f in frames], name, relaxed=True)
+        return Series._from_column(col)
     if not all(isinstance(f, DataFrame) for f in frames):
         raise NotImplementedError(
             "concat of anything but DataFrames is not ported yet (port queue: expression breadth)"

@@ -1,11 +1,15 @@
 """Lazy top-level functions (the port of ``polars_tpu/functions/lazy.py``,
-trimmed to ``col``, ``lit``, ``len``, ``when``/``then``/``otherwise``,
+trimmed to ``col`` (of names, dtypes or the wildcard), ``nth``, ``first``,
+``last``, ``all``, ``exclude``, ``lit``, ``len``, ``count``, the column-wise
+aggregate shortcuts, ``select``, ``when``/``then``/``otherwise``,
 ``coalesce``, the temporal constructors ``date``, ``datetime`` and
 ``duration``, and the eager ``date_range`` and ``datetime_range``)."""
 
 from __future__ import annotations
 
+import builtins
 import datetime as _pydt
+from collections.abc import Iterable
 from typing import Any
 
 import numpy as np
@@ -16,11 +20,105 @@ from polars_tpu_torch.expr.expr import Expr, parse_into_expr, series_literal, te
 from polars_tpu_torch.plan import exprs as E
 
 
-def col(name: str) -> Expr:
-    """Reference to one column by name."""
-    if not isinstance(name, str) or name == "*":
-        raise NotImplementedError("col() of several columns, wildcards or dtypes is not ported yet")
-    return Expr(E.EColumn(name))
+def col(name: Any, *more_names: Any) -> Expr:
+    """One column by name; several by names (or an iterable of them), every
+    column by ``"*"``, or every column of the given dtypes."""
+    names: list[Any] = [name, *more_names]
+    if builtins.len(names) == 1:
+        n = names[0]
+        if isinstance(n, str):
+            return Expr(E.EColumns(())) if n == "*" else Expr(E.EColumn(n))
+        if isinstance(n, (dt.DataType, dt.DataTypeClass)):
+            return Expr(E.EDtypeColumns((dt.parse_into_dtype(n),)))
+        if isinstance(n, Iterable):
+            names = list(n)
+    if builtins.all(isinstance(n, str) for n in names):
+        return Expr(E.EColumns(tuple(names)))
+    if builtins.all(isinstance(n, (dt.DataType, dt.DataTypeClass)) for n in names):
+        return Expr(E.EDtypeColumns(tuple(dt.parse_into_dtype(n) for n in names)))
+    raise TypeError("col() accepts strings or datatypes, not a mix")
+
+
+def nth(*indices: int) -> Expr:
+    """The columns at the given positions (negative from the end)."""
+    return Expr(E.ESelector("nth", tuple(indices)))
+
+
+def all(*names: str, ignore_nulls: bool = True) -> Expr:  # noqa: A001
+    """Every column; with names, ``all`` of those Boolean columns."""
+    if not names:
+        return Expr(E.EColumns(()))
+    return col(*names).all(ignore_nulls=ignore_nulls)
+
+
+def any(*names: str, ignore_nulls: bool = True) -> Expr:  # noqa: A001
+    return col(*names).any(ignore_nulls=ignore_nulls)
+
+
+def exclude(*names: Any) -> Expr:
+    """Every column but ``names``."""
+    return Expr(E.EColumns(())).exclude(*names)
+
+
+def sum(*names: Any) -> Expr:  # noqa: A001
+    return col(*names).sum()
+
+
+def min(*names: Any) -> Expr:  # noqa: A001
+    return col(*names).min()
+
+
+def max(*names: Any) -> Expr:  # noqa: A001
+    return col(*names).max()
+
+
+def mean(*names: Any) -> Expr:
+    return col(*names).mean()
+
+
+def median(*names: Any) -> Expr:
+    return col(*names).median()
+
+
+def std(column: str, ddof: int = 1) -> Expr:
+    return col(column).std(ddof=ddof)
+
+
+def var(column: str, ddof: int = 1) -> Expr:
+    return col(column).var(ddof=ddof)
+
+
+def quantile(column: str, quantile: float, interpolation: str = "nearest") -> Expr:
+    return col(column).quantile(quantile, interpolation)
+
+
+def n_unique(*columns: str) -> Expr:
+    return col(*columns).n_unique()
+
+
+def count(*columns: str) -> Expr:
+    """The non-null values of ``columns``; without them the row count,
+    named "count"."""
+    if not columns:
+        return Expr(E.ELen()).alias("count")
+    return col(*columns).count()
+
+
+def first(column: str | None = None) -> Expr:
+    """The first value of ``column``; without one, the first column."""
+    return Expr(E.ESelector("nth", (0,))) if column is None else col(column).first()
+
+
+def last(column: str | None = None) -> Expr:
+    """The last value of ``column``; without one, the last column."""
+    return Expr(E.ESelector("nth", (-1,))) if column is None else col(column).last()
+
+
+def select(*exprs: Any, **named_exprs: Any):
+    """The expressions evaluated over an empty frame (literals, ranges)."""
+    from polars_tpu_torch.core.frame import DataFrame
+
+    return DataFrame({}).select(*exprs, **named_exprs)
 
 
 def lit(value: Any, dtype: Any = None) -> Expr:
@@ -249,3 +347,23 @@ def temporal_range_values(start: Any, end: Any, interval: str, closed: str) -> l
     if closed in ("right", "none") and out and out[0] == start:
         out = out[1:]
     return out
+
+
+def _later(fname: str, item: str):
+    def fn(*args: Any, **kwargs: Any):
+        raise NotImplementedError(f"{fname} is not ported yet (port queue: item {item})")
+
+    fn.__name__ = fname
+    return fn
+
+
+# the functions of the JAX package that a later slice ports, by ROADMAP
+# queue item
+sum_horizontal = _later("sum_horizontal", "1b")
+min_horizontal = _later("min_horizontal", "1b")
+max_horizontal = _later("max_horizontal", "1b")
+mean_horizontal = _later("mean_horizontal", "1b")
+any_horizontal = _later("any_horizontal", "1b")
+all_horizontal = _later("all_horizontal", "1b")
+int_range = _later("int_range", "1b")
+repeat = _later("repeat", "1b")

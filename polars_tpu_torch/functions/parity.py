@@ -1,5 +1,6 @@
 """Top-level functions outside ``functions/lazy.py`` (the port of
-``polars_tpu/functions/parity.py``, trimmed to ``business_day_count``)."""
+``polars_tpu/functions/parity.py``, trimmed to ``business_day_count``,
+``arctan2`` and ``arctan2d``)."""
 
 from __future__ import annotations
 
@@ -25,3 +26,13 @@ def _to_days(d: Any) -> int:
     if isinstance(d, _dt.datetime):
         d = d.date()
     return (d - _EPOCH).days if isinstance(d, _dt.date) else int(d)
+
+
+def arctan2(y: Any, x: Any) -> Expr:
+    """The angle of the point (x, y) in radians (a string is a column)."""
+    return Expr(E.EFunction("arctan2", (parse_into_expr(y), parse_into_expr(x))))
+
+
+def arctan2d(y: Any, x: Any) -> Expr:
+    """The angle of the point (x, y) in degrees."""
+    return Expr(E.EFunction("arctan2", (parse_into_expr(y), parse_into_expr(x)), (("degrees", True),)))

@@ -1,9 +1,16 @@
 """LazyFrame: the lazy query builder (the port of
-``polars_tpu/lazyframe.py``, trimmed to ``filter``, ``select``,
-``with_columns``, ``group_by().agg``, ``sort``, ``join`` (every ``how``),
-``join_where``, ``join_asof``, ``slice``/``head``/``limit``, ``unique``,
-``rename``, ``drop``, ``with_row_index``, ``cache``, ``explain`` and
-``collect``).
+``polars_tpu/lazyframe.py``, trimmed to ``filter``/``remove``, ``select``,
+``with_columns`` (and their ``_seq`` forms), ``group_by().agg``, ``sort``,
+``top_k``/``bottom_k``, ``join`` (every ``how``), ``join_where``,
+``join_asof``, ``slice``/``head``/``tail``/``limit``/``first``/``last``,
+``reverse``, ``gather_every``, ``unique``, ``rename``, ``drop``, ``cast``,
+``fill_null``/``fill_nan``, ``drop_nulls``/``drop_nans``,
+``with_row_index``, ``clear``, ``pipe``, the frame aggregates, ``cache``,
+``explain`` and ``collect``).
+
+An expression with a wildcard, a selector or a ``name`` wrapper is expanded
+against the input's schema as it enters the plan (``_exprs``), so the plan
+holds plain columns and aliases.
 
 ``collect`` runs the optimized plan (``plan/optimizer``), as ``polars_tpu``
 does; ``collect(no_optimization=True)`` runs the plan as written, and
@@ -15,18 +22,30 @@ from __future__ import annotations
 from collections.abc import Callable, Mapping, Sequence
 from typing import Any
 
-from polars_tpu_torch.core.frame import DataFrame
+from polars_tpu_torch import datatypes as dt
+from polars_tpu_torch.core.frame import DataFrame, flatten_names
 from polars_tpu_torch.core.schema import Schema
 from polars_tpu_torch.errors import InvalidOperationError
-from polars_tpu_torch.expr.expr import parse_into_expr_list
+from polars_tpu_torch.expr.expr import Expr, parse_into_expr, parse_into_expr_list
 from polars_tpu_torch.plan import exprs as E
 from polars_tpu_torch.plan import logical as L
-from polars_tpu_torch.plan.schema_resolve import node_schema
+from polars_tpu_torch.plan.schema_resolve import expand_exprs, needs_expansion, node_schema
 from polars_tpu_torch.utils.tokens import next_token
+
+
+def _and_all(nodes: list[E.ENode]) -> E.ENode:
+    pred = nodes[0]
+    for p in nodes[1:]:
+        pred = E.EBinary(pred, "&", p)
+    return pred
 
 
 class LazyFrame:
     __slots__ = ("_node",)
+
+    def __init__(self, data: Any = None, schema: Any = None, *, device=None, **kwargs: Any) -> None:
+        """A lazy frame over ``DataFrame(data, schema, ...)``."""
+        self._node = L.LDataFrameScan(df=DataFrame(data, schema, device=device, **kwargs), ident=next_token())
 
     @classmethod
     def _from_node(cls, node: L.LNode) -> LazyFrame:
@@ -41,6 +60,13 @@ class LazyFrame:
     def _wrap(self, node: L.LNode) -> LazyFrame:
         return LazyFrame._from_node(node)
 
+    def _exprs(self, nodes: list[E.ENode], schema: Schema | None = None) -> tuple[E.ENode, ...]:
+        """``nodes`` with their wildcards, selectors and name wrappers
+        expanded against ``schema`` (the frame's own by default)."""
+        if not any(needs_expansion(n) for n in nodes):
+            return tuple(nodes)
+        return expand_exprs(tuple(nodes), self.schema if schema is None else schema)
+
     @property
     def schema(self) -> Schema:
         return node_schema(self._node)
@@ -51,6 +77,14 @@ class LazyFrame:
     @property
     def columns(self) -> list[str]:
         return self.schema.names()
+
+    @property
+    def width(self) -> int:
+        return len(self.schema)
+
+    @property
+    def dtypes(self) -> list:
+        return self.schema.dtypes()
 
     def _plan(self, optimized: bool, optimizations: Any) -> L.LNode:
         from polars_tpu_torch.plan.optimizer import optimize
@@ -116,30 +150,144 @@ class LazyFrame:
             return LazyFrame._from_node(L.LHConcat(tuple(f._node for f in frames)))
         raise NotImplementedError(f"concat how={how!r} is not ported yet (port queue: expression breadth)")
 
-    def filter(self, *predicates: Any) -> LazyFrame:
-        nodes = parse_into_expr_list(list(predicates))
+    def filter(self, *predicates: Any, **constraints: Any) -> LazyFrame:
+        """The rows where every predicate is true (``name=value`` tests a
+        column's equality)."""
+        nodes = list(self._exprs(parse_into_expr_list(list(predicates))))
+        for name, value in constraints.items():
+            nodes.append(E.EBinary(E.EColumn(name), "==", parse_into_expr(value, str_as_lit=True)))
         if not nodes:
             return self
-        pred = nodes[0]
-        for p in nodes[1:]:
-            pred = E.EBinary(pred, "&", p)
-        return self._wrap(L.LFilter(self._node, pred))
+        return self._wrap(L.LFilter(self._node, _and_all(nodes)))
+
+    def remove(self, *predicates: Any, **constraints: Any) -> LazyFrame:
+        """The rows where not every predicate is true."""
+        nodes = list(self._exprs(parse_into_expr_list(list(predicates))))
+        for name, value in constraints.items():
+            nodes.append(E.EBinary(E.EColumn(name), "==", parse_into_expr(value, str_as_lit=True)))
+        if not nodes:
+            return self
+        return self._wrap(L.LFilter(self._node, E.EFunction("not", (_and_all(nodes),))))
 
     def drop_nulls(self, subset: Any = None) -> LazyFrame:
-        """The rows with no null in ``subset`` (a name or a list of names).
-        Without a subset every column counts, which needs the wildcard
-        ``col("*")`` of a later slice."""
+        """The rows with no null in ``subset`` (a name or names; every column
+        without one)."""
+        names = self.columns if subset is None else flatten_names([subset])
+        if not names:
+            return self
+        return self._wrap(L.LFilter(self._node, _and_all([E.EFunction("is_not_null", (E.EColumn(n),))
+                                                          for n in names])))
+
+    def drop_nans(self, subset: Any = None) -> LazyFrame:
+        """The rows with no NaN in ``subset`` (every float column without
+        one)."""
         if subset is None:
-            raise NotImplementedError(
-                "drop_nulls() without a subset is not ported yet (port queue: expression breadth)")
-        names = [subset] if isinstance(subset, str) else list(subset)
-        return self.filter(*[E.EFunction("is_not_null", (E.EColumn(n),)) for n in names])
+            names = [n for n, d in self.schema.items() if d.is_float()]
+        else:
+            names = flatten_names([subset])
+        if not names:
+            return self
+        return self._wrap(L.LFilter(self._node, _and_all([E.EFunction("is_not_nan", (E.EColumn(n),))
+                                                          for n in names])))
 
     def select(self, *exprs: Any, **named_exprs: Any) -> LazyFrame:
-        return self._wrap(L.LSelect(self._node, tuple(parse_into_expr_list(list(exprs), named_exprs))))
+        nodes = self._exprs(parse_into_expr_list(list(exprs), named_exprs))
+        if not nodes:  # no expression: an empty frame
+            empty = DataFrame._from_columns([], 0, device=self._device())
+            return self._wrap(L.LDataFrameScan(df=empty, ident=next_token()))
+        return self._wrap(L.LSelect(self._node, nodes))
+
+    def select_seq(self, *exprs: Any, **named_exprs: Any) -> LazyFrame:
+        return self.select(*exprs, **named_exprs)
 
     def with_columns(self, *exprs: Any, **named_exprs: Any) -> LazyFrame:
-        return self._wrap(L.LWithColumns(self._node, tuple(parse_into_expr_list(list(exprs), named_exprs))))
+        return self._wrap(L.LWithColumns(self._node, self._exprs(parse_into_expr_list(list(exprs), named_exprs))))
+
+    def with_columns_seq(self, *exprs: Any, **named_exprs: Any) -> LazyFrame:
+        return self.with_columns(*exprs, **named_exprs)
+
+    def _device(self):
+        """The device of the plan's first frame."""
+        node = self._node
+        while not isinstance(node, L.LDataFrameScan):
+            node = node.inputs()[0]
+        return node.df.device
+
+    def cast(self, dtypes: Any, *, strict: bool = True) -> LazyFrame:
+        """Columns cast by a mapping of names (or of dtypes, every column of
+        that dtype) to dtypes, or every column to one dtype."""
+        if isinstance(dtypes, Mapping):
+            exprs = []
+            for k, d in dtypes.items():
+                e = Expr(E.EDtypeColumns((dt.parse_into_dtype(k),))) if not isinstance(k, str) else Expr(E.EColumn(k))
+                exprs.append(e.cast(d, strict=strict))
+            return self.with_columns(exprs)
+        return self.select(Expr(E.EColumns(())).cast(dtypes, strict=strict))
+
+    def fill_null(self, value: Any = None, strategy: str | None = None, limit: int | None = None) -> LazyFrame:
+        """Nulls of every column replaced by ``value``."""
+        return self.with_columns(Expr(E.EColumns(())).fill_null(value, strategy))
+
+    def fill_nan(self, value: Any) -> LazyFrame:
+        """NaNs of every float column replaced by ``value``."""
+        return self.with_columns(Expr(E.EDtypeColumns((dt.Float64(), dt.Float32()))).fill_nan(value))
+
+    def reverse(self) -> LazyFrame:
+        """The rows in reverse order (a row index sorted descending)."""
+        n = "__rev_idx"
+        return self.with_row_index(n).sort(n, descending=True).drop(n)
+
+    def gather_every(self, n: int, offset: int = 0) -> LazyFrame:
+        """Every ``n``-th row from ``offset``."""
+        idx = E.EColumn("__ge_idx")
+        keep = E.EBinary(E.EBinary(E.EBinary(idx, "-", E.ELiteral(offset)), "%", E.ELiteral(n)), "==", E.ELiteral(0))
+        pred = E.EBinary(keep, "&", E.EBinary(idx, ">=", E.ELiteral(offset)))
+        return self._wrap(L.LFilter(self.with_row_index("__ge_idx")._node, pred)).drop("__ge_idx")
+
+    def clear(self, n: int = 0) -> LazyFrame:
+        """An empty frame of the same schema (``n`` rows of nulls)."""
+        return DataFrame._empty(self.schema, n, self._device()).lazy()
+
+    def pipe(self, function: Callable, *args: Any, **kwargs: Any):
+        return function(self, *args, **kwargs)
+
+    def fetch(self, n_rows: int = 500) -> DataFrame:
+        return self.head(n_rows).collect()
+
+    # -- frame aggregates -------------------------------------------------------
+
+    def _agg_all(self, method: str, **kwargs: Any) -> LazyFrame:
+        return self.select([getattr(Expr(E.EColumn(n)), method)(**kwargs) for n in self.columns])
+
+    def sum(self) -> LazyFrame:
+        return self._agg_all("sum")
+
+    def mean(self) -> LazyFrame:
+        return self._agg_all("mean")
+
+    def min(self) -> LazyFrame:
+        return self._agg_all("min")
+
+    def max(self) -> LazyFrame:
+        return self._agg_all("max")
+
+    def median(self) -> LazyFrame:
+        return self._agg_all("median")
+
+    def std(self, ddof: int = 1) -> LazyFrame:
+        return self._agg_all("std", ddof=ddof)
+
+    def var(self, ddof: int = 1) -> LazyFrame:
+        return self._agg_all("var", ddof=ddof)
+
+    def quantile(self, quantile: float, interpolation: str = "nearest") -> LazyFrame:
+        return self._agg_all("quantile", quantile=quantile, interpolation=interpolation)
+
+    def count(self) -> LazyFrame:
+        return self._agg_all("count")
+
+    def null_count(self) -> LazyFrame:
+        return self._agg_all("null_count")
 
     def sort(
         self,
@@ -149,14 +297,31 @@ class LazyFrame:
         nulls_last: bool | Sequence[bool] = False,
         maintain_order: bool = False,
     ) -> LazyFrame:
-        by_nodes = tuple(parse_into_expr_list([by, *more_by]))
+        by_nodes = self._exprs(parse_into_expr_list([by, *more_by]))
         k = len(by_nodes)
         desc = tuple(descending) if isinstance(descending, (list, tuple)) else (descending,) * k
         nl = tuple(nulls_last) if isinstance(nulls_last, (list, tuple)) else (nulls_last,) * k
         return self._wrap(L.LSort(self._node, by_nodes, desc, nl, maintain_order))
 
-    def group_by(self, *by: Any, maintain_order: bool = False) -> LazyGroupBy:
-        return LazyGroupBy(self, tuple(parse_into_expr_list(list(by))), maintain_order)
+    def top_k(self, k: int, *, by: Any, reverse: Any = False) -> LazyFrame:
+        """The ``k`` rows of the largest ``by`` (smallest with ``reverse``),
+        nulls last."""
+        return self._k_rows(k, by, reverse, largest=True)
+
+    def bottom_k(self, k: int, *, by: Any, reverse: Any = False) -> LazyFrame:
+        """The ``k`` rows of the smallest ``by`` (largest with ``reverse``),
+        nulls last."""
+        return self._k_rows(k, by, reverse, largest=False)
+
+    def _k_rows(self, k: int, by: Any, reverse: Any, *, largest: bool) -> LazyFrame:
+        by_nodes = self._exprs(parse_into_expr_list([by]))
+        rev = tuple(reverse) if isinstance(reverse, (list, tuple)) else (reverse,) * len(by_nodes)
+        desc = tuple(r != largest for r in rev)
+        return self._wrap(L.LSort(self._node, by_nodes, desc, (True,) * len(by_nodes), False, k))
+
+    def group_by(self, *by: Any, maintain_order: bool = False, **named_by: Any) -> LazyGroupBy:
+        keys = self._exprs(parse_into_expr_list(list(by), named_by))
+        return LazyGroupBy(self, keys, maintain_order)
 
     def slice(self, offset: int, length: int | None = None) -> LazyFrame:
         return self._wrap(L.LSlice(self._node, offset, length))
@@ -164,8 +329,17 @@ class LazyFrame:
     def head(self, n: int = 5) -> LazyFrame:
         return self.slice(0, n)
 
+    def tail(self, n: int = 5) -> LazyFrame:
+        return self.slice(-n, n)
+
     def limit(self, n: int = 5) -> LazyFrame:
         return self.head(n)
+
+    def first(self) -> LazyFrame:
+        return self.head(1)
+
+    def last(self) -> LazyFrame:
+        return self.tail(1)
 
     def join(
         self,
@@ -249,5 +423,41 @@ class LazyGroupBy:
         self._maintain_order = maintain_order
 
     def agg(self, *aggs: Any, **named_aggs: Any) -> LazyFrame:
-        nodes = tuple(parse_into_expr_list(list(aggs), named_aggs))
-        return self._lf._wrap(L.LGroupBy(self._lf._node, self._keys, nodes, self._maintain_order))
+        """One row per group; a wildcard or selector matches the columns
+        other than the keys, as in Polars."""
+        nodes = parse_into_expr_list(list(aggs), named_aggs)
+        keys = {E.output_name(k) for k in self._keys}
+        schema = Schema([(n, d) for n, d in self._lf.schema.items() if n not in keys]) if any(
+            needs_expansion(n) for n in nodes) else None
+        return self._lf._wrap(L.LGroupBy(self._lf._node, self._keys, self._lf._exprs(nodes, schema),
+                                         self._maintain_order))
+
+    def _agg_all(self, method: str, **kwargs: Any) -> LazyFrame:
+        return self.agg(getattr(Expr(E.EColumns(())), method)(**kwargs))
+
+    def sum(self) -> LazyFrame:
+        return self._agg_all("sum")
+
+    def mean(self) -> LazyFrame:
+        return self._agg_all("mean")
+
+    def min(self) -> LazyFrame:
+        return self._agg_all("min")
+
+    def max(self) -> LazyFrame:
+        return self._agg_all("max")
+
+    def median(self) -> LazyFrame:
+        return self._agg_all("median")
+
+    def first(self) -> LazyFrame:
+        return self._agg_all("first")
+
+    def last(self) -> LazyFrame:
+        return self._agg_all("last")
+
+    def n_unique(self) -> LazyFrame:
+        return self._agg_all("n_unique")
+
+    def len(self, name: str = "len") -> LazyFrame:
+        return self.agg(E.EAlias(E.ELen(), name))

@@ -1,6 +1,13 @@
 """Expression AST nodes (the port of ``polars_tpu/plan/exprs.py``, trimmed to
 the node kinds the ported queries evaluate).
 
+The wildcards and selectors (``EColumns``, ``EDtypeColumns``,
+``ESelector``) and the name wrappers (``EKeepName``, ``ERenameFn``) never
+reach the optimizer or the engine: an expression that holds one is expanded
+against its input schema when it enters a plan
+(``plan/schema_resolve.expand_exprs``), into one expression per matched
+column, each named by an ``EAlias``.
+
 Nodes are immutable, hashable dataclasses, so structurally equal subtrees
 compare equal and evaluate once per context (the compiler's memo).
 """
@@ -22,6 +29,59 @@ class ENode:
 @dataclass(frozen=True)
 class EColumn(ENode):
     name: str
+
+
+@dataclass(frozen=True)
+class EColumns(ENode):
+    """Several columns by name (``pl.col("a", "b")``); no names is the
+    wildcard ``pl.col("*")`` / ``pl.all()``."""
+
+    names: tuple[str, ...]
+
+
+@dataclass(frozen=True)
+class EDtypeColumns(ENode):
+    """Every column of the given dtypes (``pl.col(pl.Int64)``)."""
+
+    dtypes: tuple[Any, ...]
+
+
+@dataclass(frozen=True)
+class ESelector(ENode):
+    """A column selector (``selectors.py``): a kind with its arguments, or a
+    set operation (union, difference, intersection, complement) of two."""
+
+    kind: str
+    args: tuple[Any, ...] = ()
+    op: str | None = None
+    left: ENode | None = None
+    right: ENode | None = None
+
+    def children(self) -> tuple[ENode, ...]:
+        return tuple(c for c in (self.left, self.right) if c is not None)
+
+
+@dataclass(frozen=True)
+class EKeepName(ENode):
+    """``name.keep()``: the output takes the name of its first input column."""
+
+    input: ENode
+
+    def children(self) -> tuple[ENode, ...]:
+        return (self.input,)
+
+
+@dataclass(frozen=True)
+class ERenameFn(ENode):
+    """``name.prefix``/``suffix``/``map``/``to_lowercase``/``to_uppercase``
+    of the input's output name."""
+
+    input: ENode
+    kind: str
+    arg: Any = None
+
+    def children(self) -> tuple[ENode, ...]:
+        return (self.input,)
 
 
 @dataclass(frozen=True, eq=False)
@@ -85,7 +145,7 @@ class EAgg(ENode):
     """Aggregation (reference: Expr::Agg, dsl/expr/mod.rs AggExpr)."""
 
     input: ENode
-    kind: str  # sum|mean|min|max|count|len
+    kind: str  # sum|mean|min|max|count|len|first|last|n_unique|null_count|std|var|median|quantile|product|any|all|arg_min|arg_max
     options: tuple[tuple[str, Any], ...] = ()
 
     def children(self) -> tuple[ENode, ...]:
@@ -151,6 +211,14 @@ def output_name(node: ENode) -> str | None:
         return "literal"
     if isinstance(node, ESeriesLit):
         return node.column.name or "literal"
+    if isinstance(node, EKeepName):
+        return next((n.name for n in walk(node.input) if isinstance(n, EColumn)), None)
+    if isinstance(node, ERenameFn):
+        base = output_name(node.input)
+        if base is None:
+            return None
+        return {"prefix": lambda: f"{node.arg}{base}", "suffix": lambda: f"{base}{node.arg}",
+                "to_lowercase": base.lower, "to_uppercase": base.upper, "map": lambda: node.arg(base)}[node.kind]()
     for c in node.children():
         n = output_name(c)
         if n is not None:
@@ -184,17 +252,24 @@ def reduces_in_agg(node: ENode) -> bool:
 HOST_FNS = frozenset({"dt.to_string"})
 
 
+def is_host_call(node: ENode) -> bool:
+    """A host function, or a cast to String (it formats each distinct value
+    on the host, as the JAX package hoists it)."""
+    if isinstance(node, EFunction):
+        return node.name in HOST_FNS
+    return isinstance(node, ECast) and type(node.dtype).__name__ in ("String", "Utf8")
+
+
 def needs_host(node: ENode) -> bool:
     """True if the expr calls a host function."""
-    return any(isinstance(n, EFunction) and n.name in HOST_FNS for n in walk(node))
+    return any(is_host_call(n) for n in walk(node))
 
 
 def is_elementwise(node: ENode) -> bool:
     """True if the expr maps rows independently inside a segment: no
     aggregation, and no host function (which runs between segments, so no
     predicate moves past it, as the JAX package's ``elementwise=False``)."""
-    return not any(isinstance(n, (EAgg, ELen)) or (isinstance(n, EFunction) and n.name in HOST_FNS)
-                   for n in walk(node))
+    return not any(isinstance(n, (EAgg, ELen)) or is_host_call(n) for n in walk(node))
 
 
 def map_columns(node: ENode, fn) -> ENode:

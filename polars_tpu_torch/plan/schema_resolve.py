@@ -3,14 +3,18 @@ expression dtype resolution (functions through ``engine/registry.py``) and
 node schema resolution.
 
 The port of ``polars_tpu/plan/schema_resolve.py`` (reference:
-polars-plan/src/plans/conversion/). The slice has no selectors, so
-:func:`expand_exprs` passes expressions through after checking their columns.
+polars-plan/src/plans/conversion/). :func:`expand_exprs` expands wildcards
+and selectors into one expression per matched column and resolves the
+``name`` wrappers into aliases, as the JAX package's ``expand_expr`` does;
+the LazyFrame methods call it when an expression enters a plan, so the
+optimizer and the engine see plain columns and aliases only.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import re
 from typing import Any
 
 from polars_tpu_torch import datatypes as dt
@@ -129,22 +133,168 @@ def datetime_zone(a: dt.Datetime, b: dt.Datetime) -> str | None:
 # ---------------------------------------------------------------------------
 
 
-def expand_exprs(nodes: tuple[E.ENode, ...], schema: Schema) -> tuple[E.ENode, ...]:
-    """The expressions, one output column each, after checking that every
-    referenced column exists."""
-    for n in nodes:
-        for sub in E.walk(n):
+def selector_columns(node: E.ENode, schema: Schema) -> list[str]:
+    """The columns a wildcard, dtype or selector node matches, in schema
+    order (the JAX package's ``selector_columns``)."""
+    names = schema.names()
+    if isinstance(node, E.EColumns):
+        if not node.names:
+            return names
+        missing = [n for n in node.names if n not in schema]
+        if missing:
+            raise ColumnNotFoundError(f"{missing[0]!r} not found; available: {names}")
+        return list(node.names)
+    if isinstance(node, E.EDtypeColumns):
+        return [n for n in names if any(schema[n] == d for d in node.dtypes)]
+    if isinstance(node, E.ESelector):
+        return _selector_match(node, schema)
+    raise InvalidOperationError(f"not a selector: {node!r}")
+
+
+_SELECTOR_KINDS = {
+    "numeric": lambda d: d.is_numeric(),
+    "integer": lambda d: d.is_integer(),
+    "signed_integer": lambda d: d.is_signed_integer(),
+    "unsigned_integer": lambda d: d.is_unsigned_integer(),
+    "float": lambda d: d.is_float(),
+    "string": lambda d: isinstance(d, dt.String),
+    "boolean": lambda d: isinstance(d, dt.Boolean),
+    "temporal": lambda d: d.is_temporal(),
+    "date": lambda d: isinstance(d, dt.Date),
+    "datetime": lambda d: isinstance(d, dt.Datetime),
+    "duration": lambda d: isinstance(d, dt.Duration),
+    "time": lambda d: isinstance(d, dt.Time),
+    "categorical": lambda d: isinstance(d, dt.Categorical),
+    "binary": lambda d: isinstance(d, dt.Binary),
+    "decimal": lambda d: isinstance(d, dt.Decimal),
+    "enum": lambda d: isinstance(d, dt.Enum),
+    "list": lambda d: isinstance(d, dt.List),
+    "array": lambda d: isinstance(d, dt.Array),
+    "struct": lambda d: isinstance(d, dt.Struct),
+    "nested": lambda d: isinstance(d, (dt.List, dt.Array, dt.Struct)),
+}
+
+
+def _selector_match(sel: E.ESelector, schema: Schema) -> list[str]:
+    names = schema.names()
+    k = sel.kind
+    if k == "set":
+        left = set(selector_columns(sel.left, schema)) if sel.left is not None else set()
+        right = set(selector_columns(sel.right, schema)) if sel.right is not None else set()
+        keep = {"union": lambda: left | right, "difference": lambda: left - right,
+                "intersection": lambda: left & right, "complement": lambda: set(names) - left}.get(sel.op)
+        if keep is None:
+            raise InvalidOperationError(f"unknown selector op {sel.op!r}")
+        kept = keep()
+        return [n for n in names if n in kept]
+    if k == "all":
+        return names
+    if k == "none":
+        return []
+    if k == "by_name":
+        return [n for n in names if n in set(sel.args)]
+    if k == "nth":
+        return [names[i if i >= 0 else len(names) + i] for i in sel.args if -len(names) <= i < len(names)]
+    if k == "matches":
+        pat = re.compile(sel.args[0])
+        return [n for n in names if pat.search(n)]
+    if k == "starts_with":
+        return [n for n in names if any(n.startswith(p) for p in sel.args)]
+    if k == "ends_with":
+        return [n for n in names if any(n.endswith(p) for p in sel.args)]
+    if k == "contains":
+        return [n for n in names if any(p in n for p in sel.args)]
+    if k == "by_dtype":
+        targets = [dt.parse_into_dtype(d) for d in sel.args]
+        return [n for n in names if any(schema[n] == d for d in targets)]
+    if k in _SELECTOR_KINDS:
+        return [n for n in names if _SELECTOR_KINDS[k](schema[n])]
+    raise InvalidOperationError(f"unknown selector kind {k!r}")
+
+
+_SELECTOR_NODES = (E.EColumns, E.EDtypeColumns, E.ESelector)
+_NAME_NODES = (E.EKeepName, E.ERenameFn)
+
+
+def _selector_roots(node: E.ENode) -> list[E.ENode]:
+    """The outermost selector nodes of ``node`` (a set selector's operands
+    are its own)."""
+    if isinstance(node, _SELECTOR_NODES):
+        return [node]
+    return [r for c in node.children() for r in _selector_roots(c)]
+
+
+def _substitute(node: E.ENode, target: E.ENode, replacement: E.ENode) -> E.ENode:
+    if node == target:
+        return replacement
+    kids = node.children()
+    new = tuple(_substitute(k, target, replacement) for k in kids)
+    return node if new == kids else _rebuild_expr(node, new)
+
+
+def _resolve_names(node: E.ENode) -> E.ENode:
+    """``node`` with each ``name`` wrapper replaced by an alias to the name
+    it gives."""
+    kids = node.children()
+    new = tuple(_resolve_names(k) for k in kids)
+    out = node if new == kids else _rebuild_expr(node, new)
+    if isinstance(out, _NAME_NODES):
+        name = E.output_name(out)
+        if name is None:
+            raise InvalidOperationError(f"{type(node).__name__} over an expression without a name")
+        return E.EAlias(out.input, name)
+    return out
+
+
+def needs_expansion(node: E.ENode) -> bool:
+    """True if ``node`` holds a wildcard, a selector or a name wrapper."""
+    return any(isinstance(n, _SELECTOR_NODES + _NAME_NODES) for n in E.walk(node))
+
+
+def expand_expr(node: E.ENode, schema: Schema) -> list[E.ENode]:
+    """One expression per column the selectors of ``node`` match (all of
+    its selectors must match as many), each with its name wrappers
+    resolved; every column it reads must exist."""
+    if not needs_expansion(node):
+        out = [node]
+    else:
+        uniq: list[E.ENode] = []
+        for r in _selector_roots(node):
+            if r not in uniq:
+                uniq.append(r)
+        if not uniq:
+            out = [node]
+        else:
+            matches = [selector_columns(r, schema) for r in uniq]
+            if len({len(m) for m in matches}) > 1:
+                raise InvalidOperationError("selectors in one expression matched differing column counts")
+            out = []
+            for i in range(len(matches[0])):
+                e = node
+                for r, m in zip(uniq, matches):
+                    e = _substitute(e, r, E.EColumn(m[i]))
+                out.append(e)
+        out = [_resolve_names(e) for e in out]
+    for e in out:
+        for sub in E.walk(e):
             if isinstance(sub, E.EColumn) and sub.name not in schema:
                 raise ColumnNotFoundError(f"{sub.name!r} not found; available: {schema.names()}")
-    return tuple(nodes)
+    return out
+
+
+def expand_exprs(nodes: tuple[E.ENode, ...], schema: Schema) -> tuple[E.ENode, ...]:
+    """Every expression of ``nodes`` expanded (:func:`expand_expr`)."""
+    return tuple(x for n in nodes for x in expand_expr(n, schema))
 
 
 def _rebuild_expr(node: E.ENode, kids: tuple[E.ENode, ...]) -> E.ENode:
     """``node`` over the children ``kids`` (in ``children()`` order)."""
     if isinstance(node, E.EBinary):
         return dataclasses.replace(node, left=kids[0], right=kids[1])
-    if isinstance(node, (E.ECast, E.EAlias, E.EAgg)):
+    if isinstance(node, (E.ECast, E.EAlias, E.EAgg, E.EKeepName, E.ERenameFn)):
         return dataclasses.replace(node, input=kids[0])
+    if isinstance(node, E.ESelector):
+        return node
     if isinstance(node, E.ETernary):
         return dataclasses.replace(node, predicate=kids[0], truthy=kids[1], falsy=kids[2])
     if isinstance(node, E.EFunction):
@@ -363,10 +513,22 @@ def agg_dtype(node: E.EAgg, schema: Schema) -> dt.DataType:
         if in_dt.is_temporal():
             return in_dt if name != "Date" else dt.Datetime("ms")
         return dt.Float32() if name == "Float32" else dt.Float64()
+    if k == "product":
+        return dt.Int64() if in_dt.is_integer() or isinstance(in_dt, dt.Boolean) else in_dt
+    if k == "median" and in_dt.is_temporal():
+        return in_dt if name != "Date" else dt.Datetime("ms")
+    if k in ("median", "quantile", "std", "var"):
+        if not (in_dt.is_numeric() or isinstance(in_dt, (dt.Boolean, dt.Null))):
+            raise InvalidOperationError(f"{k} is not defined for {in_dt!r}")
+        return dt.Float32() if name == "Float32" else dt.Float64()
     if k in ("min", "max", "first", "last"):
         return in_dt
-    if k in ("count", "len", "n_unique"):
+    if k in ("count", "len", "n_unique", "null_count", "arg_min", "arg_max"):
         return dt.UInt32()
+    if k in ("any", "all"):
+        if not isinstance(in_dt, (dt.Boolean, dt.Null)):
+            raise InvalidOperationError(f"{k} expects a Boolean input, got {in_dt!r}")
+        return dt.Boolean()
     raise InvalidOperationError(f"aggregation {k!r} is not ported yet (port queue: expression breadth)")
 
 

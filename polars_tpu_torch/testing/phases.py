@@ -264,3 +264,189 @@ def tz_localize_plan(pl, orders):
             .filter(~c("o_orderts").str.contains(" 0[12]:"))
             .select(n=pl.len(), same=(aware == naive).sum(), nulls=aware.is_null().sum(),
                     first=aware.min(), last=aware.max()))
+
+
+STATS_COLUMNS = ["l_returnflag", "l_linestatus", "l_extendedprice", "l_discount", "l_quantity", "l_tax", "l_suppkey",
+                 "l_orderkey", "l_linenumber"]
+
+
+def _stats_flags_aggs(pl) -> list:
+    c = pl.col
+    return [c("l_extendedprice", "l_discount").std().name.suffix("_std"),
+            c("l_quantity").var().name.suffix("_var"),
+            c("l_quantity").median().name.suffix("_median"),
+            c("l_extendedprice").quantile(0.9, "linear").name.suffix("_p90"),
+            c("l_discount").quantile(0.25, "nearest").name.suffix("_p25"),
+            c("l_tax").null_count().name.suffix("_nulls"),
+            (c("l_discount") > 0.09).any().alias("any_high_disc"),
+            (c("l_tax") >= 0).all().alias("all_taxed"),
+            c("l_extendedprice").arg_max().name.suffix("_argmax"),
+            pl.len()]
+
+
+def stats_flags(pl, line):
+    """``stats.flags`` through the eager API: a DataFrame."""
+    return line.group_by("l_returnflag", "l_linestatus").agg(*_stats_flags_aggs(pl)).sort(
+        "l_returnflag", "l_linestatus")
+
+
+def stats_key_mult(scale: float) -> int:
+    """The factor of ``l_orderkey`` in ``stats.casts``: 200 at SF10, where
+    the orders above 10,737,418 of 15,000,000 overflow Int32 (28% of rows),
+    and as large a share at any other scale."""
+    return round(2000 / scale)
+
+
+def _stats_casts(pl, line, key_mult: int, *, strict_overflow: bool = False):
+    c = pl.col
+    return line.lazy().select(
+        price_i32=c("l_extendedprice").cast(pl.Int32),
+        qty_i8=c("l_quantity").cast(pl.Int8),
+        key_i32=(c("l_orderkey") * key_mult).cast(pl.Int32, strict=strict_overflow),
+        line_i64=c("l_linenumber").cast(pl.String).cast(pl.Int64),
+        disc_pct=(c("l_discount") * 100).round().cast(pl.Int64),
+        net=(c("l_extendedprice") * (1 - c("l_discount"))).log().exp().sqrt().abs().clip(0, 300))
+
+
+def stats_plans(pl, line, scale: float) -> dict:
+    """The stats phase's lazy plans over a lineitem frame of
+    ``STATS_COLUMNS``: ``flags`` (the eager query's plan), ``supp``,
+    ``casts`` (the cast columns summed over a wildcard), ``cast_frame``
+    (the cast columns themselves, whose eager ``null_count`` the phase
+    checks) and ``strict`` (the overflowing cast made strict: it must
+    raise)."""
+    c = pl.col
+    return {
+        "flags": line.lazy().group_by("l_returnflag", "l_linestatus").agg(*_stats_flags_aggs(pl)).sort(
+            "l_returnflag", "l_linestatus"),
+        "supp": line.lazy().group_by("l_suppkey").agg(c("l_extendedprice").std(), c("l_discount").median(),
+                                                    pl.len()).sort("l_suppkey"),
+        "casts": _stats_casts(pl, line, stats_key_mult(scale)).select(pl.all().sum()),
+        "cast_frame": _stats_casts(pl, line, stats_key_mult(scale)),
+        "strict": _stats_casts(pl, line, stats_key_mult(scale), strict_overflow=True).select(pl.all().sum()),
+    }
+
+
+def _quantile(values: np.ndarray, q: float, interpolation: str) -> float:
+    """One group's quantile as the engine takes it: positions ``(n-1)*q``,
+    ``nearest`` rounding half to even (np.partition: no full sort)."""
+    n = len(values)
+    if n == 0:
+        return float("nan")
+    pos = (n - 1) * q
+    lo, hi = int(np.floor(pos)), int(np.ceil(pos))
+    if interpolation == "nearest":
+        k = int(np.round(pos))
+        return float(np.partition(values, k)[k])
+    part = np.partition(values, [lo, hi])
+    a, b = float(part[lo]), float(part[hi])
+    if interpolation == "lower":
+        return a
+    if interpolation == "higher":
+        return b
+    if interpolation == "midpoint":
+        return (a + b) / 2
+    return a + (b - a) * (pos - lo)
+
+
+def _two_pass_var(values: np.ndarray, inv: np.ndarray, n: np.ndarray, ddof: int) -> np.ndarray:
+    """Per group: the mean first, then the squares of the differences."""
+    mean = np.bincount(inv, weights=values, minlength=len(n)) / np.maximum(n, 1)
+    d = values - mean[inv]
+    ss = np.bincount(inv, weights=d * d, minlength=len(n))
+    return np.where(n > ddof, ss / np.maximum(n - ddof, 1), np.nan)
+
+
+def _median_of_levels(levels: np.ndarray, codes: np.ndarray, inv: np.ndarray, n: np.ndarray) -> np.ndarray:
+    """Per group, the linear median of a column of few distinct values
+    (``levels[codes]``), from a (group, level) histogram: O(rows)."""
+    k = len(levels)
+    hist = np.bincount(inv * k + codes, minlength=len(n) * k).reshape(len(n), k)
+    cum = np.cumsum(hist, axis=1)
+    pos = (n - 1) / 2.0
+    lo, hi = np.floor(pos).astype(np.int64), np.ceil(pos).astype(np.int64)
+
+    def at(rank):
+        return levels[np.argmax(cum > rank[:, None], axis=1)]
+
+    a, b = at(lo), at(hi)
+    return np.where(n > 0, a + (b - a) * (pos - lo), np.nan)
+
+
+def _few_codes(values: np.ndarray) -> tuple[list, np.ndarray]:
+    """(the sorted distinct values, each row's index among them) of a
+    column of few distinct values, without sorting the rows: text by a set
+    of its values and one comparison per value; numbers by the distinct
+    values of a sample and ``searchsorted``, with a full ``np.unique`` only
+    where a row is not among them."""
+    if values.dtype == object:
+        levels = sorted(set(values.tolist()))
+        codes = np.zeros(len(values), np.int64)
+        for i, v in enumerate(levels[1:], 1):
+            codes[values == v] = i
+        return levels, codes
+    levels = np.unique(values[:: max(1, len(values) // 100_000)])
+    codes = np.searchsorted(levels, values).clip(0, max(len(levels) - 1, 0))
+    if len(values) and not np.array_equal(levels[codes], values):
+        levels, codes = np.unique(values, return_inverse=True)
+    return levels.tolist(), codes.reshape(-1)
+
+
+def _dense_codes(keys: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """(the sorted distinct keys, each row's index among them) of
+    non-negative integer keys, by a bincount: O(rows + largest key)."""
+    present = np.bincount(keys) > 0
+    rank = np.cumsum(present) - 1
+    return np.flatnonzero(present), rank[keys]
+
+
+def stats_oracle(line: dict, scale: float) -> dict:
+    """The stats phase in numpy, O(rows) but for three partitions per
+    (flag, status) group: keys coded without a sort, two-pass variances by
+    bincount, the median discount per supplier from a (supplier, discount)
+    histogram, the other quantiles by ``np.partition``, sums of the casts in
+    int64 (an Int32 sum wraps, as the engine's does)."""
+    flag, status = line["l_returnflag"], line["l_linestatus"]
+    price, disc, qty, tax = line["l_extendedprice"], line["l_discount"], line["l_quantity"], line["l_tax"]
+    f_u, f_inv = _few_codes(flag)
+    s_u, s_inv = _few_codes(status)
+    present, inv = _dense_codes(f_inv * len(s_u) + s_inv)
+    n = np.bincount(inv, minlength=len(present))
+    flags = {"l_returnflag": [str(f_u[p // len(s_u)]) for p in present],
+             "l_linestatus": [str(s_u[p % len(s_u)]) for p in present],
+             "l_extendedprice_std": np.sqrt(_two_pass_var(price, inv, n, 1)),
+             "l_discount_std": np.sqrt(_two_pass_var(disc, inv, n, 1)),
+             "l_quantity_var": _two_pass_var(qty, inv, n, 1),
+             "l_tax_nulls": np.zeros(len(present), np.int64),
+             "any_high_disc": np.bincount(inv, weights=disc > 0.09, minlength=len(present)) > 0,
+             "all_taxed": np.bincount(inv, weights=~(tax >= 0), minlength=len(present)) == 0,
+             "len": n.astype(np.int64)}
+    med, p90, p25, argmax = [], [], [], []
+    for g in range(len(present)):
+        rows = np.flatnonzero(inv == g)
+        med.append(_quantile(qty[rows], 0.5, "linear"))
+        p90.append(_quantile(price[rows], 0.9, "linear"))
+        p25.append(_quantile(disc[rows], 0.25, "nearest"))
+        argmax.append(int(np.argmax(price[rows])))
+    flags.update(l_quantity_median=np.asarray(med), l_extendedprice_p90=np.asarray(p90), l_discount_p25=np.asarray(p25),
+                 l_extendedprice_argmax=np.asarray(argmax, np.int64))
+
+    keys, sinv = _dense_codes(line["l_suppkey"])
+    sn = np.bincount(sinv, minlength=len(keys))
+    d_levels, d_codes = _few_codes(disc)
+    supp_out = {"l_suppkey": keys, "l_extendedprice": np.sqrt(_two_pass_var(price, sinv, sn, 1)),
+                "l_discount": _median_of_levels(np.asarray(d_levels), d_codes, sinv, sn), "len": sn.astype(np.int64)}
+
+    key = line["l_orderkey"] * stats_key_mult(scale)
+    fits = (key >= -(2**31)) & (key < 2**31)
+    net = np.clip(np.abs(np.sqrt(np.exp(np.log(price * (1 - disc))))), 0, 300)
+    casts = {"price_i32": int(np.trunc(price).astype(np.int64).sum()),
+             "qty_i8": int(np.trunc(qty).astype(np.int64).sum()),
+             "key_i32": int(key[fits].sum()),
+             "line_i64": int(line["l_linenumber"].sum()),
+             "disc_pct": int(np.round(disc * 100).astype(np.int64).sum()),
+             "net": float(net.sum())}
+    casts["price_i32"] = int(np.int64(casts["price_i32"]).astype(np.int32))  # Int32 sums wrap
+    casts["key_i32"] = int(np.int64(casts["key_i32"]).astype(np.int32))
+    nulls = {"price_i32": 0, "qty_i8": 0, "key_i32": int((~fits).sum()), "line_i64": 0, "disc_pct": 0, "net": 0}
+    return {"flags": flags, "supp": supp_out, "casts": casts, "cast_nulls": nulls}

@@ -1,7 +1,8 @@
 """Where a PDS-H query's time goes on the card (any of the 22, q1 to q22,
 with ``pdsh.run_params``), or one of ``chip_smoke.py``'s phases
-``temporal``, ``asof`` (its backward join), ``range``, ``tz.ship`` and
-``tz.orders`` (``testing/phases.py``).
+``temporal``, ``asof`` (its backward join), ``range``, ``tz.ship``,
+``tz.orders``, ``stats.flags``, ``stats.supp`` and ``stats.casts``
+(``testing/phases.py``; ``stats.flags`` through its lazy plan).
 
 Builds the SF10 frames of the columns the query reads
 (``pdsh.QUERY_COLUMNS``), as ``chip_smoke.py`` does, warms the
@@ -25,7 +26,8 @@ optimized plan, or with ``--no-optimization`` the plan as written
 (``collect(no_optimization=True)``); the first line says which.
 
 Run from the repository root on a machine with a CUDA device:
-    python3 -m polars_tpu_torch.testing.profile_query [--query q3 [q5 ... temporal asof range tz.ship tz.orders]]
+    python3 -m polars_tpu_torch.testing.profile_query [--query q3 [q5 ... temporal asof range tz.ship tz.orders
+        stats.flags stats.supp stats.casts]]
         [--scale 10] [--runs 5]
         [--no-optimization]
 """
@@ -146,7 +148,7 @@ def profile_query(torch, query: str, run, rows: dict, scale: float, runs: int, t
     print(json.dumps({"profile": query, "sorts": timed_sorts(torch, run, no_optimization)}), flush=True)
 
 
-PHASES = ("temporal", "asof", "range", "tz.ship", "tz.orders")
+PHASES = ("temporal", "asof", "range", "tz.ship", "tz.orders", "stats.flags", "stats.supp", "stats.casts")
 
 
 def main() -> int:
@@ -173,7 +175,8 @@ def main() -> int:
 
     own = {"temporal": {"lineitem": P.TEMPORAL_COLUMNS}, "range": {"orders": ["o_orderdate", "o_totalprice"]},
            "asof": {}, "tz.ship": {"lineitem": ["l_shipdate", "l_quantity"]},
-           "tz.orders": {"orders": ["o_orderdate", "o_totalprice"]}}
+           "tz.orders": {"orders": ["o_orderdate", "o_totalprice"]},
+           **{f"stats.{part}": {"lineitem": P.STATS_COLUMNS} for part in ("flags", "supp", "casts")}}
     need: dict[str, dict] = {}  # table -> the columns any chosen query reads
     for q in args.query:
         for t, cs in (own[q] if q in own else QUERY_COLUMNS[q]).items():
@@ -197,6 +200,10 @@ def main() -> int:
         elif q == "tz.orders":
             orders = tables["orders"]
             run, rows = (lambda: P.tz_orders_plan(pl, orders)), {"orders": orders.height}
+        elif q.startswith("stats."):
+            line = tables["lineitem"]
+            run = lambda q=q: P.stats_plans(pl, line, args.scale)[q.split(".")[1]]  # noqa: E731
+            rows = {"lineitem": line.height}
         elif q == "range":
             orders, windows = tables["orders"], pl.DataFrame(P.range_windows(), device="cuda")
             run, rows = (lambda: P.range_plan(pl, windows, orders)), {"orders": orders.height, "windows": 12}

@@ -505,8 +505,8 @@ def _check_time_zones_name_their_queue_item():
     """Aware values now build, round-trip and format: a column of aware
     datetimes, an aware literal, the tz functions, ``to_string`` and a cast
     to an aware Datetime. What still raises names its queue item:
-    ``fill_null(strategy=)``, the JAX package's other host functions, and
-    ``drop_nulls()`` without a subset."""
+    ``fill_null(strategy=)`` and the JAX package's other host functions;
+    ``drop_nulls()`` without a subset now runs."""
     from polars_tpu_torch.plan import exprs as E
 
     aware = dtm.datetime(2024, 1, 1, tzinfo=dtm.timezone.utc)
@@ -524,9 +524,9 @@ def _check_time_zones_name_their_queue_item():
         "lit": [aware], "ams": [dtm.datetime(2024, 1, 1, tzinfo=ZoneInfo("Europe/Amsterdam"))],
         "utc": [dtm.datetime(2023, 12, 31, 23, tzinfo=ZoneInfo("UTC"))], "base": [dtm.timedelta(hours=1)],
         "dst": [dtm.timedelta(0)], "year": ["2024"], "f": ["2024"], "cast": [aware]}
+    assert df.lazy().drop_nulls().collect().height == 1
     calls = [
         lambda: df.lazy().select(plt.col("t").fill_null(strategy="forward")).collect(),
-        lambda: df.lazy().drop_nulls().collect(),
     ] + [lambda name=name: df.lazy().select(plt.Expr(E.EFunction(name, (E.EColumn("s"),), ()))).collect()
          for name in ("concat_str", "cat.get_categories", "list.join")]
     for call in calls:
