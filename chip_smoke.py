@@ -102,6 +102,21 @@ Phases, each printed as one JSON line:
                 and one strict cast that must raise. Each against the numpy
                 oracle of testing/phases.py (keys, counts and sums
                 exactly, floats to rtol 1e-9).
+ 17. window   — windows and position functions at SF10, two lines:
+                window.cust: 15M orders from 1993 (a row mask), per
+                customer the running spend in date order
+                (cum_sum().over(order_by=)), the days since the previous
+                order (diff), the dense rank of the price and its share of
+                the customer's total (sum().over(), K1 in global mode),
+                then the top three orders of each customer (a filter on
+                the rank, K2); window.line: the 60M lineitem rows with a
+                discount of 5% or more (a row mask, about half), a select
+                of shift, diff and a forward fill over the kept rows, the
+                ordinal price rank per order (15M groups), the running
+                quantity per order in line order and is_first_distinct of
+                the supplier. Each against the numpy oracle of
+                testing/phases.py (keys, ranks, dates, durations, flags and
+                null masks exactly, floats to rtol 1e-9).
 Every collect runs the optimized plan. Each PDS-H query and each frameops
 query also runs its plan as written (collect(no_optimization=True)): a
 warm-up, then 6 collects as written and 6 optimized, in turns with the
@@ -121,7 +136,7 @@ then the kernels line, the card's name and power limit, and the final line
 {"ok": true, "device": {...}}. Any failure exits non-zero before that line.
 
 Run from the repository root:
-    python3 chip_smoke.py [--scale 10] [--seed 42] [--only q1 filter q3 q4 ... q22 joins temporal asof range frameops tz stats]
+    python3 chip_smoke.py [--scale 10] [--seed 42] [--only q1 filter q3 q4 ... q22 joins temporal asof range frameops tz stats window]
 (``--only`` runs the build and kernel phases and the named query phases, for
 an A/B of a few queries against a parent tree). It needs a CUDA device and
 nvcc; it never imports JAX or polars_tpu.
@@ -161,7 +176,7 @@ Q3_DAYS = day(1995, 3, 15)
 Q4_FROM, Q4_TO = day(1993, 7, 1), day(1993, 10, 1)
 PHASES = ["q1", "filter", "q3", "q4", "q5", "q6", "q10", "q12", "q14", "q18", "q19", "q11", "q15", "q17", "q20",
           "q2", "q7", "q8", "q9", "q13", "q16", "q21", "q22", "joins", "temporal", "asof", "range", "frameops", "tz",
-          "stats"]
+          "stats", "window"]
 # the columns the phases outside PDS-H read of each table (asof makes its own)
 PHASE_COLUMNS = {
     "joins": {"customer": ["c_custkey", "c_mktsegment"], "orders": ["o_orderkey", "o_custkey", "o_orderdate"],
@@ -176,6 +191,10 @@ PHASE_COLUMNS = {
     "tz": {"lineitem": ["l_shipts", "l_quantity"], "orders": ["o_orderdate", "o_totalprice", "o_orderts"]},
     "stats": {"lineitem": ["l_returnflag", "l_linestatus", "l_extendedprice", "l_discount", "l_quantity", "l_tax",
                            "l_suppkey", "l_orderkey", "l_linenumber"]},  # testing/phases.STATS_COLUMNS
+    # testing/phases.WINDOW_CUST_COLUMNS, WINDOW_LINE_COLUMNS
+    "window": {"orders": ["o_orderkey", "o_custkey", "o_totalprice", "o_orderdate"],
+               "lineitem": ["l_orderkey", "l_linenumber", "l_suppkey", "l_quantity", "l_extendedprice", "l_discount",
+                            "l_returnflag"]},
 }
 _MADE_COLUMNS = ("l_shipts", "o_orderts")  # made from the generated columns (testing/phases.py)
 
@@ -1434,15 +1453,24 @@ def phase_query(torch, name: str, frames: dict, raw: dict, scale: float, k2_repe
     return res
 
 
-def expand_oracle(pk: np.ndarray, bk: np.ndarray, unmatched: bool) -> tuple[np.ndarray, np.ndarray]:
+def expand_oracle(pk: np.ndarray, bk: np.ndarray, unmatched: bool, matches: list | None = None
+                  ) -> tuple[np.ndarray, np.ndarray]:
     """An equi-join's pairs in the port's order, in numpy: each probe row in
     order with its build rows in their order (stable argsort +
     searchsorted); -1 for the build row of an unmatched probe row when
-    ``unmatched``."""
+    ``unmatched``. ``matches``, when given, receives each probe row's match
+    count."""
     perm = np.argsort(bk, kind="stable")
     sk = bk[perm]
-    lo, hi = np.searchsorted(sk, pk, "left"), np.searchsorted(sk, pk, "right")
+    # the probes searched in sorted order, which keeps the searches in cache
+    # (60M random probes into 8M keys take minutes otherwise)
+    order = np.argsort(pk)
+    lo, hi = np.empty(len(pk), np.int64), np.empty(len(pk), np.int64)
+    lo[order] = np.searchsorted(sk, pk[order], "left")
+    hi[order] = np.searchsorted(sk, pk[order], "right")
     m = hi - lo
+    if matches is not None:
+        matches.append(m)
     counts = np.maximum(m, 1) if unmatched else m
     pi = np.repeat(np.arange(len(pk)), counts)
     j = np.arange(len(pi)) - (np.cumsum(counts) - counts)[pi]
@@ -1452,19 +1480,26 @@ def expand_oracle(pk: np.ndarray, bk: np.ndarray, unmatched: bool) -> tuple[np.n
     return pi, bi
 
 
+_DICT_CODES: dict = {}  # (source column, dictionary) -> the source's strings as that dictionary's codes
+
+
 def check_join_column(col, src: np.ndarray, rows: np.ndarray, label: str) -> None:
     """One output column against ``src`` (the table's numpy column) at
     ``rows`` (-1 = null), value for value and null for null: strings by
-    their codes in the column's dictionary, dates as day counts."""
+    their codes in the column's dictionary (mapped once per source column
+    and dictionary), dates as day counts."""
     got = col.buffer.values.cpu().numpy()
     valid = rows >= 0
     got_valid = np.ones(len(got), bool) if col.buffer.validity is None else col.buffer.validity.cpu().numpy()
     if len(got) != len(rows) or not np.array_equal(got_valid, valid):
         raise AssertionError(f"joins {label} {col.name}: {len(got)} rows or nulls differ from the oracle's {len(rows)}")
     if col.table is not None:  # the source's strings as codes of the column's dictionary, then gathered
-        uniq, inv = np.unique(src.astype(str), return_inverse=True)
-        pos = {v: i for i, v in enumerate(col.table.values.tolist())}
-        src = np.asarray([pos[u] for u in uniq.tolist()], np.int64)[inv.reshape(-1)]
+        key = (id(src), id(col.table))
+        if key not in _DICT_CODES:
+            uniq, inv = np.unique(src.astype(str), return_inverse=True)
+            pos = {v: i for i, v in enumerate(col.table.values.tolist())}
+            _DICT_CODES[key] = (src, col.table, np.asarray([pos[u] for u in uniq.tolist()], np.int64)[inv.reshape(-1)])
+        src = _DICT_CODES[key][2]
     want = src[rows[valid]]
     if want.dtype.kind == "M":
         want = _days(want)
@@ -1521,18 +1556,20 @@ def phase_joins(torch, pl, frames: dict, raw: dict) -> dict:
 
     def cases():
         """(label, lazy plan, oracle) of each join; the oracle gives each
-        output column's source and its rows."""
+        output column's source and its rows. The left and right joins share
+        one expansion, and the anti join's rows are the hashed inner join's
+        probe rows without a match."""
         pi, bi = expand_oracle(orders["o_orderkey"], line["l_orderkey"], False)
         yield ("inner_mm", lambda: cut("orders", ["o_orderkey", "o_orderdate"]).join(
             cut("lineitem", ["l_orderkey", "l_quantity"]), left_on="o_orderkey", right_on="l_orderkey"),
             [("o_orderkey", orders["o_orderkey"], pi), ("o_orderdate", orders["o_orderdate"], pi),
              ("l_quantity", line["l_quantity"], bi)])
-        pi, bi = expand_oracle(cust["c_custkey"], orders["o_custkey"], True)
+        pi_lr, bi_lr = pi, bi = expand_oracle(cust["c_custkey"], orders["o_custkey"], True)
         yield ("left", lambda: cut("customer", ["c_custkey", "c_mktsegment"]).join(
             cut("orders", ["o_custkey", "o_orderkey"]), left_on="c_custkey", right_on="o_custkey", how="left"),
             [("c_custkey", cust["c_custkey"], pi), ("c_mktsegment", cust["c_mktsegment"], pi),
              ("o_orderkey", orders["o_orderkey"], bi)])
-        pi, bi = expand_oracle(cust["c_custkey"], orders["o_custkey"], True)
+        pi, bi = pi_lr, bi_lr
         yield ("right", lambda: cut("orders", ["o_custkey", "o_orderkey"]).join(
             cut("customer", ["c_custkey", "c_mktsegment"]), left_on="o_custkey", right_on="c_custkey", how="right"),
             [("o_orderkey", orders["o_orderkey"], bi), ("c_custkey", cust["c_custkey"], pi),
@@ -1556,13 +1593,14 @@ def phase_joins(torch, pl, frames: dict, raw: dict) -> dict:
             cut("nation", ["n_nationkey", "n_name"]), how="cross"),
             [("s_suppkey", supp["s_suppkey"], pi), ("s_nationkey", supp["s_nationkey"], pi),
              ("n_nationkey", nat["n_nationkey"], bi), ("n_name", nat["n_name"], bi)])
-        pi, bi = expand_oracle(lkey, pkey, False)
+        matches: list = []
+        pi, bi = expand_oracle(lkey, pkey, False, matches)
         yield ("hashed_inner", lambda: cut("lineitem", ["l_partkey", "l_suppkey", "l_quantity"]).join(
             cut("partsupp", ["ps_partkey", "ps_suppkey", "ps_availqty"]), left_on=["l_partkey", "l_suppkey"],
             right_on=["ps_partkey", "ps_suppkey"]),
             [("l_partkey", line["l_partkey"], pi), ("l_suppkey", line["l_suppkey"], pi),
              ("l_quantity", line["l_quantity"], pi), ("ps_availqty", ps["ps_availqty"], bi)])
-        keep = np.nonzero(~np.isin(lkey, pkey))[0]
+        keep = np.nonzero(matches[0] == 0)[0]
         yield ("hashed_anti", lambda: cut("lineitem", ["l_partkey", "l_suppkey", "l_quantity"]).join(
             cut("partsupp", ["ps_partkey", "ps_suppkey"]), left_on=["l_partkey", "l_suppkey"],
             right_on=["ps_partkey", "ps_suppkey"], how="anti"),
@@ -1570,15 +1608,25 @@ def phase_joins(torch, pl, frames: dict, raw: dict) -> dict:
              ("l_quantity", line["l_quantity"], keep)])
 
     res = {"phase": "joins", "cases": {}, "launches": {"groupagg_sums": 0, "compact": 0, "compact_scatter": 0},
-           "kernel_calls": []}
-    for label, run, want in cases():
+           "kernel_calls": [], "oracle_s": 0.0}
+    made = cases()
+    while True:
+        t0 = time.perf_counter()
+        case = next(made, None)
+        oracle_s = time.perf_counter() - t0
+        if case is None:
+            break
+        label, run, want = case
         need = ("compact", "compact_scatter") if label in ("full", "hashed_inner", "hashed_anti") else ()
         r = run_query(torch, f"joins.{label}", run, need=need)
         out = r["out"]
         if out.columns != [c for c, _, _ in want]:
             raise AssertionError(f"joins {label}: columns {out.columns} != {[c for c, _, _ in want]}")
+        t0 = time.perf_counter()
         for c, src, rows in want:
             check_join_column(out._get(c), src, rows, label)
+        oracle_s += time.perf_counter() - t0
+        res["oracle_s"] += oracle_s
         with count_host_reads(torch) as reads:
             run().collect()
             torch.cuda.synchronize()
@@ -1586,12 +1634,13 @@ def phase_joins(torch, pl, frames: dict, raw: dict) -> dict:
                                "warm_walls_s": r["warm_walls_s"], "first_collect_s": r["first_collect_s"],
                                "host_reads": reads["reads"], "syncs": reads["syncs"], "sync_sites": reads["sync_sites"],
                                "peak_device_bytes": r["peak_device_bytes"], "launches": r["launches"],
-                               "matches_numpy_oracle": True}
+                               "oracle_s": oracle_s, "matches_numpy_oracle": True}
         for k, v in r["launches"].items():
             res["launches"][k] += v
         res["kernel_calls"] += [{"join": label, **c} for c in r["kernel_calls"]]
         del out, r
         torch.cuda.empty_cache()
+    _DICT_CODES.clear()
     emit(res)
     return res
 
@@ -2203,6 +2252,40 @@ def phase_stats(torch, pl, line, raw: dict, scale: float) -> dict:
     return results
 
 
+# -- window phase (plans and oracle: polars_tpu_torch/testing/phases.py) ----------------------
+
+
+def phase_window(torch, pl, frames: dict, raw: dict) -> dict:
+    """Windows and position functions at SF10, each plan through its main
+    path against ``testing/phases.window_oracle``: ``window.cust`` (K1 in
+    the window's sum, K2 at the segment's end) and ``window.line`` (K2;
+    no aggregation, so no K1)."""
+    P = _phases()
+    t0 = time.perf_counter()
+    want = P.window_oracle(raw["orders"], raw["lineitem"])
+    oracle_s = time.perf_counter() - t0
+    orders, line = frames["orders"], frames["lineitem"]
+    results = {}
+
+    r = run_phase(torch, "window.cust", lambda: P.window_plans(pl, orders, None)["cust"])
+    out = r["out"]
+    _check_schema(out, [("o_orderkey", "Int64"), ("o_custkey", "Int64"), ("o_totalprice", "Float64"),
+                        ("o_orderdate", "Date"), ("spend", "Float64"), ("gap", "Duration(time_unit='us')"),
+                        ("rank", "UInt32"), ("share", "Float64")], "window.cust")
+    worst = P.check_window(out, want["cust"], "window.cust")
+    results["cust"] = phase_result("window.cust", r, out, {"orders": orders.height}, worst,
+                                   oracle_s=oracle_s)
+
+    r = run_phase(torch, "window.line", lambda: P.window_plans(pl, None, line)["line"],
+                  need=("compact", "compact_scatter"))
+    out = r["out"]
+    _check_schema(out, [("prev_price", "Float64"), ("dqty", "Float64"), ("last_r", "Float64"), ("pos", "UInt32"),
+                        ("run_qty", "Float64"), ("first_supp", "Boolean")], "window.line")
+    worst = P.check_window(out, want["line"], "window.line")
+    results["line"] = phase_result("window.line", r, out, {"lineitem": line.height}, worst)
+    return results
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2258,6 +2341,9 @@ def main() -> int:
         elif name == "stats":
             for sub, res in phase_stats(torch, pl, frames["stats"]["lineitem"], raw, args.scale).items():
                 runs[f"stats.{sub}"] = res
+        elif name == "window":
+            for sub, res in phase_window(torch, pl, frames["window"], raw).items():
+                runs[f"window.{sub}"] = res
         else:  # Q3's K2 call runs 50 times, each against the first
             runs[name] = phase_query(torch, name, frames, raw, args.scale, k2_repeats=50 if name == "q3" else 1)
     del frames, raw, line

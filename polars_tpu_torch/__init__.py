@@ -8,7 +8,9 @@ string predicates and slices; ``unique``, ``rename``, ``drop``,
 their arithmetic, time zones and the ``dt`` namespace with ``to_string``;
 string-to-temporal parsing and the null functions; the eager ``DataFrame``
 and ``Series`` API; math and cast expressions, the statistical aggregations,
-wildcards, selectors and the ``name`` namespace; range joins
+wildcards, selectors and the ``name`` namespace; windows (``over``), the
+order and position functions and expression-level sort, filter, slice and
+gather; range joins
 (``join_where``) and asof joins; a join that sizes its output on the host
 runs between fused segments). Every collect runs the plan the optimizer
 (``plan/optimizer``) gives, unless the caller asks for the plan as written;
@@ -60,9 +62,9 @@ from polars_tpu_torch.expr.expr import Expr
 from polars_tpu_torch.functions.eager import concat
 from polars_tpu_torch.functions.interop import QueryOptFlags
 from polars_tpu_torch.functions.lazy import (  # noqa: A004
-    all, all_horizontal, any, any_horizontal, coalesce, col, count, date, date_range, datetime, datetime_range,
-    duration, exclude, first, int_range, last, len, lit, max, max_horizontal, mean, mean_horizontal, median, min,
-    min_horizontal, n_unique, nth, quantile, repeat, select, std, sum, sum_horizontal, var, when,
+    all, all_horizontal, any, any_horizontal, arg_sort_by, coalesce, col, count, date, date_range, datetime,
+    datetime_range, duration, exclude, first, int_range, last, len, lit, max, max_horizontal, mean, mean_horizontal,
+    median, min, min_horizontal, n_unique, nth, quantile, repeat, select, std, sum, sum_horizontal, var, when,
 )
 from polars_tpu_torch.functions.parity import arctan2, arctan2d, business_day_count
 from polars_tpu_torch.lazyframe import LazyFrame
@@ -73,8 +75,9 @@ __all__ = [
     "LazyFrame", "PolarsError", "QueryOptFlags", "Schema", "SchemaError", "Series", "ShapeError", "String", "Time",
     "UInt8", "UInt16", "UInt32", "UInt64", "Utf8", "all", "all_horizontal", "any", "any_horizontal", "api", "arctan2",
     "arctan2d",
-    "business_day_count", "coalesce", "col", "concat", "count", "datatypes", "date", "date_range", "datetime",
-    "datetime_range", "duration", "exclude", "first", "int_range", "last", "len", "lit", "max", "max_horizontal",
+    "arg_sort_by", "business_day_count", "coalesce", "col", "concat", "count", "datatypes", "date", "date_range",
+    "datetime", "datetime_range", "duration", "exclude", "first", "int_range", "last", "len", "lit", "max",
+    "max_horizontal",
     "mean", "mean_horizontal", "median", "min", "min_horizontal", "n_unique", "nth", "quantile", "repeat", "select",
     "selectors", "set_default_device", "std", "sum", "sum_horizontal", "var", "when",
 ]

@@ -49,6 +49,11 @@ class GroupCtx:
     # dense path: the key slot of each group (decodes the key codes without
     # a pass over the rows)
     slots: torch.Tensor | None = None
+    # sorted path: the stable permutation that numbered the groups (rows by
+    # group, the dropped rows last), which a window's group order reuses
+    sort_perm: torch.Tensor | None = None
+    # a window's ``order_by`` words: the order of the rows within a group
+    order_words: list | None = None
 
 
 @dataclass
@@ -66,6 +71,12 @@ class EvalCtx:
     # outside a group-by: the one group of capacity 1 that aggregations
     # reduce into (made on first use, compiler.group_of)
     scalar_group: GroupCtx | None = None
+    # the rows' group order for the position functions (made on first use,
+    # fn_position.group_order)
+    order: Any = None
+    # over(): the groups of each partition key tuple, and the context of each
+    # (keys, order) pair (compiler._eval_window)
+    windows: dict | None = None
 
     @property
     def device(self) -> torch.device:
@@ -75,9 +86,11 @@ class EvalCtx:
     def rows(self) -> int:
         return self.rowmask.shape[0]
 
-    def add_flag(self, flag: torch.Tensor, msg: str) -> None:
+    def add_flag(self, flag: torch.Tensor, msg: str, error: type | None = None) -> None:
+        """A check raised at the segment's count read: ``error`` (by default
+        InvalidOperationError) with ``msg`` where ``flag`` holds."""
         if self.flags is not None:
-            self.flags.append((flag, msg))
+            self.flags.append((flag, msg) if error is None else (flag, msg, error))
 
 
 def flag_rows(ctx: EvalCtx | None, v: Val, bad: torch.Tensor, msg: str) -> None:

@@ -4,9 +4,16 @@ literals (numeric, bool, null, temporal and string; lists as literal
 Series), casts, arithmetic (temporal arithmetic on integer epochs, as the
 JAX package's ``_arith`` and ``_temporal_pair``) and comparison with Polars
 type promotion, string comparison across dictionaries, Kleene ``&``/``|``, when/then/otherwise,
-registered functions (``engine/registry.py``), aliases and the sum, mean,
-min, max, count, len, first, last and n_unique aggregations, per group or,
-outside a group-by, over one group of capacity 1).
+registered functions (``engine/registry.py``), aliases, the aggregations,
+per group or, outside a group-by, over one group of capacity 1, windows
+(``over``) and the expression-level sort, sort_by, filter, slice and
+gather).
+
+A filter or slice under an aggregation narrows the rows it sees
+(:func:`_agg_input`); outside one, it and a gather change the column's
+length, and a select evaluates such a column as a *piece*
+(:func:`eval_piece`): its values over some row space with the mask of the
+rows it keeps.
 
 Where the JAX package traces into one XLA program, the port runs each op
 eagerly on the tensors of the segment; ``Val.domain`` still tracks per-row,
@@ -15,10 +22,13 @@ per-group and scalar values.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
 from polars_tpu_torch import datatypes as dt
+from polars_tpu_torch.engine import fn_position as P
 from polars_tpu_torch.engine import groupby as G
 from polars_tpu_torch.engine.cast import cast_val, float_values, int_scalar, order_word, wrap_unsigned
 from polars_tpu_torch.engine.common import (
@@ -27,7 +37,7 @@ from polars_tpu_torch.engine.common import (
 )
 from polars_tpu_torch.engine.registry import get_spec
 from polars_tpu_torch.engine.strings import unify_vals
-from polars_tpu_torch.errors import ColumnNotFoundError, InvalidOperationError, ShapeError
+from polars_tpu_torch.errors import ColumnNotFoundError, ComputeError, InvalidOperationError, ShapeError
 from polars_tpu_torch.kernels.fastmath import div_any, floordiv_any, floordiv_u64, mod_any, mod_u64
 from polars_tpu_torch.plan import exprs as E
 from polars_tpu_torch.plan.schema_resolve import binary_dtype, dyn_literal_value, fit_dyn_dtype, supertype
@@ -76,7 +86,190 @@ def _eval_expr_uncached(node: E.ENode, ctx: EvalCtx) -> Val:
         if len(args) > 1:
             args = _adapt_dyn_literal_vals(node.inputs, args)
         return spec.impl(ctx, args, dict(node.options))
+    if isinstance(node, E.EWindow):
+        return _eval_window(node, ctx)
+    if isinstance(node, E.ESort):
+        v = eval_expr(node.input, ctx)
+        return P.reorder_in_groups(ctx, v, [(P.row_domain(ctx, v), node.descending, node.nulls_last)])
+    if isinstance(node, E.ESortBy):
+        keys = [P.row_domain(ctx, eval_expr(b, ctx)) for b in node.by]
+        return P.reorder_in_groups(ctx, eval_expr(node.input, ctx), list(zip(keys, node.descending, node.nulls_last)))
+    if isinstance(node, E.EGather) and ctx.groups is None:
+        v, keep = eval_piece(node, ctx)
+        if keep is None:
+            return v
+    if isinstance(node, (E.EFilter, E.ESlice, E.EGather)):
+        raise InvalidOperationError(
+            f"{type(node).__name__[1:].lower()} changes the length of its column: it applies in a select or under "
+            "an aggregation (a gather within a group gives a List: port queue item 4)")
     raise InvalidOperationError(f"cannot evaluate {type(node).__name__}")
+
+
+# ---------------------------------------------------------------------------
+# columns of another length (select context)
+# ---------------------------------------------------------------------------
+
+
+def _sub_ctx(ctx: EvalCtx, rowmask: torch.Tensor, known: dict) -> EvalCtx:
+    """A context over the same rows and groups with another row mask, where
+    the nodes of ``known`` have their values."""
+    groups = ctx.groups
+    if groups is not None and rowmask is not ctx.rowmask:
+        # the cached counts and the numbering sort belong to the other mask
+        groups = dataclasses.replace(groups, counts=None, sort_perm=None)
+    cols = {**ctx.cols, **{c.name: v for c, v in known.items() if isinstance(c, E.EColumn)}}
+    return EvalCtx(cols=cols, rowmask=rowmask, groups=groups, precomputed=known, memo={}, flags=ctx.flags)
+
+
+def _kept_positions(keep: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(the row of each rank among the kept rows, in rank order, then
+    anything; the kept count as a (1,) tensor)."""
+    n = keep.shape[0]
+    rank = torch.cumsum(keep, 0) - 1
+    pos = torch.zeros(n + 1, dtype=torch.int64, device=keep.device)
+    pos.index_copy_(0, torch.where(keep, rank, n), torch.arange(n, device=keep.device))
+    count = rank[-1:] + 1 if n else torch.zeros(1, dtype=torch.int64, device=keep.device)
+    return pos[:n], count
+
+
+def _to_prefix(v: Val, keep: torch.Tensor, rows: int) -> tuple[Val, torch.Tensor]:
+    """``v``'s kept values moved to its first rows, padded to ``rows``; and
+    their count."""
+    pos, count = _kept_positions(keep)
+    values = v.values.index_select(0, pos)
+    validity = None if v.validity is None else v.validity.index_select(0, pos)
+    pad = rows - values.shape[0]
+    if pad:
+        values = torch.cat([values, values.new_zeros(pad)])
+        validity = None if validity is None else torch.cat([validity, validity.new_zeros(pad)])
+    return v.with_(values=values, validity=validity, domain=ROW), count
+
+
+def align_pieces(ctx: EvalCtx, pieces: list[tuple[Val, torch.Tensor | None]]):
+    """Pieces of different row spaces or masks side by side: the r-th kept
+    value of each is row r (scalars broadcast). Their counts must agree; a
+    mismatch fails the segment at its count read. Gives (values, one mask)."""
+    keeps = [k for _, k in pieces if k is not None]
+    if not keeps:
+        return [v for v, _ in pieces], None
+    if all(k is keeps[0] for k in keeps):
+        return [v for v, _ in pieces], keeps[0]
+    rows = max(k.shape[0] for k in keeps)
+    out, counts = [], []
+    for v, k in pieces:
+        if k is None:
+            out.append(v)
+            continue
+        pv, c = _to_prefix(v, k, rows)
+        out.append(pv)
+        counts.append(c)
+    for c in counts[1:]:
+        ctx.add_flag((c != counts[0]).any(), "the columns of a select have different lengths", ComputeError)
+    return out, torch.arange(rows, device=keeps[0].device) < counts[0]
+
+
+def _as_piece(v: Val, ctx: EvalCtx) -> tuple[Val, torch.Tensor | None]:
+    if v.domain == SCALAR:
+        return v, None
+    if v.domain == SERIES:  # a literal list: its own rows, all kept
+        return v.with_(domain=ROW), torch.ones(v.values.shape[0], dtype=torch.bool, device=v.values.device)
+    if v.domain != ROW:
+        raise ShapeError("an aggregate where a column of another length is built")
+    return v, ctx.rowmask
+
+
+def eval_piece(node: E.ENode, ctx: EvalCtx) -> tuple[Val, torch.Tensor | None]:
+    """``node`` in a select, where it may change its column's length: (its
+    values over a row space, the mask of the rows it keeps there), or (a
+    scalar, None). A filter narrows the mask; a slice keeps a window of the
+    kept rows by rank; a gather reads the kept rows at the indices (an index
+    out of range fails the segment at its count read), in the indices' row
+    space. Any other node evaluates over its children's pieces, aligned by
+    rank where they differ."""
+    if not E.changes_length(node):
+        return _as_piece(eval_expr(node, ctx), ctx)
+    if isinstance(node, E.EFilter):
+        v, keep = eval_piece(node.input, ctx)
+        if keep is None:
+            raise InvalidOperationError("filter() of a scalar")
+        p = eval_expr(node.by, ctx)
+        pv = p.values.to(torch.bool)
+        if p.validity is not None:
+            pv = pv & p.validity
+        if p.domain not in (ROW, SCALAR) or pv.shape[0] not in (1, keep.shape[0]):
+            raise ShapeError("filter(): the predicate's length differs from the column's")
+        return v, keep & pv
+    if isinstance(node, E.ESlice):
+        v, keep = eval_piece(node.input, ctx)
+        if keep is None:
+            raise InvalidOperationError("slice of a scalar")
+        rank = torch.cumsum(keep, 0)
+        total = rank[-1:] if rank.shape[0] else torch.zeros(1, dtype=torch.int64, device=keep.device)
+        start = (total + node.offset).clamp(min=0) if node.offset < 0 else total.clamp(max=node.offset)
+        stop = total if node.length is None else torch.minimum(start + node.length, total)
+        return v, keep & (rank > start) & (rank <= stop)
+    if isinstance(node, E.EGather):
+        v, keep = eval_piece(node.input, ctx)
+        idx, ikeep = eval_piece(node.indices, ctx)
+        if keep is None:
+            raise InvalidOperationError("gather from a scalar")
+        if not (idx.dtype.is_integer() or isinstance(idx.dtype, dt.Null)):
+            raise InvalidOperationError(f"gather indices must be integers, got {idx.dtype!r}")
+        pos, count = _kept_positions(keep)
+        i = idx.values.to(torch.int64)
+        i = torch.where(i < 0, i + count, i)
+        bad = (i < 0) | (i >= count)
+        if idx.validity is not None:
+            bad = bad & idx.validity
+        ctx.add_flag((bad if ikeep is None else bad & ikeep).any(), "gather indices are out of bounds", ComputeError)
+        rows = pos.index_select(0, i.clamp(0, max(pos.shape[0] - 1, 0))) if pos.shape[0] else i.clamp(0, 0)
+        values = v.values.index_select(0, rows) if pos.shape[0] else v.values.new_zeros(i.shape[0])
+        validity = combine_validity(None if v.validity is None else v.validity.index_select(0, rows), idx.validity)
+        return Val(values, validity, v.dtype, v.table, idx.domain if ikeep is None else ROW), ikeep
+    kids = node.children()
+    pieces = [eval_piece(c, ctx) for c in kids]
+    vals, keep = align_pieces(ctx, pieces)
+    sub = _sub_ctx(ctx, ctx.rowmask if keep is None else keep, dict(zip(kids, vals)))
+    return _as_piece(eval_expr(node, sub), sub)
+
+
+# ---------------------------------------------------------------------------
+# windows
+# ---------------------------------------------------------------------------
+
+
+def _eval_window(node: E.EWindow, ctx: EvalCtx) -> Val:
+    """``function.over(partition_by, order_by=...)`` (the JAX package's
+    ``_eval_window``): the function evaluated in the groups of the keys
+    (null keys one group), in ``order_by`` order within a group; a group's
+    value is gathered back to its rows, a per-row value keeps its row, a
+    scalar broadcasts. The groups of one key tuple are made once per
+    context, and so is the group order of one (keys, order) pair: windows
+    over the same keys share their sorts."""
+    if ctx.groups is not None:
+        raise InvalidOperationError("over() inside a group-by aggregation is not supported")
+    if ctx.windows is None:
+        ctx.windows = {}
+    inner = ctx.windows.get((node.partition_by, node.order_by, node.order_descending))
+    if inner is None:
+        base = ctx.windows.get(node.partition_by)
+        if base is None:
+            keys = [P.row_domain(ctx, eval_expr(k, ctx)) for k in node.partition_by]
+            base = ctx.windows[node.partition_by] = G.sorted_group_ctx(keys, ctx.rowmask)
+        gctx = base
+        if node.order_by:
+            desc = node.order_descending or (False,) * len(node.order_by)
+            words: list = []
+            for ob, d in zip(node.order_by, desc):
+                words.extend(P.value_words(P.row_domain(ctx, eval_expr(ob, ctx)), bool(d), False))
+            gctx = dataclasses.replace(base, order_words=words)
+        inner = EvalCtx(cols=ctx.cols, rowmask=ctx.rowmask, groups=gctx, memo={}, flags=ctx.flags)
+        ctx.windows[(node.partition_by, node.order_by, node.order_descending)] = inner
+    res = eval_expr(node.function, inner)
+    reject_series(res)
+    if res.domain == GROUP:
+        return _group_to_rows(res, inner)
+    return res
 
 
 def _eval_cast(node: E.ECast, ctx: EvalCtx) -> Val:
@@ -516,13 +709,55 @@ def _agg_domain(ctx: EvalCtx) -> str:
     return GROUP if ctx.groups is not None else SCALAR
 
 
+def _agg_input(node: E.ENode, ctx: EvalCtx) -> tuple[Val, torch.Tensor]:
+    """An aggregation's input and the rows it aggregates: a filter narrows
+    the row mask, a slice keeps a window of each group's rows (in their
+    current order), and a node over such an input runs over its rows (a
+    sort within the group, say)."""
+    if not E.changes_length(node):
+        return eval_expr(node, ctx), ctx.rowmask
+    if isinstance(node, E.EFilter):
+        v, mask = _agg_input(node.input, ctx)
+        p = eval_expr(node.by, ctx)
+        if not isinstance(p.dtype, dt.Boolean):
+            raise InvalidOperationError(f"filter predicate must be Boolean, got {p.dtype!r}")
+        pv = p.values.to(torch.bool)
+        if p.validity is not None:
+            pv = pv & p.validity
+        return v, mask & pv
+    if isinstance(node, E.ESlice):
+        v, mask = _agg_input(node.input, ctx)
+        sub = _sub_ctx(ctx, mask, {})
+        o = P.group_order(sub)
+        pos = torch.arange(o.n, device=mask.device) - o.start
+        size = o.end - o.start + 1
+        first = (size + node.offset).clamp(min=0) if node.offset < 0 else torch.full_like(size, node.offset)
+        keep = pos >= first
+        if node.length is not None:
+            keep = keep & (pos < first + node.length)
+        return v, mask & o.to_rows(keep)
+    if isinstance(node, E.EGather):
+        raise NotImplementedError("gather within a group gives a List (port queue: item 4)")
+    kids = node.children()
+    pieces = [_agg_input(c, ctx) for c in kids]
+    masks = [m for _, m in pieces]
+    if any(m is not masks[0] for m in masks):
+        raise NotImplementedError("an aggregation over inputs that keep different rows is not ported")
+    sub = _sub_ctx(ctx, masks[0], {c: v for c, (v, _) in zip(kids, pieces)})
+    return eval_expr(node, sub), masks[0]
+
+
 def _eval_agg(node: E.EAgg, ctx: EvalCtx) -> Val:
     gctx, dom = group_of(ctx), _agg_domain(ctx)
-    gids, rowmask, cap = gctx.gids, ctx.rowmask, gctx.capacity
     kind = node.kind
-    if kind == "len":
+    if kind == "len" and not E.changes_length(node.input):
         return Val(G.group_counts(gctx, ctx.rowmask), None, dt.UInt32(), None, dom)
-    v = eval_expr(node.input, ctx)
+    v, rowmask = _agg_input(node.input, ctx)
+    if rowmask is not ctx.rowmask:  # a filter or slice: the groups' cached counts are the other mask's
+        gctx = dataclasses.replace(gctx, counts=None, sort_perm=None)
+    gids, cap = gctx.gids, gctx.capacity
+    if kind == "len":
+        return Val(G.seg_count(rowmask, gids, cap), None, dt.UInt32(), None, dom)
     reject_series(v)
     if v.domain == GROUP:
         raise InvalidOperationError("nested aggregations are not supported")
@@ -562,16 +797,17 @@ def _eval_agg(node: E.EAgg, ctx: EvalCtx) -> Val:
     if kind == "n_unique":
         out = G.seg_nunique(v, rowmask, gids, cap)
         return Val(wrap_unsigned(out, dt.UInt32()), None, dt.UInt32(), None, dom)
-    return _eval_stat_agg(node, ctx, v, data_mask)
+    return _eval_stat_agg(node, ctx, v, data_mask, gctx, rowmask)
 
 
-def _eval_stat_agg(node: E.EAgg, ctx: EvalCtx, v: Val, data_mask: torch.Tensor) -> Val:
+def _eval_stat_agg(node: E.EAgg, ctx: EvalCtx, v: Val, data_mask: torch.Tensor, gctx: GroupCtx,
+                   rowmask: torch.Tensor) -> Val:
     """The statistical aggregations (the JAX package's ``_eval_agg``, from
     ``null_count`` on): their sums and counts go through K1
     (``groupby.seg_sum``/``seg_count``); ``median`` and ``quantile`` sort by
     (group, value)."""
-    gctx, dom = group_of(ctx), _agg_domain(ctx)
-    gids, rowmask, cap = gctx.gids, ctx.rowmask, gctx.capacity
+    dom = _agg_domain(ctx)
+    gids, cap = gctx.gids, gctx.capacity
     kind = node.kind
     out_dt = _agg_out_dtype(node, v.dtype)
     if kind == "null_count":

@@ -29,7 +29,9 @@ from polars_tpu_torch.core.schema import Schema
 from polars_tpu_torch.engine import groupby as G
 from polars_tpu_torch.engine.cast import float_values, wrap_unsigned
 from polars_tpu_torch.engine.common import GROUP, ROW, SCALAR, EvalCtx, Val, reject_series
-from polars_tpu_torch.engine.compiler import _agg_domain, _agg_out_dtype, eval_expr, group_of, mean_values
+from polars_tpu_torch.engine.compiler import (
+    _agg_domain, _agg_out_dtype, align_pieces, eval_expr, eval_piece, group_of, mean_values,
+)
 from polars_tpu_torch.engine.join_traced import trace_join
 from polars_tpu_torch.engine.sort import apply_perm, sort_perm
 from polars_tpu_torch.engine.strings import concat_vals
@@ -277,26 +279,41 @@ def _trace_select(tt: TTable, expressions: tuple[E.ENode, ...], tc: _TraceCtx, *
     """select / with_columns. Aggregations reduce over one group of
     capacity 1 (``compiler.group_of``), their sums and counts batched into K1
     calls by :func:`_batch_aggs` as a group-by's are; a select of only
-    scalars is a one-row table."""
+    scalars is a one-row table.
+
+    A column of another length (a filter, slice or gather outside an
+    aggregation, ``compiler.eval_piece``) comes with the mask of the rows it
+    keeps: where every column keeps the same rows (a bare filter, say), that
+    mask is the table's, and K2 compacts it at the segment's end; columns
+    that keep different rows are lined up by rank (their counts must agree,
+    a check on the segment's count read)."""
     ctx = _eval_ctx(tt, tc)
     exprs = expand_exprs(expressions, tt.schema())
     if not all(E.is_elementwise(e) for e in exprs):
         ctx.precomputed = _batch_aggs(exprs, ctx)
-    results: list[tuple[str, Val]] = []
+    results: list[tuple[str, Val, torch.Tensor | None]] = []
     for e in exprs:
-        v = eval_expr(e, ctx)
-        reject_series(v)
+        if E.changes_length(e):
+            v, keep = eval_piece(e, ctx)
+        else:
+            v = eval_expr(e, ctx)
+            reject_series(v)
+            keep = None if v.domain == SCALAR else tt.rowmask
         if v.domain == GROUP:
             raise ShapeError("group-domain expression outside aggregation")
-        results.append((E.output_name(e) or "literal", v))
-    if not keep_input and results and all(v.domain == SCALAR for _, v in results):
+        results.append((E.output_name(e) or "literal", v, keep))
+    if not keep_input and results and all(keep is None for _, _, keep in results):
         one = torch.ones(1, dtype=torch.bool, device=tt.rowmask.device)
-        return TTable({name: _as_rows(v, 1) for name, v in results}, one)
-    cols = dict(tt.cols) if keep_input else {}
-    rows = tt.rowmask.shape[0]
-    for name, v in results:
-        cols[name] = _as_rows(v, rows)
-    return TTable(cols, tt.rowmask)
+        return TTable({name: _as_rows(v, 1) for name, v, _ in results}, one)
+    pieces = [(v, tt.rowmask) for v in tt.cols.values()] if keep_input else []
+    pieces += [(v, keep) for _, v, keep in results]
+    vals, mask = align_pieces(ctx, pieces)
+    mask = tt.rowmask if mask is None else mask
+    names = (list(tt.cols) if keep_input else []) + [name for name, _, _ in results]
+    cols: dict[str, Val] = {}
+    for name, v in zip(names, vals):
+        cols[name] = _as_rows(v, mask.shape[0])
+    return TTable(cols, mask)
 
 
 def _decode_dense_key(gctx, sizes: list[int], i: int) -> torch.Tensor:
@@ -423,7 +440,7 @@ def _batch_aggs(aggs, ctx: EvalCtx) -> dict:
     minmax: list = []
     seen: set = set()
     for a in aggs:
-        for sub in E.walk(a):
+        for sub in E.walk_outside_windows(a):
             if sub in seen:
                 continue
             if isinstance(sub, E.ELen):
@@ -433,6 +450,8 @@ def _batch_aggs(aggs, ctx: EvalCtx) -> dict:
             if not isinstance(sub, E.EAgg) or sub.kind not in ("sum", "mean", "count", "len", "min", "max"):
                 continue
             if sub.kind == "len":
+                if E.changes_length(sub.input):  # a filter or slice under it: compiler._eval_agg
+                    continue
                 seen.add(sub)
                 jobs.append((sub, "count", None, (count_slot(None),)))
                 continue
@@ -502,16 +521,17 @@ def _read_count(count: torch.Tensor, flags: list) -> int:
     turns the count negative with its index in the high word (the earliest
     raised flag wins). Each flag encodes the TRUE count: the JAX loop
     re-negates an already negated count, so two raised flags cancel there. A
-    flag with a message raises InvalidOperationError; a join's cardinality
-    flag (no message) raises ComputeError, as in the JAX package."""
+    flag with a message raises InvalidOperationError (or the error class
+    the flag names); a join's cardinality flag (no message) raises
+    ComputeError, as in the JAX package."""
     code = count
     for i in range(len(flags) - 1, -1, -1):
         code = torch.where(flags[i][0], -(count + 1 + (i << 32)), code)
     n = int(code)
     if n < 0:
-        msg = flags[(-n - 1) >> 32][1]
-        if msg is not None:
-            raise InvalidOperationError(msg)
+        flag = flags[(-n - 1) >> 32]
+        if flag[1] is not None:
+            raise (flag[2] if len(flag) > 2 else InvalidOperationError)(flag[1])
         raise ComputeError(
             "in-trace validation failed: join keys do not satisfy the declared m:1/1:1/1:m cardinality"
         )

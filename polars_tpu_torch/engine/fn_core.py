@@ -5,7 +5,9 @@ base, ``abs``, ``negate``, ``sign``, ``round``, ``floor``, ``ceil`` and
 ``is_nan``, ``is_not_nan``, ``is_finite``, ``is_infinite``, ``fill_null``
 with a value, ``fill_nan`` and ``coalesce``), ``is_in``, ``is_between`` and
 the temporal constructors ``make_date``, ``make_datetime`` and
-``make_duration``), registered in ``engine/registry.py``."""
+``make_duration``, and the distinct flags ``is_duplicated``, ``is_unique``,
+``is_first_distinct`` and ``is_last_distinct``), registered in
+``engine/registry.py``."""
 
 from __future__ import annotations
 
@@ -420,3 +422,37 @@ def _make_duration(ctx, args, opts):
     if out is None:
         out = torch.zeros(1, dtype=torch.int64, device=ctx.device)
     return Val(out, combine_validity(*[a.validity for a in args]), dt.Duration(tu), None, _parts_domain(args))
+
+
+# -- distinct flags -----------------------------------------------------------------------
+
+
+def _distinct_flags(ctx, v: Val, kind: str) -> Val:
+    """``is_duplicated``/``is_unique``/``is_first_distinct``/``is_last_distinct``
+    (the JAX package's ``_distinct_flags``, ``fn_core.py:340-381``): one
+    stable sort of each segment by (null, value) and a compare with the
+    neighbours. A null is one value; per group in a window or a group-by;
+    outside one, over the rows the mask keeps."""
+    from polars_tpu_torch.engine.fn_position import row_domain, sort_in_groups
+    from polars_tpu_torch.kernels.argsort import boundaries_from_words
+
+    v = row_domain(ctx, v)
+    o, perm2, words = sort_in_groups(ctx, [(v, False, False)])
+    n = o.n
+    same_prev = ~boundaries_from_words(words, perm2) if n else o.kept
+    same_next = torch.zeros_like(same_prev)
+    same_next[:-1] = same_prev[1:]
+    flag = {"is_first_distinct": ~same_prev, "is_last_distinct": ~same_next,
+            "is_duplicated": same_prev | same_next, "is_unique": ~(same_prev | same_next)}[kind]
+    out_g = torch.empty_like(flag).index_copy_(0, perm2, flag)
+    return Val(o.to_rows(out_g), None, dt.Boolean(), None, ROW)
+
+
+def _register_distinct(kind: str) -> None:
+    @register(kind, BOOL, elementwise=False)
+    def _(ctx, args, opts):
+        return _distinct_flags(ctx, args[0], kind)
+
+
+for _kind in ("is_duplicated", "is_unique", "is_first_distinct", "is_last_distinct"):
+    _register_distinct(_kind)

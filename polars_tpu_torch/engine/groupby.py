@@ -126,6 +126,7 @@ def sorted_group_ctx(keys: list[Val], rowmask: torch.Tensor) -> GroupCtx:
         num_groups=num_groups,
         capacity=n,
         group_valid=torch.arange(n, device=rowmask.device) < num_groups,
+        sort_perm=perm,
     )
 
 

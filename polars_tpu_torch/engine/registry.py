@@ -4,9 +4,10 @@ FunctionExpr catalog analogue, polars-plan/src/plans/aexpr/function_expr/mod.rs)
 Each opcode registers an implementation (run on :class:`Val` inputs) and a
 dtype rule (used by schema resolution without running anything). Every
 ``EFunction`` is typed and evaluated through this one table; namespaced ops
-use dotted names (``"str.starts_with"``). Every function registered so far
-is elementwise but the host functions of ``plan/exprs.HOST_FNS``, which
-stand for the JAX package's ``elementwise=False`` flag.
+use dotted names (``"str.starts_with"``). A function registered with
+``elementwise=False`` (the order and position functions of
+``engine/fn_position.py``, the distinct flags) reads other rows than its
+own: no predicate, slice or sort moves past it (``plan/exprs.is_elementwise``).
 """
 
 from __future__ import annotations
@@ -21,12 +22,14 @@ from polars_tpu_torch import datatypes as dt
 class FnSpec:
     impl: Callable  # (ctx, args: list[Val], opts: dict) -> Val
     dtype_rule: Callable  # (in_dtypes: list[DataType], opts: dict) -> DataType
+    elementwise: bool = True
 
 
 REGISTRY: dict[str, FnSpec] = {}
+ELEMENTWISE_FNS: set[str] = set()
 
 
-def register(name: str, dtype_rule: Any):
+def register(name: str, dtype_rule: Any, *, elementwise: bool = True):
     """Decorator: ``@register("is_in", BOOL)``; a DataType as the rule is a
     fixed output dtype."""
 
@@ -35,7 +38,9 @@ def register(name: str, dtype_rule: Any):
         if isinstance(dtype_rule, (dt.DataType, dt.DataTypeClass)):
             fixed = dt.parse_into_dtype(dtype_rule)
             rule = lambda dts, opts: fixed  # noqa: E731
-        REGISTRY[name] = FnSpec(fn, rule)
+        REGISTRY[name] = FnSpec(fn, rule, elementwise)
+        if elementwise:
+            ELEMENTWISE_FNS.add(name)
         return fn
 
     return deco
@@ -80,5 +85,6 @@ def _ensure_loaded() -> None:
         return
     _LOADED = True
     import polars_tpu_torch.engine.fn_core  # noqa: F401
+    import polars_tpu_torch.engine.fn_position  # noqa: F401
     import polars_tpu_torch.engine.fn_strings  # noqa: F401
     import polars_tpu_torch.engine.fn_temporal  # noqa: F401

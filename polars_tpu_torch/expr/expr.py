@@ -6,9 +6,11 @@ evaluate: arithmetic, comparison, boolean ``&``/``|``/``~``, casts, ``is_in``,
 ``.dt`` namespaces, aliasing, the unary and math functions, the ``name``
 namespace, ``exclude`` over a wildcard or selector, and the sum, mean, min,
 max, count, len, first, last, n_unique, null_count, std, var, median,
-quantile, product, any, all, arg_min and arg_max aggregations). Nothing
-executes until a plan is collected. The methods of later slices raise
-``NotImplementedError`` naming their queue item (``_LATER``).
+quantile, product, any, all, arg_min and arg_max aggregations, windows
+(``over``), the order and position functions and the expression-level
+sort, filter, slice and gather). Nothing executes until a plan is
+collected. The methods of later slices raise ``NotImplementedError`` naming
+their queue item (``_LATER``).
 """
 
 from __future__ import annotations
@@ -266,16 +268,24 @@ class Expr:
     def is_infinite(self) -> Expr:
         return self._fn("is_infinite")
 
-    def fill_null(self, value: Any = None, strategy: str | None = None) -> Expr:
+    def fill_null(self, value: Any = None, strategy: str | None = None, limit: int | None = None) -> Expr:
         """Nulls replaced by ``value`` (a literal or an expression; a plain
-        string is a literal). A ``strategy`` fills from neighbouring rows,
-        which needs the positional functions of a later slice."""
-        if strategy is not None:
-            raise NotImplementedError(
-                f"fill_null(strategy={strategy!r}) is not ported yet (port queue: expression breadth)")
-        if value is None:
+        string is a literal), or by ``strategy``: ``forward``/``backward``
+        (at most ``limit`` rows on), ``min``, ``max``, ``mean``, ``zero``,
+        ``one``."""
+        if value is not None and strategy is None:
+            return self._fn("fill_null", value)
+        if strategy is None:
             raise InvalidOperationError("must specify either a fill value or a strategy")
-        return self._fn("fill_null", value)
+        if strategy not in ("forward", "backward", "min", "max", "mean", "zero", "one"):
+            raise InvalidOperationError(f"unknown fill_null strategy {strategy!r}")
+        return self._fn("fill_null_with_strategy", strategy=strategy, limit=limit)
+
+    def drop_nulls(self) -> Expr:
+        return Expr(E.EFilter(self._node, E.EFunction("is_not_null", (self._node,))))
+
+    def drop_nans(self) -> Expr:
+        return Expr(E.EFilter(self._node, E.EFunction("is_not_nan", (self._node,))))
 
     def fill_nan(self, value: Any) -> Expr:
         return self._fn("fill_nan", value)
@@ -397,6 +407,164 @@ class Expr:
     def name(self) -> ExprNameNamespace:
         return ExprNameNamespace(self)
 
+    # -- distinct flags -------------------------------------------------------
+
+    def is_duplicated(self) -> Expr:
+        return self._fn("is_duplicated")
+
+    def is_unique(self) -> Expr:
+        return self._fn("is_unique")
+
+    def is_first_distinct(self) -> Expr:
+        return self._fn("is_first_distinct")
+
+    def is_last_distinct(self) -> Expr:
+        return self._fn("is_last_distinct")
+
+    def arg_unique(self) -> Expr:
+        """The positions of each value's first occurrence (a shorter column)."""
+        return Expr(E.EFilter(E.EFunction("row_position", (self._node,)), self.is_first_distinct()._node))
+
+    # -- positional -----------------------------------------------------------
+
+    def shift(self, n: int = 1, *, fill_value: Any = None) -> Expr:
+        if fill_value is None:
+            return self._fn("shift", n=n)
+        return self._fn("shift_fill", fill_value, n=n)
+
+    def diff(self, n: int = 1, null_behavior: str = "ignore") -> Expr:
+        out = self._fn("diff", n=n)
+        if null_behavior == "drop":  # without the first |n| undefined rows
+            return out.slice(n, None) if n >= 0 else out.slice(0, None)
+        return out
+
+    def pct_change(self, n: int = 1) -> Expr:
+        return self._fn("pct_change", n=n)
+
+    def cum_sum(self, *, reverse: bool = False) -> Expr:
+        return self._fn("cum_sum", reverse=reverse)
+
+    def cum_prod(self, *, reverse: bool = False) -> Expr:
+        return self._fn("cum_prod", reverse=reverse)
+
+    def cum_min(self, *, reverse: bool = False) -> Expr:
+        return self._fn("cum_min", reverse=reverse)
+
+    def cum_max(self, *, reverse: bool = False) -> Expr:
+        return self._fn("cum_max", reverse=reverse)
+
+    def cum_count(self, *, reverse: bool = False) -> Expr:
+        return self._fn("cum_count", reverse=reverse)
+
+    def forward_fill(self, limit: int | None = None) -> Expr:
+        return self._fn("forward_fill", limit=limit)
+
+    def backward_fill(self, limit: int | None = None) -> Expr:
+        return self._fn("backward_fill", limit=limit)
+
+    def interpolate(self, method: str = "linear") -> Expr:
+        if method not in ("linear", "nearest"):
+            raise InvalidOperationError(f"unknown interpolation method {method!r}")
+        return self._fn("interpolate", method=method)
+
+    def rank(self, method: str = "average", *, descending: bool = False, seed: int | None = None) -> Expr:
+        if method not in ("average", "min", "max", "dense", "ordinal", "random"):
+            raise InvalidOperationError(f"unknown rank method {method!r}")
+        return self._fn("rank", method=method, descending=descending, seed=seed)
+
+    def peak_min(self) -> Expr:
+        return self._fn("peak_min")
+
+    def peak_max(self) -> Expr:
+        return self._fn("peak_max")
+
+    def reverse(self) -> Expr:
+        return self._fn("reverse")
+
+    # -- sorting, slicing, gathering ------------------------------------------
+
+    def sort(self, *, descending: bool = False, nulls_last: bool = False) -> Expr:
+        return Expr(E.ESort(self._node, descending, nulls_last))
+
+    def arg_sort(self, *, descending: bool = False, nulls_last: bool = False) -> Expr:
+        return self._fn("arg_sort", descending=descending, nulls_last=nulls_last)
+
+    def sort_by(self, by: Any, *more_by: Any, descending: Any = False, nulls_last: Any = False) -> Expr:
+        by_nodes = tuple(parse_into_expr(b) for b in _flat((by, *more_by)))
+        k = len(by_nodes)
+        desc = tuple(descending) if isinstance(descending, (list, tuple)) else (descending,) * k
+        nl = tuple(nulls_last) if isinstance(nulls_last, (list, tuple)) else (nulls_last,) * k
+        if len(desc) != k or len(nl) != k:
+            raise InvalidOperationError("sort_by: descending and nulls_last need one value per key")
+        return Expr(E.ESortBy(self._node, by_nodes, tuple(map(bool, desc)), tuple(map(bool, nl))))
+
+    def top_k(self, k: int = 5) -> Expr:
+        return Expr(E.ESlice(E.ESort(self._node, True, True), 0, k))
+
+    def bottom_k(self, k: int = 5) -> Expr:
+        return Expr(E.ESlice(E.ESort(self._node, False, True), 0, k))
+
+    def max_by(self, by: Any) -> Expr:
+        return self.sort_by(by, descending=True).first()
+
+    def min_by(self, by: Any) -> Expr:
+        return self.sort_by(by).first()
+
+    def head(self, n: int = 10) -> Expr:
+        return Expr(E.ESlice(self._node, 0, n))
+
+    def tail(self, n: int = 10) -> Expr:
+        return Expr(E.ESlice(self._node, -n, None))
+
+    def slice(self, offset: int, length: int | None = None) -> Expr:
+        return Expr(E.ESlice(self._node, offset, length))
+
+    def gather(self, indices: Any) -> Expr:
+        return Expr(E.EGather(self._node, parse_into_expr(indices)))
+
+    def get(self, index: Any) -> Expr:
+        return Expr(E.EGather(self._node, parse_into_expr(index)))
+
+    def filter(self, *predicates: Any) -> Expr:
+        nodes = parse_into_expr_list(list(predicates))
+        if not nodes:
+            raise InvalidOperationError("filter() needs a predicate")
+        pred = nodes[0]
+        for p in nodes[1:]:
+            pred = E.EBinary(pred, "&", p)
+        return Expr(E.EFilter(self._node, pred))
+
+    # -- windows --------------------------------------------------------------
+
+    def over(self, partition_by: Any, *more_exprs: Any, order_by: Any = None, descending: Any = False,
+             mapping_strategy: str = "group_to_rows") -> Expr:
+        """The expression per group of ``partition_by`` (in ``order_by``
+        order within a group), mapped back to the rows: an aggregation is
+        broadcast to its group's rows, a positional function keeps its
+        rows. ``mapping_strategy="join"`` (a List per row) waits for nested
+        types; ``"explode"`` reorders the rows and is not ported."""
+        if mapping_strategy == "join":
+            raise NotImplementedError(
+                'over(mapping_strategy="join") gives a List per row (port queue: item 4, nested types)')
+        if mapping_strategy != "group_to_rows":
+            raise NotImplementedError(f"over(mapping_strategy={mapping_strategy!r}) is not ported")
+        parts = tuple(parse_into_expr(p) for p in _flat((partition_by, *more_exprs)))
+        order: tuple = ()
+        if order_by is not None:
+            order = tuple(parse_into_expr(o) for o in _flat((order_by,)))
+        desc = tuple(descending) if isinstance(descending, (list, tuple)) else (bool(descending),) * len(order)
+        return Expr(E.EWindow(self._node, parts, order, mapping_strategy, tuple(map(bool, desc))))
+
+
+def _flat(items: Any) -> list:
+    out: list = []
+    for it in items:
+        if isinstance(it, (list, tuple)):
+            out.extend(it)
+        else:
+            out.append(it)
+    return out
+
 
 def _unary(fname: str):
     def method(self: Expr) -> Expr:
@@ -455,11 +623,10 @@ _LATER = {
         "bitwise_count_zeros", "bitwise_leading_ones", "bitwise_leading_zeros", "bitwise_trailing_ones",
         "bitwise_trailing_zeros", "cut", "qcut", "rle_id", "search_sorted",
     ),
-    "2 (window, order and position)": (
-        "min_by", "max_by", "sort", "sort_by", "arg_sort", "reverse", "head", "tail", "slice", "gather",
-        "get", "filter", "over", "shift", "diff", "pct_change", "rank", "cum_sum", "cum_prod", "cum_min",
-        "cum_max", "cum_count", "forward_fill", "backward_fill", "interpolate", "is_duplicated", "is_unique",
-        "is_first_distinct", "is_last_distinct", "top_k", "bottom_k", "drop_nulls", "drop_nans",
+    "2b (rolling, ewm, cumulative_eval)": (
+        "rolling_sum", "rolling_mean", "rolling_min", "rolling_max", "rolling_std", "rolling_var",
+        "rolling_median", "rolling_quantile", "rolling_sum_by", "rolling_mean_by", "rolling_min_by",
+        "rolling_max_by", "ewm_mean", "ewm_std", "ewm_var", "interpolate_by", "cumulative_eval",
     ),
 }
 

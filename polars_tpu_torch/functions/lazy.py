@@ -349,6 +349,17 @@ def temporal_range_values(start: Any, end: Any, interval: str, closed: str) -> l
     return out
 
 
+def arg_sort_by(exprs: Any, *more_exprs: Any, descending: Any = False) -> Expr:
+    """The row positions that sort the frame by the keys (UInt32), nulls
+    first."""
+    from polars_tpu_torch.expr.expr import _flat, parse_into_expr_list
+
+    nodes = tuple(parse_into_expr_list(_flat((exprs, *more_exprs))))
+    k = builtins.len(nodes)
+    desc = tuple(descending) if isinstance(descending, (list, tuple)) else (descending,) * k
+    return Expr(E.EFunction("arg_sort_by", nodes, (("descending", tuple(map(bool, desc))),)))
+
+
 def _later(fname: str, item: str):
     def fn(*args: Any, **kwargs: Any):
         raise NotImplementedError(f"{fname} is not ported yet (port queue: item {item})")

@@ -461,3 +461,17 @@ class LazyGroupBy:
 
     def len(self, name: str = "len") -> LazyFrame:
         return self.agg(E.EAlias(E.ELen(), name))
+
+    def head(self, n: int = 5) -> LazyFrame:
+        """The first ``n`` rows of each group, in row order (a window's
+        running count over the keys)."""
+        return self._lf.filter(self._position(reverse=False) <= n)
+
+    def tail(self, n: int = 5) -> LazyFrame:
+        """The last ``n`` rows of each group, in row order."""
+        return self._lf.filter(self._position(reverse=True) <= n)
+
+    def _position(self, *, reverse: bool) -> Expr:
+        from polars_tpu_torch.functions.lazy import lit
+
+        return lit(True).cum_count(reverse=reverse).over([Expr(k) for k in self._keys])

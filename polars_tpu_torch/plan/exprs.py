@@ -1,6 +1,11 @@
 """Expression AST nodes (the port of ``polars_tpu/plan/exprs.py``, trimmed to
 the node kinds the ported queries evaluate).
 
+``ESort``, ``ESortBy``, ``EFilter``, ``ESlice``, ``EGather`` and ``EWindow``
+(``over``) read other rows than their own: none of them is elementwise
+(:func:`is_elementwise`). A filter, slice or gather outside an aggregation
+or a window changes the length of its column (:func:`changes_length`).
+
 The wildcards and selectors (``EColumns``, ``EDtypeColumns``,
 ``ESelector``) and the name wrappers (``EKeepName``, ``ERenameFn``) never
 reach the optimizer or the engine: an expression that holds one is expanded
@@ -192,6 +197,79 @@ class EFunction(ENode):
         return default
 
 
+@dataclass(frozen=True)
+class ESort(ENode):
+    input: ENode
+    descending: bool = False
+    nulls_last: bool = False
+
+    def children(self) -> tuple[ENode, ...]:
+        return (self.input,)
+
+
+@dataclass(frozen=True)
+class ESortBy(ENode):
+    input: ENode
+    by: tuple[ENode, ...]
+    descending: tuple[bool, ...]
+    nulls_last: tuple[bool, ...]
+
+    def children(self) -> tuple[ENode, ...]:
+        return (self.input, *self.by)
+
+
+@dataclass(frozen=True)
+class EFilter(ENode):
+    """``col(x).filter(cond)``: inside an aggregation it narrows the rows
+    the aggregation sees; in a select it shortens the column."""
+
+    input: ENode
+    by: ENode
+
+    def children(self) -> tuple[ENode, ...]:
+        return (self.input, self.by)
+
+
+@dataclass(frozen=True)
+class EWindow(ENode):
+    """``function.over(partition_by)`` (reference: Expr::Over,
+    polars-expr/src/expressions/window.rs): the function evaluated per
+    group of the partition keys (in ``order_by`` order), its result mapped
+    back to the rows."""
+
+    function: ENode
+    partition_by: tuple[ENode, ...]
+    order_by: tuple[ENode, ...] = ()
+    mapping_strategy: str = "group_to_rows"
+    order_descending: tuple[bool, ...] = ()
+
+    def children(self) -> tuple[ENode, ...]:
+        return (self.function, *self.partition_by, *self.order_by)
+
+
+@dataclass(frozen=True)
+class ESlice(ENode):
+    input: ENode
+    offset: int
+    length: int | None
+
+    def children(self) -> tuple[ENode, ...]:
+        return (self.input,)
+
+
+@dataclass(frozen=True)
+class EGather(ENode):
+    input: ENode
+    indices: ENode
+
+    def children(self) -> tuple[ENode, ...]:
+        return (self.input, self.indices)
+
+
+_ORDER_NODES = (ESort, ESortBy, EFilter, EWindow, ESlice, EGather)
+_RESIZING = (EFilter, ESlice, EGather)
+
+
 def walk(node: ENode):
     """Depth-first pre-order traversal."""
     yield node
@@ -243,9 +321,20 @@ def reduces_in_agg(node: ENode) -> bool:
         node = node.input
     if isinstance(node, (EAgg, ELen, ELiteral, ESeriesLit)):
         return True
+    if isinstance(node, EFunction) and not fn_elementwise(node.name):
+        return False
     if isinstance(node, (EBinary, ETernary, EFunction)):
         return all(reduces_in_agg(c) for c in node.children())
     return False
+
+
+def fn_elementwise(name: str) -> bool:
+    """True if the registered function ``name`` is elementwise (an unknown
+    name is not)."""
+    from polars_tpu_torch.engine.registry import ELEMENTWISE_FNS, _ensure_loaded
+
+    _ensure_loaded()
+    return name in ELEMENTWISE_FNS
 
 
 # functions that run on the host between segments (``engine/hostops.py``)
@@ -265,11 +354,38 @@ def needs_host(node: ENode) -> bool:
     return any(is_host_call(n) for n in walk(node))
 
 
-def is_elementwise(node: ENode) -> bool:
-    """True if the expr maps rows independently inside a segment: no
-    aggregation, and no host function (which runs between segments, so no
-    predicate moves past it, as the JAX package's ``elementwise=False``)."""
-    return not any(isinstance(n, (EAgg, ELen)) or is_host_call(n) for n in walk(node))
+def is_elementwise(node: ENode, *, host_ok: bool = False) -> bool:
+    """True if the expr maps rows independently inside a segment (the
+    reference's ``is_elementwise``, ``exprs.py:410-424``): no aggregation,
+    window, expression-level sort, filter, slice or gather, no function
+    registered with ``elementwise=False``, and no host function (which runs
+    between segments, so no predicate moves past it), unless ``host_ok``."""
+    for n in walk(node):
+        if isinstance(n, (EAgg, ELen, *_ORDER_NODES)) or (is_host_call(n) and not host_ok):
+            return False
+        if isinstance(n, EFunction) and not fn_elementwise(n.name):
+            return False
+    return True
+
+
+def changes_length(node: ENode) -> bool:
+    """True if the expression's column has another length than its input's:
+    a filter, slice or gather that no aggregation or window encloses."""
+    if isinstance(node, _RESIZING):
+        return True
+    if isinstance(node, (EAgg, EWindow)):
+        return False
+    return any(changes_length(c) for c in node.children())
+
+
+def walk_outside_windows(node: ENode):
+    """:func:`walk` that does not enter a window's function or keys (they
+    evaluate in the window's own groups)."""
+    yield node
+    if isinstance(node, EWindow):
+        return
+    for c in node.children():
+        yield from walk_outside_windows(c)
 
 
 def map_columns(node: ENode, fn) -> ENode:

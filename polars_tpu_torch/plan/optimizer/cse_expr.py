@@ -6,8 +6,10 @@ Within one evaluation context the compiler's memo already evaluates each
 structurally equal subtree once. What is left is an aggregate computed in a
 ``with_columns`` or ``select`` below a barrier (a sort) and repeated
 verbatim above it: this pass rewrites the later occurrence to a reference to
-the column that already holds it. Window expressions (``over``) join this
-pass with the expression-breadth slice.
+the column that already holds it. An aggregate or a window (``over``) is
+expensive enough (the JAX package's ``_expensive``); a window whose result
+depends on row order (``order_by``, or a function that is not elementwise
+inside it) is reused only where no sort lies between.
 
 Validity rules (conservative):
 - definitions come from ``with_columns``/``select`` outputs; the walk down
@@ -30,7 +32,15 @@ _MAX_DEPTH = 64
 
 
 def _expensive(e: E.ENode) -> bool:
-    return any(isinstance(s, E.EAgg) for s in E.walk(e))
+    return any(isinstance(s, (E.EAgg, E.EWindow)) for s in E.walk(e))
+
+
+def _order_sensitive_window(e: E.ENode) -> bool:
+    """A window whose values per row change when the rows are reordered."""
+    from polars_tpu_torch.plan.optimizer.order_observe import _expr_order_insensitive
+
+    return any(isinstance(s, E.EWindow) and (bool(s.order_by) or not _expr_order_insensitive(s.function))
+               for s in E.walk(e))
 
 
 def _reads(e: E.ENode) -> set[str]:
@@ -42,6 +52,7 @@ def _collect_defs(n: L.LNode) -> dict:
     at the output of ``n``."""
     defs: dict = {}
     shadow: set[str] = set()  # names (re)defined above the definition
+    below_sort = False  # a sort lies between the use and the definition
     cur = n
     for _ in range(_MAX_DEPTH):
         if isinstance(cur, (L.LWithColumns, L.LSelect)):
@@ -54,7 +65,8 @@ def _collect_defs(n: L.LNode) -> dict:
                 base = e
                 while isinstance(base, E.EAlias):
                     base = base.input
-                if _expensive(base) and name not in shadow and not (_reads(base) & shadow):
+                if _expensive(base) and name not in shadow and not (_reads(base) & shadow) and not (
+                        below_sort and _order_sensitive_window(base)):
                     defs.setdefault(base, name)
             shadow |= local_outs
             if isinstance(cur, L.LSelect):
@@ -62,6 +74,7 @@ def _collect_defs(n: L.LNode) -> dict:
             cur = cur.input
             continue
         if isinstance(cur, L.LSort):
+            below_sort = True
             cur = cur.input
             continue
         break

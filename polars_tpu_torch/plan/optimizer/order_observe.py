@@ -24,10 +24,14 @@ _PLAIN_NODES = (E.EColumn, E.ELiteral, E.EBinary, E.ECast, E.EAlias, E.ETernary)
 
 def _expr_order_insensitive(node: E.ENode) -> bool:
     """True if the expression gives the same multiset of values for any row
-    permutation of its input (every function the port registers is
-    elementwise, ``engine/registry.py``)."""
+    permutation of its input: plain nodes, elementwise functions and
+    order-agnostic aggregations. A position function (``cum_sum``,
+    ``shift``), a window or an expression-level sort keeps the sort below
+    it."""
     for n in E.walk(node):
-        if isinstance(n, (*_PLAIN_NODES, E.EFunction)):
+        if isinstance(n, _PLAIN_NODES):
+            continue
+        if isinstance(n, E.EFunction) and E.fn_elementwise(n.name):
             continue
         if isinstance(n, E.EAgg) and n.kind in _ORDER_AGNOSTIC_AGGS:
             continue

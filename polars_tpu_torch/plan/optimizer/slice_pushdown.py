@@ -1,8 +1,13 @@
 """Slice pushdown (the port of ``polars_tpu/plan/optimizer/slice_pushdown.py``;
 reference: plans/optimizer/slice_pushdown_lp.rs): ``sort(...).head(k)``
 becomes a top-k sort (``LSort.limit``), and a head moves below projections
-that keep the row count. The limit a file scan takes comes with the Parquet
-slice."""
+whose expressions are all elementwise, where Polars stops too: an
+aggregation, a window, a position function (``shift``, ``rank``,
+``cum_sum``) or an expression-level sort, filter or slice reads other rows
+than its own. (The JAX package's guard, ``_length_changing``, stops only at
+aggregations, slices, filters and sorts, so it moves a head below
+``rank()``, ``shift(-1)`` or a window: ROADMAP section 3.) The limit a file
+scan takes comes with the Parquet slice."""
 
 from __future__ import annotations
 
@@ -18,11 +23,8 @@ def push_slices(node: L.LNode) -> L.LNode:
         if isinstance(inner, L.LSort) and inner.limit is None:
             return push_slices(dataclasses.replace(inner, limit=node.length))
         if isinstance(inner, (L.LSelect, L.LWithColumns, L.LRename, L.LDrop)):
-            if not any(_length_changing(e) for e in inner.exprs()):
+            if all(E.is_elementwise(e, host_ok=True) for e in inner.exprs()):
                 return push_slices(L.rebuild(inner, (L.LSlice(inner.input, 0, node.length),)))
     new_inputs = tuple(push_slices(i) for i in node.inputs())
     return L.rebuild(node, new_inputs) if new_inputs else node
 
-
-def _length_changing(e: E.ENode) -> bool:
-    return any(isinstance(s, (E.EAgg, E.ELen)) for s in E.walk(e))

@@ -291,8 +291,17 @@ def _rebuild_expr(node: E.ENode, kids: tuple[E.ENode, ...]) -> E.ENode:
     """``node`` over the children ``kids`` (in ``children()`` order)."""
     if isinstance(node, E.EBinary):
         return dataclasses.replace(node, left=kids[0], right=kids[1])
-    if isinstance(node, (E.ECast, E.EAlias, E.EAgg, E.EKeepName, E.ERenameFn)):
+    if isinstance(node, (E.ECast, E.EAlias, E.EAgg, E.EKeepName, E.ERenameFn, E.ESort, E.ESlice)):
         return dataclasses.replace(node, input=kids[0])
+    if isinstance(node, E.ESortBy):
+        return dataclasses.replace(node, input=kids[0], by=kids[1:])
+    if isinstance(node, E.EFilter):
+        return dataclasses.replace(node, input=kids[0], by=kids[1])
+    if isinstance(node, E.EGather):
+        return dataclasses.replace(node, input=kids[0], indices=kids[1])
+    if isinstance(node, E.EWindow):
+        np_ = len(node.partition_by)
+        return dataclasses.replace(node, function=kids[0], partition_by=kids[1:1 + np_], order_by=kids[1 + np_:])
     if isinstance(node, E.ESelector):
         return node
     if isinstance(node, E.ETernary):
@@ -343,6 +352,10 @@ def expr_dtype(node: E.ENode, schema: Schema) -> dt.DataType:
         in_dts = [expr_dtype(i, schema) for i in node.inputs]
         in_dts = adapt_dyn_literal_dtypes(node.inputs, in_dts)
         return get_spec(node.name).dtype_rule(in_dts, dict(node.options))
+    if isinstance(node, (E.ESort, E.ESortBy, E.EFilter, E.ESlice, E.EGather)):
+        return expr_dtype(node.input, schema)
+    if isinstance(node, E.EWindow):
+        return expr_dtype(node.function, schema)
     raise InvalidOperationError(f"cannot resolve dtype of {type(node).__name__}")
 
 

@@ -27,7 +27,17 @@ with ``testing/profile_query.py``:
   order timestamps parsed at ingest (``o_orderts``, ``"%Y-%m-%d %H:%M"``
   from ``o_orderdate`` and an hour from the seed, one row in 1,000
   ``"N/A"``), localized in New York, coalesced with the order date's
-  midnight, then summed by local year and month.
+  midnight, then summed by local year and month;
+- ``window``: windows and position functions. ``window.cust``: PDS-H
+  orders from 1993 (a row mask), each customer's running spend and days
+  since the previous order in date order, the dense rank of each order's
+  price within the customer and its share of the customer's total, then the
+  top three orders of each customer; ``window.line``: lineitem rows with a
+  discount of 5% or more (a row mask that keeps about half), the previous
+  row's price, the quantity's change, the last returned line's price
+  carried forward, each line's price rank within its order, the running
+  quantity of the order in line-number order and each supplier's first
+  line.
 """
 
 from __future__ import annotations
@@ -450,3 +460,149 @@ def stats_oracle(line: dict, scale: float) -> dict:
     casts["key_i32"] = int(np.int64(casts["key_i32"]).astype(np.int32))
     nulls = {"price_i32": 0, "qty_i8": 0, "key_i32": int((~fits).sum()), "line_i64": 0, "disc_pct": 0, "net": 0}
     return {"flags": flags, "supp": supp_out, "casts": casts, "cast_nulls": nulls}
+
+
+# -- window phase ---------------------------------------------------------------------------
+
+WINDOW_CUST_COLUMNS = ["o_orderkey", "o_custkey", "o_totalprice", "o_orderdate"]
+WINDOW_LINE_COLUMNS = ["l_orderkey", "l_linenumber", "l_suppkey", "l_quantity", "l_extendedprice", "l_discount",
+                       "l_returnflag"]
+WINDOW_CUST_SINCE = dtm.date(1993, 1, 1)
+WINDOW_LINE_DISCOUNT = 0.05
+
+
+def window_plans(pl, orders, line) -> dict:
+    """The window phase's plans over frames of ``WINDOW_CUST_COLUMNS`` and
+    ``WINDOW_LINE_COLUMNS`` (either may be None)."""
+    c = pl.col
+    plans = {}
+    if orders is not None:
+        plans["cust"] = (
+            orders.lazy()
+            .filter(c("o_orderdate") >= WINDOW_CUST_SINCE)
+            .with_columns(spend=c("o_totalprice").cum_sum().over("o_custkey", order_by="o_orderdate"),
+                          gap=c("o_orderdate").diff().over("o_custkey", order_by="o_orderdate"),
+                          rank=c("o_totalprice").rank("dense", descending=True).over("o_custkey"),
+                          share=c("o_totalprice") / c("o_totalprice").sum().over("o_custkey"))
+            .filter(c("rank") <= 3))
+    if line is not None:
+        plans["line"] = (
+            line.lazy()
+            .filter(c("l_discount") >= WINDOW_LINE_DISCOUNT)
+            .select(prev_price=c("l_extendedprice").shift(1),
+                    dqty=c("l_quantity").diff(),
+                    last_r=pl.when(c("l_returnflag") == "R").then(c("l_extendedprice")).forward_fill(),
+                    pos=c("l_extendedprice").rank("ordinal").over("l_orderkey"),
+                    run_qty=c("l_quantity").cum_sum().over("l_orderkey", order_by="l_linenumber"),
+                    first_supp=c("l_suppkey").is_first_distinct()))
+    return plans
+
+
+def _segments(keys: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """For rows sorted by ``keys``: (each row's segment start, each row's
+    position in its segment)."""
+    n = len(keys)
+    first = np.ones(n, bool)
+    first[1:] = keys[1:] != keys[:-1]
+    start = np.maximum.accumulate(np.where(first, np.arange(n), 0)) if n else np.zeros(0, np.int64)
+    return start, np.arange(n) - start
+
+
+def _segmented_cumsum(x: np.ndarray, start: np.ndarray, pos: np.ndarray) -> np.ndarray:
+    """Running sums that restart at each segment, by doubling steps up to
+    the longest segment (no sum crosses a segment, so no large total is
+    subtracted)."""
+    out = x.astype(np.float64).copy()
+    step = 1
+    longest = int(pos.max()) + 1 if len(pos) else 0
+    while step < longest:
+        add = np.zeros_like(out)
+        add[step:] = np.where(pos[step:] >= step, out[:-step], 0.0)
+        out, step = out + add, step * 2
+    return out
+
+
+def window_oracle(orders: dict | None, line: dict | None) -> dict:
+    """The window phase in numpy: each output column as (values in its
+    storage type, validity or None). Orders within a group follow a stable
+    sort, as the engine's ties do."""
+    out = {}
+    if orders is not None:
+        days = orders["o_orderdate"].astype("datetime64[D]").astype(np.int64)
+        m = days >= (WINDOW_CUST_SINCE - EPOCH).days
+        cust, price, days, okey = orders["o_custkey"][m], orders["o_totalprice"][m], days[m], orders["o_orderkey"][m]
+        n = len(cust)
+        by_date = np.lexsort((days, cust))
+        start, pos = _segments(cust[by_date])
+        spend = np.empty(n)
+        spend[by_date] = _segmented_cumsum(price[by_date], start, pos)
+        gap = np.zeros(n, np.int64)
+        gap_ok = np.zeros(n, bool)
+        prev = np.concatenate([[0], days[by_date][:-1]])
+        gap[by_date] = (days[by_date] - prev) * DAY_US
+        gap_ok[by_date] = pos > 0
+        by_price = np.lexsort((-price, cust))
+        sp, sc = price[by_price], cust[by_price]
+        newval = np.ones(n, bool)
+        newval[1:] = (sp[1:] != sp[:-1]) | (sc[1:] != sc[:-1])
+        dense = np.cumsum(newval)
+        gstart, _ = _segments(sc)
+        rank = np.empty(n, np.int64)
+        rank[by_price] = dense - dense[gstart] + 1 if n else dense
+        ids, inv = np.unique(cust, return_inverse=True)
+        share = price / np.bincount(inv.reshape(-1), weights=price, minlength=len(ids))[inv.reshape(-1)]
+        keep = rank <= 3
+        out["cust"] = {"o_orderkey": (okey[keep], None), "o_custkey": (cust[keep], None),
+                       "o_totalprice": (price[keep], None), "o_orderdate": (days[keep], None),
+                       "spend": (spend[keep], None), "gap": (gap[keep], gap_ok[keep]), "rank": (rank[keep], None),
+                       "share": (share[keep], None)}
+    if line is not None:
+        m = line["l_discount"] >= WINDOW_LINE_DISCOUNT
+        okey, lnum, supp = line["l_orderkey"][m], line["l_linenumber"][m], line["l_suppkey"][m]
+        qty, price, flag = line["l_quantity"][m], line["l_extendedprice"][m], line["l_returnflag"][m]
+        n = len(okey)
+        first = np.arange(n) > 0
+        prev_price = np.concatenate([[0.0], price[:-1]])
+        dqty = qty - np.concatenate([[0.0], qty[:-1]])
+        is_r = flag == "R"
+        src = np.maximum.accumulate(np.where(is_r, np.arange(n), -1)) if n else np.zeros(0, np.int64)
+        by_price = np.lexsort((price, okey))
+        _, ppos = _segments(okey[by_price])
+        pos = np.empty(n, np.int64)
+        pos[by_price] = ppos + 1
+        by_line = np.lexsort((lnum, okey))
+        lstart, lpos = _segments(okey[by_line])
+        run = np.empty(n)
+        run[by_line] = _segmented_cumsum(qty[by_line], lstart, lpos)
+        _, first_at = np.unique(supp, return_index=True)
+        first_supp = np.zeros(n, bool)
+        first_supp[first_at] = True
+        out["line"] = {"prev_price": (prev_price, first), "dqty": (dqty, first),
+                       "last_r": (price[np.maximum(src, 0)], src >= 0), "pos": (pos, None),
+                       "run_qty": (run, None), "first_supp": (first_supp, None)}
+    return out
+
+
+def check_window(out, want: dict, label: str) -> float:
+    """A window result frame against ``window_oracle``'s columns, row for
+    row in storage: integers, dates, durations, flags and null masks
+    exactly, floats to rtol 1e-9. Returns the largest relative float
+    error."""
+    worst = 0.0
+    for name, (values, valid) in want.items():
+        if out.height != len(values):
+            raise AssertionError(f"{label}: {out.height} rows, want {len(values)}")
+        buf = out._get(name).buffer
+        got = buf.values.cpu().numpy()
+        got_valid = np.ones(len(got), bool) if buf.validity is None else buf.validity.cpu().numpy()
+        want_valid = np.ones(len(values), bool) if valid is None else valid
+        if not np.array_equal(got_valid, want_valid):
+            raise AssertionError(f"{label} {name}: nulls differ from the oracle's")
+        g, w = got[want_valid], np.asarray(values)[want_valid]
+        if w.dtype.kind == "f":
+            np.testing.assert_allclose(g, w, rtol=1e-9, atol=0, err_msg=f"{label} {name}")
+            if len(w):
+                worst = max(worst, float(np.max(np.abs(g - w) / np.maximum(np.abs(w), 1e-300))))
+        elif not np.array_equal(g.astype(np.int64), w.astype(np.int64)):
+            raise AssertionError(f"{label} {name}: {g[:5]} != {w[:5]}")
+    return worst

@@ -1,8 +1,9 @@
 """Where a PDS-H query's time goes on the card (any of the 22, q1 to q22,
 with ``pdsh.run_params``), or one of ``chip_smoke.py``'s phases
 ``temporal``, ``asof`` (its backward join), ``range``, ``tz.ship``,
-``tz.orders``, ``stats.flags``, ``stats.supp`` and ``stats.casts``
-(``testing/phases.py``; ``stats.flags`` through its lazy plan).
+``tz.orders``, ``stats.flags``, ``stats.supp``, ``stats.casts``,
+``window.cust`` and ``window.line`` (``testing/phases.py``; ``stats.flags``
+through its lazy plan).
 
 Builds the SF10 frames of the columns the query reads
 (``pdsh.QUERY_COLUMNS``), as ``chip_smoke.py`` does, warms the
@@ -27,7 +28,7 @@ optimized plan, or with ``--no-optimization`` the plan as written
 
 Run from the repository root on a machine with a CUDA device:
     python3 -m polars_tpu_torch.testing.profile_query [--query q3 [q5 ... temporal asof range tz.ship tz.orders
-        stats.flags stats.supp stats.casts]]
+        stats.flags stats.supp stats.casts window.cust window.line]]
         [--scale 10] [--runs 5]
         [--no-optimization]
 """
@@ -81,7 +82,7 @@ def timed_sorts(torch, run, no_optimization: bool = False) -> list[dict]:
                         "ms": start.elapsed_time(end)})
         return perm
 
-    mods = (groupby, join, join_traced, sort)
+    mods = (groupby, join, join_traced, sort, argsort)  # fn_position calls argsort.stable_argsort_words
     for m in mods:
         m.stable_argsort_words = timed
     try:
@@ -148,7 +149,8 @@ def profile_query(torch, query: str, run, rows: dict, scale: float, runs: int, t
     print(json.dumps({"profile": query, "sorts": timed_sorts(torch, run, no_optimization)}), flush=True)
 
 
-PHASES = ("temporal", "asof", "range", "tz.ship", "tz.orders", "stats.flags", "stats.supp", "stats.casts")
+PHASES = ("temporal", "asof", "range", "tz.ship", "tz.orders", "stats.flags", "stats.supp", "stats.casts",
+          "window.cust", "window.line")
 
 
 def main() -> int:
@@ -176,7 +178,8 @@ def main() -> int:
     own = {"temporal": {"lineitem": P.TEMPORAL_COLUMNS}, "range": {"orders": ["o_orderdate", "o_totalprice"]},
            "asof": {}, "tz.ship": {"lineitem": ["l_shipdate", "l_quantity"]},
            "tz.orders": {"orders": ["o_orderdate", "o_totalprice"]},
-           **{f"stats.{part}": {"lineitem": P.STATS_COLUMNS} for part in ("flags", "supp", "casts")}}
+           **{f"stats.{part}": {"lineitem": P.STATS_COLUMNS} for part in ("flags", "supp", "casts")},
+           "window.cust": {"orders": P.WINDOW_CUST_COLUMNS}, "window.line": {"lineitem": P.WINDOW_LINE_COLUMNS}}
     need: dict[str, dict] = {}  # table -> the columns any chosen query reads
     for q in args.query:
         for t, cs in (own[q] if q in own else QUERY_COLUMNS[q]).items():
@@ -204,6 +207,12 @@ def main() -> int:
             line = tables["lineitem"]
             run = lambda q=q: P.stats_plans(pl, line, args.scale)[q.split(".")[1]]  # noqa: E731
             rows = {"lineitem": line.height}
+        elif q == "window.cust":
+            orders = tables["orders"]
+            run, rows = (lambda: P.window_plans(pl, orders, None)["cust"]), {"orders": orders.height}
+        elif q == "window.line":
+            line = tables["lineitem"]
+            run, rows = (lambda: P.window_plans(pl, None, line)["line"]), {"lineitem": line.height}
         elif q == "range":
             orders, windows = tables["orders"], pl.DataFrame(P.range_windows(), device="cuda")
             run, rows = (lambda: P.range_plan(pl, windows, orders)), {"orders": orders.height, "windows": 12}

@@ -374,6 +374,42 @@ def test_optimizer_cases_rewrite_as_the_reference_tests_say(cases):
                for e in n.exprs() for s in E.walk(e)) == 2
     _check_literals_of_equal_value_keep_their_types()
     _check_identities_keep_dtypes()
+    _check_positional_blocks_pushdown()
+
+
+def _check_positional_blocks_pushdown():
+    """A head, a filter and the removal of a sort stop at a position
+    function or a window (``shift(-1)``, ``rank()``, ``rank().over(g)``,
+    ``cum_sum()``): optimized equals as written equals Polars' values. The
+    reference's slice pushdown (``slice_pushdown.py:25-33``,
+    ``_length_changing``) moves the head below them, so its optimized plan
+    ranks and shifts the first two rows alone (ROADMAP section 3)."""
+    data = {"a": [5, 1, 4, 2, 3], "g": [1, 1, 2, 2, 1]}
+
+    def positional(pl):
+        c = pl.col
+        return pl.DataFrame(data).lazy().with_columns(r=c("a").rank(), lead=c("a").shift(-1),
+                                                      rg=c("a").rank().over("g"), cs=c("a").cum_sum())
+
+    lt = positional(plt)
+    want = {"head": {"r": [5.0, 1.0], "lead": [1, 4], "rg": [3.0, 1.0], "cs": [5, 6]},
+            "filter": {"r": [5.0, 4.0, 3.0], "lead": [1, 2, None], "rg": [3.0, 2.0, 2.0], "cs": [5, 10, 15]}}
+    plans = {"head": lt.head(2), "filter": lt.filter(plt.col("a") > 2)}
+    for name, plan in plans.items():
+        for label, out in (("optimized", plan.collect()), ("as written", plan.collect(no_optimization=True))):
+            got = out.select("r", "lead", "rg", "cs").to_dict(as_series=False)
+            assert got == want[name], (name, label, got)
+    assert isinstance(optimize(plans["head"]._node), L.LSlice)
+    assert isinstance(optimize(plans["filter"]._node), L.LFilter)
+    # the reference's optimized head: ranks and the lead of the first two rows alone
+    ref = positional(plj).head(2).collect().to_dict(as_series=False)
+    assert (ref["r"], ref["lead"], ref["rg"]) == ([2.0, 1.0], [1, None], [2.0, 1.0])
+    # a sort under cum_sum is observed: the group-by's maxima need it
+    q = plt.DataFrame(data).lazy().sort("a").with_columns(cs=plt.col("a").cum_sum()).group_by("g").agg(
+        plt.col("cs").max()).sort("g")
+    assert sum(isinstance(n, L.LSort) for n in _nodes(optimize(q._node))) == 2
+    for out in (q.collect(), q.collect(no_optimization=True)):
+        assert out.to_dict(as_series=False) == {"g": [1, 2], "cs": [15, 10]}
 
 
 def _check_identities_keep_dtypes():

@@ -504,9 +504,9 @@ def test_columns_from_numpy_and_python():
 def _check_time_zones_name_their_queue_item():
     """Aware values now build, round-trip and format: a column of aware
     datetimes, an aware literal, the tz functions, ``to_string`` and a cast
-    to an aware Datetime. What still raises names its queue item:
-    ``fill_null(strategy=)`` and the JAX package's other host functions;
-    ``drop_nulls()`` without a subset now runs."""
+    to an aware Datetime. What still raises names its queue item: the JAX
+    package's other host functions; ``drop_nulls()`` without a subset and
+    ``fill_null(strategy=)`` (item 2) now run."""
     from polars_tpu_torch.plan import exprs as E
 
     aware = dtm.datetime(2024, 1, 1, tzinfo=dtm.timezone.utc)
@@ -525,10 +525,10 @@ def _check_time_zones_name_their_queue_item():
         "utc": [dtm.datetime(2023, 12, 31, 23, tzinfo=ZoneInfo("UTC"))], "base": [dtm.timedelta(hours=1)],
         "dst": [dtm.timedelta(0)], "year": ["2024"], "f": ["2024"], "cast": [aware]}
     assert df.lazy().drop_nulls().collect().height == 1
-    calls = [
-        lambda: df.lazy().select(plt.col("t").fill_null(strategy="forward")).collect(),
-    ] + [lambda name=name: df.lazy().select(plt.Expr(E.EFunction(name, (E.EColumn("s"),), ()))).collect()
-         for name in ("concat_str", "cat.get_categories", "list.join")]
+    assert df.lazy().select(plt.col("t").fill_null(strategy="forward")).collect()["t"].to_list() == [
+        dtm.datetime(2024, 1, 1)]
+    calls = [lambda name=name: df.lazy().select(plt.Expr(E.EFunction(name, (E.EColumn("s"),), ()))).collect()
+             for name in ("concat_str", "cat.get_categories", "list.join")]
     for call in calls:
         with pytest.raises(NotImplementedError, match="port queue: expression breadth"):
             call()
