@@ -55,6 +55,23 @@ Phases, each printed as one JSON line:
                 2,000 tickers, 09:30-16:00): join_asof by ticker, backward
                 with tolerance "1s", then per ticker sums, a mean and
                 counts; one more collect with strategy "nearest";
+ 12b. rolling — rolling, exponentially weighted and dynamic windows over
+                the same TAQ day (made once for both phases), three lines:
+                rolling.quotes: per ticker the mid's mean and standard
+                deviation over the last 5 minutes (rolling_*_by(...)
+                .over("ticker")), its maximum over the last minute, its EWM
+                (half life 50 quotes) and the spread's mean over the last
+                20 quotes, 60M rows out; rolling.bars: one-minute bars per
+                ticker by group_by_dynamic (open, high, low, close of the
+                mid, the mean spread, the quotes; about 780,000 rows, K1
+                and K2); rolling.trades: five-minute windows every minute
+                per ticker by group_by_dynamic (the five shifted copies of
+                the 15M trades filtered in one concat, K1 and K2) and
+                LazyFrame.rolling over each trade's last minute. Each
+                against testing/phases.rolling_oracle (tickers, times,
+                counts and integer sums exactly, floats to rtol 1e-9; each
+                window summed in long double per ticker, the EWM by
+                scipy.signal.lfilter);
  13. range    — twelve monthly windows of 1995 join_where SF10 orders on
                 two date inequalities (about 90M range pairs, 2.3M kept by
                 K2), then a sum and a count per window;
@@ -136,7 +153,8 @@ then the kernels line, the card's name and power limit, and the final line
 {"ok": true, "device": {...}}. Any failure exits non-zero before that line.
 
 Run from the repository root:
-    python3 chip_smoke.py [--scale 10] [--seed 42] [--only q1 filter q3 q4 ... q22 joins temporal asof range frameops tz stats window]
+    python3 chip_smoke.py [--scale 10] [--seed 42] [--only q1 filter q3 q4 ... q22 joins temporal asof rolling range
+        frameops tz stats window]
 (``--only`` runs the build and kernel phases and the named query phases, for
 an A/B of a few queries against a parent tree). It needs a CUDA device and
 nvcc; it never imports JAX or polars_tpu.
@@ -175,8 +193,8 @@ def day(y: int, m: int, d: int) -> int:
 Q3_DAYS = day(1995, 3, 15)
 Q4_FROM, Q4_TO = day(1993, 7, 1), day(1993, 10, 1)
 PHASES = ["q1", "filter", "q3", "q4", "q5", "q6", "q10", "q12", "q14", "q18", "q19", "q11", "q15", "q17", "q20",
-          "q2", "q7", "q8", "q9", "q13", "q16", "q21", "q22", "joins", "temporal", "asof", "range", "frameops", "tz",
-          "stats", "window"]
+          "q2", "q7", "q8", "q9", "q13", "q16", "q21", "q22", "joins", "temporal", "asof", "rolling", "range",
+          "frameops", "tz", "stats", "window"]
 # the columns the phases outside PDS-H read of each table (asof makes its own)
 PHASE_COLUMNS = {
     "joins": {"customer": ["c_custkey", "c_mktsegment"], "orders": ["o_orderkey", "o_custkey", "o_orderdate"],
@@ -186,6 +204,7 @@ PHASE_COLUMNS = {
     "temporal": {"lineitem": ["l_shipdate", "l_commitdate", "l_receiptdate", "l_shipts"]},
     "range": {"orders": ["o_orderdate", "o_totalprice"]},
     "asof": {},
+    "rolling": {},
     "frameops": {"lineitem": ["l_orderkey", "l_linenumber", "l_shipdate", "l_returnflag", "l_linestatus",
                               "l_quantity", "l_extendedprice"]},  # testing/phases.FRAMEOPS_COLUMNS
     "tz": {"lineitem": ["l_shipts", "l_quantity"], "orders": ["o_orderdate", "o_totalprice", "o_orderts"]},
@@ -1799,17 +1818,28 @@ def asof_oracle(data: dict, strategy: str, tolerance_us: int | None) -> dict:
             "matched_trades": int(ok.sum())}
 
 
-def phase_asof(torch, pl, scale: float, seed: int, dev) -> dict:
+def taq_day(torch, pl, scale: float, seed: int, dev, taq: dict) -> float:
+    """The TAQ day of ``asof`` and ``rolling`` (``testing/phases.asof_data``)
+    in ``taq``, host data and frames, made once for both; the seconds it
+    took (0 when made before)."""
+    if taq:
+        return 0.0
+    P = _phases()
+    t0 = time.perf_counter()
+    taq["data"] = P.asof_data(scale, seed)
+    taq["frames"] = P.asof_frames(pl, taq["data"], dev)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def phase_asof(torch, pl, scale: float, seed: int, dev, taq: dict) -> dict:
     """``trades.join_asof(quotes, on="ts", by="ticker", strategy="backward",
     tolerance="1s")`` over one trading day, then per ticker the notional,
     the mean mid of the matched quotes, the matches and the trades; and one
     collect with ``strategy="nearest"`` and no tolerance, held the same way."""
     P = _phases()
-    t0 = time.perf_counter()
-    data = P.asof_data(scale, seed)
-    frames = P.asof_frames(pl, data, dev)
-    torch.cuda.synchronize()
-    t_build = time.perf_counter() - t0
+    t_build = taq_day(torch, pl, scale, seed, dev, taq)
+    data, frames = taq["data"], taq["frames"]
     r = run_phase(torch, "asof", lambda: P.asof_plan(pl, frames, "backward", "1s"))
     out = r["out"]
     schema = [(c, repr(d)) for c, d in out.schema.items()]
@@ -1836,6 +1866,70 @@ def phase_asof(torch, pl, scale: float, seed: int, dev) -> dict:
                         matched_share=want["matched_trades"] / frames["trades"].height,
                         nearest={"wall_s": t_near, "matched_trades": want_near["matched_trades"],
                                  "result_rows": near.height})
+
+
+def check_taq_columns(out, want: dict, names: np.ndarray, label: str, floats=()) -> float:
+    """A result of the rolling phase against ``testing/phases.rolling_oracle``,
+    row for row: tickers (by name), timestamps, counts and integer sums
+    exactly, ``floats`` to rtol 1e-9."""
+    if "ticker" in want:
+        col = out._get("ticker")
+        got = np.asarray(col.table.values, object)[col.buffer.values.cpu().numpy()]
+        if out.height != len(want["ticker"]) or not np.array_equal(got, names[want["ticker"]]):
+            raise AssertionError(f"{label}: the tickers differ from the oracle's")
+    rest = {k: v for k, v in want.items() if k != "ticker"}
+    return check_columns(out, rest, exact=tuple(k for k in rest if k not in floats), floats=floats, label=label)
+
+
+def phase_rolling(torch, pl, scale: float, seed: int, dev, taq: dict) -> dict:
+    """Rolling, exponentially weighted and dynamic windows over the TAQ day
+    of ``asof`` (60M quotes, 15M trades, 2,000 tickers at SF10), three
+    lines, each through its main path against
+    ``testing/phases.rolling_oracle``: ``rolling.quotes`` (time windows per
+    ticker, an EWM and a 20-quote mean: no K1), ``rolling.bars`` (one-minute
+    bars by ``group_by_dynamic``: K1 in the group-by, K2 at its end) and
+    ``rolling.trades`` (five-minute windows every minute by
+    ``group_by_dynamic``, five filtered copies of the trades in one concat:
+    K1 and K2; and ``LazyFrame.rolling`` over each trade's last minute)."""
+    P = _phases()
+    t_build = taq_day(torch, pl, scale, seed, dev, taq)
+    data, frames = taq["data"], taq["frames"]
+    t0 = time.perf_counter()
+    want = P.rolling_oracle(data)
+    oracle_s = time.perf_counter() - t0
+    names = data["names"]
+    rows = {"quotes": frames["quotes"].height}
+    results = {}
+
+    r = run_phase(torch, "rolling.quotes", lambda: P.rolling_plans(pl, frames)["quotes"], need=())
+    out = r["out"]
+    _check_schema(out, [(c, "Float64") for c in ("mean_5m", "std_5m", "max_1m", "ewm", "spread_20")],
+                  "rolling.quotes")
+    worst = P.check_window(out, want["quotes"], "rolling.quotes")
+    results["quotes"] = phase_result("rolling.quotes", r, out, rows, worst, build_s=t_build, oracle_s=oracle_s)
+
+    r = run_phase(torch, "rolling.bars", lambda: P.rolling_plans(pl, frames)["bars"])
+    out = r["out"]
+    _check_schema(out, [("ticker", "String"), ("ts", "Datetime(time_unit='us', time_zone=None)"),
+                        *((c, "Float64") for c in ("open", "high", "low", "close", "spread")), ("n", "UInt32")],
+                  "rolling.bars")
+    worst = check_taq_columns(out, want["bars"], names, "rolling.bars",
+                              floats=("open", "high", "low", "close", "spread"))
+    results["bars"] = phase_result("rolling.bars", r, out, rows, worst)
+
+    r = run_phase(torch, "rolling.trades", lambda: P.rolling_plans(pl, frames)["trades"])
+    windows, per_trade = r["out"]
+    _check_schema(windows, [("ticker", "String"), ("ts", "Datetime(time_unit='us', time_zone=None)"),
+                            ("qty", "Int64"), ("notional", "Float64"), ("n", "UInt32")], "rolling.trades windows")
+    _check_schema(per_trade, [("ts", "Datetime(time_unit='us', time_zone=None)"), ("ticker", "String"),
+                              ("qty_1m", "Int64"), ("px_1m", "Float64"), ("px_max_1m", "Float64")],
+                  "rolling.trades per trade")
+    worst = max(check_taq_columns(windows, want["windows"], names, "rolling.trades windows", floats=("notional",)),
+                check_taq_columns(per_trade, want["per_trade"], names, "rolling.trades per trade",
+                                  floats=("px_1m", "px_max_1m")))
+    results["trades"] = phase_result("rolling.trades", r, windows, {"trades": frames["trades"].height}, worst,
+                                     per_trade_rows=per_trade.height)
+    return results
 
 
 def phase_range(torch, pl, orders_frame, raw: dict, dev) -> dict:
@@ -2319,6 +2413,7 @@ def main() -> int:
     kern = phase_kernels(torch, dev, args.seed, q1_density, len(line["l_shipdate"]))
     frames, fr = phase_frames(torch, pl, dev, raw, queries)
     runs = {}
+    taq: dict = {}  # the TAQ day asof and rolling share
     for name in args.only:
         if name == "q1":
             runs[name] = phase_q1(torch, line, frames["q1"]["lineitem"], t_gen, fr["build_s"]["lineitem"], args.scale)
@@ -2329,7 +2424,13 @@ def main() -> int:
         elif name == "temporal":
             runs[name] = phase_temporal(torch, pl, frames["temporal"]["lineitem"], raw)
         elif name == "asof":
-            runs[name] = phase_asof(torch, pl, args.scale, args.seed, dev)
+            runs[name] = phase_asof(torch, pl, args.scale, args.seed, dev, taq)
+            if "rolling" not in args.only:
+                taq.clear()
+        elif name == "rolling":
+            for sub, res in phase_rolling(torch, pl, args.scale, args.seed, dev, taq).items():
+                runs[f"rolling.{sub}"] = res
+            taq.clear()
         elif name == "range":
             runs[name] = phase_range(torch, pl, frames["range"]["orders"], raw, dev)
         elif name == "frameops":
@@ -2346,7 +2447,7 @@ def main() -> int:
                 runs[f"window.{sub}"] = res
         else:  # Q3's K2 call runs 50 times, each against the first
             runs[name] = phase_query(torch, name, frames, raw, args.scale, k2_repeats=50 if name == "q3" else 1)
-    del frames, raw, line
+    del frames, raw, line, taq
 
     # every call the main path made, as held above: the shape and the times
     calls = {name: [{"query": q, **{key: c[key] for key in c if key not in ("kernel", "plan")}}

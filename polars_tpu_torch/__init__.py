@@ -63,8 +63,9 @@ from polars_tpu_torch.functions.eager import concat
 from polars_tpu_torch.functions.interop import QueryOptFlags
 from polars_tpu_torch.functions.lazy import (  # noqa: A004
     all, all_horizontal, any, any_horizontal, arg_sort_by, coalesce, col, count, date, date_range, datetime,
-    datetime_range, duration, exclude, first, int_range, last, len, lit, max, max_horizontal, mean, mean_horizontal,
-    median, min, min_horizontal, n_unique, nth, quantile, repeat, select, std, sum, sum_horizontal, var, when,
+    datetime_range, duration, element, exclude, first, int_range, last, len, lit, max, max_horizontal, mean,
+    mean_horizontal, median, min, min_horizontal, n_unique, nth, quantile, repeat, select, std, sum, sum_horizontal, var,
+    when,
 )
 from polars_tpu_torch.functions.parity import arctan2, arctan2d, business_day_count
 from polars_tpu_torch.lazyframe import LazyFrame
@@ -76,7 +77,7 @@ __all__ = [
     "UInt8", "UInt16", "UInt32", "UInt64", "Utf8", "all", "all_horizontal", "any", "any_horizontal", "api", "arctan2",
     "arctan2d",
     "arg_sort_by", "business_day_count", "coalesce", "col", "concat", "count", "datatypes", "date", "date_range",
-    "datetime", "datetime_range", "duration", "exclude", "first", "int_range", "last", "len", "lit", "max",
+    "datetime", "datetime_range", "duration", "element", "exclude", "first", "int_range", "last", "len", "lit", "max",
     "max_horizontal",
     "mean", "mean_horizontal", "median", "min", "min_horizontal", "n_unique", "nth", "quantile", "repeat", "select",
     "selectors", "set_default_device", "std", "sum", "sum_horizontal", "var", "when",

@@ -275,6 +275,17 @@ class DataFrame:
 
         return GroupBy(self, by, named_by, maintain_order=maintain_order)
 
+    def group_by_dynamic(self, index_column: Any, **kwargs: Any):
+        """``LazyFrame.group_by_dynamic``; its ``agg`` collects."""
+        return _Collecting(self.lazy().group_by_dynamic(index_column, **kwargs))
+
+    def rolling(self, index_column: Any, **kwargs: Any):
+        """``LazyFrame.rolling``; its ``agg`` collects."""
+        return _Collecting(self.lazy().rolling(index_column, **kwargs))
+
+    def upsample(self, time_column: str, *, every: str, group_by: Any = None, maintain_order: bool = False):
+        raise NotImplementedError("DataFrame.upsample builds on datetime_range (port queue: item 4, generators)")
+
     def join(self, other: DataFrame, on: Any = None, how: str = "inner", **kwargs: Any) -> DataFrame:
         return self.lazy().join(other.lazy(), on, how, **kwargs).collect()
 
@@ -640,3 +651,15 @@ def _cast_column(col: Column, dtype: dt.DataType, strict: bool) -> Column:
 
     df = DataFrame._from_columns([col], len(col))
     return df.lazy().select(E.ECast(E.EColumn(col.name), dtype, strict)).collect()._columns[0]
+
+
+class _Collecting:
+    """A lazy window grouping whose ``agg`` gives a DataFrame."""
+
+    __slots__ = ("_lazy",)
+
+    def __init__(self, lazy) -> None:
+        self._lazy = lazy
+
+    def agg(self, *aggs: Any, **named_aggs: Any) -> DataFrame:
+        return self._lazy.agg(*aggs, **named_aggs).collect()

@@ -77,6 +77,9 @@ class EvalCtx:
     # over(): the groups of each partition key tuple, and the context of each
     # (keys, order) pair (compiler._eval_window)
     windows: dict | None = None
+    # the time orders that the windows over one index share
+    # (fn_rolling.by_order)
+    time_orders: list | None = None
 
     @property
     def device(self) -> torch.device:

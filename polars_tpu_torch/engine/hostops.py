@@ -1,7 +1,11 @@
 """Host functions: the expressions that run on the host between segments
 (the port of ``polars_tpu/engine/run.py``'s hoisting of ``HOST_FNS``,
-``_hoist_host_exprs`` and ``_eval_host``, trimmed to ``dt.to_string`` and
-the casts to String, ``plan/exprs.is_host_call``).
+``_hoist_host_exprs`` and ``_eval_host``, trimmed to ``dt.to_string``, the
+casts to String, the median, quantile and rank over time windows
+(``rolling_*_by``, the JAX package's ``run.py:1646-1722``) and a
+``cumulative_eval`` of any expression but a prefix sum, min, max or mean
+(``run.py:1493``); ``plan/exprs.is_host_call``). Each runs through
+``engine/run._eval_generator``.
 
 A select or with_columns that calls one (``plan/exprs.HOST_FNS``) is no
 part of a segment (``executors._is_fusable``). Its input runs first; each
@@ -55,12 +59,14 @@ def exec_host_select(node: L.LSelect | L.LWithColumns) -> DataFrame:
     from polars_tpu_torch.engine.run import execute_plan
     from polars_tpu_torch.plan.schema_resolve import _rebuild_expr
 
+    from polars_tpu_torch.engine import run
+
     df = execute_plan(node.input)
     hoisted: list[Column] = []
 
     def hoist(e: E.ENode) -> E.ENode:
         if E.is_host_call(e):
-            out = _host_call(df, e)
+            out = run._eval_generator(df, e, None)
             if len(out) == 1:  # an aggregate's or a literal's: a scalar, as in the JAX package
                 return E.ESeriesLit(column=out, ident=next_token())
             if len(out) != df.height:
@@ -86,15 +92,95 @@ def exec_host_select(node: L.LSelect | L.LWithColumns) -> DataFrame:
     return run_segment(L.LSelect(scan, tuple(exprs)), [(scan, frame)])
 
 
-def _host_call(df: DataFrame, node: E.ENode) -> Column:
+def host_call(df: DataFrame, node: E.ENode) -> Column:
+    """The column of one host call over ``df``."""
     from polars_tpu_torch.engine.run import _eval_column
 
     if isinstance(node, E.ECast):
         return cast_to_text(_eval_column(df, node.input))
+    if node.name == "cumulative_eval":
+        return cumulative_eval_column(_eval_column(df, node.inputs[0]), node)
+    if node.name in ("rolling_median_by", "rolling_quantile_by", "rolling_rank_by"):
+        return rolling_order_by_column(_eval_column(df, node.inputs[0]), _eval_column(df, node.inputs[1]), node)
     if node.name != "dt.to_string":
         raise InvalidOperationError(f"unknown host function {node.name!r}")
     col = _eval_column(df, node.inputs[0])
     return to_string_column(col, dict(node.options).get("format"))
+
+
+def cumulative_eval_column(col: Column, node: E.EFunction) -> Column:
+    """``node``'s expression over each prefix of ``col`` (as ``pl.element()``,
+    the column named ""), one select per prefix; a prefix shorter than
+    ``min_samples`` gives null."""
+    from polars_tpu_torch.expr.expr import Expr
+
+    sub = node.opt("expr")
+    minp = int(node.opt("min_samples", 1) or 1)
+    values = col.to_pylist()
+    out = []
+    for i in range(len(values)):
+        if i + 1 < minp:
+            out.append(None)
+            continue
+        prefix = Column.from_values("", values[: i + 1], col.dtype, device=col.buffer.device)
+        frame = DataFrame._from_columns([prefix], i + 1, device=col.buffer.device)
+        got = frame.lazy().select(Expr(sub)).collect()._columns[0].to_pylist()
+        out.append(got[0] if got else None)
+    return Column.from_values(col.name, out, None, device=col.buffer.device)
+
+
+def rolling_order_by_column(col: Column, by: Column, node: E.EFunction) -> Column:
+    """The median, quantile or rank of each row's time window (``closed``,
+    ``min_samples``), on the host: the windows by ``searchsorted`` over the
+    sorted index, each window's values then taken apart by numpy."""
+    from polars_tpu_torch.engine.rolling import interval_ticks
+
+    ticks = interval_ticks(node.opt("window_size"), by.dtype)
+    closed = node.opt("closed", "right") or "right"
+    minp = int(node.opt("min_samples", 1) or 1)
+    n = len(col)
+    tvals, tvalid = by._host()
+    t = np.asarray(tvals[:n], np.int64)
+    ok = np.ones(n, bool) if tvalid is None else np.asarray(tvalid[:n], bool)
+    xlist = col.to_pylist()
+    x = np.asarray([np.nan if v is None else float(v) for v in xlist], np.float64)
+    val_ok = np.asarray([v is not None for v in xlist], bool)
+    order = np.argsort(t[ok], kind="stable")
+    ts, xs, xs_ok = t[ok][order], x[ok][order], val_ok[ok][order]
+    lo_side, hi_side = {"right": ("right", "right"), "left": ("left", "left"), "both": ("left", "right"),
+                        "none": ("right", "left")}[closed]
+    los = np.searchsorted(ts, t - ticks, side=lo_side)
+    his = np.searchsorted(ts, t, side=hi_side)
+    q = float(node.opt("quantile", 0.5) or 0.5)
+    interp = node.opt("interpolation", "nearest") or "nearest"
+    method = node.opt("method", "average") or "average"
+    desc = bool(node.opt("descending", False))
+    out = np.full(n, np.nan)
+    has = np.zeros(n, bool)
+    for i in range(n):
+        if not ok[i]:
+            continue
+        w = xs[los[i]:his[i]][xs_ok[los[i]:his[i]]]
+        if len(w) < minp or len(w) == 0:
+            continue
+        if node.name == "rolling_median_by":
+            out[i] = float(np.median(w))
+        elif node.name == "rolling_quantile_by":
+            out[i] = float(np.quantile(w, q, method=interp if interp in ("linear", "lower", "higher", "midpoint")
+                                       else "nearest"))
+        else:  # the rank of the row's own value in its window
+            if not val_ok[i]:
+                continue
+            wv, cv = (-w, -x[i]) if desc else (w, x[i])
+            less, ties = int((wv < cv).sum()), int((wv == cv).sum())
+            out[i] = {"min": less + 1, "max": less + ties,
+                      "dense": len(np.unique(wv[wv < cv])) + 1}.get(method, less + (ties + 1) / 2.0)
+        has[i] = True
+    values = [float(v) if h else None for v, h in zip(out.tolist(), has.tolist())]
+    if node.name == "rolling_rank_by" and method != "average":
+        return Column.from_values(col.name, [None if v is None else int(v) for v in values], dt.UInt32(),
+                                  device=col.buffer.device)
+    return Column.from_values(col.name, values, dt.Float64(), device=col.buffer.device)
 
 
 def _text_of(x, dtype: dt.DataType) -> str:

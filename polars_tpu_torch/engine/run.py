@@ -107,6 +107,15 @@ def _exec_join(node: L.LJoin) -> DataFrame:
     return out.drop(*drop) if drop else out
 
 
+def _eval_generator(df: DataFrame, e: E.ENode, schema=None):
+    """The column of a host function over ``df`` (``engine/hostops.py``):
+    the one way in for every expression that runs on the host between
+    segments."""
+    from polars_tpu_torch.engine.hostops import host_call
+
+    return host_call(df, e)
+
+
 def _scan(df: DataFrame) -> L.LDataFrameScan:
     return L.LDataFrameScan(df=df, ident=0)
 

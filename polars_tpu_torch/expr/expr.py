@@ -7,8 +7,9 @@ evaluate: arithmetic, comparison, boolean ``&``/``|``/``~``, casts, ``is_in``,
 namespace, ``exclude`` over a wildcard or selector, and the sum, mean, min,
 max, count, len, first, last, n_unique, null_count, std, var, median,
 quantile, product, any, all, arg_min and arg_max aggregations, windows
-(``over``), the order and position functions and the expression-level
-sort, filter, slice and gather). Nothing executes until a plan is
+(``over``), the order and position functions, the expression-level sort,
+filter, slice and gather, and the rolling, exponentially weighted and
+cumulative windows). Nothing executes until a plan is
 collected. The methods of later slices raise ``NotImplementedError`` naming
 their queue item (``_LATER``).
 """
@@ -481,6 +482,155 @@ class Expr:
     def reverse(self) -> Expr:
         return self._fn("reverse")
 
+    # -- rolling, exponentially weighted and cumulative windows -----------------
+
+    def _window_fn(self, fname: str, window_size: int, weights: Any, min_samples: int | None, center: bool,
+                   **extra: Any) -> Expr:
+        return self._fn(fname, window_size=window_size, min_samples=min_samples, center=center,
+                        weights=None if weights is None else tuple(float(w) for w in weights), **extra)
+
+    def rolling_sum(self, window_size: int, *, weights: Any = None, min_samples: int | None = None,
+                    center: bool = False) -> Expr:
+        return self._window_fn("rolling_sum", window_size, weights, min_samples, center)
+
+    def rolling_mean(self, window_size: int, *, weights: Any = None, min_samples: int | None = None,
+                     center: bool = False) -> Expr:
+        return self._window_fn("rolling_mean", window_size, weights, min_samples, center)
+
+    def rolling_min(self, window_size: int, *, weights: Any = None, min_samples: int | None = None,
+                    center: bool = False) -> Expr:
+        return self._window_fn("rolling_min", window_size, weights, min_samples, center)
+
+    def rolling_max(self, window_size: int, *, weights: Any = None, min_samples: int | None = None,
+                    center: bool = False) -> Expr:
+        return self._window_fn("rolling_max", window_size, weights, min_samples, center)
+
+    def rolling_std(self, window_size: int, *, weights: Any = None, ddof: int = 1, min_samples: int | None = None,
+                    center: bool = False) -> Expr:
+        return self._window_fn("rolling_std", window_size, weights, min_samples, center, ddof=ddof)
+
+    def rolling_var(self, window_size: int, *, weights: Any = None, ddof: int = 1, min_samples: int | None = None,
+                    center: bool = False) -> Expr:
+        return self._window_fn("rolling_var", window_size, weights, min_samples, center, ddof=ddof)
+
+    def rolling_median(self, window_size: int, *, weights: Any = None, min_samples: int | None = None,
+                       center: bool = False) -> Expr:
+        return self._window_fn("rolling_median", window_size, weights, min_samples, center)
+
+    def rolling_quantile(self, quantile: float, interpolation: str = "nearest", window_size: int = 2, *,
+                         weights: Any = None, min_samples: int | None = None, center: bool = False) -> Expr:
+        return self._window_fn("rolling_quantile", window_size, weights, min_samples, center, quantile=quantile,
+                               interpolation=interpolation)
+
+    def rolling_rank(self, window_size: int, *, method: str = "average", descending: bool = False,
+                     seed: int | None = None, min_samples: int | None = None) -> Expr:
+        return self._window_fn("rolling_rank", window_size, None, min_samples, False, method=method,
+                               descending=descending, seed=seed)
+
+    def rolling_skew(self, window_size: int, *, bias: bool = True, min_samples: int | None = None,
+                     center: bool = False) -> Expr:
+        return self._window_fn("rolling_skew", window_size, None, min_samples, center, bias=bias)
+
+    def rolling_kurtosis(self, window_size: int, *, fisher: bool = True, bias: bool = True,
+                         min_samples: int | None = None, center: bool = False) -> Expr:
+        return self._window_fn("rolling_kurtosis", window_size, None, min_samples, center, fisher=fisher, bias=bias)
+
+    def _rolling_by(self, kind: str, by: Any, window_size: str, min_samples: int, closed: str, **extra: Any) -> Expr:
+        return Expr(E.EFunction(f"rolling_{kind}_by", (self._node, parse_into_expr(by)),
+                                _opts(window_size=window_size, min_samples=min_samples, closed=closed, **extra)))
+
+    def rolling_sum_by(self, by: Any, window_size: str, *, min_samples: int = 1, closed: str = "right") -> Expr:
+        return self._rolling_by("sum", by, window_size, min_samples, closed)
+
+    def rolling_mean_by(self, by: Any, window_size: str, *, min_samples: int = 1, closed: str = "right") -> Expr:
+        return self._rolling_by("mean", by, window_size, min_samples, closed)
+
+    def rolling_min_by(self, by: Any, window_size: str, *, min_samples: int = 1, closed: str = "right") -> Expr:
+        return self._rolling_by("min", by, window_size, min_samples, closed)
+
+    def rolling_max_by(self, by: Any, window_size: str, *, min_samples: int = 1, closed: str = "right") -> Expr:
+        return self._rolling_by("max", by, window_size, min_samples, closed)
+
+    def rolling_std_by(self, by: Any, window_size: str, *, min_samples: int = 1, closed: str = "right",
+                       ddof: int = 1) -> Expr:
+        return self._rolling_by("std", by, window_size, min_samples, closed, ddof=ddof)
+
+    def rolling_var_by(self, by: Any, window_size: str, *, min_samples: int = 1, closed: str = "right",
+                       ddof: int = 1) -> Expr:
+        return self._rolling_by("var", by, window_size, min_samples, closed, ddof=ddof)
+
+    def rolling_median_by(self, by: Any, window_size: str, *, min_samples: int = 1, closed: str = "right") -> Expr:
+        return self._rolling_by("median", by, window_size, min_samples, closed)
+
+    def rolling_quantile_by(self, by: Any, window_size: str, *, quantile: float = 0.5,
+                            interpolation: str = "nearest", min_samples: int = 1, closed: str = "right") -> Expr:
+        return self._rolling_by("quantile", by, window_size, min_samples, closed, quantile=quantile,
+                                interpolation=interpolation)
+
+    def rolling_rank_by(self, by: Any, window_size: str, *, method: str = "average", descending: bool = False,
+                        seed: int | None = None, min_samples: int = 1, closed: str = "right") -> Expr:
+        return self._rolling_by("rank", by, window_size, min_samples, closed, method=method, descending=descending)
+
+    def rolling(self, index_column: Any, *, period: str, offset: str | None = None, closed: str = "right") -> Expr:
+        """An aggregation over each row's time window:
+        ``pl.col("v").sum().rolling(index_column="t", period="2d")`` is
+        ``rolling_sum_by("t", "2d")`` (the reference's ``Expr.rolling``)."""
+        node = self._node
+        if not isinstance(node, E.EAgg):
+            raise InvalidOperationError(".rolling() must be applied to an aggregation expression "
+                                        "(e.g. pl.col('v').sum().rolling(...))")
+        if offset is not None:
+            raise InvalidOperationError("Expr.rolling with a custom offset is not supported yet")
+        inner, kind = Expr(node.input), node.kind
+        if kind in ("sum", "mean", "min", "max", "first", "last", "count"):
+            return inner._rolling_by(kind, index_column, period, 1, closed)
+        if kind in ("std", "var"):
+            return inner._rolling_by(kind, index_column, period, 1, closed, ddof=node.opt("ddof", 1))
+        if kind == "median":
+            return inner.rolling_median_by(index_column, period, closed=closed)
+        if kind == "quantile":
+            return inner.rolling_quantile_by(index_column, period, quantile=node.opt("quantile", 0.5),
+                                             interpolation=node.opt("interpolation", "nearest"), closed=closed)
+        raise InvalidOperationError(f".rolling() does not support aggregation {kind!r}")
+
+    def ewm_mean(self, *, com: float | None = None, span: float | None = None, half_life: float | None = None,
+                 alpha: float | None = None, adjust: bool = True, min_samples: int = 1,
+                 ignore_nulls: bool = False) -> Expr:
+        return self._fn("ewm_mean", com=com, span=span, half_life=half_life, alpha=alpha, adjust=adjust,
+                        ignore_nulls=ignore_nulls, min_samples=min_samples)
+
+    def ewm_std(self, *, com: float | None = None, span: float | None = None, half_life: float | None = None,
+                alpha: float | None = None, adjust: bool = True, bias: bool = False, min_samples: int = 1,
+                ignore_nulls: bool = False) -> Expr:
+        return self._fn("ewm_std", com=com, span=span, half_life=half_life, alpha=alpha, adjust=adjust,
+                        ignore_nulls=ignore_nulls, min_samples=min_samples, bias=bias)
+
+    def ewm_var(self, *, com: float | None = None, span: float | None = None, half_life: float | None = None,
+                alpha: float | None = None, adjust: bool = True, bias: bool = False, min_samples: int = 1,
+                ignore_nulls: bool = False) -> Expr:
+        return self._fn("ewm_var", com=com, span=span, half_life=half_life, alpha=alpha, adjust=adjust,
+                        ignore_nulls=ignore_nulls, min_samples=min_samples, bias=bias)
+
+    def ewm_sum(self, *, com: float | None = None, span: float | None = None, half_life: float | None = None,
+                alpha: float | None = None, min_samples: int = 1, ignore_nulls: bool = False) -> Expr:
+        return self._fn("ewm_sum", com=com, span=span, half_life=half_life, alpha=alpha, min_samples=min_samples,
+                        ignore_nulls=ignore_nulls)
+
+    def ewm_mean_by(self, by: Any, *, half_life: Any) -> Expr:
+        return Expr(E.EFunction("ewm_mean_by", (self._node, parse_into_expr(by)), _opts(half_life=half_life)))
+
+    def ewm_sum_by(self, by: Any, *, half_life: Any) -> Expr:
+        return Expr(E.EFunction("ewm_sum_by", (self._node, parse_into_expr(by)), _opts(half_life=half_life)))
+
+    def interpolate_by(self, by: Any) -> Expr:
+        return Expr(E.EFunction("interpolate_by", (self._node, parse_into_expr(by)), ()))
+
+    def cumulative_eval(self, expr: Expr, *, min_samples: int = 1) -> Expr:
+        """``expr`` (over ``pl.element()``) evaluated over each prefix of the
+        column: a prefix sum, min, max or mean is one scan on the device,
+        any other expression runs on the host, one select per prefix."""
+        return self._fn("cumulative_eval", expr=expr._node, min_samples=min_samples)
+
     # -- sorting, slicing, gathering ------------------------------------------
 
     def sort(self, *, descending: bool = False, nulls_last: bool = False) -> Expr:
@@ -623,11 +773,7 @@ _LATER = {
         "bitwise_count_zeros", "bitwise_leading_ones", "bitwise_leading_zeros", "bitwise_trailing_ones",
         "bitwise_trailing_zeros", "cut", "qcut", "rle_id", "search_sorted",
     ),
-    "2b (rolling, ewm, cumulative_eval)": (
-        "rolling_sum", "rolling_mean", "rolling_min", "rolling_max", "rolling_std", "rolling_var",
-        "rolling_median", "rolling_quantile", "rolling_sum_by", "rolling_mean_by", "rolling_min_by",
-        "rolling_max_by", "ewm_mean", "ewm_std", "ewm_var", "interpolate_by", "cumulative_eval",
-    ),
+    "4 (map functions)": ("rolling_map",),
 }
 
 

@@ -20,6 +20,12 @@ from polars_tpu_torch.expr.expr import Expr, parse_into_expr, series_literal, te
 from polars_tpu_torch.plan import exprs as E
 
 
+def element() -> Expr:
+    """The column an expression of ``cumulative_eval`` runs over (the
+    column named "")."""
+    return Expr(E.EColumn(""))
+
+
 def col(name: Any, *more_names: Any) -> Expr:
     """One column by name; several by names (or an iterable of them), every
     column by ``"*"``, or every column of the given dtypes."""

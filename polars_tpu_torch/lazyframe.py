@@ -6,7 +6,8 @@
 ``reverse``, ``gather_every``, ``unique``, ``rename``, ``drop``, ``cast``,
 ``fill_null``/``fill_nan``, ``drop_nulls``/``drop_nans``,
 ``with_row_index``, ``clear``, ``pipe``, the frame aggregates, ``cache``,
-``explain`` and ``collect``).
+``explain``, ``collect``, and the dynamic and rolling group-bys,
+``group_by_dynamic`` and ``rolling``).
 
 An expression with a wildcard, a selector or a ``name`` wrapper is expanded
 against the input's schema as it enters the plan (``_exprs``), so the plan
@@ -323,6 +324,36 @@ class LazyFrame:
         keys = self._exprs(parse_into_expr_list(list(by), named_by))
         return LazyGroupBy(self, keys, maintain_order)
 
+    def group_by_dynamic(self, index_column: Any, *, every: str, period: str | None = None, offset: str | None = None,
+                         include_boundaries: bool = False, closed: str = "left", label: str = "left",
+                         group_by: Any = None, start_by: str = "window") -> LazyGroupByDynamic:
+        """Windows of time (or of an integer index) every ``every``, each
+        ``period`` long, per group of ``group_by`` (reference: polars-time
+        group_by_dynamic). It lowers to the window's start computed per row
+        and a group-by of it; overlapping windows (``period`` longer than
+        ``every``) stack ceil(period / every) shifted copies of the rows,
+        each filtered to its windows, in one lazy concat."""
+        name = E.output_name(parse_into_expr(index_column))
+        if not name:
+            raise InvalidOperationError("group_by_dynamic needs a named index column")
+        gb: tuple = ()
+        if group_by is not None:
+            gb = tuple(parse_into_expr_list(list(group_by) if isinstance(group_by, (list, tuple)) else [group_by]))
+        return LazyGroupByDynamic(self, name, every, period, offset, include_boundaries, closed, label, gb, start_by)
+
+    def rolling(self, index_column: Any, *, period: str, offset: str | None = None, closed: str = "right",
+                group_by: Any = None) -> LazyRolling:
+        """One window per row, ``(t + offset, t + offset + period]`` (``offset``
+        -period by default), per group of ``group_by`` (reference:
+        polars-time rolling); ``engine/rolling.rolling_frames`` aggregates
+        them."""
+        name = E.output_name(parse_into_expr(index_column))
+        if not name:
+            raise InvalidOperationError("rolling needs a named index column")
+        gb = list(group_by) if isinstance(group_by, (list, tuple)) else ([group_by] if group_by is not None else [])
+        return LazyRolling(self, name, period, offset, closed,
+                           [g if isinstance(g, str) else E.output_name(parse_into_expr(g)) for g in gb])
+
     def slice(self, offset: int, length: int | None = None) -> LazyFrame:
         return self._wrap(L.LSlice(self._node, offset, length))
 
@@ -475,3 +506,145 @@ class LazyGroupBy:
         from polars_tpu_torch.functions.lazy import lit
 
         return lit(True).cum_count(reverse=reverse).over([Expr(k) for k in self._keys])
+
+
+class LazyGroupByDynamic:
+    """What ``LazyFrame.group_by_dynamic`` returns (the JAX package's
+    ``LazyGroupByDynamic``)."""
+
+    __slots__ = ("_lf", "_index", "_every", "_period", "_offset", "_boundaries", "_closed", "_label", "_group_by",
+                 "_start_by")
+
+    def __init__(self, lf, index, every, period, offset, boundaries, closed, label, group_by, start_by) -> None:
+        self._lf, self._index, self._every, self._period, self._offset = lf, index, every, period, offset
+        self._boundaries, self._closed, self._label, self._group_by = boundaries, closed, label, group_by
+        self._start_by = start_by
+
+    def agg(self, *aggs: Any, **named_aggs: Any) -> LazyFrame:
+        """A calendar ``every`` (``mo``, ``q``, ``y``) truncates the index to
+        tumbling left-closed windows; a fixed one computes each row's window
+        start from the grid of ``every`` (from ``offset``, or from the first
+        row with ``start_by="datapoint"``), no window before the first row's
+        slot. The result is sorted by the groups and the window."""
+        import math
+        import re
+
+        from polars_tpu_torch.engine.rolling import interval_ticks
+        from polars_tpu_torch.functions.lazy import col, lit
+
+        agg_nodes = list(parse_into_expr_list(list(aggs), named_aggs))
+        name, every = self._index, self._every
+        idx_dtype = self._lf.collect_schema()[name]
+        gb_names = [E.output_name(k) for k in self._group_by]
+        ws_name = "__dyn_ws"
+        calendar = bool(re.search(r"\d+(mo|q|y)", every))
+        if calendar:
+            if self._period not in (None, every) or self._offset or self._start_by != "window" or \
+                    self._closed != "left":
+                raise InvalidOperationError(
+                    "calendar intervals support only tumbling left-closed windows from the epoch grid")
+            lf = self._lf.with_columns(col(name).dt.truncate(every).alias(ws_name))
+            upper = col(ws_name).dt.offset_by(every)
+        else:
+            ev = interval_ticks(every, idx_dtype)
+            per = interval_ticks(self._period, idx_dtype) if self._period else ev
+            t = col(name).cast(dt.Int64())
+            if self._start_by == "datapoint":
+                off = t.min()
+            elif self._offset:
+                sign = -1 if self._offset.startswith("-") else 1
+                off = lit(sign * interval_ticks(self._offset.lstrip("-"), idx_dtype), dtype=dt.Int64())
+            else:
+                off = lit(0, dtype=dt.Int64())
+            shifted = t - off
+            min_shift = t.min() - off
+            if self._closed == "right":
+                base = ((shifted - 1) // ev) * ev
+                first_ws = ((min_shift - 1) // ev) * ev
+
+                def in_win(ws_e):
+                    return (shifted > ws_e) & (shifted <= ws_e + per)
+            else:
+                base = (shifted // ev) * ev
+                first_ws = (min_shift // ev) * ev
+
+                def in_win(ws_e):
+                    return (shifted >= ws_e) & (shifted < ws_e + per)
+            frames = []
+            for r in range(max(1, math.ceil(per / ev))):
+                ws_e = base - r * ev
+                fr = self._lf.with_columns((ws_e + off).cast(dt.Int64()).alias(ws_name))
+                if not (r == 0 and per == ev):  # no window before the first row's slot
+                    fr = fr.filter(in_win(ws_e) & (ws_e >= first_ws))
+                frames.append(fr)
+            lf = frames[0] if len(frames) == 1 else LazyFrame._concat(frames, "vertical")
+            upper = (col(ws_name) + per).cast(idx_dtype)
+        full_aggs = list(agg_nodes)
+        if self._label == "datapoint":
+            full_aggs.insert(0, col(name).first().alias("__dyn_label"))
+        out = lf.group_by(*gb_names, col(ws_name)).agg(*full_aggs).sort([*gb_names, ws_name])
+        ws_col = col(ws_name) if calendar else col(ws_name).cast(idx_dtype)
+        posts = []
+        if self._label == "left":
+            posts.append(ws_col.alias(name))
+        elif self._label == "right":
+            right = col(ws_name).dt.offset_by(every) if calendar else (col(ws_name) + ev).cast(idx_dtype)
+            posts.append(right.alias(name))
+        elif self._label == "datapoint":
+            posts.append(col("__dyn_label").alias(name))
+        if self._boundaries:
+            posts += [ws_col.alias("_lower_boundary"), upper.alias("_upper_boundary")]
+        out = out.with_columns(posts)
+        order = [*gb_names] + (["_lower_boundary", "_upper_boundary"] if self._boundaries else []) + [name]
+        order += [n for n in out.collect_schema().names() if n not in (*order, ws_name, "__dyn_label")]
+        return out.select(order)
+
+
+class LazyRolling:
+    """What ``LazyFrame.rolling`` returns: column aggregations (sum,
+    mean, count, len, min, max, first, last, var, std) over each row's
+    window (the JAX package's ``LazyRolling``)."""
+
+    __slots__ = ("_lf", "_index", "_period", "_offset", "_closed", "_gb")
+
+    def __init__(self, lf, index, period, offset, closed, gb) -> None:
+        self._lf, self._index, self._period, self._offset, self._closed, self._gb = lf, index, period, offset, \
+            closed, gb
+
+    def agg(self, *aggs: Any, **named_aggs: Any) -> LazyFrame:
+        """Collects the input, then ``engine/rolling.rolling_frames``."""
+        from polars_tpu_torch.engine.rolling import interval_ticks, rolling_frames
+        from polars_tpu_torch.plan.schema_resolve import expr_dtype
+
+        nodes = parse_into_expr_list(list(aggs), named_aggs)
+        df = self._lf.collect()
+        schema = df.schema
+        idx_dt = schema[self._index]
+        per = interval_ticks(self._period, idx_dt)
+        if self._offset is None:
+            off = -per
+        else:
+            off = (-1 if self._offset.startswith("-") else 1) * interval_ticks(self._offset.lstrip("-"), idx_dt)
+        specs = []
+        for node in nodes:
+            out_name = E.output_name(node)
+            inner = node
+            while isinstance(inner, E.EAlias):
+                inner = inner.input
+            if isinstance(inner, E.EAgg) and isinstance(inner.input, E.EColumn):
+                src, kind = inner.input.name, inner.kind
+            elif isinstance(inner, E.ELen):
+                src, kind, out_name = self._index, "len", out_name or "len"
+            else:
+                raise InvalidOperationError("rolling().agg supports simple column aggregations "
+                                            "(sum/mean/count/len/min/max/first/last/var/std)")
+            if kind in ("count", "len"):
+                out_dt = dt.UInt32()
+            elif kind in ("first", "last", "min", "max"):
+                out_dt = schema[src]
+            elif kind == "sum":
+                out_dt = expr_dtype(E.EAgg(E.EColumn(src), "sum"), schema)
+            else:
+                out_dt = dt.Float64()
+            specs.append((src, kind, out_name, out_dt, 1, inner.opt("ddof", 1) if isinstance(inner, E.EAgg) else 1))
+        return rolling_frames(df, self._index, per, off, self._closed, self._gb, specs).lazy()

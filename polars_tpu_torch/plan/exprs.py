@@ -338,14 +338,31 @@ def fn_elementwise(name: str) -> bool:
 
 
 # functions that run on the host between segments (``engine/hostops.py``)
-HOST_FNS = frozenset({"dt.to_string"})
+HOST_FNS = frozenset({"dt.to_string", "rolling_median_by", "rolling_quantile_by", "rolling_rank_by"})
+
+
+def cum_eval_kind(sub: ENode | None) -> str | None:
+    """sum, min, max or mean where ``sub`` is that aggregation of
+    ``pl.element()`` (a prefix scan in the segment), else None."""
+    e = sub
+    while isinstance(e, (EAlias, EKeepName)):
+        e = e.input
+    if isinstance(e, EAgg) and e.kind in ("sum", "min", "max", "mean"):
+        i = e.input
+        while isinstance(i, (EAlias, EKeepName)):
+            i = i.input
+        if isinstance(i, EColumn) and i.name == "":
+            return e.kind
+    return None
 
 
 def is_host_call(node: ENode) -> bool:
-    """A host function, or a cast to String (it formats each distinct value
-    on the host, as the JAX package hoists it)."""
+    """A host function, a ``cumulative_eval`` of an expression other than a
+    prefix sum, min, max or mean, or a cast to String (it formats each
+    distinct value on the host, as the JAX package hoists it)."""
     if isinstance(node, EFunction):
-        return node.name in HOST_FNS
+        return node.name in HOST_FNS or (node.name == "cumulative_eval"
+                                         and cum_eval_kind(node.opt("expr")) is None)
     return isinstance(node, ECast) and type(node.dtype).__name__ in ("String", "Utf8")
 
 

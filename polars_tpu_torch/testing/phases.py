@@ -38,6 +38,17 @@ with ``testing/profile_query.py``:
   carried forward, each line's price rank within its order, the running
   quantity of the order in line-number order and each supplier's first
   line.
+- ``rolling``: the TAQ day of ``asof`` as a trading desk reads it.
+  ``rolling.quotes``: per ticker, the mid's mean and standard deviation over
+  the last 5 minutes, its maximum over the last minute, its EWM with a half
+  life of 50 quotes, and the spread's mean over the last 20 quotes;
+  ``rolling.bars``: one-minute bars per ticker (open, high, low and close of
+  the mid, the mean spread, the quotes), ``group_by_dynamic``;
+  ``rolling.trades``: five-minute windows every minute per ticker (the
+  quantity, the notional and the trades: five shifted copies of the trades,
+  each filtered to its window, in one concat), and ``LazyFrame.rolling``
+  over the last minute of each trade (the quantity's sum, the price's mean
+  and maximum).
 """
 
 from __future__ import annotations
@@ -78,19 +89,19 @@ def temporal_plan(pl, line):
             .sort("week"))
 
 
-def asof_data(scale: float, seed: int) -> dict:
+def asof_data(scale: float, seed: int, *, tickers: int = ASOF_TICKERS) -> dict:
     """One trading day of quotes and trades at the size of NYSE TAQ (60M
     quotes, 15M trades at ``scale`` 10): times in microseconds from 09:30 to
-    16:00 in time order, a ticker among 2,000 (its code into the sorted
-    names), bid and ask, quantity and price."""
+    16:00 in time order, a ticker among ``tickers`` (its code into the
+    sorted names), bid and ask, quantity and price."""
     rng = np.random.default_rng(seed + 9)
     n_q, n_t = int(6_000_000 * scale), int(1_500_000 * scale)
-    names = np.asarray([f"T{i:04d}" for i in range(ASOF_TICKERS)], object)
-    mid = 20.0 + rng.random(ASOF_TICKERS) * 480.0
-    q_tick = rng.integers(0, ASOF_TICKERS, n_q).astype(np.int32)
+    names = np.asarray([f"T{i:04d}" for i in range(tickers)], object)
+    mid = 20.0 + rng.random(tickers) * 480.0
+    q_tick = rng.integers(0, tickers, n_q).astype(np.int32)
     q_mid = mid[q_tick] * (1 + rng.normal(0, 0.001, n_q))
     spread = rng.integers(1, 20, n_q) * 0.01
-    t_tick = rng.integers(0, ASOF_TICKERS, n_t).astype(np.int32)
+    t_tick = rng.integers(0, tickers, n_t).astype(np.int32)
     return {
         "names": names,
         "quotes": {"ts": ASOF_DAY_US + np.sort(rng.integers(0, ASOF_SPAN_US, n_q)), "ticker": q_tick,
@@ -606,3 +617,244 @@ def check_window(out, want: dict, label: str) -> float:
         elif not np.array_equal(g.astype(np.int64), w.astype(np.int64)):
             raise AssertionError(f"{label} {name}: {g[:5]} != {w[:5]}")
     return worst
+
+
+# -- rolling phase -----------------------------------------------------------------------------
+
+MINUTE_US = 60_000_000
+ROLLING_HALF_LIFE = 50  # quotes
+ROLLING_SPREAD_QUOTES = 20
+_FEW = 16  # windows of at most this many values: the oracle's variance in two passes
+
+
+def rolling_plans(pl, frames: dict) -> dict:
+    """The rolling phase's three plans over ``asof_frames``: ``quotes`` and
+    ``bars`` are lazy plans; ``trades`` is a :class:`TradeWindows`."""
+    c = pl.col
+    mid = (c("bid") + c("ask")) / 2
+    spread = c("ask") - c("bid")
+    quotes = frames["quotes"].lazy()
+    return {
+        "quotes": quotes.select(
+            mean_5m=mid.rolling_mean_by("ts", "5m").over("ticker"),
+            std_5m=mid.rolling_std_by("ts", "5m").over("ticker"),
+            max_1m=mid.rolling_max_by("ts", "1m").over("ticker"),
+            ewm=mid.ewm_mean(half_life=ROLLING_HALF_LIFE).over("ticker"),
+            spread_20=spread.rolling_mean(ROLLING_SPREAD_QUOTES).over("ticker")),
+        "bars": quotes.group_by_dynamic("ts", every="1m", group_by="ticker").agg(
+            open=mid.first(), high=mid.max(), low=mid.min(), close=mid.last(), spread=spread.mean(), n=pl.len()),
+        "trades": TradeWindows(pl, frames["trades"]),
+    }
+
+
+class TradeWindows:
+    """``rolling.trades``: the five-minute windows every minute
+    (``group_by_dynamic``) and the last minute of each trade
+    (``LazyFrame.rolling``), collected together as (windows, per trade)."""
+
+    def __init__(self, pl, trades) -> None:
+        self._pl, self._trades = pl, trades
+
+    def plans(self):
+        c = self._pl.col
+        lf = self._trades.lazy()
+        windows = lf.group_by_dynamic("ts", every="1m", period="5m", group_by="ticker").agg(
+            qty=c("qty").sum(), notional=(c("qty") * c("price")).sum(), n=self._pl.len())
+        per_trade = lf.rolling("ts", period="1m", group_by="ticker").agg(
+            qty_1m=c("qty").sum(), px_1m=c("price").mean(), px_max_1m=c("price").max())
+        return windows, per_trade
+
+    def collect(self, **kwargs):
+        windows, per_trade = self.plans()
+        return windows.collect(**kwargs), per_trade.collect(**kwargs)
+
+
+def _group_order(ticker: np.ndarray) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(the rows by ticker, time order kept (the times are sorted); each
+    sorted row's group start; its position in the group)."""
+    order = np.argsort(ticker.astype(np.int16) if len(ticker) and ticker.max() < 2**15 else ticker, kind="stable")
+    start, pos = _segments(ticker[order])
+    return order, start, pos
+
+
+def _group_runs(d: np.ndarray, start: np.ndarray) -> np.ndarray:
+    """The running sums of ``d`` restarted at each group: each group summed
+    on its own, so that a window's sum is no larger a difference than its
+    group's."""
+    run = np.empty_like(d)
+    bounds = np.flatnonzero(np.diff(start, prepend=-1)) if len(d) else np.zeros(0, np.int64)
+    for b, e in zip(bounds, np.append(bounds[1:], len(d))):
+        run[b:e] = np.cumsum(d[b:e])
+    return run
+
+
+def _shifted_prefix(x: np.ndarray, start: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """(x minus its group's first value, in long double; its running sums
+    per group)."""
+    d = x.astype(np.longdouble) - x[start].astype(np.longdouble)
+    return d, _group_runs(d, start)
+
+
+def _run_ends(key: np.ndarray) -> np.ndarray:
+    """For sorted keys: one past the last row equal to each row's key."""
+    ends = np.append(np.flatnonzero(np.diff(key)) + 1, len(key))
+    return np.repeat(ends, np.diff(ends, prepend=0))
+
+
+def _window_sum(run: np.ndarray, start: np.ndarray, lo: np.ndarray, hi: np.ndarray) -> np.ndarray:
+    """The sum over each non-empty window [lo, hi) of one group, from the
+    group's running sums."""
+    return run[hi - 1] - np.where(lo > start[lo], run[np.maximum(lo - 1, 0)], 0)
+
+
+def _window_max(x: np.ndarray, lo: np.ndarray, hi: np.ndarray) -> np.ndarray:
+    """max of x[lo:hi) (every window non-empty): a sparse table up to the
+    widest window, each window the larger of two overlapping blocks."""
+    width = hi - lo
+    tables = [x]
+    while (1 << len(tables)) <= width.max():
+        t, s = tables[-1], 1 << (len(tables) - 1)
+        nxt = t.copy()
+        nxt[:-s] = np.maximum(t[:-s], t[s:])
+        tables.append(nxt)
+    k = np.floor(np.log2(width)).astype(np.int64)
+    out = np.empty(len(x))
+    for level in np.unique(k):
+        m = k == level
+        t = tables[level]
+        out[m] = np.maximum(t[lo[m]], t[hi[m] - (1 << level)])
+    return out
+
+
+def _ewm_oracle(x: np.ndarray, start: np.ndarray, alpha: float) -> np.ndarray:
+    """ewm_mean(adjust=True) of each group by ``scipy.signal.lfilter``:
+    sum (1-alpha)^k x[t-k] over sum (1-alpha)^k."""
+    from scipy.signal import lfilter
+
+    out = np.empty(len(x))
+    bounds = np.flatnonzero(np.diff(start, prepend=-1)) if len(x) else np.zeros(0, np.int64)
+    ends = np.append(bounds[1:], len(x))
+    a = [1.0, -(1.0 - alpha)]
+    for b, e in zip(bounds, ends):
+        out[b:e] = lfilter([1.0], a, x[b:e]) / lfilter([1.0], a, np.ones(e - b))
+    return out
+
+
+def _window_moment(mid: np.ndarray, start: np.ndarray, lo: np.ndarray, hi: np.ndarray, power: int) -> np.ndarray:
+    """Each window's sum of the values' deviations from their ticker's
+    first (``power`` 1), or of their squares (2), in long double."""
+    d = mid.astype(np.longdouble) - mid[start].astype(np.longdouble)
+    return _window_sum(_group_runs(d if power == 1 else d * d, start), start, lo, hi)
+
+
+def _few_variances(mid: np.ndarray, lo: np.ndarray, hi: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """(the windows of at most ``_FEW`` values, their variances in two passes
+    over their own values): there the variance lies far below the prefix
+    sums' rounding."""
+    few = np.flatnonzero(hi - lo <= _FEW)
+    flo, fn = lo[few], (hi - lo)[few]
+    vals = [np.where(k < fn, mid[np.minimum(flo + k, len(mid) - 1)], 0).astype(np.longdouble) for k in range(_FEW)]
+    fmean = sum(vals) / fn
+    return few, sum(np.where(k < fn, (v - fmean) ** 2, 0) for k, v in enumerate(vals)) / np.maximum(fn - 1, 1)
+
+
+def _trade_windows(tick: np.ndarray, ts: np.ndarray, qty: np.ndarray, price: np.ndarray, all_ts: np.ndarray) -> dict:
+    """The five-minute windows every minute per ticker, from per-minute
+    sums (the trades sorted by ticker and time)."""
+    tmin = (all_ts.min() // MINUTE_US) * MINUTE_US
+    span = int((all_ts.max() - tmin) // MINUTE_US + 1)
+    slot = tick * span + (ts - tmin) // MINUTE_US
+    n_t = int(tick.max()) + 1 if len(tick) else 0
+    first = np.flatnonzero(np.diff(slot, prepend=-1))  # slots ascend: each minute's first trade
+    grid = {"qty": np.zeros(n_t * span, np.int64), "n": np.zeros(n_t * span, np.int64),
+            "notional": np.zeros(n_t * span, np.longdouble)}
+    if len(first):
+        grid["qty"][slot[first]] = np.add.reduceat(qty, first)
+        grid["n"][slot[first]] = np.diff(np.append(first, len(slot)))
+        grid["notional"][slot[first]] = np.add.reduceat(qty.astype(np.longdouble) * price, first)
+    wins = {}
+    for name, g in grid.items():
+        per = g.reshape(n_t, span)
+        acc = per.copy()
+        for k in range(1, 5):  # a window from minute m holds minutes m..m+4
+            acc[:, :-k] += per[:, k:]
+        wins[name] = acc.reshape(-1)
+    has = wins["n"] > 0
+    cell = np.flatnonzero(has)
+    return {"ticker": cell // span, "ts": tmin + (cell % span) * MINUTE_US, "qty": wins["qty"][has],
+            "notional": wins["notional"][has].astype(np.float64), "n": wins["n"][has]}
+
+
+def rolling_oracle(data: dict) -> dict:
+    """The rolling phase in numpy, each window summed in long double over
+    values shifted by their ticker's first: ``quotes`` (columns in row
+    order, with their validity), ``bars``, ``windows`` and ``per_trade``.
+    Its parts run in threads (numpy lets go of the interpreter lock)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    q, t = data["quotes"], data["trades"]
+    order, start, pos = _group_order(q["ticker"])
+    tick, ts = q["ticker"][order].astype(np.int64), q["ts"][order]
+    mid = (q["bid"][order] + q["ask"][order]) / 2
+    spread = q["ask"][order] - q["bid"][order]
+    key = tick << 40 | (ts - ASOF_DAY_US)
+    hi = _run_ends(key)
+    torder, tstart, _ = _group_order(t["ticker"])
+    ttick, tts = t["ticker"][torder].astype(np.int64), t["ts"][torder]
+    qty, price = t["qty"][torder], t["price"][torder]
+
+    def max_1m():
+        return {"max_1m": (_window_max(mid, np.searchsorted(key, key - MINUTE_US, side="right"), hi), None)}
+
+    def ewm():
+        return {"ewm": (_ewm_oracle(mid, start, 1.0 - 2.0 ** (-1.0 / ROLLING_HALF_LIFE)), None)}
+
+    def spread_and_bars():
+        _, ps = _shifted_prefix(spread, start)
+        idx = np.arange(len(spread))
+        lo_r = np.maximum(idx - (ROLLING_SPREAD_QUOTES - 1), start)
+        col = {"spread_20": ((spread[start] + _window_sum(ps, start, lo_r, idx + 1) / (idx + 1 - lo_r)).astype(
+            np.float64), pos >= ROLLING_SPREAD_QUOTES - 1)}
+        minute = (ts // MINUTE_US) * MINUTE_US
+        first = np.flatnonzero(np.diff(tick << 40 | (minute - ASOF_DAY_US), prepend=-1))
+        last = np.append(first[1:], len(minute)) - 1
+        counts = last - first + 1
+        bars = {"ticker": tick[first], "ts": minute[first], "open": mid[first],
+                "high": np.maximum.reduceat(mid, first), "low": np.minimum.reduceat(mid, first), "close": mid[last],
+                "spread": (spread[start][first] + _window_sum(ps, start, first, last + 1) / counts).astype(
+                    np.float64), "n": counts}
+        return col, bars
+
+    def per_trade():
+        tkey = ttick << 40 | (tts - ASOF_DAY_US)
+        thi = _run_ends(tkey)
+        tlo = np.searchsorted(tkey, tkey - MINUTE_US, side="right")
+        pq = np.concatenate([[0], np.cumsum(qty)])
+        _, pp = _shifted_prefix(price, tstart)
+        cols = {"qty_1m": pq[thi] - pq[tlo],
+                "px_1m": (price[tstart] + _window_sum(pp, tstart, tlo, thi) / (thi - tlo)).astype(np.float64),
+                "px_max_1m": _window_max(price, tlo, thi)}
+        back = np.empty_like(torder)
+        back[torder] = np.arange(len(torder))
+        return {"ts": t["ts"], "ticker": t["ticker"], **{k: v[back] for k, v in cols.items()}}
+
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        jobs = {"max": pool.submit(max_1m), "ewm": pool.submit(ewm), "spread": pool.submit(spread_and_bars),
+                "per_trade": pool.submit(per_trade),
+                "trade_windows": pool.submit(_trade_windows, ttick, tts, qty, price, t["ts"])}
+        lo5 = np.searchsorted(key, key - 5 * MINUTE_US, side="right")
+        for k, power in (("s1", 1), ("s2", 2)):
+            jobs[k] = pool.submit(_window_moment, mid, start, lo5, hi, power)
+        jobs["few"] = pool.submit(_few_variances, mid, lo5, hi)
+        res = {k: j.result() for k, j in jobs.items()}
+    spread_col, bars = res["spread"]
+    s1, s2, n = res["s1"], res["s2"], (hi - lo5).astype(np.longdouble)
+    var = np.maximum((s2 - s1 * s1 / n) / np.maximum(n - 1, 1), 0)
+    var[res["few"][0]] = res["few"][1]
+    cols = {"mean_5m": ((mid[start] + s1 / n).astype(np.float64), None),
+            "std_5m": (np.sqrt(var).astype(np.float64), hi - lo5 > 1), **res["max"], **res["ewm"], **spread_col}
+    back = np.empty_like(order)
+    back[order] = np.arange(len(order))
+    quotes = {name: (v[back], None if ok is None else ok[back]) for name, (v, ok) in cols.items()}
+    return {"quotes": {k: quotes[k] for k in ("mean_5m", "std_5m", "max_1m", "ewm", "spread_20")}, "bars": bars,
+            "windows": res["trade_windows"], "per_trade": res["per_trade"]}

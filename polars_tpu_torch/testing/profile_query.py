@@ -2,8 +2,9 @@
 with ``pdsh.run_params``), or one of ``chip_smoke.py``'s phases
 ``temporal``, ``asof`` (its backward join), ``range``, ``tz.ship``,
 ``tz.orders``, ``stats.flags``, ``stats.supp``, ``stats.casts``,
-``window.cust`` and ``window.line`` (``testing/phases.py``; ``stats.flags``
-through its lazy plan).
+``window.cust``, ``window.line``, ``rolling.quotes``, ``rolling.bars`` and
+``rolling.trades`` (``testing/phases.py``; ``stats.flags`` through its lazy
+plan).
 
 Builds the SF10 frames of the columns the query reads
 (``pdsh.QUERY_COLUMNS``), as ``chip_smoke.py`` does, warms the
@@ -28,7 +29,8 @@ optimized plan, or with ``--no-optimization`` the plan as written
 
 Run from the repository root on a machine with a CUDA device:
     python3 -m polars_tpu_torch.testing.profile_query [--query q3 [q5 ... temporal asof range tz.ship tz.orders
-        stats.flags stats.supp stats.casts window.cust window.line]]
+        stats.flags stats.supp stats.casts window.cust window.line rolling.quotes rolling.bars
+        rolling.trades]]
         [--scale 10] [--runs 5]
         [--no-optimization]
 """
@@ -150,7 +152,7 @@ def profile_query(torch, query: str, run, rows: dict, scale: float, runs: int, t
 
 
 PHASES = ("temporal", "asof", "range", "tz.ship", "tz.orders", "stats.flags", "stats.supp", "stats.casts",
-          "window.cust", "window.line")
+          "window.cust", "window.line", "rolling.quotes", "rolling.bars", "rolling.trades")
 
 
 def main() -> int:
@@ -179,7 +181,8 @@ def main() -> int:
            "asof": {}, "tz.ship": {"lineitem": ["l_shipdate", "l_quantity"]},
            "tz.orders": {"orders": ["o_orderdate", "o_totalprice"]},
            **{f"stats.{part}": {"lineitem": P.STATS_COLUMNS} for part in ("flags", "supp", "casts")},
-           "window.cust": {"orders": P.WINDOW_CUST_COLUMNS}, "window.line": {"lineitem": P.WINDOW_LINE_COLUMNS}}
+           "window.cust": {"orders": P.WINDOW_CUST_COLUMNS}, "window.line": {"lineitem": P.WINDOW_LINE_COLUMNS},
+           **{f"rolling.{part}": {} for part in ("quotes", "bars", "trades")}}
     need: dict[str, dict] = {}  # table -> the columns any chosen query reads
     for q in args.query:
         for t, cs in (own[q] if q in own else QUERY_COLUMNS[q]).items():
@@ -193,6 +196,7 @@ def main() -> int:
         need["orders"]["o_orderts"] = None
     tables = {t: pl.DataFrame({c: raw[t][c] for c in cs}, device="cuda") for t, cs in need.items()}
     del raw
+    taq = None
     for q in args.query:
         if q == "temporal":
             line = tables["lineitem"]
@@ -216,9 +220,14 @@ def main() -> int:
         elif q == "range":
             orders, windows = tables["orders"], pl.DataFrame(P.range_windows(), device="cuda")
             run, rows = (lambda: P.range_plan(pl, windows, orders)), {"orders": orders.height, "windows": 12}
-        elif q == "asof":
-            frames = P.asof_frames(pl, P.asof_data(args.scale, args.seed), "cuda")
-            run = lambda: P.asof_plan(pl, frames, "backward", "1s")  # noqa: E731
+        elif q == "asof" or q.startswith("rolling."):
+            if taq is None:  # the TAQ day, made once for asof and the rolling plans
+                taq = P.asof_frames(pl, P.asof_data(args.scale, args.seed), "cuda")
+            frames = taq
+            if q == "asof":
+                run = lambda: P.asof_plan(pl, frames, "backward", "1s")  # noqa: E731
+            else:
+                run = lambda q=q: P.rolling_plans(pl, frames)[q.split(".")[1]]  # noqa: E731
             rows = {side: f.height for side, f in frames.items()}
         else:
             f = pdsh.frames_for(q, tables)

@@ -406,11 +406,19 @@ def test_asof_errors():
 
 
 def test_chip_phases_at_a_small_size():
-    """``chip_smoke.py``'s asof and range phases (``testing/phases.py``) at
-    a small size through both packages: the asof join by ticker, backward
-    with a tolerance of "1s" and nearest without one, and the monthly
-    windows joined to orders. Tickers no quote has match nothing in the
-    port; the reference gives them another ticker's quote (ROADMAP §3)."""
+    """``chip_smoke.py``'s asof, rolling and range phases
+    (``testing/phases.py``) at a small size through both packages: the asof
+    join by ticker, backward with a tolerance of "1s" and nearest without
+    one, and the monthly windows joined to orders. Tickers no quote has
+    match nothing in the port; the reference gives them another ticker's
+    quote (ROADMAP §3). The rolling phase's three plans over a TAQ day of
+    20 tickers (about 600 quotes and 150 trades each) are held, frame for
+    frame, to the reference and to the phase's long-double oracle
+    (``rolling_oracle``): times, tickers, counts and integer sums equal,
+    Float64 to rtol 1e-9. The reference's 5-minute standard deviation misses
+    that tolerance (``polars_tpu/engine/rolling.py:79-108``: ``s2 - cnt *
+    m**2`` over prefix sums of the raw values over every row, ROADMAP §3);
+    there the port is held to the oracle alone."""
     from polars_tpu_torch.testing import pdsh, phases
 
     data = phases.asof_data(0.002, 1)
@@ -431,6 +439,7 @@ def test_chip_phases_at_a_small_size():
             assert [v is None for v in g] == [v is None for v in w], c
             np.testing.assert_allclose(np.asarray([np.nan if v is None else v for v in g], float),
                                        np.asarray([np.nan if v is None else v for v in w], float), rtol=1e-9)
+    _check_rolling_phase(phases)
     orders = pdsh.generate_pdsh(0.002, seed=1, tables=("orders",))["orders"]
     orders = {c: orders[c] for c in ("o_orderdate", "o_totalprice")}
     (wj, wt), (oj, ot) = _both(phases.range_windows()), _both(orders)
@@ -438,3 +447,39 @@ def test_chip_phases_at_a_small_size():
     got = phases.range_plan(plt, wt, ot).collect()
     _assert_frames_match(got, want)
     assert want.height == 12
+
+
+def _check_rolling_phase(phases) -> None:
+    data = phases.asof_data(0.002, 1, tickers=20)
+    port = phases.asof_frames(plt, data, "cpu")
+    ref = {side: plj.DataFrame({c: data["names"][v] if c == "ticker" else
+                                v.astype("datetime64[us]") if c == "ts" else v for c, v in cols.items()})
+           for side, cols in (("quotes", data["quotes"]), ("trades", data["trades"]))}
+    want = phases.rolling_oracle(data)
+    got_plans, ref_plans = phases.rolling_plans(plt, port), phases.rolling_plans(plj, ref)
+    got = {"quotes": got_plans["quotes"].collect(), "bars": got_plans["bars"].collect()}
+    got["windows"], got["per_trade"] = got_plans["trades"].collect()
+    ref_windows, ref_per_trade = ref_plans["trades"].collect()
+    ref_quotes = ref_plans["quotes"].collect()
+    ref_std = np.asarray([np.nan if v is None else v for v in ref_quotes["std_5m"].to_list()])
+    exact_std = want["quotes"]["std_5m"][0]
+    assert np.nanmax(np.abs(ref_std - exact_std) / exact_std) > 1e-9  # the reference's cancellation
+    for name, ref_frame in (("quotes", ref_quotes.drop("std_5m")), ("bars", ref_plans["bars"].collect()),
+                            ("windows", ref_windows), ("per_trade", ref_per_trade)):
+        _assert_frames_match(got[name].drop("std_5m") if name == "quotes" else got[name], ref_frame)
+        frame = got[name]
+        assert frame.height == len(next(iter(want[name].values()))[0] if name == "quotes" else
+                                   next(iter(want[name].values()))), name
+        for col, expect in want[name].items():
+            values, valid = expect if name == "quotes" else (expect, None)
+            c = frame._get(col)
+            g = c.buffer.values.numpy()
+            if col == "ticker":
+                assert np.array_equal(np.asarray(c.table.values, object)[g], data["names"][values]), name
+                continue
+            ok = np.ones(len(g), bool) if c.buffer.validity is None else c.buffer.validity.numpy()
+            assert np.array_equal(ok, np.ones(len(g), bool) if valid is None else valid), (name, col)
+            if np.asarray(values).dtype.kind == "f":
+                np.testing.assert_allclose(g[ok], values[ok], rtol=1e-9, atol=0, err_msg=f"{name} {col}")
+            else:
+                assert np.array_equal(g.astype(np.int64), np.asarray(values).astype(np.int64)), (name, col)

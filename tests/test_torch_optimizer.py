@@ -380,7 +380,8 @@ def test_optimizer_cases_rewrite_as_the_reference_tests_say(cases):
 def _check_positional_blocks_pushdown():
     """A head, a filter and the removal of a sort stop at a position
     function or a window (``shift(-1)``, ``rank()``, ``rank().over(g)``,
-    ``cum_sum()``): optimized equals as written equals Polars' values. The
+    ``cum_sum()``, the rolling, EWM and cumulative windows): optimized
+    equals as written equals Polars' values. The
     reference's slice pushdown (``slice_pushdown.py:25-33``,
     ``_length_changing``) moves the head below them, so its optimized plan
     ranks and shifts the first two rows alone (ROADMAP section 3)."""
@@ -404,6 +405,17 @@ def _check_positional_blocks_pushdown():
     # the reference's optimized head: ranks and the lead of the first two rows alone
     ref = positional(plj).head(2).collect().to_dict(as_series=False)
     assert (ref["r"], ref["lead"], ref["rg"]) == ([2.0, 1.0], [1, None], [2.0, 1.0])
+    # the rolling, exponentially weighted and cumulative windows read other
+    # rows too: a head or filter stays above them
+    w = plt.DataFrame({"a": [5.0, 1.0, 4.0, 2.0, 3.0], "t": [1, 2, 3, 4, 5]}).lazy().with_columns(
+        rs=plt.col("a").rolling_sum(3, min_samples=1, center=True), em=plt.col("a").ewm_mean(alpha=0.5),
+        rb=plt.col("a").rolling_mean_by("t", "2i"), ce=plt.col("a").cumulative_eval(plt.element().sum()))
+    for plan, rows in ((w.head(2), {"rs": [6.0, 10.0], "ce": [5.0, 6.0]}),
+                       (w.filter(plt.col("a") > 2), {"rs": [6.0, 7.0, 5.0], "ce": [5.0, 10.0, 15.0]})):
+        for out in (plan.collect(), plan.collect(no_optimization=True)):
+            assert out.select("rs", "ce").to_dict(as_series=False) == rows
+        assert plan.collect().equals(plan.collect(no_optimization=True))
+        assert type(optimize(plan._node)) is type(plan._node)
     # a sort under cum_sum is observed: the group-by's maxima need it
     q = plt.DataFrame(data).lazy().sort("a").with_columns(cs=plt.col("a").cum_sum()).group_by("g").agg(
         plt.col("cs").max()).sort("g")
