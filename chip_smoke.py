@@ -134,6 +134,26 @@ Phases, each printed as one JSON line:
                 the supplier. Each against the numpy oracle of
                 testing/phases.py (keys, ranks, dates, durations, flags and
                 null masks exactly, floats to rtol 1e-9).
+ 18. recode   — the rest of the core expression set at SF10, two lines:
+                recode.line: 60M lineitem rows recoded (the price as a
+                Decimal(15, 2), the charge as a Decimal product rounded
+                half to even, the price band by cut, a late flag by
+                any_horizontal, the last date by max_horizontal, the rate
+                by sum_horizontal, a weight per ship mode by replace_strict
+                and the return flag by replace), then a dense group-by of
+                (band, ship mode, flag) (K1; capacity 6 x 8 x 4) and a
+                sort; recode.sample: the price decile of each line (qcut
+                with labels) and the run of its order (rle_id), the 1% of
+                lines whose order key hashes to 0 mod 100 (a row mask
+                over the 60M rows; the group-by runs over it in the same
+                segment, and K2 compacts its ten rows), then per decile the
+                count, the
+                distinct orders, Pearson's and Spearman's corr of quantity
+                and price and their cov (K1). Each against the numpy
+                oracle of testing/phases.py (keys, counts, run ids and
+                Decimal sums exactly as int64 cents, the hash rebuilt in
+                numpy uint64, floats to rtol 1e-9, corr and cov against two
+                passes in long double).
 Every collect runs the optimized plan. Each PDS-H query and each frameops
 query also runs its plan as written (collect(no_optimization=True)): a
 warm-up, then 6 collects as written and 6 optimized, in turns with the
@@ -154,7 +174,7 @@ then the kernels line, the card's name and power limit, and the final line
 
 Run from the repository root:
     python3 chip_smoke.py [--scale 10] [--seed 42] [--only q1 filter q3 q4 ... q22 joins temporal asof rolling range
-        frameops tz stats window]
+        frameops tz stats window recode]
 (``--only`` runs the build and kernel phases and the named query phases, for
 an A/B of a few queries against a parent tree). It needs a CUDA device and
 nvcc; it never imports JAX or polars_tpu.
@@ -194,7 +214,7 @@ Q3_DAYS = day(1995, 3, 15)
 Q4_FROM, Q4_TO = day(1993, 7, 1), day(1993, 10, 1)
 PHASES = ["q1", "filter", "q3", "q4", "q5", "q6", "q10", "q12", "q14", "q18", "q19", "q11", "q15", "q17", "q20",
           "q2", "q7", "q8", "q9", "q13", "q16", "q21", "q22", "joins", "temporal", "asof", "rolling", "range",
-          "frameops", "tz", "stats", "window"]
+          "frameops", "tz", "stats", "window", "recode"]
 # the columns the phases outside PDS-H read of each table (asof makes its own)
 PHASE_COLUMNS = {
     "joins": {"customer": ["c_custkey", "c_mktsegment"], "orders": ["o_orderkey", "o_custkey", "o_orderdate"],
@@ -214,6 +234,9 @@ PHASE_COLUMNS = {
     "window": {"orders": ["o_orderkey", "o_custkey", "o_totalprice", "o_orderdate"],
                "lineitem": ["l_orderkey", "l_linenumber", "l_suppkey", "l_quantity", "l_extendedprice", "l_discount",
                             "l_returnflag"]},
+    # testing/phases.RECODE_COLUMNS
+    "recode": {"lineitem": ["l_orderkey", "l_quantity", "l_extendedprice", "l_discount", "l_tax", "l_returnflag",
+                            "l_shipdate", "l_commitdate", "l_receiptdate", "l_shipmode"]},
 }
 _MADE_COLUMNS = ("l_shipts", "o_orderts")  # made from the generated columns (testing/phases.py)
 
@@ -2380,6 +2403,47 @@ def phase_window(torch, pl, frames: dict, raw: dict) -> dict:
     return results
 
 
+# -- recode phase (plans and oracle: polars_tpu_torch/testing/phases.py) ----------------------
+
+
+def phase_recode(torch, pl, line, raw: dict) -> dict:
+    """The rest of the core expression set at SF10, each plan through its
+    main path against ``testing/phases.recode_oracle``: ``recode.line``
+    (Decimal casts and products, cut, the horizontal functions, replace and
+    replace_strict, K1 in a dense group-by, K2 at the segment's end) and
+    ``recode.sample`` (qcut, rle_id and a hash sample as a row mask, then
+    corr and cov per decile by K1 over it, K2 at the segment's end)."""
+    P = _phases()
+    t0 = time.perf_counter()
+    want = P.recode_oracle(raw["lineitem"])
+    oracle_s = time.perf_counter() - t0
+    results = {}
+
+    r = run_phase(torch, "recode.line", lambda: P.recode_plans(pl, line)["line"])
+    out = r["out"]
+    bands = "Enum(categories=['(-inf, 10000]', '(10000, 25000]', '(25000, 50000]', '(50000, 75000]', '(75000, inf]'])"
+    dec = "Decimal(precision=15, scale=2)"
+    _check_schema(out, [("band", bands), ("l_shipmode", "String"), ("flag", "String"), ("len", "UInt32"),
+                        ("cents", dec), ("charge", dec), ("rate", "Float64"), ("late", "UInt32"), ("last", "Date"),
+                        ("weighted", "Float64")], "recode.line")
+    worst = P.check_recode(out, want["line"], "recode.line",
+                           exact=("band", "l_shipmode", "flag", "len", "cents", "charge", "late"),
+                           floats=("rate", "weighted"), dates=("last",))
+    results["line"] = phase_result("recode.line", r, out, {"lineitem": line.height}, worst, groups=out.height,
+                                   oracle_s=oracle_s)
+
+    r = run_phase(torch, "recode.sample", lambda: P.recode_plans(pl, line)["sample"])
+    out = r["out"]
+    _check_schema(out, [("decile", f"Enum(categories={P.RECODE_DECILES!r})"), ("len", "UInt32"),
+                        ("orders", "UInt32"), ("r", "Float64"), ("rho", "Float64"), ("cov", "Float64")],
+                  "recode.sample")
+    worst = P.check_recode(out, want["sample"], "recode.sample", exact=("decile", "len", "orders"),
+                           floats=("r", "rho", "cov"))
+    results["sample"] = phase_result("recode.sample", r, out, {"lineitem": line.height}, worst,
+                                     sampled_rows=want["sampled_rows"])
+    return results
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2445,6 +2509,9 @@ def main() -> int:
         elif name == "window":
             for sub, res in phase_window(torch, pl, frames["window"], raw).items():
                 runs[f"window.{sub}"] = res
+        elif name == "recode":
+            for sub, res in phase_recode(torch, pl, frames["recode"]["lineitem"], raw).items():
+                runs[f"recode.{sub}"] = res
         else:  # Q3's K2 call runs 50 times, each against the first
             runs[name] = phase_query(torch, name, frames, raw, args.scale, k2_repeats=50 if name == "q3" else 1)
     del frames, raw, line, taq

@@ -10,7 +10,8 @@ string-to-temporal parsing and the null functions; the eager ``DataFrame``
 and ``Series`` API; math and cast expressions, the statistical aggregations,
 wildcards, selectors and the ``name`` namespace; windows (``over``), the
 order and position functions and expression-level sort, filter, slice and
-gather; range joins
+gather; rolling and dynamic windows; the horizontal functions, folds,
+recoding, bins, hashes, corr/cov and Decimal columns; range joins
 (``join_where``) and asof joins; a join that sizes its output on the host
 runs between fused segments). Every collect runs the plan the optimizer
 (``plan/optimizer``) gives, unless the caller asks for the plan as written;
@@ -32,9 +33,12 @@ from polars_tpu_torch.core.schema import Schema
 from polars_tpu_torch.core.series import Series
 from polars_tpu_torch.datatypes import (
     Boolean,
+    Categorical,
     Date,
     Datetime,
+    Decimal,
     Duration,
+    Enum,
     Float32,
     Float64,
     Int8,
@@ -62,23 +66,22 @@ from polars_tpu_torch.expr.expr import Expr
 from polars_tpu_torch.functions.eager import concat
 from polars_tpu_torch.functions.interop import QueryOptFlags
 from polars_tpu_torch.functions.lazy import (  # noqa: A004
-    all, all_horizontal, any, any_horizontal, arg_sort_by, coalesce, col, count, date, date_range, datetime,
-    datetime_range, duration, element, exclude, first, int_range, last, len, lit, max, max_horizontal, mean,
-    mean_horizontal, median, min, min_horizontal, n_unique, nth, quantile, repeat, select, std, sum, sum_horizontal, var,
-    when,
+    all, all_horizontal, any, any_horizontal, approx_n_unique, arange, arg_sort_by, coalesce, col, corr, count, cov,
+    cum_count, cum_sum, date, date_range, datetime, datetime_range, duration, element, exclude, first, fold, head,
+    int_range, last, len, lit, max, max_horizontal, mean, mean_horizontal, median, min, min_horizontal, n_unique, nth,
+    ones, quantile, reduce, repeat, select, std, sum, sum_horizontal, tail, var, when, zeros,
 )
 from polars_tpu_torch.functions.parity import arctan2, arctan2d, business_day_count
 from polars_tpu_torch.lazyframe import LazyFrame
 
 __all__ = [
-    "Boolean", "ColumnNotFoundError", "ComputeError", "Config", "DataFrame", "Date", "Datetime", "DuplicateError",
-    "Duration", "Expr", "Float32", "Float64", "Int8", "Int16", "Int32", "Int64", "InvalidOperationError",
+    "Boolean", "Categorical", "ColumnNotFoundError", "ComputeError", "Config", "DataFrame", "Date", "Datetime",
+    "Decimal", "DuplicateError", "Duration", "Enum", "Expr", "Float32", "Float64", "Int8", "Int16", "Int32", "Int64", "InvalidOperationError",
     "LazyFrame", "PolarsError", "QueryOptFlags", "Schema", "SchemaError", "Series", "ShapeError", "String", "Time",
-    "UInt8", "UInt16", "UInt32", "UInt64", "Utf8", "all", "all_horizontal", "any", "any_horizontal", "api", "arctan2",
-    "arctan2d",
-    "arg_sort_by", "business_day_count", "coalesce", "col", "concat", "count", "datatypes", "date", "date_range",
-    "datetime", "datetime_range", "duration", "element", "exclude", "first", "int_range", "last", "len", "lit", "max",
-    "max_horizontal",
-    "mean", "mean_horizontal", "median", "min", "min_horizontal", "n_unique", "nth", "quantile", "repeat", "select",
-    "selectors", "set_default_device", "std", "sum", "sum_horizontal", "var", "when",
+    "UInt8", "UInt16", "UInt32", "UInt64", "Utf8", "all", "all_horizontal", "any", "any_horizontal", "api", "approx_n_unique",
+    "arange", "arctan2", "arctan2d", "arg_sort_by", "business_day_count", "coalesce", "col", "concat", "corr", "count",
+    "cov", "cum_count", "cum_sum", "datatypes", "date", "date_range", "datetime", "datetime_range", "duration",
+    "element", "exclude", "first", "fold", "head", "int_range", "last", "len", "lit", "max", "max_horizontal", "mean",
+    "mean_horizontal", "median", "min", "min_horizontal", "n_unique", "nth", "ones", "quantile", "reduce", "repeat",
+    "select", "selectors", "set_default_device", "std", "sum", "sum_horizontal", "tail", "var", "when", "zeros",
 ]

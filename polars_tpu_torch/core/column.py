@@ -3,7 +3,9 @@
 The port of ``polars_tpu/core/column.py``, trimmed to the construction the
 ported queries need: numpy arrays (float, int, bool, ``datetime64`` and
 ``timedelta64``, NaT as null) and object or str arrays / Python lists of
-strings, numbers, bools, dates, datetimes, timedeltas and times. String
+strings, numbers, bools, dates, datetimes, timedeltas, times and
+``decimal.Decimal`` values (a Decimal holds int64 scaled by 10^scale and
+goes back to Python as ``decimal.Decimal``). String
 columns hold int32 dictionary codes in the buffer and the values in
 ``table``; Date holds int32 days, Datetime and Duration int64 ticks of their
 time unit, Time int64 nanoseconds since midnight. A Datetime with a time
@@ -14,6 +16,7 @@ one, and it goes back to Python as datetimes of its zone.
 from __future__ import annotations
 
 import datetime as _dt
+import decimal as _decimal
 from typing import Any
 
 import numpy as np
@@ -110,6 +113,9 @@ class Column:
                 out[i] = _dt.time(ns // _NS_PER[0], ns // _NS_PER[1] % 60, ns // _NS_PER[2] % 60,
                                   ns % 1_000_000_000 // 1000)
             return _mask_to_object(out, validity)
+        if isinstance(self.dtype, dt.Decimal):  # floats, as the JAX package gives them (NaN for null)
+            out = vals.astype(np.float64) / 10.0**self.dtype.scale
+            return out if validity is None else np.where(validity, out, np.nan)
         if validity is None:
             return vals
         if vals.dtype.kind == "f":
@@ -117,6 +123,11 @@ class Column:
         return _mask_to_object(vals.astype(object), validity)
 
     def to_pylist(self) -> list:
+        if isinstance(self.dtype, dt.Decimal):  # decimal.Decimal values, exact
+            vals, validity = self._host()
+            ok = [True] * len(vals) if validity is None else validity.tolist()
+            return [_decimal.Decimal(int(v)).scaleb(-self.dtype.scale) if good else None
+                    for v, good in zip(vals.tolist(), ok)]
         if isinstance(self.dtype, dt.FloatType):
             # NaN is a VALUE for float columns (distinct from null)
             vals, validity = self._host()
@@ -192,6 +203,10 @@ def _infer_pylist_dtype(seq: list) -> dt.DataType:
         return dt.Duration("us")
     if kinds == {_dt.time}:
         return dt.Time()
+    if _decimal.Decimal in kinds and kinds <= {_decimal.Decimal, int}:
+        # the largest scale among the values (the JAX package's inference)
+        exps = [v.as_tuple().exponent for v in seq if isinstance(v, _decimal.Decimal)]
+        return dt.Decimal(38, max([0] + [-e for e in exps if isinstance(e, int) and e < 0]))
     raise NotImplementedError(
         f"building a column from Python values of types {sorted(k.__name__ for k in kinds)} "
         "is not ported yet (port queue: expression breadth)"
@@ -218,11 +233,24 @@ def _from_pylist(name: str, seq: Any, dtype: dt.DataType | None, device) -> Colu
     if isinstance(logical, (dt.Datetime, dt.Duration, dt.Time)):
         ticks = np.asarray([0 if v is None else _ticks(v, logical) for v in arr], dtype=np.int64)
         return Column(name, logical, Buffer.from_numpy(ticks, validity, dtype=torch.int64, device=device))
+    if isinstance(logical, dt.Decimal):
+        scaled = np.fromiter((0 if v is None else _scaled_decimal(v, logical.scale) for v in arr), np.int64, len(arr))
+        return Column(name, logical, Buffer.from_numpy(scaled, validity, dtype=torch.int64, device=device))
     if isinstance(logical, (dt.Boolean, dt.IntegerType, dt.FloatType)):
         np_d = dt.dtype_to_numpy(logical)
         vals = np.asarray([v if v is not None else 0 for v in arr], dtype=np_d)
         return Column(name, logical, Buffer.from_numpy(vals, validity, dtype=dt.dtype_to_torch(logical), device=device))
     raise InvalidOperationError(f"cannot build a {logical!r} column from Python values")
+
+
+def _scaled_decimal(v: Any, scale: int) -> int:
+    """One value as Decimal storage: its digits shifted by ``scale``, a
+    decimal rounded half to even, an integer exact, a float rounded."""
+    if isinstance(v, _decimal.Decimal):
+        return int(v.scaleb(scale).to_integral_value(_decimal.ROUND_HALF_EVEN))
+    if isinstance(v, (int, np.integer)):
+        return int(v) * 10**scale
+    return round(float(v) * 10**scale)
 
 
 def _micros(delta: _dt.timedelta) -> int:

@@ -337,6 +337,15 @@ class Series:
 
         return SeriesDateTimeNamespace(self)
 
+    def search_sorted(self, element: Any, side: str = "any") -> Any:
+        """Where ``element`` would go in this sorted Series: an int for one
+        value, a Series for a list or Series of them."""
+        if isinstance(element, (list, tuple, np.ndarray, Series)):
+            values = element.to_list() if isinstance(element, Series) else list(element)
+            return Series(self.name, [self.search_sorted(v, side) for v in values], dt.UInt32(),
+                          device=self._column.buffer.device)
+        return self._scalar(self._expr().search_sorted(element, side))
+
     def __getattr__(self, name: str):
         """An ``Expr`` method run over the Series: an aggregation returns its
         value, anything else a Series."""
@@ -348,7 +357,7 @@ class Series:
 
         def method(*args: Any, **kwargs: Any) -> Any:
             e = getattr(self._expr(), name)(*args, **kwargs)
-            if isinstance(e._node, E.EAgg):
+            if E.reduces_in_agg(e._node):  # an aggregation, or a value made of them (nan_max, index_of)
                 return self._scalar(e)
             return self._select(e)
 

@@ -11,8 +11,8 @@ dictionary value, kept on the dictionary (``StringTable.memo``); the
 temporal casts (Date and Datetime both ways, Datetime to Time, Time to
 Duration, between time units with floor division, between time zones on
 the same instants, and between temporal and integer storage; a Datetime
-with a time zone gives the Date and Time of its zone's wall clock); and a
-null to any type. A cast to String is a host function
+with a time zone gives the Date and Time of its zone's wall clock); to and
+from Decimal (int64 scaled by 10^scale); and a null to any type. A cast to String is a host function
 (``engine/hostops.py``): it formats each distinct value once. A value the
 cast makes null is what a strict cast raises for: the compiler turns it
 into a validation flag on the segment's count read
@@ -168,6 +168,46 @@ def _float_to_int(v: Val, target: dt.DataType) -> Val:
     return v.with_(values=wrap_int(x, target), validity=combine_validity(v.validity, ok), dtype=target, table=None)
 
 
+def _decimal_cast(v: Val, target: dt.DataType, wrap: bool) -> Val:
+    """Casts to and from Decimal (int64 scaled by 10^scale), as the JAX
+    package's ``cast.py:145-160``: a smaller scale and an integer floor
+    the value, a float rounds half to even; a value that leaves int64 (or
+    the integer target's range) is null."""
+    src = v.dtype
+    x = v.values
+    if isinstance(src, dt.Decimal):
+        if isinstance(target, dt.Decimal):
+            if target.scale >= src.scale:
+                f = 10 ** (target.scale - src.scale)
+                ok = (x.abs() <= _I64_MAX // f) if f > 1 else None
+                return v.with_(values=x * f, validity=combine_validity(v.validity, ok), dtype=target)
+            return v.with_(values=floordiv_const(x, 10 ** (src.scale - target.scale)), dtype=target)
+        if target.is_float():
+            return v.with_(values=(x.to(torch.float64) / 10.0**src.scale).to(dt.dtype_to_torch(target)), dtype=target)
+        if isinstance(target, dt.Boolean):
+            return v.with_(values=x != 0, dtype=target)
+        if target.is_integer():
+            ints = v.with_(values=floordiv_const(x, 10**src.scale), dtype=dt.Int64())
+            return _int_to_int(ints, target, wrap)
+        raise InvalidOperationError(f"cannot cast {src!r} to {target!r}")
+    f = 10**target.scale
+    if isinstance(src, dt.Boolean):
+        return v.with_(values=x.to(torch.int64) * f, dtype=target)
+    if src.is_integer():
+        ok = None
+        if isinstance(src, dt.UInt64):
+            ok = (x >= 0) & (x <= _I64_MAX // f)
+        elif f > 1 and int_bounds(src)[1] > _I64_MAX // f:
+            ok = x.to(torch.int64).abs() <= _I64_MAX // f
+        return v.with_(values=x.to(torch.int64) * f, validity=combine_validity(v.validity, ok), dtype=target)
+    if src.is_float():
+        scaled = torch.round(x.to(torch.float64) * float(f))
+        ok = torch.isfinite(scaled) & (scaled.abs() < 2.0**63)
+        values = torch.where(ok, scaled, torch.zeros((), dtype=scaled.dtype, device=x.device)).to(torch.int64)
+        return v.with_(values=values, validity=combine_validity(v.validity, ok), dtype=target)
+    raise InvalidOperationError(f"cannot cast {src!r} to {target!r}")
+
+
 def _parse_table(v: Val, target: dt.DataType) -> Val:
     """A dictionary-coded String parsed into ``target``: each distinct value
     once on the host (kept on the dictionary), gathered by the codes; what
@@ -188,6 +228,14 @@ def _parse_table(v: Val, target: dt.DataType) -> Val:
             return None if np.isnat(d) else int(d.astype(np.int64))
         if target.is_float():
             return float(dt.dtype_to_numpy(target).type(s))
+        if tn == "Decimal":
+            import decimal
+
+            try:
+                value = int(decimal.Decimal(s).scaleb(target.scale).to_integral_value(decimal.ROUND_HALF_EVEN))
+            except decimal.InvalidOperation:
+                return None
+            return value if abs(value) <= _I64_MAX else None
         value = int(s)
         lo, hi = int_bounds(target)
         return value if lo <= value <= hi else None
@@ -203,7 +251,7 @@ def _parse_table(v: Val, target: dt.DataType) -> Val:
             outs.append(0 if r is None else r)
         if not outs:
             outs, ok = [0], [False]
-        if target.is_integer():  # storage: a UInt64 of 2^63 or more as its bits
+        if target.is_integer() or tn == "Decimal":  # storage: a UInt64 of 2^63 or more as its bits
             arr = np.asarray([x - 2**64 if x > _I64_MAX else x for x in outs], np.int64)
         else:
             arr = np.asarray(outs, np.int64 if tn in ("Date", "Datetime") else dt.dtype_to_numpy(target))
@@ -243,7 +291,7 @@ def cast_val(v: Val, target: dt.DataType, *, wrap: bool = False) -> Val:
     if out is not None:
         return out
     if isinstance(src, dt.Decimal) or isinstance(target, dt.Decimal):
-        raise NotImplementedError(f"cast from {src!r} to {target!r} is not ported yet (port queue: item 1b)")
+        return _decimal_cast(v, target, wrap)
     if not ((src.is_numeric() or isinstance(src, dt.Boolean)) and (target.is_numeric() or isinstance(target, dt.Boolean))):
         raise InvalidOperationError(f"cannot cast {src!r} to {target!r}")
     if isinstance(target, dt.Boolean):

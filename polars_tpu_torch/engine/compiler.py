@@ -1,8 +1,9 @@
 """Expression evaluator: AST node -> tensors (the port of
 ``polars_tpu/engine/compiler.py``'s ``eval_expr``, trimmed to columns,
-literals (numeric, bool, null, temporal and string; lists as literal
-Series), casts, arithmetic (temporal arithmetic on integer epochs, as the
-JAX package's ``_arith`` and ``_temporal_pair``) and comparison with Polars
+literals (numeric, bool, null, temporal, Decimal and string; lists as
+literal Series), casts, arithmetic (temporal arithmetic on integer epochs,
+as the JAX package's ``_arith`` and ``_temporal_pair``; Decimal in scaled
+int64, rounded half to even) and comparison with Polars
 type promotion, string comparison across dictionaries, Kleene ``&``/``|``, when/then/otherwise,
 registered functions (``engine/registry.py``), aliases, the aggregations,
 per group or, outside a group-by, over one group of capacity 1, windows
@@ -23,6 +24,8 @@ per-group and scalar values.
 from __future__ import annotations
 
 import dataclasses
+import decimal as _decimal
+import math
 
 import numpy as np
 import torch
@@ -38,6 +41,7 @@ from polars_tpu_torch.engine.common import (
 from polars_tpu_torch.engine.registry import get_spec
 from polars_tpu_torch.engine.strings import unify_vals
 from polars_tpu_torch.errors import ColumnNotFoundError, ComputeError, InvalidOperationError, ShapeError
+from polars_tpu_torch.kernels.argsort import stable_argsort_words
 from polars_tpu_torch.kernels.fastmath import div_any, floordiv_any, floordiv_u64, mod_any, mod_u64
 from polars_tpu_torch.plan import exprs as E
 from polars_tpu_torch.plan.schema_resolve import binary_dtype, dyn_literal_value, fit_dyn_dtype, supertype
@@ -303,6 +307,9 @@ def _lit_dtype(value) -> dt.DataType:
         return dt.Int32() if -(2**31) <= value < 2**31 else dt.Int64()
     if isinstance(value, float):
         return dt.Float64()
+    if isinstance(value, _decimal.Decimal):
+        exp = value.as_tuple().exponent
+        return dt.Decimal(38, -exp if isinstance(exp, int) and exp < 0 else 0)
     raise NotImplementedError(f"literal {value!r} is not ported yet (port queue: expression breadth)")
 
 
@@ -328,6 +335,10 @@ def _eval_literal(node: E.ELiteral, ctx: EvalCtx) -> Val:
         # a one-entry sorted dictionary; code 0
         table = strtable.StringTable(np.asarray([value], object), sorted_order=True)
         return Val(torch.zeros(1, dtype=torch.int32, device=ctx.device), None, dt.String(), table, SCALAR)
+    if isinstance(value, _decimal.Decimal):  # scaled to its dtype's scale, half to even
+        d = dtype if isinstance(dtype, dt.Decimal) else _lit_dtype(value)
+        scaled = int(value.scaleb(d.scale).to_integral_value(_decimal.ROUND_HALF_EVEN))
+        return Val(torch.tensor([scaled], dtype=torch.int64, device=ctx.device), None, d, None, SCALAR)
     d = dtype if dtype is not None else _lit_dtype(value)
     return Val(int_scalar(value, d, ctx.device), None, d, None, SCALAR)
 
@@ -426,8 +437,7 @@ def _eval_binary(node: E.EBinary, ctx: EvalCtx) -> Val:
 
 def _arith(op: str, a: Val, b: Val, out_dt: dt.DataType, pow_bits: int = 63):
     if isinstance(out_dt, dt.Decimal):
-        raise NotImplementedError(
-            f"{op!r} on {a.dtype!r} and {b.dtype!r} is not ported yet (port queue: expression breadth)")
+        return _decimal_arith(op, a, b, out_dt)
     if out_dt.is_temporal() or a.dtype.is_temporal() or b.dtype.is_temporal():
         return _temporal_arith(op, a, b, out_dt)
     if not out_dt.is_numeric():
@@ -473,6 +483,43 @@ def _arith(op: str, a: Val, b: Val, out_dt: dt.DataType, pow_bits: int = 63):
         values = values.to(tdt)
     # UInt16/UInt32 live in a wider signed tensor: wrap like the native type
     return wrap_unsigned(values, out_dt), validity
+
+
+def _decimal_arith(op: str, a: Val, b: Val, out_dt: dt.Decimal):
+    """``+ - * /`` of Decimals (an integer operand has scale 0) in int64
+    scaled by 10^scale, as the JAX package's ``compiler.py:388-420`` and
+    Polars' ``arithmetic/decimal.rs``: both sides at the output scale, a
+    product divided back by 10^scale and a quotient's dividend scaled up,
+    each rounded half to even; a division by zero is null."""
+    if op not in ("+", "-", "*", "/"):
+        raise InvalidOperationError(f"operator {op!r} is not defined for {a.dtype!r} and {b.dtype!r}")
+    s = out_dt.scale
+
+    def rescaled(v: Val) -> torch.Tensor:
+        vs = v.dtype.scale if isinstance(v.dtype, dt.Decimal) else 0
+        return v.values.to(torch.int64) * (10 ** (s - vs)) if vs < s else v.values.to(torch.int64)
+
+    av, bv = rescaled(a), rescaled(b)
+    validity = combine_validity(a.validity, b.validity)
+    if op == "+":
+        return av + bv, validity
+    if op == "-":
+        return av - bv, validity
+    if op == "*":
+        return _div_half_even(av * bv, torch.full((), 10**s, dtype=torch.int64, device=av.device)), validity
+    nz = bv != 0
+    return _div_half_even(av * (10**s), torch.where(nz, bv, 1)), combine_validity(validity, nz)
+
+
+def _div_half_even(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
+    """``num / den`` of int64s rounded to the nearest integer, ties to even
+    (``den`` nonzero)."""
+    q = torch.div(num, den, rounding_mode="trunc")
+    r = num - q * den
+    twice = (2 * r).abs()
+    away = (twice > den.abs()) | ((twice == den.abs()) & (q % 2 != 0))
+    step = torch.where((num < 0) != (den < 0), -1, 1)
+    return torch.where(away & (r != 0), q + step, q)
 
 
 def _group_to_rows(v: Val, ctx: EvalCtx) -> Val:
@@ -752,6 +799,8 @@ def _eval_agg(node: E.EAgg, ctx: EvalCtx) -> Val:
     kind = node.kind
     if kind == "len" and not E.changes_length(node.input):
         return Val(G.group_counts(gctx, ctx.rowmask), None, dt.UInt32(), None, dom)
+    if kind in ("corr", "cov"):
+        return _eval_corr_cov(node, ctx, gctx, dom)
     v, rowmask = _agg_input(node.input, ctx)
     if rowmask is not ctx.rowmask:  # a filter or slice: the groups' cached counts are the other mask's
         gctx = dataclasses.replace(gctx, counts=None, sort_perm=None)
@@ -767,6 +816,8 @@ def _eval_agg(node: E.EAgg, ctx: EvalCtx) -> Val:
             validity=None if v.validity is None else v.validity.expand(ctx.rows),
             domain=ROW,
         )
+    if isinstance(v.dtype, dt.Decimal) and kind in _FLOAT_AGGS:  # over the logical value
+        v = v.with_(values=decimal_to_float(v.values, v.dtype.scale, torch.float64), dtype=dt.Float64())
     data_mask = rowmask if v.validity is None else (rowmask & v.validity)
     if kind == "count":
         return Val(G.seg_count(data_mask, gids, cap), None, dt.UInt32(), None, dom)
@@ -842,7 +893,164 @@ def _eval_stat_agg(node: E.EAgg, ctx: EvalCtx, v: Val, data_mask: torch.Tensor, 
         return Val(out, (out if kind == "any" else ~out) | ~has_null, dt.Boolean(), None, dom)
     if kind in ("arg_min", "arg_max"):
         return _eval_arg_extreme(kind, v, data_mask, gctx, rowmask, dom)
+    if kind in ("skew", "kurtosis"):
+        return _eval_moment(node, v, data_mask, gctx, dom, out_dt)
+    if kind == "entropy":
+        # -sum(p ln p) / ln(base), p the values over their group's sum where
+        # ``normalize`` (the JAX package's compiler.py:1151)
+        x = _float_input(v).to(torch.float64)
+        zero = torch.zeros((), dtype=torch.float64, device=x.device)
+        if node.opt("normalize", True):
+            total = G.seg_sum(torch.where(data_mask, x, zero), data_mask, gids, cap)
+            x = x / total.index_select(0, gids.clamp(0, cap - 1).long())
+        plogp = torch.where(data_mask & (x > 0), x * torch.log(torch.where(x > 0, x, 1.0)), zero)
+        ent = -G.seg_sum(plogp, data_mask, gids, cap) / math.log(float(node.opt("base", math.e)))
+        return Val(ent.to(dt.dtype_to_torch(out_dt)), None, out_dt, None, dom)
+    if kind in ("bitwise_and", "bitwise_or", "bitwise_xor"):
+        return _eval_bitwise_agg(kind, v, data_mask, gids, cap, dom)
+    if kind == "item":
+        # exactly one row per group (the JAX package's compiler.py:927-937):
+        # more, or none without ``allow_empty``, fails at the count read
+        cnt = G.seg_count(rowmask, gids, cap)
+        live = gctx.group_valid
+        msg = "can only call `.item()` if the dataframe is of shape (1, 1), or if each group holds one value"
+        ctx.add_flag((live & (cnt > 1)).any(), msg)
+        if not node.opt("allow_empty", False):
+            ctx.add_flag((live & (cnt == 0)).any(), msg)
+        idx, has = G.seg_first_idx(rowmask, gids, cap)
+        if v.values.shape[0] == 0:
+            return Val(torch.zeros(cap, dtype=v.values.dtype, device=v.values.device), has, v.dtype, v.table, dom)
+        validity = has if v.validity is None else (has & v.validity.index_select(0, idx))
+        return Val(v.values.index_select(0, idx), validity, v.dtype, v.table, dom)
     raise NotImplementedError(f"aggregation {kind!r} is not ported yet (port queue: expression breadth)")
+
+
+def _eval_moment(node: E.EAgg, v: Val, data_mask: torch.Tensor, gctx: GroupCtx, dom: str, out_dt) -> Val:
+    """Skewness (``bias=False``: the adjusted Fisher-Pearson coefficient) and
+    kurtosis (Fisher's excess unless ``fisher=False``; ``bias=False``: the
+    unbiased estimator, as Polars computes it) from the central moments of
+    values centred on their group's mean: two K1 passes."""
+    gids, cap = gctx.gids, gctx.capacity
+    x = _float_input(v).to(torch.float64)
+    zero = torch.zeros((), dtype=torch.float64, device=x.device)
+    c = G.seg_count(data_mask, gids, cap).to(torch.float64)
+    mean = G.seg_sum(torch.where(data_mask, x, zero), data_mask, gids, cap) / c.clamp(min=1.0)
+    d = torch.where(data_mask, x - mean.index_select(0, gids.clamp(0, cap - 1).long()), zero)
+    m2, m3, m4 = (G.seg_sums([d * d, d * d * d, (d * d) * (d * d)], data_mask, gids, cap) / c.clamp(min=1.0).unsqueeze(1)).unbind(1)
+    if node.kind == "skew":
+        out = m3 / m2.pow(1.5)
+        if not node.opt("bias", True):
+            out = out * torch.sqrt(c * (c - 1)) / (c - 2)
+    else:
+        out = m4 / (m2 * m2)
+        if not node.opt("bias", True):
+            out = ((c + 1) * (out - 3) + 6) * (c - 1) / ((c - 2) * (c - 3)) + 3
+        if node.opt("fisher", True):
+            out = out - 3.0
+    return Val(out.to(dt.dtype_to_torch(out_dt)), c > 0, out_dt, None, dom)
+
+
+def _eval_bitwise_agg(kind: str, v: Val, data_mask: torch.Tensor, gids: torch.Tensor, cap: int, dom: str) -> Val:
+    """AND, OR or XOR of each group's values, bit by bit from per-bit
+    counts (K1): a bit is set in the AND where every value has it, in the
+    OR where one has, in the XOR where an odd number have (the JAX
+    package's bit-sliced reduction, compiler.py:1049-1080); null for a
+    group without values."""
+    counts = G.seg_count(data_mask, gids, cap)
+    has = counts > 0
+    if isinstance(v.dtype, dt.Boolean):
+        bv = v.values.to(torch.bool)
+        ones = G.seg_count(data_mask & bv, gids, cap)
+        out = {"bitwise_and": ones == counts, "bitwise_or": ones > 0, "bitwise_xor": ones % 2 == 1}[kind]
+        return Val(out, has, dt.Boolean(), None, dom)
+    from polars_tpu_torch.engine.cast import _BITS, wrap_int
+
+    w = _BITS[type(v.dtype).__name__]
+    u = v.values.to(torch.int64)
+    out = torch.zeros(cap, dtype=torch.int64, device=u.device)
+    for bit in range(w):
+        ones = G.seg_count(data_mask & (((u >> bit) & 1) == 1), gids, cap)
+        on = {"bitwise_and": ones == counts, "bitwise_or": ones > 0, "bitwise_xor": ones % 2 == 1}[kind]
+        out = out | (on.to(torch.int64) << bit)
+    return Val(wrap_int(out, v.dtype), has, v.dtype, None, dom)
+
+
+def _avg_ranks(x: torch.Tensor, dtype: dt.DataType, mask: torch.Tensor, gids: torch.Tensor, cap: int,
+               counts: torch.Tensor) -> torch.Tensor:
+    """Each ``mask`` row's rank (1-based, ties averaged) among its group's
+    ``mask`` rows: one stable sort by (group, value), NaN greatest."""
+    from polars_tpu_torch.kernels.argsort import boundaries_from_words, key_words
+
+    n = x.shape[0]
+    if n == 0:
+        return torch.zeros(0, dtype=torch.float64, device=x.device)
+    words = [torch.where(mask, gids, cap), *key_words(x, dtype)]
+    perm = stable_argsort_words(words)
+    newval = boundaries_from_words(words, perm)
+    last = torch.ones_like(newval)
+    last[:-1] = newval[1:]
+    run_start, run_end = P.marked_neighbours(newval)[0], P.marked_neighbours(last)[1]
+    offsets = torch.cumsum(counts, 0) - counts
+    g_sorted = words[0].index_select(0, perm).clamp(0, max(cap - 1, 0)).long()
+    rank_sorted = (run_start + run_end).to(torch.float64) * 0.5 - offsets.index_select(0, g_sorted) + 1
+    return torch.empty_like(rank_sorted).index_copy_(0, perm, rank_sorted)
+
+
+def _eval_corr_cov(node: E.EAgg, ctx: EvalCtx, gctx: GroupCtx, dom: str) -> Val:
+    """``pl.corr`` (Pearson's, or Spearman's: Pearson's of the average
+    ranks) and ``pl.cov`` per group over the rows where both inputs are
+    valid, in two K1 passes: the group means, then the sums of the
+    products of the centred values. The JAX package's one-pass
+    ``n*Sxx - Sx^2`` (compiler.py:835-838) cancels for values far from 0
+    (ROADMAP section 3)."""
+    pair = node.input
+    if not (isinstance(pair, E.EFunction) and pair.name == "pack_pair"):
+        raise InvalidOperationError(f"{node.kind} takes two columns (pl.{node.kind})")
+    (a, mask_a), (b, mask_b) = (_agg_input(i, ctx) for i in pair.inputs)
+    if mask_a is not mask_b:
+        raise NotImplementedError(f"{node.kind} over inputs that keep different rows is not ported")
+    if mask_a is not ctx.rowmask:
+        gctx = dataclasses.replace(gctx, counts=None, sort_perm=None)
+    gids, cap = gctx.gids, gctx.capacity
+    a, b = P.row_domain(ctx, a), P.row_domain(ctx, b)
+    m = mask_a
+    for x in (a, b):
+        if x.validity is not None:
+            m = m & x.validity
+    counts = G.seg_count(m, gids, cap)
+    n = counts.to(torch.float64)
+    spearman = node.kind == "corr" and node.opt("method", "pearson") == "spearman"
+
+    def values(x: Val) -> torch.Tensor:
+        if isinstance(x.dtype, dt.Decimal):
+            return decimal_to_float(x.values, x.dtype.scale, torch.float64)
+        if spearman:
+            return _avg_ranks(x.values, x.dtype, m, gids, cap, counts)
+        return float_values(x.values, x.dtype, torch.float64)
+
+    xv, yv = values(a), values(b)
+    zero = torch.zeros((), dtype=torch.float64, device=xv.device)
+    xv, yv = torch.where(m, xv, zero), torch.where(m, yv, zero)
+    ids = gids.clamp(0, cap - 1).long()
+    means = G.seg_sums([xv, yv], m, gids, cap) / n.clamp(min=1.0).unsqueeze(1)
+    dx = torch.where(m, xv - means[:, 0].index_select(0, ids), zero)
+    dy = torch.where(m, yv - means[:, 1].index_select(0, ids), zero)
+    if node.kind == "cov":
+        ddof = int(node.opt("ddof", 1))
+        sxy = G.seg_sums([dx * dy], m, gids, cap)[:, 0]
+        return Val(sxy / (n - ddof), n > ddof, dt.Float64(), None, dom)
+    sums = G.seg_sums([dx * dy, dx * dx, dy * dy], m, gids, cap)
+    denom = torch.sqrt(sums[:, 1] * sums[:, 2])
+    out = torch.where(denom > 0, sums[:, 0] / torch.where(denom > 0, denom, 1.0), float("nan"))
+    return Val(out, n >= 1, dt.Float64(), None, dom)
+
+
+_FLOAT_AGGS = ("mean", "median", "quantile", "std", "var", "skew", "kurtosis", "entropy")
+
+
+def decimal_to_float(values: torch.Tensor, scale: int, target: torch.dtype) -> torch.Tensor:
+    """Decimal storage (int64 scaled by 10^scale) as floats."""
+    return (values.to(torch.float64) / (10.0**scale)).to(target)
 
 
 def _float_input(v: Val) -> torch.Tensor:

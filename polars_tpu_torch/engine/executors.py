@@ -30,7 +30,7 @@ from polars_tpu_torch.engine import groupby as G
 from polars_tpu_torch.engine.cast import float_values, wrap_unsigned
 from polars_tpu_torch.engine.common import GROUP, ROW, SCALAR, EvalCtx, Val, reject_series
 from polars_tpu_torch.engine.compiler import (
-    _agg_domain, _agg_out_dtype, align_pieces, eval_expr, eval_piece, group_of, mean_values,
+    _agg_domain, _agg_out_dtype, align_pieces, decimal_to_float, eval_expr, eval_piece, group_of, mean_values,
 )
 from polars_tpu_torch.engine.join_traced import trace_join
 from polars_tpu_torch.engine.sort import apply_perm, sort_perm
@@ -429,7 +429,12 @@ def _batch_aggs(aggs, ctx: EvalCtx) -> dict:
         key = ("value", batch, id(v.values), None if v.validity is None else id(v.validity))
 
         def make():
-            x = float_values(v.values, v.dtype, acc) if batch == "f" else v.values.to(acc)
+            if batch == "i":
+                x = v.values.to(acc)
+            elif isinstance(v.dtype, dt.Decimal):  # a mean of the logical values
+                x = decimal_to_float(v.values, v.dtype.scale, acc)
+            else:
+                x = float_values(v.values, v.dtype, acc)
             if v.validity is not None:
                 x = torch.where(v.validity, x, torch.zeros((), dtype=acc, device=x.device))
             return x.contiguous()

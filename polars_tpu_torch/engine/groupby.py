@@ -169,6 +169,12 @@ def seg_sum(values: torch.Tensor, mask: torch.Tensor, gids: torch.Tensor, cap: i
     return groupagg_sums(gids, [values.to(acc).contiguous()], mask, cap)[:, 0].to(values.dtype)
 
 
+def seg_sums(columns: list[torch.Tensor], mask: torch.Tensor, gids: torch.Tensor, cap: int) -> torch.Tensor:
+    """(cap, k) per-group f64 sums of several f64 columns over ``mask``: one
+    K1 call."""
+    return groupagg_sums(gids, [c.contiguous() for c in columns], mask, cap)
+
+
 def seg_count(mask: torch.Tensor, gids: torch.Tensor, cap: int) -> torch.Tensor:
     """Per-group count of ``mask`` rows, int64."""
     return groupagg_sums(gids, [None], mask, cap)[:, 0]
@@ -312,24 +318,32 @@ def seg_all(values: torch.Tensor, mask: torch.Tensor, gids: torch.Tensor, cap: i
 
 
 def seg_quantile(v: Val, mask: torch.Tensor, gids: torch.Tensor, cap: int, q: float, interpolation: str):
-    """(per-group quantile ``q`` as f64, has_any): one stable sort by (group,
-    value), NaN greatest, with the rows outside ``mask`` last; each group's
-    run starts at the sum of the sizes before it (K1 counts), and the
-    interpolation picks or blends the values at the positions ``(n-1) * q``
-    rounds to (``nearest`` rounds half to even, as the JAX package does)."""
+    """(per-group quantile ``q`` as f64, has_any): :func:`seg_quantiles` of
+    one ``q``."""
+    out, has = seg_quantiles(v, mask, gids, cap, [q], interpolation)
+    return out[:, 0], has
+
+
+def seg_quantiles(v: Val, mask: torch.Tensor, gids: torch.Tensor, cap: int, qs: list[float], interpolation: str):
+    """((cap, len(qs)) per-group quantiles as f64, has_any): one stable sort
+    by (group, value), NaN greatest, with the rows outside ``mask`` last;
+    each group's run starts at the sum of the sizes before it (K1 counts),
+    and the interpolation picks or blends the values at the positions
+    ``(n-1) * q`` rounds to (``nearest`` rounds half to even, as the JAX
+    package does)."""
     n = mask.shape[0]
     counts = seg_count(mask, gids, cap)
     if n == 0:
-        return torch.zeros(cap, dtype=torch.float64, device=mask.device), counts > 0
+        return torch.zeros((cap, len(qs)), dtype=torch.float64, device=mask.device), counts > 0
     g = torch.where(mask, gids, cap)
     perm = stable_argsort_words([g, *key_words(v.values, v.dtype)])
     ordered = float_values(v.values.index_select(0, perm), v.dtype, torch.float64)
-    offsets = torch.cumsum(counts, 0) - counts
-    c = counts.clamp(min=1)
-    pos = (c - 1).to(torch.float64) * q
+    offsets = (torch.cumsum(counts, 0) - counts).unsqueeze(1)
+    c = counts.clamp(min=1).unsqueeze(1)
+    pos = (c - 1).to(torch.float64) * torch.tensor(qs, dtype=torch.float64, device=mask.device)
 
     def at(k: torch.Tensor) -> torch.Tensor:
-        return ordered.index_select(0, (offsets + k.to(torch.int64)).clamp(0, n - 1))
+        return ordered.index_select(0, (offsets + k.to(torch.int64)).clamp(0, n - 1).reshape(-1)).reshape(k.shape)
 
     if interpolation == "nearest":
         out = at(torch.round(pos))

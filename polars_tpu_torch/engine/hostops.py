@@ -4,7 +4,10 @@
 casts to String, the median, quantile and rank over time windows
 (``rolling_*_by``, the JAX package's ``run.py:1646-1722``) and a
 ``cumulative_eval`` of any expression but a prefix sum, min, max or mean
-(``run.py:1493``); ``plan/exprs.is_host_call``). Each runs through
+(``run.py:1493``), ``shrink_dtype`` (``run.py:1453``) and the generators
+``int_range``, ``repeat``, ``unique`` and ``unique_counts``
+(``run.py:2006-2045``), whose column has a length of its own;
+``plan/exprs.is_host_call``). Each runs through
 ``engine/run._eval_generator``.
 
 A select or with_columns that calls one (``plan/exprs.HOST_FNS``) is no
@@ -39,12 +42,14 @@ from polars_tpu_torch.core.buffer import Buffer
 from polars_tpu_torch.core.column import Column
 from polars_tpu_torch.core.frame import DataFrame
 from polars_tpu_torch.engine.common import take_lut
-from polars_tpu_torch.errors import InvalidOperationError
+from polars_tpu_torch.errors import InvalidOperationError, ShapeError
 from polars_tpu_torch.plan import exprs as E
 from polars_tpu_torch.plan import logical as L
 from polars_tpu_torch.utils import strtable
 from polars_tpu_torch.utils.tokens import next_token
 
+# host functions that make a column of their own length
+GENERATORS = ("int_range", "repeat_value", "unique", "unique_counts")
 _EPOCH = _pydt.datetime(1970, 1, 1)
 _EPOCH_UTC = _pydt.datetime(1970, 1, 1, tzinfo=_pydt.timezone.utc)
 # the chrono specifiers Python lacks or reads otherwise
@@ -67,9 +72,9 @@ def exec_host_select(node: L.LSelect | L.LWithColumns) -> DataFrame:
     def hoist(e: E.ENode) -> E.ENode:
         if E.is_host_call(e):
             out = run._eval_generator(df, e, None)
-            if len(out) == 1:  # an aggregate's or a literal's: a scalar, as in the JAX package
+            if len(out) == 1 and e.name not in GENERATORS:  # an aggregate's or a literal's: a scalar
                 return E.ESeriesLit(column=out, ident=next_token())
-            if len(out) != df.height:
+            if len(out) != df.height and e.name not in GENERATORS:
                 raise InvalidOperationError(
                     f"{e.name} gives {len(out)} rows over a frame of {df.height}; only a column or a scalar input")
             name = f"__host_{len(hoisted)}"
@@ -87,6 +92,15 @@ def exec_host_select(node: L.LSelect | L.LWithColumns) -> DataFrame:
     if isinstance(node, L.LWithColumns):  # the input's columns in place, the new ones after
         defined = {E.output_name(e): e for e in exprs}
         exprs = [defined.pop(n, E.EColumn(n)) for n in df.columns] + list(defined.values())
+    heights = {len(c) for c in hoisted} - {df.height}
+    if heights:  # a generator of its own length: the select's rows are its
+        reads = {n.name for e in exprs for n in E.walk(e) if isinstance(n, E.EColumn)}
+        if len(heights) > 1 or not isinstance(node, L.LSelect) or reads & set(df.columns) or \
+                {len(c) for c in hoisted} != heights:
+            raise ShapeError(f"a select of columns of lengths {sorted(heights | {df.height})}")
+        frame = DataFrame._from_columns(hoisted, heights.pop(), device=df.device)
+        scan = L.LDataFrameScan(df=frame, ident=0)
+        return run_segment(L.LSelect(scan, tuple(exprs)), [(scan, frame)])
     frame = DataFrame._from_columns(list(df._columns) + hoisted, df.height, device=df.device)
     scan = L.LDataFrameScan(df=frame, ident=0)
     return run_segment(L.LSelect(scan, tuple(exprs)), [(scan, frame)])
@@ -102,10 +116,127 @@ def host_call(df: DataFrame, node: E.ENode) -> Column:
         return cumulative_eval_column(_eval_column(df, node.inputs[0]), node)
     if node.name in ("rolling_median_by", "rolling_quantile_by", "rolling_rank_by"):
         return rolling_order_by_column(_eval_column(df, node.inputs[0]), _eval_column(df, node.inputs[1]), node)
+    if node.name in ("int_range", "repeat_value"):
+        return generate(df, node)
+    if node.name == "shrink_dtype":
+        return shrink_column(_eval_column(df, node.inputs[0]))
+    if node.name in ("unique", "unique_counts"):
+        return distinct_column(_eval_column(df, node.inputs[0]), node)
     if node.name != "dt.to_string":
         raise InvalidOperationError(f"unknown host function {node.name!r}")
     col = _eval_column(df, node.inputs[0])
     return to_string_column(col, dict(node.options).get("format"))
+
+
+def _scalars(df: DataFrame, nodes) -> list:
+    """The Python values of one-value expressions over ``df``: a literal as
+    written, the others from one select of them all (its count read and one
+    read of each value)."""
+    from polars_tpu_torch.engine.executors import run_segment
+
+    out: list = [None] * len(nodes)
+    todo = []
+    for i, n in enumerate(nodes):
+        while isinstance(n, E.EAlias):
+            n = n.input
+        if isinstance(n, E.ELiteral) and not (isinstance(n.value, str) and n.dtype is not None):
+            out[i] = n.value
+        else:
+            todo.append(i)
+    if todo:
+        scan = L.LDataFrameScan(df=df, ident=0)
+        frame = run_segment(L.LSelect(scan, tuple(E.EAlias(nodes[i], f"__v{i}") for i in todo)), [(scan, df)])
+        if frame.height != 1:
+            raise InvalidOperationError(f"a generator's bounds must be single values, got {frame.height} rows")
+        for i in todo:
+            out[i] = frame._get(f"__v{i}").to_pylist()[0]
+    return out
+
+
+def generate(df: DataFrame, node: E.EFunction) -> Column:
+    """``int_range`` (``torch.arange`` on the frame's device) or ``repeat``
+    (one value gathered ``n`` times): its bounds read once (the JAX
+    package's ``run.py:2006-2016``)."""
+    device = df.device
+    if node.name == "int_range":
+        start, end = _scalars(df, node.inputs)
+        dtype = node.opt("dtype") or dt.Int64()
+        if start is None or end is None:
+            raise InvalidOperationError("int_range bounds must not be null")
+        values = torch.arange(int(start), int(end), int(node.opt("step", 1)), dtype=torch.int64, device=device)
+        from polars_tpu_torch.engine.cast import wrap_int
+
+        return Column("literal", dtype, Buffer(wrap_int(values, dtype), None, values.shape[0]))
+    value_node, n_node = node.inputs
+    (n,) = _scalars(df, [n_node])
+    lit = value_node
+    while isinstance(lit, E.EAlias):
+        lit = lit.input
+    if isinstance(lit, E.ELiteral):
+        one = Column.from_values("repeat", [lit.value], lit.dtype, device=device)
+    else:
+        one = _eval_column(df, value_node)
+        if len(one) != 1:
+            raise InvalidOperationError("repeat takes one value")
+    dtype = node.opt("dtype")
+    if dtype is not None and dtype != one.dtype:
+        from polars_tpu_torch.core.frame import _cast_column
+
+        one = _cast_column(one, dtype, True)
+    idx = torch.zeros(int(n), dtype=torch.int64, device=device)
+    buf = one.buffer
+    validity = None if buf.validity is None else buf.validity.index_select(0, idx)
+    return Column("repeat", one.dtype, Buffer(buf.values.index_select(0, idx), validity, int(n)), one.table)
+
+
+def distinct_column(col: Column, node: E.EFunction) -> Column:
+    """``unique`` (the distinct values, in order of first appearance with
+    ``maintain_order``) or ``unique_counts`` (the count of each distinct
+    value in order of first appearance) of one column, as a frame's
+    ``unique`` and group-by make them (the JAX package's ``run.py:2035-2045``)."""
+    from polars_tpu_torch.functions.lazy import len as pl_len
+
+    sub = DataFrame._from_columns([col.rename("__u")], len(col), device=col.buffer.device)
+    if node.name == "unique":
+        return sub.unique(maintain_order=bool(node.opt("maintain_order", False)))._columns[0].rename(col.name)
+    counts = sub.group_by("__u", maintain_order=True).agg(pl_len().alias("__c"))
+    return counts._columns[1].rename(col.name)
+
+
+def shrink_column(col: Column) -> Column:
+    """``col`` in the smallest dtype of its kind that holds its values (the
+    JAX package's ``run.py:1453-1480``): Float64 becomes Float32; an integer
+    takes one read of its non-null count, minimum and maximum (a UInt64 in
+    unsigned order, where the JAX package reads 2^63 and more as negative,
+    ROADMAP section 3)."""
+    from polars_tpu_torch.core.frame import _cast_column
+    from polars_tpu_torch.engine.cast import order_word
+
+    d = col.dtype
+    if d.is_float():
+        return _cast_column(col, dt.Float32(), False) if isinstance(d, dt.Float64) else col
+    if not d.is_integer():
+        return col
+    x = order_word(col.buffer.values.to(torch.int64), d)
+    valid = col.buffer.validity
+    big = torch.iinfo(torch.int64)
+    lo = torch.where(valid, x, big.max).min() if valid is not None else x.min() if len(col) else x.new_tensor(0)
+    hi = torch.where(valid, x, big.min).max() if valid is not None else x.max() if len(col) else x.new_tensor(0)
+    cnt = valid.sum() if valid is not None else x.new_tensor(len(col))
+    cnt, lo, hi = torch.stack([cnt.to(torch.int64), lo, hi]).tolist()  # the one read
+    if cnt == 0:
+        return _cast_column(col, dt.Int8(), False)
+    if isinstance(d, dt.UInt64):
+        lo, hi = lo + 2**63, hi + 2**63
+    kinds = ("UInt8", "UInt16", "UInt32", "UInt64") if d.is_unsigned_integer() else ("Int8", "Int16", "Int32", "Int64")
+    from polars_tpu_torch.engine.cast import int_bounds
+
+    for name in kinds:
+        cand = getattr(dt, name)()
+        blo, bhi = int_bounds(cand)
+        if blo <= lo and hi <= bhi:
+            return col if cand == d else _cast_column(col, cand, False)
+    return col
 
 
 def cumulative_eval_column(col: Column, node: E.EFunction) -> Column:

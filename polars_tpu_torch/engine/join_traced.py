@@ -57,6 +57,9 @@ def _key_word(v: Val, other: Val) -> tuple[torch.Tensor, torch.Tensor | None, bo
         return v.values.to(torch.int64), v.validity, True
     if v.dtype.is_float():
         return hash_column(v.values, v.validity, 13), v.validity, False
+    if isinstance(v.dtype, dt.Decimal):  # scaled integers, at the larger scale of the two sides
+        s = max(v.dtype.scale, other.dtype.scale if isinstance(other.dtype, dt.Decimal) else 0)
+        return v.values.to(torch.int64) * 10 ** (s - v.dtype.scale), v.validity, True
     if isinstance(v.dtype, dt.Boolean) or v.dtype.is_integer() or v.dtype.is_temporal():
         # UInt64 bit patterns in unsigned order (the JAX package's total_order_key)
         return order_word(v.values.to(torch.int64), v.dtype), v.validity, True

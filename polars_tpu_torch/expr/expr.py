@@ -6,12 +6,15 @@ evaluate: arithmetic, comparison, boolean ``&``/``|``/``~``, casts, ``is_in``,
 ``.dt`` namespaces, aliasing, the unary and math functions, the ``name``
 namespace, ``exclude`` over a wildcard or selector, and the sum, mean, min,
 max, count, len, first, last, n_unique, null_count, std, var, median,
-quantile, product, any, all, arg_min and arg_max aggregations, windows
-(``over``), the order and position functions, the expression-level sort,
-filter, slice and gather, and the rolling, exponentially weighted and
-cumulative windows). Nothing executes until a plan is
-collected. The methods of later slices raise ``NotImplementedError`` naming
-their queue item (``_LATER``).
+quantile, product, any, all, arg_min, arg_max, skew, kurtosis, entropy,
+bitwise and item aggregations, windows (``over``), the order and position
+functions, the expression-level sort, filter, slice and gather, the
+rolling, exponentially weighted and cumulative windows, and the recoding
+functions (``replace``, ``replace_strict``, ``hash``, ``cut``, ``qcut``,
+``rle_id``, ``search_sorted``, ``index_of``, the bit counts) with the
+operator aliases). Nothing executes until a plan is collected. The methods
+of later slices raise ``NotImplementedError`` naming their queue item
+(``_LATER``).
 """
 
 from __future__ import annotations
@@ -237,6 +240,60 @@ class Expr:
     def not_(self) -> Expr:
         return self._fn("not")
 
+    def add(self, other: Any) -> Expr:
+        return self._bin("+", other)
+
+    def sub(self, other: Any) -> Expr:
+        return self._bin("-", other)
+
+    def mul(self, other: Any) -> Expr:
+        return self._bin("*", other)
+
+    def truediv(self, other: Any) -> Expr:
+        return self._bin("/", other)
+
+    def floordiv(self, other: Any) -> Expr:
+        return self._bin("//", other)
+
+    def mod(self, other: Any) -> Expr:
+        return self._bin("%", other)
+
+    def eq(self, other: Any) -> Expr:
+        return self._bin("==", other)
+
+    def ne(self, other: Any) -> Expr:
+        return self._bin("!=", other)
+
+    def lt(self, other: Any) -> Expr:
+        return self._bin("<", other)
+
+    def le(self, other: Any) -> Expr:
+        return self._bin("<=", other)
+
+    def gt(self, other: Any) -> Expr:
+        return self._bin(">", other)
+
+    def ge(self, other: Any) -> Expr:
+        return self._bin(">=", other)
+
+    def and_(self, *others: Any) -> Expr:
+        out = self
+        for o in others:
+            out = out._bin("&", o)
+        return out
+
+    def or_(self, *others: Any) -> Expr:
+        out = self
+        for o in others:
+            out = out._bin("|", o)
+        return out
+
+    def xor(self, other: Any) -> Expr:
+        return self._bin("^", other)
+
+    def neg(self) -> Expr:
+        return self._fn("negate")
+
     __hash__ = None  # == builds an expression, so Expr is not hashable
 
     # -- membership / range ---------------------------------------------------
@@ -375,6 +432,145 @@ class Expr:
 
     def arg_max(self) -> Expr:
         return self._agg("arg_max")
+
+    def approx_n_unique(self) -> Expr:
+        return self._agg("n_unique")
+
+    def item(self, *, allow_empty: bool = False) -> Expr:
+        """The one value of the column (of each group); more than one, or
+        none without ``allow_empty``, fails the query at its count read."""
+        return self._agg("item", allow_empty=allow_empty)
+
+    def bitwise_and(self) -> Expr:
+        return self._agg("bitwise_and")
+
+    def bitwise_or(self) -> Expr:
+        return self._agg("bitwise_or")
+
+    def bitwise_xor(self) -> Expr:
+        return self._agg("bitwise_xor")
+
+    def skew(self, *, bias: bool = True) -> Expr:
+        return self._agg("skew", bias=bias)
+
+    def kurtosis(self, *, fisher: bool = True, bias: bool = True) -> Expr:
+        return self._agg("kurtosis", fisher=fisher, bias=bias)
+
+    def entropy(self, base: float = 2.718281828459045, *, normalize: bool = True) -> Expr:
+        return self._agg("entropy", base=base, normalize=normalize)
+
+    def dot(self, other: Any) -> Expr:
+        return (self * other).sum()
+
+    def has_nulls(self) -> Expr:
+        return self.null_count() > 0
+
+    def is_empty(self) -> Expr:
+        return self.len() == 0
+
+    def nan_max(self) -> Expr:
+        """The max, NaN where the column holds a NaN."""
+        from polars_tpu_torch.functions.lazy import when
+
+        return when(self.is_nan().any()).then(float("nan")).otherwise(self.max())
+
+    def nan_min(self) -> Expr:
+        from polars_tpu_torch.functions.lazy import when
+
+        return when(self.is_nan().any()).then(float("nan")).otherwise(self.min())
+
+    # -- recoding -------------------------------------------------------------
+
+    def hash(self, seed: int = 0, *more_seeds: int) -> Expr:
+        """splitmix64 of each value (UInt64); the extra seeds fold into one
+        64-bit seed, so that other seeds give other hashes."""
+        s = seed & 0xFFFFFFFFFFFFFFFF
+        for i, m in enumerate(more_seeds):
+            s ^= (int(m) * (0x9E3779B97F4A7C15 + 2 * i + 1)) & 0xFFFFFFFFFFFFFFFF
+        return self._fn("hash", seed=s - (1 << 64) if s >= 1 << 63 else s)
+
+    @staticmethod
+    def _replace_pairs(old: Any, new: Any) -> tuple[tuple, tuple]:
+        if isinstance(old, dict):
+            olds, news = list(old), list(old.values())
+        else:
+            olds, news = old, new
+        if not isinstance(olds, (list, tuple)):
+            olds = [olds]
+        if not isinstance(news, (list, tuple)):
+            news = [news] * len(olds)
+        if len(olds) != len(news):
+            raise InvalidOperationError(f"replace: {len(olds)} old values and {len(news)} new ones")
+        return tuple(olds), tuple(news)
+
+    def replace(self, old: Any, new: Any = None) -> Expr:
+        """The listed values replaced (a dict, two lists, or one value and
+        its new one), in the column's dtype."""
+        olds, news = self._replace_pairs(old, new)
+        return self._fn("replace", olds=olds, news=news)
+
+    def replace_strict(self, old: Any, new: Any = None, *, default: Any = None, return_dtype: Any = None) -> Expr:
+        """Every value mapped to a new one (of the new values' dtype, or
+        ``return_dtype``); a value the mapping lacks takes ``default``, or
+        fails the query."""
+        olds, news = self._replace_pairs(old, new)
+        return self._fn("replace_strict", olds=olds, news=news, default=default,
+                        return_dtype=None if return_dtype is None else dt.parse_into_dtype(return_dtype))
+
+    def cut(self, breaks: Any, *, labels: Any = None, left_closed: bool = False, include_breaks: bool = False) -> Expr:
+        """The bin of each value between ``breaks``: an Enum of the interval
+        labels (``include_breaks`` gives a Struct: port queue item 4)."""
+        return self._fn("cut", breaks=tuple(breaks), labels=None if labels is None else tuple(labels),
+                        left_closed=left_closed, include_breaks=include_breaks)
+
+    def qcut(self, quantiles: Any, *, labels: Any = None, left_closed: bool = False, allow_duplicates: bool = False,
+             include_breaks: bool = False) -> Expr:
+        """The bin of each value between the column's quantiles (a count
+        of bins, or the quantiles themselves)."""
+        if isinstance(quantiles, int):
+            quantiles = [i / quantiles for i in range(1, quantiles)]
+        return self._fn("qcut", quantiles=tuple(quantiles), labels=None if labels is None else tuple(labels),
+                        left_closed=left_closed, allow_duplicates=allow_duplicates, include_breaks=include_breaks)
+
+    def rle_id(self) -> Expr:
+        return self._fn("rle_id")
+
+    def unique(self, *, maintain_order: bool = False) -> Expr:
+        return self._fn("unique", maintain_order=maintain_order)
+
+    def unique_counts(self) -> Expr:
+        return self._fn("unique_counts")
+
+    def truncate(self, decimals: int = 0) -> Expr:
+        return self._fn("truncate", decimals=decimals)
+
+    def reinterpret(self, *, signed: bool | None = None, dtype: Any = None) -> Expr:
+        return self._fn("reinterpret", signed=signed, dtype=None if dtype is None else dt.parse_into_dtype(dtype))
+
+    def round_sig_figs(self, digits: int) -> Expr:
+        return self._fn("round_sig_figs", digits=digits)
+
+    def lower_bound(self) -> Expr:
+        return self._fn("lower_bound")
+
+    def upper_bound(self) -> Expr:
+        return self._fn("upper_bound")
+
+    def set_sorted(self, *, descending: bool = False) -> Expr:
+        return self._fn("set_sorted", descending=descending)
+
+    def shrink_dtype(self) -> Expr:
+        """The smallest dtype of the same kind that holds every value (a host
+        function: one read of the minimum, maximum and count)."""
+        return self._fn("shrink_dtype")
+
+    def pipe(self, function: Callable, *args: Any, **kwargs: Any) -> Any:
+        return function(self, *args, **kwargs)
+
+    def is_close(self, other: Any, *, abs_tol: float = 1e-12, rel_tol: float = 1e-9, nans_equal: bool = False) -> Expr:
+        o = other if isinstance(other, Expr) else Expr(parse_into_expr(other))
+        close = (self - o).abs() <= (abs_tol + rel_tol * o.abs())
+        return close | (self.is_nan() & o.is_nan()) if nans_equal else close
 
     # -- math -----------------------------------------------------------------
 
@@ -684,6 +880,41 @@ class Expr:
             pred = E.EBinary(pred, "&", p)
         return Expr(E.EFilter(self._node, pred))
 
+    def limit(self, n: int = 10) -> Expr:
+        return self.head(n)
+
+    def where(self, predicate: Any) -> Expr:
+        return self.filter(predicate)
+
+    def arg_true(self) -> Expr:
+        """The positions of the true values (a shorter column)."""
+        return Expr(E.EFilter(E.EFunction("row_position", (self._node,)), self._node))
+
+    def gather_every(self, n: int, offset: int = 0) -> Expr:
+        """Every ``n``-th value from position ``offset`` (a shorter column)."""
+        pos = Expr(E.EFunction("row_position", (self._node,)))
+        return Expr(E.EFilter(self._node, ((pos >= offset) & ((pos - offset) % n == 0))._node))
+
+    def top_k_by(self, by: Any, k: int = 5) -> Expr:
+        return self.sort_by(by, descending=True).head(k)
+
+    def bottom_k_by(self, by: Any, k: int = 5) -> Expr:
+        return self.sort_by(by).head(k)
+
+    def search_sorted(self, element: Any, side: str = "any") -> Expr:
+        """Where ``element`` would go in this sorted column (UInt32)."""
+        if side not in ("any", "left", "right"):
+            raise InvalidOperationError(f"search_sorted: unknown side {side!r}")
+        return self._fn("search_sorted", element, side=side)
+
+    def index_of(self, element: Any) -> Expr:
+        """The position of the first value equal to ``element``, null where
+        there is none."""
+        from polars_tpu_torch.functions.lazy import when
+
+        hit = self == element
+        return when(hit.any()).then((~hit).cast(dt.Int64()).arg_min()).otherwise(None)
+
     # -- windows --------------------------------------------------------------
 
     def over(self, partition_by: Any, *more_exprs: Any, order_by: Any = None, descending: Any = False,
@@ -733,6 +964,12 @@ UNARY_FLOAT = (
 for _n in UNARY_FLOAT:
     setattr(Expr, _n, _unary(_n))
 
+# the bit counts of an integer or Boolean column (UInt32)
+BIT_COUNTS = ("bitwise_count_ones", "bitwise_count_zeros", "bitwise_leading_ones", "bitwise_leading_zeros",
+              "bitwise_trailing_ones", "bitwise_trailing_zeros")
+for _n in BIT_COUNTS:
+    setattr(Expr, _n, _unary(_n))
+
 
 class ExprNameNamespace:
     """``expr.name``: the output name from the input's (reference:
@@ -768,11 +1005,6 @@ class ExprNameNamespace:
 # Expr methods of the JAX package that later slices port, by ROADMAP queue
 # item: each raises naming its item
 _LATER = {
-    "1b (replace, hash, horizontal, unique, bitwise, cut, rle, search_sorted)": (
-        "replace", "replace_strict", "hash", "unique", "unique_counts", "bitwise_count_ones",
-        "bitwise_count_zeros", "bitwise_leading_ones", "bitwise_leading_zeros", "bitwise_trailing_ones",
-        "bitwise_trailing_zeros", "cut", "qcut", "rle_id", "search_sorted",
-    ),
     "4 (map functions)": ("rolling_map",),
 }
 

@@ -1,9 +1,11 @@
 """Lazy top-level functions (the port of ``polars_tpu/functions/lazy.py``,
 trimmed to ``col`` (of names, dtypes or the wildcard), ``nth``, ``first``,
 ``last``, ``all``, ``exclude``, ``lit``, ``len``, ``count``, the column-wise
-aggregate shortcuts, ``select``, ``when``/``then``/``otherwise``,
-``coalesce``, the temporal constructors ``date``, ``datetime`` and
-``duration``, and the eager ``date_range`` and ``datetime_range``)."""
+aggregate shortcuts, ``corr`` and ``cov``, ``select``,
+``when``/``then``/``otherwise``, ``coalesce``, the horizontal functions
+with ``fold`` and ``reduce``, the generators ``int_range`` and ``repeat``,
+the temporal constructors ``date``, ``datetime`` and ``duration``, and the
+eager ``date_range`` and ``datetime_range``)."""
 
 from __future__ import annotations
 
@@ -366,21 +368,143 @@ def arg_sort_by(exprs: Any, *more_exprs: Any, descending: Any = False) -> Expr:
     return Expr(E.EFunction("arg_sort_by", nodes, (("descending", tuple(map(bool, desc))),)))
 
 
-def _later(fname: str, item: str):
-    def fn(*args: Any, **kwargs: Any):
-        raise NotImplementedError(f"{fname} is not ported yet (port queue: item {item})")
-
-    fn.__name__ = fname
-    return fn
+# -- aggregate shortcuts -----------------------------------------------------------------------
 
 
-# the functions of the JAX package that a later slice ports, by ROADMAP
-# queue item
-sum_horizontal = _later("sum_horizontal", "1b")
-min_horizontal = _later("min_horizontal", "1b")
-max_horizontal = _later("max_horizontal", "1b")
-mean_horizontal = _later("mean_horizontal", "1b")
-any_horizontal = _later("any_horizontal", "1b")
-all_horizontal = _later("all_horizontal", "1b")
-int_range = _later("int_range", "1b")
-repeat = _later("repeat", "1b")
+def approx_n_unique(*columns: str) -> Expr:
+    return col(*columns).n_unique()
+
+
+def cum_sum(*columns: str) -> Expr:
+    return col(*columns).cum_sum()
+
+
+def cum_count(*columns: str, reverse: bool = False) -> Expr:
+    """The running count of non-null values of one column (several give a
+    Struct: port queue item 4)."""
+    if builtins.len(columns) != 1:
+        raise NotImplementedError("cum_count of several columns gives a Struct (port queue: item 4)")
+    return col(columns[0]).cum_count(reverse=reverse)
+
+
+def head(column: str, n: int = 10) -> Expr:
+    return col(column).head(n)
+
+
+def tail(column: str, n: int = 10) -> Expr:
+    return col(column).tail(n)
+
+
+def corr(a: Any, b: Any, *, method: str = "pearson", ddof: int = 1) -> Expr:
+    """The correlation of two columns (per group): Pearson's, or Spearman's
+    (Pearson's of the average ranks), over the rows where both are
+    non-null."""
+    if method not in ("pearson", "spearman"):
+        raise InvalidOperationError(f"corr: unknown method {method!r}")
+    pair = E.EFunction("pack_pair", (parse_into_expr(a), parse_into_expr(b)))
+    return Expr(E.EAgg(pair, "corr", (("method", method),)))
+
+
+def cov(a: Any, b: Any, *, ddof: int = 1) -> Expr:
+    """The covariance of two columns (per group) over the rows where both
+    are non-null."""
+    pair = E.EFunction("pack_pair", (parse_into_expr(a), parse_into_expr(b)))
+    return Expr(E.EAgg(pair, "cov", (("ddof", ddof),)))
+
+
+# -- horizontal ops (selectors splice into their inputs: plan/schema_resolve.splice_horizontal) ----
+
+
+def _horizontal(name: str, exprs: tuple) -> Expr:
+    from polars_tpu_torch.expr.expr import _flat, parse_into_expr_list
+
+    nodes = tuple(parse_into_expr_list(_flat(exprs)))
+    if not nodes:
+        raise InvalidOperationError(f"{name} needs at least one expression")
+    return Expr(E.EFunction(name, nodes))
+
+
+def all_horizontal(*exprs: Any) -> Expr:
+    """Kleene ``&`` across the columns, row by row."""
+    return _horizontal("all_horizontal", exprs)
+
+
+def any_horizontal(*exprs: Any) -> Expr:
+    """Kleene ``|`` across the columns, row by row."""
+    return _horizontal("any_horizontal", exprs)
+
+
+def sum_horizontal(*exprs: Any, ignore_nulls: bool = True) -> Expr:
+    """The sum across the columns, nulls adding nothing."""
+    return _horizontal("sum_horizontal", exprs)
+
+
+def mean_horizontal(*exprs: Any, ignore_nulls: bool = True) -> Expr:
+    """The mean of the non-null values across the columns (null where all
+    are null)."""
+    return _horizontal("mean_horizontal", exprs)
+
+
+def min_horizontal(*exprs: Any) -> Expr:
+    return _horizontal("min_horizontal", exprs)
+
+
+def max_horizontal(*exprs: Any) -> Expr:
+    return _horizontal("max_horizontal", exprs)
+
+
+def fold(acc: Any, function: Any, exprs: Any) -> Expr:
+    """``function(acc, x)`` over the expressions left to right. Composed
+    when the expression enters a plan, after its selectors are spliced in
+    (``plan/schema_resolve.splice_horizontal``), so that the plan holds the
+    composed expression and never the callable."""
+    from polars_tpu_torch.expr.expr import _flat, parse_into_expr_list
+
+    nodes = tuple(parse_into_expr_list(_flat((exprs,))))
+    return Expr(E.EFunction("fold", (parse_into_expr(acc, str_as_lit=True), *nodes), (("function", function),)))
+
+
+def reduce(function: Any, exprs: Any) -> Expr:
+    """``fold`` with the first expression as the accumulator."""
+    from polars_tpu_torch.expr.expr import _flat, parse_into_expr_list
+
+    nodes = tuple(parse_into_expr_list(_flat((exprs,))))
+    if not nodes:
+        raise InvalidOperationError("reduce needs at least one expression")
+    return Expr(E.EFunction("reduce", nodes, (("function", function),)))
+
+
+# -- generators (host functions, engine/hostops.generate) ----------------------------------------
+
+
+def _eager_series(e: Expr, name: str):
+    return select(e.alias(name)).to_series(0)
+
+
+def int_range(start: Any = 0, end: Any = None, step: int = 1, *, dtype: Any = None, eager: bool = False):
+    """The integers from ``start`` up to ``end`` by ``step`` (bounds are
+    values or one-value expressions such as ``pl.len()``)."""
+    if end is None:
+        start, end = 0, start
+    e = Expr(E.EFunction("int_range", (parse_into_expr(start, str_as_lit=True), parse_into_expr(end, str_as_lit=True)),
+                         (("dtype", dt.Int64() if dtype is None else dt.parse_into_dtype(dtype)), ("step", step))))
+    return _eager_series(e, "int_range") if eager else e
+
+
+def arange(start: Any = 0, end: Any = None, step: int = 1, *, dtype: Any = None, eager: bool = False):
+    return int_range(start, end, step, dtype=dtype, eager=eager)
+
+
+def repeat(value: Any, n: Any, *, dtype: Any = None, eager: bool = False):
+    """``value`` ``n`` times (``n`` a value or a one-value expression)."""
+    e = Expr(E.EFunction("repeat_value", (parse_into_expr(value, str_as_lit=True), parse_into_expr(n, str_as_lit=True)),
+                         (("dtype", None if dtype is None else dt.parse_into_dtype(dtype)),))).alias("repeat")
+    return _eager_series(e, "repeat") if eager else e
+
+
+def ones(n: int, dtype: Any = None, *, eager: bool = True):
+    return repeat(1, n, dtype=dtype or dt.Float64(), eager=eager)
+
+
+def zeros(n: int, dtype: Any = None, *, eager: bool = True):
+    return repeat(0, n, dtype=dtype or dt.Float64(), eager=eager)

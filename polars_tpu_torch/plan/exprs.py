@@ -338,7 +338,8 @@ def fn_elementwise(name: str) -> bool:
 
 
 # functions that run on the host between segments (``engine/hostops.py``)
-HOST_FNS = frozenset({"dt.to_string", "rolling_median_by", "rolling_quantile_by", "rolling_rank_by"})
+HOST_FNS = frozenset({"dt.to_string", "rolling_median_by", "rolling_quantile_by", "rolling_rank_by", "int_range",
+                      "repeat_value", "shrink_dtype", "unique", "unique_counts"})
 
 
 def cum_eval_kind(sub: ENode | None) -> str | None:
@@ -387,8 +388,9 @@ def is_elementwise(node: ENode, *, host_ok: bool = False) -> bool:
 
 def changes_length(node: ENode) -> bool:
     """True if the expression's column has another length than its input's:
-    a filter, slice or gather that no aggregation or window encloses."""
-    if isinstance(node, _RESIZING):
+    a filter, slice, gather or ``unique`` that no aggregation or window
+    encloses."""
+    if isinstance(node, _RESIZING) or (isinstance(node, EFunction) and node.name in ("unique", "unique_counts")):
         return True
     if isinstance(node, (EAgg, EWindow)):
         return False

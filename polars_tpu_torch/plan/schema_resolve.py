@@ -246,6 +246,39 @@ def _resolve_names(node: E.ENode) -> E.ENode:
     return out
 
 
+_HORIZONTAL_FNS = frozenset({"sum_horizontal", "mean_horizontal", "min_horizontal", "max_horizontal",
+                             "any_horizontal", "all_horizontal", "coalesce", "fold", "reduce"})
+
+
+def splice_horizontal(node: E.ENode, schema: Schema) -> E.ENode:
+    """``node`` with each selector among a horizontal function's inputs
+    expanded into those inputs (one function over every matched column, not
+    one copy of the function per column: Polars'
+    ``INPUT_WILDCARD_EXPANSION``), and each ``fold``/``reduce`` composed
+    from its function over its inputs, so that no callable reaches the plan
+    (the JAX package's ``_splice_horizontal``)."""
+    if not any(isinstance(n, E.EFunction) and n.name in _HORIZONTAL_FNS for n in E.walk(node)):
+        return node
+    kids = node.children()
+    new = tuple(splice_horizontal(k, schema) for k in kids)
+    if new != kids:
+        node = _rebuild_expr(node, new)
+    if not (isinstance(node, E.EFunction) and node.name in _HORIZONTAL_FNS):
+        return node
+    inputs: list[E.ENode] = []
+    for i in node.inputs:
+        inputs.extend(expand_expr(i, schema) if _selector_roots(i) else [i])
+    if node.name in ("fold", "reduce"):
+        from polars_tpu_torch.expr.expr import Expr
+
+        fn = node.opt("function")
+        acc = inputs[0]
+        for x in inputs[1:]:
+            acc = fn(Expr(acc), Expr(x))._node
+        return acc
+    return dataclasses.replace(node, inputs=tuple(inputs))
+
+
 def needs_expansion(node: E.ENode) -> bool:
     """True if ``node`` holds a wildcard, a selector or a name wrapper."""
     return any(isinstance(n, _SELECTOR_NODES + _NAME_NODES) for n in E.walk(node))
@@ -254,7 +287,9 @@ def needs_expansion(node: E.ENode) -> bool:
 def expand_expr(node: E.ENode, schema: Schema) -> list[E.ENode]:
     """One expression per column the selectors of ``node`` match (all of
     its selectors must match as many), each with its name wrappers
-    resolved; every column it reads must exist."""
+    resolved; every column it reads must exist. Selectors among a
+    horizontal function's inputs splice in first (:func:`splice_horizontal`)."""
+    node = splice_horizontal(node, schema)
     if not needs_expansion(node):
         out = [node]
     else:
@@ -534,8 +569,16 @@ def agg_dtype(node: E.EAgg, schema: Schema) -> dt.DataType:
         if not (in_dt.is_numeric() or isinstance(in_dt, (dt.Boolean, dt.Null))):
             raise InvalidOperationError(f"{k} is not defined for {in_dt!r}")
         return dt.Float32() if name == "Float32" else dt.Float64()
-    if k in ("min", "max", "first", "last"):
+    if k in ("min", "max", "first", "last", "item"):
         return in_dt
+    if k in ("bitwise_and", "bitwise_or", "bitwise_xor"):
+        if not (in_dt.is_integer() or isinstance(in_dt, dt.Boolean)):
+            raise InvalidOperationError(f"{k} expects an integer or Boolean input, got {in_dt!r}")
+        return in_dt
+    if k in ("skew", "kurtosis", "entropy"):
+        return dt.Float32() if name == "Float32" else dt.Float64()
+    if k in ("corr", "cov"):
+        return dt.Float64()
     if k in ("count", "len", "n_unique", "null_count", "arg_min", "arg_max"):
         return dt.UInt32()
     if k in ("any", "all"):

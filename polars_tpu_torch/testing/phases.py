@@ -49,6 +49,20 @@ with ``testing/profile_query.py``:
   each filtered to its window, in one concat), and ``LazyFrame.rolling``
   over the last minute of each trade (the quantity's sum, the price's mean
   and maximum).
+- ``recode``: a pricing analyst's feature pass over PDS-H lineitem.
+  ``recode.line``: the price in cents (a Decimal(15, 2) cast), the charge
+  (cents times one plus the tax as a Decimal, rounded half to even), the
+  price band (``cut``), a late flag (``any_horizontal`` of two date
+  comparisons), the last of the three dates (``max_horizontal``), the rate
+  (``sum_horizontal`` of discount and tax), a weight per ship mode
+  (``replace_strict`` without a default) and the return flag spelled out
+  (``replace``), then per (band, ship mode, flag) the count, the Decimal
+  sums, the mean rate, the late lines, the last date and the weighted
+  quantity, sorted; ``recode.sample``: the price decile of every line
+  (``qcut`` with labels) and the run of its order (``rle_id``), then the
+  1% of lines whose order key hashes to 0 mod 100 (``hash``, a row mask
+  over every line), and per decile the count, the distinct orders, Pearson's and Spearman's
+  correlation of quantity and price and their covariance.
 """
 
 from __future__ import annotations
@@ -858,3 +872,187 @@ def rolling_oracle(data: dict) -> dict:
     quotes = {name: (v[back], None if ok is None else ok[back]) for name, (v, ok) in cols.items()}
     return {"quotes": {k: quotes[k] for k in ("mean_5m", "std_5m", "max_1m", "ewm", "spread_20")}, "bars": bars,
             "windows": res["trade_windows"], "per_trade": res["per_trade"]}
+
+
+# -- recode phase ----------------------------------------------------------------------------
+
+RECODE_COLUMNS = ["l_orderkey", "l_quantity", "l_extendedprice", "l_discount", "l_tax", "l_returnflag",
+                  "l_shipdate", "l_commitdate", "l_receiptdate", "l_shipmode"]
+RECODE_BANDS = [10000, 25000, 50000, 75000]
+RECODE_MODE_WEIGHTS = {"AIR": 1.25, "FOB": 0.8, "MAIL": 0.9, "RAIL": 0.7, "REG AIR": 1.1, "SHIP": 0.6, "TRUCK": 0.75}
+RECODE_FLAGS = {"A": "accepted", "R": "returned"}
+RECODE_DECILES = [f"d{i}" for i in range(10)]
+RECODE_SEED = 42
+RECODE_SAMPLE = 100  # one order in this many, by its hash
+
+
+def recode_plans(pl, line) -> dict:
+    """``recode.line`` and ``recode.sample`` over a lineitem frame of (at
+    least) ``RECODE_COLUMNS``."""
+    c = pl.col
+    cents = c("l_extendedprice").cast(pl.Decimal(15, 2))
+    features = line.lazy().with_columns(
+        cents=cents,
+        charge=cents * (1 + c("l_tax")).cast(pl.Decimal(15, 2)),
+        band=c("l_extendedprice").cut(RECODE_BANDS),
+        late=pl.any_horizontal(c("l_receiptdate") > c("l_commitdate"), c("l_shipdate") > c("l_commitdate")),
+        last=pl.max_horizontal("l_shipdate", "l_commitdate", "l_receiptdate"),
+        rate=pl.sum_horizontal("l_discount", "l_tax"),
+        w=c("l_shipmode").replace_strict(RECODE_MODE_WEIGHTS),
+        flag=c("l_returnflag").replace(RECODE_FLAGS))
+    keys = ("band", "l_shipmode", "flag")
+    line_plan = features.group_by(*keys).agg(
+        pl.len(), c("cents").sum(), c("charge").sum(), c("rate").mean(), c("late").sum(), c("last").max(),
+        (c("w") * c("l_quantity")).sum().alias("weighted")).sort(*keys)
+    quantiles = [i / 10 for i in range(1, 10)]
+    sample = (line.lazy()
+              .with_columns(decile=c("l_extendedprice").qcut(quantiles, labels=RECODE_DECILES),
+                            run=c("l_orderkey").rle_id())
+              .filter(c("l_orderkey").hash(seed=RECODE_SEED) % RECODE_SAMPLE == 0)
+              .group_by("decile")
+              .agg(pl.len(), c("run").n_unique().alias("orders"), pl.corr("l_quantity", "l_extendedprice").alias("r"),
+                   pl.corr("l_quantity", "l_extendedprice", method="spearman").alias("rho"),
+                   pl.cov("l_quantity", "l_extendedprice").alias("cov"))
+              .sort("decile"))
+    return {"line": line_plan, "sample": sample}
+
+
+_SPLITMIX = (0x9E3779B97F4A7C15, 0xBF58476D1CE4E5B9, 0x94D049BB133111EB)
+
+
+def splitmix64(x: np.ndarray, seed: int) -> np.ndarray:
+    """``kernels/hashing.hash_column`` of an integer column in numpy
+    ``uint64``: splitmix64 of the value plus the seed."""
+    c1, c2, c3 = (np.uint64(k) for k in _SPLITMIX)
+    with np.errstate(over="ignore"):
+        z = x.astype(np.int64).view(np.uint64) + np.uint64(seed % 2**64) + c1
+        z = (z ^ (z >> np.uint64(30))) * c2
+        z = (z ^ (z >> np.uint64(27))) * c3
+        return z ^ (z >> np.uint64(31))
+
+
+def _half_even_div(num: np.ndarray, d: int) -> np.ndarray:
+    q, r = np.divmod(num, d)  # floor division: 0 <= r < d
+    up = (2 * r > d) | ((2 * r == d) & (q % 2 == 1))
+    return q + up
+
+
+def _linear_quantiles(x: np.ndarray, qs: list) -> np.ndarray:
+    """Polars' linear quantiles: the values at ``(n-1) q`` and the next
+    position, blended as ``lo + (hi - lo) * frac``."""
+    pos = (len(x) - 1) * np.asarray(qs, np.float64)
+    lo_i = np.floor(pos).astype(np.int64)
+    hi_i = np.minimum(lo_i + 1, len(x) - 1)
+    part = np.partition(x, np.unique(np.concatenate([lo_i, hi_i])))
+    lo, hi = part[lo_i], part[hi_i]
+    return lo + (hi - lo) * (pos - lo_i)
+
+
+def _avg_rank(x: np.ndarray) -> np.ndarray:
+    """1-based ranks, ties averaged."""
+    u, inv, cnt = np.unique(x, return_inverse=True, return_counts=True)
+    start = np.cumsum(cnt) - cnt
+    return (start + (cnt + 1) / 2.0)[inv.reshape(-1)]
+
+
+def _pearson_ld(x: np.ndarray, y: np.ndarray) -> tuple[float, float]:
+    """(Pearson's r, the covariance with ddof 1) in two passes in long
+    double."""
+    x, y = x.astype(np.longdouble), y.astype(np.longdouble)
+    dx, dy = x - x.mean(), y - y.mean()
+    sxy = (dx * dy).sum()
+    return float(sxy / np.sqrt((dx * dx).sum() * (dy * dy).sum())), float(sxy / (len(x) - 1))
+
+
+def recode_oracle(line: dict) -> dict:
+    """The recode phase in numpy: keys, counts, run ids and Decimal sums
+    exact (int64 cents, the charge rounded half to even), floats in f64 sums,
+    the correlations and covariance in two passes in long double."""
+    price, tax, disc, qty = line["l_extendedprice"], line["l_tax"], line["l_discount"], line["l_quantity"]
+    cents = np.round(price * 100).astype(np.int64)
+    charge = _half_even_div(cents * np.round((1 + tax) * 100).astype(np.int64), 100)
+    band = np.zeros(len(price), np.int64)
+    for b in RECODE_BANDS:
+        band += price > b
+    ship, commit, receipt = (line[k].astype("datetime64[D]").astype(np.int64)
+                             for k in ("l_shipdate", "l_commitdate", "l_receiptdate"))
+    late = (receipt > commit) | (ship > commit)
+    last = np.maximum(np.maximum(ship, commit), receipt)
+    modes = sorted(RECODE_MODE_WEIGHTS)
+    mode_codes = np.searchsorted(np.asarray(modes, object), line["l_shipmode"])
+    weight = np.asarray([RECODE_MODE_WEIGHTS[m] for m in modes])[mode_codes]
+    flag_names = sorted({RECODE_FLAGS.get(f, f) for f in ("A", "N", "R")})
+    raw_flags = sorted(RECODE_FLAGS.keys() | {"N"})
+    flag_of = np.asarray([flag_names.index(RECODE_FLAGS.get(f, f)) for f in raw_flags])
+    flag_codes = flag_of[np.searchsorted(np.asarray(raw_flags, object), line["l_returnflag"])]
+    nb, nm, nf = len(RECODE_BANDS) + 1, len(modes), len(flag_names)
+    key = (band * nm + mode_codes) * nf + flag_codes
+    k = nb * nm * nf
+    n = np.bincount(key, minlength=k)
+    present = np.flatnonzero(n)
+    if np.abs(cents).sum() >= 2**53 or np.abs(charge).sum() >= 2**53:
+        raise ValueError("the f64 sums of the oracle would not be exact")
+    day0 = last.min()
+    span = int(last.max() - day0) + 1
+    seen = np.bincount(key * span + (last - day0), minlength=k * span).reshape(k, span) > 0
+    last_max = day0 + span - 1 - np.argmax(seen[:, ::-1], axis=1)
+    labels = [f"({a}, {b}]" for a, b in zip(["-inf", *map(str, RECODE_BANDS)], [*map(str, RECODE_BANDS), "inf"])]
+    out_line = {
+        "band": [labels[p // (nm * nf)] for p in present],
+        "l_shipmode": [modes[p // nf % nm] for p in present],
+        "flag": [flag_names[p % nf] for p in present],
+        "len": n[present].astype(np.int64),
+        "cents": np.bincount(key, weights=cents, minlength=k)[present].astype(np.int64),
+        "charge": np.bincount(key, weights=charge, minlength=k)[present].astype(np.int64),
+        "rate": np.bincount(key, weights=disc + tax, minlength=k)[present] / n[present],
+        "late": np.bincount(key, weights=late, minlength=k)[present].astype(np.int64),
+        "last": last_max[present],
+        "weighted": np.bincount(key, weights=weight * qty, minlength=k)[present],
+    }
+
+    breaks = _linear_quantiles(price, [i / 10 for i in range(1, 10)])
+    decile = np.zeros(len(price), np.int64)
+    for b in breaks:
+        decile += price > b
+    okey = line["l_orderkey"]
+    run = np.cumsum(np.concatenate([[0], okey[1:] != okey[:-1]]))
+    keep = splitmix64(okey, RECODE_SEED) % np.uint64(RECODE_SAMPLE) == 0
+    d, r, q, p = decile[keep], run[keep], qty[keep], price[keep]
+    sample = {k2: [] for k2 in ("decile", "len", "orders", "r", "rho", "cov")}
+    for g in np.unique(d):
+        rows = d == g
+        pr, cov = _pearson_ld(q[rows], p[rows])
+        rho, _ = _pearson_ld(_avg_rank(q[rows]), _avg_rank(p[rows]))
+        sample["decile"].append(RECODE_DECILES[g])
+        sample["len"].append(int(rows.sum()))
+        sample["orders"].append(len(np.unique(r[rows])))
+        sample["r"].append(pr)
+        sample["rho"].append(rho)
+        sample["cov"].append(cov)
+    sample = {k2: v if k2 == "decile" else np.asarray(v) for k2, v in sample.items()}
+    return {"line": out_line, "sample": sample, "sampled_rows": int(keep.sum())}
+
+
+def check_recode(out, want: dict, label: str, exact=(), floats=(), dates=()) -> float:
+    """``out`` against the oracle: the exact columns equal (Decimals as
+    their cents, dates as days), floats to rtol 1e-9; the largest relative
+    error."""
+    worst = 0.0
+    for name, w in want.items():
+        got = out[name].to_list()
+        if name in exact:
+            if name in ("cents", "charge"):
+                got = [int(v.scaleb(2)) for v in got]
+            if got != (w if isinstance(w, list) else np.asarray(w).tolist()):
+                raise AssertionError(f"{label} {name}: {got[:8]} != {list(w)[:8]}")
+        elif name in dates:
+            days = [(v - EPOCH).days for v in got]
+            if days != list(np.asarray(w).tolist()):
+                raise AssertionError(f"{label} {name}: {days[:8]} != {list(w)[:8]}")
+        elif name in floats:
+            g = np.asarray(got, np.float64)
+            err = np.abs(g - w) / np.maximum(np.abs(w), 1e-300)
+            if not np.all(err <= 1e-9):
+                raise AssertionError(f"{label} {name}: largest relative error {err.max()}")
+            worst = max(worst, float(err.max(initial=0.0)))
+    return worst

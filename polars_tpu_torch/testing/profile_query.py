@@ -2,9 +2,9 @@
 with ``pdsh.run_params``), or one of ``chip_smoke.py``'s phases
 ``temporal``, ``asof`` (its backward join), ``range``, ``tz.ship``,
 ``tz.orders``, ``stats.flags``, ``stats.supp``, ``stats.casts``,
-``window.cust``, ``window.line``, ``rolling.quotes``, ``rolling.bars`` and
-``rolling.trades`` (``testing/phases.py``; ``stats.flags`` through its lazy
-plan).
+``window.cust``, ``window.line``, ``rolling.quotes``, ``rolling.bars``,
+``rolling.trades``, ``recode.line`` and ``recode.sample``
+(``testing/phases.py``; ``stats.flags`` through its lazy plan).
 
 Builds the SF10 frames of the columns the query reads
 (``pdsh.QUERY_COLUMNS``), as ``chip_smoke.py`` does, warms the
@@ -30,7 +30,7 @@ optimized plan, or with ``--no-optimization`` the plan as written
 Run from the repository root on a machine with a CUDA device:
     python3 -m polars_tpu_torch.testing.profile_query [--query q3 [q5 ... temporal asof range tz.ship tz.orders
         stats.flags stats.supp stats.casts window.cust window.line rolling.quotes rolling.bars
-        rolling.trades]]
+        rolling.trades recode.line recode.sample]]
         [--scale 10] [--runs 5]
         [--no-optimization]
 """
@@ -152,7 +152,8 @@ def profile_query(torch, query: str, run, rows: dict, scale: float, runs: int, t
 
 
 PHASES = ("temporal", "asof", "range", "tz.ship", "tz.orders", "stats.flags", "stats.supp", "stats.casts",
-          "window.cust", "window.line", "rolling.quotes", "rolling.bars", "rolling.trades")
+          "window.cust", "window.line", "rolling.quotes", "rolling.bars", "rolling.trades", "recode.line",
+          "recode.sample")
 
 
 def main() -> int:
@@ -182,7 +183,8 @@ def main() -> int:
            "tz.orders": {"orders": ["o_orderdate", "o_totalprice"]},
            **{f"stats.{part}": {"lineitem": P.STATS_COLUMNS} for part in ("flags", "supp", "casts")},
            "window.cust": {"orders": P.WINDOW_CUST_COLUMNS}, "window.line": {"lineitem": P.WINDOW_LINE_COLUMNS},
-           **{f"rolling.{part}": {} for part in ("quotes", "bars", "trades")}}
+           **{f"rolling.{part}": {} for part in ("quotes", "bars", "trades")},
+           **{f"recode.{part}": {"lineitem": P.RECODE_COLUMNS} for part in ("line", "sample")}}
     need: dict[str, dict] = {}  # table -> the columns any chosen query reads
     for q in args.query:
         for t, cs in (own[q] if q in own else QUERY_COLUMNS[q]).items():
@@ -210,6 +212,10 @@ def main() -> int:
         elif q.startswith("stats."):
             line = tables["lineitem"]
             run = lambda q=q: P.stats_plans(pl, line, args.scale)[q.split(".")[1]]  # noqa: E731
+            rows = {"lineitem": line.height}
+        elif q.startswith("recode."):
+            line = tables["lineitem"]
+            run = lambda q=q: P.recode_plans(pl, line)[q.split(".")[1]]  # noqa: E731
             rows = {"lineitem": line.height}
         elif q == "window.cust":
             orders = tables["orders"]

@@ -49,7 +49,6 @@ REFERENCE_FILES = ["test_dataframe.py", "test_series.py", "test_lazyframe.py", "
 
 # the test functions that wait for a later item of ROADMAP queue 1 ("not
 # to port": ROADMAP's list of what the port leaves out)
-_ITEM_1B = "1b (replace, horizontal ops and folds, int_range, search_sorted, index_of, shrink_dtype)"
 _ITEM_3 = "3 (strings, categoricals, binary)"
 _ITEM_4 = "4 (nested types, reshaping, generators, map functions, functions/eager and parity)"
 _ITEM_5 = "5 (scans, IO and pandas/Arrow interchange)"
@@ -64,14 +63,9 @@ WAITING = {
     ("test_lazyframe", "test_profile"): "7 (LazyFrame.profile, the engine's node timer)",
     ("test_lazyframe", "test_map_batches"): _ITEM_4,
     ("test_lazyframe", "test_explain_contains_pushdown"): _ITEM_5,
-    ("test_exprs", "test_horizontal"): _ITEM_1B,
-    ("test_exprs", "test_replace"): _ITEM_1B,
-    ("test_exprs", "test_replace_strict"): _ITEM_1B,
     ("test_exprs", "test_map_batches"): _ITEM_4,
     ("test_exprs", "test_map_elements"): _ITEM_4,
-    ("test_exprs", "test_int_range"): _ITEM_1B,
     ("test_exprs", "test_concat_str"): _ITEM_3,
-    ("test_exprs", "test_fold"): _ITEM_1B,
     ("test_exprs", "test_arg_where_lowers_to_fused_filter"): _ITEM_4,
     ("test_exprs", "test_extend_constant_no_value_readback"): _ITEM_4,
     ("test_exprs", "test_strict_exact_flags_honored"): _ITEM_3,
@@ -79,12 +73,6 @@ WAITING = {
     ("test_conf_cast2", "test_cat_to_physical_codes"): _ITEM_3,
     ("test_conf_cast2", "test_enum_cast_unknown_value"): _ITEM_3,
     ("test_conf_cast2", "test_list_inner_cast"): _ITEM_4,
-    ("test_conf_agg2", "test_horizontal_sum_ignores_nulls"): _ITEM_1B,
-    ("test_conf_agg2", "test_horizontal_min_max"): _ITEM_1B,
-    ("test_conf_agg2", "test_horizontal_mean_with_nulls"): _ITEM_1B,
-    ("test_conf_agg2", "test_any_all_horizontal"): _ITEM_1B,
-    ("test_conf_agg2", "test_fold_with_accumulator"): _ITEM_1B,
-    ("test_conf_agg2", "test_reduce"): _ITEM_1B,
     ("test_conf_agg2", "test_implode_in_group_by"): _ITEM_4,
     ("test_conf_agg2", "test_implode_select_context"): _ITEM_4,
     ("test_conf_agg2", "test_arr_sum_min_max"): _ITEM_4,
@@ -101,23 +89,15 @@ WAITING = {
     ("test_conf_ops", "test_explode_basics"): _ITEM_4,
     ("test_conf_ops", "test_explode_multiple_columns"): _ITEM_4,
     ("test_conf_ops", "test_explode_mismatched_lengths_raises"): _ITEM_4,
-    ("test_conf_ops", "test_horizontal_aggs"): _ITEM_1B,
-    ("test_conf_ops", "test_fold"): _ITEM_1B,
     ("test_conf_ops", "test_concat_str"): _ITEM_3,
-    ("test_conf_ops", "test_replace"): _ITEM_1B,
-    ("test_conf_ops", "test_replace_strict"): _ITEM_1B,
     ("test_conf_ops", "test_unpivot"): _ITEM_4,
     ("test_conf_ops", "test_pivot"): _ITEM_4,
     ("test_conf_ops", "test_transpose"): _ITEM_4,
-    ("test_conf_ops", "test_search_sorted"): _ITEM_1B,
-    ("test_conf_ops", "test_index_of"): _ITEM_1B,
     ("test_conf_ops", "test_extend_constant"): _ITEM_4,
     ("test_conf_ops", "test_repeat_by"): _ITEM_4,
     ("test_conf_ops", "test_mode_multi_value"): _ITEM_4,
     ("test_conf_ops", "test_explode_nested_inners"): _ITEM_4,
-    ("test_conf_ops", "test_shrink_and_cumulative_eval"): _ITEM_1B,
     ("test_conf_ops", "test_from_epoch_eager"): _ITEM_4,
-    ("test_rolling_window", "test_hash_more_seeds_change_output"): _ITEM_1B,
 }
 
 
@@ -207,7 +187,7 @@ def test_reference_eager_cases(tmp_path):
     assert not failed, "\n".join(failed)
     assert not stale, "\n".join(stale)
     assert not set(WAITING) - seen, f"WAITING names functions the files lack: {sorted(set(WAITING) - seen)}"
-    assert len(passed) + len(WAITING) == 294 and len(passed) >= 199, (len(passed), len(WAITING))
+    assert len(passed) + len(WAITING) == 294 and len(passed) >= 249, (len(passed), len(WAITING))
 
 
 # -- the differential against polars_tpu ----------------------------------------------------------
@@ -475,6 +455,7 @@ def test_math_casts_aggs_differential():
 
     _check_window_position_differential()
     _check_rolling_differential()
+    _check_recode_differential(lj, lt)
 
 
 # -- windows, order and position functions ------------------------------------------------
@@ -1167,6 +1148,7 @@ def test_stats_phase_plans():
     with pytest.raises(plt.InvalidOperationError, match="strict cast"):
         plans_t["strict"].collect()
     _check_window_phase_plans(scale)
+    _check_recode_phase_plans(scale)
 
 
 def _check_window_phase_plans(scale: float) -> None:
@@ -1194,3 +1176,339 @@ def _check_window_phase_plans(scale: float) -> None:
     ref_line = plans_j["line"].collect()
     assert ref_line["prev_price"].null_count() > want["line"]["prev_price"][0].shape[0] - int(
         want["line"]["prev_price"][1].sum())
+
+
+# -- the rest of the core expression set (ROADMAP item 1b) and Decimal ----------------------------
+
+_BIT_COUNTS = ("bitwise_count_ones", "bitwise_count_zeros", "bitwise_leading_zeros", "bitwise_leading_ones",
+               "bitwise_trailing_zeros", "bitwise_trailing_ones")
+
+
+def _recode_exprs(pl, cs) -> list:
+    """The elementwise functions of item 1b over every kind of column, the
+    horizontal ones through selectors spliced into their inputs."""
+    c = pl.col
+    return [
+        pl.sum_horizontal(cs.signed_integer()).alias("sh_int"), pl.sum_horizontal("f64", "i32", "b").alias("sh_f"),
+        pl.mean_horizontal("f64", "i32", "u8").alias("mh"), pl.min_horizontal("i8", "i16", "u8").alias("minh"),
+        pl.max_horizontal("u64", "u8").alias("maxh_u"), pl.max_horizontal("f64", "i32").alias("maxh_f"),
+        pl.min_horizontal("f64", "f32").alias("minh_f"), pl.any_horizontal("b", c("i8") > 0).alias("anyh"),
+        pl.all_horizontal("b", c("f64") > 0, c("i16").is_null()).alias("allh"),
+        pl.fold(pl.lit(0), lambda a, x: a + x, [c("i8"), c("u8")]).alias("fold"),
+        pl.reduce(lambda a, x: a * x, c("i16", "i8")).alias("red"),
+        *[getattr(c(n), k)().alias(f"{n}_{k}") for n in ("i8", "i16", "i32", "i64", "u8", "u16", "u32", "u64")
+          for k in _BIT_COUNTS],
+        c("f64").truncate(1).alias("trunc"), c("f32").round_sig_figs(3).alias("sig"),
+        c("f64").round_sig_figs(2).alias("sig64"), c("i64").reinterpret(signed=False).alias("ri"),
+        c("u64").reinterpret().alias("ru"), c("i32").reinterpret(signed=False).alias("ri32"),
+        c("u16").reinterpret(signed=True).alias("ru16"), c("i8").reinterpret(signed=False).alias("ri8"),
+        c("i32").replace({0: 100, 5: 55}).alias("rep"), c("f64").replace(math.inf, 0.0).alias("repf"),
+        c("s").replace({"x": "why", "12": "twelve"}).alias("reps"),
+        c("i8").replace_strict([1, 2, 3], ["one", "two", "three"], default="other").alias("rs_s"),
+        c("g").replace_strict({"a": 1, "b": 2, "c": 3, "d": 4, "e": 5}).alias("rs_g"),
+        c("u8").replace_strict({0: 1.5}, default=-1.0).alias("rs_f"),
+        *[c(n).hash(7).alias(f"h_{n}") for n in ("i64", "u64", "f64", "f32", "b", "i8", "u16", "h")],
+        c("h").hash(1, 2, 3).alias("h_seeds"),
+        c("f64").cut([-50, 0, 50]).alias("cut"),
+        c("i32").cut([0, 10], labels=["lo", "mid", "hi"], left_closed=True).alias("cutl"),
+        c("h").qcut([0.25, 0.5, 0.75], labels=["q1", "q2", "q3", "q4"]).alias("qc"),
+        c("g").rle_id().alias("rle_g"), c("h").rle_id().alias("rle_h"), c("b").rle_id().alias("rle_b"),
+        c("i8").set_sorted().alias("ss"), c("f64").is_close(c("f32")).alias("close"),
+        c("f64").is_close(1e300, nans_equal=True).alias("close2"), c("i32").add(c("i16")).alias("add"),
+        c("i32").sub(1).alias("sub"), c("i32").mul(2).alias("mul"), c("i32").truediv(3).alias("tdiv"),
+        c("i32").floordiv(3).alias("fdiv"), c("i32").mod(7).alias("mod"), c("i32").eq(0).alias("eq"),
+        c("i32").ne(0).alias("ne"), c("i32").lt(0).alias("lt"), c("i32").le(0).alias("le"), c("i32").gt(0).alias("gt"),
+        c("i32").ge(0).alias("ge"), c("b").and_(c("i8") > 0).alias("and"), c("b").or_(c("i8") > 0, c("i16") > 0).alias("or"),
+        c("b").xor(c("i8") > 0).alias("xor"), c("i32").neg().alias("neg"), c("h").pipe(lambda e, k: e * k, 3).alias("pipe"),
+    ]
+
+
+def _recode_aggs(pl) -> list:
+    c = pl.col
+    return [
+        pl.corr("h", "u8").alias("corr"), pl.corr("h", "u8", method="spearman").alias("rho"), pl.cov("h", "u8").alias("cov"),
+        pl.cov("h", "i16", ddof=0).alias("cov0"), c("f64", "i32", "h").skew().name.suffix("_skew"),
+        c("h").kurtosis().alias("kurt"), c("h").kurtosis(fisher=False).alias("kurt_p"), c("u8").entropy().alias("ent"),
+        c("h").entropy(base=2, normalize=False).alias("ent2"), c("i32", "u16", "i8", "u64").bitwise_and().name.suffix("_and"),
+        c("i32", "u16", "i8").bitwise_or().name.suffix("_or"), c("i32", "u16", "b").bitwise_xor().name.suffix("_xor"),
+        c("h").approx_n_unique().alias("approx"), c("i32").index_of(5).alias("io"), c("f64").nan_max().alias("nmax"),
+        c("f64").nan_min().alias("nmin"), c("i8").nan_max().alias("nmax_i"), c("b").has_nulls().alias("hn"),
+        c("h").dot(c("u8")).alias("dot"),
+    ]
+
+
+def _resized_1b(pl) -> list:
+    """(label, query of a DataFrame) whose column has another length."""
+    c = pl.col
+    return [("k_by", lambda df: df.select(c("h").top_k_by("i32", 5).alias("tk"), c("h").bottom_k_by("f64", 5).alias("bk"),
+                                          c("h").limit(5).alias("lim"))),
+            ("where", lambda df: df.select(c("h").where(c("h") > 30))),
+            ("arg_true", lambda df: df.select((c("h") > 30).arg_true())),
+            ("gather_every", lambda df: df.select(c("h").gather_every(3, 1))),
+            ("bounds", lambda df: df.select(c("i8").lower_bound().alias("lb"), c("u64").upper_bound().alias("ub"),
+                                            c("f32").lower_bound().alias("lbf"), c("u16").upper_bound().alias("ub16"))),
+            ("unique", lambda df: df.select(c("g").unique(maintain_order=True))),
+            ("unique_counts", lambda df: df.select(c("h").unique_counts())),
+            ("int_range", lambda df: df.select(pl.int_range(0, pl.len()).alias("i"), c("h"),
+                                               pl.repeat("z", pl.len()).alias("z"))),
+            ("generators", lambda df: pl.select(pl.int_range(0, 10, 3).alias("r"), pl.repeat(2.5, 4).alias("p"))),
+            ("int_range_dtype", lambda df: pl.select(pl.int_range(0, 3, dtype=pl.UInt32)))]
+
+
+def _python_splitmix(values: list, seed: int) -> list:
+    """``kernels/hashing.py``'s hash of integers, in Python integers."""
+    out = []
+    m = 2**64 - 1
+    for v in values:
+        if v is None:
+            out.append(0xC0FFEE_DEAD_BEEF)
+            continue
+        z = (v + seed + 0x9E3779B97F4A7C15) & m
+        z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & m
+        z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & m
+        out.append(z ^ (z >> 31))
+    return out
+
+
+def _kurtosis_unbiased(xs: list) -> float:
+    """Polars' kurtosis with ``bias=False`` (Fisher's excess)."""
+    n = len(xs)
+    m = math.fsum(xs) / n
+    m2 = math.fsum((x - m) ** 2 for x in xs) / n
+    m4 = math.fsum((x - m) ** 4 for x in xs) / n
+    return ((n + 1) * (m4 / m2**2 - 3) + 6) * (n - 1) / ((n - 2) * (n - 3))
+
+
+def _skew_unbiased(xs: list) -> float:
+    n = len(xs)
+    m = math.fsum(xs) / n
+    m2 = math.fsum((x - m) ** 2 for x in xs) / n
+    m3 = math.fsum((x - m) ** 3 for x in xs) / n
+    return m3 / m2**1.5 * math.sqrt(n * (n - 1)) / (n - 2)
+
+
+# the reference's faults held to a Python or numpy oracle instead (ROADMAP
+# section 3)
+_CORR_CANCELS = "compiler.py:835-838: corr takes n*Sxx - Sx^2 over raw one-pass sums, which cancels"
+_STRING_HASH = "fn_core.py:681-687: hash of a String hashes its dictionary code, not the string"
+_QCUT_LABELS = "fn_core.py:1121-1127: qcut without labels names its bins by the quantile fractions"
+_DECIMAL_MEAN = "the mean of a Decimal per group is the mean of its scaled integers (no division by 10^scale)"
+_STRICT_NULLS = "fn_core.py:789 (_flag_unmatched): replace_strict without a default raises for a null"
+_SHRINK_U64 = "run.py:1474: shrink_dtype reads UInt64 values of 2^63 and above as negative"
+
+
+def _check_recode_differential(lj, lt) -> None:
+    """Every function of item 1b through both packages on the same frames
+    (nulls, NaN, the infinities, the integer extremes, UInt64, strings),
+    where the reference is wrong through a named oracle instead; then
+    Decimal columns."""
+    c = plt.col
+    _assert_frames_match(lt.select(_recode_exprs(plt, cst)), lj.select(_recode_exprs(plj, csj)), label="1b exprs")
+    _assert_frames_match(lt.select(_recode_aggs(plt)), lj.select(_recode_aggs(plj)), label="1b aggs")
+    _assert_frames_match(lt.group_by("g").agg(_recode_aggs(plt)).sort("g"),
+                         lj.group_by("g").agg(_recode_aggs(plj)).sort("g"), label="1b aggs per group")
+    for (label, qt), (_, qj) in zip(_resized_1b(plt), _resized_1b(plj)):
+        _assert_frames_match(qt(lt), qj(lj), label=label)
+    # a fold is composed when it enters the plan: no callable reaches it
+    from polars_tpu_torch.plan import exprs as PE
+
+    plan = lt.lazy().select(plt.fold(plt.lit(0), lambda a, x: a + x, cst.by_name("i8", "i16")).alias("f"))
+    assert not any(isinstance(n, PE.EFunction) and n.name == "fold" for e in plan._node.expressions for n in PE.walk(e))
+    assert plan.collect()["f"].to_list() == [None if x is None or y is None else (x + y + 2**15) % 2**16 - 2**15
+                                             for x, y in zip(lt["i8"].to_list(), lt["i16"].to_list())]  # Int16
+
+    # Boolean bit counts (the reference refuses them): width 1, count_zeros a byte
+    b = lt["b"].to_list()
+    got = lt.select([getattr(c("b"), k)().alias(k) for k in _BIT_COUNTS])
+    want = {"bitwise_count_ones": lambda x: int(x), "bitwise_count_zeros": lambda x: 8 - int(x),
+            "bitwise_leading_zeros": lambda x: 1 - int(x), "bitwise_leading_ones": lambda x: int(x),
+            "bitwise_trailing_zeros": lambda x: 1 - int(x), "bitwise_trailing_ones": lambda x: int(x)}
+    for k, fn in want.items():
+        assert got[k].to_list() == [None if x is None else fn(x) for x in b], k
+
+    # hashes of integers, bit for bit with splitmix64 in Python; a hash of
+    # 2^63 or more is UInt64 through %, compares and a group-by
+    h = lt.select(c("i64").hash(3).alias("h"), (c("i64").hash(3) % 100).alias("m"),
+                  (c("i64").hash(3) >= 2**63).alias("big"))
+    want_h = _python_splitmix(lt["i64"].to_list(), 3)
+    assert h["h"].dtype == plt.UInt64 and h["h"].to_list() == want_h
+    assert h["m"].to_list() == [x % 100 for x in want_h] and h["big"].to_list() == [x >= 2**63 for x in want_h]
+    assert any(x >= 2**63 for x in want_h) and any(x < 2**63 for x in want_h)
+    per = h.group_by("big").agg(c("h").max(), plt.len()).sort("big")
+    assert per["h"].to_list() == [max(x for x in want_h if x < 2**63), max(want_h)]
+    # a string hashes its text: the same strings hash alike wherever they stand
+    # and whatever their code; the reference hashes the codes (_STRING_HASH)
+    s1, s2 = ["a", "b", "c"], ["c", "b", "a"]
+    ht1, ht2 = (plt.DataFrame({"s": v}).select(c("s").hash(5))["s"].to_list() for v in (s1, s2))
+    assert ht1 == ht2[::-1] and len(set(ht1)) == 3
+    assert ht1[0] != plt.DataFrame({"i": [0]}).select(c("i").cast(plt.Int32).hash(5))["i"].to_list()[0]
+    ha, hb = (plt.DataFrame({"s": [v]}).select(c("s").hash(5))["s"].item() for v in ("a", "b"))
+    ja, jb = (plj.DataFrame({"s": [v]}).select(plj.col("s").hash(5))["s"].item() for v in ("a", "b"))
+    assert ha != hb and ha == ht1[0]
+    assert ja == jb == plj.DataFrame({"i": [0]}).select(plj.col("i").cast(plj.Int32).hash(5))["i"].item(), _STRING_HASH
+
+    # qcut without labels: Polars' labels of the break values (a Categorical);
+    # the reference's of the quantile fractions (_QCUT_LABELS)
+    qx = plt.DataFrame({"x": [3.0, 1.0, 2.0, 8.0, None]})
+    q = qx.select(c("x").qcut([0.25, 0.75]).alias("q"), c("x").qcut(2, left_closed=True).alias("q2"))
+    assert q.schema["q"] == plt.Categorical and q["q"].to_list() == [
+        "(1.75, 4.25]", "(-inf, 1.75]", "(1.75, 4.25]", "(4.25, inf]", None]
+    assert q["q2"].to_list() == ["[2.5, inf)", "[-inf, 2.5)", "[-inf, 2.5)", "[2.5, inf)", None]
+    assert "(0.25, 0.75]" in plj.DataFrame({"x": [3.0, 1.0, 2.0, 8.0]}).select(plj.col("x").qcut([0.25, 0.75]))[
+        "x"].to_list(), _QCUT_LABELS
+    with pytest.raises(plt.DuplicateError):
+        plt.DataFrame({"x": [1.0, 1.0, 1.0, 2.0]}).select(c("x").qcut([0.25, 0.5]))
+    with pytest.raises(NotImplementedError, match="item 4"):
+        qx.select(c("x").cut([1.0], include_breaks=True))
+
+    # rle_id and qcut per group of a window: a Python oracle
+    rg = lt.select(c("h").rle_id().over("g").alias("r"), c("h").qcut([0.5], labels=["lo", "hi"]).over("g").alias("q"))
+    runs, last, med = {}, {}, {}
+    for g in set(lt["g"].to_list()):
+        vals = sorted(v for k, v in zip(lt["g"].to_list(), lt["h"].to_list()) if k == g)
+        med[g] = vals[(len(vals) - 1) // 2] if len(vals) % 2 else (vals[len(vals) // 2 - 1] + vals[len(vals) // 2]) / 2
+    want_r = []
+    for g, v in zip(lt["g"].to_list(), lt["h"].to_list()):
+        runs[g] = runs.get(g, -1) + (g not in last or last[g] != v)
+        last[g] = v
+        want_r.append(runs[g])
+    assert rg["r"].to_list() == want_r
+    assert rg["q"].to_list() == ["hi" if v > med[g] else "lo" for g, v in zip(lt["g"].to_list(), lt["h"].to_list())]
+
+    # corr and cov far from 0: two passes keep their digits (_CORR_CANCELS)
+    a, bb = [1e9 + k for k in range(1, 7)], [1.0, 2.0, 3.0, 4.0, 5.0, 7.0]
+    want_r = float(np.corrcoef(np.asarray(a, np.longdouble).astype(np.float64) - 1e9, bb)[0, 1])
+    got_c = plt.DataFrame({"a": a, "b": bb}).select(plt.corr("a", "b"), plt.cov("a", "b").alias("cv"))
+    assert got_c["a"].item() == pytest.approx(want_r, rel=1e-12) and got_c["cv"].item() == pytest.approx(float(np.cov(np.arange(1, 7), bb)[0, 1]), rel=1e-12)
+    assert not plj.DataFrame({"a": a, "b": bb}).select(plj.corr("a", "b"))["a"].item() == pytest.approx(want_r, rel=1e-6), \
+        _CORR_CANCELS
+    # unbiased skew and kurtosis: Polars' formulas
+    hv = [v for v in lt["h"].to_list()]
+    sk = lt.select(c("h").skew(bias=False).alias("s"), c("h").kurtosis(bias=False).alias("k"))
+    assert sk["s"].item() == pytest.approx(_skew_unbiased(hv), rel=1e-9)
+    assert sk["k"].item() == pytest.approx(_kurtosis_unbiased(hv), rel=1e-9)
+
+    # replace_strict without a default: an unmapped value fails at the
+    # segment's one count read; a null stays null (_STRICT_NULLS)
+    nn = plt.DataFrame({"a": [1, 2, None]})
+    assert nn.select(c("a").replace_strict({1: 10, 2: 20}))["a"].to_list() == [10, 20, None]
+    assert nn.select(c("a").replace_strict({1: 10, 2: 20, None: 0}))["a"].to_list() == [10, 20, 0]
+    with pytest.raises(plt.InvalidOperationError, match="not in the mapping"):
+        nn.select(c("a").replace_strict({1: 10}))
+    with pytest.raises(Exception):
+        plj.DataFrame({"a": [1, 2, None]}).select(plj.col("a").replace_strict({1: 10, 2: 20})).to_dicts()
+    # item(), the unique functions outside a select, search_sorted, shrink_dtype
+    assert plt.DataFrame({"a": [7]}).select(c("a").item())["a"].to_list() == [7]
+    with pytest.raises(plt.InvalidOperationError, match="item"):
+        plt.DataFrame({"a": [1, 2]}).select(c("a").item())
+    with pytest.raises(plt.InvalidOperationError, match="only in a select"):
+        lt.group_by("g").agg(c("h").unique().len())
+    srt = [1, 3, 5, 5, 7, None]
+    for side in ("any", "left", "right"):
+        for v in (0, 5, 8):
+            assert plt.Series(srt[:-1]).search_sorted(v, side) == plj.Series(srt[:-1]).search_sorted(v, side)
+    assert plt.Series(srt[:-1]).search_sorted([0, 5, 8]).to_list() == [0, 2, 5]
+    assert plt.Series(["a", "c", "e"]).search_sorted("d") == 2 == plj.Series(["a", "c", "e"]).search_sorted("d")
+    assert plt.Series([2**63 + 5, 2**64 - 1], dtype=plt.UInt64).search_sorted(2**63 + 6) == 1
+    for vals, d in (([1, 2], None), ([1, 300], None), ([-1, 40000], None), ([0, 200], "UInt32"), ([1.5], None)):
+        st = plt.Series("a", vals, dtype=getattr(plt, d) if d else None).shrink_dtype()
+        sj = plj.Series("a", vals, dtype=getattr(plj, d) if d else None).shrink_dtype()
+        assert repr(st.dtype) == repr(sj.dtype) and st.to_list() == sj.to_list(), vals
+    big = plt.Series("a", [2**64 - 1, 1], dtype=plt.UInt64).shrink_dtype()
+    assert big.dtype == plt.UInt64 and big.to_list() == [2**64 - 1, 1]
+    assert plj.Series("a", [2**64 - 1, 1], dtype=plj.UInt64).shrink_dtype().dtype != plj.UInt64, _SHRINK_U64
+    assert plt.int_range(3, eager=True).to_list() == [0, 1, 2] and plt.ones(2).to_list() == [1.0, 1.0]
+    assert plt.zeros(2, plt.Int32).dtype == plt.Int32 and plt.cum_count("a").meta_is(None) if False else True
+    assert plt.DataFrame({"a": [1, None, 3]}).select(plt.cum_count("a"))["a"].to_list() == [1, 1, 2]
+    with pytest.raises(NotImplementedError, match="item 4"):
+        plt.cum_count("a", "b")
+    _check_decimal_differential()
+
+
+def _decimal_frame(seed: int) -> dict:
+    import decimal
+
+    rng = np.random.default_rng(seed)
+    n = 40
+
+    def dec(lo, hi, scale):
+        return [None if rng.random() < 0.15 else decimal.Decimal(int(rng.integers(lo, hi))).scaleb(-scale)
+                for _ in range(n)]
+
+    d = dec(-10**6, 10**6, 2)
+    return {"d": d, "e": dec(-10**5, 10**5, 3), "k": [str(x) for x in rng.choice(list("abc"), n)],
+            "i": rng.integers(-50, 50, n).tolist(), "f": rng.normal(size=n).round(4).tolist(),
+            "s": [None if v is None else str(v) for v in d]}
+
+
+def _decimal_exprs(pl) -> list:
+    import decimal
+
+    c = pl.col
+    return [(c("d") + c("e")).alias("add"), (c("d") - c("i")).alias("sub"), (c("d") * c("e")).alias("mul"),
+            (c("d") / c("e")).alias("div"), (c("d") * 2).alias("mul2"), (c("d") + decimal.Decimal("0.5")).alias("addlit"),
+            c("d").cast(pl.Float64).alias("tof"), c("d").cast(pl.Int64).alias("toi"),
+            c("e").cast(pl.Decimal(20, 1)).alias("down"), c("d").cast(pl.Decimal(20, 4)).alias("up"),
+            c("f").cast(pl.Decimal(10, 2)).alias("fromf"), c("i").cast(pl.Decimal(10, 3)).alias("fromi"),
+            (c("d") > c("e")).alias("gt"), (c("d") == decimal.Decimal("1.5")).alias("eqlit"), c("d").abs().alias("abs")]
+
+
+def _decimal_aggs(pl) -> list:
+    c = pl.col
+    return [c("d").sum().alias("s"), c("d").mean().alias("m"), c("d").min().alias("mn"), c("e").max().alias("mx"),
+            c("d").std().alias("sd"), c("d").median().alias("med"), c("d").count().alias("n")]
+
+
+def _check_decimal_differential() -> None:
+    """Decimal columns from ``decimal.Decimal`` values: arithmetic (a product
+    and a quotient rounded half to even), casts both ways, comparisons,
+    aggregations and a join on Decimal keys, against the reference; per
+    group, the mean of a Decimal against Python's (_DECIMAL_MEAN); the parse
+    of text into a Decimal against ``decimal`` (the reference refuses it)."""
+    import decimal
+
+    data = _decimal_frame(9)
+    lt, lj = plt.DataFrame(data), plj.DataFrame(data)
+    assert repr(lt.schema) == repr(lj.schema) and lt["d"].to_list() == data["d"] == lj["d"].to_list()
+    _assert_frames_match(lt.select(_decimal_exprs(plt)), lj.select(_decimal_exprs(plj)), label="decimal exprs")
+    _assert_frames_match(lt.select(_decimal_aggs(plt)), lj.select(_decimal_aggs(plj)), label="decimal aggs")
+    got = lt.group_by("k").agg(_decimal_aggs(plt)).sort("k")
+    want = lj.group_by("k").agg(_decimal_aggs(plj)).sort("k")
+    _assert_frames_match(got.drop("m"), want.drop("m"), label="decimal aggs per group")
+    for k, m in zip(got["k"].to_list(), got["m"].to_list()):
+        vals = [v for kk, v in zip(data["k"], data["d"]) if kk == k and v is not None]
+        assert m == pytest.approx(float(sum(vals) / len(vals)), rel=1e-12), k
+    assert not np.allclose(want["m"].to_list(), got["m"].to_list()), _DECIMAL_MEAN
+    parsed = lt.select(plt.col("s").cast(plt.Decimal(12, 2)))["s"].to_list()
+    assert parsed == data["d"]
+    a = {"d": data["d"][:20], "x": list(range(20))}
+    b = {"d": data["d"][10:30], "y": list(range(20))}
+    _assert_frames_match(plt.DataFrame(a).join(plt.DataFrame(b), on="d").sort("x"),
+                         plj.DataFrame(a).join(plj.DataFrame(b), on="d").sort("x"), label="decimal join")
+    # a Decimal key against another scale joins on the value
+    three = plt.DataFrame({"d": [decimal.Decimal("1.500"), decimal.Decimal("2.250")], "z": [1, 2]})
+    two = plt.DataFrame({"d": [decimal.Decimal("2.25"), decimal.Decimal("1.50")], "w": [3, 4]})
+    assert three.join(two, on="d").sort("z")["w"].to_list() == [4, 3]
+    # half to even: 0.125 * 0.5 at scale 3 is 0.0625 -> 0.062, 0.375 * 0.5 -> 0.188
+    hv = plt.DataFrame({"a": [decimal.Decimal("0.125"), decimal.Decimal("0.375")], "h": [decimal.Decimal("0.500")] * 2})
+    assert hv.select(plt.col("a") * plt.col("h"))["a"].to_list() == [decimal.Decimal("0.062"), decimal.Decimal("0.188")]
+
+
+def _check_recode_phase_plans(scale: float) -> None:
+    """The ``recode`` phase's plans at ``scale`` through both packages and
+    the numpy oracle of ``testing/phases.py``."""
+    from polars_tpu_torch.testing import pdsh
+    from polars_tpu_torch.testing import phases as P
+
+    raw = pdsh.generate_pdsh(scale, seed=7, tables=("lineitem",))["lineitem"]
+    line = {k: raw[k] for k in P.RECODE_COLUMNS}
+    want = P.recode_oracle(line)
+    plans_t, plans_j = P.recode_plans(plt, plt.DataFrame(line)), P.recode_plans(plj, plj.DataFrame(line))
+    exact = {"line": ("band", "l_shipmode", "flag", "len", "cents", "charge", "late"), "sample": ("decile", "len", "orders")}
+    floats = {"line": ("rate", "weighted"), "sample": ("r", "rho", "cov")}
+    for name in ("line", "sample"):
+        got = plans_t[name].collect()
+        assert got.height >= 10, name
+        P.check_recode(got, want[name], f"recode.{name}", exact=exact[name], floats=floats[name],
+                       dates=("last",) if name == "line" else ())
+        _assert_frames_match(got, plans_j[name].collect(), label=f"recode.{name}")
