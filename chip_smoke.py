@@ -154,6 +154,23 @@ Phases, each printed as one JSON line:
                 Decimal sums exactly as int64 cents, the hash rebuilt in
                 numpy uint64, floats to rtol 1e-9, corr and cov against two
                 passes in long double).
+ 19. strings  — text, Categorical and Enum columns at SF10, two lines:
+                strings.cust: 15M orders joined to 1.5M customers whose
+                addresses and names make unordered dictionaries (above
+                ordinal_dict_max), the segment as an Enum, the priority as
+                a Categorical and its digit by str.extract, grouped by the
+                address (the sorted group-by, K1 at capacity = rows), then
+                concat_str of the segment and the upper-cased name (a host
+                function per distinct pair of codes), its length, the
+                customer number extracted from the name, sorted by the
+                address (its ordinal remap); strings.line: 60M lineitem rows
+                with the ship mode as an Enum, the instruction lower-cased
+                and its spaces replaced, the return flag + the line status,
+                the comment's final number and length, contains_any and
+                is_between of the ship mode, grouped by (flags, mode) (a
+                dense group-by, K1) with the text's minima and maxima. Each
+                against the numpy oracle of testing/phases.py (strings,
+                keys and counts exactly, floats to rtol 1e-9).
 Every collect runs the optimized plan. Each PDS-H query and each frameops
 query also runs its plan as written (collect(no_optimization=True)): a
 warm-up, then 6 collects as written and 6 optimized, in turns with the
@@ -174,7 +191,7 @@ then the kernels line, the card's name and power limit, and the final line
 
 Run from the repository root:
     python3 chip_smoke.py [--scale 10] [--seed 42] [--only q1 filter q3 q4 ... q22 joins temporal asof rolling range
-        frameops tz stats window recode]
+        frameops tz stats window recode strings]
 (``--only`` runs the build and kernel phases and the named query phases, for
 an A/B of a few queries against a parent tree). It needs a CUDA device and
 nvcc; it never imports JAX or polars_tpu.
@@ -214,7 +231,7 @@ Q3_DAYS = day(1995, 3, 15)
 Q4_FROM, Q4_TO = day(1993, 7, 1), day(1993, 10, 1)
 PHASES = ["q1", "filter", "q3", "q4", "q5", "q6", "q10", "q12", "q14", "q18", "q19", "q11", "q15", "q17", "q20",
           "q2", "q7", "q8", "q9", "q13", "q16", "q21", "q22", "joins", "temporal", "asof", "rolling", "range",
-          "frameops", "tz", "stats", "window", "recode"]
+          "frameops", "tz", "stats", "window", "recode", "strings"]
 # the columns the phases outside PDS-H read of each table (asof makes its own)
 PHASE_COLUMNS = {
     "joins": {"customer": ["c_custkey", "c_mktsegment"], "orders": ["o_orderkey", "o_custkey", "o_orderdate"],
@@ -237,6 +254,11 @@ PHASE_COLUMNS = {
     # testing/phases.RECODE_COLUMNS
     "recode": {"lineitem": ["l_orderkey", "l_quantity", "l_extendedprice", "l_discount", "l_tax", "l_returnflag",
                             "l_shipdate", "l_commitdate", "l_receiptdate", "l_shipmode"]},
+    # testing/phases.STRINGS_CUST_COLUMNS, STRINGS_LINE_COLUMNS
+    "strings": {"customer": ["c_custkey", "c_name", "c_address", "c_phone", "c_mktsegment"],
+                "orders": ["o_custkey", "o_totalprice", "o_orderpriority"],
+                "lineitem": ["l_quantity", "l_returnflag", "l_linestatus", "l_shipinstruct", "l_shipmode",
+                             "l_comment"]},
 }
 _MADE_COLUMNS = ("l_shipts", "o_orderts")  # made from the generated columns (testing/phases.py)
 
@@ -1801,24 +1823,49 @@ def phase_temporal(torch, pl, line_frame, raw: dict) -> dict:
     return phase_result("temporal", r, out, {"lineitem": line_frame.height}, worst, filtered_rows=want["rows"])
 
 
-def asof_oracle(data: dict, strategy: str, tolerance_us: int | None) -> dict:
-    """The asof join by ticker in numpy: quotes sorted stably by (ticker,
-    time), each trade's neighbours in its own ticker found by one
-    searchsorted over ticker * 2^36 + time; backward takes the last quote
-    at or before, nearest the nearer of it and the first at or after (the
-    earlier on a tie); then the per-ticker aggregates."""
+def asof_neighbours(data: dict) -> dict:
+    """Each trade's neighbours among the quotes of its own ticker, found
+    once for both strategies (kept in ``data``): quotes sorted stably by
+    (ticker, time), one searchsorted over ticker * 2^36 + time. The quotes
+    come in time order, so the stable sort by ticker alone is that order
+    (a two-key lexsort where they do not)."""
+    if "_neighbours" in data:
+        return data["_neighbours"]
     P = _phases()
     q, t = data["quotes"], data["trades"]
-    order = np.lexsort((q["ts"], q["ticker"]))
+    if np.all(q["ts"][1:] >= q["ts"][:-1]):
+        order = np.argsort(q["ticker"], kind="stable")
+    else:
+        order = np.lexsort((q["ts"], q["ticker"]))
     qk = q["ticker"][order].astype(np.int64) << 36 | (q["ts"][order] - P.ASOF_DAY_US)
     tk = t["ticker"].astype(np.int64) << 36 | (t["ts"] - P.ASOF_DAY_US)
     nq = len(qk)
-    prev = np.searchsorted(qk, tk, side="right") - 1
-    nxt = np.searchsorted(qk, tk, side="left")
-    p_ok = (prev >= 0) & ((qk[np.maximum(prev, 0)] >> 36) == t["ticker"])
-    n_ok = (nxt < nq) & ((qk[np.minimum(nxt, nq - 1)] >> 36) == t["ticker"])
-    d_prev = tk - qk[np.maximum(prev, 0)]
-    d_next = qk[np.minimum(nxt, nq - 1)] - tk
+    # the trades' keys searched in their own sorted order: each search starts
+    # where the last ended (numpy's searchsorted over sorted needles), the
+    # results put back in trade order
+    t_order = np.argsort(tk, kind="stable")
+    prev, nxt = np.empty(len(tk), np.int64), np.empty(len(tk), np.int64)
+    prev[t_order] = np.searchsorted(qk, tk[t_order], side="right") - 1
+    nxt[t_order] = np.searchsorted(qk, tk[t_order], side="left")
+    nb = {"order": order, "qk": qk, "tk": tk, "prev": prev, "nxt": nxt,
+          "p_ok": (prev >= 0) & ((qk[np.maximum(prev, 0)] >> 36) == t["ticker"]),
+          "n_ok": (nxt < nq) & ((qk[np.minimum(nxt, nq - 1)] >> 36) == t["ticker"]),
+          "d_prev": tk - qk[np.maximum(prev, 0)], "d_next": qk[np.minimum(nxt, nq - 1)] - tk}
+    data["_neighbours"] = nb
+    return nb
+
+
+def asof_oracle(data: dict, strategy: str, tolerance_us: int | None) -> dict:
+    """The asof join by ticker in numpy over ``asof_neighbours``: backward
+    takes the last quote at or before, nearest the nearer of it and the
+    first at or after (the earlier on a tie); then the per-ticker
+    aggregates."""
+    P = _phases()
+    q, t = data["quotes"], data["trades"]
+    nb = asof_neighbours(data)
+    order, qk, tk, prev, nxt = nb["order"], nb["qk"], nb["tk"], nb["prev"], nb["nxt"]
+    p_ok, n_ok, d_prev, d_next = nb["p_ok"], nb["n_ok"], nb["d_prev"], nb["d_next"]
+    nq = len(qk)
     if strategy == "backward":
         pick, ok = prev, p_ok
     else:
@@ -1826,7 +1873,7 @@ def asof_oracle(data: dict, strategy: str, tolerance_us: int | None) -> dict:
         pick, ok = np.where(use_prev, prev, nxt), p_ok | n_ok
     pick = np.clip(pick, 0, nq - 1)
     if tolerance_us is not None:
-        ok &= np.abs(tk - qk[pick]) <= tolerance_us
+        ok = ok & (np.abs(tk - qk[pick]) <= tolerance_us)  # not in place: the neighbours are shared
     row = order[pick]
     mid = (q["ask"][row] + q["bid"][row]) / 2
     g = t["ticker"]
@@ -1850,8 +1897,10 @@ def taq_day(torch, pl, scale: float, seed: int, dev, taq: dict) -> float:
     P = _phases()
     t0 = time.perf_counter()
     taq["data"] = P.asof_data(scale, seed)
+    taq["data_s"] = time.perf_counter() - t0
     taq["frames"] = P.asof_frames(pl, taq["data"], dev)
     torch.cuda.synchronize()
+    taq["frames_s"] = time.perf_counter() - t0 - taq["data_s"]
     return time.perf_counter() - t0
 
 
@@ -1863,14 +1912,18 @@ def phase_asof(torch, pl, scale: float, seed: int, dev, taq: dict) -> dict:
     P = _phases()
     t_build = taq_day(torch, pl, scale, seed, dev, taq)
     data, frames = taq["data"], taq["frames"]
+    t0 = time.perf_counter()
     r = run_phase(torch, "asof", lambda: P.asof_plan(pl, frames, "backward", "1s"))
+    collects_s = time.perf_counter() - t0
     out = r["out"]
     schema = [(c, repr(d)) for c, d in out.schema.items()]
     expect = [("ticker", "String"), ("notional", "Float64"), ("mid", "Float64"), ("matched", "UInt32"),
               ("n", "UInt32")]
     if schema != expect:
         raise AssertionError(f"asof schema {schema} != {expect}")
+    t0 = time.perf_counter()
     want = asof_oracle(data, "backward", 1_000_000)
+    oracle_s = time.perf_counter() - t0
     tickers = out._get("ticker")
     got_tickers = [tickers.table.values[i] for i in tickers.buffer.values.cpu().tolist()]
     if got_tickers != data["names"][want["ticker"]].tolist():
@@ -1881,11 +1934,14 @@ def phase_asof(torch, pl, scale: float, seed: int, dev, taq: dict) -> dict:
     near = P.asof_plan(pl, frames, "nearest", None).collect()
     torch.cuda.synchronize()
     t_near = time.perf_counter() - t1
+    t0 = time.perf_counter()
     want_near = asof_oracle(data, "nearest", None)
+    oracle_s += time.perf_counter() - t0
     worst = max(worst, check_columns(near, want_near, exact=("matched", "n"), floats=("notional", "mid"),
                                      label="asof nearest"))
     return phase_result("asof", r, out, {"quotes": frames["quotes"].height, "trades": frames["trades"].height}, worst,
-                        build_s=t_build, matched_trades=want["matched_trades"],
+                        build_s=t_build, data_s=taq.get("data_s", 0.0), frames_s=taq.get("frames_s", 0.0),
+                        collects_s=collects_s, oracle_s=oracle_s, matched_trades=want["matched_trades"],
                         matched_share=want["matched_trades"] / frames["trades"].height,
                         nearest={"wall_s": t_near, "matched_trades": want_near["matched_trades"],
                                  "result_rows": near.height})
@@ -2444,6 +2500,44 @@ def phase_recode(torch, pl, line, raw: dict) -> dict:
     return results
 
 
+# -- strings phase (plans and oracle: polars_tpu_torch/testing/phases.py) ---------------------
+
+
+def phase_strings(torch, pl, frames: dict, raw: dict) -> dict:
+    """Text, Categorical and Enum columns at SF10, each plan through its main
+    path against ``testing/phases.strings_oracle``: ``strings.cust`` (the
+    unordered address and name dictionaries; K1 in the sorted group-by, K2
+    at the segment's end; concat_str on the host) and ``strings.line`` (K1
+    in a dense group-by, K2 at its end)."""
+    P = _phases()
+    t0 = time.perf_counter()
+    want = P.strings_oracle(raw["customer"], raw["orders"], raw["lineitem"])
+    oracle_s = time.perf_counter() - t0
+    cust, orders, line = frames["customer"], frames["orders"], frames["lineitem"]
+    unordered = {c: not cust._get(c).table.sorted_order for c in ("c_name", "c_address")}
+    results = {}
+
+    r = run_phase(torch, "strings.cust", lambda: P.strings_plans(pl, cust, orders, None)["cust"])
+    out = r["out"]
+    segs = "Enum(categories=['AUTOMOBILE', 'BUILDING', 'FURNITURE', 'HOUSEHOLD', 'MACHINERY'])"
+    _check_schema(out, [("c_address", "String"), ("c_name", "String"), ("spend", "Float64"), ("len", "UInt32"),
+                        ("digit", "Int64"), ("prio", "Categorical"), ("c_phone", "String"), ("seg", segs),
+                        ("label", "String"), ("label_len", "UInt32"), ("number", "Int64")], "strings.cust")
+    worst = P.check_strings(out, want["cust"], "strings.cust", floats=("spend",))
+    results["cust"] = phase_result("strings.cust", r, out, {"orders": orders.height, "customer": cust.height}, worst,
+                                   groups=out.height, unordered_dictionaries=unordered, oracle_s=oracle_s)
+
+    r = run_phase(torch, "strings.line", lambda: P.strings_plans(pl, None, None, line)["line"])
+    out = r["out"]
+    modes = "Enum(categories=['AIR', 'FOB', 'MAIL', 'RAIL', 'REG AIR', 'SHIP', 'TRUCK'])"
+    _check_schema(out, [("flags", "String"), ("mode", modes), ("len", "UInt32"), ("l_quantity", "Float64"),
+                        ("cmin", "String"), ("cmax", "String"), ("instr", "String"), ("cnum", "Int64"),
+                        ("clen", "Float64"), ("air", "UInt32"), ("mid", "UInt32")], "strings.line")
+    worst = P.check_strings(out, want["line"], "strings.line", floats=("l_quantity", "clen"))
+    results["line"] = phase_result("strings.line", r, out, {"lineitem": line.height}, worst, groups=out.height)
+    return results
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2512,6 +2606,9 @@ def main() -> int:
         elif name == "recode":
             for sub, res in phase_recode(torch, pl, frames["recode"]["lineitem"], raw).items():
                 runs[f"recode.{sub}"] = res
+        elif name == "strings":
+            for sub, res in phase_strings(torch, pl, frames["strings"], raw).items():
+                runs[f"strings.{sub}"] = res
         else:  # Q3's K2 call runs 50 times, each against the first
             runs[name] = phase_query(torch, name, frames, raw, args.scale, k2_repeats=50 if name == "q3" else 1)
     del frames, raw, line, taq

@@ -1,6 +1,7 @@
 """Process-wide configuration: the dense group-by's capacity limit, the
-default device of the port's entry points, and the table repr's limits
-(:class:`Config`).
+size above which a String dictionary keeps its order of first occurrence
+(:func:`config`), the default device of the port's entry points, and the
+table repr's limits (:class:`Config`).
 
 Entry points place data on ``cuda`` unless the caller asks for the CPU, either
 per frame (``DataFrame(..., device="cpu")``) or for the process through
@@ -18,6 +19,18 @@ import torch
 # Largest key domain the dense (perfect-hash) group-by takes: the JAX
 # package's default hot table (4096 entries, polars_tpu/config.py:46) x 16
 DENSE_MAX_CAP = 4096 * 16
+
+# ``ordinal_dict_max``: a String dictionary of at most this many values is
+# sorted at ingest (code order is lexicographic order); a larger one keeps
+# the order of first occurrence and is sorted on the host only when an
+# ordering operation first reads it (``StringTable.ordinal``). The JAX
+# package's default and variable (polars_tpu/config.py:46-54).
+_CONFIG = SimpleNamespace(ordinal_dict_max=int(os.environ.get("POLARS_TPU_ORDINAL_DICT_MAX", 1 << 16)))
+
+
+def config() -> SimpleNamespace:
+    """The process's settings (``ordinal_dict_max``)."""
+    return _CONFIG
 
 _default_device = ["cuda"]
 

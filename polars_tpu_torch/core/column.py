@@ -51,14 +51,17 @@ class Column:
             self.table = strtable.empty_table()
 
     @staticmethod
-    def from_values(name: str, values: Any, dtype: dt.DataType | None = None, *, device) -> Column:
-        """Build a column on ``device`` from a numpy array or Python sequence."""
+    def from_values(name: str, values: Any, dtype: dt.DataType | None = None, *, device,
+                    strict: bool = True) -> Column:
+        """Build a column on ``device`` from a numpy array or Python sequence
+        (an Enum's value outside its categories raises, or, without
+        ``strict``, is null)."""
         if dtype is not None:
             dtype = dt.parse_into_dtype(dtype)
         if isinstance(values, np.ndarray) and values.dtype.kind not in ("O", "U", "S"):
             col = _from_numpy(name, values, device)
         else:
-            col = _from_pylist(name, values, dtype, device)
+            col = _from_pylist(name, values, dtype, device, strict)
         if dtype is not None and dtype != col.dtype:  # a strict cast, as a one-column plan
             from polars_tpu_torch.core.frame import _cast_column
 
@@ -184,6 +187,8 @@ def _infer_pylist_dtype(seq: list) -> dt.DataType:
         return dt.Null()
     if kinds <= {str, np.str_}:
         return dt.String()
+    if kinds <= {bytes, bytearray}:
+        return dt.Binary()
     if kinds == {bool}:
         return dt.Boolean()
     if kinds <= {int}:
@@ -213,13 +218,23 @@ def _infer_pylist_dtype(seq: list) -> dt.DataType:
     )
 
 
-def _from_pylist(name: str, seq: Any, dtype: dt.DataType | None, device) -> Column:
+def _from_pylist(name: str, seq: Any, dtype: dt.DataType | None, device, strict: bool = True) -> Column:
     arr = np.asarray(seq, dtype=object) if not isinstance(seq, np.ndarray) else seq
     if arr.dtype.kind in ("U", "S"):
         arr = arr.astype(object)
     logical = dtype if dtype is not None else _infer_pylist_dtype(arr.tolist() if arr.size < 4096 else _sample(arr))
-    if isinstance(logical, dt.String):
+    if _needs_table(logical):
         codes, validity, table = strtable.encode_strings(arr)
+        if isinstance(logical, dt.Enum):  # codes are category positions
+            table_e = strtable.enum_table(logical.categories)
+            codes = table_e.codes_of(table.values.tolist())[codes] if len(codes) else codes
+            valid = np.ones(len(codes), bool) if validity is None else validity
+            if strict and (valid & (codes < 0)).any():
+                bad = arr[valid & (codes < 0)][0]
+                raise InvalidOperationError(f"value {bad!r} is not in the Enum categories {logical.categories}")
+            validity = valid & (codes >= 0)
+            codes, table = np.maximum(codes, 0).astype(np.int32), table_e
+            validity = None if validity.all() else validity
         return Column(name, logical, Buffer.from_numpy(codes, validity, dtype=torch.int32, device=device), table)
     validity = np.fromiter((v is not None for v in arr), bool, len(arr))
     if isinstance(logical, dt.Null):

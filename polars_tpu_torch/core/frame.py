@@ -391,6 +391,19 @@ class DataFrame:
                 idx = np.sort(idx)
         return self.gather(idx)
 
+    def glimpse(self, *, max_items_per_column: int = 10, max_colname_length: int = 50,
+                return_as_string: bool = False) -> str | None:
+        """Each column's name, dtype and first values, one line each."""
+        lines = [f"Rows: {self.height}", f"Columns: {self.width}"]
+        for c in self._columns:
+            vals = c.to_pylist()[:max_items_per_column]
+            lines.append(f"$ {c.name[:max_colname_length]:<15} <{c.dtype!r}> {vals}")
+        out = "\n".join(lines)
+        if return_as_string:
+            return out
+        print(out)
+        return None
+
     def describe(self) -> DataFrame:
         """Count, null count, mean, std, min and max of each column, one
         row per statistic (as text for a column that is not numeric)."""

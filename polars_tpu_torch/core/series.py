@@ -30,7 +30,7 @@ class Series:
         if name is not None and not isinstance(name, str) and values is None:
             values, name = name, ""
         self._column = Column.from_values(name or "", [] if values is None else values, dtype,
-                                          device=resolve_device(device))
+                                          device=resolve_device(device), strict=strict)
 
     @classmethod
     def _from_column(cls, column: Column) -> Series:
@@ -336,6 +336,18 @@ class Series:
         from polars_tpu_torch.core.series_ns import SeriesDateTimeNamespace
 
         return SeriesDateTimeNamespace(self)
+
+    @property
+    def cat(self):
+        from polars_tpu_torch.core.series_ns import SeriesCatNamespace
+
+        return SeriesCatNamespace(self)
+
+    @property
+    def bin(self):
+        from polars_tpu_torch.core.series_ns import SeriesBinaryNamespace
+
+        return SeriesBinaryNamespace(self)
 
     def search_sorted(self, element: Any, side: str = "any") -> Any:
         """Where ``element`` would go in this sorted Series: an int for one

@@ -1,6 +1,6 @@
-"""Series namespaces (the port of ``polars_tpu/core/series_ns.py``, trimmed
-to ``str`` and ``dt``): each method runs the ``Expr`` namespace's method
-over a one-column frame."""
+"""Series namespaces (the port of ``polars_tpu/core/series_ns.py``: ``str``,
+``dt``, ``cat`` and ``bin``): each method runs the ``Expr`` namespace's
+method over a one-column frame."""
 
 from __future__ import annotations
 
@@ -30,3 +30,11 @@ class SeriesStringNamespace(_SeriesNamespace):
 
 class SeriesDateTimeNamespace(_SeriesNamespace):
     _expr_ns = "dt"
+
+
+class SeriesCatNamespace(_SeriesNamespace):
+    _expr_ns = "cat"
+
+
+class SeriesBinaryNamespace(_SeriesNamespace):
+    _expr_ns = "bin"

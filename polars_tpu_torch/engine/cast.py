@@ -279,11 +279,21 @@ def cast_val(v: Val, target: dt.DataType, *, wrap: bool = False) -> Val:
                    torch.zeros(v.values.shape, dtype=torch.bool, device=v.values.device), target,
                    empty_table() if text else None, v.domain)
     if _is_text(target):
-        if v.table is not None and isinstance(target, dt.String):
+        if v.table is not None and isinstance(target, dt.Enum):
+            # onto the categories' positions; a value outside them is null
+            # (a strict cast fails at the segment's count read)
+            from polars_tpu_torch.engine.compiler import enum_remap
+            from polars_tpu_torch.utils.strtable import enum_table
+
+            return enum_remap(v, enum_table(target.categories)).with_(dtype=target)
+        if v.table is not None and isinstance(target, (dt.String, dt.Categorical)) and \
+                isinstance(src, (dt.String, dt.Categorical, dt.Enum)):
             return v.with_(dtype=target)
         raise InvalidOperationError(
             f"a cast from {src!r} to {target!r} runs on the host: only in a select or with_columns")
     if v.table is not None:
+        if isinstance(src, (dt.Categorical, dt.Enum)) and target.is_integer():  # the physical codes
+            return _int_to_int(v.with_(dtype=dt.UInt32(), table=None), target, False)
         if target.is_numeric() or type(target).__name__ in ("Boolean", "Date", "Datetime"):
             return _parse_table(v, target)
         raise InvalidOperationError(f"cannot cast {src!r} to {target!r}")

@@ -129,7 +129,7 @@ def reject_series(*vals: Val) -> None:
     """Raise where a literal Series meets anything but ``is_in``."""
     if any(v.domain == SERIES for v in vals):
         raise NotImplementedError(
-            "a Series literal is ported only as is_in's right-hand side (port queue: expression breadth)"
+            "a Series literal is ported only as is_in's right-hand side (port queue: item 3b)"
         )
 
 

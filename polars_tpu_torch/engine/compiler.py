@@ -39,7 +39,7 @@ from polars_tpu_torch.engine.common import (
     take_lut,
 )
 from polars_tpu_torch.engine.registry import get_spec
-from polars_tpu_torch.engine.strings import unify_vals
+from polars_tpu_torch.engine.strings import ensure_ordinal_val, unify_vals
 from polars_tpu_torch.errors import ColumnNotFoundError, ComputeError, InvalidOperationError, ShapeError
 from polars_tpu_torch.kernels.argsort import stable_argsort_words
 from polars_tpu_torch.kernels.fastmath import div_any, floordiv_any, floordiv_u64, mod_any, mod_u64
@@ -318,23 +318,25 @@ def _eval_literal(node: E.ELiteral, ctx: EvalCtx) -> Val:
     dtype = dt.parse_into_dtype(node.dtype) if node.dtype is not None else None
     if value is None:
         d = dtype if dtype is not None else dt.Null()
-        if isinstance(d, (dt.String, dt.Categorical, dt.Enum, dt.Binary)):
-            raise NotImplementedError("null string literals are not ported yet (port queue: expression breadth)")
-        tdt = torch.int32 if isinstance(d, dt.Null) else dt.dtype_to_torch(d)
+        table = None
+        if isinstance(d, (dt.String, dt.Categorical, dt.Enum, dt.Binary)):  # an empty dictionary
+            table = strtable.enum_table(d.categories) if isinstance(d, dt.Enum) else strtable.empty_table()
+        tdt = torch.int32 if isinstance(d, dt.Null) or table is not None else dt.dtype_to_torch(d)
         return Val(
             torch.zeros(1, dtype=tdt, device=ctx.device),
-            torch.zeros(1, dtype=torch.bool, device=ctx.device), d, None, SCALAR,
+            torch.zeros(1, dtype=torch.bool, device=ctx.device), d, table, SCALAR,
         )
     if isinstance(value, str):
         if dtype is not None and dtype.is_temporal():
             iv = torch.tensor([parse_temporal_literal(value, dtype)], dtype=dt.dtype_to_torch(dtype), device=ctx.device)
             return Val(iv, None, dtype, None, SCALAR)
-        if dtype is not None and not isinstance(dtype, dt.String):
+        if dtype is not None and not isinstance(dtype, (dt.String, dt.Categorical, dt.Enum)):
             raise NotImplementedError(
                 f"{dtype!r} literals are not ported yet (port queue: expression breadth)")
-        # a one-entry sorted dictionary; code 0
+        # a one-entry sorted dictionary; code 0 (an Enum's: its category's position)
         table = strtable.StringTable(np.asarray([value], object), sorted_order=True)
-        return Val(torch.zeros(1, dtype=torch.int32, device=ctx.device), None, dt.String(), table, SCALAR)
+        out = Val(torch.zeros(1, dtype=torch.int32, device=ctx.device), None, dtype or dt.String(), table, SCALAR)
+        return enum_remap(out, strtable.enum_table(dtype.categories)) if isinstance(dtype, dt.Enum) else out
     if isinstance(value, _decimal.Decimal):  # scaled to its dtype's scale, half to even
         d = dtype if isinstance(dtype, dt.Decimal) else _lit_dtype(value)
         scaled = int(value.scaleb(d.scale).to_integral_value(_decimal.ROUND_HALF_EVEN))
@@ -420,6 +422,8 @@ def _eval_binary(node: E.EBinary, ctx: EvalCtx) -> Val:
     if op in _CMP:
         return _eval_compare(op, a, b, dom)
     if a.table is not None or b.table is not None:
+        if op == "+" and a.table is not None and b.table is not None:
+            return _string_add(a, b, dom)
         raise InvalidOperationError(f"operator {op!r} not supported for strings")
     out_dt = binary_dtype(op, a.dtype, b.dtype)
     if op == "**" and out_dt.is_integer():
@@ -429,15 +433,58 @@ def _eval_binary(node: E.EBinary, ctx: EvalCtx) -> Val:
                                         "exponents")
     lit = dyn_literal_value(node.right)
     pow_bits = int(lit).bit_length() if op == "**" and isinstance(lit, int) and lit >= 0 else 63
-    values, validity = _arith(op, a, b, out_dt, pow_bits)
+    values, validity = _arith(op, a, b, out_dt, pow_bits, ctx)
     if validity is not None and validity.shape != values.shape:
         validity = validity.expand(values.shape)
     return Val(values, validity, out_dt, None, dom)
 
 
-def _arith(op: str, a: Val, b: Val, out_dt: dt.DataType, pow_bits: int = 63):
+# ``+`` of two string columns builds the text of every pair of their
+# dictionaries' values on the host: at most this many pairs
+_STRING_ADD_PAIRS = 1 << 16
+
+
+def _string_add(a: Val, b: Val, dom: str) -> Val:
+    """``a + b`` of two strings (null where either is): with a literal side,
+    the other's dictionary mapped once (``map_over_table``); two columns
+    through a host table of each pair of their dictionaries' values, read
+    by one gather at ``i * |b| + j``. Larger pairs go through
+    ``pl.concat_str``, which works per distinct pair of codes."""
+    from polars_tpu_torch.engine.strings import map_over_table
+
+    if _scalar_one_table(b):
+        lit = b.table.values[0]
+        out = map_over_table(a, lambda u: u + lit, memo=("+", lit), out_dtype=dt.String())
+        return out.with_(validity=_broadcast_validity(out.validity, b.validity, out.values), domain=dom)
+    if _scalar_one_table(a):
+        lit = a.table.values[0]
+        out = map_over_table(b, lambda u: lit + u, memo=("+r", lit), out_dtype=dt.String())
+        return out.with_(validity=_broadcast_validity(out.validity, a.validity, out.values), domain=dom)
+    n1, n2 = len(a.table), len(b.table)
+    if n1 * n2 > _STRING_ADD_PAIRS:
+        raise InvalidOperationError(
+            f"`+` of two string columns with {n1} and {n2} distinct values: use pl.concat_str")
+
+    def run():
+        t1, t2 = a.table.values.tolist(), b.table.values.tolist()
+        pairs = np.asarray([x + y for x in t1 for y in t2] or [""], dtype=object)
+        return strtable.encode_strings(pairs)[::2]
+
+    codes, table = a.table.memo(("+pairs", b.table.ident), run)
+    i = a.values.to(torch.int64).clamp(0, max(n1 - 1, 0))
+    j = b.values.to(torch.int64).clamp(0, max(n2 - 1, 0))
+    values = take_lut(codes, i * max(n2, 1) + j).to(torch.int32)
+    return Val(values, _broadcast_validity(a.validity, b.validity, values), dt.String(), table, dom)
+
+
+def _broadcast_validity(x, y, values: torch.Tensor):
+    validity = combine_validity(x, y)
+    return validity.expand(values.shape) if validity is not None and validity.shape != values.shape else validity
+
+
+def _arith(op: str, a: Val, b: Val, out_dt: dt.DataType, pow_bits: int = 63, ctx: EvalCtx | None = None):
     if isinstance(out_dt, dt.Decimal):
-        return _decimal_arith(op, a, b, out_dt)
+        return _decimal_arith(op, a, b, out_dt, ctx)
     if out_dt.is_temporal() or a.dtype.is_temporal() or b.dtype.is_temporal():
         return _temporal_arith(op, a, b, out_dt)
     if not out_dt.is_numeric():
@@ -485,30 +532,81 @@ def _arith(op: str, a: Val, b: Val, out_dt: dt.DataType, pow_bits: int = 63):
     return wrap_unsigned(values, out_dt), validity
 
 
-def _decimal_arith(op: str, a: Val, b: Val, out_dt: dt.Decimal):
-    """``+ - * /`` of Decimals (an integer operand has scale 0) in int64
+def _decimal_arith(op: str, a: Val, b: Val, out_dt: dt.Decimal, ctx: EvalCtx):
+    """``+ - * / %`` of Decimals (an integer operand has scale 0) in int64
     scaled by 10^scale, as the JAX package's ``compiler.py:388-420`` and
     Polars' ``arithmetic/decimal.rs``: both sides at the output scale, a
     product divided back by 10^scale and a quotient's dividend scaled up,
-    each rounded half to even; a division by zero is null."""
-    if op not in ("+", "-", "*", "/"):
+    each rounded half to even; a division or remainder by zero is null; a
+    remainder takes the divisor's sign, as Polars' integer ``%``. A sum or
+    product whose scaled value leaves int64 fails the segment at its count
+    read (the JAX package wraps; Polars has 128 bits)."""
+    if op not in ("+", "-", "*", "/", "%"):
         raise InvalidOperationError(f"operator {op!r} is not defined for {a.dtype!r} and {b.dtype!r}")
     s = out_dt.scale
 
-    def rescaled(v: Val) -> torch.Tensor:
+    def rescaled(v: Val) -> tuple[torch.Tensor, torch.Tensor | bool]:
         vs = v.dtype.scale if isinstance(v.dtype, dt.Decimal) else 0
-        return v.values.to(torch.int64) * (10 ** (s - vs)) if vs < s else v.values.to(torch.int64)
+        x = v.values.to(torch.int64)
+        return _mul_checked(x, torch.full_like(x, 10 ** (s - vs))) if vs < s else (x, False)
 
-    av, bv = rescaled(a), rescaled(b)
+    (av, abad), (bv, bbad) = rescaled(a), rescaled(b)
     validity = combine_validity(a.validity, b.validity)
-    if op == "+":
-        return av + bv, validity
-    if op == "-":
-        return av - bv, validity
-    if op == "*":
-        return _div_half_even(av * bv, torch.full((), 10**s, dtype=torch.int64, device=av.device)), validity
-    nz = bv != 0
-    return _div_half_even(av * (10**s), torch.where(nz, bv, 1)), combine_validity(validity, nz)
+    if op in ("+", "-"):
+        out = av + bv if op == "+" else av - bv
+        # two's complement: a sum overflows where both operands have one sign and the result the other
+        bad = (((av ^ out) & ((bv if op == "+" else ~bv) ^ out)) < 0) | abad | bbad
+    elif op == "*":
+        out, bad = _decimal_product(av, bv, 10**s)
+        bad = bad | abad | bbad
+    elif op == "%":
+        nz = bv != 0
+        return mod_any(av, torch.where(nz, bv, 1)), combine_validity(validity, nz)
+    else:
+        nz = bv != 0
+        return _div_half_even(av * (10**s), torch.where(nz, bv, 1)), combine_validity(validity, nz)
+    _decimal_overflow_flag(ctx, bad, validity, a.domain if a.domain != SCALAR else b.domain, out_dt)
+    return out, validity
+
+
+def _decimal_overflow_flag(ctx: EvalCtx, bad: torch.Tensor, validity, domain: str, out_dt: dt.Decimal) -> None:
+    """A validation flag where a Decimal result left int64 on a row that counts."""
+    if validity is not None:
+        bad = bad & validity
+    if domain == ROW and bad.shape == ctx.rowmask.shape:
+        bad = bad & ctx.rowmask
+    ctx.add_flag(bad.any(), f"decimal overflow: a {out_dt!r} result does not fit in 64 bits", ComputeError)
+
+
+def _mul_checked(x: torch.Tensor, y: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(x * y wrapped in int64, where it overflowed)."""
+    p = x * y
+    nz = x != 0
+    back = torch.div(p, torch.where(nz, x, 1), rounding_mode="trunc")
+    return p, (nz & (back != y)) | ((x == -1) & (y == torch.iinfo(torch.int64).min))
+
+
+def _decimal_product(av: torch.Tensor, bv: torch.Tensor, d: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """round_half_even(av * bv / d) in int64 without the product itself
+    leaving int64: with av = aq d + ar and bv = bq d + br (floor division),
+    av bv / d = aq bq d + aq br + ar bq + ar br / d; and where that leaves
+    int64."""
+    aq, ar = floordiv_any(av, d), mod_any(av, d)
+    bq, br = floordiv_any(bv, d), mod_any(bv, d)
+    t, bad = _mul_checked(ar, br)  # in [0, d^2): exact for scales up to 9
+    k, b1 = _mul_checked(aq, bq)
+    k, b2 = _mul_checked(k, torch.full_like(k, d))
+    p1, b3 = _mul_checked(aq, br)
+    p2, b4 = _mul_checked(ar, bq)
+    bad = bad | b1 | b2 | b3 | b4
+    for term in (p1, p2, floordiv_any(t, d)):
+        out = k + term
+        bad = bad | (((k ^ out) & (term ^ out)) < 0)
+        k = out
+    r = mod_any(t, d)  # the floor quotient's remainder in [0, d): round half to even
+    up = (2 * r > d) | ((2 * r == d) & (k % 2 != 0))
+    out = k + up.to(torch.int64)
+    return out, bad | ((k == torch.iinfo(torch.int64).max) & up)
 
 
 def _div_half_even(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
@@ -599,6 +697,16 @@ def _temporal_pair(a: Val, b: Val, out_dt: dt.DataType) -> tuple[torch.Tensor, t
     return ticks(a), ticks(b)
 
 
+def enum_remap(v: Val, etable: strtable.StringTable) -> Val:
+    """A dictionary-coded value's codes in an Enum table's code space (its
+    category positions); a value outside the categories is null."""
+    if v.table is etable:
+        return v
+    pos = etable.codes_of(v.table.values.tolist())
+    codes = take_lut(pos if len(pos) else np.full(1, -1, np.int32), v.values)
+    return v.with_(values=codes.clamp(min=0), validity=combine_validity(v.validity, codes >= 0), table=etable)
+
+
 def _scalar_one_table(v: Val) -> bool:
     """A SCALAR with a one-entry dictionary: a string literal."""
     return v.domain == SCALAR and v.table is not None and len(v.table) == 1
@@ -626,24 +734,39 @@ def _string_codes(op: str, a: Val, b: Val) -> tuple[torch.Tensor, torch.Tensor]:
     dictionary into the larger one's codes (-1 = absent, never equal to a
     valid code); ordering unifies both into one sorted dictionary."""
     if a.table is b.table:
+        if op not in ("==", "!="):  # an unordered dictionary: the text's order
+            a, b = ensure_ordinal_val(a), ensure_ordinal_val(b)
         return a.values, b.values
     if op in ("==", "!="):
         if len(a.table) == 0 or len(b.table) == 0:  # an empty dictionary: codes never equal
             return a.values, torch.full_like(b.values, -1)
-        if len(b.table) <= len(a.table):
-            return a.values, take_lut(strtable.index_in(b.table.values, a.table.values), b.values)
-        return take_lut(strtable.index_in(a.table.values, b.table.values), a.values), b.values
+        if len(b.table) <= len(a.table):  # the larger dictionary's lookup, made once per table
+            return a.values, take_lut(a.table.codes_of(b.table.values.tolist()), b.values)
+        return take_lut(b.table.codes_of(a.table.values.tolist()), a.values), b.values
     _, lmap, rmap = strtable.unify(a.table, b.table, require_ordinal=True)
     return take_lut(lmap, a.values), take_lut(rmap, b.values)
+
+
+def compare_vals(op: str, a: Val, b: Val) -> Val:
+    """``a op b`` of two evaluated values, their domains reconciled."""
+    a, b, dom = broadcast_pair(a, b)
+    return _eval_compare(op, a, b, dom)
 
 
 def _eval_compare(op: str, a: Val, b: Val, dom: str) -> Val:
     if (a.table is not None) != (b.table is not None):
         raise InvalidOperationError(f"cannot compare {a.dtype!r} with {b.dtype!r}")
     if a.table is not None:
-        if op not in ("==", "!=") and (_scalar_one_table(a) or _scalar_one_table(b)):
+        if isinstance(a.dtype, dt.Enum) or isinstance(b.dtype, dt.Enum):
+            # in the Enum's code space, its category order; a value outside
+            # the categories compares as null
+            e = a.table if isinstance(a.dtype, dt.Enum) else b.table
+            a, b = enum_remap(a, e), enum_remap(b, e)
+            av, bv = a.values, b.values
+        elif op not in ("==", "!=") and (_scalar_one_table(a) or _scalar_one_table(b)):
             return _compare_vs_scalar_lut(op, a, b, dom)
-        av, bv = _string_codes(op, a, b)
+        else:
+            av, bv = _string_codes(op, a, b)
     else:
         st = supertype(a.dtype, b.dtype)
         # UInt64 bit patterns compare as unsigned once their sign bit is flipped
@@ -789,7 +912,8 @@ def _agg_input(node: E.ENode, ctx: EvalCtx) -> tuple[Val, torch.Tensor]:
     pieces = [_agg_input(c, ctx) for c in kids]
     masks = [m for _, m in pieces]
     if any(m is not masks[0] for m in masks):
-        raise NotImplementedError("an aggregation over inputs that keep different rows is not ported")
+        raise NotImplementedError(
+            "an aggregation over inputs that keep different rows is not ported (port queue: item 3b)")
     sub = _sub_ctx(ctx, masks[0], {c: v for c, (v, _) in zip(kids, pieces)})
     return eval_expr(node, sub), masks[0]
 
@@ -832,10 +956,11 @@ def _eval_agg(node: E.EAgg, ctx: EvalCtx) -> Val:
         out_dt = _agg_out_dtype(node, v.dtype)
         return Val(mean_values(m, v.dtype, out_dt), has, out_dt, None, dom)
     if kind in ("min", "max"):
-        if v.table is not None and not v.table.sorted_order:
-            raise NotImplementedError("min/max over an unordered dictionary is not ported yet")
-        has = G.seg_count(data_mask, gids, cap) > 0
-        return Val(G.seg_extreme(kind, v, data_mask, gids, cap), has, v.dtype, v.table, dom)
+        v = ensure_ordinal_val(v)  # an unordered dictionary: the text's order
+        # without nulls, a group has a value where it has rows: the groups'
+        # counts, taken once (one K1 count for every such extreme)
+        counts = G.group_counts(gctx, rowmask) if v.validity is None else G.seg_count(data_mask, gids, cap)
+        return Val(G.seg_extreme(kind, v, data_mask, gids, cap), counts > 0, v.dtype, v.table, dom)
     if kind in ("first", "last"):
         # Polars' first/last include nulls: the row is picked by position
         # among the group's rows, and its validity goes with it
@@ -1008,7 +1133,8 @@ def _eval_corr_cov(node: E.EAgg, ctx: EvalCtx, gctx: GroupCtx, dom: str) -> Val:
         raise InvalidOperationError(f"{node.kind} takes two columns (pl.{node.kind})")
     (a, mask_a), (b, mask_b) = (_agg_input(i, ctx) for i in pair.inputs)
     if mask_a is not mask_b:
-        raise NotImplementedError(f"{node.kind} over inputs that keep different rows is not ported")
+        raise NotImplementedError(
+            f"{node.kind} over inputs that keep different rows is not ported (port queue: item 3b)")
     if mask_a is not ctx.rowmask:
         gctx = dataclasses.replace(gctx, counts=None, sort_perm=None)
     gids, cap = gctx.gids, gctx.capacity
@@ -1066,8 +1192,7 @@ def _eval_arg_extreme(kind: str, v: Val, data_mask: torch.Tensor, gctx: GroupCtx
     (``arg_min``) or greatest (``arg_max``, NaN greatest) value, counting
     the group's null rows as positions; null for a group without values."""
     gids, cap = gctx.gids, gctx.capacity
-    if v.table is not None and not v.table.sorted_order:
-        raise NotImplementedError(f"{kind} over an unordered dictionary is not ported yet (port queue: item 3)")
+    v = ensure_ordinal_val(v)  # an unordered dictionary: the text's order
     ext = G.seg_extreme("min" if kind == "arg_min" else "max", v, data_mask, gids, cap)
     ids = gids.clamp(0, cap - 1).long()
     best = ext.index_select(0, ids)

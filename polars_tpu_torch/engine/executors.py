@@ -85,6 +85,8 @@ def _is_fusable(node: L.LNode) -> bool:
     select that calls a host function (``engine/hostops.py``)."""
     if isinstance(node, (L.LSelect, L.LWithColumns)):
         return not any(E.needs_host(e) for e in node.expressions)
+    if isinstance(node, L.LGroupBy) and any(E.needs_host_agg(e) for e in node.aggs):
+        return False
     return isinstance(node, _FUSABLE) and (not isinstance(node, L.LJoin) or _join_fusable(node))
 
 
@@ -441,6 +443,14 @@ def _batch_aggs(aggs, ctx: EvalCtx) -> dict:
 
         return slot(batch, key, make)
 
+    def half_slot(v: Val, shift: int):
+        def make():
+            x = v.values.to(torch.int64)
+            x = x >> 32 if shift else x & 0xFFFFFFFF
+            return (x if v.validity is None else torch.where(v.validity, x, 0)).contiguous()
+
+        return slot("i", ("half", shift, id(v.values), None if v.validity is None else id(v.validity)), make)
+
     jobs: list = []  # (node, kind, v, slots)
     minmax: list = []
     seen: set = set()
@@ -474,14 +484,17 @@ def _batch_aggs(aggs, ctx: EvalCtx) -> dict:
                 jobs.append((sub, "mean", v, (value_slot(v, "f"), count_slot(v))))
             elif v.dtype.is_float():
                 jobs.append((sub, "sum", v, (value_slot(v, "f"),)))
+            elif isinstance(v.dtype, dt.Decimal):  # high and low 32 bits apart: a sum past int64 is seen
+                jobs.append((sub, "dsum", v, (half_slot(v, 32), half_slot(v, 0))))
             else:  # exact integer/bool sums in i64
                 jobs.append((sub, "sum", v, (value_slot(v, "i"),)))
 
     tables = {}
-    if f_cols:
-        tables["f"] = groupagg_sums(gctx.gids, f_cols, ctx.rowmask, cap)
-    if i_cols:
-        tables["i"] = groupagg_sums(gctx.gids, i_cols, ctx.rowmask, cap)
+    for batch, cols, acc in (("f", f_cols, torch.float64), ("i", i_cols, torch.int64)):
+        if cols and cap == 0:  # a group-by over no rows has no group, and K1 takes capacity >= 1
+            tables[batch] = torch.zeros((0, len(cols)), dtype=acc, device=ctx.device)
+        elif cols:
+            tables[batch] = groupagg_sums(gctx.gids, cols, ctx.rowmask, cap)
 
     def col(s):
         batch, idx = s
@@ -493,6 +506,12 @@ def _batch_aggs(aggs, ctx: EvalCtx) -> dict:
     for node_a, kind, v, slots in jobs:
         if kind == "count":
             out[node_a] = Val(col(slots[0]), None, dt.UInt32(), None, dom)
+        elif kind == "dsum":
+            hi, lo = col(slots[0]), col(slots[1])
+            hi = hi + (lo >> 32)
+            ctx.add_flag(((hi < -(2**31)) | (hi >= 2**31)).any(),
+                         f"decimal overflow: a sum of {v.dtype!r} does not fit in 64 bits", ComputeError)
+            out[node_a] = Val((hi << 32) | (lo & 0xFFFFFFFF), None, _agg_out_dtype(node_a, v.dtype), None, dom)
         elif kind == "mean":
             s, c = col(slots[0]), col(slots[1])
             out_dt = _agg_out_dtype(node_a, v.dtype)

@@ -109,10 +109,12 @@ def _abs(ctx, args, opts):
 @register("negate", SAME)
 def _negate(ctx, args, opts):
     """The same dtype; unsigned, Boolean and String are refused, as in the
-    JAX package (Polars: ``FunctionExpr::Negate``)."""
+    JAX package (Polars: ``FunctionExpr::Negate``). A Decimal negates its
+    scaled integer."""
     v = args[0]
     d = v.dtype
-    if not ((d.is_integer() and not d.is_unsigned_integer()) or d.is_float() or isinstance(d, dt.Duration)):
+    if not ((d.is_integer() and not d.is_unsigned_integer()) or d.is_float()
+            or isinstance(d, (dt.Duration, dt.Decimal))):
         raise InvalidOperationError(f"`neg` operation not supported for dtype `{d!r}`")
     return v.with_(values=-v.values)
 
@@ -183,7 +185,8 @@ def _cast_wrap(ctx, args, opts):
 
 
 def _physical_dtype(d: dt.DataType) -> dt.DataType:
-    return {"String": dt.UInt32(), "Date": dt.Int32(), "Datetime": dt.Int64(), "Duration": dt.Int64(),
+    return {"String": dt.UInt32(), "Categorical": dt.UInt32(), "Enum": dt.UInt32(), "Date": dt.Int32(),
+            "Datetime": dt.Int64(), "Duration": dt.Int64(),
             "Time": dt.Int64()}.get(type(d).__name__, d)
 
 
@@ -330,7 +333,7 @@ def _is_in(ctx, args, opts):
     v, other = args
     if other.domain not in (SCALAR, SERIES):
         raise NotImplementedError(
-            "is_in against a column or an expression is not ported yet (port queue: expression breadth)"
+            "is_in against a column or an expression is not ported yet (port queue: item 3b)"
         )
     if isinstance(other.dtype, dt.Null):  # [] or [None, ...]: nothing to match
         out = torch.zeros(v.values.shape, dtype=torch.bool, device=v.values.device)
@@ -365,14 +368,24 @@ def _is_between(ctx, args, opts):
     (``both``, ``left``, ``right`` or ``none``), in the three operands'
     supertype; null where any operand is null."""
     v, lo, hi = args
-    if any(a.table is not None for a in args):
-        raise NotImplementedError("is_between on strings is not ported yet (port queue: expression breadth)")
     closed = opts.get("closed", "both")
+    lop = ">=" if closed in ("both", "left") else ">"
+    hop = "<=" if closed in ("both", "right") else "<"
+    if any(a.table is not None for a in args):
+        # strings by their text (a bound that is a literal by a table over
+        # the dictionary), an Enum by its categories: the compares' paths
+        from polars_tpu_torch.engine.compiler import compare_vals
+
+        left, right = compare_vals(lop, v, lo), compare_vals(hop, v, hi)
+        validity = combine_validity(left.validity, right.validity)
+        out = left.values & right.values
+        if validity is not None and validity.shape != out.shape:
+            validity = validity.expand(out.shape)
+        return Val(out, validity, dt.Boolean(), None, next((a.domain for a in args if a.domain != SCALAR), SCALAR))
     st = supertype(supertype(v.dtype, lo.dtype), hi.dtype)
     vv, lv, hv = (order_word(cast_val(a, st).values, st) for a in args)
-    left = vv >= lv if closed in ("both", "left") else vv > lv
-    right = vv <= hv if closed in ("both", "right") else vv < hv
-    out = left & right
+    cmp = {">=": torch.ge, ">": torch.gt, "<=": torch.le, "<": torch.lt}
+    out = cmp[lop](vv, lv) & cmp[hop](vv, hv)
     validity = combine_validity(v.validity, lo.validity, hi.validity)
     if validity is not None and validity.shape != out.shape:  # a bound's (1,) validity
         validity = validity.expand(out.shape)
@@ -911,7 +924,7 @@ def _search_sorted(ctx, args, opts):
     from polars_tpu_torch.kernels.argsort import key_words
 
     if ctx.groups is not None:
-        raise NotImplementedError("search_sorted within groups or a window is not ported (port queue: item 1b)")
+        raise NotImplementedError("search_sorted within groups or a window is not ported (port queue: item 3b)")
     v, elem = row_domain(ctx, args[0]), args[1]
     reject_series(elem)
     if v.table is not None or elem.table is not None:
@@ -1051,7 +1064,7 @@ def _qcut(ctx, args, opts):
             per_row = [brks[:, j].index_select(0, ids) for j in range(len(qs))]
         return _category_val(v, _bins(x, per_row, left_closed), labels, dt.Enum(labels))
     if ctx.groups is not None:
-        raise NotImplementedError("qcut without labels within groups or a window is not ported (port queue: item 1b)")
+        raise NotImplementedError("qcut without labels within groups or a window is not ported (port queue: item 3b)")
     values = [float(b) for b in brks[0].tolist()]
     if len(set(values)) < len(values):
         if not opts.get("allow_duplicates"):

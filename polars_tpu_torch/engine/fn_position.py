@@ -30,6 +30,7 @@ from polars_tpu_torch.engine import groupby as G
 from polars_tpu_torch.engine.cast import cast_val, float_values, order_word, wrap_unsigned
 from polars_tpu_torch.engine.common import ROW, SCALAR, Val, reject_series
 from polars_tpu_torch.engine.registry import BOOL, FLOAT, SAME, register
+from polars_tpu_torch.engine.strings import ensure_ordinal_val, unify_vals
 from polars_tpu_torch.errors import InvalidOperationError
 from polars_tpu_torch.kernels import argsort as A
 from polars_tpu_torch.kernels.argsort import boundaries_from_words
@@ -174,10 +175,10 @@ def _shift(ctx, args, opts):
 def _shift_fill(ctx, args, opts):
     v = row_domain(ctx, args[0])
     n_sh = int(opts.get("n", 1))
-    fill = args[1]
-    if fill.table is not None or v.table is not None:
-        raise NotImplementedError("shift(fill_value=) of a string column is not ported yet (port queue: item 3)")
-    fill = row_domain(ctx, cast_val(fill, v.dtype))
+    fill = cast_val(args[1], v.dtype)
+    if v.table is not None:  # both on one dictionary
+        v, fill = unify_vals(v, fill)
+    fill = row_domain(ctx, fill)
 
     def fn(o, vals, valid):
         src, ok = _source(o, n_sh)
@@ -188,7 +189,7 @@ def _shift_fill(ctx, args, opts):
         out_valid = torch.where(ok, src_valid, fvalid)
         return out, None if valid is None and fill.validity is None else out_valid
 
-    return _in_group_space(ctx, v, fn)
+    return _in_group_space(ctx, v, fn, table=True)
 
 
 def _diff_dtype(dts, opts):
@@ -564,7 +565,9 @@ def _fill_null_with_strategy(ctx, args, opts):
 
     v = row_domain(ctx, v)
     if v.table is not None:
-        raise NotImplementedError(f"fill_null(strategy={strategy!r}) of a string column (port queue: item 3)")
+        if strategy == "mean":
+            raise InvalidOperationError(f"fill_null(strategy='mean') is not defined for {v.dtype!r}")
+        v = ensure_ordinal_val(v)  # the text's order
     g = group_of(ctx)
     mask = ctx.rowmask & v.validity
     if strategy == "mean":  # an integer mean truncates into the column's type
@@ -575,7 +578,7 @@ def _fill_null_with_strategy(ctx, args, opts):
         has = G.seg_count(mask, g.gids, g.capacity) > 0
     ids = g.gids.clamp(0, g.capacity - 1).long()
     return Val(torch.where(v.validity, v.values, fill.index_select(0, ids)), v.validity | has.index_select(0, ids),
-               v.dtype, None, ROW)
+               v.dtype, v.table, ROW)
 
 
 def _peak(ctx, v: Val, is_max: bool) -> Val:

@@ -1,16 +1,17 @@
-"""String functions over dictionary-coded columns (the port of
-``polars_tpu/engine/fn_strings.py``, trimmed to ``str.starts_with`` and
-``str.ends_with`` with a literal or an expression right-hand side, literal
-and regex ``str.contains``, ``str.slice``, and the parsers ``str.to_date``,
-``str.to_datetime`` and ``str.to_time``, which ``str.strptime`` picks by
-dtype).
+"""String and Binary functions over dictionary-coded columns (the port of
+``polars_tpu/engine/fn_strings.py``, l.74-592 and the ``bin.*`` functions
+from l.750, but for what yields a List or a Struct: ``split``,
+``extract_all``, ``extract_many``, ``find_many``, ``extract_groups``,
+``split_exact``, ``splitn`` and ``json_decode``, ROADMAP item 4).
 
 Device tensors hold int32 codes; a string op runs once per dictionary value
 on the host, and its result becomes a lookup table gathered by the codes on
 the device: O(|dictionary|) host work, one O(n) gather. An op that gives
-strings maps the dictionary to a new, re-normalised one
-(``engine/strings.map_over_table``) and remaps the codes. Regexes are
-Python's ``re``, as in the JAX package.
+strings maps the dictionary to a new one (``engine/strings.map_over_table``)
+and remaps the codes. Each result is kept on its input dictionary under the
+function's name and options (``StringTable.memo``), so that a dictionary is
+worked over once, not once per collect. Regexes are Python's ``re``, as in
+the JAX package, with Rust's named groups ``(?<name>`` translated.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ import torch
 
 from polars_tpu_torch import datatypes as dt
 from polars_tpu_torch.engine.common import SCALAR, Val, combine_validity, flag_rows, take_lut
-from polars_tpu_torch.engine.registry import BOOL, register
+from polars_tpu_torch.engine.registry import BOOL, SAME, register
 from polars_tpu_torch.engine.strings import map_over_table
 from polars_tpu_torch.errors import ComputeError, InvalidOperationError
 
@@ -34,15 +35,67 @@ def _require_str(v: Val) -> Val:
     return v
 
 
+def _str_map(v: Val, name: str, opts: dict, fn, out_dtype: dt.DataType | None = None) -> Val:
+    """``fn`` of one string over the dictionary, giving strings (None is
+    null), kept on the dictionary under ``name`` and ``opts``."""
+    return map_over_table(v, fn, memo=_memo_key(name, opts), out_dtype=out_dtype or dt.String())
+
+
+def translate_group_syntax(pattern: str) -> str:
+    """Rust-regex named groups ``(?<name>`` as Python's ``(?P<name>``
+    (lookbehinds ``(?<=`` and ``(?<!`` untouched)."""
+    return re.sub(r"\(\?<([A-Za-z_][A-Za-z0-9_]*)>", r"(?P<\1>", pattern)
+
+
+def group_field_names(pattern: str) -> list[str]:
+    """The capture groups' names: a named group its name, an unnamed one its
+    1-based position as a string."""
+    rx = re.compile(translate_group_syntax(pattern))
+    names = {v: k for k, v in rx.groupindex.items()}
+    return [names.get(i, str(i)) for i in range(1, rx.groups + 1)]
+
+
+_ASCII_LOWER = str.maketrans("ABCDEFGHIJKLMNOPQRSTUVWXYZ", "abcdefghijklmnopqrstuvwxyz")
+
+
+def ac_occurrences(hay: str, pats: list, *, overlapping: bool = False, leftmost: bool = False,
+                   ascii_ci: bool = False) -> list:
+    """Literal multi-pattern matches as Aho-Corasick reports them: (start,
+    end, pattern index) tuples, by match end (or, ``leftmost``, by start and
+    then pattern index), each non-overlapping with the ones before unless
+    ``overlapping``."""
+    h = hay.translate(_ASCII_LOWER) if ascii_ci else hay
+    occ = []
+    for pi, p in enumerate(pats):
+        if not p:
+            continue
+        pp = p.translate(_ASCII_LOWER) if ascii_ci else p
+        st = h.find(pp)
+        while st >= 0:
+            occ.append((st, st + len(pp), pi))
+            st = h.find(pp, st + 1)
+    if overlapping:
+        return sorted(occ, key=lambda t: (t[1], t[0]))
+    occ.sort(key=(lambda t: (t[0], t[2])) if leftmost else (lambda t: (t[1], t[0])))
+    out, pos = [], 0
+    for st, en, pi in occ:
+        if st >= pos:
+            out.append((st, en, pi))
+            pos = en
+    return out
+
+
 def _lut_op(v: Val, fn, out_dtype: dt.DataType, *, memo=None) -> Val:
     """``fn`` over the dictionary's values on the host, gathered by the
     codes; a result of None is null (a failed parse). ``memo``: a key under
     which the dictionary keeps the results, so that each distinct string is
     parsed once, not once per collect."""
 
+    storage = torch.empty(0, dtype=dt.dtype_to_torch(out_dtype)).numpy().dtype  # UInt32 lives in int64
+
     def run():
         results = [fn(u) for u in v.table.values] or [None]
-        return (np.asarray([0 if r is None else r for r in results], dt.dtype_to_numpy(out_dtype)),
+        return (np.asarray([0 if r is None else r for r in results], storage),
                 np.asarray([r is not None for r in results], bool))
 
     outs, ok = run() if memo is None else v.table.memo(memo, run)
@@ -90,17 +143,18 @@ def _ends_with(ctx, args, opts):
     return _affix(args, opts, "suffix", str.endswith)
 
 
-def _compile_or_null(v: Val, pat: str, opts: dict):
+def _compile_or_null(v: Val, pat: str, opts: dict, out_dtype: dt.DataType | None = None):
     """(compiled pattern, None), or, for an invalid pattern without
-    ``strict``, (None, an all-null Boolean result); with ``strict`` (the
-    default) an invalid pattern raises."""
+    ``strict``, (None, an all-null result of ``out_dtype``, by default
+    Boolean); with ``strict`` (the default) an invalid pattern raises."""
     try:
-        return re.compile(pat), None
+        return re.compile(translate_group_syntax(pat)), None
     except re.error as exc:
         if opts.get("strict", True):
             raise ComputeError(f"invalid regex pattern {pat!r}: {exc}") from None
-        z = torch.zeros(v.values.shape, dtype=torch.bool, device=v.values.device)
-        return None, Val(z, z.clone(), dt.Boolean(), None, v.domain)
+        out_dtype = out_dtype or dt.Boolean()
+        z = torch.zeros(v.values.shape, dtype=dt.dtype_to_torch(out_dtype), device=v.values.device)
+        return None, Val(z, torch.zeros_like(z, dtype=torch.bool), out_dtype, None, v.domain)
 
 
 @register("str.contains", BOOL)
@@ -130,7 +184,325 @@ def _slice(ctx, args, opts):
             return s[off: end if end < 0 else None]
         return s[off: off + length]
 
-    return map_over_table(v, f)
+    return _str_map(v, "str.slice", opts, f, v.dtype)
+
+
+@register("str.contains_any", BOOL)
+def _contains_any(ctx, args, opts):
+    v = _require_str(args[0])
+    pats = list(opts["patterns"])
+    if opts.get("ascii_case_insensitive"):
+        pats = [p.translate(_ASCII_LOWER) for p in pats]
+        return _lut_op(v, lambda s: any(p in s.translate(_ASCII_LOWER) for p in pats), dt.Boolean(),
+                       memo=_memo_key("str.contains_any", opts))
+    return _lut_op(v, lambda s: any(p in s for p in pats), dt.Boolean(), memo=_memo_key("str.contains_any", opts))
+
+
+@register("str.len_chars", dt.UInt32())
+def _len_chars(ctx, args, opts):
+    return _lut_op(_require_str(args[0]), len, dt.UInt32(), memo=("str.len_chars",))
+
+
+@register("str.len_bytes", dt.UInt32())
+def _len_bytes(ctx, args, opts):
+    return _lut_op(_require_str(args[0]), lambda s: len(s.encode()), dt.UInt32(), memo=("str.len_bytes",))
+
+
+@register("str.count_matches", dt.UInt32())
+def _count_matches(ctx, args, opts):
+    v = _require_str(args[0])
+    pat = opts["pattern"]
+    if opts.get("literal", False):
+        return _lut_op(v, lambda s: s.count(pat) if pat else len(s) + 1, dt.UInt32(),
+                       memo=_memo_key("str.count_matches", opts))
+    rx = re.compile(translate_group_syntax(pat))
+    return _lut_op(v, lambda s: sum(1 for _ in rx.finditer(s)), dt.UInt32(), memo=_memo_key("str.count_matches", opts))
+
+
+@register("str.find", dt.UInt32())
+def _find(ctx, args, opts):
+    """The character position of the first match, null where none."""
+    v = _require_str(args[0])
+    pat = opts["pattern"]
+    if opts.get("literal", False):
+        return _lut_op(v, lambda s: s.find(pat) if pat in s else None, dt.UInt32(), memo=_memo_key("str.find", opts))
+    rx, bail = _compile_or_null(v, pat, opts, dt.UInt32())
+    if bail is not None:
+        return bail
+
+    def f(s):
+        m = rx.search(s)
+        return m.start() if m else None
+
+    return _lut_op(v, f, dt.UInt32(), memo=_memo_key("str.find", opts))
+
+
+_CASE_STRIP_PAD = {
+    "to_lowercase": lambda s, o: s.lower(),
+    "to_uppercase": lambda s, o: s.upper(),
+    "to_titlecase": lambda s, o: s.title(),
+    "reverse": lambda s, o: s[::-1],
+    "strip_chars": lambda s, o: s.strip(o.get("characters")),
+    "strip_chars_start": lambda s, o: s.lstrip(o.get("characters")),
+    "strip_chars_end": lambda s, o: s.rstrip(o.get("characters")),
+    "strip_prefix": lambda s, o: s[len(o["prefix"]):] if s.startswith(o["prefix"]) else s,
+    "strip_suffix": lambda s, o: s[: len(s) - len(o["suffix"])] if o["suffix"] and s.endswith(o["suffix"]) else s,
+    "pad_start": lambda s, o: s.rjust(o["length"], o.get("fill_char", " ")),
+    "pad_end": lambda s, o: s.ljust(o["length"], o.get("fill_char", " ")),
+    "zfill": lambda s, o: s.zfill(o["length"]),
+    "escape_regex": lambda s, o: re.escape(s),
+}
+
+
+def _register_map(name: str, f) -> None:
+    @register(f"str.{name}", dt.String())
+    def _(ctx, args, opts):
+        return _str_map(_require_str(args[0]), f"str.{name}", opts, lambda s: f(s, opts))
+
+
+for _name, _f in _CASE_STRIP_PAD.items():
+    _register_map(_name, _f)
+
+
+@register("str.normalize", dt.String())
+def _normalize(ctx, args, opts):
+    import unicodedata
+
+    form = opts.get("form", "NFC")
+    if form not in ("NFC", "NFKC", "NFD", "NFKD"):
+        raise InvalidOperationError(f"invalid normalization form {form!r}")
+    return _str_map(_require_str(args[0]), "str.normalize", opts, lambda s: unicodedata.normalize(form, s))
+
+
+@register("str.tail", dt.String())
+def _tail(ctx, args, opts):
+    n = opts["n"]
+    return _str_map(_require_str(args[0]), "str.tail", opts, lambda s: s[-n:] if n else "")
+
+
+@register("str.replace", dt.String())
+def _replace(ctx, args, opts):
+    """The first ``n`` matches (all where ``n`` < 0) replaced; ``$1`` and
+    ``${name}`` in the value refer to groups, as in Rust's regex."""
+    v = _require_str(args[0])
+    pat, val, n = opts["pattern"], opts["value"], opts.get("n", 1)
+    if opts.get("literal", False):
+        return _str_map(v, "str.replace", opts, lambda s: s.replace(pat, val, -1 if n < 0 else n))
+    rx = re.compile(translate_group_syntax(pat))
+    repl = re.sub(r"\$\{(\w+)\}|\$(\d+|[A-Za-z_]\w*)", lambda m: f"\\g<{m.group(1) or m.group(2)}>",
+                  val.replace("\\", "\\\\"))
+    return _str_map(v, "str.replace", opts, lambda s: rx.sub(repl, s, count=0 if n < 0 else n))
+
+
+@register("str.replace_many", dt.String())
+def _replace_many(ctx, args, opts):
+    v = _require_str(args[0])
+    pats, reps = list(opts["patterns"]), list(opts["replace_with"])
+    if len(reps) == 1:
+        reps = reps * len(pats)
+    if len(reps) != len(pats):
+        raise InvalidOperationError("replace_with must have the same length as patterns (or length 1)")
+    ci, leftmost = bool(opts.get("ascii_case_insensitive", False)), bool(opts.get("leftmost", False))
+
+    def f(s):
+        out, pos = [], 0
+        for st, en, pi in ac_occurrences(s, pats, leftmost=leftmost, ascii_ci=ci):
+            out += [s[pos:st], reps[pi]]
+            pos = en
+        return "".join(out) + s[pos:]
+
+    return _str_map(v, "str.replace_many", opts, f)
+
+
+@register("str.extract", dt.String())
+def _extract(ctx, args, opts):
+    """Group ``group_index`` of the first match; null where there is none."""
+    v = _require_str(args[0])
+    rx = re.compile(translate_group_syntax(opts["pattern"]))
+    gi = opts.get("group_index", 1)
+
+    def f(s):
+        m = rx.search(s)
+        return None if m is None else m.group(gi)
+
+    return _str_map(v, "str.extract", opts, f)
+
+
+@register("str.to_integer", dt.Int64())
+def _to_integer(ctx, args, opts):
+    """An integer in ``base``; what does not parse is null, or, with
+    ``strict``, fails the segment at its count read."""
+    v = _require_str(args[0])
+    base = opts.get("base", 10)
+
+    def f(s):
+        try:
+            x = int(s.strip(), base)
+        except ValueError:
+            return None
+        return x if -(2**63) <= x < 2**63 else None
+
+    out = _lut_op(v, f, dt.Int64(), memo=_memo_key("str.to_integer", opts))
+    return _strict_parse_flag(ctx, v, out, opts, "i64")
+
+
+@register("str.json_path_match", dt.String())
+def _json_path_match(ctx, args, opts):
+    """The value at a ``$.a.b`` path as text; null where the path is absent
+    or the text is no JSON."""
+    import json
+
+    path = opts["json_path"]
+    if not path.startswith("$."):
+        raise InvalidOperationError("only simple $.field json paths supported")
+    parts = path[2:].split(".")
+
+    def f(s):
+        try:
+            val = json.loads(s)
+            for p in parts:
+                val = val[p]
+        except (ValueError, KeyError, TypeError, IndexError):
+            return None
+        return val if isinstance(val, str) else json.dumps(val)
+
+    return _str_map(_require_str(args[0]), "str.json_path_match", opts, f)
+
+
+def _codec(enc: str, decode: bool):
+    import base64
+    import binascii
+
+    table = {("hex", False): lambda b: b.hex(), ("base64", False): lambda b: base64.b64encode(b).decode(),
+             ("hex", True): binascii.unhexlify, ("base64", True): lambda s: base64.b64decode(s, validate=True)}
+    if (enc, decode) not in table:
+        raise InvalidOperationError(f"unknown encoding {enc!r}")
+    return table[(enc, decode)]
+
+
+@register("str.encode", dt.String())
+def _encode(ctx, args, opts):
+    code = _codec(opts["encoding"], False)
+    return _str_map(_require_str(args[0]), "str.encode", opts, lambda s: code(s.encode()))
+
+
+def _decoded(v: Val, name: str, opts: dict) -> Val:
+    """Hex or base64 text (a String's, or a Binary's bytes) as Binary; text
+    that does not decode raises, or, without ``strict``, is null."""
+    enc, strict = opts["encoding"], opts.get("strict", True)
+    code = _codec(enc, True)
+
+    def f(s):
+        try:
+            return code(s)
+        except (ValueError, TypeError):
+            if strict:
+                raise ComputeError(f"invalid value while {enc}-decoding {s!r}") from None
+            return None
+
+    return _str_map(v, name, opts, f, dt.Binary())
+
+
+@register("str.decode", dt.Binary())
+def _decode(ctx, args, opts):
+    return _decoded(_require_str(args[0]), "str.decode", opts)
+
+
+@register("concat_str", dt.String())
+def _concat_str(ctx, args, opts):
+    raise InvalidOperationError("concat_str runs on the host between segments (engine/hostops.py)")
+
+
+@register("cat.get_categories", dt.String(), elementwise=False)
+def _get_categories(ctx, args, opts):
+    raise InvalidOperationError("cat.get_categories runs on the host between segments (engine/hostops.py)")
+
+
+# -- Binary --------------------------------------------------------------------------------
+
+
+def _as_bytes(u) -> bytes:
+    return u if isinstance(u, (bytes, bytearray)) else str(u).encode()
+
+
+def _bin_pred(name: str, key: str, test) -> None:
+    @register(f"bin.{name}", BOOL)
+    def _(ctx, args, opts):
+        lit = _as_bytes(opts[key])
+        return _lut_op(_require_str(args[0]), lambda b: test(_as_bytes(b), lit), dt.Boolean(),
+                       memo=_memo_key(f"bin.{name}", opts))
+
+
+_bin_pred("contains", "literal", lambda b, x: x in b)
+_bin_pred("starts_with", "prefix", bytes.startswith)
+_bin_pred("ends_with", "suffix", bytes.endswith)
+
+
+@register("bin.size", dt.UInt32())
+def _bin_size(ctx, args, opts):
+    return _lut_op(_require_str(args[0]), lambda b: len(_as_bytes(b)), dt.UInt32(), memo=("bin.size",))
+
+
+@register("bin.slice", SAME)
+def _bin_slice(ctx, args, opts):
+    off, length = int(opts.get("offset", 0)), opts.get("length")
+
+    def f(u):
+        b = _as_bytes(u)
+        if length is None:
+            return b[off:]
+        if off < 0:
+            end = off + int(length)
+            return b[off: end if end < 0 else None]
+        return b[off: off + int(length)]
+
+    return _str_map(_require_str(args[0]), "bin.slice", opts, f, dt.Binary())
+
+
+@register("bin.get", dt.UInt8())
+def _bin_get(ctx, args, opts):
+    idx = int(opts.get("index", 0))
+
+    def f(u):
+        b = _as_bytes(u)
+        i = idx if idx >= 0 else len(b) + idx
+        return b[i] if 0 <= i < len(b) else None
+
+    return _lut_op(_require_str(args[0]), f, dt.UInt8(), memo=_memo_key("bin.get", opts))
+
+
+@register("bin.reinterpret", lambda dts, opts: dt.parse_into_dtype(opts["dtype"]))
+def _bin_reinterpret(ctx, args, opts):
+    """Fixed-width bytes as a number; a payload of another width is null."""
+    import struct
+
+    out_dt = dt.parse_into_dtype(opts["dtype"])
+    code = {"Int8": "b", "UInt8": "B", "Int16": "h", "UInt16": "H", "Int32": "i", "UInt32": "I", "Int64": "q",
+            "UInt64": "Q", "Float32": "f", "Float64": "d"}.get(type(out_dt).__name__)
+    if code is None:
+        raise InvalidOperationError(f"cannot reinterpret binary as {out_dt!r}")
+    fmt = ("<" if opts.get("endianness", "little") == "little" else ">") + code
+    size = struct.calcsize(fmt)
+
+    def f(u):
+        b = _as_bytes(u)
+        if len(b) != size:
+            return None
+        x = struct.unpack(fmt, b)[0]
+        return x - 2**64 if code == "Q" and x >= 2**63 else x  # a UInt64 as its bits
+
+    return _lut_op(_require_str(args[0]), f, out_dt, memo=_memo_key("bin.reinterpret", opts))
+
+
+@register("bin.encode", dt.String())
+def _bin_encode(ctx, args, opts):
+    code = _codec(opts["encoding"], False)
+    return _str_map(_require_str(args[0]), "bin.encode", opts, lambda u: code(_as_bytes(u)))
+
+
+@register("bin.decode", dt.Binary())
+def _bin_decode(ctx, args, opts):
+    return _decoded(_require_str(args[0]), "bin.decode", opts)
 
 
 # -- parsing --------------------------------------------------------------------------------

@@ -23,10 +23,11 @@ from __future__ import annotations
 
 import re
 
+import numpy as np
 import torch
 
 from polars_tpu_torch import datatypes as dt
-from polars_tpu_torch.engine.common import ROW, Val, combine_validity, flag_rows
+from polars_tpu_torch.engine.common import ROW, Val, combine_validity, flag_rows, take_lut
 from polars_tpu_torch.engine.registry import BOOL, register
 from polars_tpu_torch.errors import InvalidOperationError
 from polars_tpu_torch.kernels import temporal as T
@@ -542,11 +543,14 @@ def _with_zone(dts, opts):
     return dt.Datetime(dts[0].time_unit, opts.get("time_zone"))
 
 
-def localize(ctx, v: Val, tz: str, ambiguous: str = "raise", non_existent: str = "raise") -> Val:
+def localize(ctx, v: Val, tz: str, ambiguous: str | Val = "raise", non_existent: str = "raise") -> Val:
     """Naive wall-clock values ``v`` of zone ``tz`` as its UTC instants. A
     wall time the clock shows twice takes the earlier or the later instant,
     is null, or (``"raise"``) fails the segment at its count read; a wall
-    time the clock skips is null or fails (Polars' ``non_existent``)."""
+    time the clock skips is null or fails (Polars' ``non_existent``).
+    ``ambiguous`` may be a String value that names one of those per row."""
+    if isinstance(ambiguous, Val):
+        return _localize_per_row(ctx, v, tz, ambiguous, non_existent)
     if ambiguous not in _AMBIGUOUS:
         raise InvalidOperationError(f"ambiguous must be one of {_AMBIGUOUS}, got {ambiguous!r}")
     if non_existent not in _NON_EXISTENT:
@@ -563,6 +567,33 @@ def localize(ctx, v: Val, tz: str, ambiguous: str = "raise", non_existent: str =
     return Val(utc, validity, dt.Datetime(tu, tz), None, v.domain)
 
 
+def _localize_per_row(ctx, v: Val, tz: str, how: Val, non_existent: str) -> Val:
+    """``localize`` with ``ambiguous`` read per row from a String value:
+    its dictionary's words looked up once on the host, the earlier and the
+    later instants both taken, each row choosing."""
+    if how.table is None:
+        raise InvalidOperationError(f"ambiguous must be a String expression, got {how.dtype!r}")
+    words = how.table.values.tolist()
+    bad = [w for w in words if w not in _AMBIGUOUS]
+    if bad:
+        raise InvalidOperationError(f"ambiguous must be one of {_AMBIGUOUS}, got {bad[0]!r}")
+    kind = take_lut(np.asarray([_AMBIGUOUS.index(w) for w in words] or [0], np.int64), how.values)
+    if kind.shape != v.values.shape:
+        kind = kind.expand(v.values.shape)
+    early = localize(ctx, v, tz, "earliest", non_existent)
+    late, amb, _ = TZ.utc_from_local(v.values, v.dtype.time_unit, tz, "latest")
+    name = dict(enumerate(_AMBIGUOUS))
+    is_ = {w: kind == i for i, w in name.items()}
+    out = torch.where(amb & is_["latest"], late, early.values)
+    validity = early.validity
+    if how.validity is not None:
+        validity = combine_validity(validity, how.validity.expand(v.values.shape))
+    validity = combine_validity(validity, ~(amb & is_["null"]))
+    flag_rows(ctx, v, amb & is_["raise"], f"datetime is ambiguous in time zone {tz!r}; use "
+                                          "`ambiguous='earliest'/'latest'/'null'`")
+    return Val(out, validity, early.dtype, None, v.domain)
+
+
 @register("dt.replace_time_zone", _with_zone)
 def _replace_time_zone(ctx, args, opts):
     """The same wall clock in another zone (or none): the instants move so
@@ -572,7 +603,8 @@ def _replace_time_zone(ctx, args, opts):
     tz = opts.get("time_zone")
     if tz is None:
         return wall
-    return localize(ctx, wall, tz, opts.get("ambiguous", "raise"), opts.get("non_existent", "raise"))
+    ambiguous = args[1] if len(args) > 1 else opts.get("ambiguous", "raise")
+    return localize(ctx, wall, tz, ambiguous, opts.get("non_existent", "raise"))
 
 
 @register("dt.convert_time_zone", _with_zone)

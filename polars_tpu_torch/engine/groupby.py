@@ -162,22 +162,30 @@ def group_counts(ctx: GroupCtx, rowmask: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def _k1(gids: torch.Tensor, columns: list, mask: torch.Tensor, cap: int, acc: torch.dtype) -> torch.Tensor:
+    """K1's (cap, k) sums; a group-by over no rows (capacity 0) has no
+    group, and K1 takes capacity >= 1."""
+    if cap == 0:
+        return torch.zeros((0, len(columns)), dtype=acc, device=gids.device)
+    return groupagg_sums(gids, columns, mask, cap)
+
+
 def seg_sum(values: torch.Tensor, mask: torch.Tensor, gids: torch.Tensor, cap: int) -> torch.Tensor:
     """Per-group sum of ``values`` over ``mask``, in the input dtype (floats
     accumulate in f64, integers in i64 and wrap back like a native sum)."""
     acc = torch.float64 if values.dtype.is_floating_point else torch.int64
-    return groupagg_sums(gids, [values.to(acc).contiguous()], mask, cap)[:, 0].to(values.dtype)
+    return _k1(gids, [values.to(acc).contiguous()], mask, cap, acc)[:, 0].to(values.dtype)
 
 
 def seg_sums(columns: list[torch.Tensor], mask: torch.Tensor, gids: torch.Tensor, cap: int) -> torch.Tensor:
     """(cap, k) per-group f64 sums of several f64 columns over ``mask``: one
     K1 call."""
-    return groupagg_sums(gids, [c.contiguous() for c in columns], mask, cap)
+    return _k1(gids, [c.contiguous() for c in columns], mask, cap, torch.float64)
 
 
 def seg_count(mask: torch.Tensor, gids: torch.Tensor, cap: int) -> torch.Tensor:
     """Per-group count of ``mask`` rows, int64."""
-    return groupagg_sums(gids, [None], mask, cap)[:, 0]
+    return _k1(gids, [None], mask, cap, torch.int64)[:, 0]
 
 
 # up to this many groups, a min or max reduces each group by itself.

@@ -6,9 +6,12 @@ casts to String, the median, quantile and rank over time windows
 ``cumulative_eval`` of any expression but a prefix sum, min, max or mean
 (``run.py:1493``), ``shrink_dtype`` (``run.py:1453``) and the generators
 ``int_range``, ``repeat``, ``unique`` and ``unique_counts``
-(``run.py:2006-2045``), whose column has a length of its own;
-``plan/exprs.is_host_call``). Each runs through
-``engine/run._eval_generator``.
+(``run.py:2006-2045``), whose column has a length of its own,
+``concat_str`` (per distinct tuple of codes, ``run.py:775-799``),
+``cat.get_categories`` and ``str.join`` in a select; ``plan/exprs.is_host_call``).
+Each runs through ``engine/run._eval_generator``. A group-by with
+``str.join`` runs its other aggregations as a segment and joins each
+group's text on the host (:func:`exec_host_groupby`).
 
 A select or with_columns that calls one (``plan/exprs.HOST_FNS``) is no
 part of a segment (``executors._is_fusable``). Its input runs first; each
@@ -49,7 +52,7 @@ from polars_tpu_torch.utils import strtable
 from polars_tpu_torch.utils.tokens import next_token
 
 # host functions that make a column of their own length
-GENERATORS = ("int_range", "repeat_value", "unique", "unique_counts")
+GENERATORS = ("int_range", "repeat_value", "unique", "unique_counts", "cat.get_categories")
 _EPOCH = _pydt.datetime(1970, 1, 1)
 _EPOCH_UTC = _pydt.datetime(1970, 1, 1, tzinfo=_pydt.timezone.utc)
 # the chrono specifiers Python lacks or reads otherwise
@@ -112,6 +115,16 @@ def host_call(df: DataFrame, node: E.ENode) -> Column:
 
     if isinstance(node, E.ECast):
         return cast_to_text(_eval_column(df, node.input))
+    if isinstance(node, E.EAgg):  # str.join: the input's text joined into one string
+        return str_join_column(_eval_column(df, node.input), node.opt("delimiter", ""),
+                               node.opt("ignore_nulls", True))
+    if node.name == "concat_str":
+        return concat_str_column(_eval_columns(df, node.inputs), node.opt("separator", ""),
+                                 node.opt("ignore_nulls", False))
+    if node.name == "cat.get_categories":
+        col = _eval_column(df, node.inputs[0])
+        values = col.table.values if col.table is not None else []
+        return Column.from_values(col.name, np.asarray(values, dtype=object), dt.String(), device=col.buffer.device)
     if node.name == "cumulative_eval":
         return cumulative_eval_column(_eval_column(df, node.inputs[0]), node)
     if node.name in ("rolling_median_by", "rolling_quantile_by", "rolling_rank_by"):
@@ -126,6 +139,118 @@ def host_call(df: DataFrame, node: E.ENode) -> Column:
         raise InvalidOperationError(f"unknown host function {node.name!r}")
     col = _eval_column(df, node.inputs[0])
     return to_string_column(col, dict(node.options).get("format"))
+
+
+def _eval_columns(df: DataFrame, nodes) -> list[Column]:
+    """The columns of several expressions over ``df``: a column reference
+    is the column itself, the others one select together (one count
+    read)."""
+    from polars_tpu_torch.engine.executors import run_segment
+
+    todo = {i: E.EAlias(n, f"__c{i}") for i, n in enumerate(nodes) if not isinstance(n, E.EColumn)}
+    frame = None
+    if todo:
+        scan = L.LDataFrameScan(df=df, ident=0)
+        frame = run_segment(L.LSelect(scan, tuple(todo.values())), [(scan, df)])
+    return [frame._get(f"__c{i}") if i in todo else df._get(n.name) for i, n in enumerate(nodes)]
+
+
+def concat_str_column(cols: list[Column], sep: str, ignore_nulls: bool) -> Column:
+    """The inputs' text joined by ``sep`` per row, formatted once per
+    distinct tuple of dictionary codes: each input's code + 1 (0 for a
+    null) packed into as few int64 words as the dictionaries' sizes allow,
+    the distinct tuples taken on the device and read in one host read, each
+    tuple joined once, the rows gathered back. A null input makes the row
+    null, or, with ``ignore_nulls``, is left out. An input that is no
+    dictionary is cast to String first (one more read)."""
+    cols = [c if c.table is not None else cast_to_text(c) for c in cols]
+    n = max(len(c) for c in cols)
+    dev = cols[0].buffer.device
+    words: list[torch.Tensor] = []
+    layout = []  # (word, shift, bits) of each input
+    used = 63
+    for c in cols:
+        code = c.buffer.values.to(torch.int64) + 1
+        if c.buffer.validity is not None:
+            code = torch.where(c.buffer.validity, code, 0)
+        code = code.expand(n) if len(c) == 1 else code
+        bits = (len(c.table) + 1).bit_length()
+        if used + bits > 62:
+            words.append(torch.zeros(n, dtype=torch.int64, device=dev))
+            used = 0
+        words[-1] = words[-1] | (code << used)
+        layout.append((len(words) - 1, used, bits))
+        used += bits
+    if len(words) == 1:
+        uniq, inv = torch.unique(words[0], return_inverse=True)
+        host = uniq.cpu().numpy()[:, None]  # the one read
+    else:
+        uniq, inv = torch.unique(torch.stack(words, 1), dim=0, return_inverse=True)
+        host = uniq.cpu().numpy()
+    out = np.full(len(host), "", dtype=object)
+    has = np.zeros(len(host), bool)
+    null = np.zeros(len(host), bool)
+    for c, (w, shift, bits) in zip(cols, layout):
+        code = (host[:, w] >> shift) & ((1 << bits) - 1)
+        ok = code > 0
+        part = np.where(ok, c.table.values[np.maximum(code - 1, 0)] if len(c.table) else "", "")
+        if isinstance(c.dtype, dt.Binary):
+            part = np.asarray([p.decode(errors="replace") if isinstance(p, bytes) else p for p in part], object)
+        out = np.where(ok & has, out + sep + part, np.where(ok, part, out))
+        has |= ok
+        null |= ~ok
+    keep = np.ones(len(host), bool) if ignore_nulls else ~null
+    codes, _, table = strtable.encode_strings(np.where(keep, out, None))
+    values = take_lut(codes if len(codes) else np.zeros(1, np.int32), inv.reshape(-1)).to(torch.int32)
+    validity = None if keep.all() else take_lut(keep, inv.reshape(-1))
+    return Column("literal", dt.String(), Buffer(values, validity, n), table)
+
+
+def str_join_column(col: Column, sep: str, ignore_nulls: bool) -> Column:
+    """One string: the column's values joined by ``sep`` in row order (its
+    codes read once); a null makes it null, or, with ``ignore_nulls``, is
+    left out."""
+    values = col.to_pylist()
+    if not ignore_nulls and any(v is None for v in values):
+        text = None
+    else:
+        text = sep.join(str(v) for v in values if v is not None)
+    return Column.from_values(col.name, [text], dt.String(), device=col.buffer.device)
+
+
+def exec_host_groupby(node: L.LGroupBy) -> DataFrame:
+    """A group-by with host aggregations (``str.join``): the others run as
+    a segment, then each host aggregation takes its input's values and the
+    keys in one read each and joins each group's values in row order,
+    matched to the segment's groups by their key tuples (the JAX package's
+    ``run.py:2069-2157``)."""
+    from polars_tpu_torch.engine.run import _eval_column, execute_plan
+    from polars_tpu_torch.plan.schema_resolve import expand_exprs
+
+    df = execute_plan(node.input)
+    keys = expand_exprs(node.keys, df.schema)
+    aggs = expand_exprs(node.aggs, df.schema)
+    host = [a for a in aggs if E.needs_host_agg(a)]
+    scan = L.LDataFrameScan(df=df, ident=0)
+    base = execute_plan(L.LGroupBy(scan, keys, tuple(a for a in aggs if a not in host), node.maintain_order))
+    key_names = [E.output_name(k) or "literal" for k in keys]
+    slot = {kr: i for i, kr in enumerate(zip(*[base._get(k).to_pylist() for k in key_names]))}
+    row_keys = list(zip(*[c.to_pylist() for c in _eval_columns(df, keys)]))
+    extra = []
+    for a in host:
+        agg = a.input if isinstance(a, E.EAlias) else a
+        if not (isinstance(agg, E.EAgg) and agg.kind in E.HOST_AGGS):
+            raise InvalidOperationError("a str.join under a larger expression in a group-by is not ported")
+        buckets: list[list] = [[] for _ in slot]
+        for kr, v in zip(row_keys, _eval_column(df, agg.input).to_pylist()):
+            buckets[slot[kr]].append(v)
+        sep, ignore_nulls = agg.opt("delimiter", ""), agg.opt("ignore_nulls", True)
+        texts = [None if not ignore_nulls and any(v is None for v in b) else
+                 sep.join(str(v) for v in b if v is not None) for b in buckets]
+        extra.append(Column.from_values(E.output_name(a) or "literal", texts, dt.String(), device=df.device))
+    by_name = {c.name: c for c in list(base._columns) + extra}
+    names = key_names + [E.output_name(a) or "literal" for a in aggs]
+    return DataFrame._from_columns([by_name[n] for n in names], base.height, device=df.device)
 
 
 def _scalars(df: DataFrame, nodes) -> list:
@@ -316,9 +441,14 @@ def rolling_order_by_column(col: Column, by: Column, node: E.EFunction) -> Colum
 
 def _text_of(x, dtype: dt.DataType) -> str:
     """One value's text as the JAX package's cast gives it (``true`` and
-    ``false`` for a Boolean, Python's ``repr`` of a float)."""
+    ``false`` for a Boolean, Python's ``repr`` of a float); a Decimal with
+    its column's scale, as Polars writes it (``-2.50``; the JAX package
+    drops trailing zeros)."""
     if isinstance(dtype, dt.Boolean):
         return "true" if x else "false"
+    if isinstance(dtype, dt.Decimal) and dtype.scale:
+        whole, frac = divmod(abs(int(x)), 10**dtype.scale)
+        return f"{'-' if x < 0 else ''}{whole}.{frac:0{dtype.scale}d}"
     if dtype.is_float():
         return repr(float(x))
     return str(x)
@@ -332,6 +462,8 @@ def cast_to_text(col: Column) -> Column:
     format."""
     if isinstance(col.dtype, dt.String):
         return col
+    if isinstance(col.dtype, (dt.Categorical, dt.Enum)):  # its dictionary's text
+        return Column(col.name, dt.String(), col.buffer, col.table)
     if isinstance(col.dtype, (dt.Date, dt.Datetime, dt.Time)):
         return to_string_column(col, None)
     if not (col.dtype.is_numeric() or isinstance(col.dtype, (dt.Boolean, dt.Null))):
@@ -361,9 +493,11 @@ def _text_column(col: Column, texts: list[str], inv: torch.Tensor, validity) -> 
 
 def to_string_column(col: Column, fmt: str | None) -> Column:
     """``col`` formatted as text: each distinct value once on the host (one
-    read), the strings made a sorted dictionary, the rows gathered by code."""
-    if not isinstance(col.dtype, (dt.Date, dt.Datetime, dt.Time)):
-        raise InvalidOperationError(f"dt.to_string expects a Date, Datetime or Time, got {col.dtype!r}")
+    read), the strings made a sorted dictionary, the rows gathered by code.
+    A Duration reads as Python's ``timedelta`` (``1:00:00``), as the JAX
+    package gives it, whatever the format."""
+    if not isinstance(col.dtype, (dt.Date, dt.Datetime, dt.Time, dt.Duration)):
+        raise InvalidOperationError(f"dt.to_string expects a Date, Datetime, Time or Duration, got {col.dtype!r}")
     values, validity = col.buffer.values, col.buffer.validity
     if validity is not None:  # whatever lies under a null formats as the epoch
         values = torch.where(validity, values, torch.zeros((), dtype=values.dtype, device=values.device))
@@ -373,6 +507,9 @@ def to_string_column(col: Column, fmt: str | None) -> Column:
 
 def format_values(storage: np.ndarray, dtype: dt.DataType, fmt: str | None) -> list[str]:
     """The text of each storage value of a Date, Datetime or Time column."""
+    if isinstance(dtype, dt.Duration):
+        per_s = dt.TICKS_PER_SECOND[dtype.time_unit]
+        return [str(_pydt.timedelta(microseconds=x * 1_000_000 // per_s)) for x in storage.tolist()]
     out = []
     for x in storage.tolist():
         value, nanos = _python_value(x, dtype)

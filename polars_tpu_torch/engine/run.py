@@ -80,6 +80,10 @@ def _execute_node(node: L.LNode) -> DataFrame:
         from polars_tpu_torch.engine.hostops import exec_host_select
 
         return exec_host_select(node)
+    if isinstance(node, L.LGroupBy):
+        from polars_tpu_torch.engine.hostops import exec_host_groupby
+
+        return exec_host_groupby(node)
     raise NotImplementedError(f"executing {type(node).__name__} is not ported yet")
 
 

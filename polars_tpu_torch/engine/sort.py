@@ -9,8 +9,8 @@ from __future__ import annotations
 
 import torch
 
-from polars_tpu_torch import datatypes as dt
 from polars_tpu_torch.engine.common import Val
+from polars_tpu_torch.engine.strings import ensure_ordinal_val
 from polars_tpu_torch.kernels.argsort import key_words, stable_argsort_words
 
 
@@ -18,11 +18,7 @@ def sort_words_for_key(v: Val, desc: bool, nulls_last: bool, rowmask: torch.Tens
     """(rank word, *key words) for one sort key. Rank orders: nulls-first
     nulls < values < nulls-last nulls < out-of-mask rows. Without nulls and
     without a row mask there is no rank word."""
-    if v.table is not None and not v.table.sorted_order and not isinstance(v.dtype, dt.Enum):  # an Enum: its order
-        raise NotImplementedError(
-            "sorting a string column with an unordered dictionary is not ported yet "
-            "(port queue: expression breadth)"
-        )
+    v = ensure_ordinal_val(v)  # an unordered dictionary: its codes as ranks of the text
     words = key_words(v.values, v.dtype, descending=desc)
     if v.validity is None and rowmask is None:
         return words

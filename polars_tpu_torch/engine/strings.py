@@ -1,6 +1,7 @@
 """Device-side helpers for dictionary-coded string values (the port of
-``polars_tpu/engine/strings.py``, trimmed to :func:`unify_vals`,
-:func:`concat_vals` and :func:`map_over_table`)."""
+``polars_tpu/engine/strings.py``): :func:`unify_vals`, :func:`concat_vals`,
+:func:`map_over_table`, and the lazy ordinalization of an unordered
+dictionary, :func:`needs_ordinal` and :func:`ensure_ordinal_val`."""
 
 from __future__ import annotations
 
@@ -9,17 +10,40 @@ import torch
 
 from polars_tpu_torch import datatypes as dt
 from polars_tpu_torch.engine.cast import cast_val
-from polars_tpu_torch.engine.common import ROW, Val, take_lut
+from polars_tpu_torch.engine.common import ROW, Val, combine_validity, take_lut
 from polars_tpu_torch.utils import strtable
 
 
-def unify_vals(a: Val, b: Val) -> tuple[Val, Val]:
+def unify_vals(a: Val, b: Val, *, require_ordinal: bool = False) -> tuple[Val, Val]:
     """Remap two dictionary-coded Vals onto one merged table (ordinal iff
-    both inputs are small and sorted; see ``strtable.unify``)."""
+    both inputs are small and sorted, or ``require_ordinal``; see
+    ``strtable.unify``)."""
     if a.table is b.table:
+        if require_ordinal:
+            return ensure_ordinal_val(a), ensure_ordinal_val(b)
         return a, b
-    merged, lmap, rmap = strtable.unify(a.table, b.table)
+    merged, lmap, rmap = strtable.unify(a.table, b.table, require_ordinal=require_ordinal)
     return a.with_(values=_remap(a.values, lmap), table=merged), b.with_(values=_remap(b.values, rmap), table=merged)
+
+
+def needs_ordinal(v: Val) -> bool:
+    """True where an ordering operation must remap ``v``'s codes: its
+    dictionary keeps the order of first occurrence, and its dtype orders
+    by text (String, Binary, Categorical). An Enum orders by its
+    categories, which its codes are: it is never ordinalized."""
+    return v.table is not None and not v.table.sorted_order and not isinstance(v.dtype, dt.Enum)
+
+
+def ensure_ordinal_val(v: Val) -> Val:
+    """``v`` on its dictionary's sorted table: the host sorts the table once
+    (``StringTable.ordinal``, cached on it) and the rank remap goes to each
+    device once (cached on the table too), then one gather per use."""
+    if not needs_ordinal(v):
+        return v
+    table, remap = v.table.ordinal()
+    dev = v.values.device
+    lut = v.table.memo(("ordinal_lut", str(dev)), lambda: torch.as_tensor(remap).to(dev))
+    return v.with_(values=take_lut(lut, v.values), table=table)
 
 
 def concat_vals(vals: list[Val], target: dt.DataType) -> Val:
@@ -50,16 +74,23 @@ def _remap(codes: torch.Tensor, remap: np.ndarray) -> torch.Tensor:
     return take_lut(remap, codes)
 
 
-def map_over_table(v: Val, fn) -> Val:
-    """A string-valued host function over the dictionary: ``fn`` runs once per
-    dictionary value, its results become a new sorted table of their distinct
-    values (ordinal codes), and the codes are remapped through it by one
-    gather; validity is kept. The JAX package keeps the results of a
-    dictionary above 65536 values in insertion order; here every table comes
-    out sorted, with the same strings per row."""
-    out = [fn(u) for u in v.table.values.tolist()]
-    uniques = sorted(set(out)) or [""]
-    rank = {u: i for i, u in enumerate(uniques)}
-    remap = np.fromiter(map(rank.__getitem__, out), np.int32, count=len(out))
-    table = strtable.StringTable(np.asarray(uniques, dtype=object), sorted_order=True)
-    return v.with_(values=_remap(v.values, remap), table=table)
+def map_over_table(v: Val, fn, *, memo=None, out_dtype: dt.DataType | None = None) -> Val:
+    """A host function of one value over the dictionary: ``fn`` runs once per
+    dictionary value (a result of None is null), its results become a new
+    dictionary of their distinct values, and the codes are remapped through
+    it by one gather. Up to ``config().ordinal_dict_max`` values the new
+    dictionary is sorted, above it in order of first occurrence, as the JAX
+    package keeps them. ``memo``: a key under which the input dictionary
+    keeps the result, so that a function runs over it once, not once per
+    collect. ``out_dtype``: the result's dtype (by default ``v``'s)."""
+
+    def run():
+        out = [fn(u) for u in v.table.values.tolist()]
+        ok = np.fromiter((r is not None for r in out), bool, count=len(out))
+        codes, _, table = strtable.encode_strings(np.asarray(out, dtype=object))
+        return (codes if len(codes) else np.zeros(1, np.int32)), (None if ok.all() else ok), table
+
+    remap, ok, table = run() if memo is None else v.table.memo(("map", memo), run)
+    validity = v.validity if ok is None else combine_validity(v.validity, take_lut(ok, v.values))
+    return v.with_(values=take_lut(remap, v.values), validity=validity, table=table,
+                   dtype=v.dtype if out_dtype is None else out_dtype)

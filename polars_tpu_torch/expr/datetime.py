@@ -137,8 +137,13 @@ class ExprDateTimeNamespace:
     def strftime(self, format: str) -> Expr:
         return self._fn("to_string", format=format)
 
-    def replace_time_zone(self, time_zone: str | None, *, ambiguous: str = "raise",
+    def replace_time_zone(self, time_zone: str | None, *, ambiguous: Any = "raise",
                           non_existent: str = "raise") -> Expr:
+        """``ambiguous``: ``earliest``, ``latest``, ``null`` or ``raise``, or
+        an expression that gives one of them per row."""
+        if not isinstance(ambiguous, str):
+            return self._fn("replace_time_zone", ambiguous, time_zone=time_zone, ambiguous="expression",
+                            non_existent=non_existent)
         return self._fn("replace_time_zone", time_zone=time_zone, ambiguous=ambiguous, non_existent=non_existent)
 
     def convert_time_zone(self, time_zone: str) -> Expr:

@@ -367,6 +367,18 @@ class Expr:
 
         return ExprDateTimeNamespace(self)
 
+    @property
+    def cat(self):
+        from polars_tpu_torch.expr.categorical import ExprCatNamespace
+
+        return ExprCatNamespace(self)
+
+    @property
+    def bin(self):
+        from polars_tpu_torch.expr.binary import ExprBinaryNamespace
+
+        return ExprBinaryNamespace(self)
+
     # -- aggregations ---------------------------------------------------------
 
     def _agg(self, kind: str, **options: Any) -> Expr:

@@ -1,8 +1,10 @@
-"""String expression namespace (the port of ``polars_tpu/expr/string.py``,
-trimmed to ``starts_with``, ``ends_with``, ``contains``, ``slice`` and the
-parsers ``to_date``, ``to_datetime``, ``to_time`` and ``strptime``). Ops
-run once per dictionary value on the host and map through the codes on the
-device (see ``engine/fn_strings.py``)."""
+"""String expression namespace (the port of ``polars_tpu/expr/string.py``),
+but for what yields a List or a Struct (``split``, ``split_exact``,
+``splitn``, ``extract_all``, ``extract_many``, ``find_many``,
+``extract_groups``, ``explode``, ``json_decode``: ROADMAP item 4). Ops run
+once per dictionary value on the host and map through the codes on the
+device (see ``engine/fn_strings.py``); ``join``/``concat`` make one string
+per group on the host (``engine/hostops.py``)."""
 
 from __future__ import annotations
 
@@ -13,6 +15,18 @@ from polars_tpu_torch.errors import InvalidOperationError
 
 if TYPE_CHECKING:
     from polars_tpu_torch.expr.expr import Expr
+
+# the functions that give a List or a Struct
+_ITEM_4 = frozenset({"split", "split_exact", "splitn", "extract_all", "extract_many", "find_many",
+                     "extract_groups", "explode", "json_decode"})
+
+
+def _str_seq(x: Any) -> list:
+    if x is None:
+        return []
+    if hasattr(x, "to_list"):  # a Series
+        return list(x.to_list())
+    return list(x)
 
 
 class ExprStringNamespace:
@@ -66,7 +80,114 @@ class ExprStringNamespace:
             return self.to_time(format, strict=strict)
         raise InvalidOperationError(f"strptime target must be temporal, got {dtype!r}")
 
+    def contains_any(self, patterns: Any, *, ascii_case_insensitive: bool = False) -> Expr:
+        return self._fn("contains_any", patterns=tuple(_str_seq(patterns)),
+                        ascii_case_insensitive=ascii_case_insensitive)
+
+    def to_lowercase(self) -> Expr:
+        return self._fn("to_lowercase")
+
+    def to_uppercase(self) -> Expr:
+        return self._fn("to_uppercase")
+
+    def to_titlecase(self) -> Expr:
+        return self._fn("to_titlecase")
+
+    def len_chars(self) -> Expr:
+        return self._fn("len_chars")
+
+    def len_bytes(self) -> Expr:
+        return self._fn("len_bytes")
+
+    def head(self, n: int) -> Expr:
+        return self._fn("slice", offset=0, length=n)
+
+    def tail(self, n: int) -> Expr:
+        return self._fn("tail", n=n)
+
+    def strip_chars(self, characters: str | None = None) -> Expr:
+        return self._fn("strip_chars", characters=characters)
+
+    def strip_chars_start(self, characters: str | None = None) -> Expr:
+        return self._fn("strip_chars_start", characters=characters)
+
+    def strip_chars_end(self, characters: str | None = None) -> Expr:
+        return self._fn("strip_chars_end", characters=characters)
+
+    def strip_prefix(self, prefix: str) -> Expr:
+        return self._fn("strip_prefix", prefix=prefix)
+
+    def strip_suffix(self, suffix: str) -> Expr:
+        return self._fn("strip_suffix", suffix=suffix)
+
+    def pad_start(self, length: int, fill_char: str = " ") -> Expr:
+        return self._fn("pad_start", length=length, fill_char=fill_char)
+
+    def pad_end(self, length: int, fill_char: str = " ") -> Expr:
+        return self._fn("pad_end", length=length, fill_char=fill_char)
+
+    def zfill(self, length: int) -> Expr:
+        return self._fn("zfill", length=length)
+
+    def replace(self, pattern: str, value: str, *, literal: bool = False, n: int = 1) -> Expr:
+        return self._fn("replace", pattern=pattern, value=value, literal=literal, n=n)
+
+    def replace_all(self, pattern: str, value: str, *, literal: bool = False) -> Expr:
+        return self._fn("replace", pattern=pattern, value=value, literal=literal, n=-1)
+
+    def replace_many(self, patterns: Any, replace_with: Any = None, *, ascii_case_insensitive: bool = False,
+                     leftmost: bool = False) -> Expr:
+        if hasattr(patterns, "items"):  # a mapping of pattern to replacement
+            pats, reps = zip(*patterns.items()) if patterns else ((), ())
+        else:
+            pats = tuple(_str_seq(patterns))
+            reps = (replace_with,) if isinstance(replace_with, str) else tuple(_str_seq(replace_with))
+        return self._fn("replace_many", patterns=tuple(pats), replace_with=tuple(reps),
+                        ascii_case_insensitive=ascii_case_insensitive, leftmost=leftmost)
+
+    def reverse(self) -> Expr:
+        return self._fn("reverse")
+
+    def escape_regex(self) -> Expr:
+        return self._fn("escape_regex")
+
+    def normalize(self, form: str = "NFC") -> Expr:
+        return self._fn("normalize", form=form)
+
+    def extract(self, pattern: str, group_index: int = 1) -> Expr:
+        return self._fn("extract", pattern=pattern, group_index=group_index)
+
+    def count_matches(self, pattern: str, *, literal: bool = False) -> Expr:
+        return self._fn("count_matches", pattern=pattern, literal=literal)
+
+    def find(self, pattern: str, *, literal: bool = False, strict: bool = True) -> Expr:
+        return self._fn("find", pattern=pattern, literal=literal, strict=strict)
+
+    def to_integer(self, *, base: int = 10, strict: bool = True) -> Expr:
+        return self._fn("to_integer", base=base, strict=strict)
+
+    def to_decimal(self, *args: Any, **kwargs: Any) -> Expr:
+        """As the JAX package: a non-strict cast to Decimal(38, 2)."""
+        return self._expr.cast(dt.Decimal(38, 2), strict=False)
+
+    def json_path_match(self, json_path: str) -> Expr:
+        return self._fn("json_path_match", json_path=json_path)
+
+    def concat(self, delimiter: str = "-", *, ignore_nulls: bool = True) -> Expr:
+        return self._expr._agg("str_concat", delimiter=delimiter, ignore_nulls=ignore_nulls)
+
+    def join(self, delimiter: str = "", *, ignore_nulls: bool = True) -> Expr:
+        return self._expr._agg("str_concat", delimiter=delimiter, ignore_nulls=ignore_nulls)
+
+    def encode(self, encoding: str) -> Expr:
+        return self._fn("encode", encoding=encoding)
+
+    def decode(self, encoding: str, *, strict: bool = True) -> Expr:
+        return self._fn("decode", encoding=encoding, strict=strict)
+
     def __getattr__(self, name: str):
         if name.startswith("_"):
             raise AttributeError(name)
-        raise NotImplementedError(f"str.{name} is not ported yet (port queue: expression breadth)")
+        if name in _ITEM_4:
+            raise NotImplementedError(f"str.{name} gives a List or a Struct (port queue: item 4)")
+        raise AttributeError(f"str.{name}")

@@ -415,6 +415,31 @@ def cov(a: Any, b: Any, *, ddof: int = 1) -> Expr:
 # -- horizontal ops (selectors splice into their inputs: plan/schema_resolve.splice_horizontal) ----
 
 
+def concat_str(exprs: Any, *more_exprs: Any, separator: str = "", ignore_nulls: bool = False) -> Expr:
+    """The inputs' text joined by ``separator`` per row: null where an input
+    is null, or, with ``ignore_nulls``, the rest joined (a host function,
+    ``engine/hostops.concat_str_column``)."""
+    flat = []
+    for x in (exprs, *more_exprs):
+        flat.extend(x if isinstance(x, (list, tuple)) else [x])
+    nodes = tuple(parse_into_expr(x) for x in flat)
+    return Expr(E.EFunction("concat_str", nodes, (("separator", separator), ("ignore_nulls", ignore_nulls))))
+
+
+def format(f_string: str, *args: Any) -> Expr:  # noqa: A001
+    """``f_string`` with each ``{}`` replaced by the next argument's text."""
+    parts = f_string.split("{}")
+    if builtins.len(parts) - 1 != builtins.len(args):
+        raise ValueError("number of placeholders should equal the number of arguments")
+    exprs: list = []
+    for i, p in enumerate(parts):
+        if p:
+            exprs.append(lit(p))
+        if i < builtins.len(args):
+            exprs.append(args[i])
+    return concat_str(exprs, separator="").alias("literal")
+
+
 def _horizontal(name: str, exprs: tuple) -> Expr:
     from polars_tpu_torch.expr.expr import _flat, parse_into_expr_list
 

@@ -339,7 +339,10 @@ def fn_elementwise(name: str) -> bool:
 
 # functions that run on the host between segments (``engine/hostops.py``)
 HOST_FNS = frozenset({"dt.to_string", "rolling_median_by", "rolling_quantile_by", "rolling_rank_by", "int_range",
-                      "repeat_value", "shrink_dtype", "unique", "unique_counts"})
+                      "repeat_value", "shrink_dtype", "unique", "unique_counts", "concat_str",
+                      "cat.get_categories"})
+# aggregations that make their text on the host (``engine/hostops.py``)
+HOST_AGGS = frozenset({"str_concat"})
 
 
 def cum_eval_kind(sub: ENode | None) -> str | None:
@@ -359,8 +362,11 @@ def cum_eval_kind(sub: ENode | None) -> str | None:
 
 def is_host_call(node: ENode) -> bool:
     """A host function, a ``cumulative_eval`` of an expression other than a
-    prefix sum, min, max or mean, or a cast to String (it formats each
-    distinct value on the host, as the JAX package hoists it)."""
+    prefix sum, min, max or mean, a host aggregation (``str.join``), or a
+    cast to String (it formats each distinct value on the host, as the JAX
+    package hoists it)."""
+    if isinstance(node, EAgg):
+        return node.kind in HOST_AGGS
     if isinstance(node, EFunction):
         return node.name in HOST_FNS or (node.name == "cumulative_eval"
                                          and cum_eval_kind(node.opt("expr")) is None)
@@ -370,6 +376,11 @@ def is_host_call(node: ENode) -> bool:
 def needs_host(node: ENode) -> bool:
     """True if the expr calls a host function."""
     return any(is_host_call(n) for n in walk(node))
+
+
+def needs_host_agg(node: ENode) -> bool:
+    """True if the expr holds a host aggregation (``str.join``)."""
+    return any(isinstance(n, EAgg) and n.kind in HOST_AGGS for n in walk(node))
 
 
 def is_elementwise(node: ENode, *, host_ok: bool = False) -> bool:

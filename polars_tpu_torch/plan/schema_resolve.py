@@ -581,6 +581,8 @@ def agg_dtype(node: E.EAgg, schema: Schema) -> dt.DataType:
         return dt.Float64()
     if k in ("count", "len", "n_unique", "null_count", "arg_min", "arg_max"):
         return dt.UInt32()
+    if k == "str_concat":
+        return dt.String()
     if k in ("any", "all"):
         if not isinstance(in_dt, (dt.Boolean, dt.Null)):
             raise InvalidOperationError(f"{k} expects a Boolean input, got {in_dt!r}")

@@ -63,6 +63,20 @@ with ``testing/profile_query.py``:
   1% of lines whose order key hashes to 0 mod 100 (``hash``, a row mask
   over every line), and per decile the count, the distinct orders, Pearson's and Spearman's
   correlation of quantity and price and their covariance.
+- ``strings``: text, Categorical and Enum columns. ``strings.cust``: a CRM
+  report over PDS-H customers, whose 1.5M addresses at SF10 make an
+  unordered dictionary (above ``ordinal_dict_max``): orders joined to their
+  customers, the segment as an Enum, the priority as a Categorical and its
+  digit by ``str.extract``, grouped by address (the sorted group-by), then a
+  label by ``concat_str`` of the segment and the upper-cased name, its
+  length, the customer number extracted from the name, sorted by address
+  (the dictionary's ordinal remap); ``strings.line``: a shipping-text
+  clean-up over PDS-H lineitem (small sorted dictionaries): the ship mode
+  as an Enum, the instruction lower-cased with ``_`` for spaces, the return
+  flag and the line status joined by ``+``, the number that ends the comment
+  and its length, two ship-mode flags (``contains_any``, ``is_between``),
+  grouped by the joined flags and the mode, with the text's minima and
+  maxima.
 """
 
 from __future__ import annotations
@@ -1055,4 +1069,158 @@ def check_recode(out, want: dict, label: str, exact=(), floats=(), dates=()) -> 
             if not np.all(err <= 1e-9):
                 raise AssertionError(f"{label} {name}: largest relative error {err.max()}")
             worst = max(worst, float(err.max(initial=0.0)))
+    return worst
+
+
+# -- strings -------------------------------------------------------------------------------
+
+STRINGS_CUST_COLUMNS = {"customer": ["c_custkey", "c_name", "c_address", "c_phone", "c_mktsegment"],
+                        "orders": ["o_custkey", "o_totalprice", "o_orderpriority"]}
+STRINGS_LINE_COLUMNS = ["l_quantity", "l_returnflag", "l_linestatus", "l_shipinstruct", "l_shipmode", "l_comment"]
+STRINGS_MODE_LOW, STRINGS_MODE_HIGH = "FOB", "RAIL"
+
+
+def strings_plans(pl, customer, orders, line) -> dict:
+    """``strings.cust`` over customer and orders frames, ``strings.line``
+    over a lineitem frame (either may be None)."""
+    from polars_tpu_torch.testing.pdsh import _SEGMENTS, _SHIPMODES
+
+    c = pl.col
+    out = {}
+    if customer is not None:
+        out["cust"] = (
+            orders.lazy().join(customer.lazy(), left_on="o_custkey", right_on="c_custkey")
+            .with_columns(seg=c("c_mktsegment").cast(pl.Enum(_SEGMENTS)),
+                          prio=c("o_orderpriority").cast(pl.Categorical),
+                          digit=c("o_orderpriority").str.extract(r"^(\d)-", 1).str.to_integer())
+            .group_by("c_address")
+            .agg(c("c_name").first(), c("o_totalprice").sum().alias("spend"), pl.len(), c("digit").sum(),
+                 c("prio").min(), c("c_phone").max(), c("seg").first())
+            .with_columns(label=pl.concat_str([c("seg"), c("c_name").str.to_uppercase()], separator="|"))
+            .with_columns(label_len=c("label").str.len_chars(),
+                          number=c("c_name").str.extract(r"#0*(\d+)", 1).str.to_integer())
+            .sort("c_address"))
+    if line is not None:
+        out["line"] = (
+            line.lazy().with_columns(
+                mode=c("l_shipmode").cast(pl.Enum(_SHIPMODES)),
+                instr=c("l_shipinstruct").str.to_lowercase().str.replace_all(" ", "_"),
+                flags=c("l_returnflag") + c("l_linestatus"),
+                cnum=c("l_comment").str.extract(r"(\d+)$", 1).str.to_integer(),
+                clen=c("l_comment").str.len_chars(),
+                air=c("l_shipmode").str.contains_any(["AIR"]),
+                mid=c("l_shipmode").is_between(STRINGS_MODE_LOW, STRINGS_MODE_HIGH))
+            .group_by("flags", "mode")
+            .agg(pl.len(), c("l_quantity").sum(), c("l_comment").min().alias("cmin"),
+                 c("l_comment").max().alias("cmax"), c("instr").max(), c("cnum").sum(), c("clen").mean(),
+                 c("air").sum(), c("mid").sum())
+            .sort("flags", "mode"))
+    return out
+
+
+def _text_codes(values: np.ndarray) -> tuple[list, np.ndarray]:
+    """(the sorted distinct strings, each row's index among them) by one
+    dictionary lookup per row, without sorting the rows."""
+    rows = values.tolist()
+    levels = sorted(set(rows))
+    rank = dict(zip(levels, range(len(levels))))
+    return levels, np.fromiter(map(rank.__getitem__, rows), np.int64, count=len(rows))
+
+
+def _group_extreme(key: np.ndarray, code: np.ndarray, k: int, m: int, largest: bool) -> np.ndarray:
+    """The least (or greatest) of ``code`` (in [0, m)) per group of ``key``
+    (in [0, k)), by which (group, code) pairs occur."""
+    seen = np.bincount(key * m + code, minlength=k * m).reshape(k, m) > 0
+    return m - 1 - np.argmax(seen[:, ::-1], axis=1) if largest else np.argmax(seen, axis=1)
+
+
+def strings_oracle(customer: dict | None, orders: dict | None, line: dict | None) -> dict:
+    """The strings phase in numpy, per distinct value and then gathered:
+    ``strings.cust`` keyed by customer key (``c_address`` is ``addr{key-1}``,
+    sorted by one host argsort of the addresses), ``strings.line`` per
+    (flags, mode) by ``bincount``. Keys, strings and counts exact; sums of
+    money in f64."""
+    import re
+
+    from polars_tpu_torch.testing.pdsh import _SEGMENTS, _SHIPMODES
+
+    out = {}
+    if customer is not None:
+        ck = orders["o_custkey"] - 1
+        nc = len(customer["c_custkey"])
+        n = np.bincount(ck, minlength=nc)
+        has = np.flatnonzero(n)
+        pri_levels, pri = _text_codes(orders["o_orderpriority"])
+        digit = np.asarray([int(p.split("-")[0]) for p in pri_levels])[pri]
+        pmin = _group_extreme(ck, pri, nc, len(pri_levels), False)
+        addr = customer["c_address"][has]
+        order = np.argsort(addr.astype(str), kind="stable")
+        rows = has[order]
+        names = customer["c_name"][rows]
+        segs = customer["c_mktsegment"][rows]
+        labels = [f"{s}|{nm.upper()}" for s, nm in zip(segs.tolist(), names.tolist())]
+        out["cust"] = {
+            "c_address": addr[order].tolist(), "c_name": names.tolist(),
+            "spend": np.bincount(ck, weights=orders["o_totalprice"], minlength=nc)[rows],
+            "len": n[rows], "digit": np.bincount(ck, weights=digit, minlength=nc)[rows].astype(np.int64),
+            "prio": [pri_levels[i] for i in pmin[rows]], "c_phone": customer["c_phone"][rows].tolist(),
+            "seg": segs.tolist(), "label": labels, "label_len": np.asarray([len(x) for x in labels]),
+            "number": np.asarray([int(re.search(r"#0*(\d+)", x).group(1)) for x in names.tolist()]),
+        }
+    if line is not None:
+        rf_levels, rf = _text_codes(line["l_returnflag"])
+        ls_levels, ls = _text_codes(line["l_linestatus"])
+        mode_levels, mode = _text_codes(line["l_shipmode"])
+        enum_pos = np.asarray([_SHIPMODES.index(m) for m in mode_levels])
+        in_levels, instr = _text_codes(line["l_shipinstruct"])
+        cm_levels, cm = _text_codes(line["l_comment"])
+        flag_names = sorted(a + b for a in rf_levels for b in ls_levels)
+        flag = np.asarray([[flag_names.index(a + b) for b in ls_levels] for a in rf_levels])[rf, ls]
+        nm = len(_SHIPMODES)
+        key = flag * nm + enum_pos[mode]
+        k = len(flag_names) * nm
+        n = np.bincount(key, minlength=k)
+        present = np.flatnonzero(n)
+        instr_text = [s.lower().replace(" ", "_") for s in in_levels]
+        instr_rank = np.argsort(np.argsort(instr_text))
+        instr_sorted = sorted(instr_text)
+        cnum = np.asarray([int(re.search(r"(\d+)$", s).group(1)) if re.search(r"(\d+)$", s) else 0
+                           for s in cm_levels])
+        if not all(re.search(r"(\d+)$", s) for s in cm_levels):
+            raise ValueError("the oracle expects every comment to end in a number")
+        clen = np.asarray([len(s) for s in cm_levels], np.float64)
+        air = np.asarray(["AIR" in m for m in mode_levels])
+        mid = np.asarray([STRINGS_MODE_LOW <= m <= STRINGS_MODE_HIGH for m in mode_levels])
+        cmin = _group_extreme(key, cm, k, len(cm_levels), False)
+        cmax = _group_extreme(key, cm, k, len(cm_levels), True)
+        imax = _group_extreme(key, instr_rank[instr], k, len(in_levels), True)
+        out["line"] = {
+            "flags": [flag_names[p // nm] for p in present], "mode": [_SHIPMODES[p % nm] for p in present],
+            "len": n[present], "l_quantity": np.bincount(key, weights=line["l_quantity"], minlength=k)[present],
+            "cmin": [cm_levels[i] for i in cmin[present]], "cmax": [cm_levels[i] for i in cmax[present]],
+            "instr": [instr_sorted[i] for i in imax[present]],
+            "cnum": np.bincount(key, weights=cnum[cm], minlength=k)[present].astype(np.int64),
+            "clen": np.bincount(key, weights=clen[cm], minlength=k)[present] / n[present],
+            "air": np.bincount(key, weights=air[mode], minlength=k)[present].astype(np.int64),
+            "mid": np.bincount(key, weights=mid[mode], minlength=k)[present].astype(np.int64),
+        }
+    return out
+
+
+def check_strings(out, want: dict, label: str, floats=()) -> float:
+    """``out`` against the oracle: every column equal but ``floats``, which
+    agree to rtol 1e-9; the largest relative error."""
+    worst = 0.0
+    for name, w in want.items():
+        got = out[name].to_list()
+        if name in floats:
+            g = np.asarray(got, np.float64)
+            err = np.abs(g - w) / np.maximum(np.abs(w), 1e-300)
+            if not np.all(err <= 1e-9):
+                raise AssertionError(f"{label} {name}: largest relative error {err.max()}")
+            worst = max(worst, float(err.max(initial=0.0)))
+        elif got != (w if isinstance(w, list) else np.asarray(w).tolist()):
+            bad = next(i for i, (a, b) in enumerate(zip(got, list(w))) if a != b) if len(got) == len(w) else -1
+            raise AssertionError(f"{label} {name}: first difference at row {bad} of {len(got)} "
+                                 f"(lengths {len(got)}, {len(w)})")
     return worst

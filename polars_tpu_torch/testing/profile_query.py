@@ -3,8 +3,9 @@ with ``pdsh.run_params``), or one of ``chip_smoke.py``'s phases
 ``temporal``, ``asof`` (its backward join), ``range``, ``tz.ship``,
 ``tz.orders``, ``stats.flags``, ``stats.supp``, ``stats.casts``,
 ``window.cust``, ``window.line``, ``rolling.quotes``, ``rolling.bars``,
-``rolling.trades``, ``recode.line`` and ``recode.sample``
-(``testing/phases.py``; ``stats.flags`` through its lazy plan).
+``rolling.trades``, ``recode.line``, ``recode.sample``, ``strings.cust``
+and ``strings.line`` (``testing/phases.py``; ``stats.flags`` through its
+lazy plan).
 
 Builds the SF10 frames of the columns the query reads
 (``pdsh.QUERY_COLUMNS``), as ``chip_smoke.py`` does, warms the
@@ -30,7 +31,7 @@ optimized plan, or with ``--no-optimization`` the plan as written
 Run from the repository root on a machine with a CUDA device:
     python3 -m polars_tpu_torch.testing.profile_query [--query q3 [q5 ... temporal asof range tz.ship tz.orders
         stats.flags stats.supp stats.casts window.cust window.line rolling.quotes rolling.bars
-        rolling.trades recode.line recode.sample]]
+        rolling.trades recode.line recode.sample strings.cust strings.line]]
         [--scale 10] [--runs 5]
         [--no-optimization]
 """
@@ -153,7 +154,7 @@ def profile_query(torch, query: str, run, rows: dict, scale: float, runs: int, t
 
 PHASES = ("temporal", "asof", "range", "tz.ship", "tz.orders", "stats.flags", "stats.supp", "stats.casts",
           "window.cust", "window.line", "rolling.quotes", "rolling.bars", "rolling.trades", "recode.line",
-          "recode.sample")
+          "recode.sample", "strings.cust", "strings.line")
 
 
 def main() -> int:
@@ -184,7 +185,8 @@ def main() -> int:
            **{f"stats.{part}": {"lineitem": P.STATS_COLUMNS} for part in ("flags", "supp", "casts")},
            "window.cust": {"orders": P.WINDOW_CUST_COLUMNS}, "window.line": {"lineitem": P.WINDOW_LINE_COLUMNS},
            **{f"rolling.{part}": {} for part in ("quotes", "bars", "trades")},
-           **{f"recode.{part}": {"lineitem": P.RECODE_COLUMNS} for part in ("line", "sample")}}
+           **{f"recode.{part}": {"lineitem": P.RECODE_COLUMNS} for part in ("line", "sample")},
+           "strings.cust": P.STRINGS_CUST_COLUMNS, "strings.line": {"lineitem": P.STRINGS_LINE_COLUMNS}}
     need: dict[str, dict] = {}  # table -> the columns any chosen query reads
     for q in args.query:
         for t, cs in (own[q] if q in own else QUERY_COLUMNS[q]).items():
@@ -217,6 +219,13 @@ def main() -> int:
             line = tables["lineitem"]
             run = lambda q=q: P.recode_plans(pl, line)[q.split(".")[1]]  # noqa: E731
             rows = {"lineitem": line.height}
+        elif q == "strings.cust":
+            cust, orders = tables["customer"], tables["orders"]
+            run = lambda: P.strings_plans(pl, cust, orders, None)["cust"]  # noqa: E731
+            rows = {"orders": orders.height, "customer": cust.height}
+        elif q == "strings.line":
+            line = tables["lineitem"]
+            run, rows = (lambda: P.strings_plans(pl, None, None, line)["line"]), {"lineitem": line.height}
         elif q == "window.cust":
             orders = tables["orders"]
             run, rows = (lambda: P.window_plans(pl, orders, None)["cust"]), {"orders": orders.height}

@@ -1,13 +1,20 @@
-"""Host-side dictionary value tables for String columns.
+"""Host-side dictionary value tables for String, Categorical, Enum and
+Binary columns.
 
-Copied from ``polars_tpu/utils/strtable.py`` and trimmed to what the ported
-queries use (encoding, ``index_in``, ``unify`` and ``StringTable.ordinal``).
-Device tensors only ever hold dense int32 *codes*; the variable-length UTF-8
-payload lives on the host in an immutable ``StringTable``. Codes are
-ordinal (code order == lexicographic order), so sorting and comparing codes on
-the device matches string semantics.
+Copied from ``polars_tpu/utils/strtable.py`` and trimmed to what the port
+uses (encoding, ``index_in``, ``unify``, ``StringTable.ordinal``, ``lookup``
+and ``find``). Device tensors only ever hold dense int32 *codes*; the
+variable-length payload (``str``, or ``bytes`` for Binary) lives on the host
+in an immutable ``StringTable``. A dictionary of at most
+``config().ordinal_dict_max`` values is sorted, so that code order is
+lexicographic order; a larger one keeps its values in the order of their
+first occurrence, and an ordering operation sorts it once, when it first
+needs to (``engine/strings.ensure_ordinal_val``). Equality, group keys and
+join keys work on raw codes either way.
 
-Encoding is numpy-only: the machine with the card has no pyarrow or pandas.
+Encoding is Python's and numpy's only: the machine with the card has no
+pyarrow or pandas (the JAX package takes its first-occurrence order from
+``pyarrow.compute.dictionary_encode``).
 """
 
 from __future__ import annotations
@@ -24,7 +31,7 @@ class StringTable:
     lexicographic order.
     """
 
-    __slots__ = ("values", "sorted_order", "ident", "_unify_cache", "_ordinal", "_memo")
+    __slots__ = ("values", "sorted_order", "ident", "_unify_cache", "_ordinal", "_memo", "_lookup")
 
     def __init__(self, values: np.ndarray, *, sorted_order: bool = False) -> None:
         self.values = np.asarray(values, dtype=object)
@@ -33,6 +40,7 @@ class StringTable:
         self._unify_cache: dict | None = None  # other table's ident -> unify() result
         self._ordinal: tuple | None = None  # ordinal() of an unordered table, made once
         self._memo: dict | None = None  # memo(): host results over the values, by key
+        self._lookup: dict | None = None  # lookup(): value -> code, made once
 
     def __len__(self) -> int:
         return len(self.values)
@@ -46,13 +54,33 @@ class StringTable:
     def __eq__(self, other: object) -> bool:
         return self is other
 
+    def lookup(self) -> dict:
+        """value -> code, made once."""
+        if self._lookup is None:
+            self._lookup = dict(zip(self.values.tolist(), range(len(self.values))))
+        return self._lookup
+
+    def find(self, value) -> int:
+        """The code of ``value``, or -1 if absent."""
+        return self.lookup().get(value, -1)
+
+    def codes_of(self, values) -> np.ndarray:
+        """The code of each of ``values`` (-1 if absent), int32, through the
+        table's one lookup dictionary."""
+        lk = self.lookup()
+        values = list(values)
+        return np.fromiter((lk.get(v, -1) for v in values), np.int32, len(values))
+
     def ordinal(self) -> tuple[StringTable, np.ndarray]:
         """(this table's values sorted, old code -> new code): an unordered
         table sorts on the host once, when an ordering op first needs it."""
         if self.sorted_order:
             return self, np.empty(0, np.int32)  # empty remap = identity
         if self._ordinal is None:
-            order = np.argsort(self.values.astype(str), kind="stable")
+            if len(self.values) and isinstance(self.values[0], (bytes, bytearray)):
+                order = np.asarray(sorted(range(len(self.values)), key=self.values.__getitem__), np.int64)
+            else:
+                order = np.argsort(self.values.astype(str), kind="stable")
             ranks = np.empty(len(order), np.int32)
             ranks[order] = np.arange(len(order), dtype=np.int32)
             self._ordinal = (StringTable(self.values[order], sorted_order=True), ranks)
@@ -78,6 +106,16 @@ class StringTable:
 
 
 _EMPTY = StringTable(np.asarray([], dtype=object), sorted_order=True)
+_ENUM_TABLES: dict = {}
+
+
+def enum_table(categories) -> StringTable:
+    """The one table of an Enum's categories (its codes are their
+    positions), made once per category list."""
+    key = tuple(str(c) for c in categories)
+    if key not in _ENUM_TABLES:
+        _ENUM_TABLES[key] = StringTable(np.asarray(key, dtype=object), sorted_order=False)
+    return _ENUM_TABLES[key]
 
 
 def empty_table() -> StringTable:
@@ -85,35 +123,45 @@ def empty_table() -> StringTable:
 
 
 def encode_strings(values: np.ndarray) -> tuple[np.ndarray, np.ndarray | None, StringTable]:
-    """Dictionary-encode an object/str array.
+    """Dictionary-encode an object array of ``str`` (or of ``bytes``: a
+    Binary column, whose dictionary is always sorted).
 
-    Returns (codes[int32], validity[bool] or None, table). The table is sorted
-    (ordinal codes). None/NaN entries become code 0 with validity False. Same
-    codes as ``polars_tpu.utils.strtable.encode_strings`` gives for str input.
+    Returns (codes[int32], validity[bool] or None, table). Up to
+    ``config().ordinal_dict_max`` distinct values the table is sorted
+    (ordinal codes, the same codes as ``polars_tpu.utils.strtable``'s);
+    above it, the values keep the order of their first occurrence. None/NaN
+    entries become code 0 with validity False.
     """
+    from polars_tpu_torch.config import config
+
     arr = np.asarray(values, dtype=object)
     # elementwise in C: None, and NaN (the one value unequal to itself)
     validity = ~(np.equal(arr, None) | np.not_equal(arr, arr))
     has_null = not validity.all()
-    if any(isinstance(v, (bytes, bytearray)) for v in arr[validity][:64]):
-        raise NotImplementedError("Binary columns are not ported yet (port queue: expression breadth)")
-    # codes by a hash lookup of each value's rank among the sorted distinct
-    # values: one pass over the Python strings, where np.unique sorts them
-    # all (PERF.md: the set-up of PDS-H's 60M-row string columns)
     vals = (arr[validity] if has_null else arr).reshape(-1).tolist()
-    distinct = set(vals)
-    if not all(type(v) is str for v in distinct):
+    binary = any(isinstance(v, (bytes, bytearray)) for v in vals[:64])
+    # the distinct values in order of first occurrence, by one hash pass
+    # over the Python objects (np.unique would sort all the rows; PERF.md:
+    # the set-up of PDS-H's 60M-row string columns)
+    rank = dict.fromkeys(vals)
+    if binary:
+        vals = [bytes(v) for v in vals]
+        rank = dict.fromkeys(vals)
+    elif not all(type(v) is str for v in rank):
         vals = [str(v) for v in vals]
-        distinct = set(vals)
-    uniques = sorted(distinct) if vals else [""]
-    rank = {v: i for i, v in enumerate(uniques)}
+        rank = dict.fromkeys(vals)
+    uniques = list(rank) or [b"" if binary else ""]
+    ordered = binary or len(uniques) <= config().ordinal_dict_max
+    if ordered:
+        uniques.sort()
+    rank = dict(zip(uniques, range(len(uniques))))
     inv = np.fromiter(map(rank.__getitem__, vals), np.int32, count=len(vals))
     if has_null:
         codes = np.zeros(arr.shape, np.int32)
         codes[validity] = inv
     else:
         codes = inv.reshape(arr.shape)
-    table = StringTable(np.asarray(uniques, dtype=object), sorted_order=True)
+    table = StringTable(np.asarray(uniques, dtype=object), sorted_order=ordered)
     return codes, (validity if has_null else None), table
 
 
