@@ -171,6 +171,21 @@ Phases, each printed as one JSON line:
                 dense group-by, K1) with the text's minima and maxima. Each
                 against the numpy oracle of testing/phases.py (strings,
                 keys and counts exactly, floats to rtol 1e-9).
+ 20. nested   — List and Struct columns at SF10, two lines: nested.orders:
+                60M lineitem rows imploded per order (15M lists of the
+                prices, quantities and ship modes, the sorted group-by's
+                own order), then list.len, list.sum and list.mean (K1 with
+                the owning list as the group, capacity = lists), list.max,
+                list.contains("AIR") and list.sort().list.first() per
+                order; nested.explode: each comment split into words
+                (str.split over the dictionary, list.len, list.last), the
+                orders of five lines or more (a filter on list.len)
+                exploded back to their lines, a Struct of the quantity and
+                the comment's number unnested again, then per ship mode
+                the lines and the sums and means (K1 in a dense group-by,
+                K2 at the segment's end). Each against the numpy oracle of
+                testing/phases.py (keys, counts and strings exactly, floats
+                to rtol 1e-9), with its host reads.
 Every collect runs the optimized plan. Each PDS-H query and each frameops
 query also runs its plan as written (collect(no_optimization=True)): a
 warm-up, then 6 collects as written and 6 optimized, in turns with the
@@ -191,7 +206,7 @@ then the kernels line, the card's name and power limit, and the final line
 
 Run from the repository root:
     python3 chip_smoke.py [--scale 10] [--seed 42] [--only q1 filter q3 q4 ... q22 joins temporal asof rolling range
-        frameops tz stats window recode strings]
+        frameops tz stats window recode strings nested]
 (``--only`` runs the build and kernel phases and the named query phases, for
 an A/B of a few queries against a parent tree). It needs a CUDA device and
 nvcc; it never imports JAX or polars_tpu.
@@ -231,7 +246,7 @@ Q3_DAYS = day(1995, 3, 15)
 Q4_FROM, Q4_TO = day(1993, 7, 1), day(1993, 10, 1)
 PHASES = ["q1", "filter", "q3", "q4", "q5", "q6", "q10", "q12", "q14", "q18", "q19", "q11", "q15", "q17", "q20",
           "q2", "q7", "q8", "q9", "q13", "q16", "q21", "q22", "joins", "temporal", "asof", "rolling", "range",
-          "frameops", "tz", "stats", "window", "recode", "strings"]
+          "frameops", "tz", "stats", "window", "recode", "strings", "nested"]
 # the columns the phases outside PDS-H read of each table (asof makes its own)
 PHASE_COLUMNS = {
     "joins": {"customer": ["c_custkey", "c_mktsegment"], "orders": ["o_orderkey", "o_custkey", "o_orderdate"],
@@ -259,6 +274,8 @@ PHASE_COLUMNS = {
                 "orders": ["o_custkey", "o_totalprice", "o_orderpriority"],
                 "lineitem": ["l_quantity", "l_returnflag", "l_linestatus", "l_shipinstruct", "l_shipmode",
                              "l_comment"]},
+    # testing/phases.NESTED_COLUMNS
+    "nested": {"lineitem": ["l_orderkey", "l_extendedprice", "l_quantity", "l_shipmode", "l_comment"]},
 }
 _MADE_COLUMNS = ("l_shipts", "o_orderts")  # made from the generated columns (testing/phases.py)
 
@@ -725,6 +742,7 @@ def record_kernel_calls(torch, run) -> list:
     launch of that collect was kept, so that no call site of the engine is
     missed."""
     import polars_tpu_torch.engine.executors as executors
+    import polars_tpu_torch.engine.fn_nested as fn_nested
     import polars_tpu_torch.engine.groupby as groupby
     import polars_tpu_torch.engine.join as join
     from polars_tpu_torch.kernels.compact import compact, compact_count, compact_scatter
@@ -749,7 +767,9 @@ def record_kernel_calls(torch, run) -> list:
     sites = [(executors, "groupagg_sums", k1, groupagg_sums), (groupby, "groupagg_sums", k1, groupagg_sums),
              (executors, "compact_count", k2_count, compact_count),
              (executors, "compact_scatter", k2_scatter, compact_scatter),
-             (join, "compact_count", k2_count, compact_count), (join, "compact_scatter", k2_scatter, compact_scatter)]
+             (join, "compact_count", k2_count, compact_count), (join, "compact_scatter", k2_scatter, compact_scatter),
+             (fn_nested, "compact_count", k2_count, compact_count),
+             (fn_nested, "compact_scatter", k2_scatter, compact_scatter)]
     before = groupagg_sums.launches + compact.launches
     for module, name, recorder, _ in sites:
         setattr(module, name, recorder)
@@ -2500,6 +2520,43 @@ def phase_recode(torch, pl, line, raw: dict) -> dict:
     return results
 
 
+# -- nested phase (plans and oracle: polars_tpu_torch/testing/phases.py) ----------------------
+
+
+def phase_nested(torch, pl, line, raw: dict) -> dict:
+    """List and Struct columns at SF10, each plan through its main path
+    against ``testing/phases.nested_oracle``: ``nested.orders`` (implode per
+    order in the sorted group-by, the list reductions by K1 with the owning
+    list as the group, K2 at the segment's end) and ``nested.explode``
+    (split, a filter on the lists' lengths, explode, a Struct unnested, K1
+    in a dense group-by, K2 at its end)."""
+    P = _phases()
+    t0 = time.perf_counter()
+    want = P.nested_oracle(raw["lineitem"])
+    oracle_s = time.perf_counter() - t0
+    levels = want["mode_levels"]
+    results = {}
+
+    r = run_phase(torch, "nested.orders", lambda: P.nested_plans(pl, line)["orders"])
+    out = r["out"]
+    _check_schema(out, [("l_orderkey", "Int64"), ("n", "UInt32"), ("total", "Float64"), ("avg_qty", "Float64"),
+                        ("top", "Float64"), ("air", "Boolean"), ("first_mode", "String")], "nested.orders")
+    worst = P.check_nested(out, want["orders"], levels, "nested.orders", floats=("total", "avg_qty", "top"),
+                           strings=("first_mode",))
+    results["orders"] = phase_result("nested.orders", r, out, {"lineitem": line.height}, worst, lists=out.height,
+                                     oracle_s=oracle_s)
+
+    r = run_phase(torch, "nested.explode", lambda: P.nested_plans(pl, line)["explode"])
+    out = r["out"]
+    _check_schema(out, [("modes", "String"), ("len", "UInt32"), ("price", "Float64"), ("avg_price", "Float64"),
+                        ("qty", "Float64"), ("num", "Int64"), ("words", "UInt32")], "nested.explode")
+    worst = P.check_nested(out, want["explode"], levels, "nested.explode", floats=("price", "avg_price", "qty"),
+                           strings=("modes",))
+    results["explode"] = phase_result("nested.explode", r, out, {"lineitem": line.height}, worst, groups=out.height,
+                                      exploded_rows=want["exploded_rows"])
+    return results
+
+
 # -- strings phase (plans and oracle: polars_tpu_torch/testing/phases.py) ---------------------
 
 
@@ -2609,6 +2666,9 @@ def main() -> int:
         elif name == "strings":
             for sub, res in phase_strings(torch, pl, frames["strings"], raw).items():
                 runs[f"strings.{sub}"] = res
+        elif name == "nested":
+            for sub, res in phase_nested(torch, pl, frames["nested"]["lineitem"], raw).items():
+                runs[f"nested.{sub}"] = res
         else:  # Q3's K2 call runs 50 times, each against the first
             runs[name] = phase_query(torch, name, frames, raw, args.scale, k2_repeats=50 if name == "q3" else 1)
     del frames, raw, line, taq

@@ -46,6 +46,11 @@ from polars_tpu_torch.datatypes import (
     Int16,
     Int32,
     Int64,
+    List,
+    Array,
+    Field,
+    Struct,
+    Null,
     String,
     Time,
     UInt8,
@@ -67,11 +72,11 @@ from polars_tpu_torch.expr.expr import Expr
 from polars_tpu_torch.functions.eager import concat
 from polars_tpu_torch.functions.interop import QueryOptFlags
 from polars_tpu_torch.functions.lazy import (  # noqa: A004
-    all, all_horizontal, any, any_horizontal, approx_n_unique, arange, arg_sort_by, coalesce, col, concat_str, corr,
-    count, cov, cum_count, cum_sum, date, date_range, datetime, datetime_range, duration, element, exclude, first,
-    fold, format, head, int_range, last, len, lit, max, max_horizontal, mean, mean_horizontal, median, min,
-    min_horizontal, n_unique, nth, ones, quantile, reduce, repeat, select, std, sum, sum_horizontal, tail, var,
-    when, zeros,
+    all, all_horizontal, any, any_horizontal, approx_n_unique, arange, arg_sort_by, coalesce, col, concat_list,
+    concat_str, corr, count, cov, cum_count, cum_sum, date, date_range, datetime, datetime_range, duration, element,
+    exclude, field, first, fold, format, head, implode, int_range, last, len, lit, max, max_horizontal, mean,
+    mean_horizontal, median, min, min_horizontal, n_unique, nth, ones, quantile, reduce, repeat, select, std,
+    struct, sum, sum_horizontal, tail, var, when, zeros,
 )
 from polars_tpu_torch.functions.parity import arctan2, arctan2d, business_day_count
 from polars_tpu_torch.lazyframe import LazyFrame
@@ -79,13 +84,14 @@ from polars_tpu_torch.lazyframe import LazyFrame
 __all__ = [
     "Binary", "Boolean", "Categorical", "ColumnNotFoundError", "ComputeError", "Config", "DataFrame", "Date",
     "Datetime", "Decimal", "DuplicateError", "Duration", "Enum", "Expr", "Float32", "Float64", "Int8", "Int16",
-    "Int32", "Int64", "InvalidOperationError", "LazyFrame", "PolarsError", "QueryOptFlags", "Schema", "SchemaError",
-    "Series", "ShapeError", "String", "Time", "UInt8", "UInt16", "UInt32", "UInt64", "Utf8", "all",
-    "all_horizontal", "any", "any_horizontal", "api", "approx_n_unique", "arange", "arctan2", "arctan2d",
-    "arg_sort_by", "business_day_count", "coalesce", "col", "concat", "concat_str", "corr", "count", "cov",
-    "cum_count", "cum_sum", "datatypes", "date", "date_range", "datetime", "datetime_range", "duration", "element",
-    "exceptions", "exclude", "first", "format", "fold", "head", "int_range", "last", "len", "lit", "max",
-    "max_horizontal", "mean", "mean_horizontal", "median", "min", "min_horizontal", "n_unique", "nth", "ones",
-    "quantile", "reduce", "repeat", "select", "selectors", "set_default_device", "std", "sum", "sum_horizontal",
-    "tail", "var", "when", "zeros",
+    "Int32", "Int64", "List", "Array", "Field", "Struct", "Null", "InvalidOperationError", "LazyFrame",
+    "PolarsError", "QueryOptFlags", "Schema", "SchemaError", "Series", "ShapeError", "String", "Time", "UInt8",
+    "UInt16", "UInt32", "UInt64", "Utf8", "all", "all_horizontal", "any", "any_horizontal", "api",
+    "approx_n_unique", "arange", "arctan2", "arctan2d", "arg_sort_by", "business_day_count", "coalesce", "col",
+    "concat", "concat_list", "concat_str", "corr", "count", "cov", "cum_count", "cum_sum", "datatypes", "date",
+    "date_range", "datetime", "datetime_range", "duration", "element", "exceptions", "exclude", "field", "first",
+    "format", "fold", "head", "implode", "int_range", "last", "len", "lit", "max", "max_horizontal", "mean",
+    "mean_horizontal", "median", "min", "min_horizontal", "n_unique", "nth", "ones", "quantile", "reduce", "repeat",
+    "select", "selectors", "set_default_device", "std", "struct", "sum", "sum_horizontal", "tail", "var", "when",
+    "zeros",
 ]

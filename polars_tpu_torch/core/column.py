@@ -11,6 +11,12 @@ columns hold int32 dictionary codes in the buffer and the values in
 time unit, Time int64 nanoseconds since midnight. A Datetime with a time
 zone stores UTC instants; Python datetimes that share one ``tzinfo`` build
 one, and it goes back to Python as datetimes of its zone.
+
+Nested columns (the JAX package's layout, ``core/column.py:65-69``): a List
+or Array column's buffer holds int64 ``(start << 32) | length`` into a flat
+``child`` column, so rows gather and permute without touching the child,
+and rows may share a range of it; a Struct column's buffer holds row ids
+into its field columns (``child``, a list of columns, one per field).
 """
 
 from __future__ import annotations
@@ -24,7 +30,7 @@ import torch
 
 from polars_tpu_torch import datatypes as dt
 from polars_tpu_torch.core.buffer import Buffer
-from polars_tpu_torch.errors import InvalidOperationError, ShapeError
+from polars_tpu_torch.errors import ComputeError, InvalidOperationError, ShapeError
 from polars_tpu_torch.utils import strtable
 
 _EPOCH_DATE = _dt.date(1970, 1, 1)
@@ -40,13 +46,15 @@ def _needs_table(dtype: dt.DataType) -> bool:
 class Column:
     """One named, typed column over a device buffer."""
 
-    __slots__ = ("name", "dtype", "buffer", "table")
+    __slots__ = ("name", "dtype", "buffer", "table", "child")
 
-    def __init__(self, name: str, dtype: dt.DataType, buffer: Buffer, table: strtable.StringTable | None = None) -> None:
+    def __init__(self, name: str, dtype: dt.DataType, buffer: Buffer, table: strtable.StringTable | None = None,
+                 child: Column | list[Column] | None = None) -> None:
         self.name = name
         self.dtype = dtype
         self.buffer = buffer
         self.table = table
+        self.child = child
         if _needs_table(dtype) and table is None:
             self.table = strtable.empty_table()
 
@@ -69,7 +77,11 @@ class Column:
         return col
 
     def rename(self, name: str) -> Column:
-        return Column(name, self.dtype, self.buffer, self.table)
+        return Column(name, self.dtype, self.buffer, self.table, self.child)
+
+    def with_buffer(self, buffer: Buffer) -> Column:
+        """The same column (dtype, dictionary, child) over another buffer."""
+        return Column(self.name, self.dtype, buffer, self.table, self.child)
 
     def null_count(self) -> int:
         v = self.buffer.validity
@@ -90,7 +102,10 @@ class Column:
         return vals, validity
 
     def to_numpy(self) -> np.ndarray:
-        """Materialize as numpy; nulls -> NaN for floats, None otherwise."""
+        """Materialize as numpy; nulls -> NaN for floats, None otherwise
+        (a nested column: an object array of its Python values)."""
+        if isinstance(self.dtype, dt.NestedType):
+            return object_array(self.to_pylist())
         vals, validity = self._host()
         if _needs_table(self.dtype):
             return self.table.take(np.where(validity, vals, -1) if validity is not None else vals)
@@ -126,6 +141,21 @@ class Column:
         return _mask_to_object(vals.astype(object), validity)
 
     def to_pylist(self) -> list:
+        if isinstance(self.dtype, (dt.List, dt.Array)):
+            packed, validity = self._host()
+            ok = [True] * len(packed) if validity is None else validity.tolist()
+            if self.child is None and any(good and p & 0xFFFFFFFF for p, good in zip(packed.tolist(), ok)):
+                raise ComputeError(f"column {self.name!r} of {self.dtype!r} has lost its elements")
+            items = self.child.to_pylist() if self.child is not None else []
+            return [items[p >> 32:(p >> 32) + (p & 0xFFFFFFFF)] if good else None
+                    for p, good in zip(packed.tolist(), ok)]
+        if isinstance(self.dtype, dt.Struct):
+            ids, validity = self._host()
+            ok = [True] * len(ids) if validity is None else validity.tolist()
+            if self.child is None and self.dtype.fields and any(ok):
+                raise ComputeError(f"column {self.name!r} of {self.dtype!r} has lost its fields")
+            fields = [(c.name, c.to_pylist()) for c in self.child or []]
+            return [{name: vals[i] for name, vals in fields} if good else None for i, good in zip(ids.tolist(), ok)]
         if isinstance(self.dtype, dt.Decimal):  # decimal.Decimal values, exact
             vals, validity = self._host()
             ok = [True] * len(vals) if validity is None else validity.tolist()
@@ -143,6 +173,15 @@ class Column:
 
     def __repr__(self) -> str:
         return f"Column(name={self.name!r}, dtype={self.dtype!r}, len={len(self)})"
+
+
+def object_array(values: list) -> np.ndarray:
+    """A 1-D object array of ``values`` (numpy would make lists of one
+    length a 2-D array)."""
+    out = np.empty(len(values), dtype=object)
+    for i, v in enumerate(values):
+        out[i] = v
+    return out
 
 
 def _mask_to_object(out: np.ndarray, validity: np.ndarray | None) -> np.ndarray:
@@ -218,7 +257,54 @@ def _infer_pylist_dtype(seq: list) -> dt.DataType:
     )
 
 
+def _is_nested_value(v: Any) -> bool:
+    return isinstance(v, (list, tuple, dict)) or (isinstance(v, np.ndarray) and v.ndim >= 1)
+
+
+def _nested_dtype(seq: list) -> dt.DataType:
+    """The dtype of Python lists or dicts: a List of the elements' dtype, or
+    a Struct of each key's, in the order the keys first appear (the JAX
+    package's inference)."""
+    vals = [v for v in seq if v is not None]
+    if all(isinstance(v, dict) for v in vals):
+        names = list(dict.fromkeys(k for v in vals for k in v))
+        return dt.Struct([(k, _infer_any([v.get(k) for v in vals])) for k in names])
+    return dt.List(_infer_any([x for v in vals for x in v]))
+
+
+def _infer_any(seq: list) -> dt.DataType:
+    first = next((v for v in seq if v is not None), None)
+    return _nested_dtype(seq) if _is_nested_value(first) else _infer_pylist_dtype(seq)
+
+
+def _nested_from_pylist(name: str, seq: list, dtype: dt.DataType | None, device, strict: bool) -> Column:
+    """A List, Array or Struct column from Python values: the elements (a
+    field's values) become the child column, built by the same rules."""
+    logical = dtype if dtype is not None else _nested_dtype(seq)
+    n = len(seq)
+    validity = np.fromiter((v is not None for v in seq), bool, n)
+    if isinstance(logical, dt.Struct):
+        fields = [Column.from_values(f.name, [None if v is None else v.get(f.name) for v in seq], f.dtype,
+                                     device=device, strict=strict) for f in logical.fields]
+        buf = Buffer.from_numpy(np.arange(n, dtype=np.int64), validity, dtype=torch.int64, device=device)
+        return Column(name, logical, buf, None, fields)
+    if not isinstance(logical, (dt.List, dt.Array)):
+        raise InvalidOperationError(f"cannot build a {logical!r} column from nested Python values")
+    lens = np.fromiter((0 if v is None else len(v) for v in seq), np.int64, n)
+    if isinstance(logical, dt.Array) and (lens[validity] != logical.size).any():
+        bad = int(lens[validity][lens[validity] != logical.size][0])
+        raise InvalidOperationError(f"Array column expects lists of length {logical.size}, got {bad}")
+    flat = [x for v in seq if v is not None for x in v]
+    child = Column.from_values("", flat, logical.inner, device=device, strict=strict)
+    starts = np.cumsum(lens) - lens
+    buf = Buffer.from_numpy((starts << 32) | lens, validity, dtype=torch.int64, device=device)
+    return Column(name, logical, buf, None, child)
+
+
 def _from_pylist(name: str, seq: Any, dtype: dt.DataType | None, device, strict: bool = True) -> Column:
+    if isinstance(dtype, dt.NestedType) or (
+            dtype is None and _is_nested_value(next((v for v in seq if v is not None), None))):
+        return _nested_from_pylist(name, list(seq), dtype, device, strict)
     arr = np.asarray(seq, dtype=object) if not isinstance(seq, np.ndarray) else seq
     if arr.dtype.kind in ("U", "S"):
         arr = arr.astype(object)

@@ -284,7 +284,7 @@ class DataFrame:
         return _Collecting(self.lazy().rolling(index_column, **kwargs))
 
     def upsample(self, time_column: str, *, every: str, group_by: Any = None, maintain_order: bool = False):
-        raise NotImplementedError("DataFrame.upsample builds on datetime_range (port queue: item 4, generators)")
+        raise NotImplementedError("DataFrame.upsample builds on datetime_range (port queue: item 4b, generators)")
 
     def join(self, other: DataFrame, on: Any = None, how: str = "inner", **kwargs: Any) -> DataFrame:
         return self.lazy().join(other.lazy(), on, how, **kwargs).collect()
@@ -326,6 +326,12 @@ class DataFrame:
 
     def gather_every(self, n: int, offset: int = 0) -> DataFrame:
         return self.lazy().gather_every(n, offset).collect()
+
+    def explode(self, columns: Any, *more_columns: Any) -> DataFrame:
+        return self.lazy().explode(columns, *more_columns).collect()
+
+    def unnest(self, columns: Any, *more_columns: Any) -> DataFrame:
+        return self.lazy().unnest(columns, *more_columns).collect()
 
     def rename(self, mapping: Any, *, strict: bool = True) -> DataFrame:
         return self.lazy().rename(mapping, strict=strict).collect()
@@ -578,7 +584,7 @@ def _repeat(col: Column, n: int) -> Column:
 
     buf = col.buffer
     validity = None if buf.validity is None else buf.validity.expand(n).contiguous()
-    return Column(col.name, col.dtype, Buffer(buf.values.expand(n).contiguous(), validity, n), col.table)
+    return col.with_buffer(Buffer(buf.values.expand(n).contiguous(), validity, n))
 
 
 def _schema_items(schema: Any) -> list[tuple[str, Any]]:

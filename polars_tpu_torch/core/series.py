@@ -349,6 +349,24 @@ class Series:
 
         return SeriesBinaryNamespace(self)
 
+    @property
+    def list(self):
+        from polars_tpu_torch.core.series_ns import SeriesListNamespace
+
+        return SeriesListNamespace(self)
+
+    @property
+    def arr(self):
+        from polars_tpu_torch.core.series_ns import SeriesArrayNamespace
+
+        return SeriesArrayNamespace(self)
+
+    @property
+    def struct(self):
+        from polars_tpu_torch.core.series_ns import SeriesStructNamespace
+
+        return SeriesStructNamespace(self)
+
     def search_sorted(self, element: Any, side: str = "any") -> Any:
         """Where ``element`` would go in this sorted Series: an int for one
         value, a Series for a list or Series of them."""

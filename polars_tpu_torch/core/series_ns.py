@@ -1,5 +1,5 @@
 """Series namespaces (the port of ``polars_tpu/core/series_ns.py``: ``str``,
-``dt``, ``cat`` and ``bin``): each method runs the ``Expr`` namespace's
+``dt``, ``cat``, ``bin``, ``list``, ``arr`` and ``struct``): each method runs the ``Expr`` namespace's
 method over a one-column frame."""
 
 from __future__ import annotations
@@ -38,3 +38,25 @@ class SeriesCatNamespace(_SeriesNamespace):
 
 class SeriesBinaryNamespace(_SeriesNamespace):
     _expr_ns = "bin"
+
+
+class SeriesListNamespace(_SeriesNamespace):
+    _expr_ns = "list"
+
+
+class SeriesArrayNamespace(_SeriesNamespace):
+    _expr_ns = "arr"
+
+
+class SeriesStructNamespace(_SeriesNamespace):
+    _expr_ns = "struct"
+
+    @property
+    def fields(self) -> list[str]:
+        return [f.name for f in self._s.dtype.fields]
+
+    def field(self, name: str):
+        return self._s._select(self._s._expr().struct.field(name)).alias(name)
+
+    def unnest(self):
+        return self._s.to_frame().unnest(self._s.name)

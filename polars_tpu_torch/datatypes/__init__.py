@@ -606,6 +606,9 @@ _DTYPE_TO_TORCH_NAME = {
     "Date": "int32", "Datetime": "int64", "Duration": "int64", "Time": "int64",
     "String": "int32", "Categorical": "int32", "Enum": "int32", "Binary": "int32",
     "Decimal": "int64", "Null": "int32",
+    # nested columns: a List's or Array's packed (start << 32) | length into
+    # its flat child, a Struct's row ids into its fields (core/column.py)
+    "List": "int64", "Array": "int64", "Struct": "int64",
 }
 
 

@@ -33,8 +33,9 @@ import torch
 import numpy as np
 
 from polars_tpu_torch import datatypes as dt
-from polars_tpu_torch.engine.common import Val, combine_validity, take_lut
+from polars_tpu_torch.engine.common import Val, combine_validity, empty_child, take_lut
 from polars_tpu_torch.errors import InvalidOperationError
+from polars_tpu_torch.kernels.argsort import refuse_nested_key
 from polars_tpu_torch.kernels.fastmath import floordiv_const
 
 _BITS = {"Int8": 8, "Int16": 16, "Int32": 32, "Int64": 64, "UInt8": 8, "UInt16": 16, "UInt32": 32, "UInt64": 64}
@@ -56,6 +57,7 @@ def wrap_unsigned(values: torch.Tensor, dtype: dt.DataType) -> torch.Tensor:
 def order_word(values: torch.Tensor, dtype: dt.DataType) -> torch.Tensor:
     """A tensor whose signed order is the values' logical order: UInt64 bit
     patterns get their sign bit flipped (apply again to flip back)."""
+    refuse_nested_key(dtype, "an ordered value")
     return values ^ _I64_MIN if isinstance(dtype, dt.UInt64) else values
 
 
@@ -270,6 +272,14 @@ def cast_val(v: Val, target: dt.DataType, *, wrap: bool = False) -> Val:
     src = v.dtype
     if src == target:
         return v
+    if isinstance(src, (dt.List, dt.Array)) and isinstance(target, (dt.List, dt.Array)):
+        # the words stay; the child is cast (a List to an Array of its
+        # width is ``list.to_array``)
+        if isinstance(target, dt.Array) and not (isinstance(src, dt.Array) and src.size == target.size):
+            raise InvalidOperationError(f"cannot cast {src!r} to {target!r}: use list.to_array")
+        return v.with_(dtype=target, child=cast_val(v.child, target.inner, wrap=wrap))
+    if isinstance(src, dt.NestedType) or isinstance(target, dt.NestedType) and not isinstance(src, dt.Null):
+        raise InvalidOperationError(f"cannot cast {src!r} to {target!r}")
     if isinstance(src, dt.Null):
         from polars_tpu_torch.utils.strtable import empty_table
 
@@ -277,7 +287,7 @@ def cast_val(v: Val, target: dt.DataType, *, wrap: bool = False) -> Val:
         tdt = torch.int32 if text else dt.dtype_to_torch(target)
         return Val(torch.zeros(v.values.shape, dtype=tdt, device=v.values.device),
                    torch.zeros(v.values.shape, dtype=torch.bool, device=v.values.device), target,
-                   empty_table() if text else None, v.domain)
+                   empty_table() if text else None, v.domain, empty_child(target, v.values.device))
     if _is_text(target):
         if v.table is not None and isinstance(target, dt.Enum):
             # onto the categories' positions; a value outside them is null

@@ -14,7 +14,8 @@ from typing import Any
 import torch
 
 from polars_tpu_torch import datatypes as dt
-from polars_tpu_torch.utils.strtable import StringTable
+from polars_tpu_torch.errors import ComputeError
+from polars_tpu_torch.utils.strtable import StringTable, empty_table, enum_table
 
 ROW = "row"
 GROUP = "group"
@@ -29,9 +30,70 @@ class Val:
     dtype: dt.DataType
     table: StringTable | None = None
     domain: str = ROW
+    # a nested value's child (the port of the JAX package's TracedChild):
+    # for a List or Array, the flat elements as a Val of their own length,
+    # which ``values``' packed (start << 32) | length words index; for a
+    # Struct, a tuple of one Val per field, which ``values``' row ids index.
+    # PyTorch runs eagerly, so the child is the tensors themselves.
+    child: Any = None
 
     def with_(self, **kw: Any) -> Val:
         return replace(self, **kw)
+
+
+def col_to_val(col) -> Val:
+    """A frame's column as a per-row Val, its child with it."""
+    return Val(col.buffer.values, col.buffer.validity, col.dtype, col.table, ROW, _child_val(col.child))
+
+
+def _child_val(child):
+    if child is None:
+        return None
+    if isinstance(child, list):
+        return tuple(col_to_val(c) for c in child)
+    return col_to_val(child)
+
+
+def empty_child(dtype: dt.DataType, device):
+    """The child of a nested value whose rows are all null (a null literal,
+    a cast null): no elements for a List or Array, one null row per field
+    for a Struct (its null rows' ids point there)."""
+
+    def column(d: dt.DataType, n: int) -> Val:
+        table = None
+        if isinstance(d, (dt.String, dt.Categorical, dt.Enum, dt.Binary)):
+            table = enum_table(d.categories) if isinstance(d, dt.Enum) else empty_table()
+        tdt = torch.int32 if table is not None or isinstance(d, dt.Null) else dt.dtype_to_torch(d)
+        validity = torch.zeros(n, dtype=torch.bool, device=device) if n else None
+        return Val(torch.zeros(n, dtype=tdt, device=device), validity, d, table, ROW, empty_child(d, device))
+
+    if isinstance(dtype, dt.Struct):
+        return tuple(column(f.dtype, 1) for f in dtype.fields)
+    if isinstance(dtype, (dt.List, dt.Array)):
+        return column(dtype.inner, 0)
+    return None
+
+
+def child_column(v: Val, dtype: dt.DataType):
+    """The child column(s) of a nested Val of ``dtype``, for a frame."""
+    from polars_tpu_torch.core.buffer import Buffer
+    from polars_tpu_torch.core.column import Column
+
+    def column(name: str, c: Val, d: dt.DataType) -> Column:
+        validity = None if c.validity is None else c.validity.contiguous()
+        return Column(name, d, Buffer(c.values.to(dt.dtype_to_torch(d)).contiguous(), validity), c.table,
+                      child_column(c, d))
+
+    if v.child is None:
+        if dtype.is_nested():
+            raise ComputeError(f"a {dtype!r} value has lost its elements (an operation that moves nested "
+                               "values dropped their child)")
+        return None
+    if isinstance(dtype, dt.Struct):
+        return [column(f.name, c, f.dtype) for f, c in zip(dtype.fields, v.child)]
+    if isinstance(dtype, (dt.List, dt.Array)):
+        return column("", v.child, dtype.inner)
+    return None
 
 
 @dataclass
@@ -77,9 +139,14 @@ class EvalCtx:
     # over(): the groups of each partition key tuple, and the context of each
     # (keys, order) pair (compiler._eval_window)
     windows: dict | None = None
+    # the context of an over() window's function (not a group-by's)
+    in_window: bool = False
     # the time orders that the windows over one index share
     # (fn_rolling.by_order)
     time_orders: list | None = None
+    # the elements of each list value the context's list functions read
+    # (fn_nested.elements)
+    lists: dict | None = None
 
     @property
     def device(self) -> torch.device:
@@ -128,8 +195,11 @@ def combine_validity(*vals: torch.Tensor | None) -> torch.Tensor | None:
 def reject_series(*vals: Val) -> None:
     """Raise where a literal Series meets anything but ``is_in``."""
     if any(v.domain == SERIES for v in vals):
-        raise NotImplementedError(
-            "a Series literal is ported only as is_in's right-hand side (port queue: item 3b)"
+        from polars_tpu_torch.errors import InvalidOperationError
+
+        raise InvalidOperationError(
+            "a literal Series of more than one value is a column of its own length: it applies in a select or "
+            "with_columns (or as is_in's set)"
         )
 
 

@@ -35,8 +35,8 @@ from polars_tpu_torch.engine import fn_position as P
 from polars_tpu_torch.engine import groupby as G
 from polars_tpu_torch.engine.cast import cast_val, float_values, int_scalar, order_word, wrap_unsigned
 from polars_tpu_torch.engine.common import (
-    GROUP, ROW, SCALAR, SERIES, EvalCtx, GroupCtx, Val, broadcast_pair, combine_validity, flag_rows, reject_series,
-    take_lut,
+    GROUP, ROW, SCALAR, SERIES, EvalCtx, GroupCtx, Val, broadcast_pair, combine_validity, empty_child, flag_rows,
+    reject_series, take_lut,
 )
 from polars_tpu_torch.engine.registry import get_spec
 from polars_tpu_torch.engine.strings import ensure_ordinal_val, unify_vals
@@ -102,16 +102,54 @@ def _eval_expr_uncached(node: E.ENode, ctx: EvalCtx) -> Val:
         v, keep = eval_piece(node, ctx)
         if keep is None:
             return v
-    if isinstance(node, (E.EFilter, E.ESlice, E.EGather)):
+    if isinstance(node, E.EGather):
+        return _gather_in_groups(node, ctx)
+    if isinstance(node, (E.EFilter, E.ESlice)):
         raise InvalidOperationError(
             f"{type(node).__name__[1:].lower()} changes the length of its column: it applies in a select or under "
-            "an aggregation (a gather within a group gives a List: port queue item 4)")
+            "an aggregation")
     raise InvalidOperationError(f"cannot evaluate {type(node).__name__}")
 
 
 # ---------------------------------------------------------------------------
 # columns of another length (select context)
 # ---------------------------------------------------------------------------
+
+
+def _gather_in_groups(node: E.EGather, ctx: EvalCtx) -> Val:
+    """A gather in each group: in a group-by, a List per group of its rows
+    at the indices (negative from the group's end), in the group's row
+    order; in a window, one index gives each group's value at it, which
+    its rows take. An index past a group's end fails the segment at its
+    count read."""
+    from polars_tpu_torch.engine.fn_nested import pack
+
+    v = P.row_domain(ctx, eval_expr(node.input, ctx))
+    idx = eval_expr(node.indices, ctx)
+    if idx.domain not in (SCALAR, SERIES):
+        raise NotImplementedError("a gather in each group by per-row indices (port queue: item 4b)")
+    if ctx.in_window and idx.domain != SCALAR:
+        raise NotImplementedError("a gather of several indices in a window (port queue: item 4b)")
+    g = ctx.groups
+    o = P.group_order(ctx)
+    counts = G.group_counts(g, ctx.rowmask)
+    cap, dev = g.capacity, ctx.device
+    i = idx.values.reshape(-1).to(torch.int64)
+    m = i.shape[0]
+    first = torch.cumsum(counts, 0) - counts  # each group's first slot in group order
+    at = i.reshape(1, -1).expand(cap, m)
+    at = torch.where(at < 0, at + counts.reshape(-1, 1), at)
+    bad = ((at < 0) | (at >= counts.reshape(-1, 1))).any(dim=1) & g.group_valid
+    ctx.add_flag(bad.any(), "gather indices are out of bounds", ComputeError)
+    slots = (first.reshape(-1, 1) + at.clamp(min=0)).reshape(-1).clamp(0, max(o.n - 1, 0))
+    rows = o.perm.index_select(0, slots) if o.n else slots
+    child = v.with_(values=v.values.index_select(0, rows) if o.n else v.values.new_zeros(rows.shape[0]),
+                    validity=None if v.validity is None else v.validity.index_select(0, rows), domain=ROW)
+    if ctx.in_window:
+        return child.with_(domain=GROUP)
+    starts = torch.arange(cap, dtype=torch.int64, device=dev) * m
+    return Val(pack(starts, torch.full((cap,), m, dtype=torch.int64, device=dev)), None, dt.List(v.dtype), None,
+               GROUP, child)
 
 
 def _sub_ctx(ctx: EvalCtx, rowmask: torch.Tensor, known: dict) -> EvalCtx:
@@ -212,6 +250,11 @@ def eval_piece(node: E.ENode, ctx: EvalCtx) -> tuple[Val, torch.Tensor | None]:
         start = (total + node.offset).clamp(min=0) if node.offset < 0 else total.clamp(max=node.offset)
         stop = total if node.length is None else torch.minimum(start + node.length, total)
         return v, keep & (rank > start) & (rank <= stop)
+    if isinstance(node, E.EFunction) and node.name == "explode":
+        from polars_tpu_torch.engine.fn_nested import explode_piece
+
+        v, keep = eval_piece(node.inputs[0], ctx)
+        return explode_piece(v, keep)
     if isinstance(node, E.EGather):
         v, keep = eval_piece(node.input, ctx)
         idx, ikeep = eval_piece(node.indices, ctx)
@@ -229,7 +272,7 @@ def eval_piece(node: E.ENode, ctx: EvalCtx) -> tuple[Val, torch.Tensor | None]:
         rows = pos.index_select(0, i.clamp(0, max(pos.shape[0] - 1, 0))) if pos.shape[0] else i.clamp(0, 0)
         values = v.values.index_select(0, rows) if pos.shape[0] else v.values.new_zeros(i.shape[0])
         validity = combine_validity(None if v.validity is None else v.validity.index_select(0, rows), idx.validity)
-        return Val(values, validity, v.dtype, v.table, idx.domain if ikeep is None else ROW), ikeep
+        return v.with_(values=values, validity=validity, domain=idx.domain if ikeep is None else ROW), ikeep
     kids = node.children()
     pieces = [eval_piece(c, ctx) for c in kids]
     vals, keep = align_pieces(ctx, pieces)
@@ -267,10 +310,14 @@ def _eval_window(node: E.EWindow, ctx: EvalCtx) -> Val:
             for ob, d in zip(node.order_by, desc):
                 words.extend(P.value_words(P.row_domain(ctx, eval_expr(ob, ctx)), bool(d), False))
             gctx = dataclasses.replace(base, order_words=words)
-        inner = EvalCtx(cols=ctx.cols, rowmask=ctx.rowmask, groups=gctx, memo={}, flags=ctx.flags)
+        inner = EvalCtx(cols=ctx.cols, rowmask=ctx.rowmask, groups=gctx, memo={}, flags=ctx.flags, in_window=True)
         ctx.windows[(node.partition_by, node.order_by, node.order_descending)] = inner
     res = eval_expr(node.function, inner)
     reject_series(res)
+    if node.mapping_strategy == "join":  # each row takes its group's values as a List
+        from polars_tpu_torch.engine.fn_nested import implode, one_per_list
+
+        res = one_per_list(res) if res.domain == GROUP else implode(inner, res, GROUP)
     if res.domain == GROUP:
         return _group_to_rows(res, inner)
     return res
@@ -324,7 +371,7 @@ def _eval_literal(node: E.ELiteral, ctx: EvalCtx) -> Val:
         tdt = torch.int32 if isinstance(d, dt.Null) or table is not None else dt.dtype_to_torch(d)
         return Val(
             torch.zeros(1, dtype=tdt, device=ctx.device),
-            torch.zeros(1, dtype=torch.bool, device=ctx.device), d, table, SCALAR,
+            torch.zeros(1, dtype=torch.bool, device=ctx.device), d, table, SCALAR, empty_child(d, ctx.device),
         )
     if isinstance(value, str):
         if dtype is not None and dtype.is_temporal():
@@ -750,10 +797,18 @@ def _string_codes(op: str, a: Val, b: Val) -> tuple[torch.Tensor, torch.Tensor]:
 def compare_vals(op: str, a: Val, b: Val) -> Val:
     """``a op b`` of two evaluated values, their domains reconciled."""
     a, b, dom = broadcast_pair(a, b)
+    if op in ("eq_missing", "ne_missing"):
+        return _eq_missing(op, a, b, dom)
     return _eval_compare(op, a, b, dom)
 
 
 def _eval_compare(op: str, a: Val, b: Val, dom: str) -> Val:
+    if isinstance(a.dtype, dt.Struct) and isinstance(b.dtype, dt.Struct) and op in ("==", "!="):
+        from polars_tpu_torch.engine.fn_nested import struct_equal
+
+        return struct_equal(op, a, b)
+    if isinstance(a.dtype, dt.NestedType) or isinstance(b.dtype, dt.NestedType):
+        raise InvalidOperationError(f"cannot compare {a.dtype!r} with {b.dtype!r}")
     if (a.table is not None) != (b.table is not None):
         raise InvalidOperationError(f"cannot compare {a.dtype!r} with {b.dtype!r}")
     if a.table is not None:
@@ -830,6 +885,10 @@ def _eval_ternary(node: E.ETernary, ctx: EvalCtx) -> Val:
     if len(doms) > 1:
         raise ShapeError("mixed domains in when/then/otherwise")
     dom = doms.pop() if doms else SCALAR
+    if t.dtype.is_nested():
+        from polars_tpu_torch.engine.fn_nested import on_one_child
+
+        t, f = on_one_child([t, f])
     pv = p.values.to(torch.bool)
     if p.validity is not None:
         pv = pv & p.validity
@@ -840,7 +899,7 @@ def _eval_ternary(node: E.ETernary, ctx: EvalCtx) -> Val:
         tv = torch.ones_like(t.values, dtype=torch.bool) if t.validity is None else t.validity
         fv = torch.ones_like(f.values, dtype=torch.bool) if f.validity is None else f.validity
         validity = torch.where(pv, tv, fv).expand(values.shape)
-    return Val(values, validity, t.dtype, t.table, dom)
+    return Val(values, validity, t.dtype, t.table, dom, t.child)
 
 
 def _unify_branches(t: Val, f: Val) -> tuple[Val, Val]:
@@ -907,15 +966,50 @@ def _agg_input(node: E.ENode, ctx: EvalCtx) -> tuple[Val, torch.Tensor]:
             keep = keep & (pos < first + node.length)
         return v, mask & o.to_rows(keep)
     if isinstance(node, E.EGather):
-        raise NotImplementedError("gather within a group gives a List (port queue: item 4)")
+        raise NotImplementedError("an aggregation of a gather in each group (port queue: item 4b)")
+    if isinstance(node, E.ESeriesLit):
+        raise InvalidOperationError("a literal Series under an aggregation")
     kids = node.children()
-    pieces = [_agg_input(c, ctx) for c in kids]
+    vals, mask = align_in_groups(ctx, [_agg_input(c, ctx) for c in kids])
+    sub = _sub_ctx(ctx, mask, dict(zip(kids, vals)))
+    return eval_expr(node, sub), mask
+
+
+def align_in_groups(ctx: EvalCtx, pieces: list[tuple[Val, torch.Tensor]]) -> tuple[list[Val], torch.Tensor]:
+    """The inputs of one aggregation, which may keep different rows, lined
+    up by their place in their group: the k-th kept row of a group in each
+    input meets the k-th of the first input, whose rows carry the result
+    (Polars pairs them by position). The inputs must keep as many rows in
+    each group: a check on the segment's count read."""
     masks = [m for _, m in pieces]
-    if any(m is not masks[0] for m in masks):
-        raise NotImplementedError(
-            "an aggregation over inputs that keep different rows is not ported (port queue: item 3b)")
-    sub = _sub_ctx(ctx, masks[0], {c: v for c, (v, _) in zip(kids, pieces)})
-    return eval_expr(node, sub), masks[0]
+    if all(m is masks[0] for m in masks):
+        return [v for v, _ in pieces], masks[0]
+    gctx = group_of(ctx)
+    gids, cap = gctx.gids, gctx.capacity
+    base = masks[0]
+    n = base.shape[0]
+    iota = torch.arange(n, device=base.device)
+    o0 = P.group_order(_sub_ctx(ctx, base, {}))
+    place = o0.to_rows(iota - o0.start)  # each kept row's place in its group
+    count0 = G.seg_count(base, gids, cap)
+    live = gctx.group_valid
+    out = [pieces[0][0]]
+    for v, m in pieces[1:]:
+        if v.domain == SCALAR or m is base:
+            out.append(v)
+            continue
+        oi = P.group_order(_sub_ctx(ctx, m, {}))
+        ctx.add_flag((live & (G.seg_count(m, gids, cap) != count0)).any(),
+                     "the inputs of an aggregation keep different numbers of rows in a group", ComputeError)
+        seg = torch.where(oi.kept, oi.seg.to(torch.int64), cap)
+        first = torch.full((cap + 1,), n, dtype=torch.int64, device=base.device)
+        first = first.scatter_reduce(0, seg, iota, "amin", include_self=True)
+        slot = (first.index_select(0, gids.clamp(0, max(cap - 1, 0)).long()) + place).clamp(0, max(n - 1, 0))
+        row = oi.perm.index_select(0, slot)
+        vv = P.row_domain(ctx, v)
+        out.append(vv.with_(values=vv.values.index_select(0, row),
+                            validity=None if vv.validity is None else vv.validity.index_select(0, row)))
+    return out, base
 
 
 def _eval_agg(node: E.EAgg, ctx: EvalCtx) -> Val:
@@ -967,9 +1061,17 @@ def _eval_agg(node: E.EAgg, ctx: EvalCtx) -> Val:
         fn = G.seg_first_idx if kind == "first" else G.seg_last_idx
         idx, has = fn(rowmask, gids, cap)
         if v.values.shape[0] == 0:  # no rows: every group is null
-            return Val(torch.zeros(cap, dtype=v.values.dtype, device=v.values.device), has, v.dtype, v.table, dom)
+            return v.with_(values=torch.zeros(cap, dtype=v.values.dtype, device=v.values.device), validity=has,
+                           domain=dom)
         validity = has if v.validity is None else (has & v.validity.index_select(0, idx))
-        return Val(v.values.index_select(0, idx), validity, v.dtype, v.table, dom)
+        return v.with_(values=v.values.index_select(0, idx), validity=validity, domain=dom)
+    if kind in ("implode", "agg_groups"):
+        from polars_tpu_torch.engine.fn_nested import implode
+
+        sub = ctx if rowmask is ctx.rowmask else _sub_ctx(ctx, rowmask, {})
+        if kind == "agg_groups":  # each row's place among the frame's kept rows
+            v = Val(torch.cumsum(ctx.rowmask, 0) - 1, None, dt.UInt32(), None, ROW)
+        return implode(sub, v, dom)
     if kind == "n_unique":
         out = G.seg_nunique(v, rowmask, gids, cap)
         return Val(wrap_unsigned(out, dt.UInt32()), None, dt.UInt32(), None, dom)
@@ -1044,9 +1146,10 @@ def _eval_stat_agg(node: E.EAgg, ctx: EvalCtx, v: Val, data_mask: torch.Tensor, 
             ctx.add_flag((live & (cnt == 0)).any(), msg)
         idx, has = G.seg_first_idx(rowmask, gids, cap)
         if v.values.shape[0] == 0:
-            return Val(torch.zeros(cap, dtype=v.values.dtype, device=v.values.device), has, v.dtype, v.table, dom)
+            return v.with_(values=torch.zeros(cap, dtype=v.values.dtype, device=v.values.device), validity=has,
+                           domain=dom)
         validity = has if v.validity is None else (has & v.validity.index_select(0, idx))
-        return Val(v.values.index_select(0, idx), validity, v.dtype, v.table, dom)
+        return v.with_(values=v.values.index_select(0, idx), validity=validity, domain=dom)
     raise NotImplementedError(f"aggregation {kind!r} is not ported yet (port queue: expression breadth)")
 
 
@@ -1131,10 +1234,7 @@ def _eval_corr_cov(node: E.EAgg, ctx: EvalCtx, gctx: GroupCtx, dom: str) -> Val:
     pair = node.input
     if not (isinstance(pair, E.EFunction) and pair.name == "pack_pair"):
         raise InvalidOperationError(f"{node.kind} takes two columns (pl.{node.kind})")
-    (a, mask_a), (b, mask_b) = (_agg_input(i, ctx) for i in pair.inputs)
-    if mask_a is not mask_b:
-        raise NotImplementedError(
-            f"{node.kind} over inputs that keep different rows is not ported (port queue: item 3b)")
+    (a, b), mask_a = align_in_groups(ctx, [_agg_input(i, ctx) for i in pair.inputs])
     if mask_a is not ctx.rowmask:
         gctx = dataclasses.replace(gctx, counts=None, sort_perm=None)
     gids, cap = gctx.gids, gctx.capacity

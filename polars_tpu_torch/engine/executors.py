@@ -26,11 +26,13 @@ from polars_tpu_torch.core.buffer import Buffer
 from polars_tpu_torch.core.column import Column
 from polars_tpu_torch.core.frame import DataFrame
 from polars_tpu_torch.core.schema import Schema
+from polars_tpu_torch.engine import fn_nested as NS
 from polars_tpu_torch.engine import groupby as G
 from polars_tpu_torch.engine.cast import float_values, wrap_unsigned
-from polars_tpu_torch.engine.common import GROUP, ROW, SCALAR, EvalCtx, Val, reject_series
+from polars_tpu_torch.engine.common import GROUP, ROW, SCALAR, EvalCtx, Val, child_column, col_to_val, reject_series
 from polars_tpu_torch.engine.compiler import (
-    _agg_domain, _agg_out_dtype, align_pieces, decimal_to_float, eval_expr, eval_piece, group_of, mean_values,
+    _agg_domain, _agg_input, _agg_out_dtype, _sub_ctx, align_pieces, decimal_to_float, eval_expr, eval_piece,
+    group_of, mean_values,
 )
 from polars_tpu_torch.engine.join_traced import trace_join
 from polars_tpu_torch.engine.sort import apply_perm, sort_perm
@@ -59,7 +61,7 @@ class TTable:
 
 _FUSABLE = (
     L.LFilter, L.LSelect, L.LWithColumns, L.LSlice, L.LDistinct, L.LSort, L.LGroupBy, L.LRename, L.LDrop,
-    L.LWithRowIndex, L.LUnion, L.LHConcat, L.LJoin,
+    L.LWithRowIndex, L.LUnion, L.LHConcat, L.LJoin, L.LExplode,
 )
 
 
@@ -108,10 +110,8 @@ def _as_rows(v: Val, rows: int) -> Val:
     """A SCALAR value broadcast to ``rows`` rows."""
     if v.domain != SCALAR:
         return v
-    return Val(
-        v.values.expand(rows), None if v.validity is None else v.validity.expand(rows),
-        v.dtype, v.table, ROW,
-    )
+    return v.with_(values=v.values.expand(rows), validity=None if v.validity is None else v.validity.expand(rows),
+                   domain=ROW)
 
 
 def trace_node(node: L.LNode, tc: _TraceCtx) -> TTable:
@@ -204,6 +204,9 @@ def trace_node(node: L.LNode, tc: _TraceCtx) -> TTable:
     if isinstance(node, L.LUnion):
         return _trace_union([trace_node(i, tc) for i in node.inputs_])
 
+    if isinstance(node, L.LExplode):
+        return _trace_explode(trace_node(node.input, tc), node.columns, tc)
+
     if isinstance(node, L.LHConcat):
         return _trace_hconcat([trace_node(i, tc) for i in node.inputs_])
 
@@ -237,6 +240,23 @@ def _distinct_rowmask(keys: list[Val], rowmask: torch.Tensor, keep: str) -> torc
     else:
         flag = ~(same_prev | same_next)
     return torch.empty_like(flag).index_copy_(0, perm, flag)
+
+
+def _trace_explode(tt: TTable, columns: tuple[str, ...], tc: _TraceCtx) -> TTable:
+    """Each kept row once per element of its lists (one row with a null for
+    a null or empty list): the exploded columns take their elements, the
+    others repeat. The lists of one row must have one length (a check on
+    the segment's count read). One host read: the output's length."""
+    first = tt.cols[columns[0]]
+    owner, pos = NS.explode_index(first, tt.rowmask)
+    lens = NS.explode_lens(first)
+    for c in columns[1:]:
+        bad = (NS.explode_lens(tt.cols[c]) != lens) & tt.rowmask
+        tc.flags.append((bad.any(), "exploded columns must have matching element counts", ShapeError))
+    cols = {}
+    for name, v in tt.cols.items():
+        cols[name] = NS.exploded(v, owner, pos) if name in columns else NS.gather_val(v, owner)
+    return TTable(cols, torch.ones(owner.shape[0], dtype=torch.bool, device=owner.device))
 
 
 def _trace_union(tts: list[TTable]) -> TTable:
@@ -273,7 +293,7 @@ def _trace_hconcat(tts: list[TTable]) -> TTable:
             else:
                 values = torch.zeros(rows, dtype=v.values.dtype, device=iota.device)
                 validity = present
-            cols[name] = Val(values, validity, v.dtype, v.table, ROW)
+            cols[name] = v.with_(values=values, validity=validity, domain=ROW)
     return TTable(cols, mask)
 
 
@@ -381,17 +401,28 @@ def _trace_groupby(tt: TTable, node: L.LGroupBy, tc: _TraceCtx) -> TTable:
     gctx_ctx.precomputed = _batch_aggs(aggs, gctx_ctx)
     for a in aggs:
         name = E.output_name(a) or "literal"
+        if E.changes_length(a) and not E.reduces_in_agg(a) and not isinstance(_unalias(a), E.EGather):
+            # a filter or slice left as it is: each group's kept rows as a List
+            v, mask = _agg_input(a, gctx_ctx)
+            out_cols[name] = NS.implode(_sub_ctx(gctx_ctx, mask, {}), v, GROUP).with_(domain=ROW)
+            continue
         v = eval_expr(a, gctx_ctx)
-        if v.domain == ROW:
-            raise InvalidOperationError(f"expression for {name!r} does not aggregate; wrap it in an aggregation")
+        if v.domain == ROW:  # a non-reducing expression: each group's rows as a List
+            v = NS.implode(gctx_ctx, v, GROUP)
+        elif not E.reduces_in_agg(a) and v.domain == GROUP and not isinstance(v.dtype, dt.List):
+            # one value per group where the schema has a List: a List of it
+            v = NS.one_per_list(v)
         if v.domain == SCALAR:
-            v = Val(
-                v.values.expand(gctx.capacity),
-                None if v.validity is None else v.validity.expand(gctx.capacity),
-                v.dtype, v.table, GROUP,
-            )
-        out_cols[name] = Val(v.values, v.validity, v.dtype, v.table, ROW)
+            v = v.with_(values=v.values.expand(gctx.capacity),
+                        validity=None if v.validity is None else v.validity.expand(gctx.capacity))
+        out_cols[name] = v.with_(domain=ROW)
     return TTable(out_cols, gctx.group_valid)
+
+
+def _unalias(e: E.ENode) -> E.ENode:
+    while isinstance(e, E.EAlias):
+        e = e.input
+    return e
 
 
 def _batch_aggs(aggs, ctx: EvalCtx) -> dict:
@@ -535,7 +566,7 @@ def _batch_aggs(aggs, ctx: EvalCtx) -> dict:
 
 
 def _df_to_ttable(df: DataFrame) -> TTable:
-    cols = {c.name: Val(c.buffer.values, c.buffer.validity, c.dtype, c.table, ROW) for c in df._columns}
+    cols = {c.name: col_to_val(c) for c in df._columns}
     return TTable(cols, torch.ones(df.height, dtype=torch.bool, device=df.device))
 
 
@@ -588,5 +619,7 @@ def run_segment(node: L.LNode, leaf_dfs: list[tuple[L.LNode, DataFrame]]) -> Dat
     for name in names:
         values = next(it)
         validity = next(it) if tt.cols[name].validity is not None else None
-        cols.append(Column(name, out_schema[name], Buffer(values, validity, n), tt.cols[name].table))
+        v = tt.cols[name]
+        cols.append(Column(name, out_schema[name], Buffer(values, validity, n), v.table,
+                           child_column(v, out_schema[name])))
     return DataFrame._from_columns(cols, n, device=tt.rowmask.device)

@@ -24,7 +24,7 @@ import torch
 from polars_tpu_torch import datatypes as dt
 from polars_tpu_torch.engine.cast import cast_val, float_values, order_word, wrap_unsigned
 from polars_tpu_torch.engine.common import (
-    ROW, SCALAR, SERIES, Val, broadcast_pair, combine_validity, flag_rows, reject_series, take_lut,
+    GROUP, ROW, SCALAR, SERIES, Val, broadcast_pair, combine_validity, flag_rows, reject_series, take_lut,
 )
 from polars_tpu_torch.engine.registry import BOOL, FLOAT, SAME, SUPER, register
 from polars_tpu_torch.errors import InvalidOperationError
@@ -281,6 +281,10 @@ def _first_valid(vals: list[Val]) -> Val:
     """Row by row, the first of ``vals`` that is not null (null where none
     is; no validity where one of them has none)."""
     vals = _unified(vals)
+    if vals[0].dtype.is_nested():
+        from polars_tpu_torch.engine.fn_nested import on_one_child
+
+        vals = on_one_child(vals)
     dom = next((v.domain for v in vals if v.domain != SCALAR), SCALAR)
     shape = next((v.values.shape for v in vals if v.domain != SCALAR), vals[0].values.shape)
     values = vals[0].values.expand(shape)
@@ -289,7 +293,7 @@ def _first_valid(vals: list[Val]) -> Val:
         values = torch.where(valid, values, v.values.expand(shape))
         valid = valid | _valid(v).expand(shape)
     validity = None if any(v.validity is None for v in vals) else valid
-    return Val(values, validity, vals[0].dtype, vals[0].table, dom)
+    return Val(values, validity, vals[0].dtype, vals[0].table, dom, vals[0].child)
 
 
 @register("fill_null", SUPER)
@@ -329,12 +333,18 @@ def _is_in(ctx, args, opts):
     A string list is first probed into the column's dictionary on the host,
     so its values take the column's codes (-1, matching nothing, where the
     dictionary lacks one). A null in the column gives null, unless
-    ``nulls_equal``: then it is in the list iff the list holds a null."""
+    ``nulls_equal``: then it is in the list iff the list holds a null.
+    Against a column or an expression: membership in its kept values (one
+    sort of them and a binary search); against a List column, in each
+    row's own list (``list.contains``)."""
     v, other = args
+    if isinstance(other.dtype, (dt.List, dt.Array)) and other.domain != SERIES:
+        from polars_tpu_torch.engine.fn_nested import _list_contains
+
+        out = _list_contains(ctx, [other, v], opts)
+        return out.with_(validity=combine_validity(out.validity, v.validity))
     if other.domain not in (SCALAR, SERIES):
-        raise NotImplementedError(
-            "is_in against a column or an expression is not ported yet (port queue: item 3b)"
-        )
+        return _is_in_column(ctx, v, other, opts)
     if isinstance(other.dtype, dt.Null):  # [] or [None, ...]: nothing to match
         out = torch.zeros(v.values.shape, dtype=torch.bool, device=v.values.device)
     else:
@@ -360,6 +370,39 @@ def _is_in(ctx, args, opts):
         out = torch.where(validity, out, other_has_null)
         validity = None
     return Val(out, validity, dt.Boolean(), None, v.domain)
+
+
+def _is_in_column(ctx, v: Val, other: Val, opts: dict) -> Val:
+    """``v`` in the set of ``other``'s kept values: both as one order word
+    in their supertype (strings on one dictionary), the set's words sorted
+    (the rows a mask drops and the nulls past the end) and searched."""
+    from polars_tpu_torch.engine.fn_position import row_domain
+    from polars_tpu_torch.engine.strings import unify_vals
+    from polars_tpu_torch.kernels.argsort import key_words
+
+    other = row_domain(ctx, other)
+    if (v.table is None) != (other.table is None):
+        raise InvalidOperationError(f"is_in cannot compare {v.dtype!r} with {other.dtype!r}")
+    if v.table is not None:
+        v2, o2 = unify_vals(v, other)
+        vw, ow = v2.values.to(torch.int64), o2.values.to(torch.int64)
+    else:
+        st = supertype(v.dtype, other.dtype)
+        vw, ow = key_words(cast_val(v, st).values, st)[0], key_words(cast_val(other, st).values, st)[0]
+        vw, ow = vw.to(torch.int64), ow.to(torch.int64)
+    keep = ctx.rowmask if other.validity is None else ctx.rowmask & other.validity
+    big = torch.iinfo(torch.int64).max
+    seq = torch.sort(torch.where(keep, ow, big)).values
+    kept = keep.sum()
+    idx = torch.searchsorted(seq, vw.contiguous()).clamp(max=max(seq.shape[0] - 1, 0))
+    found = (seq.index_select(0, idx) == vw) & (idx < kept) if seq.shape[0] else torch.zeros_like(vw, dtype=torch.bool)
+    validity = v.validity
+    if opts.get("nulls_equal", False) and validity is not None:
+        has_null = (ctx.rowmask & ~other.validity).any() if other.validity is not None else torch.zeros(
+            (), dtype=torch.bool, device=found.device)
+        found = torch.where(validity, found, has_null)
+        validity = None
+    return Val(found, validity, dt.Boolean(), None, v.domain)
 
 
 @register("is_between", BOOL)
@@ -923,8 +966,6 @@ def _search_sorted(ctx, args, opts):
     from polars_tpu_torch.engine.fn_position import group_order, row_domain
     from polars_tpu_torch.kernels.argsort import key_words
 
-    if ctx.groups is not None:
-        raise NotImplementedError("search_sorted within groups or a window is not ported (port queue: item 3b)")
     v, elem = row_domain(ctx, args[0]), args[1]
     reject_series(elem)
     if v.table is not None or elem.table is not None:
@@ -939,6 +980,8 @@ def _search_sorted(ctx, args, opts):
         dtype = dt.String()
     else:
         ev, vv, dtype = cast_val(elem, v.dtype).values, v.values, v.dtype
+    if ctx.groups is not None:
+        return _search_sorted_groups(ctx, v, vv, ev, elem, dtype, opts.get("side", "any") == "right")
     o = group_order(ctx)
     keep = o.kept if v.validity is None else o.kept & o.to_group(v.validity)
     word = key_words(o.to_group(vv), dtype)[0]
@@ -948,6 +991,40 @@ def _search_sorted(ctx, args, opts):
     idx = torch.searchsorted(seq.contiguous(), needles.contiguous(), right=opts.get("side", "any") == "right")
     idx = torch.minimum(idx, keep.sum())  # a needle at the sentinel's word stops before the padding
     return Val(idx.to(dt.dtype_to_torch(dt.UInt32())), None, dt.UInt32(), None, elem.domain)
+
+
+def _search_sorted_groups(ctx, v: Val, vv: torch.Tensor, ev: torch.Tensor, elem: Val, dtype, right: bool) -> Val:
+    """``search_sorted`` in each group (of a window or a group-by): where
+    the needle would go among its group's kept values. The values and the
+    needles (one per group for a scalar, else one per row, in its row's
+    group) sort together by (group, order word), a needle before the values
+    it equals (after them for ``side="right"``); its place is the count of
+    its group's values before it."""
+    from polars_tpu_torch.engine.fn_position import row_domain
+    from polars_tpu_torch.kernels.argsort import key_words, stable_argsort_words
+
+    g = ctx.groups
+    cap, dev = g.capacity, vv.device
+    keep = ctx.rowmask if v.validity is None else ctx.rowmask & v.validity
+    gv = torch.where(keep, g.gids.to(torch.int64), cap)
+    if elem.domain == SCALAR:
+        gn = torch.arange(cap, dtype=torch.int64, device=dev)
+        ev = ev.reshape(-1).expand(cap)
+    else:
+        elem = row_domain(ctx, elem)
+        gn = torch.where(ctx.rowmask, g.gids.to(torch.int64), cap)
+    words_v, words_n = key_words(vv, dtype)[0].to(torch.int64), key_words(ev, dtype)[0].to(torch.int64)
+    nv, nn = gv.shape[0], gn.shape[0]
+    is_val = torch.cat([torch.ones(nv, dtype=torch.int64, device=dev), torch.zeros(nn, dtype=torch.int64, device=dev)])
+    tie = is_val if not right else 1 - is_val  # which comes first among equal words
+    perm = stable_argsort_words([torch.cat([gv, gn]), torch.cat([words_v, words_n]), tie])
+    grp = torch.cat([gv, gn]).index_select(0, perm)
+    before = torch.cumsum(is_val.index_select(0, perm), 0) - is_val.index_select(0, perm)
+    start = torch.full((cap + 1,), nv + nn, dtype=torch.int64, device=dev).scatter_reduce(
+        0, grp, torch.arange(nv + nn, device=dev), "amin", include_self=True)
+    first_before = before.index_select(0, start.clamp(max=max(nv + nn - 1, 0)).index_select(0, grp))
+    at = torch.empty_like(before).index_copy_(0, perm, before - first_before)[nv:]
+    return Val(at.to(dt.dtype_to_torch(dt.UInt32())), None, dt.UInt32(), None, GROUP if elem.domain == SCALAR else ROW)
 
 
 @register("rle_id", dt.UInt32(), elementwise=False)
@@ -1014,11 +1091,6 @@ def _category_val(v: Val, idx: torch.Tensor, labels: list[str], dtype: dt.DataTy
     return Val(idx, v.validity, dtype, table, v.domain)
 
 
-def _include_breaks(opts) -> None:
-    if opts.get("include_breaks"):
-        raise NotImplementedError("cut/qcut with include_breaks=True give a Struct (port queue: item 4)")
-
-
 def _cut_dtype(dts, opts):
     if "quantiles" in opts and opts.get("labels") is None:
         return dt.Categorical()  # labels from the data's breaks (Polars)
@@ -1028,7 +1100,6 @@ def _cut_dtype(dts, opts):
 
 @register("cut", _cut_dtype)
 def _cut(ctx, args, opts):
-    _include_breaks(opts)
     v = args[0]
     breaks = [float(b) for b in opts["breaks"]]
     labels = _cut_labels(breaks, opts.get("labels"), opts.get("left_closed", False))
@@ -1047,7 +1118,6 @@ def _qcut(ctx, args, opts):
     from polars_tpu_torch.engine.compiler import group_of
     from polars_tpu_torch.engine.fn_position import row_domain
 
-    _include_breaks(opts)
     v = row_domain(ctx, args[0])
     qs = [float(q) for q in opts["quantiles"]]
     left_closed = opts.get("left_closed", False)
@@ -1064,7 +1134,7 @@ def _qcut(ctx, args, opts):
             per_row = [brks[:, j].index_select(0, ids) for j in range(len(qs))]
         return _category_val(v, _bins(x, per_row, left_closed), labels, dt.Enum(labels))
     if ctx.groups is not None:
-        raise NotImplementedError("qcut without labels within groups or a window is not ported (port queue: item 3b)")
+        return _qcut_groups(v, x, g, brks, left_closed, bool(opts.get("allow_duplicates")))
     values = [float(b) for b in brks[0].tolist()]
     if len(set(values)) < len(values):
         if not opts.get("allow_duplicates"):
@@ -1074,6 +1144,76 @@ def _qcut(ctx, args, opts):
         values = sorted(set(values))
     labels = _cut_labels(values, None, left_closed)
     return _category_val(v, _bins(x, values, left_closed), labels, dt.Categorical())
+
+
+def _upper_break(x: torch.Tensor, breaks: list, left_closed: bool) -> torch.Tensor:
+    """Each value's bin's upper break (inf past the last): breaks are
+    floats or per-row tensors, ascending."""
+    out = torch.full(x.shape, math.inf, dtype=torch.float64, device=x.device)
+    for b in reversed(breaks):
+        inside = (x < b) if left_closed else (x <= b)
+        out = torch.where(inside, b if isinstance(b, torch.Tensor) else torch.tensor(b, dtype=torch.float64,
+                                                                                     device=x.device), out)
+    return out
+
+
+@register("cut_breakpoint", dt.Float64())
+def _cut_breakpoint(ctx, args, opts):
+    """``cut(include_breaks=True)``'s ``breakpoint`` field."""
+    v = args[0]
+    x = float_values(v.values, v.dtype, torch.float64)
+    return Val(_upper_break(x, [float(b) for b in opts["breaks"]], opts.get("left_closed", False)), v.validity,
+               dt.Float64(), None, v.domain)
+
+
+@register("qcut_breakpoint", dt.Float64(), elementwise=False)
+def _qcut_breakpoint(ctx, args, opts):
+    """``qcut(include_breaks=True)``'s ``breakpoint`` field: the column's
+    quantiles as breaks, per group in a window."""
+    from polars_tpu_torch.engine import groupby as G
+    from polars_tpu_torch.engine.compiler import group_of
+    from polars_tpu_torch.engine.fn_position import row_domain
+
+    v = row_domain(ctx, args[0])
+    g = group_of(ctx)
+    mask = ctx.rowmask if v.validity is None else ctx.rowmask & v.validity
+    qs = [float(q) for q in opts["quantiles"]]
+    brks, _ = G.seg_quantiles(v, mask, g.gids, g.capacity, qs, "linear")
+    ids = g.gids.clamp(0, g.capacity - 1).long()
+    x = float_values(v.values, v.dtype, torch.float64)
+    per_row = [brks[:, j].index_select(0, ids) for j in range(len(qs))]
+    return Val(_upper_break(x, per_row, opts.get("left_closed", False)), v.validity, dt.Float64(), None, v.domain)
+
+
+def _qcut_groups(v: Val, x: torch.Tensor, g, brks: torch.Tensor, left_closed: bool, allow_duplicates: bool) -> Val:
+    """``qcut`` without labels in each group (a window's or a group-by's):
+    each group's breaks name its bins, as Polars labels them; the labels of
+    every group share one Categorical dictionary. The groups' distinct
+    tuples of breaks (bit for bit) are found on the device and only those
+    are read to the host and labelled, once each."""
+    k = brks.shape[1]
+    ng = int(g.num_groups)
+    if ng:
+        rows, inverse = torch.unique(brks[:ng].contiguous().view(torch.int64), dim=0, return_inverse=True)
+    else:
+        rows, inverse = brks[:0].view(torch.int64), torch.zeros(1, dtype=torch.int64, device=brks.device)
+    host = rows.view(torch.float64).cpu().numpy()
+    names: dict[str, int] = {}
+    lut = np.zeros((max(len(host), 1), k + 1), np.int32)
+    for r, row in enumerate(host):
+        vals = [float(b) for b in row]
+        if len(set(vals)) < len(vals) and not allow_duplicates:
+            from polars_tpu_torch.errors import DuplicateError
+
+            raise DuplicateError(f"quantiles are not unique while allow_duplicates=False: {vals}")
+        labels = _cut_labels(sorted(set(vals)), None, left_closed)
+        for b in range(k + 1):  # a bin past repeated breaks is the next distinct one
+            lut[r, b] = names.setdefault(labels[len(set(vals[:b]))], len(names))
+    ids = g.gids.clamp(0, g.capacity - 1).long()
+    idx = _bins(x, [brks[:, j].index_select(0, ids) for j in range(k)], left_closed)
+    codes = take_lut(lut.reshape(-1), inverse.index_select(0, ids.clamp(max=max(ng - 1, 0))) * (k + 1) + idx)
+    table = strtable.StringTable(np.asarray(list(names), object), sorted_order=False)
+    return Val(codes, v.validity, dt.Categorical(), table, v.domain)
 
 
 def _string_hashes(table) -> np.ndarray:

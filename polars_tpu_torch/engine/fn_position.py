@@ -134,12 +134,16 @@ def row_domain(ctx, v: Val) -> Val:
     return v
 
 
-def _in_group_space(ctx, v: Val, fn, out_dtype: dt.DataType | None = None, table=False) -> Val:
+def _in_group_space(ctx, v: Val, fn, out_dtype: dt.DataType | None = None, moves=False) -> Val:
     """``fn(order, values, validity)`` over ``v`` in group space, its
-    (values, validity) mapped back to the rows."""
+    (values, validity) mapped back to the rows. ``moves``: ``fn`` only moves
+    ``v``'s values, which keep their dictionary and their nested child."""
     o = group_order(ctx)
     values, validity = fn(o, o.to_group(v.values), o.to_group(v.validity))
-    return Val(o.to_rows(values), o.to_rows(validity), out_dtype or v.dtype, v.table if table else None, ROW)
+    values, validity = o.to_rows(values), o.to_rows(validity)
+    if moves:
+        return v.with_(values=values, validity=validity, domain=ROW)
+    return Val(values, validity, out_dtype or v.dtype, None, ROW)
 
 
 def _valid_kept(o: GroupOrder, valid: torch.Tensor | None) -> torch.Tensor:
@@ -168,7 +172,7 @@ def _shift(ctx, args, opts):
         out = torch.where(ok, vals.index_select(0, src), _zero(vals))
         return out, ok & _valid_kept(o, valid).index_select(0, src)
 
-    return _in_group_space(ctx, v, fn, table=True)
+    return _in_group_space(ctx, v, fn, moves=True)
 
 
 @register("shift_fill", SAME, elementwise=False)
@@ -178,6 +182,10 @@ def _shift_fill(ctx, args, opts):
     fill = cast_val(args[1], v.dtype)
     if v.table is not None:  # both on one dictionary
         v, fill = unify_vals(v, fill)
+    if v.dtype.is_nested():
+        from polars_tpu_torch.engine.fn_nested import on_one_child
+
+        v, fill = on_one_child([v, fill])
     fill = row_domain(ctx, fill)
 
     def fn(o, vals, valid):
@@ -189,7 +197,7 @@ def _shift_fill(ctx, args, opts):
         out_valid = torch.where(ok, src_valid, fvalid)
         return out, None if valid is None and fill.validity is None else out_valid
 
-    return _in_group_space(ctx, v, fn, table=True)
+    return _in_group_space(ctx, v, fn, moves=True)
 
 
 def _diff_dtype(dts, opts):
@@ -365,7 +373,7 @@ def _reverse(ctx, args, opts):
         src = o.start + o.end - _iota(o.n, vals.device)
         return vals.index_select(0, src), None if valid is None else valid.index_select(0, src)
 
-    return _in_group_space(ctx, v, fn, table=True)
+    return _in_group_space(ctx, v, fn, moves=True)
 
 
 def _fill(ctx, v: Val, limit, forward: bool) -> Val:
@@ -380,7 +388,7 @@ def _fill(ctx, v: Val, limit, forward: bool) -> Val:
             ok = ok & (gap <= int(limit))
         return torch.where(ok, vals.index_select(0, src), _zero(vals)), ok
 
-    return _in_group_space(ctx, v, fn, table=True)
+    return _in_group_space(ctx, v, fn, moves=True)
 
 
 @register("forward_fill", SAME, elementwise=False)
@@ -542,7 +550,7 @@ def reorder_in_groups(ctx, v: Val, keys: list[tuple[Val, bool, bool]]) -> Val:
     src = o.perm.index_select(0, perm2)
     values = o.to_rows(v.values.index_select(0, src))
     validity = None if v.validity is None else o.to_rows(v.validity.index_select(0, src))
-    return Val(values, validity, v.dtype, v.table, ROW)
+    return v.with_(values=values, validity=validity, domain=ROW)
 
 
 # -- fill strategies and peaks --------------------------------------------------------
@@ -556,6 +564,8 @@ def _fill_null_with_strategy(ctx, args, opts):
         return v
     if strategy in ("forward", "backward"):
         return _fill(ctx, row_domain(ctx, v), opts.get("limit"), strategy == "forward")
+    if v.dtype.is_nested():
+        raise InvalidOperationError(f"fill_null(strategy={strategy!r}) is not defined for {v.dtype!r}")
     if strategy in ("zero", "one"):
         fill = torch.full((), 1 if strategy == "one" else 0, dtype=v.values.dtype, device=v.values.device)
         return Val(torch.where(v.validity, v.values, fill), None, v.dtype, v.table, v.domain)

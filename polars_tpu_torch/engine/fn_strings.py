@@ -1,8 +1,6 @@
 """String and Binary functions over dictionary-coded columns (the port of
-``polars_tpu/engine/fn_strings.py``, l.74-592 and the ``bin.*`` functions
-from l.750, but for what yields a List or a Struct: ``split``,
-``extract_all``, ``extract_many``, ``find_many``, ``extract_groups``,
-``split_exact``, ``splitn`` and ``json_decode``, ROADMAP item 4).
+``polars_tpu/engine/fn_strings.py``, l.74-722, and the ``bin.*`` functions
+from l.750; ``json_decode`` waits for ROADMAP item 4b).
 
 Device tensors hold int32 codes; a string op runs once per dictionary value
 on the host, and its result becomes a lookup table gathered by the codes on
@@ -645,3 +643,165 @@ def _to_time(ctx, args, opts):
     v = _require_str(args[0])
     out = _lut_op(v, _parser(opts, "", parse), dt.Time(), memo=_memo_key("str.to_time", opts))
     return _strict_parse_flag(ctx, v, out, opts, "time")
+
+
+# -- functions that give a List or a Struct ---------------------------------------------
+
+
+def _lists_per_entry(v: Val, name: str, opts: dict, fn, inner: dt.DataType) -> Val:
+    """A List per row from ``fn``'s list for each dictionary value: each
+    value's list is made once (kept on the dictionary) and stored once in
+    the child, and every row of that value points at its range (rows share
+    it, as in the JAX package)."""
+    from polars_tpu_torch.engine.fn_nested import pack
+    from polars_tpu_torch.utils import strtable
+
+    def run():
+        parts = [list(fn(u)) for u in v.table.values.tolist()] or [[]]
+        lens = np.fromiter((len(p) for p in parts), np.int64, len(parts))
+        flat = [x for p in parts for x in p]
+        if isinstance(inner, dt.String):
+            codes, validity, table = strtable.encode_strings(np.asarray(flat, dtype=object))
+            child = (codes.astype(np.int32), validity, table)
+        else:
+            child = (np.asarray(flat, dtype=torch.empty(0, dtype=dt.dtype_to_torch(inner)).numpy().dtype), None, None)
+        return (np.cumsum(lens) - lens) << 32 | lens, child
+
+    words, (cvals, cvalid, ctable) = v.table.memo(("list", _memo_key(name, opts)), run)
+    dev = v.values.device
+    child = Val(torch.as_tensor(cvals).to(dev), None if cvalid is None else torch.as_tensor(cvalid).to(dev), inner,
+                ctable)
+    return Val(take_lut(words, v.values), v.validity, dt.List(inner), None, v.domain, child)
+
+
+def _split_parts(u: str, by: str, inclusive: bool) -> list:
+    parts = list(u) if by == "" else u.split(by)
+    if inclusive and len(parts) > 1 and by:
+        return [p + by for p in parts[:-1]] + [parts[-1]]
+    return parts
+
+
+@register("str.split", lambda dts, opts: dt.List(dt.String()))
+def _split(ctx, args, opts):
+    by, inclusive = opts.get("by", " "), bool(opts.get("inclusive", False))
+    return _lists_per_entry(_require_str(args[0]), "split", opts, lambda u: _split_parts(u, by, inclusive),
+                            dt.String())
+
+
+@register("str.extract_all", lambda dts, opts: dt.List(dt.String()))
+def _extract_all(ctx, args, opts):
+    rx = re.compile(translate_group_syntax(opts.get("pattern", "")))
+    return _lists_per_entry(_require_str(args[0]), "extract_all", opts,
+                            lambda u: [m.group(0) for m in rx.finditer(u)], dt.String())
+
+
+def _many(opts: dict, pats: list):
+    ci, overlapping, leftmost = (bool(opts.get(k)) for k in ("ascii_case_insensitive", "overlapping", "leftmost"))
+    return lambda u: ac_occurrences(u, pats, overlapping=overlapping, leftmost=leftmost, ascii_ci=ci)
+
+
+def _many_per_row(v: Val, pats: Val, fn, inner: dt.DataType) -> Val:
+    """``extract_many``/``find_many`` with a List column of patterns per
+    row: the rows' strings and patterns read to the host and matched row by
+    row (the JAX package's host path)."""
+    from polars_tpu_torch.core.column import Column
+    from polars_tpu_torch.engine.common import child_column, col_to_val
+
+    strings = Column("s", v.dtype, _buffer(v), v.table).to_pylist()
+    lists = Column("p", pats.dtype, _buffer(pats), None, child_column(pats, pats.dtype)).to_pylist()
+    out = [None if s is None or p is None else fn(s, [x for x in p if x is not None]) for s, p in zip(strings, lists)]
+    col = Column.from_values("", out, dt.List(inner), device=v.values.device)
+    return col_to_val(col).with_(domain=v.domain)
+
+
+def _buffer(v: Val):
+    from polars_tpu_torch.core.buffer import Buffer
+
+    return Buffer(v.values.reshape(-1), None if v.validity is None else v.validity.reshape(-1))
+
+
+def _extract_row(u: str, pats: list, opts: dict | None = None) -> list:
+    return [u[st:en] for st, en, _ in _many(opts or {}, pats)(u)]
+
+
+def _find_row(u: str, pats: list, opts: dict | None = None) -> list:
+    return [len(u[:st].encode()) for st, _, _ in _many(opts or {}, pats)(u)]
+
+
+@register("str.extract_many", lambda dts, opts: dt.List(dt.String()))
+def _extract_many(ctx, args, opts):
+    v = _require_str(args[0])
+    if len(args) > 1:
+        return _many_per_row(v, args[1], lambda u, p: _extract_row(u, p, opts), dt.String())
+    pats = list(opts.get("patterns", ()))
+    return _lists_per_entry(v, "extract_many", opts, lambda u: _extract_row(u, pats, opts), dt.String())
+
+
+@register("str.find_many", lambda dts, opts: dt.List(dt.UInt32()))
+def _find_many(ctx, args, opts):
+    """Byte offsets of the matches, as Polars gives them."""
+    v = _require_str(args[0])
+    if len(args) > 1:
+        return _many_per_row(v, args[1], lambda u, p: _find_row(u, p, opts), dt.UInt32())
+    pats = list(opts.get("patterns", ()))
+    return _lists_per_entry(v, "find_many", opts, lambda u: _find_row(u, pats, opts), dt.UInt32())
+
+
+def _struct_per_entry(v: Val, name: str, opts: dict, names: list[str], fn) -> Val:
+    """A Struct of String fields from ``fn``'s tuple for each dictionary
+    value (None past its end): each field maps the dictionary once, the
+    rows' ids are their own positions."""
+    fields = []
+    for i in range(len(names)):
+        def field(u, i=i):
+            parts = fn(u)
+            return parts[i] if i < len(parts) else None
+
+        fields.append(map_over_table(v.with_(validity=None), field, memo=(name, i, tuple(sorted(opts.items()))),
+                                     out_dtype=dt.String()).with_(domain="row"))
+    n = v.values.shape[0]
+    return Val(torch.arange(n, device=v.values.device), v.validity,
+               dt.Struct([(f, dt.String()) for f in names]), None, v.domain, tuple(fields))
+
+
+def _split_exact_dt(dts, opts):
+    return dt.Struct([(f"field_{i}", dt.String()) for i in range(int(opts["n"]) + 1)])
+
+
+@register("str.split_exact", _split_exact_dt)
+def _split_exact(ctx, args, opts):
+    """The first n + 1 parts (null where there are fewer)."""
+    by, inclusive = opts["by"], bool(opts.get("inclusive", False))
+    names = [f.name for f in _split_exact_dt([], opts).fields]
+    return _struct_per_entry(_require_str(args[0]), "split_exact", opts, names,
+                             lambda u: _split_parts(u, by, inclusive))
+
+
+def _splitn_dt(dts, opts):
+    return dt.Struct([(f"field_{i}", dt.String()) for i in range(int(opts["n"]))])
+
+
+@register("str.splitn", _splitn_dt)
+def _splitn(ctx, args, opts):
+    """At most n parts, the last holding the rest."""
+    by, n = opts["by"], int(opts["n"])
+    names = [f.name for f in _splitn_dt([], opts).fields]
+    return _struct_per_entry(_require_str(args[0]), "splitn", opts, names, lambda u: u.split(by, max(n - 1, 0)))
+
+
+def _groups_dt(dts, opts):
+    return dt.Struct([(f, dt.String()) for f in group_field_names(opts["pattern"])])
+
+
+@register("str.extract_groups", _groups_dt)
+def _extract_groups(ctx, args, opts):
+    """The capture groups of the first match (every field null without
+    one)."""
+    rx = re.compile(translate_group_syntax(opts["pattern"]))
+    names = group_field_names(opts["pattern"])
+
+    def groups(u):
+        m = rx.search(u)
+        return m.groups() if m else ()
+
+    return _struct_per_entry(_require_str(args[0]), "extract_groups", opts, names, groups)

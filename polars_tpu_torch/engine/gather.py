@@ -73,5 +73,5 @@ def gather_frame(cols: list[Column], indices: Any, valid: torch.Tensor | None = 
         validity = None if src_valid is None else src_valid.index_select(0, idx)
         if valid is not None:
             validity = valid if validity is None else (validity & valid)
-        out.append(Column(c.name, c.dtype, Buffer(values, validity, m), c.table))
+        out.append(c.with_buffer(Buffer(values, validity, m)))
     return out

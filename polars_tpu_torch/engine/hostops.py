@@ -114,7 +114,12 @@ def host_call(df: DataFrame, node: E.ENode) -> Column:
     from polars_tpu_torch.engine.run import _eval_column
 
     if isinstance(node, E.ECast):
-        return cast_to_text(_eval_column(df, node.input))
+        return cast_to_text(_eval_column(df, node.input), node.dtype)
+    if node.name == "list.join":
+        return list_join_column(_eval_column(df, node.inputs[0]), node.opt("separator", ""),
+                                node.opt("ignore_nulls", True))
+    if node.name == "struct.json_encode":
+        return json_encode_column(_eval_column(df, node.inputs[0]))
     if isinstance(node, E.EAgg):  # str.join: the input's text joined into one string
         return str_join_column(_eval_column(df, node.input), node.opt("delimiter", ""),
                                node.opt("ignore_nulls", True))
@@ -454,12 +459,16 @@ def _text_of(x, dtype: dt.DataType) -> str:
     return str(x)
 
 
-def cast_to_text(col: Column) -> Column:
+def cast_to_text(col: Column, target: dt.DataType | None = None) -> Column:
     """``col`` cast to String: each distinct storage value (a float by its
     bits) formatted once on the host (one read), the strings made a sorted
     dictionary, the rows gathered by code. A String stays as it is; a
     Date, Datetime or Time formats as ``dt.to_string`` does without a
-    format."""
+    format. A List or Array (``target`` a List of String) casts its child."""
+    if isinstance(col.dtype, (dt.List, dt.Array)):
+        if not isinstance(target, (dt.List, dt.Array)):
+            raise InvalidOperationError(f"cannot cast {col.dtype!r} to {target!r}")
+        return Column(col.name, target, col.buffer, None, cast_to_text(col.child, target.inner))
     if isinstance(col.dtype, dt.String):
         return col
     if isinstance(col.dtype, (dt.Categorical, dt.Enum)):  # its dictionary's text
@@ -477,6 +486,26 @@ def cast_to_text(col: Column) -> Column:
     host = Column(col.name, col.dtype, Buffer(uniq.view(values.dtype), None, len(uniq)))._host()[0]
     texts = [_text_of(x, col.dtype) for x in host.tolist()]
     return _text_column(col, texts, inv, validity)
+
+
+def list_join_column(col: Column, sep: str, ignore_nulls: bool) -> Column:
+    """Each list's text joined by ``sep`` on the host (a null element
+    leaves the row null unless ``ignore_nulls``)."""
+    out = []
+    for row in col.to_pylist():
+        if row is None or (not ignore_nulls and any(x is None for x in row)):
+            out.append(None)
+        else:
+            out.append(sep.join(x for x in row if x is not None))
+    return Column.from_values(col.name, out, dt.String(), device=col.buffer.device)
+
+
+def json_encode_column(col: Column) -> Column:
+    """Each struct as compact JSON text, on the host."""
+    import json
+
+    out = [None if r is None else json.dumps(r, separators=(",", ":"), default=str) for r in col.to_pylist()]
+    return Column.from_values(col.name, out, dt.String(), device=col.buffer.device)
 
 
 def _text_column(col: Column, texts: list[str], inv: torch.Tensor, validity) -> Column:

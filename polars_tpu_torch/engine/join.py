@@ -209,11 +209,11 @@ def _null_column(c: Column, n: int) -> Column:
     """A column of ``n`` nulls shaped like ``c`` (its dtype and dictionary)."""
     dev = c.buffer.device
     values = torch.zeros(n, dtype=c.buffer.values.dtype, device=dev)
-    return Column(c.name, c.dtype, Buffer(values, torch.zeros(n, dtype=torch.bool, device=dev)), c.table)
+    return c.with_buffer(Buffer(values, torch.zeros(n, dtype=torch.bool, device=dev)))
 
 
 def _renamed(c: Column, name: str) -> Column:
-    return c if c.name == name else Column(name, c.dtype, c.buffer, c.table)
+    return c if c.name == name else c.rename(name)
 
 
 def _coalesce_cols(a: Column, b: Column) -> Column:
@@ -334,7 +334,7 @@ def _compact_frame(df: DataFrame, keep: torch.Tensor, bad, validate: str) -> Dat
     for c in df._columns:
         values = next(it)
         validity = next(it) if c.buffer.validity is not None else None
-        cols.append(Column(c.name, c.dtype, Buffer(values, validity, n), c.table))
+        cols.append(c.with_buffer(Buffer(values, validity, n)))
     return DataFrame._from_columns(cols, n, device=df.device)
 
 

@@ -191,7 +191,7 @@ def trace_join(node, tt_l, tt_r, eval_key):
         # probe = right rows; left columns come from the (unique) build side
         for name, v in tt_l.cols.items():
             values, validity = gather(v)
-            cols[name] = Val(values, validity, v.dtype, v.table, v.domain)
+            cols[name] = v.with_(values=values, validity=validity)
         for name, v in tt_r.cols.items():
             if coalesce and name in right_key_names:
                 continue
@@ -205,6 +205,6 @@ def trace_join(node, tt_l, tt_r, eval_key):
         values, validity = gather(v)
         if how == "left":
             validity = matched if validity is None else (validity & matched)
-        cols[name + node.suffix if name in left_names else name] = Val(values, validity, v.dtype, v.table, v.domain)
+        cols[name + node.suffix if name in left_names else name] = v.with_(values=values, validity=validity)
     rowmask = tt_l.rowmask & matched if how == "inner" else tt_l.rowmask
     return cols, rowmask, bad

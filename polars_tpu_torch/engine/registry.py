@@ -28,6 +28,30 @@ class FnSpec:
 REGISTRY: dict[str, FnSpec] = {}
 ELEMENTWISE_FNS: set[str] = set()
 
+# The functions besides the ``list.``, ``arr.`` and ``struct.`` namespaces
+# that take a List, Array or Struct input: they move, test or merge whole
+# values and keep their children. ``NESTED_LATER_ARGS`` take one only after
+# their first input (the set of ``is_in``, each row's patterns). Any other
+# function refuses such an input rather than compute on the words that
+# index the child.
+NESTED_FNS = frozenset({
+    "as_struct", "backward_fill", "coalesce", "concat_list", "cum_count", "explode", "fill_null",
+    "fill_null_with_strategy", "forward_fill", "is_not_null", "is_null", "reverse", "set_sorted", "shift",
+    "shift_fill",
+})
+NESTED_LATER_ARGS = frozenset({"is_in", "str.extract_many", "str.find_many"})
+
+
+def refuse_nested_input(name: str, dtypes: list) -> None:
+    """Raise where ``name`` would read a nested input's words as values."""
+    if name.startswith(("list.", "arr.", "struct.")) or name in NESTED_FNS:
+        return
+    for i, d in enumerate(dtypes):
+        if d.is_nested() and not (i and name in NESTED_LATER_ARGS):
+            from polars_tpu_torch.errors import InvalidOperationError
+
+            raise InvalidOperationError(f"{name} of {d!r} is not ported yet (ROADMAP item 4b)")
+
 
 def register(name: str, dtype_rule: Any, *, elementwise: bool = True):
     """Decorator: ``@register("is_in", BOOL)``; a DataType as the rule is a
@@ -85,6 +109,7 @@ def _ensure_loaded() -> None:
         return
     _LOADED = True
     import polars_tpu_torch.engine.fn_core  # noqa: F401
+    import polars_tpu_torch.engine.fn_nested  # noqa: F401
     import polars_tpu_torch.engine.fn_position  # noqa: F401
     import polars_tpu_torch.engine.fn_rolling  # noqa: F401
     import polars_tpu_torch.engine.fn_strings  # noqa: F401

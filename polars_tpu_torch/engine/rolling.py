@@ -465,6 +465,8 @@ def rolling_frames(df, index: str, period_ticks: int, offset_ticks: int, closed:
         if kind not in SUPPORTED:
             raise InvalidOperationError(f"rolling agg {kind!r} unsupported")
         scol = df._get(src)
+        if scol.dtype.is_nested() and kind not in ("first", "last", "count", "len"):
+            raise InvalidOperationError(f"rolling {kind} of {scol.dtype!r} is not ported yet (ROADMAP item 4b)")
         col = order.column(scol.buffer.values, scol.buffer.validity, scol.dtype)
         out, cnt, extra = col.agg(kind, lo, hi, ddof=ddof, max_width=order.n)
         ok = valid if kind in ("count", "len") else (cnt >= max(minp or 1, 1)) & valid
@@ -473,5 +475,6 @@ def rolling_frames(df, index: str, period_ticks: int, offset_ticks: int, closed:
         values = out.to(dt.dtype_to_torch(out_dtype))
         out_cols.append(Column(out_name, out_dtype, Buffer(values, None if kind in ("count", "len") and
                                                            icol.buffer.validity is None else ok, df.height),
-                               scol.table if kind in ("first", "last", "min", "max") else None))
+                               scol.table if kind in ("first", "last", "min", "max") else None,
+                               scol.child if kind in ("first", "last") else None))
     return DataFrame._from_columns(out_cols, df.height, device=df.device)

@@ -18,6 +18,9 @@ import contextlib
 
 from polars_tpu_torch.core.frame import DataFrame
 from polars_tpu_torch.engine.executors import _is_fusable, run_segment
+# a select that calls a host function: a barrier between segments (under
+# the JAX package's name, which is looked up at each call)
+from polars_tpu_torch.engine.hostops import exec_host_select as _exec_special_select
 from polars_tpu_torch.plan import exprs as E
 from polars_tpu_torch.plan import logical as L
 from polars_tpu_torch.plan.schema_resolve import node_schema
@@ -77,9 +80,7 @@ def _execute_node(node: L.LNode) -> DataFrame:
     if isinstance(node, L.LAsofJoin):
         return _exec_asof(node)
     if isinstance(node, (L.LSelect, L.LWithColumns)):
-        from polars_tpu_torch.engine.hostops import exec_host_select
-
-        return exec_host_select(node)
+        return _exec_special_select(node)
     if isinstance(node, L.LGroupBy):
         from polars_tpu_torch.engine.hostops import exec_host_groupby
 
@@ -131,7 +132,10 @@ def _eval_column(df: DataFrame, e: E.ENode):
     if isinstance(e, E.EColumn):
         return df._get(e.name)
     scan = _scan(df)
-    return run_segment(L.LSelect(scan, (E.EAlias(e, "__key"),)), [(scan, df)])._get("__key")
+    select = L.LSelect(scan, (E.EAlias(e, "__key"),))
+    if E.needs_host(e):  # a host function inside: its own barrier first
+        return _exec_special_select(select)._get("__key")
+    return run_segment(select, [(scan, df)])._get("__key")
 
 
 def _and_all(preds: tuple[E.ENode, ...]) -> E.ENode:

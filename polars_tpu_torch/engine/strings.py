@@ -51,6 +51,10 @@ def concat_vals(vals: list[Val], target: dt.DataType) -> Val:
     ``target``, dictionary-coded pieces put on one dictionary, the merge of
     all of theirs, and a validity kept where any piece has one."""
     vals = [cast_val(v, target) for v in vals]
+    if isinstance(target, dt.NestedType):
+        from polars_tpu_torch.engine.fn_nested import concat_nested
+
+        return concat_nested(vals, target)
     table = vals[0].table
     if table is not None:
         for v in vals[1:]:

@@ -379,6 +379,39 @@ class Expr:
 
         return ExprBinaryNamespace(self)
 
+    @property
+    def list(self):
+        from polars_tpu_torch.expr.list import ExprListNamespace
+
+        return ExprListNamespace(self)
+
+    @property
+    def arr(self):
+        from polars_tpu_torch.expr.list import ExprListNamespace
+
+        return ExprListNamespace(self)
+
+    @property
+    def struct(self):
+        from polars_tpu_torch.expr.struct import ExprStructNamespace
+
+        return ExprStructNamespace(self)
+
+    def explode(self) -> Expr:
+        """Each list's elements as rows (a null or empty list one null)."""
+        return self._fn("explode")
+
+    def flatten(self) -> Expr:
+        return self.explode()
+
+    def implode(self) -> Expr:
+        """The column's rows as one List (per group in a group-by)."""
+        return self._agg("implode")
+
+    def agg_groups(self) -> Expr:
+        """Each group's row numbers (UInt32) as a List."""
+        return self._agg("agg_groups")
+
     # -- aggregations ---------------------------------------------------------
 
     def _agg(self, kind: str, **options: Any) -> Expr:
@@ -529,11 +562,23 @@ class Expr:
         return self._fn("replace_strict", olds=olds, news=news, default=default,
                         return_dtype=None if return_dtype is None else dt.parse_into_dtype(return_dtype))
 
+    def _with_breaks(self, bp: Expr, cat: Expr) -> Expr:
+        """``include_breaks=True``: a Struct of each row's bin's upper break
+        (``breakpoint``) and its label (``category``)."""
+        from polars_tpu_torch.functions.lazy import struct
+
+        name = E.output_name(self._node)
+        out = struct(bp.alias("breakpoint"), cat.alias("category"))
+        return out.alias(name) if name else out
+
     def cut(self, breaks: Any, *, labels: Any = None, left_closed: bool = False, include_breaks: bool = False) -> Expr:
         """The bin of each value between ``breaks``: an Enum of the interval
-        labels (``include_breaks`` gives a Struct: port queue item 4)."""
-        return self._fn("cut", breaks=tuple(breaks), labels=None if labels is None else tuple(labels),
-                        left_closed=left_closed, include_breaks=include_breaks)
+        labels (``include_breaks``: a Struct with each bin's upper break)."""
+        cat = self._fn("cut", breaks=tuple(breaks), labels=None if labels is None else tuple(labels),
+                       left_closed=left_closed)
+        if not include_breaks:
+            return cat
+        return self._with_breaks(self._fn("cut_breakpoint", breaks=tuple(breaks), left_closed=left_closed), cat)
 
     def qcut(self, quantiles: Any, *, labels: Any = None, left_closed: bool = False, allow_duplicates: bool = False,
              include_breaks: bool = False) -> Expr:
@@ -541,8 +586,11 @@ class Expr:
         of bins, or the quantiles themselves)."""
         if isinstance(quantiles, int):
             quantiles = [i / quantiles for i in range(1, quantiles)]
-        return self._fn("qcut", quantiles=tuple(quantiles), labels=None if labels is None else tuple(labels),
-                        left_closed=left_closed, allow_duplicates=allow_duplicates, include_breaks=include_breaks)
+        cat = self._fn("qcut", quantiles=tuple(quantiles), labels=None if labels is None else tuple(labels),
+                       left_closed=left_closed, allow_duplicates=allow_duplicates)
+        if not include_breaks:
+            return cat
+        return self._with_breaks(self._fn("qcut_breakpoint", quantiles=tuple(quantiles), left_closed=left_closed), cat)
 
     def rle_id(self) -> Expr:
         return self._fn("rle_id")
@@ -934,12 +982,10 @@ class Expr:
         """The expression per group of ``partition_by`` (in ``order_by``
         order within a group), mapped back to the rows: an aggregation is
         broadcast to its group's rows, a positional function keeps its
-        rows. ``mapping_strategy="join"`` (a List per row) waits for nested
-        types; ``"explode"`` reorders the rows and is not ported."""
-        if mapping_strategy == "join":
-            raise NotImplementedError(
-                'over(mapping_strategy="join") gives a List per row (port queue: item 4, nested types)')
-        if mapping_strategy != "group_to_rows":
+        rows; with ``mapping_strategy="join"`` each row takes its group's
+        values as a List. ``"explode"`` reorders the rows and is not
+        ported."""
+        if mapping_strategy not in ("group_to_rows", "join"):
             raise NotImplementedError(f"over(mapping_strategy={mapping_strategy!r}) is not ported")
         parts = tuple(parse_into_expr(p) for p in _flat((partition_by, *more_exprs)))
         order: tuple = ()
@@ -1017,7 +1063,7 @@ class ExprNameNamespace:
 # Expr methods of the JAX package that later slices port, by ROADMAP queue
 # item: each raises naming its item
 _LATER = {
-    "4 (map functions)": ("rolling_map",),
+    "4b (map functions)": ("rolling_map",),
 }
 
 

@@ -1,7 +1,5 @@
 """String expression namespace (the port of ``polars_tpu/expr/string.py``),
-but for what yields a List or a Struct (``split``, ``split_exact``,
-``splitn``, ``extract_all``, ``extract_many``, ``find_many``,
-``extract_groups``, ``explode``, ``json_decode``: ROADMAP item 4). Ops run
+but for ``json_decode`` (ROADMAP item 4b). Ops run
 once per dictionary value on the host and map through the codes on the
 device (see ``engine/fn_strings.py``); ``join``/``concat`` make one string
 per group on the host (``engine/hostops.py``)."""
@@ -16,9 +14,8 @@ from polars_tpu_torch.errors import InvalidOperationError
 if TYPE_CHECKING:
     from polars_tpu_torch.expr.expr import Expr
 
-# the functions that give a List or a Struct
-_ITEM_4 = frozenset({"split", "split_exact", "splitn", "extract_all", "extract_many", "find_many",
-                     "extract_groups", "explode", "json_decode"})
+# the functions that wait for a later item
+_ITEM_4B = frozenset({"json_decode"})
 
 
 def _str_seq(x: Any) -> list:
@@ -154,6 +151,46 @@ class ExprStringNamespace:
     def normalize(self, form: str = "NFC") -> Expr:
         return self._fn("normalize", form=form)
 
+    def split(self, by: str, *, inclusive: bool = False) -> Expr:
+        return self._fn("split", by=by, inclusive=inclusive)
+
+    def split_exact(self, by: str, n: int, *, inclusive: bool = False) -> Expr:
+        return self._fn("split_exact", by=by, n=n, inclusive=inclusive)
+
+    def splitn(self, by: str, n: int) -> Expr:
+        return self._fn("splitn", by=by, n=n)
+
+    def extract_all(self, pattern: str) -> Expr:
+        return self._fn("extract_all", pattern=pattern)
+
+    def extract_groups(self, pattern: str) -> Expr:
+        return self._fn("extract_groups", pattern=pattern)
+
+    def explode(self) -> Expr:
+        """One row per character."""
+        return self._fn("extract_all", pattern=r"(?s).").explode()
+
+    def _many(self, name: str, patterns: Any, ci: bool, overlapping: bool, leftmost: bool) -> Expr:
+        if overlapping and leftmost:
+            raise ValueError("can not match overlapping patterns when leftmost == True")
+        opts = dict(ascii_case_insensitive=ci, overlapping=overlapping, leftmost=leftmost)
+        from polars_tpu_torch.expr.expr import Expr as _Expr
+        from polars_tpu_torch.plan import exprs as E
+
+        if isinstance(patterns, str):  # a column of pattern lists, one per row
+            return self._fn(name, E.EColumn(patterns), **opts)
+        if isinstance(patterns, _Expr):
+            return self._fn(name, patterns, **opts)
+        return self._fn(name, patterns=tuple(_str_seq(patterns)), **opts)
+
+    def extract_many(self, patterns: Any, *, ascii_case_insensitive: bool = False, overlapping: bool = False,
+                     leftmost: bool = False) -> Expr:
+        return self._many("extract_many", patterns, ascii_case_insensitive, overlapping, leftmost)
+
+    def find_many(self, patterns: Any, *, ascii_case_insensitive: bool = False, overlapping: bool = False,
+                  leftmost: bool = False) -> Expr:
+        return self._many("find_many", patterns, ascii_case_insensitive, overlapping, leftmost)
+
     def extract(self, pattern: str, group_index: int = 1) -> Expr:
         return self._fn("extract", pattern=pattern, group_index=group_index)
 
@@ -188,6 +225,6 @@ class ExprStringNamespace:
     def __getattr__(self, name: str):
         if name.startswith("_"):
             raise AttributeError(name)
-        if name in _ITEM_4:
-            raise NotImplementedError(f"str.{name} gives a List or a Struct (port queue: item 4)")
+        if name in _ITEM_4B:
+            raise NotImplementedError(f"str.{name} is not ported yet (port queue: item 4b)")
         raise AttributeError(f"str.{name}")

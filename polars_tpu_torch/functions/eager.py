@@ -15,7 +15,7 @@ from typing import TYPE_CHECKING, Any
 from polars_tpu_torch.core.buffer import Buffer
 from polars_tpu_torch.core.column import Column
 from polars_tpu_torch.core.frame import DataFrame
-from polars_tpu_torch.engine.common import ROW, Val
+from polars_tpu_torch.engine.common import child_column, col_to_val
 from polars_tpu_torch.engine.strings import concat_vals
 from polars_tpu_torch.errors import SchemaError
 from polars_tpu_torch.plan.schema_resolve import supertype
@@ -30,8 +30,8 @@ def _concat_columns(cols: list[Column], name: str, relaxed: bool) -> Column:
         if c.dtype != target and not relaxed:
             raise SchemaError(f"type {c.dtype!r} of column {name!r} differs from {target!r} in a vertical concat")
         target = supertype(target, c.dtype)
-    v = concat_vals([Val(c.buffer.values, c.buffer.validity, c.dtype, c.table, ROW) for c in cols], target)
-    return Column(name, target, Buffer(v.values, v.validity), v.table)
+    v = concat_vals([col_to_val(c) for c in cols], target)
+    return Column(name, target, Buffer(v.values, v.validity), v.table, child_column(v, target))
 
 
 def concat(items: Any, *, how: str = "vertical") -> DataFrame | LazyFrame:

@@ -18,7 +18,7 @@ import numpy as np
 
 from polars_tpu_torch import datatypes as dt
 from polars_tpu_torch.errors import InvalidOperationError
-from polars_tpu_torch.expr.expr import Expr, parse_into_expr, series_literal, temporal_literal
+from polars_tpu_torch.expr.expr import Expr, parse_into_expr, parse_into_expr_list, series_literal, temporal_literal
 from polars_tpu_torch.plan import exprs as E
 
 
@@ -380,11 +380,34 @@ def cum_sum(*columns: str) -> Expr:
 
 
 def cum_count(*columns: str, reverse: bool = False) -> Expr:
-    """The running count of non-null values of one column (several give a
-    Struct: port queue item 4)."""
-    if builtins.len(columns) != 1:
-        raise NotImplementedError("cum_count of several columns gives a Struct (port queue: item 4)")
-    return col(columns[0]).cum_count(reverse=reverse)
+    """The running count of non-null values of each column (one output
+    column per input, as Polars' ``pl.col(*columns).cum_count()``)."""
+    return col(*columns).cum_count(reverse=reverse)
+
+
+def implode(*columns: str) -> Expr:
+    return col(*columns).implode()
+
+
+def struct(*exprs: Any, **named_exprs: Any) -> Expr:
+    """A Struct column of the expressions, one field each (named by their
+    output names)."""
+    nodes = tuple(parse_into_expr_list(list(exprs), named_exprs))
+    names = tuple(E.output_name(n) or f"field_{i}" for i, n in enumerate(nodes))
+    return Expr(E.EFunction("as_struct", nodes, (("names", names),))).alias(names[0] if nodes else "struct")
+
+
+def field(name: str) -> Expr:
+    """A field of the struct in ``struct.with_fields``."""
+    return col(name)
+
+
+def concat_list(exprs: Any, *more_exprs: Any) -> Expr:
+    """The expressions' values, row by row, as one List (a value that is not
+    a list counts as a list of one)."""
+    nodes = tuple(parse_into_expr_list(exprs if isinstance(exprs, (list, tuple)) else [exprs]))
+    nodes += tuple(parse_into_expr_list(list(more_exprs)))
+    return Expr(E.EFunction("concat_list", nodes)).alias(E.output_name(nodes[0]) or "literal")
 
 
 def head(column: str, n: int = 10) -> Expr:

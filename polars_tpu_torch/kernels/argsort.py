@@ -17,14 +17,24 @@ from __future__ import annotations
 import torch
 
 from polars_tpu_torch import datatypes as dt
+from polars_tpu_torch.errors import InvalidOperationError
 
 _I64_MIN = -(2**63)
 _NARROW = (torch.int8, torch.int16, torch.int32)
 
 
+def refuse_nested_key(dtype: dt.DataType, what: str = "a sort, group or distinct key") -> None:
+    """A List, Array or Struct value is a word into its child, not its
+    content: ordering or comparing it by that word would be silently wrong."""
+    if dtype.is_nested():
+        raise InvalidOperationError(f"{what} of dtype {dtype!r} is not ported yet: ordering or comparing "
+                                    "nested values by their content is ROADMAP item 4b")
+
+
 def key_words(values: torch.Tensor, dtype: dt.DataType, *, descending: bool = False) -> list[torch.Tensor]:
     """Order-preserving word list for one key column (most significant
     first). Word order == logical total order, NaN greatest."""
+    refuse_nested_key(dtype)
     d = values.dtype
     if d in (torch.float64, torch.float32):
         nan = torch.isnan(values)

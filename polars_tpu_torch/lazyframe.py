@@ -34,6 +34,14 @@ from polars_tpu_torch.plan.schema_resolve import expand_exprs, needs_expansion, 
 from polars_tpu_torch.utils.tokens import next_token
 
 
+def flatten_names_or_exprs(items: Any) -> list:
+    """Names and expressions from nested lists and tuples of them."""
+    out: list = []
+    for it in items:
+        out.extend(flatten_names_or_exprs(it) if isinstance(it, (list, tuple)) else [it])
+    return out
+
+
 def _and_all(nodes: list[E.ENode]) -> E.ENode:
     pred = nodes[0]
     for p in nodes[1:]:
@@ -127,6 +135,38 @@ class LazyFrame:
         if callable(mapping):
             mapping = {n: mapping(n) for n in self.columns}
         return self._wrap(L.LRename(self._node, tuple(mapping.items()), strict))
+
+    def _names_of(self, items: Any) -> list[str]:
+        """Column names from names, expressions and selectors."""
+        names = []
+        for it in flatten_names_or_exprs(items):
+            if isinstance(it, str):
+                names.append(it)
+            else:
+                names.extend(E.output_name(n) for n in self._exprs([parse_into_expr(it)._node]))
+        return names
+
+    def explode(self, columns: Any, *more_columns: Any) -> LazyFrame:
+        """Each row once per element of its lists in ``columns`` (the lists
+        of a row have one length), those columns holding the elements; a
+        null or empty list gives one row with a null."""
+        return self._wrap(L.LExplode(self._node, tuple(self._names_of((columns, *more_columns)))))
+
+    def unnest(self, columns: Any, *more_columns: Any) -> LazyFrame:
+        """Each Struct column of ``columns`` replaced, in its place, by one
+        column per field."""
+        from polars_tpu_torch.functions.lazy import col
+
+        names = set(self._names_of((columns, *more_columns)))
+        exprs = []
+        for n, d in self.schema.items():
+            if n in names:
+                if not isinstance(d, dt.Struct):
+                    raise InvalidOperationError(f"unnest needs a Struct column, {n!r} is {d!r}")
+                exprs.extend(col(n).struct.field(f.name) for f in d.fields)
+            else:
+                exprs.append(col(n))
+        return self.select(exprs)
 
     def with_row_index(self, name: str = "index", offset: int = 0) -> LazyFrame:
         """A first column ``name`` of UInt32 row numbers from ``offset``."""

@@ -340,7 +340,7 @@ def fn_elementwise(name: str) -> bool:
 # functions that run on the host between segments (``engine/hostops.py``)
 HOST_FNS = frozenset({"dt.to_string", "rolling_median_by", "rolling_quantile_by", "rolling_rank_by", "int_range",
                       "repeat_value", "shrink_dtype", "unique", "unique_counts", "concat_str",
-                      "cat.get_categories"})
+                      "cat.get_categories", "list.join", "struct.json_encode"})
 # aggregations that make their text on the host (``engine/hostops.py``)
 HOST_AGGS = frozenset({"str_concat"})
 
@@ -370,7 +370,14 @@ def is_host_call(node: ENode) -> bool:
     if isinstance(node, EFunction):
         return node.name in HOST_FNS or (node.name == "cumulative_eval"
                                          and cum_eval_kind(node.opt("expr")) is None)
-    return isinstance(node, ECast) and type(node.dtype).__name__ in ("String", "Utf8")
+    return isinstance(node, ECast) and _text_target(node.dtype)
+
+
+def _text_target(dtype) -> bool:
+    """A cast target that is text, or a List or Array of text."""
+    while type(dtype).__name__ in ("List", "Array"):
+        dtype = dtype.inner
+    return type(dtype).__name__ in ("String", "Utf8")
 
 
 def needs_host(node: ENode) -> bool:
@@ -392,17 +399,32 @@ def is_elementwise(node: ENode, *, host_ok: bool = False) -> bool:
     for n in walk(node):
         if isinstance(n, (EAgg, ELen, *_ORDER_NODES)) or (is_host_call(n) and not host_ok):
             return False
+        if isinstance(n, ESeriesLit) and len(n.column) != 1 and not _in_is_in_set(node, n):
+            return False
         if isinstance(n, EFunction) and not fn_elementwise(n.name):
             return False
     return True
+
+
+def _in_is_in_set(root: ENode, lit: ENode) -> bool:
+    """True if ``lit`` is only ever the set of an ``is_in`` under ``root``."""
+    for n in walk(root):
+        if isinstance(n, EFunction) and n.name == "is_in" and n.inputs[1] is lit:
+            return True
+    return False
 
 
 def changes_length(node: ENode) -> bool:
     """True if the expression's column has another length than its input's:
     a filter, slice, gather or ``unique`` that no aggregation or window
     encloses."""
-    if isinstance(node, _RESIZING) or (isinstance(node, EFunction) and node.name in ("unique", "unique_counts")):
+    if isinstance(node, _RESIZING) or (isinstance(node, EFunction)
+                                       and node.name in ("unique", "unique_counts", "explode")):
         return True
+    if isinstance(node, ESeriesLit):  # a column of its own length, unless it is one value
+        return len(node.column) != 1
+    if isinstance(node, EFunction) and node.name == "is_in":  # its right side is a set
+        return changes_length(node.inputs[0])
     if isinstance(node, (EAgg, EWindow)):
         return False
     return any(changes_length(c) for c in node.children())

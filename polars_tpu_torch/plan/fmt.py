@@ -29,6 +29,8 @@ def explain_plan(node: L.LNode, indent: int = 0) -> str:
         )
     elif isinstance(node, L.LSlice):
         detail = f" offset={node.offset} len={node.length}"
+    elif isinstance(node, L.LExplode):
+        detail = f" {list(node.columns)}"
     elif isinstance(node, L.LDistinct):
         detail = f" subset={None if node.subset is None else list(node.subset)} keep={node.keep}"
     lines = [f"{pad}{name}{detail}"]

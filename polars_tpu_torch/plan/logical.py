@@ -230,6 +230,19 @@ class LWithRowIndex(LNode):
 
 
 @dataclass(frozen=True)
+class LExplode(LNode):
+    """Each row repeated once per element of its lists in ``columns`` (the
+    lists of one row have one length), those columns holding the elements;
+    a null or empty list gives one row with a null, as in Polars."""
+
+    input: LNode
+    columns: tuple[str, ...]
+
+    def inputs(self) -> tuple[LNode, ...]:
+        return (self.input,)
+
+
+@dataclass(frozen=True)
 class LCache(LNode):
     """A subplan that appears more than once in the query (common-subplan
     elimination wraps each occurrence in the same node): it runs once per

@@ -146,7 +146,8 @@ def _push(node: L.LNode, preds: list[E.ENode]) -> L.LNode:
         return L.update(node, inputs_=tuple(_push(i, list(preds)) for i in node.inputs_))
 
     # a slice, a row index (a filter below it would renumber the rows), a
-    # horizontal concat, a cache and the other joins: stop here
+    # horizontal concat, an explode (as the JAX package: no predicate moves
+    # below it), a cache and the other joins: stop here
     return _with_filters(_push_none(node), preds)
 
 

@@ -25,6 +25,7 @@ from polars_tpu_torch.errors import (
     InvalidOperationError,
     SchemaError,
 )
+from polars_tpu_torch.kernels.argsort import refuse_nested_key
 from polars_tpu_torch.plan import exprs as E
 from polars_tpu_torch.plan import logical as L
 
@@ -280,8 +281,11 @@ def splice_horizontal(node: E.ENode, schema: Schema) -> E.ENode:
 
 
 def needs_expansion(node: E.ENode) -> bool:
-    """True if ``node`` holds a wildcard, a selector or a name wrapper."""
-    return any(isinstance(n, _SELECTOR_NODES + _NAME_NODES) for n in E.walk(node))
+    """True if ``node`` holds a wildcard, a selector, a name wrapper or a
+    struct's fields as columns (``struct.field("*")``, ``struct.unnest``)."""
+    return any(isinstance(n, _SELECTOR_NODES + _NAME_NODES) or (isinstance(n, E.EFunction)
+                                                                 and n.name == "struct.multifield")
+               for n in E.walk(node))
 
 
 def expand_expr(node: E.ENode, schema: Schema) -> list[E.ENode]:
@@ -310,11 +314,26 @@ def expand_expr(node: E.ENode, schema: Schema) -> list[E.ENode]:
                     e = _substitute(e, r, E.EColumn(m[i]))
                 out.append(e)
         out = [_resolve_names(e) for e in out]
+    out = [x for e in out for x in _struct_fields(e, schema)]
     for e in out:
         for sub in E.walk(e):
             if isinstance(sub, E.EColumn) and sub.name not in schema:
                 raise ColumnNotFoundError(f"{sub.name!r} not found; available: {schema.names()}")
     return out
+
+
+def _struct_fields(node: E.ENode, schema: Schema) -> list[E.ENode]:
+    """``struct.field(*names)`` or ``struct.unnest()``: one ``struct.field``
+    per named field (``"*"`` every field, in the struct's order)."""
+    if not (isinstance(node, E.EFunction) and node.name == "struct.multifield"):
+        return [node]
+    d = expr_dtype(node.inputs[0], schema)
+    if not isinstance(d, dt.Struct):
+        raise InvalidOperationError(f"struct.field needs a Struct, got {d!r}")
+    names: list[str] = []
+    for n in node.opt("names"):
+        names.extend(f.name for f in d.fields) if n == "*" else names.append(n)
+    return [E.EAlias(E.EFunction("struct.field", node.inputs, (("name", n),)), n) for n in names]
 
 
 def expand_exprs(nodes: tuple[E.ENode, ...], schema: Schema) -> tuple[E.ENode, ...]:
@@ -382,15 +401,17 @@ def expr_dtype(node: E.ENode, schema: Schema) -> dt.DataType:
     if isinstance(node, E.ELen):
         return dt.UInt32()
     if isinstance(node, E.EFunction):
-        from polars_tpu_torch.engine.registry import get_spec
+        from polars_tpu_torch.engine.registry import get_spec, refuse_nested_input
 
         in_dts = [expr_dtype(i, schema) for i in node.inputs]
         in_dts = adapt_dyn_literal_dtypes(node.inputs, in_dts)
+        refuse_nested_input(node.name, in_dts)
         return get_spec(node.name).dtype_rule(in_dts, dict(node.options))
     if isinstance(node, (E.ESort, E.ESortBy, E.EFilter, E.ESlice, E.EGather)):
         return expr_dtype(node.input, schema)
     if isinstance(node, E.EWindow):
-        return expr_dtype(node.function, schema)
+        d = expr_dtype(node.function, schema)
+        return dt.List(d) if node.mapping_strategy == "join" else d
     raise InvalidOperationError(f"cannot resolve dtype of {type(node).__name__}")
 
 
@@ -547,9 +568,15 @@ def binary_dtype(op: str, lt: dt.DataType, rt: dt.DataType) -> dt.DataType:
 _SMALL_INTS = ("Int8", "Int16", "UInt8", "UInt16")
 
 
+# the aggregations that take a whole List, Array or Struct value
+_NESTED_AGGS = frozenset({"first", "last", "item", "count", "len", "null_count", "implode", "agg_groups"})
+
+
 def agg_dtype(node: E.EAgg, schema: Schema) -> dt.DataType:
     in_dt = expr_dtype(node.input, schema)
     k = node.kind
+    if in_dt.is_nested() and k not in _NESTED_AGGS:
+        raise InvalidOperationError(f"{k} of {in_dt!r} is not ported yet (ROADMAP item 4b)")
     name = type(in_dt).__name__
     if k == "sum":
         if isinstance(in_dt, dt.Boolean):
@@ -583,6 +610,10 @@ def agg_dtype(node: E.EAgg, schema: Schema) -> dt.DataType:
         return dt.UInt32()
     if k == "str_concat":
         return dt.String()
+    if k == "implode":
+        return dt.List(in_dt)
+    if k == "agg_groups":
+        return dt.List(dt.UInt32())
     if k in ("any", "all"):
         if not isinstance(in_dt, (dt.Boolean, dt.Null)):
             raise InvalidOperationError(f"{k} expects a Boolean input, got {in_dt!r}")
@@ -652,13 +683,17 @@ def _node_schema(node: L.LNode) -> Schema:
             out[E.output_name(n) or "literal"] = expr_dtype(n, in_s)
         return out
     if isinstance(node, (L.LFilter, L.LSort, L.LSlice, L.LDistinct)):
-        if isinstance(node, L.LDistinct) and node.subset is not None:
-            in_s = node_schema(node.input)
-            missing = [n for n in node.subset if n not in in_s]
+        in_s = node_schema(node.input)
+        if isinstance(node, L.LDistinct):
+            missing = [n for n in node.subset or () if n not in in_s]
             if missing:
                 raise ColumnNotFoundError(f"{missing[0]!r} not found; available: {in_s.names()}")
-            return in_s
-        return node_schema(node.input)
+            for n in in_s.names() if node.subset is None else node.subset:
+                refuse_nested_key(in_s[n], "a distinct key")
+        if isinstance(node, L.LSort):
+            for e in expand_exprs(node.by, in_s):
+                refuse_nested_key(expr_dtype(e, in_s), "a sort key")
+        return in_s
     if isinstance(node, L.LUnion):
         schemas = [node_schema(i) for i in node.inputs_]
         out = schemas[0].copy()
@@ -700,6 +735,10 @@ def _node_schema(node: L.LNode) -> Schema:
             out[n] = d
         return out
     if isinstance(node, L.LJoin):
+        for side, keys in ((node.input_left, node.left_on), (node.input_right, node.right_on)):
+            side_s = node_schema(side)
+            for e in keys:
+                refuse_nested_key(expr_dtype(e, side_s), "a join key")
         return _join_schema(node)
     if isinstance(node, (L.LJoinWhere, L.LAsofJoin)):
         # every left column, then the right ones (an asof join drops the
@@ -712,21 +751,30 @@ def _node_schema(node: L.LNode) -> Schema:
             if n not in skip:
                 out[n + node.suffix if n in out else n] = d
         return out
+    if isinstance(node, L.LExplode):
+        out = node_schema(node.input).copy()
+        for c in node.columns:
+            if c not in out:
+                raise ColumnNotFoundError(f"{c!r} not found; available: {out.names()}")
+            if not isinstance(out[c], (dt.List, dt.Array)):
+                raise InvalidOperationError(f"explode needs a List or Array column, {c!r} is {out[c]!r}")
+            out[c] = out[c].inner
+        return out
     if isinstance(node, L.LGroupBy):
         in_s = node_schema(node.input)
         out = Schema()
         for k in expand_exprs(node.keys, in_s):
             out[E.output_name(k) or "literal"] = expr_dtype(k, in_s)
+            refuse_nested_key(out[E.output_name(k) or "literal"], "a group key")
         for a in expand_exprs(node.aggs, in_s):
             name = E.output_name(a) or "literal"
             if name in out:
                 raise DuplicateError(f"the name {name!r} is duplicate")
-            if not E.reduces_in_agg(a):
-                raise NotImplementedError(
-                    f"non-reducing aggregation {name!r} (implode to List) is not ported yet "
-                    "(port queue: expression breadth)"
-                )
-            out[name] = expr_dtype(a, in_s)
+            # a non-reducing expression (a bare column, a rank, x - x.mean())
+            # implodes to a List per group (the reference's
+            # AggState::AggregatedList)
+            d = expr_dtype(a, in_s)
+            out[name] = d if E.reduces_in_agg(a) else dt.List(d)
         return out
     raise NotImplementedError(f"{type(node).__name__} is not ported yet")
 

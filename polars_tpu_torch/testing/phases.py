@@ -77,6 +77,19 @@ with ``testing/profile_query.py``:
   and its length, two ship-mode flags (``contains_any``, ``is_between``),
   grouped by the joined flags and the mode, with the text's minima and
   maxima.
+- ``nested``: List and Struct columns over PDS-H lineitem, as a retail
+  analyst builds per-basket features. ``nested.orders``: each order's
+  lines imploded (``group_by(l_orderkey).agg(col(...))``: 15M lists over
+  60M elements at SF10) into its prices, quantities and ship modes, then
+  per order the line count, the total price, the mean quantity, the top
+  price, whether any line ships by AIR and the first ship mode in sorted
+  order (``list.len``, ``sum``, ``mean``, ``max``, ``contains``,
+  ``sort().first()``); ``nested.explode``: each line's comment split into
+  words (``str.split``, its ``list.len`` and the number it ends with), the
+  orders of five lines or more (a filter on ``list.len``) exploded back to
+  their lines, the quantity and the number paired in a Struct
+  (``pl.struct``) and unnested again, then per ship mode the lines, the
+  price sum and mean, and the quantity, number and word sums.
 """
 
 from __future__ import annotations
@@ -1223,4 +1236,104 @@ def check_strings(out, want: dict, label: str, floats=()) -> float:
             bad = next(i for i, (a, b) in enumerate(zip(got, list(w))) if a != b) if len(got) == len(w) else -1
             raise AssertionError(f"{label} {name}: first difference at row {bad} of {len(got)} "
                                  f"(lengths {len(got)}, {len(w)})")
+    return worst
+
+
+NESTED_COLUMNS = ["l_orderkey", "l_extendedprice", "l_quantity", "l_shipmode", "l_comment"]
+NESTED_MIN_LINES = 5  # nested.explode keeps the orders of at least this many lines
+
+
+def nested_plans(pl, line) -> dict:
+    """``nested.orders`` and ``nested.explode`` over a lineitem frame."""
+    c = pl.col
+    baskets = line.lazy().group_by("l_orderkey").agg(
+        c("l_extendedprice").alias("prices"), c("l_quantity").alias("qty"), c("l_shipmode").alias("modes"))
+    orders = (
+        baskets.with_columns(n=c("prices").list.len(), total=c("prices").list.sum(), avg_qty=c("qty").list.mean(),
+                             top=c("prices").list.max(), air=c("modes").list.contains("AIR"),
+                             first_mode=c("modes").list.sort().list.first())
+        .select("l_orderkey", "n", "total", "avg_qty", "top", "air", "first_mode")
+        .sort("l_orderkey"))
+    words = c("l_comment").str.split(" ")
+    explode = (
+        line.lazy().with_columns(words=words.list.len(), num=words.list.last().str.to_integer())
+        .group_by("l_orderkey").agg(c("l_extendedprice").alias("prices"), c("l_quantity").alias("qty"),
+                                    c("l_shipmode").alias("modes"), c("words"), c("num"))
+        .filter(c("prices").list.len() >= NESTED_MIN_LINES)
+        .explode("prices", "qty", "modes", "words", "num")
+        .with_columns(pair=pl.struct(c("qty").alias("q"), c("num").alias("k")))
+        .unnest("pair")
+        .group_by("modes")
+        .agg(pl.len(), c("prices").sum().alias("price"), c("prices").mean().alias("avg_price"),
+             c("q").sum().alias("qty"), c("k").sum().alias("num"), c("words").sum())
+        .sort("modes"))
+    return {"orders": orders, "explode": explode}
+
+
+def nested_oracle(line: dict) -> dict:
+    """The nested phase in numpy over the lines (sorted by order key, as
+    ``testing/pdsh.generate_pdsh`` makes them): per order by ``reduceat``
+    over each order's run of lines, per ship mode by ``bincount``. Keys,
+    counts and strings exact; sums and means of money in f64."""
+    import re
+
+    key = line["l_orderkey"]
+    if np.any(key[1:] < key[:-1]):
+        raise ValueError("the oracle expects the lines sorted by order key")
+    start = np.flatnonzero(np.r_[True, key[1:] != key[:-1]])
+    n = np.diff(np.r_[start, len(key)])
+    price, qty = line["l_extendedprice"], line["l_quantity"]
+    mode_levels, mode = _text_codes(line["l_shipmode"])
+    air = mode == mode_levels.index("AIR") if "AIR" in mode_levels else np.zeros(len(mode), bool)
+    out = {"orders": {
+        "l_orderkey": key[start], "n": n, "total": np.add.reduceat(price, start), "avg_qty":
+            np.add.reduceat(qty, start) / n, "top": np.maximum.reduceat(price, start),
+        "air": np.maximum.reduceat(air, start), "first_mode": np.minimum.reduceat(mode, start),
+    }, "mode_levels": mode_levels}
+    cm_levels, cm = _text_codes(line["l_comment"])
+    nums = np.asarray([int(re.search(r"(-?\d+)$", s).group(1)) for s in cm_levels], np.int64)
+    words = np.asarray([len(s.split(" ")) for s in cm_levels], np.int64)
+    keep = np.repeat(n >= NESTED_MIN_LINES, n)
+    m, k = mode[keep], len(mode_levels)
+    cnt = np.bincount(m, minlength=k)
+    present = np.flatnonzero(cnt)
+    psum = np.bincount(m, weights=price[keep], minlength=k)
+    out["explode"] = {
+        "modes": present, "len": cnt[present], "price": psum[present], "avg_price": psum[present] / cnt[present],
+        "qty": np.bincount(m, weights=qty[keep], minlength=k)[present],
+        "num": np.bincount(m, weights=nums[cm[keep]], minlength=k)[present].astype(np.int64),
+        "words": np.bincount(m, weights=words[cm[keep]], minlength=k)[present].astype(np.int64),
+    }
+    out["exploded_rows"] = int(keep.sum())
+    return out
+
+
+def check_nested(out, want: dict, levels: list, label: str, floats=(), strings=()) -> float:
+    """``out`` against the oracle column by column in numpy: every column
+    equal but ``floats`` (rtol 1e-9); ``strings`` as indices into
+    ``levels`` (the output's dictionary mapped onto them). The largest
+    relative error."""
+    worst = 0.0
+    for name, w in want.items():
+        col = out._get(name)
+        if name in strings:
+            lut = np.asarray([levels.index(v) for v in col.table.values.tolist()] or [0], np.int64)
+            vals, validity = col._host()
+            if validity is not None:
+                raise AssertionError(f"{label} {name}: nulls where the oracle has none")
+            got = lut[vals]
+        else:
+            got = np.asarray(col.to_numpy())
+        w = np.asarray(w)
+        if got.shape != w.shape:
+            raise AssertionError(f"{label} {name}: {got.shape[0]} rows, the oracle has {w.shape[0]}")
+        if name in floats:
+            err = np.abs(got.astype(np.float64) - w) / np.maximum(np.abs(w), 1e-300)
+            if not np.all(err <= 1e-9):
+                raise AssertionError(f"{label} {name}: largest relative error {err.max()}")
+            worst = max(worst, float(err.max(initial=0.0)))
+        elif not np.array_equal(got, w):
+            bad = int(np.flatnonzero(got != w)[0])
+            raise AssertionError(f"{label} {name}: first difference at row {bad} of {got.shape[0]}: "
+                                 f"{got[bad]!r} against {w[bad]!r}")
     return worst

@@ -3,9 +3,9 @@ with ``pdsh.run_params``), or one of ``chip_smoke.py``'s phases
 ``temporal``, ``asof`` (its backward join), ``range``, ``tz.ship``,
 ``tz.orders``, ``stats.flags``, ``stats.supp``, ``stats.casts``,
 ``window.cust``, ``window.line``, ``rolling.quotes``, ``rolling.bars``,
-``rolling.trades``, ``recode.line``, ``recode.sample``, ``strings.cust``
-and ``strings.line`` (``testing/phases.py``; ``stats.flags`` through its
-lazy plan).
+``rolling.trades``, ``recode.line``, ``recode.sample``, ``strings.cust``,
+``strings.line``, ``nested.orders`` and ``nested.explode``
+(``testing/phases.py``; ``stats.flags`` through its lazy plan).
 
 Builds the SF10 frames of the columns the query reads
 (``pdsh.QUERY_COLUMNS``), as ``chip_smoke.py`` does, warms the
@@ -31,7 +31,7 @@ optimized plan, or with ``--no-optimization`` the plan as written
 Run from the repository root on a machine with a CUDA device:
     python3 -m polars_tpu_torch.testing.profile_query [--query q3 [q5 ... temporal asof range tz.ship tz.orders
         stats.flags stats.supp stats.casts window.cust window.line rolling.quotes rolling.bars
-        rolling.trades recode.line recode.sample strings.cust strings.line]]
+        rolling.trades recode.line recode.sample strings.cust strings.line nested.orders nested.explode]]
         [--scale 10] [--runs 5]
         [--no-optimization]
 """
@@ -154,7 +154,7 @@ def profile_query(torch, query: str, run, rows: dict, scale: float, runs: int, t
 
 PHASES = ("temporal", "asof", "range", "tz.ship", "tz.orders", "stats.flags", "stats.supp", "stats.casts",
           "window.cust", "window.line", "rolling.quotes", "rolling.bars", "rolling.trades", "recode.line",
-          "recode.sample", "strings.cust", "strings.line")
+          "recode.sample", "strings.cust", "strings.line", "nested.orders", "nested.explode")
 
 
 def main() -> int:
@@ -186,7 +186,8 @@ def main() -> int:
            "window.cust": {"orders": P.WINDOW_CUST_COLUMNS}, "window.line": {"lineitem": P.WINDOW_LINE_COLUMNS},
            **{f"rolling.{part}": {} for part in ("quotes", "bars", "trades")},
            **{f"recode.{part}": {"lineitem": P.RECODE_COLUMNS} for part in ("line", "sample")},
-           "strings.cust": P.STRINGS_CUST_COLUMNS, "strings.line": {"lineitem": P.STRINGS_LINE_COLUMNS}}
+           "strings.cust": P.STRINGS_CUST_COLUMNS, "strings.line": {"lineitem": P.STRINGS_LINE_COLUMNS},
+           **{f"nested.{part}": {"lineitem": P.NESTED_COLUMNS} for part in ("orders", "explode")}}
     need: dict[str, dict] = {}  # table -> the columns any chosen query reads
     for q in args.query:
         for t, cs in (own[q] if q in own else QUERY_COLUMNS[q]).items():
@@ -218,6 +219,10 @@ def main() -> int:
         elif q.startswith("recode."):
             line = tables["lineitem"]
             run = lambda q=q: P.recode_plans(pl, line)[q.split(".")[1]]  # noqa: E731
+            rows = {"lineitem": line.height}
+        elif q.startswith("nested."):
+            line = tables["lineitem"]
+            run = lambda q=q: P.nested_plans(pl, line)[q.split(".")[1]]  # noqa: E731
             rows = {"lineitem": line.height}
         elif q == "strings.cust":
             cust, orders = tables["customer"], tables["orders"]

@@ -28,6 +28,10 @@ def _fmt_value(v, max_len: int) -> str:
         return s
     if isinstance(v, str):
         s = f'"{v}"'
+    elif isinstance(v, list):  # a List or Array value, as Polars prints it
+        s = "[" + ", ".join(_fmt_value(x, max_len) for x in v) + "]"
+    elif isinstance(v, dict):  # a Struct value: its fields' values
+        s = "{" + ",".join(_fmt_value(x, max_len) for x in v.values()) + "}"
     else:
         s = str(v)
     if len(s) > max_len:

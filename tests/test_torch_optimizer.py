@@ -236,6 +236,7 @@ def _case_frames(pl, cols):
         "ksv": pl.DataFrame({"k": ["b", "a", "a"], "v": [3.0, 1.0, 2.0]}),
         "kxt": pl.DataFrame({"k": cols["k"][:n], "x": cols["v"][:n], "t": cols["t"][:n]}),
         "ab100": pl.DataFrame({"a": np.arange(100), "b": np.arange(100) * 1.0}),
+        "kl": pl.DataFrame({"k": [1, 2, 3, 4], "l": [[1, 5], None, [], [7, 2, 9]]}),
     }
 
 
@@ -283,6 +284,9 @@ def _cases(pl, f) -> dict:
         "optflags_select": f["ab100"].lazy().select("b"),
         "optflags_top_k": f["ab100"].lazy().sort("b", descending=True).head(7),
         "optflags_folds_the_predicate": f["ab100"].lazy().filter(c("a") > (pl.lit(2) + pl.lit(3))),
+        # no predicate moves below an explode, on an exploded column or not
+        "explode_keeps_its_predicates": f["kl"].lazy().explode("l").filter(c("l") > 1).filter(c("k") > 1)
+        .select("l", "k"),
     }
 
 

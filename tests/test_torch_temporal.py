@@ -504,9 +504,9 @@ def test_columns_from_numpy_and_python():
 def _check_time_zones_name_their_queue_item():
     """Aware values now build, round-trip and format: a column of aware
     datetimes, an aware literal, the tz functions, ``to_string`` and a cast
-    to an aware Datetime. What still raises names its queue item: the JAX
-    package's other host functions (``concat_str`` and
-    ``cat.get_categories`` now run); ``drop_nulls()`` without a subset and
+    to an aware Datetime. The JAX package's other host functions run
+    (``concat_str``, ``cat.get_categories``, and ``list.join`` of a List,
+    which refuses a String); ``drop_nulls()`` without a subset and
     ``fill_null(strategy=)`` (item 2) now run."""
     from polars_tpu_torch.plan import exprs as E
 
@@ -532,8 +532,11 @@ def _check_time_zones_name_their_queue_item():
              for name in ("concat_str", "cat.get_categories", "list.join")}
     assert calls["concat_str"]()["s"].to_list() == ["a"]
     assert calls["cat.get_categories"]()["s"].to_list() == ["a"]
-    with pytest.raises(NotImplementedError, match="port queue: expression breadth"):
+    with pytest.raises(plt.InvalidOperationError, match="List"):
         calls["list.join"]()
+    lists = plt.DataFrame({"s": [["a", "b"], None]}, device="cpu")
+    assert lists.lazy().select(plt.Expr(E.EFunction("list.join", (E.EColumn("s"),), (("separator", "-"),)))).collect()[
+        "s"].to_list() == ["a-b", None]
 
 
 def test_week_groups_like_the_temporal_phase():
