@@ -186,6 +186,20 @@ Phases, each printed as one JSON line:
                 K2 at the segment's end). Each against the numpy oracle of
                 testing/phases.py (keys, counts and strings exactly, floats
                 to rtol 1e-9), with its host reads.
+ 21. reshape  — reshaping at SF10, two lines: reshape.pivot: a supplier x
+                ship-mode matrix of the summed quantity and price (pivot on
+                l_shipmode, index l_suppkey, sort_columns: 100,000 rows x
+                15 columns; one group-by of 60M lines by (supplier, mode),
+                K1, then a window over the 700K cells, the sizes and the
+                modes read once, one index_put_ per value column), sorted
+                by supplier; reshape.unpivot: four measures of 60M lines in
+                long form (240M rows made in one pass: the index columns
+                repeated, the measures concatenated, the variable a
+                4-entry dictionary), then per (measure, return flag) the
+                sum, the mean and the count (a dense group-by of 240M rows,
+                K1, K2 over 12 slots). Each against the numpy oracle of
+                testing/phases.py (keys, counts and strings exactly, sums
+                and means to rtol 1e-9), with its host reads.
 Every collect runs the optimized plan. Each PDS-H query and each frameops
 query also runs its plan as written (collect(no_optimization=True)): a
 warm-up, then 6 collects as written and 6 optimized, in turns with the
@@ -206,7 +220,7 @@ then the kernels line, the card's name and power limit, and the final line
 
 Run from the repository root:
     python3 chip_smoke.py [--scale 10] [--seed 42] [--only q1 filter q3 q4 ... q22 joins temporal asof rolling range
-        frameops tz stats window recode strings nested]
+        frameops tz stats window recode strings nested reshape]
 (``--only`` runs the build and kernel phases and the named query phases, for
 an A/B of a few queries against a parent tree). It needs a CUDA device and
 nvcc; it never imports JAX or polars_tpu.
@@ -246,7 +260,7 @@ Q3_DAYS = day(1995, 3, 15)
 Q4_FROM, Q4_TO = day(1993, 7, 1), day(1993, 10, 1)
 PHASES = ["q1", "filter", "q3", "q4", "q5", "q6", "q10", "q12", "q14", "q18", "q19", "q11", "q15", "q17", "q20",
           "q2", "q7", "q8", "q9", "q13", "q16", "q21", "q22", "joins", "temporal", "asof", "rolling", "range",
-          "frameops", "tz", "stats", "window", "recode", "strings", "nested"]
+          "frameops", "tz", "stats", "window", "recode", "strings", "nested", "reshape"]
 # the columns the phases outside PDS-H read of each table (asof makes its own)
 PHASE_COLUMNS = {
     "joins": {"customer": ["c_custkey", "c_mktsegment"], "orders": ["o_orderkey", "o_custkey", "o_orderdate"],
@@ -276,6 +290,9 @@ PHASE_COLUMNS = {
                              "l_comment"]},
     # testing/phases.NESTED_COLUMNS
     "nested": {"lineitem": ["l_orderkey", "l_extendedprice", "l_quantity", "l_shipmode", "l_comment"]},
+    # testing/phases.RESHAPE_COLUMNS
+    "reshape": {"lineitem": ["l_orderkey", "l_suppkey", "l_returnflag", "l_shipmode", "l_quantity",
+                             "l_extendedprice", "l_discount", "l_tax"]},
 }
 _MADE_COLUMNS = ("l_shipts", "o_orderts")  # made from the generated columns (testing/phases.py)
 
@@ -2557,6 +2574,41 @@ def phase_nested(torch, pl, line, raw: dict) -> dict:
     return results
 
 
+# -- reshape phase (plans and oracle: polars_tpu_torch/testing/phases.py) ---------------------
+
+
+def phase_reshape(torch, pl, line, raw: dict) -> dict:
+    """Reshaping at SF10, each plan through its main path against
+    ``testing/phases.reshape_oracle``: ``reshape.pivot`` (the (supplier,
+    mode) group-by, K1; the cells numbered by a window, K2 at each
+    segment's end; the scatter into the matrix) and ``reshape.unpivot``
+    (240M long rows made in one pass, a dense group-by, K1, K2)."""
+    P = _phases()
+    t0 = time.perf_counter()
+    want = P.reshape_oracle(raw["lineitem"])
+    oracle_s = time.perf_counter() - t0
+    plans = P.reshape_plans(pl, line)
+    results = {}
+
+    r = run_phase(torch, "reshape.pivot", plans["pivot"])
+    out = r["out"]
+    _check_schema(out, [("l_suppkey", "Int64")] + [(c, "Float64") for c in list(want["pivot"])[1:]],
+                  "reshape.pivot")
+    worst = P.check_reshape(out, want["pivot"], "reshape.pivot", floats=list(want["pivot"])[1:])
+    results["pivot"] = phase_result("reshape.pivot", r, out, {"lineitem": line.height}, worst, cells=out.height * (
+        out.width - 1), oracle_s=oracle_s)
+
+    r = run_phase(torch, "reshape.unpivot", plans["unpivot"])
+    out = r["out"]
+    _check_schema(out, [("variable", "String"), ("l_returnflag", "String"), ("sum", "Float64"), ("mean", "Float64"),
+                        ("len", "UInt32")], "reshape.unpivot")
+    worst = P.check_reshape(out, want["unpivot"], "reshape.unpivot", floats=("sum", "mean"),
+                            strings=("variable", "l_returnflag"))
+    results["unpivot"] = phase_result("reshape.unpivot", r, out, {"lineitem": line.height}, worst,
+                                      long_rows=want["long_rows"])
+    return results
+
+
 # -- strings phase (plans and oracle: polars_tpu_torch/testing/phases.py) ---------------------
 
 
@@ -2669,6 +2721,9 @@ def main() -> int:
         elif name == "nested":
             for sub, res in phase_nested(torch, pl, frames["nested"]["lineitem"], raw).items():
                 runs[f"nested.{sub}"] = res
+        elif name == "reshape":
+            for sub, res in phase_reshape(torch, pl, frames["reshape"]["lineitem"], raw).items():
+                runs[f"reshape.{sub}"] = res
         else:  # Q3's K2 call runs 50 times, each against the first
             runs[name] = phase_query(torch, name, frames, raw, args.scale, k2_repeats=50 if name == "q3" else 1)
     del frames, raw, line, taq

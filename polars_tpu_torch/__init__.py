@@ -58,28 +58,58 @@ from polars_tpu_torch.datatypes import (
     UInt32,
     UInt64,
     Utf8,
+    DataType,
+    Float16,
+    Int128,
+    UInt128,
+    Object,
+    Unknown,
+    Categories,
+    DataTypeExpr,
+    dtype_of,
+    self_dtype,
+    struct_with_fields,
 )
 from polars_tpu_torch.errors import (
     ColumnNotFoundError,
     ComputeError,
     DuplicateError,
     InvalidOperationError,
+    NoDataError,
+    OutOfBoundsError,
     PolarsError,
+    QueryCancelledError,
     SchemaError,
+    SchemaFieldNotFoundError,
     ShapeError,
+    SQLInterfaceError,
+    SQLSyntaxError,
 )
 from polars_tpu_torch.expr.expr import Expr
 from polars_tpu_torch.functions.eager import concat
-from polars_tpu_torch.functions.interop import QueryOptFlags
+from polars_tpu_torch.functions.interop import QueryOptFlags, defer, from_repr, from_torch, json_normalize
 from polars_tpu_torch.functions.lazy import (  # noqa: A004
-    all, all_horizontal, any, any_horizontal, approx_n_unique, arange, arg_sort_by, coalesce, col, concat_list,
-    concat_str, corr, count, cov, cum_count, cum_sum, date, date_range, datetime, datetime_range, duration, element,
-    exclude, field, first, fold, format, head, implode, int_range, last, len, lit, max, max_horizontal, mean,
-    mean_horizontal, median, min, min_horizontal, n_unique, nth, ones, quantile, reduce, repeat, select, std,
-    struct, sum, sum_horizontal, tail, var, when, zeros,
+    all, all_horizontal, any, any_horizontal, approx_n_unique, arange, arg_sort_by, arg_where, coalesce, col,
+    concat_arr, concat_list, concat_str, corr, count, cov, cum_count, cum_sum, date, date_range, date_ranges, datetime,
+    datetime_range, datetime_ranges, duration, element, exclude, field, first, fold, format, head, implode,
+    int_range, int_ranges, last, len, linear_spaces, lit, max, max_horizontal, mean, mean_horizontal, median, min,
+    min_horizontal, n_unique, nth, ones, quantile, reduce, repeat, select, std, struct, sum, sum_horizontal, tail,
+    time_ranges, var, when, zeros,
 )
-from polars_tpu_torch.functions.parity import arctan2, arctan2d, business_day_count
+from polars_tpu_torch.functions.parity import (
+    StringCache, align_frames, arctan2, arctan2d, build_info, business_day_count, collect_all, collect_all_async,
+    cum_fold, cum_reduce, cum_sum_horizontal, disable_string_cache, enable_string_cache, escape_regex, explain_all,
+    from_epoch, get_index_type, groups, linear_space, map_batches, map_groups, merge_sorted, rolling_corr,
+    rolling_cov, row_index, set_random_seed, show_versions, thread_pool_size, threadpool_size, time, time_range,
+    union, using_string_cache,
+)
+from polars_tpu_torch.functions.parity import list_ as list  # noqa: A004
 from polars_tpu_torch.lazyframe import LazyFrame
+from polars_tpu_torch.later import install as _install, package_stubs as _package_stubs
+
+for _owner, _cls in (("DataFrame", DataFrame), ("LazyFrame", LazyFrame), ("Expr", Expr), ("Series", Series)):
+    _install(_owner, _cls)
+globals().update({k: v for k, v in _package_stubs().items() if k not in globals()})
 
 __all__ = [
     "Binary", "Boolean", "Categorical", "ColumnNotFoundError", "ComputeError", "Config", "DataFrame", "Date",
@@ -93,5 +123,9 @@ __all__ = [
     "format", "fold", "head", "implode", "int_range", "last", "len", "lit", "max", "max_horizontal", "mean",
     "mean_horizontal", "median", "min", "min_horizontal", "n_unique", "nth", "ones", "quantile", "reduce", "repeat",
     "select", "selectors", "set_default_device", "std", "struct", "sum", "sum_horizontal", "tail", "var", "when",
-    "zeros",
+    "zeros", "align_frames", "arg_where", "collect_all", "concat_arr", "cum_fold", "cum_reduce", "cum_sum_horizontal",
+    "date_ranges", "datetime_ranges", "escape_regex", "explain_all", "from_epoch", "int_ranges", "linear_space",
+    "linear_spaces", "map_batches", "map_groups", "merge_sorted", "rolling_corr", "rolling_cov", "row_index",
+    "set_random_seed", "time", "time_range", "time_ranges", "union", "defer", "from_repr", "from_torch",
+    "json_normalize",
 ]

@@ -25,11 +25,14 @@ DENSE_MAX_CAP = 4096 * 16
 # the order of first occurrence and is sorted on the host only when an
 # ordering operation first reads it (``StringTable.ordinal``). The JAX
 # package's default and variable (polars_tpu/config.py:46-54).
-_CONFIG = SimpleNamespace(ordinal_dict_max=int(os.environ.get("POLARS_TPU_ORDINAL_DICT_MAX", 1 << 16)))
+# ``random_seed``: the seed of a ``sample``/``shuffle`` that passes none
+# (``set_random_seed``); None draws a fresh one each call.
+_CONFIG = SimpleNamespace(ordinal_dict_max=int(os.environ.get("POLARS_TPU_ORDINAL_DICT_MAX", 1 << 16)),
+                          random_seed=None)
 
 
 def config() -> SimpleNamespace:
-    """The process's settings (``ordinal_dict_max``)."""
+    """The process's settings (``ordinal_dict_max``, ``random_seed``)."""
     return _CONFIG
 
 _default_device = ["cuda"]

@@ -21,7 +21,7 @@ import numpy as np
 from polars_tpu_torch import datatypes as dt
 from polars_tpu_torch.core.column import Column
 from polars_tpu_torch.core.schema import Schema
-from polars_tpu_torch.errors import ColumnNotFoundError, DuplicateError, ShapeError
+from polars_tpu_torch.errors import ColumnNotFoundError, DuplicateError, InvalidOperationError, ShapeError
 
 if TYPE_CHECKING:
     from polars_tpu_torch.core.series import Series
@@ -31,7 +31,7 @@ if TYPE_CHECKING:
 class DataFrame:
     """A height-aligned collection of typed device columns."""
 
-    __slots__ = ("_columns", "_height", "_device")
+    __slots__ = ("_columns", "_height", "_device", "_sorted")
 
     def __init__(
         self,
@@ -56,6 +56,7 @@ class DataFrame:
         self._device = resolve_device(device)
         self._columns: list[Column] = []
         self._height = 0
+        self._sorted: dict[str, str] = {}
         if data is None:
             self._columns = [Column.from_values(n, [], d, device=self._device) for n, d in _schema_items(schema)]
             return
@@ -80,6 +81,7 @@ class DataFrame:
             raise DuplicateError(f"duplicate column names in {names}")
         df._columns = columns
         df._height = height if height is not None else (len(columns[0]) if columns else 0)
+        df._sorted = {}
         if columns:
             df._device = columns[0].buffer.device
         else:
@@ -284,7 +286,23 @@ class DataFrame:
         return _Collecting(self.lazy().rolling(index_column, **kwargs))
 
     def upsample(self, time_column: str, *, every: str, group_by: Any = None, maintain_order: bool = False):
-        raise NotImplementedError("DataFrame.upsample builds on datetime_range (port queue: item 4b, generators)")
+        """Rows at every step of ``every`` between each group's first and
+        last ``time_column`` value (per ``group_by`` group): a range per
+        group (``datetime_ranges`` from its bounds, on the device),
+        exploded and left-joined with the frame; a new row is null but for
+        its time and keys."""
+        from polars_tpu_torch.functions.lazy import col, date_ranges, datetime_ranges
+
+        keys = [] if group_by is None else flatten_names([group_by])
+        tdt = self.schema[time_column]
+        ranges = date_ranges if isinstance(tdt, dt.Date) else datetime_ranges
+        kwargs = {} if isinstance(tdt, dt.Date) else {"time_unit": tdt.time_unit}
+        lf = self.lazy()
+        rng = ranges(col(time_column).min(), col(time_column).max(), every, **kwargs).alias(time_column)
+        bounds = lf.group_by(*keys, maintain_order=True).agg(rng) if keys else lf.select(rng)
+        grid = bounds.explode(time_column).with_columns(col(time_column).cast(tdt))
+        out = grid.join(lf, on=[*keys, time_column], how="left", coalesce=True)
+        return out.sort([*keys, time_column]).select(self.columns).collect()
 
     def join(self, other: DataFrame, on: Any = None, how: str = "inner", **kwargs: Any) -> DataFrame:
         return self.lazy().join(other.lazy(), on, how, **kwargs).collect()
@@ -332,6 +350,287 @@ class DataFrame:
 
     def unnest(self, columns: Any, *more_columns: Any) -> DataFrame:
         return self.lazy().unnest(columns, *more_columns).collect()
+
+    # -- the API tail: row-wise helpers, flags, schema matching -----------------
+
+    def approx_n_unique(self) -> DataFrame:
+        return self.lazy().approx_n_unique().collect()
+
+    def estimated_size(self, unit: str = "b") -> float:
+        return sum(s.estimated_size(unit) for s in self.get_columns())
+
+    def n_chunks(self, strategy: str = "first") -> int | list[int]:
+        return 1 if strategy == "first" else [1] * self.width
+
+    def rechunk(self) -> DataFrame:
+        return self
+
+    def shrink_to_fit(self, *, in_place: bool = False) -> DataFrame:
+        return self
+
+    def show(self, limit: int | None = 5, **kwargs: Any) -> None:
+        print(self.head(limit) if limit is not None else self)
+
+    def to_init_repr(self, n: int = 1000) -> str:
+        cols = ", ".join(s.to_init_repr(n) for s in self.get_columns())
+        return f"pl.DataFrame([{cols}])"
+
+    def shift(self, n: int = 1, *, fill_value: Any = None) -> DataFrame:
+        return self.lazy().shift(n, fill_value=fill_value).collect()
+
+    def interpolate(self) -> DataFrame:
+        return self.lazy().interpolate().collect()
+
+    def product(self) -> DataFrame:
+        from polars_tpu_torch.functions.lazy import all as pl_all
+
+        return self.select(pl_all().product())
+
+    def _horizontal(self, fn: str, name: str, **kwargs: Any) -> Series:
+        import polars_tpu_torch.functions.lazy as F
+
+        return self.select(getattr(F, fn)(F.all(), **kwargs).alias(name)).to_series()
+
+    def sum_horizontal(self, *, ignore_nulls: bool = True) -> Series:
+        return self._horizontal("sum_horizontal", "sum", ignore_nulls=ignore_nulls)
+
+    def mean_horizontal(self, *, ignore_nulls: bool = True) -> Series:
+        return self._horizontal("mean_horizontal", "mean", ignore_nulls=ignore_nulls)
+
+    def min_horizontal(self) -> Series:
+        return self._horizontal("min_horizontal", "min")
+
+    def max_horizontal(self) -> Series:
+        return self._horizontal("max_horizontal", "max")
+
+    def fold(self, operation: Any) -> Series:
+        """``operation`` folded over the columns, left to right."""
+        acc = self.to_series(0)
+        for s in self.get_columns()[1:]:
+            acc = operation(acc, s)
+        return acc.rename(self._columns[0].name)
+
+    def is_duplicated(self) -> Series:
+        """Whether each row's values appear in another row too."""
+        from polars_tpu_torch.functions.lazy import len as pl_len
+
+        return self.select((pl_len().over(self.columns) > 1).alias("is_duplicated")).to_series()
+
+    def is_unique(self) -> Series:
+        from polars_tpu_torch.functions.lazy import len as pl_len
+
+        return self.select((pl_len().over(self.columns) == 1).alias("is_unique")).to_series()
+
+    def hash_rows(self, seed: int = 0, seed_1: int | None = None, seed_2: int | None = None,
+                  seed_3: int | None = None) -> Series:
+        """One UInt64 hash per row: the columns' hashes (strings by their
+        text) combined; equal rows hash equal."""
+        from polars_tpu_torch.functions.lazy import col
+
+        h = None
+        for i, name in enumerate(self.columns):
+            e = col(name).hash(seed + i)
+            h = e if h is None else (h * 31) ^ e
+        return self.select(h.alias("hash")).to_series()
+
+    def corr(self, **kwargs: Any) -> DataFrame:
+        """The Pearson correlation of every pair of columns (a square frame)."""
+        from polars_tpu_torch.functions.lazy import corr
+
+        names = self.columns
+        row = self.select([corr(a, b).alias(f"{i}_{j}") for i, a in enumerate(names) for j, b in enumerate(names)])
+        vals = row.row(0)
+        k = len(names)
+        return DataFrame({b: [vals[i * k + j] for i in range(k)] for j, b in enumerate(names)}, device=self._device)
+
+    def to_struct(self, name: str = "") -> Series:
+        """The columns as the fields of one Struct Series."""
+        import torch
+
+        from polars_tpu_torch.core.buffer import Buffer
+        from polars_tpu_torch.core.series import Series
+
+        ids = torch.arange(self._height, dtype=torch.int64, device=self._device)
+        return Series._from_column(Column(name, dt.Struct([(c.name, c.dtype) for c in self._columns]),
+                                          Buffer(ids, None), None, list(self._columns)))
+
+    def insert_column(self, index: int, column: Series) -> DataFrame:
+        """``column`` inserted at ``index``, in place."""
+        cols = list(self._columns)
+        cols.insert(index if index >= 0 else len(cols) + 1 + index, column._column)
+        self._columns = DataFrame._from_columns(cols, self._height, device=self._device)._columns
+        return self
+
+    def replace_column(self, index: int, column: Series) -> DataFrame:
+        """The column at ``index`` replaced by ``column``, in place."""
+        cols = list(self._columns)
+        cols[index] = column._column
+        self._columns = DataFrame._from_columns(cols, self._height, device=self._device)._columns
+        return self
+
+    def drop_in_place(self, name: str) -> Series:
+        """The column ``name``, removed from the frame."""
+        from polars_tpu_torch.core.series import Series
+
+        col = self._get(name)
+        self._columns = [c for c in self._columns if c.name != name]
+        return Series._from_column(col)
+
+    def rows_by_key(self, key: Any, *, named: bool = False, include_key: bool = False,
+                    unique: bool = False) -> dict:
+        """The rows (read once) grouped by their ``key`` values: a list of
+        rows per key (the last row with ``unique``)."""
+        names = flatten_names([key])
+        keys = list(zip(*[self._get(n).to_pylist() for n in names]))
+        rest = [c for c in self.columns if include_key or c not in names]
+        rows = self.select(rest).rows(named=named) if rest else [{} if named else () for _ in keys]
+        out: dict = {}
+        for k, r in zip(keys, rows):
+            kv = k[0] if len(names) == 1 else k
+            if unique:
+                out[kv] = r
+            else:
+                out.setdefault(kv, []).append(r)
+        return out
+
+    def iter_columns(self):
+        return iter(self.get_columns())
+
+    def iter_slices(self, n_rows: int = 10000):
+        for off in range(0, self._height, n_rows):
+            yield self.slice(off, n_rows)
+
+    def with_row_count(self, name: str = "row_nr", offset: int = 0) -> DataFrame:
+        return self.with_row_index(name, offset)
+
+    def set_sorted(self, column: str, *, descending: bool = False) -> DataFrame:
+        """The frame with ``column`` flagged as sorted (nothing is checked)."""
+        out = self.clone()
+        out._sorted = {**self._sorted, column: "desc" if descending else "asc"}
+        return out
+
+    @property
+    def flags(self) -> dict:
+        return {c.name: {"SORTED_ASC": self._sorted.get(c.name) == "asc",
+                         "SORTED_DESC": self._sorted.get(c.name) == "desc"} for c in self._columns}
+
+    def is_sorted(self, by: Any, *more_by: str, descending: Any = False, nulls_last: Any = False) -> bool:
+        """Whether the rows are in the order of ``by`` (lexicographic over
+        several columns): each row against the one before, on the device,
+        one read of the answer."""
+        from polars_tpu_torch.engine.reshape import rows_sorted
+
+        names = flatten_names([by, *more_by])
+        k = len(names)
+        desc = list(descending) if isinstance(descending, (list, tuple)) else [bool(descending)] * k
+        nl = list(nulls_last) if isinstance(nulls_last, (list, tuple)) else [bool(nulls_last)] * k
+        return rows_sorted([self._get(n) for n in names], desc, nl)
+
+    def match_to_schema(self, schema: Any, **kwargs: Any) -> DataFrame:
+        return self.lazy().match_to_schema(schema, **kwargs).collect()
+
+    def to_torch(self, return_type: str = "dict", *, dtype: Any = None):
+        """The columns' tensors on the frame's device, without a copy: a
+        dict of name to values (``"dict"``), or one 2-D tensor of them cast
+        to ``dtype`` (Float32 by default; a copy) with ``"tensor"``. A
+        column with nulls, a dictionary or a nested layout is refused."""
+        import torch
+
+        from polars_tpu_torch.core.series import Series
+
+        if return_type == "dict":
+            return {c.name: Series._from_column(c).to_torch() for c in self._columns}
+        if return_type != "tensor":
+            raise InvalidOperationError(f"to_torch: unknown return_type {return_type!r}")
+        target = torch.float32 if dtype is None else dt.dtype_to_torch(dt.parse_into_dtype(dtype))
+        return torch.stack([Series._from_column(c).to_torch().to(target) for c in self._columns], 1)
+
+    def update(self, other: DataFrame, on: Any = None, how: str = "left", **kwargs: Any) -> DataFrame:
+        return self.lazy().update(other.lazy(), on, how, **kwargs).collect()
+
+    def merge_sorted(self, other: DataFrame, key: str) -> DataFrame:
+        return self.lazy().merge_sorted(other.lazy(), key).collect()
+
+    # -- reshaping (engine/reshape.py) ------------------------------------------
+
+    def unpivot(self, on: Any = None, *, index: Any = None, variable_name: str = "variable",
+                value_name: str = "value") -> DataFrame:
+        return self.lazy().unpivot(on, index=index, variable_name=variable_name, value_name=value_name).collect()
+
+    def melt(self, id_vars: Any = None, value_vars: Any = None, variable_name: str = "variable",
+             value_name: str = "value") -> DataFrame:
+        return self.unpivot(value_vars, index=id_vars, variable_name=variable_name, value_name=value_name)
+
+    def pivot(self, on: Any, *, index: Any = None, values: Any = None, aggregate_function: str | None = None,
+              maintain_order: bool = True, sort_columns: bool = False, separator: str = "_") -> DataFrame:
+        """One row per distinct ``index`` tuple (in order of first
+        appearance), one column per distinct ``on`` value and ``values``
+        column, each cell the ``aggregate_function`` of its rows (first,
+        last, sum, mean, median, min, max, len or count; None raises where
+        a cell holds several). ``index`` defaults to the other columns,
+        ``values`` to the columns neither names."""
+        from polars_tpu_torch.engine.reshape import pivot_frame
+
+        on_names = flatten_names([on])
+        if len(on_names) != 1:
+            raise InvalidOperationError("pivot supports a single `on` column")
+        on_name = on_names[0]
+        value_names = None if values is None else flatten_names([values])
+        if index is None:
+            index_names = [c for c in self.columns if c != on_name and c not in (value_names or [])]
+        else:
+            index_names = flatten_names([index])
+        if value_names is None:
+            value_names = [c for c in self.columns if c != on_name and c not in index_names]
+        return pivot_frame(self, on_name, index_names, value_names, aggregate_function, maintain_order,
+                           sort_columns, separator)
+
+    def transpose(self, *, include_header: bool = False, header_name: str = "column",
+                  column_names: Any = None) -> DataFrame:
+        """Rows become columns, in the supertype of every column."""
+        from polars_tpu_torch.engine.reshape import transpose_frame
+
+        return transpose_frame(self, include_header, header_name, column_names)
+
+    def unstack(self, *, step: int, how: str = "vertical", columns: Any = None,
+                fill_values: Any = None) -> DataFrame:
+        """Each column cut into columns of ``step`` rows (``how="vertical"``:
+        consecutive rows; ``"horizontal"``: every n-th row), the last padded
+        with nulls or ``fill_values``."""
+        from polars_tpu_torch.engine.reshape import unstack_frame
+
+        return unstack_frame(self, step, how, columns, fill_values)
+
+    def to_dummies(self, columns: Any = None, *, separator: str = "_", drop_first: bool = False) -> DataFrame:
+        """A UInt8 indicator column per distinct value of each of
+        ``columns`` (every column when None), in value order."""
+        from polars_tpu_torch.engine.reshape import to_dummies_frame
+
+        return to_dummies_frame(self, None if columns is None else flatten_names([columns]), separator, drop_first)
+
+    # -- a user's functions (engine/udf.py) --------------------------------------
+
+    def map_columns(self, column_names: Any, function: Any, *args: Any, **kwargs: Any) -> DataFrame:
+        """The named columns replaced by ``function`` of each (a Series)."""
+        from polars_tpu_torch.core.series import Series
+        from polars_tpu_torch.engine.udf import as_column
+
+        names = set(flatten_names([column_names]))
+        cols = [as_column(function(Series._from_column(c), *args, **kwargs), c.name, self._device)
+                if c.name in names else c for c in self._columns]
+        return DataFrame._from_columns(cols, self._height, device=self._device)
+
+    def map_rows(self, function: Any, return_dtype: Any = None, *, inference_size: int = 256) -> DataFrame:
+        """``function`` of each row (a tuple), read to the host once: a tuple
+        result gives ``column_0``, ``column_1``, ...; anything else one
+        column ``map`` (its dtype ``return_dtype``, else inferred from the
+        first ``inference_size`` results, as the JAX package does)."""
+        outs = [function(r) for r in self.rows()]
+        if outs and isinstance(outs[0], tuple):
+            return DataFrame({f"column_{i}": [o[i] for o in outs] for i in range(len(outs[0]))},
+                             device=self._device)
+        return DataFrame({"map": outs}, schema_overrides={"map": return_dtype} if return_dtype else None,
+                         device=self._device)
 
     def rename(self, mapping: Any, *, strict: bool = True) -> DataFrame:
         return self.lazy().rename(mapping, strict=strict).collect()

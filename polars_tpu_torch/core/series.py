@@ -283,6 +283,22 @@ class Series:
         out = self._frame().group_by(self.name).agg(agg.alias(name))
         return out.sort(name, descending=True) if sort else out
 
+    def to_torch(self):
+        """The values' tensor on the Series' device, without a copy (a
+        Boolean, integer, float or temporal column without nulls; a
+        Datetime gives its ticks, a Date its days)."""
+        col = self._column
+        if col.buffer.validity is not None or col.table is not None or col.child is not None:
+            from polars_tpu_torch.errors import InvalidOperationError
+
+            raise InvalidOperationError(f"to_torch of {col.dtype!r} with nulls, a dictionary or a nested layout; "
+                                        "cast or fill it first")
+        return col.buffer.values
+
+    def mode(self) -> Series:
+        """The most frequent values (every one of a tie, in value order)."""
+        return self._select(self._expr().mode())
+
     def append(self, other: Series) -> Series:
         from polars_tpu_torch.functions.eager import concat
 
@@ -291,6 +307,111 @@ class Series:
 
     def extend(self, other: Series) -> Series:
         return self.append(other)
+
+    # -- the API tail -------------------------------------------------------------
+
+    def scatter(self, indices: Any, values: Any) -> Series:
+        """The values at ``indices`` set to ``values``, in place."""
+        import torch
+
+        from polars_tpu_torch.core.buffer import Buffer
+        from polars_tpu_torch.engine.gather import _device_index
+
+        idx, _ = _device_index(indices.to_list() if isinstance(indices, Series) else indices, len(self),
+                               self.device)
+        vals = values if isinstance(values, Series) else Series("", values if isinstance(values, (list, tuple))
+                                                                 else [values] * idx.shape[0], device=self.device)
+        vals = vals.cast(self.dtype) if vals.dtype != self.dtype else vals
+        if vals._column.table is not self._column.table or self._column.child is not None:
+            from polars_tpu_torch.functions.eager import concat
+
+            merged = concat([self, vals])._column  # one dictionary for both
+            own, new = merged.buffer.values[:len(self)], merged.buffer.values[len(self):]
+            valid = None if merged.buffer.validity is None else merged.buffer.validity
+            base = self._column.with_buffer(Buffer(own.clone(), None if valid is None else valid[:len(self)].clone()))
+            base.table = merged.table
+            nv = None if valid is None else valid[len(self):]
+        else:
+            base = self._column.with_buffer(Buffer(self._column.buffer.values.clone(), None if
+                                                   self._column.buffer.validity is None else
+                                                   self._column.buffer.validity.clone()))
+            new, nv = vals._column.buffer.values, vals._column.buffer.validity
+        base.buffer.values.index_put_((idx,), new.to(base.buffer.values.dtype))
+        if nv is not None or base.buffer.validity is not None:
+            validity = base.buffer.validity if base.buffer.validity is not None else torch.ones(
+                len(self), dtype=torch.bool, device=self.device)
+            validity.index_put_((idx,), nv if nv is not None else torch.ones_like(idx, dtype=torch.bool))
+            base = base.with_buffer(Buffer(base.buffer.values, validity))
+        self._column = base
+        return self
+
+    def set(self, filter: Series, value: Any) -> Series:  # noqa: A002
+        """The values where ``filter`` is true set to ``value``."""
+        from polars_tpu_torch.functions.lazy import col, lit, when
+
+        return self._select(when(col("__other_0")).then(lit(value)).otherwise(self._expr()), filter)
+
+    def zip_with(self, mask: Series, other: Series) -> Series:
+        """These values where ``mask`` is true, ``other``'s elsewhere."""
+        from polars_tpu_torch.functions.lazy import col, when
+
+        return self._select(when(col("__other_0")).then(self._expr()).otherwise(col("__other_1")), mask, other)
+
+    @property
+    def flags(self) -> dict:
+        """No sortedness flag is kept: both are False."""
+        return {"SORTED_ASC": False, "SORTED_DESC": False}
+
+    def describe(self, percentiles: Any = (0.25, 0.5, 0.75), *, interpolation: str = "nearest") -> DataFrame:
+        """The frame's ``describe`` of this column: ``statistic`` and
+        ``value``."""
+        out = self.to_frame().describe()
+        return out.rename({self.name: "value"})
+
+    def to_dummies(self, *, separator: str = "_", drop_first: bool = False) -> DataFrame:
+        return self.to_frame().to_dummies(separator=separator, drop_first=drop_first)
+
+    def shrink_to_fit(self, *, in_place: bool = False) -> Series:
+        return self
+
+    def n_chunks(self) -> int:
+        return 1
+
+    def chunk_lengths(self) -> list[int]:
+        return [len(self)]
+
+    def get_chunks(self) -> list[Series]:
+        return [self]
+
+    def rechunk(self, *, in_place: bool = False) -> Series:
+        return self
+
+    def clear(self, n: int = 0) -> Series:
+        """An empty Series of the same dtype (``n`` nulls)."""
+        return Series._from_column(DataFrame._empty(self._frame().schema, n, self.device)._columns[0])
+
+    def has_validity(self) -> bool:
+        return self._column.buffer.validity is not None
+
+    def estimated_size(self, unit: str = "b") -> float:
+        """The bytes of the values and the validity (and the dictionary)."""
+        buf = self._column.buffer
+        size = buf.values.element_size() * buf.values.numel()
+        if buf.validity is not None:
+            size += buf.validity.numel()
+        if self._column.table is not None:
+            size += sum(len(str(v)) for v in self._column.table.values)
+        scale = {"b": 1, "kb": 1024, "mb": 1024**2, "gb": 1024**3, "tb": 1024**4}[unit]
+        return size / scale if unit != "b" else size
+
+    def new_from_index(self, index: int, length: int) -> Series:
+        """The value at ``index`` repeated ``length`` times."""
+        from polars_tpu_torch.engine.gather import gather_column
+
+        return Series._from_column(gather_column(self._column, [index] * length))
+
+    def to_init_repr(self, n: int = 1000) -> str:
+        return f"pl.Series({self.name!r}, {self.to_list()[:n]!r}, dtype=pl.{self.dtype!r})"
 
     # -- conversion -------------------------------------------------------------
 

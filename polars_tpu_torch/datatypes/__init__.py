@@ -624,3 +624,107 @@ def dtype_to_torch(dtype: Any):
 
         raise InvalidOperationError(f"no physical storage mapping for dtype {dtype!r}") from None
 
+
+
+class DataTypeExpr:
+    """A dtype resolved against a schema when its expression enters a plan
+    (``plan/schema_resolve.expand_expr``): ``lit`` a dtype, ``col`` the
+    dtype of a named column, ``self`` that of the expression cast, ``struct``
+    a Struct whose fields may be DataTypeExprs."""
+
+    __slots__ = ("kind", "arg")
+
+    def __init__(self, kind: str, arg: Any = None) -> None:
+        object.__setattr__(self, "kind", kind)
+        object.__setattr__(self, "arg", arg)
+
+    def __setattr__(self, *a: Any) -> None:
+        raise AttributeError("DataTypeExpr is immutable")
+
+    def __hash__(self) -> int:
+        return hash(("DataTypeExpr", self.kind, self.arg))
+
+    def __eq__(self, other: Any) -> bool:
+        return isinstance(other, DataTypeExpr) and (self.kind, self.arg) == (other.kind, other.arg)
+
+    def __repr__(self) -> str:
+        return f"DataTypeExpr({self.kind}, {self.arg!r})"
+
+    def resolve(self, schema: Any = None, self_dtype: DataType | None = None) -> DataType:
+        if self.kind == "lit":
+            return self.arg
+        if self.kind == "col":
+            if schema is None or self.arg not in schema:
+                from polars_tpu_torch.errors import SchemaError
+
+                raise SchemaError(f"dtype_of: column {self.arg!r} is not in the schema")
+            return schema[self.arg]
+        if self.kind == "self":
+            if self_dtype is None:
+                from polars_tpu_torch.errors import InvalidOperationError
+
+                raise InvalidOperationError("self_dtype() outside a cast")
+            return self_dtype
+        return Struct([(n, d.resolve(schema, self_dtype) if isinstance(d, DataTypeExpr) else parse_into_dtype(d))
+                       for n, d in self.arg])
+
+    def collect_dtype(self, context: Any) -> DataType:
+        """The dtype against a schema or a mapping of names to dtypes."""
+        return self.resolve(context)
+
+
+def _to_dtype_expr(self) -> DataTypeExpr:
+    return DataTypeExpr("lit", self)
+
+
+DataType.to_dtype_expr = _to_dtype_expr
+
+
+def dtype_of(col: str) -> DataTypeExpr:
+    """The dtype of the column ``col``, read when the plan is built."""
+    return DataTypeExpr("col", col)
+
+
+def self_dtype() -> DataTypeExpr:
+    """The dtype of the expression being cast."""
+    return DataTypeExpr("self")
+
+
+def struct_with_fields(mapping: Any) -> DataTypeExpr:
+    """A Struct dtype whose fields' dtypes may be DataTypeExprs."""
+    return DataTypeExpr("struct", tuple(dict(mapping).items()))
+
+
+class Categories:
+    """A named set of categories for a Categorical. Each String column here
+    has its own dictionary and dictionaries merge where columns meet, so a
+    Categories is a handle: equal name, namespace and physical type compare
+    equal."""
+
+    __slots__ = ("name", "namespace", "physical")
+
+    def __init__(self, name: str | None = None, namespace: str = "", physical: Any = None) -> None:
+        if not name and namespace:
+            raise ValueError("global Categories cannot have a namespace")
+        self.name = name or ""
+        self.namespace = namespace
+        self.physical = physical if physical is not None else UInt32()
+
+    def __eq__(self, other: Any) -> bool:
+        return isinstance(other, Categories) and (self.name, self.namespace, type(self.physical).__name__) == (
+            other.name, other.namespace, type(other.physical).__name__)
+
+    def __hash__(self) -> int:
+        return hash(("Categories", self.name, self.namespace, type(self.physical).__name__))
+
+    def __repr__(self) -> str:
+        return f"Categories(name={self.name!r}, namespace={self.namespace!r})"
+
+    @classmethod
+    def random(cls, namespace: str = "") -> Categories:
+        import uuid
+
+        return cls(uuid.uuid4().hex, namespace)
+
+    def is_global(self) -> bool:
+        return not self.name

@@ -35,8 +35,8 @@ from polars_tpu_torch.engine import fn_position as P
 from polars_tpu_torch.engine import groupby as G
 from polars_tpu_torch.engine.cast import cast_val, float_values, int_scalar, order_word, wrap_unsigned
 from polars_tpu_torch.engine.common import (
-    GROUP, ROW, SCALAR, SERIES, EvalCtx, GroupCtx, Val, broadcast_pair, combine_validity, empty_child, flag_rows,
-    reject_series, take_lut,
+    GROUP, ROW, SCALAR, SERIES, EvalCtx, GroupCtx, Val, broadcast_pair, col_to_val, combine_validity, empty_child,
+    flag_rows, reject_series, take_lut,
 )
 from polars_tpu_torch.engine.registry import get_spec
 from polars_tpu_torch.engine.strings import ensure_ordinal_val, unify_vals
@@ -127,9 +127,9 @@ def _gather_in_groups(node: E.EGather, ctx: EvalCtx) -> Val:
     v = P.row_domain(ctx, eval_expr(node.input, ctx))
     idx = eval_expr(node.indices, ctx)
     if idx.domain not in (SCALAR, SERIES):
-        raise NotImplementedError("a gather in each group by per-row indices (port queue: item 4b)")
+        raise NotImplementedError("a gather in each group by per-row indices (port queue: item 4c)")
     if ctx.in_window and idx.domain != SCALAR:
-        raise NotImplementedError("a gather of several indices in a window (port queue: item 4b)")
+        raise NotImplementedError("a gather of several indices in a window (port queue: item 4c)")
     g = ctx.groups
     o = P.group_order(ctx)
     counts = G.group_counts(g, ctx.rowmask)
@@ -422,10 +422,20 @@ def _eval_series_literal(node: E.ESeriesLit, ctx: EvalCtx) -> Val:
     """A literal Series on the frame's device: a scalar when it holds one
     value (as in the JAX package), else its own (m,) tensor, which only
     ``is_in`` consumes (the JAX package pads it to the frame's rows)."""
-    col = node.column
-    values = col.buffer.values.to(ctx.device)
-    validity = None if col.buffer.validity is None else col.buffer.validity.to(ctx.device)
-    return Val(values, validity, col.dtype, col.table, SCALAR if len(col) == 1 else SERIES)
+    v = _val_to(col_to_val(node.column), ctx.device)
+    return v.with_(domain=SCALAR if len(node.column) == 1 else SERIES)
+
+
+def _val_to(v: Val, device) -> Val:
+    """``v`` and its child on ``device`` (a literal's nested value keeps
+    its elements or fields)."""
+    child = v.child
+    if isinstance(child, tuple):
+        child = tuple(_val_to(c, device) for c in child)
+    elif child is not None:
+        child = _val_to(child, device)
+    validity = None if v.validity is None else v.validity.to(device)
+    return v.with_(values=v.values.to(device), validity=validity, child=child)
 
 
 # ---------------------------------------------------------------------------
@@ -966,7 +976,7 @@ def _agg_input(node: E.ENode, ctx: EvalCtx) -> tuple[Val, torch.Tensor]:
             keep = keep & (pos < first + node.length)
         return v, mask & o.to_rows(keep)
     if isinstance(node, E.EGather):
-        raise NotImplementedError("an aggregation of a gather in each group (port queue: item 4b)")
+        raise NotImplementedError("an aggregation of a gather in each group (port queue: item 4c)")
     if isinstance(node, E.ESeriesLit):
         raise InvalidOperationError("a literal Series under an aggregation")
     kids = node.children()
@@ -1135,6 +1145,10 @@ def _eval_stat_agg(node: E.EAgg, ctx: EvalCtx, v: Val, data_mask: torch.Tensor, 
         return Val(ent.to(dt.dtype_to_torch(out_dt)), None, out_dt, None, dom)
     if kind in ("bitwise_and", "bitwise_or", "bitwise_xor"):
         return _eval_bitwise_agg(kind, v, data_mask, gids, cap, dom)
+    if kind == "mode":
+        return _eval_mode(v, data_mask, gctx, dom)
+    if kind == "is_sorted":
+        return _eval_is_sorted(node, v, rowmask, gctx, dom)
     if kind == "item":
         # exactly one row per group (the JAX package's compiler.py:927-937):
         # more, or none without ``allow_empty``, fails at the count read
@@ -1151,6 +1165,75 @@ def _eval_stat_agg(node: E.EAgg, ctx: EvalCtx, v: Val, data_mask: torch.Tensor, 
         validity = has if v.validity is None else (has & v.validity.index_select(0, idx))
         return v.with_(values=v.values.index_select(0, idx), validity=validity, domain=dom)
     raise NotImplementedError(f"aggregation {kind!r} is not ported yet (port queue: expression breadth)")
+
+
+def _group_runs(v: Val, mask: torch.Tensor, gctx: GroupCtx) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The ``mask`` rows sorted by (group, value), a dropped row after every
+    group: (that order, its group ids, where a run of equal (group, value)
+    starts)."""
+    v = ensure_ordinal_val(v)
+    cap = gctx.capacity
+    g = torch.where(mask, gctx.gids.to(torch.int64), cap)
+    word = order_word(v.values, v.dtype)
+    perm = stable_argsort_words([g, word])
+    gs, ws = g.index_select(0, perm), word.index_select(0, perm)
+    start = torch.ones_like(gs, dtype=torch.bool)
+    if gs.shape[0] > 1:
+        start[1:] = (gs[1:] != gs[:-1]) | (ws[1:] != ws[:-1])
+    return perm, gs, start
+
+
+def _eval_mode(v: Val, data_mask: torch.Tensor, gctx: GroupCtx, dom: str) -> Val:
+    """The most frequent values of each group (every one of a tie, in value
+    order), a List per group: the rows sorted by (group, value), each run's
+    length, the groups' longest (a max per group), the runs that reach it
+    compacted by K2 and counted per group by K1."""
+    from polars_tpu_torch.engine.fn_nested import compact_val, make_list
+
+    cap = gctx.capacity
+    perm, gs, start = _group_runs(v, data_mask, gctx)
+    run = torch.cumsum(start.to(torch.int64), 0) - 1
+    nruns = int(run[-1]) + 1 if run.shape[0] else 0
+    run_len = torch.zeros(nruns, dtype=torch.int64, device=run.device).index_add_(0, run, torch.ones_like(run))
+    run_group = gs[start]
+    best = torch.zeros(cap + 1, dtype=torch.int64, device=run.device).scatter_reduce_(0, run_group, run_len, "amax")
+    keep = (run_len == best.index_select(0, run_group)) & (run_group < cap)
+    firsts = perm[start]
+    child = compact_val(v.with_(values=v.values.index_select(0, firsts), validity=None, domain=ROW), keep)
+    lens = G.seg_count(keep, run_group.clamp(max=max(cap - 1, 0)).to(torch.int32), cap) if cap else \
+        torch.zeros(0, dtype=torch.int64, device=run.device)
+    rows = Val(torch.zeros(cap, dtype=torch.int64, device=run.device), None, dt.List(v.dtype), None, dom)
+    return make_list(rows, lens, child, dt.List(v.dtype))
+
+
+def _eval_is_sorted(node: E.EAgg, v: Val, rowmask: torch.Tensor, gctx: GroupCtx, dom: str) -> Val:
+    """Whether each group's values are in order (``descending`` True,
+    False, or None for either), nulls first unless ``nulls_last``: each kept
+    row against the group's previous one, in group order; a K1 count of the
+    pairs out of order."""
+    v = ensure_ordinal_val(v)
+    cap = gctx.capacity
+    g = torch.where(rowmask, gctx.gids.to(torch.int64), cap)
+    perm = torch.sort(g, stable=True).indices
+    gs = g.index_select(0, perm)
+    word = order_word(v.values, v.dtype).index_select(0, perm)
+    valid = torch.ones_like(gs, dtype=torch.bool) if v.validity is None else v.validity.index_select(0, perm)
+    pair = (gs[1:] == gs[:-1]) & (gs[1:] < cap)
+    a, b, va, vb = word[:-1], word[1:], valid[:-1], valid[1:]
+    nulls_last = bool(node.opt("nulls_last", False))
+    null_bad = (va & ~vb) if not nulls_last else (~va & vb)
+
+    def bad(desc: bool) -> torch.Tensor:
+        out_of_order = (a < b) if desc else (a > b)
+        return pair & (null_bad | (va & vb & out_of_order))
+
+    gid = gs[1:].clamp(max=max(cap - 1, 0)).to(torch.int32)
+    desc = node.opt("descending", False)
+    if desc is None:
+        ok = ~G.seg_any(bad(False), pair, gid, cap) | ~G.seg_any(bad(True), pair, gid, cap)
+    else:
+        ok = ~G.seg_any(bad(bool(desc)), pair, gid, cap)
+    return Val(ok, None, dt.Boolean(), None, dom)
 
 
 def _eval_moment(node: E.EAgg, v: Val, data_mask: torch.Tensor, gctx: GroupCtx, dom: str, out_dt) -> Val:

@@ -87,7 +87,8 @@ def _is_fusable(node: L.LNode) -> bool:
     select that calls a host function (``engine/hostops.py``)."""
     if isinstance(node, (L.LSelect, L.LWithColumns)):
         return not any(E.needs_host(e) for e in node.expressions)
-    if isinstance(node, L.LGroupBy) and any(E.needs_host_agg(e) for e in node.aggs):
+    if isinstance(node, L.LGroupBy) and any(E.needs_host_agg(e) or any(isinstance(n, E.EAnonymous)
+                                                                      for n in E.walk(e)) for e in node.aggs):
         return False
     return isinstance(node, _FUSABLE) and (not isinstance(node, L.LJoin) or _join_fusable(node))
 

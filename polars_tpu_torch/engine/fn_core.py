@@ -26,7 +26,7 @@ from polars_tpu_torch.engine.cast import cast_val, float_values, order_word, wra
 from polars_tpu_torch.engine.common import (
     GROUP, ROW, SCALAR, SERIES, Val, broadcast_pair, combine_validity, flag_rows, reject_series, take_lut,
 )
-from polars_tpu_torch.engine.registry import BOOL, FLOAT, SAME, SUPER, register
+from polars_tpu_torch.engine.registry import BOOL, FLOAT, SAME, SUPER, raises, register
 from polars_tpu_torch.errors import InvalidOperationError
 from polars_tpu_torch.plan.schema_resolve import supertype
 from polars_tpu_torch.utils import strtable
@@ -341,6 +341,10 @@ def _is_in(ctx, args, opts):
     if isinstance(other.dtype, (dt.List, dt.Array)) and other.domain != SERIES:
         from polars_tpu_torch.engine.fn_nested import _list_contains
 
+        if other.domain == SCALAR and v.domain != SCALAR:  # one list (a literal) for every row
+            n = v.values.shape[0]
+            validity = None if other.validity is None else other.validity.expand(n)
+            other = other.with_(values=other.values.expand(n), validity=validity, domain=v.domain)
         out = _list_contains(ctx, [other, v], opts)
         return out.with_(validity=combine_validity(out.validity, v.validity))
     if other.domain not in (SCALAR, SERIES):
@@ -1249,22 +1253,17 @@ def _hash(ctx, args, opts):
 # -- functions that refuse or run elsewhere ---------------------------------------------------
 
 
-def _raises(message: str, error=InvalidOperationError):
-    def impl(ctx, args, opts):
-        raise error(message)
-
-    return impl
-
-
 # a select runs these on the host (engine/hostops.distinct_column); elsewhere they refuse
 register("unique", SAME, elementwise=False)(
-    _raises("expression-level unique() changes length: only in a select; use frame unique()"))
+    raises("expression-level unique() changes length: only in a select; use frame unique()"))
 register("unique_counts", dt.UInt32(), elementwise=False)(
-    _raises("unique_counts changes length: only in a select; use value_counts()"))
-register("pack_pair", SAME, elementwise=False)(_raises("corr/cov are evaluated by the aggregation engine"))
+    raises("unique_counts changes length: only in a select; use value_counts()"))
+register("pack_pair", SAME, elementwise=False)(raises("corr/cov are evaluated by the aggregation engine"))
 # generators and value-dependent dtypes: host functions (engine/hostops.py)
 register("int_range", lambda dts, opts: opts.get("dtype") or dt.Int64(), elementwise=False)(
-    _raises("int_range is made on the host"))
+    raises("int_range is made on the host"))
 register("repeat_value", lambda dts, opts: opts.get("dtype") or dts[0], elementwise=False)(
-    _raises("repeat is made on the host"))
-register("shrink_dtype", SAME, elementwise=False)(_raises("shrink_dtype runs on the host"))
+    raises("repeat is made on the host"))
+register("temporal_range", lambda dts, opts: opts["dtype"], elementwise=False)(
+    raises("date_range/datetime_range is made on the host"))
+register("shrink_dtype", SAME, elementwise=False)(raises("shrink_dtype runs on the host"))

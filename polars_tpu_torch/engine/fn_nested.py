@@ -35,7 +35,7 @@ import torch
 from polars_tpu_torch import datatypes as dt
 from polars_tpu_torch.engine import groupby as G
 from polars_tpu_torch.engine.common import GROUP, ROW, SCALAR, EvalCtx, GroupCtx, Val, combine_validity
-from polars_tpu_torch.engine.registry import register
+from polars_tpu_torch.engine.registry import raises, register
 from polars_tpu_torch.errors import ComputeError, InvalidOperationError, SchemaError, ShapeError
 from polars_tpu_torch.kernels.argsort import boundaries_from_words, stable_argsort_words
 from polars_tpu_torch.kernels.compact import compact_count, compact_scatter
@@ -778,7 +778,7 @@ def _list_sample(ctx, args, opts):
     in list order, from a generator seeded by ``seed``."""
     v = args[0]
     if opts.get("with_replacement"):
-        raise NotImplementedError("list.sample with replacement (port queue: item 4b)")
+        raise NotImplementedError("list.sample with replacement (port queue: item 4c)")
     el = elements(ctx, v)
     e = element_val(v, el)
     gen = torch.Generator(device=el.owner.device)
@@ -842,20 +842,14 @@ def _list_to_struct(ctx, args, opts):
     return Val(_iota(n, v.values.device), v.validity, out_dt, None, v.domain, fields)
 
 
-def _on_host(name: str):
-    def impl(ctx, args, opts):
-        raise InvalidOperationError(f"{name} runs on the host between segments (engine/hostops.py)")
-
-    return impl
-
-
 def _join_dt(dts, opts):
     _in(dts, opts)
     return dt.String()
 
 
-register("list.join", _join_dt)(_on_host("list.join"))
-register("struct.json_encode", dt.String())(_on_host("struct.json_encode"))
+register("list.join", _join_dt)(raises("list.join runs on the host between segments (engine/hostops.py)"))
+register("struct.json_encode", dt.String())(
+    raises("struct.json_encode runs on the host between segments (engine/hostops.py)"))
 
 
 # ---------------------------------------------------------------------------
@@ -1006,7 +1000,25 @@ def _drop_dt(dts, opts):
     if not isinstance(d, dt.Struct):
         raise InvalidOperationError(f"struct.drop needs a Struct, got {d!r}")
     drop = set(opts["names"])
+    missing = [n for n in opts["names"] if n not in {f.name for f in d.fields}]
+    if missing:  # as Polars (and the JAX package): a field that is not there is an error
+        raise ComputeError(f"struct has no field(s) {missing}")
     return dt.Struct([(f.name, f.dtype) for f in d.fields if f.name not in drop])
+
+
+def _map_names_dt(dts, opts):
+    d = dts[0]
+    if not isinstance(d, dt.Struct):
+        raise InvalidOperationError(f"name.*_fields needs a Struct, got {d!r}")
+    fn = opts["function"]
+    return dt.Struct([(fn(f.name), f.dtype) for f in d.fields])
+
+
+@register("struct.map_field_names", _map_names_dt)
+def _struct_map_names(ctx, args, opts):
+    """``name.prefix_fields``/``suffix_fields``/``map_fields``: the fields
+    renamed, the values kept."""
+    return args[0].with_(dtype=_map_names_dt([args[0].dtype], opts))
 
 
 @register("struct.drop", _drop_dt)

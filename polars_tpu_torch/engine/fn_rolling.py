@@ -28,7 +28,7 @@ from polars_tpu_torch.engine.fn_position import (
     _cum_sum_dtype, _in_group_space, _iota, _scan_values, _valid_kept, marked_neighbours, row_domain,
     sort_in_groups,
 )
-from polars_tpu_torch.engine.registry import FLOAT, register
+from polars_tpu_torch.engine.registry import FLOAT, SAME, raises, register
 from polars_tpu_torch.errors import InvalidOperationError
 from polars_tpu_torch.plan.exprs import cum_eval_kind
 
@@ -358,18 +358,14 @@ for _k in ("sum", "mean", "min", "max", "std", "var", "count", "first", "last"):
     _rolling_by(_k)
 
 
-def _host_only(name: str):
-    def impl(ctx, args, opts):
-        raise InvalidOperationError(f"{name} runs on the host (engine/hostops.py)")
-
-    return impl
-
-
-register("rolling_median_by", lambda dts, opts: dt.Float64(), elementwise=False)(_host_only("rolling_median_by"))
+register("rolling_median_by", lambda dts, opts: dt.Float64(), elementwise=False)(
+    raises("rolling_median_by runs on the host (engine/hostops.py)"))
+register("rolling_map", SAME, elementwise=False)(
+    raises("rolling_map runs on the host (engine/hostops.py)"))
 register("rolling_quantile_by", lambda dts, opts: dt.Float64(), elementwise=False)(
-    _host_only("rolling_quantile_by"))
+    raises("rolling_quantile_by runs on the host (engine/hostops.py)"))
 register("rolling_rank_by", lambda dts, opts: dt.Float64() if opts.get("method", "average") == "average"
-         else dt.UInt32(), elementwise=False)(_host_only("rolling_rank_by"))
+         else dt.UInt32(), elementwise=False)(raises("rolling_rank_by runs on the host (engine/hostops.py)"))
 
 
 # -- exponentially weighted windows ---------------------------------------------------------------

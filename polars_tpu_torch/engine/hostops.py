@@ -52,16 +52,20 @@ from polars_tpu_torch.utils import strtable
 from polars_tpu_torch.utils.tokens import next_token
 
 # host functions that make a column of their own length
-GENERATORS = ("int_range", "repeat_value", "unique", "unique_counts", "cat.get_categories")
+GENERATORS = ("int_range", "repeat_value", "temporal_range", "unique", "unique_counts", "cat.get_categories",
+              "extend_constant", "append", "sample", "shuffle", "rle", "value_counts", "hist", "reshape")
 _EPOCH = _pydt.datetime(1970, 1, 1)
 _EPOCH_UTC = _pydt.datetime(1970, 1, 1, tzinfo=_pydt.timezone.utc)
 # the chrono specifiers Python lacks or reads otherwise
 _CHRONO = re.compile(r"%(%|\.[369]?f|[369]f|f|:z)")
 
 
-def exec_host_select(node: L.LSelect | L.LWithColumns) -> DataFrame:
+def exec_host_select(node: L.LSelect | L.LWithColumns, reduce_first: bool = True) -> DataFrame:
     """Run a select or with_columns that calls host functions: the input,
-    then each call on the host, then the rest as one segment."""
+    then each call on the host, then the rest as one segment. With
+    ``reduce_first``, an aggregation of a column of its own length
+    (``extend_constant(...).sum()``) is a select of its own first, and its
+    one value a scalar of the rest."""
     from polars_tpu_torch.engine.executors import run_segment
     from polars_tpu_torch.engine.join import _renamed
     from polars_tpu_torch.engine.run import execute_plan
@@ -73,11 +77,16 @@ def exec_host_select(node: L.LSelect | L.LWithColumns) -> DataFrame:
     hoisted: list[Column] = []
 
     def hoist(e: E.ENode) -> E.ENode:
+        if reduce_first and isinstance(e, E.EAgg) and any(E.is_host_call(n) and getattr(n, "name", None) in GENERATORS
+                                                          for n in E.walk(e)):
+            one = exec_host_select(L.LSelect(L.LDataFrameScan(df=df, ident=0), (e,)), reduce_first=False)
+            return E.ESeriesLit(column=one._columns[0], ident=next_token())
         if E.is_host_call(e):
             out = run._eval_generator(df, e, None)
-            if len(out) == 1 and e.name not in GENERATORS:  # an aggregate's or a literal's: a scalar
+            own = getattr(e, "name", None) in GENERATORS  # a length of its own
+            if len(out) == 1 and not own:  # an aggregate's, a literal's or a function's one value: a scalar
                 return E.ESeriesLit(column=out, ident=next_token())
-            if len(out) != df.height and e.name not in GENERATORS:
+            if len(out) != df.height and not own and not isinstance(e, E.EAnonymous):
                 raise InvalidOperationError(
                     f"{e.name} gives {len(out)} rows over a frame of {df.height}; only a column or a scalar input")
             name = f"__host_{len(hoisted)}"
@@ -115,6 +124,14 @@ def host_call(df: DataFrame, node: E.ENode) -> Column:
 
     if isinstance(node, E.ECast):
         return cast_to_text(_eval_column(df, node.input), node.dtype)
+    if isinstance(node, E.EAnonymous):
+        from polars_tpu_torch.engine.udf import call_column
+
+        return call_column(df, node)
+    if node.name == "rolling_map":
+        from polars_tpu_torch.engine.udf import rolling_map_column
+
+        return rolling_map_column(_eval_column(df, node.inputs[0]), node)
     if node.name == "list.join":
         return list_join_column(_eval_column(df, node.inputs[0]), node.opt("separator", ""),
                                 node.opt("ignore_nulls", True))
@@ -136,6 +153,12 @@ def host_call(df: DataFrame, node: E.ENode) -> Column:
         return rolling_order_by_column(_eval_column(df, node.inputs[0]), _eval_column(df, node.inputs[1]), node)
     if node.name in ("int_range", "repeat_value"):
         return generate(df, node)
+    if node.name == "temporal_range":
+        return temporal_range_column(df, node)
+    from polars_tpu_torch.engine.sequences import SEQUENCE_FNS, sequence_column
+
+    if node.name in SEQUENCE_FNS:
+        return sequence_column(df, node)
     if node.name == "shrink_dtype":
         return shrink_column(_eval_column(df, node.inputs[0]))
     if node.name in ("unique", "unique_counts"):
@@ -317,6 +340,46 @@ def generate(df: DataFrame, node: E.EFunction) -> Column:
     buf = one.buffer
     validity = None if buf.validity is None else buf.validity.index_select(0, idx)
     return Column("repeat", one.dtype, Buffer(buf.values.index_select(0, idx), validity, int(n)), one.table)
+
+
+def _ticks(value, dtype: dt.DataType) -> int:
+    """A bound (a date or a datetime) as ticks of ``dtype`` (days of a
+    Date, its unit of a Datetime)."""
+    if isinstance(dtype, dt.Date):
+        day = value.date() if isinstance(value, _pydt.datetime) else value
+        return (day - _EPOCH.date()).days
+    if not isinstance(value, _pydt.datetime):
+        value = _pydt.datetime(value.year, value.month, value.day)
+    if value.tzinfo is not None:
+        value = value.astimezone(_pydt.timezone.utc).replace(tzinfo=None)
+    delta = value - _EPOCH
+    us = (delta.days * 86_400 + delta.seconds) * 1_000_000 + delta.microseconds
+    return {"ms": us // 1000, "us": us, "ns": us * 1000}[dtype.time_unit]
+
+
+def temporal_range_column(df: DataFrame, node: E.EFunction) -> Column:
+    """A lazy ``date_range``/``datetime_range``: its bounds read once, a
+    fixed interval one ``arange`` on the device; a calendar one (months,
+    quarters, years) steps on the host (``functions/lazy.temporal_range_values``)."""
+    from polars_tpu_torch.engine.fn_generators import _steps
+    from polars_tpu_torch.engine.rolling import interval_ticks
+    from polars_tpu_torch.functions.lazy import temporal_range_values
+
+    dtype = node.opt("dtype")
+    start, end = _scalars(df, node.inputs)
+    if start is None or end is None:
+        raise InvalidOperationError("a range's bounds must not be null")
+    interval, closed = node.opt("interval", "1d"), node.opt("closed", "both")
+    try:
+        step = interval_ticks(interval, dtype)
+    except InvalidOperationError:  # a calendar interval
+        values = temporal_range_values(start, end, interval, closed)
+        return Column.from_values("literal", values, dtype, device=df.device)
+    a, b = _ticks(start, dtype), _ticks(end, dtype)
+    first, last = (int(k) for k in _steps(torch.tensor(b - a), torch.tensor(step), closed))  # host ints
+    ks = torch.arange(first, max(last + 1, first), dtype=torch.int64, device=df.device)
+    values = (a + ks * step).to(dt.dtype_to_torch(dtype))
+    return Column("literal", dtype, Buffer(values, None, values.shape[0]))
 
 
 def distinct_column(col: Column, node: E.EFunction) -> Column:

@@ -16,6 +16,7 @@ from dataclasses import dataclass
 from typing import Any, Callable
 
 from polars_tpu_torch import datatypes as dt
+from polars_tpu_torch.errors import InvalidOperationError
 
 
 @dataclass
@@ -48,9 +49,7 @@ def refuse_nested_input(name: str, dtypes: list) -> None:
         return
     for i, d in enumerate(dtypes):
         if d.is_nested() and not (i and name in NESTED_LATER_ARGS):
-            from polars_tpu_torch.errors import InvalidOperationError
-
-            raise InvalidOperationError(f"{name} of {d!r} is not ported yet (ROADMAP item 4b)")
+            raise InvalidOperationError(f"{name} of {d!r} is not ported yet (ROADMAP item 4c)")
 
 
 def register(name: str, dtype_rule: Any, *, elementwise: bool = True):
@@ -68,6 +67,16 @@ def register(name: str, dtype_rule: Any, *, elementwise: bool = True):
         return fn
 
     return deco
+
+
+def raises(message: str, error: type = InvalidOperationError) -> Callable:
+    """The implementation of a function that another layer runs (on the
+    host, between segments): reached inside a segment, it raises."""
+
+    def impl(ctx, args, opts):
+        raise error(message)
+
+    return impl
 
 
 def get_spec(name: str) -> FnSpec:
@@ -109,6 +118,8 @@ def _ensure_loaded() -> None:
         return
     _LOADED = True
     import polars_tpu_torch.engine.fn_core  # noqa: F401
+    import polars_tpu_torch.engine.fn_generators  # noqa: F401
+    import polars_tpu_torch.engine.sequences  # noqa: F401
     import polars_tpu_torch.engine.fn_nested  # noqa: F401
     import polars_tpu_torch.engine.fn_position  # noqa: F401
     import polars_tpu_torch.engine.fn_rolling  # noqa: F401

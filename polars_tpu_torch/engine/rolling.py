@@ -466,7 +466,7 @@ def rolling_frames(df, index: str, period_ticks: int, offset_ticks: int, closed:
             raise InvalidOperationError(f"rolling agg {kind!r} unsupported")
         scol = df._get(src)
         if scol.dtype.is_nested() and kind not in ("first", "last", "count", "len"):
-            raise InvalidOperationError(f"rolling {kind} of {scol.dtype!r} is not ported yet (ROADMAP item 4b)")
+            raise InvalidOperationError(f"rolling {kind} of {scol.dtype!r} is not ported yet (ROADMAP item 4c)")
         col = order.column(scol.buffer.values, scol.buffer.validity, scol.dtype)
         out, cnt, extra = col.agg(kind, lo, hi, ddof=ddof, max_width=order.n)
         ok = valid if kind in ("count", "len") else (cnt >= max(minp or 1, 1)) & valid

@@ -83,8 +83,21 @@ def _execute_node(node: L.LNode) -> DataFrame:
         return _exec_special_select(node)
     if isinstance(node, L.LGroupBy):
         from polars_tpu_torch.engine.hostops import exec_host_groupby
+        from polars_tpu_torch.engine.udf import exec_groupby_udf, has_udf
 
-        return exec_host_groupby(node)
+        return exec_groupby_udf(node) if has_udf(node) else exec_host_groupby(node)
+    if isinstance(node, L.LUnpivot):
+        from polars_tpu_torch.engine.reshape import unpivot_frame
+        from polars_tpu_torch.plan.schema_resolve import unpivot_columns
+
+        df = execute_plan(node.input)
+        on, index = unpivot_columns(node, df.schema)
+        return unpivot_frame(df, on, index, node.variable_name, node.value_name)
+    if isinstance(node, L.LMapFunction):
+        from polars_tpu_torch.engine.udf import map_frame
+        from polars_tpu_torch.plan.schema_resolve import node_schema
+
+        return map_frame(node.function, execute_plan(node.input), node_schema(node) if node.validate else None)
     raise NotImplementedError(f"executing {type(node).__name__} is not ported yet")
 
 

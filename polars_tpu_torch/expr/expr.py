@@ -14,7 +14,7 @@ functions (``replace``, ``replace_strict``, ``hash``, ``cut``, ``qcut``,
 ``rle_id``, ``search_sorted``, ``index_of``, the bit counts) with the
 operator aliases). Nothing executes until a plan is collected. The methods
 of later slices raise ``NotImplementedError`` naming their queue item
-(``_LATER``).
+(``polars_tpu_torch/later.py``).
 """
 
 from __future__ import annotations
@@ -117,7 +117,8 @@ class Expr:
         fails the query when ``strict``, else is null; ``wrap_numerical``
         wraps integers and floats into an integer type instead, as Polars
         does (the JAX package takes the flag and ignores it)."""
-        target = dt.parse_into_dtype(dtype)
+        # a DataTypeExpr is resolved when the expression enters a plan
+        target = dtype if isinstance(dtype, dt.DataTypeExpr) else dt.parse_into_dtype(dtype)
         if wrap_numerical:
             return self._fn("cast_wrap", dtype=target)
         return Expr(E.ECast(self._node, target, strict))
@@ -975,6 +976,110 @@ class Expr:
         hit = self == element
         return when(hit.any()).then((~hit).cast(dt.Int64()).arg_min()).otherwise(None)
 
+    # -- sequences of their own length (engine/sequences.py) and ranges --------
+
+    def extend_constant(self, value: Any, n: int) -> Expr:
+        """The column with ``n`` copies of ``value`` after it."""
+        return self._fn("extend_constant", value, n=int(n))
+
+    def append(self, other: Any, *, upcast: bool = True) -> Expr:
+        """The column with ``other``'s values after it."""
+        return self._fn("append", other)
+
+    def sample(self, n: int | None = None, *, fraction: float | None = None, with_replacement: bool = False,
+               shuffle: bool = False, seed: int | None = None) -> Expr:
+        """``n`` values (or a ``fraction``), drawn on the device from
+        ``seed``; in column order unless ``shuffle``."""
+        return self._fn("sample", n=n, fraction=fraction, with_replacement=with_replacement, shuffle=shuffle,
+                        seed=seed)
+
+    def shuffle(self, seed: int | None = None) -> Expr:
+        """The values in a random order drawn from ``seed``."""
+        return self._fn("shuffle", seed=seed)
+
+    def rle(self) -> Expr:
+        """Runs of equal values: a Struct of each run's ``len`` and ``value``."""
+        return self._fn("rle")
+
+    def value_counts(self, *, sort: bool = False, parallel: bool = False, name: str | None = None,
+                     normalize: bool = False) -> Expr:
+        """Each distinct value with its count (or share): a Struct."""
+        return self._fn("value_counts", sort=sort, normalize=normalize, field=E.output_name(self._node) or "",
+                        count_name=name or ("proportion" if normalize else "count"))
+
+    def hist(self, bins: Any = None, *, bin_count: int | None = None, include_category: bool = False,
+             include_breakpoint: bool = False) -> Expr:
+        """Counts per bin of ``bins`` (edges) or of ``bin_count`` equal bins."""
+        return self._fn("hist", bins=None if bins is None else tuple(float(b) for b in bins), bin_count=bin_count,
+                        include_category=include_category, include_breakpoint=include_breakpoint)
+
+    def reshape(self, dimensions: tuple) -> Expr:
+        """``(rows, width)``: an Array of ``width`` per row (-1 infers)."""
+        return self._fn("reshape", dimensions=tuple(int(d) for d in dimensions))
+
+    def repeat_by(self, by: Any) -> Expr:
+        """Each value repeated ``by`` times (a column name or an
+        expression), as a List."""
+        return self._fn("repeat_by", parse_into_expr(by))
+
+    def repeat(self, n: Any) -> Expr:
+        """``pl.repeat`` of this (one-value) expression."""
+        from polars_tpu_torch.functions.lazy import repeat
+
+        return repeat(self, n)
+
+    def mode(self) -> Expr:
+        """The most frequent values (every one of a tie, in value order): a
+        column of its own length in a select, a List per group in a
+        group-by."""
+        return self._agg("mode")
+
+    def is_sorted(self, *, descending: bool | None = False, nulls_last: bool | None = False) -> Expr:
+        """Whether the values are in order (``descending=None``: either way)."""
+        return self._agg("is_sorted", descending=descending, nulls_last=bool(nulls_last))
+
+    # -- a user's functions (engine/udf.py) -------------------------------------
+
+    def map_batches(self, function: Callable, return_dtype: Any = None, *, agg_list: bool = False,
+                    is_elementwise: bool = False, returns_scalar: bool = False) -> Expr:
+        """``function`` of the whole column (a Series on the frame's
+        device); in a group-by, of each group's rows."""
+        return Expr(E.EAnonymous((self._node,), function=function, return_dtype=_dtype_or_none(return_dtype),
+                                 ident=next_token(), returns_scalar=returns_scalar, elementwise=is_elementwise))
+
+    def map_elements(self, function: Callable, return_dtype: Any = None, *, skip_nulls: bool = True,
+                     **kwargs: Any) -> Expr:
+        """``function`` of each value (a null stays null), on the host."""
+        target = _dtype_or_none(return_dtype)
+
+        def each(s):
+            from polars_tpu_torch.core.series import Series
+
+            return Series(s.name, [None if v is None and skip_nulls else function(v) for v in s.to_list()],
+                          dtype=target, device=s.device)
+
+        return Expr(E.EAnonymous((self._node,), function=each, return_dtype=target, ident=next_token(),
+                                 elementwise=True))
+
+    def rolling_map(self, function: Callable, window_size: int, weights: Any = None, *,
+                    min_samples: int | None = None, center: bool = False) -> Expr:
+        """``function`` of each window of ``window_size`` rows (a Series)."""
+        if weights is not None:
+            raise InvalidOperationError("rolling_map takes no weights")
+        return self._fn("rolling_map", function=function, window_size=int(window_size),
+                        min_samples=min_samples if min_samples is not None else int(window_size), center=center)
+
+    def rechunk(self) -> Expr:
+        return self
+
+    def inspect(self, fmt: str = "{}") -> Expr:
+        """The column unchanged, printed as it passes."""
+        def show(s):
+            print(fmt.format(s))
+            return s
+
+        return self.map_batches(show)
+
     # -- windows --------------------------------------------------------------
 
     def over(self, partition_by: Any, *more_exprs: Any, order_by: Any = None, descending: Any = False,
@@ -993,6 +1098,10 @@ class Expr:
             order = tuple(parse_into_expr(o) for o in _flat((order_by,)))
         desc = tuple(descending) if isinstance(descending, (list, tuple)) else (bool(descending),) * len(order)
         return Expr(E.EWindow(self._node, parts, order, mapping_strategy, tuple(map(bool, desc))))
+
+
+def _dtype_or_none(d: Any):
+    return None if d is None else dt.parse_into_dtype(d)
 
 
 def _flat(items: Any) -> list:
@@ -1059,23 +1168,24 @@ class ExprNameNamespace:
     def map(self, function: Callable[[str], str]) -> Expr:
         return self._rename("map", function)
 
+    def replace(self, pattern: str, value: str, *, literal: bool = False) -> Expr:
+        """The name with ``pattern`` (a regex unless ``literal``) replaced."""
+        import re
 
-# Expr methods of the JAX package that later slices port, by ROADMAP queue
-# item: each raises naming its item
-_LATER = {
-    "4b (map functions)": ("rolling_map",),
-}
+        if literal:
+            return self._rename("map", lambda n: n.replace(pattern, value))
+        return self._rename("map", lambda n: re.sub(pattern, value, n))
 
+    def _fields(self, function: Callable[[str], str]) -> Expr:
+        return self._expr._fn("struct.map_field_names", function=function)
 
-def _later(fname: str, item: str):
-    def method(self: Expr, *args: Any, **kwargs: Any) -> Expr:
-        raise NotImplementedError(f"Expr.{fname} is not ported yet (port queue: item {item})")
+    def map_fields(self, function: Callable[[str], str]) -> Expr:
+        """A Struct's fields renamed by ``function``."""
+        return self._fields(function)
 
-    method.__name__ = fname
-    return method
+    def prefix_fields(self, prefix: str) -> Expr:
+        return self._fields(lambda n: f"{prefix}{n}")
 
+    def suffix_fields(self, suffix: str) -> Expr:
+        return self._fields(lambda n: f"{n}{suffix}")
 
-for _item, _names in _LATER.items():
-    for _n in _names:
-        if not hasattr(Expr, _n):
-            setattr(Expr, _n, _later(_n, _item))

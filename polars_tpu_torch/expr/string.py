@@ -1,5 +1,5 @@
 """String expression namespace (the port of ``polars_tpu/expr/string.py``),
-but for ``json_decode`` (ROADMAP item 4b). Ops run
+but for ``json_decode`` (ROADMAP item 4c). Ops run
 once per dictionary value on the host and map through the codes on the
 device (see ``engine/fn_strings.py``); ``join``/``concat`` make one string
 per group on the host (``engine/hostops.py``)."""
@@ -226,5 +226,5 @@ class ExprStringNamespace:
         if name.startswith("_"):
             raise AttributeError(name)
         if name in _ITEM_4B:
-            raise NotImplementedError(f"str.{name} is not ported yet (port queue: item 4b)")
+            raise NotImplementedError(f"str.{name} is not ported yet (port queue: item 4c)")
         raise AttributeError(f"str.{name}")

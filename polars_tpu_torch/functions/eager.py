@@ -1,6 +1,6 @@
-"""Combination of frames (the port of ``polars_tpu/functions/eager.py``,
-trimmed to ``concat`` of DataFrames, vertical, of Series, and of
-LazyFrames, vertical or horizontal).
+"""Combination of frames (the port of ``polars_tpu/functions/eager.py``:
+``concat`` of DataFrames, Series and LazyFrames; every ``how`` but the
+vertical ones of DataFrames is a plan, ``LazyFrame._concat``).
 
 ``how="vertical"`` needs equal column names in order; ``"vertical_relaxed"``
 also casts each column to the supertype of its pieces. Either way string
@@ -34,11 +34,13 @@ def _concat_columns(cols: list[Column], name: str, relaxed: bool) -> Column:
     return Column(name, target, Buffer(v.values, v.validity), v.table, child_column(v, target))
 
 
-def concat(items: Any, *, how: str = "vertical") -> DataFrame | LazyFrame:
+def concat(items: Any, *, how: str = "vertical", rechunk: bool = False, parallel: bool = True,
+           strict: bool = False) -> DataFrame | LazyFrame:
     """Stack DataFrames of the same column names vertically; LazyFrames
     vertically (``"vertical"`` and ``"vertical_relaxed"`` alike take each
-    column's supertype, as ``polars_tpu`` does) or side by side
-    (``"horizontal"``), as one plan node."""
+    column's supertype, as ``polars_tpu`` does); and either of them
+    diagonally, side by side or aligned on their common columns
+    (``LazyFrame._concat``)."""
     from polars_tpu_torch.lazyframe import LazyFrame
 
     frames = list(items)
@@ -53,11 +55,9 @@ def concat(items: Any, *, how: str = "vertical") -> DataFrame | LazyFrame:
         col = _concat_columns([f._column for f in frames], name, relaxed=True)
         return Series._from_column(col)
     if not all(isinstance(f, DataFrame) for f in frames):
-        raise NotImplementedError(
-            "concat of anything but DataFrames is not ported yet (port queue: expression breadth)"
-        )
-    if how not in ("vertical", "vertical_relaxed"):
-        raise NotImplementedError(f"concat how={how!r} is not ported yet (port queue: expression breadth)")
+        raise TypeError(f"cannot concat items of type {type(frames[0]).__name__}")
+    if how not in ("vertical", "vertical_relaxed"):  # a plan over the frames (``LazyFrame._concat``)
+        return LazyFrame._concat([f.lazy() for f in frames], how=how).collect()
     names = frames[0].columns
     for f in frames[1:]:
         if f.columns != names:

@@ -143,6 +143,11 @@ def lit(value: Any, dtype: Any = None) -> Expr:
     if isinstance(value, (list, tuple, np.ndarray)):
         node = series_literal(value)
         return Expr(node if dtype is None else E.ECast(node, dt.parse_into_dtype(dtype), True))
+    from polars_tpu_torch.core.series import Series
+
+    if isinstance(value, Series):  # a literal Series of its own length (one value broadcasts)
+        node = parse_into_expr(value)
+        return Expr(node if dtype is None else E.ECast(node, dt.parse_into_dtype(dtype), True))
     if isinstance(value, np.generic):
         value = value.item()
         if dtype is None:
@@ -309,9 +314,8 @@ def datetime_range(start: Any, end: Any, interval: str = "1d", *, closed: str = 
 
 
 def _temporal_range(start, end, interval: str, closed: str, dtype: dt.DataType, eager: bool):
-    if not eager:
-        raise NotImplementedError(
-            "date_range/datetime_range as a lazy expression is not ported yet (port queue: expression breadth)")
+    if not eager:  # a generator of its own length, named as its start; its bounds read once (engine/hostops.generate)
+        return _fn("temporal_range", [start, end], interval=interval, closed=closed, dtype=dtype)
     from polars_tpu_torch.core.series import Series
 
     return Series("literal", temporal_range_values(start, end, interval, closed), dtype)
@@ -355,6 +359,69 @@ def temporal_range_values(start: Any, end: Any, interval: str, closed: str) -> l
     if closed in ("right", "none") and out and out[0] == start:
         out = out[1:]
     return out
+
+
+def _per_row(name: str, alias: str, inputs: list, eager: bool, **options: Any):
+    """A List of a range per row (``engine/fn_generators.py``); eager: over
+    a frame of no columns, as a Series."""
+    e = _fn(name, [parse_into_expr(i) for i in inputs], **options).alias(alias)
+    return _eager_series(e, alias) if eager else e
+
+
+def int_ranges(start: Any = 0, end: Any = None, step: Any = 1, *, dtype: Any = None, eager: bool = False):
+    """Per row, the integers from ``start`` up to ``end`` (excluded) by
+    ``step``, as a List."""
+    if end is None:
+        start, end = 0, start
+    return _per_row("int_ranges", "int_range", [start, end, step], eager,
+                    dtype=None if dtype is None else dt.parse_into_dtype(dtype))
+
+
+def date_ranges(start: Any, end: Any, interval: str = "1d", *, closed: str = "both", eager: bool = False):
+    """Per row, the Dates from ``start`` to ``end`` by ``interval``."""
+    return _per_row("date_ranges", "date_range", [start, end], eager, interval=interval, closed=closed)
+
+
+def datetime_ranges(start: Any, end: Any, interval: str = "1d", *, closed: str = "both", time_unit: str = "us",
+                    time_zone: str | None = None, eager: bool = False):
+    """Per row, the Datetimes from ``start`` to ``end`` by ``interval``."""
+    if time_zone is not None:
+        raise NotImplementedError("datetime_ranges with a time zone is not ported yet (port queue: item 4c)")
+    return _per_row("datetime_ranges", "datetime_range", [start, end], eager, interval=interval, closed=closed,
+                    time_unit=time_unit)
+
+
+def time_ranges(start: Any = None, end: Any = None, interval: str = "1h", *, closed: str = "both",
+                eager: bool = False):
+    """Per row, the Times from ``start`` to ``end`` by ``interval``."""
+    return _per_row("time_ranges", "time_range", [start, end], eager, interval=interval, closed=closed)
+
+
+def linear_spaces(start: Any, end: Any, num_samples: Any, *, closed: str = "both", as_array: bool = False,
+                  eager: bool = False):
+    """Per row, ``num_samples`` evenly spaced floats from ``start`` to
+    ``end``."""
+    return _per_row("linear_spaces", "linear_space", [start, end, num_samples], eager, closed=closed)
+
+
+def arg_where(condition: Any, *, eager: bool = False):
+    """The positions where ``condition`` is true (UInt32): a filter of the
+    row positions, compacted by K2 in the segment."""
+    from polars_tpu_torch.core.series import Series
+
+    if isinstance(condition, Series):
+        out = condition.arg_true()
+        return out if eager else lit(out)
+    e = (condition if isinstance(condition, Expr) else Expr(parse_into_expr(condition))).arg_true()
+    return _eager_series(e, "literal") if eager else e
+
+
+def concat_arr(exprs: Any, *more_exprs: Any) -> Expr:
+    """The values of the expressions side by side, a fixed-width Array."""
+    from polars_tpu_torch.expr.expr import _flat
+
+    nodes = [parse_into_expr(e) for e in _flat((exprs, *more_exprs))]
+    return concat_list([Expr(n) for n in nodes]).list.to_array(builtins.len(nodes))
 
 
 def arg_sort_by(exprs: Any, *more_exprs: Any, descending: Any = False) -> Expr:

@@ -27,6 +27,9 @@ class GroupBy:
     def len(self, name: str = "len") -> DataFrame:
         return self._lazy().len(name).collect()
 
+    def quantile(self, quantile: float, interpolation: str = "nearest") -> DataFrame:
+        return self._lazy()._agg_all("quantile", quantile=quantile, interpolation=interpolation).collect()
+
     def __getattr__(self, name: str):
         if name in ("sum", "mean", "min", "max", "median", "first", "last", "n_unique"):
             return lambda: getattr(self._lazy(), name)().collect()

@@ -28,7 +28,7 @@ def refuse_nested_key(dtype: dt.DataType, what: str = "a sort, group or distinct
     content: ordering or comparing it by that word would be silently wrong."""
     if dtype.is_nested():
         raise InvalidOperationError(f"{what} of dtype {dtype!r} is not ported yet: ordering or comparing "
-                                    "nested values by their content is ROADMAP item 4b")
+                                    "nested values by their content is ROADMAP item 4c")
 
 
 def key_words(values: torch.Tensor, dtype: dt.DataType, *, descending: bool = False) -> list[torch.Tensor]:

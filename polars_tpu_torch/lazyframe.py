@@ -49,6 +49,20 @@ def _and_all(nodes: list[E.ENode]) -> E.ENode:
     return pred
 
 
+def _modes_as_rows(nodes: tuple[E.ENode, ...]) -> tuple[E.ENode, ...]:
+    """A select's ``mode()`` is a column of the modes (the aggregation's one
+    List, exploded), as in Polars; in a group-by it stays a List per group."""
+    def fix(e: E.ENode) -> E.ENode:
+        if isinstance(e, E.EAlias):
+            inner = fix(e.input)
+            return e if inner is e.input else E.EAlias(inner, e.name)
+        if isinstance(e, E.EAgg) and e.kind == "mode":
+            return E.EFunction("explode", (e,))
+        return e
+
+    return tuple(fix(e) for e in nodes)
+
+
 class LazyFrame:
     __slots__ = ("_node",)
 
@@ -185,11 +199,48 @@ class LazyFrame:
 
     @staticmethod
     def _concat(frames: list[LazyFrame], how: str = "vertical") -> LazyFrame:
+        """One plan of the frames: ``vertical``/``vertical_relaxed`` (each
+        column in the supertype of its pieces), ``diagonal`` (the union of
+        the columns in order of first appearance, a column a frame lacks
+        null; equal dtypes, or their supertype with ``diagonal_relaxed``),
+        ``horizontal`` (side by side) or ``align``/``align_full``/
+        ``align_left``/``align_right`` (joined on their common columns,
+        coalesced, sorted by them)."""
+        from polars_tpu_torch.functions.lazy import col, lit
+
         if how in ("vertical", "vertical_relaxed"):
             return LazyFrame._from_node(L.LUnion(tuple(f._node for f in frames)))
         if how == "horizontal":
             return LazyFrame._from_node(L.LHConcat(tuple(f._node for f in frames)))
-        raise NotImplementedError(f"concat how={how!r} is not ported yet (port queue: expression breadth)")
+        if how in ("diagonal", "diagonal_relaxed"):
+            from polars_tpu_torch.errors import SchemaError
+            from polars_tpu_torch.plan.schema_resolve import supertype
+
+            schemas = [f.collect_schema() for f in frames]
+            dtypes: dict[str, Any] = {}
+            for s in schemas:
+                for n, d in s.items():
+                    if n in dtypes and dtypes[n] != d:
+                        if how == "diagonal":
+                            raise SchemaError(f"type {d!r} of column {n!r} differs from {dtypes[n]!r} in a "
+                                              "diagonal concat")
+                        d = supertype(dtypes[n], d)
+                    dtypes[n] = d
+            parts = [f.select([(col(n) if s.get(n) == d else col(n).cast(d)) if n in s
+                               else lit(None).cast(d).alias(n) for n, d in dtypes.items()])
+                     for f, s in zip(frames, schemas)]
+            return LazyFrame._from_node(L.LUnion(tuple(p._node for p in parts)))
+        if how in ("align", "align_full", "align_left", "align_right", "align_inner"):
+            names = [f.collect_schema().names() for f in frames]
+            common = [n for n in names[0] if all(n in other for other in names[1:])]
+            if not common:
+                raise InvalidOperationError("'align' strategy requires at least one common column")
+            join_how = "full" if how in ("align", "align_full") else how.split("_")[1]
+            out = frames[0]
+            for f in frames[1:]:
+                out = out.join(f, on=common, how=join_how, coalesce=True)
+            return out.sort(common)
+        raise InvalidOperationError(f"unknown concat strategy {how!r}")
 
     def filter(self, *predicates: Any, **constraints: Any) -> LazyFrame:
         """The rows where every predicate is true (``name=value`` tests a
@@ -232,7 +283,7 @@ class LazyFrame:
                                                           for n in names])))
 
     def select(self, *exprs: Any, **named_exprs: Any) -> LazyFrame:
-        nodes = self._exprs(parse_into_expr_list(list(exprs), named_exprs))
+        nodes = _modes_as_rows(self._exprs(parse_into_expr_list(list(exprs), named_exprs)))
         if not nodes:  # no expression: an empty frame
             empty = DataFrame._from_columns([], 0, device=self._device())
             return self._wrap(L.LDataFrameScan(df=empty, ident=next_token()))
@@ -291,6 +342,181 @@ class LazyFrame:
 
     def pipe(self, function: Callable, *args: Any, **kwargs: Any):
         return function(self, *args, **kwargs)
+
+    def show(self, limit: int | None = 5, **kwargs: Any) -> None:
+        print(self.limit(limit).collect() if limit is not None else self.collect())
+
+    def clone(self) -> LazyFrame:
+        return LazyFrame._from_node(self._node)
+
+    def with_column(self, expr: Any) -> LazyFrame:
+        return self.with_columns(expr)
+
+    def with_row_count(self, name: str = "row_nr", offset: int = 0) -> LazyFrame:
+        return self.with_row_index(name, offset)
+
+    def set_sorted(self, column: Any, *more_columns: Any, descending: bool = False) -> LazyFrame:
+        """The frame (a sortedness hint, which this engine does not use)."""
+        return self
+
+    def shift(self, n: int = 1, *, fill_value: Any = None) -> LazyFrame:
+        from polars_tpu_torch.functions.lazy import all as pl_all
+
+        return self.select(pl_all().shift(n, fill_value=fill_value))
+
+    def interpolate(self) -> LazyFrame:
+        from polars_tpu_torch.functions.lazy import all as pl_all
+
+        return self.select(pl_all().interpolate())
+
+    def approx_n_unique(self) -> LazyFrame:
+        """Each column's distinct count (exact here)."""
+        from polars_tpu_torch.functions.lazy import all as pl_all
+
+        return self.select(pl_all().n_unique())
+
+    def gather(self, indices: Any) -> LazyFrame:
+        """The rows at ``indices`` (a gather of every column)."""
+        from polars_tpu_torch.functions.lazy import all as pl_all
+
+        idx = indices.to_list() if hasattr(indices, "to_list") else list(indices)
+        return self.select(pl_all().gather(idx))
+
+    def describe(self, percentiles: Any = (0.25, 0.5, 0.75)) -> DataFrame:
+        return self.collect().describe()
+
+    def collect_batches(self, *, chunk_size: int | None = None, maintain_order: bool = True, **kwargs: Any):
+        """The result in frames of ``chunk_size`` rows (collected once; the
+        streaming engine is ROADMAP item 6)."""
+        out = self.collect()
+        step = chunk_size or max(out.height, 1)
+        return iter([out.slice(off, step) for off in range(0, out.height, step)] or [out])
+
+    def collect_async(self, **kwargs: Any):
+        """A future of ``collect`` run on a worker thread."""
+        import concurrent.futures
+
+        pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+        future = pool.submit(self.collect, **kwargs)
+        pool.shutdown(wait=False)
+        return future
+
+    def update(self, other: LazyFrame, on: Any = None, how: str = "left", *, left_on: Any = None,
+               right_on: Any = None, include_nulls: bool = False) -> LazyFrame:
+        """The rows' values overwritten by ``other``'s where the ``on`` keys
+        match (its nulls kept out unless ``include_nulls``): a join on the
+        keys and a when/then per column."""
+        from polars_tpu_torch.functions.lazy import col, lit, when
+
+        if on is None and left_on is None:
+            on = [c for c in self.columns if c in set(other.columns)]
+        if left_on is not None:
+            other = other.rename(dict(zip(flatten_names([right_on]), flatten_names([left_on]))))
+            on = left_on
+        keys = flatten_names([on])
+        upd = [c for c in other.columns if c not in keys and c in self.columns]
+        marked = other.select(*keys, *upd).with_columns(lit(True).alias("__upd_hit"))
+        joined = self.join(marked, on=keys, how=how, suffix="__upd", coalesce=True)
+        hit = col("__upd_hit").fill_null(False)
+        exprs = []
+        for c in upd:
+            u = col(c + "__upd")
+            cond = hit if include_nulls else hit & u.is_not_null()
+            exprs.append(when(cond).then(u).otherwise(col(c)).alias(c))
+        return joined.with_columns(exprs).drop(["__upd_hit"] + [c + "__upd" for c in upd])
+
+    def merge_sorted(self, other: LazyFrame, key: str) -> LazyFrame:
+        """Two frames sorted by ``key`` as one sorted frame (a concat and a
+        stable sort)."""
+        return LazyFrame._concat([self, other]).sort(key, maintain_order=True)
+
+    def match_to_schema(self, schema: Any, *, missing_columns: Any = "raise", missing_struct_fields: Any = "raise",
+                        extra_columns: str = "raise", extra_struct_fields: Any = "raise", integer_cast: Any = "forbid",
+                        float_cast: Any = "forbid") -> LazyFrame:
+        """The frame in ``schema``'s columns and order: a missing column
+        inserted as nulls (``missing_columns="insert"``) or an error, an
+        extra one an error (or dropped with ``"ignore"``), an integer or
+        float column upcast where the policy says ``"upcast"``."""
+        from polars_tpu_torch.errors import SchemaError
+        from polars_tpu_torch.functions.lazy import col, lit
+
+        target = {k: dt.parse_into_dtype(v) for k, v in dict(schema.items() if hasattr(schema, "items")
+                                                             else schema).items()}
+        cur = self.collect_schema()
+        extra = [n for n in cur.names() if n not in target]
+        if extra and extra_columns == "raise":
+            raise SchemaError(f"extra columns in `match_to_schema`: {extra}")
+
+        def policy(rules: Any, name: str) -> Any:
+            return rules if isinstance(rules, (str, Expr)) else rules.get(name, "raise")
+
+        exprs = []
+        for name, d in target.items():
+            if name not in cur:
+                rule = policy(missing_columns, name)
+                if rule == "insert":
+                    exprs.append(lit(None).cast(d).alias(name))
+                elif isinstance(rule, Expr):
+                    exprs.append(rule.cast(d).alias(name))
+                else:
+                    raise SchemaError(f"missing column in `match_to_schema`: {name!r}")
+            elif cur[name] == d:
+                exprs.append(col(name))
+            elif (cur[name].is_integer() and d.is_integer() and policy(integer_cast, name) == "upcast") or \
+                    (cur[name].is_float() and d.is_float() and policy(float_cast, name) == "upcast"):
+                exprs.append(col(name).cast(d))
+            else:
+                raise SchemaError(f"type mismatch for column {name!r} in `match_to_schema`: expected {d!r}, "
+                                  f"got {cur[name]!r}")
+        return self.select(exprs)
+
+    def pipe_with_schema(self, function: Callable) -> LazyFrame:
+        """``function(self, schema)``: a rewrite that reads the resolved
+        schema (which resolves without running the plan)."""
+        return function(self, self.collect_schema())
+
+    def map_batches(self, function: Callable, *, schema: Any = None, validate_output_schema: bool = True,
+                    streamable: bool = False, **kwargs: Any) -> LazyFrame:
+        """``function`` of the collected input (a DataFrame on its device), a
+        barrier no predicate, projection or slice crosses; ``schema`` is its
+        output's (the input's when None, as Polars assumes), and with
+        ``validate_output_schema`` an output of another schema raises
+        ``SchemaError``."""
+        schema_fn = None
+        if schema is not None:
+            out = Schema(schema) if not isinstance(schema, Schema) else schema
+            schema_fn = lambda _in: out  # noqa: E731
+        return self._wrap(L.LMapFunction(self._node, function=function, ident=next_token(), schema_fn=schema_fn,
+                                         validate=validate_output_schema))
+
+    def inspect(self, fmt: str = "{}") -> LazyFrame:
+        """The frame unchanged, printed as it passes."""
+        def show(df):
+            print(fmt.format(df))
+            return df
+
+        return self.map_batches(show)
+
+    def unpivot(self, on: Any = None, *, index: Any = None, variable_name: str = "variable",
+                value_name: str = "value") -> LazyFrame:
+        """Wide to long: ``index`` repeated once per ``on`` column (every
+        other column when None); ``variable_name`` names the column,
+        ``value_name`` holds its value."""
+        on_t = None if on is None else tuple(self._names_of([on]))
+        idx_t = () if index is None else tuple(self._names_of([index]))
+        return self._wrap(L.LUnpivot(self._node, on_t, idx_t, variable_name, value_name))
+
+    def melt(self, id_vars: Any = None, value_vars: Any = None, variable_name: str = "variable",
+             value_name: str = "value") -> LazyFrame:
+        return self.unpivot(value_vars, index=id_vars, variable_name=variable_name, value_name=value_name)
+
+    def pivot(self, on: Any, *, index: Any = None, values: Any = None, aggregate_function: Any = None,
+              maintain_order: bool = True, sort_columns: bool = False, separator: str = "_") -> LazyFrame:
+        """``DataFrame.pivot`` of the collected input: the output's columns
+        are the data's ``on`` values, so the plan collects at this node."""
+        return self.collect().pivot(on, index=index, values=values, aggregate_function=aggregate_function,
+                                    maintain_order=maintain_order, sort_columns=sort_columns,
+                                    separator=separator).lazy()
 
     def fetch(self, n_rows: int = 500) -> DataFrame:
         return self.head(n_rows).collect()

@@ -266,6 +266,28 @@ class EGather(ENode):
         return (self.input, self.indices)
 
 
+@dataclass(frozen=True)
+class EAnonymous(ENode):
+    """A user's function of Series (``map_batches``, ``map_elements``,
+    ``pl.map_groups``): a host call, identity-hashed. ``returns_scalar``:
+    one value per group in a group-by (else a List per group).
+    ``elementwise``: the function maps each row alone (``map_elements``, or
+    ``is_elementwise=True``), so a head may move below it."""
+
+    input: tuple[ENode, ...]
+    function: Any = field(hash=False, compare=False)
+    return_dtype: Any = None
+    ident: int = 0
+    returns_scalar: bool = False
+    elementwise: bool = False
+
+    def __hash__(self) -> int:
+        return hash(("EAnonymous", self.ident))
+
+    def children(self) -> tuple[ENode, ...]:
+        return self.input
+
+
 _ORDER_NODES = (ESort, ESortBy, EFilter, EWindow, ESlice, EGather)
 _RESIZING = (EFilter, ESlice, EGather)
 
@@ -321,6 +343,8 @@ def reduces_in_agg(node: ENode) -> bool:
         node = node.input
     if isinstance(node, (EAgg, ELen, ELiteral, ESeriesLit)):
         return True
+    if isinstance(node, EAnonymous):
+        return node.returns_scalar
     if isinstance(node, EFunction) and not fn_elementwise(node.name):
         return False
     if isinstance(node, (EBinary, ETernary, EFunction)):
@@ -338,7 +362,9 @@ def fn_elementwise(name: str) -> bool:
 
 
 # functions that run on the host between segments (``engine/hostops.py``)
-HOST_FNS = frozenset({"dt.to_string", "rolling_median_by", "rolling_quantile_by", "rolling_rank_by", "int_range",
+HOST_FNS = frozenset({"dt.to_string", "rolling_map", "rolling_median_by", "rolling_quantile_by", "rolling_rank_by",
+                      "int_range", "temporal_range", "extend_constant", "append", "sample", "shuffle", "rle",
+                      "value_counts", "hist", "reshape",
                       "repeat_value", "shrink_dtype", "unique", "unique_counts", "concat_str",
                       "cat.get_categories", "list.join", "struct.json_encode"})
 # aggregations that make their text on the host (``engine/hostops.py``)
@@ -367,6 +393,8 @@ def is_host_call(node: ENode) -> bool:
     package hoists it)."""
     if isinstance(node, EAgg):
         return node.kind in HOST_AGGS
+    if isinstance(node, EAnonymous):
+        return True
     if isinstance(node, EFunction):
         return node.name in HOST_FNS or (node.name == "cumulative_eval"
                                          and cum_eval_kind(node.opt("expr")) is None)
@@ -394,10 +422,13 @@ def is_elementwise(node: ENode, *, host_ok: bool = False) -> bool:
     """True if the expr maps rows independently inside a segment (the
     reference's ``is_elementwise``, ``exprs.py:410-424``): no aggregation,
     window, expression-level sort, filter, slice or gather, no function
-    registered with ``elementwise=False``, and no host function (which runs
-    between segments, so no predicate moves past it), unless ``host_ok``."""
+    registered with ``elementwise=False``, no user's function of the whole
+    column, and no host function (which runs between segments, so no
+    predicate moves past it), unless ``host_ok``."""
     for n in walk(node):
         if isinstance(n, (EAgg, ELen, *_ORDER_NODES)) or (is_host_call(n) and not host_ok):
+            return False
+        if isinstance(n, EAnonymous) and not n.elementwise:
             return False
         if isinstance(n, ESeriesLit) and len(n.column) != 1 and not _in_is_in_set(node, n):
             return False

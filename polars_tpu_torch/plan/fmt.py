@@ -31,6 +31,10 @@ def explain_plan(node: L.LNode, indent: int = 0) -> str:
         detail = f" offset={node.offset} len={node.length}"
     elif isinstance(node, L.LExplode):
         detail = f" {list(node.columns)}"
+    elif isinstance(node, L.LUnpivot):
+        detail = f" on={None if node.on is None else list(node.on)} index={list(node.index)}"
+    elif isinstance(node, L.LMapFunction):
+        detail = f" {getattr(node.function, '__name__', 'function')}"
     elif isinstance(node, L.LDistinct):
         detail = f" subset={None if node.subset is None else list(node.subset)} keep={node.keep}"
     lines = [f"{pad}{name}{detail}"]

@@ -1,6 +1,6 @@
 """Logical plan nodes (the port of ``polars_tpu/plan/logical.py``, trimmed to
-the node kinds the port executes; file scans, explode, unpivot, map
-functions and sinks come with later slices)."""
+the node kinds the port executes; file scans and sinks come with later
+slices)."""
 
 from __future__ import annotations
 
@@ -237,6 +237,43 @@ class LExplode(LNode):
 
     input: LNode
     columns: tuple[str, ...]
+
+    def inputs(self) -> tuple[LNode, ...]:
+        return (self.input,)
+
+
+@dataclass(frozen=True)
+class LUnpivot(LNode):
+    """Wide to long: the ``index`` columns repeated once per ``on`` column
+    (every other column when None), ``variable_name`` naming that column
+    and ``value_name`` holding its values in their supertype; all rows of
+    the first ``on`` column, then the second, as in Polars."""
+
+    input: LNode
+    on: tuple[str, ...] | None
+    index: tuple[str, ...]
+    variable_name: str = "variable"
+    value_name: str = "value"
+
+    def inputs(self) -> tuple[LNode, ...]:
+        return (self.input,)
+
+
+@dataclass(frozen=True)
+class LMapFunction(LNode):
+    """A user's function of the whole frame (``LazyFrame.map_batches``): a
+    barrier no predicate, projection or slice crosses; ``schema_fn`` gives
+    its output schema from the input's (the input's own when None), which
+    the output must match when ``validate``."""
+
+    input: LNode
+    function: Any = field(hash=False, compare=False)
+    ident: int = 0
+    schema_fn: Any = field(default=None, hash=False, compare=False)
+    validate: bool = True
+
+    def __hash__(self) -> int:
+        return hash(("LMapFunction", self.ident, self.input))
 
     def inputs(self) -> tuple[LNode, ...]:
         return (self.input,)

@@ -121,6 +121,11 @@ def _push(node: L.LNode, needed: set[str] | None) -> L.LNode:
         return L.update(node, inputs_=tuple(
             _push(i, None if needed is None else needed & set(node_schema(i).names())) for i in node.inputs_))
 
-    # anything else (a cache, range and asof joins) needs every column below it
+    if isinstance(node, L.LUnpivot) and node.on is not None:
+        # as Polars: the index and on columns (each on column makes rows)
+        return L.update(node, input=_push(node.input, set(node.index) | set(node.on)))
+
+    # anything else (a cache, range and asof joins, an unpivot of every
+    # other column, a map function) needs every column below it
     new_inputs = tuple(_push(i, None) for i in node.inputs())
     return L.rebuild(node, new_inputs) if new_inputs else node

@@ -281,11 +281,24 @@ def splice_horizontal(node: E.ENode, schema: Schema) -> E.ENode:
 
 
 def needs_expansion(node: E.ENode) -> bool:
-    """True if ``node`` holds a wildcard, a selector, a name wrapper or a
-    struct's fields as columns (``struct.field("*")``, ``struct.unnest``)."""
+    """True if ``node`` holds a wildcard, a selector, a name wrapper, a
+    struct's fields as columns (``struct.field("*")``, ``struct.unnest``) or
+    a cast to a DataTypeExpr."""
     return any(isinstance(n, _SELECTOR_NODES + _NAME_NODES) or (isinstance(n, E.EFunction)
                                                                  and n.name == "struct.multifield")
-               for n in E.walk(node))
+               or (isinstance(n, E.ECast) and isinstance(n.dtype, dt.DataTypeExpr)) for n in E.walk(node))
+
+
+def _resolve_dtype_exprs(node: E.ENode, schema: Schema) -> E.ENode:
+    """Each cast to a DataTypeExpr as a cast to the dtype it names."""
+    kids = node.children()
+    new = tuple(_resolve_dtype_exprs(k, schema) for k in kids)
+    if new != kids:
+        node = _rebuild_expr(node, new)
+    if isinstance(node, E.ECast) and isinstance(node.dtype, dt.DataTypeExpr):
+        target = node.dtype.resolve(schema, expr_dtype(node.input, schema))
+        node = dataclasses.replace(node, dtype=target)
+    return node
 
 
 def expand_expr(node: E.ENode, schema: Schema) -> list[E.ENode]:
@@ -313,7 +326,7 @@ def expand_expr(node: E.ENode, schema: Schema) -> list[E.ENode]:
                 for r, m in zip(uniq, matches):
                     e = _substitute(e, r, E.EColumn(m[i]))
                 out.append(e)
-        out = [_resolve_names(e) for e in out]
+        out = [_resolve_dtype_exprs(_resolve_names(e), schema) for e in out]
     out = [x for e in out for x in _struct_fields(e, schema)]
     for e in out:
         for sub in E.walk(e):
@@ -362,6 +375,8 @@ def _rebuild_expr(node: E.ENode, kids: tuple[E.ENode, ...]) -> E.ENode:
         return dataclasses.replace(node, predicate=kids[0], truthy=kids[1], falsy=kids[2])
     if isinstance(node, E.EFunction):
         return dataclasses.replace(node, inputs=kids)
+    if isinstance(node, E.EAnonymous):
+        return dataclasses.replace(node, input=kids)
     raise InvalidOperationError(f"cannot rebuild {type(node).__name__}")
 
 
@@ -412,6 +427,10 @@ def expr_dtype(node: E.ENode, schema: Schema) -> dt.DataType:
     if isinstance(node, E.EWindow):
         d = expr_dtype(node.function, schema)
         return dt.List(d) if node.mapping_strategy == "join" else d
+    if isinstance(node, E.EAnonymous):  # a user's function: its declared dtype, else its input's
+        if node.return_dtype is not None:
+            return node.return_dtype
+        return expr_dtype(node.input[0], schema) if node.input else dt.Null()
     raise InvalidOperationError(f"cannot resolve dtype of {type(node).__name__}")
 
 
@@ -576,7 +595,7 @@ def agg_dtype(node: E.EAgg, schema: Schema) -> dt.DataType:
     in_dt = expr_dtype(node.input, schema)
     k = node.kind
     if in_dt.is_nested() and k not in _NESTED_AGGS:
-        raise InvalidOperationError(f"{k} of {in_dt!r} is not ported yet (ROADMAP item 4b)")
+        raise InvalidOperationError(f"{k} of {in_dt!r} is not ported yet (ROADMAP item 4c)")
     name = type(in_dt).__name__
     if k == "sum":
         if isinstance(in_dt, dt.Boolean):
@@ -610,8 +629,10 @@ def agg_dtype(node: E.EAgg, schema: Schema) -> dt.DataType:
         return dt.UInt32()
     if k == "str_concat":
         return dt.String()
-    if k == "implode":
+    if k in ("implode", "mode"):
         return dt.List(in_dt)
+    if k == "is_sorted":
+        return dt.Boolean()
     if k == "agg_groups":
         return dt.List(dt.UInt32())
     if k in ("any", "all"):
@@ -776,7 +797,30 @@ def _node_schema(node: L.LNode) -> Schema:
             d = expr_dtype(a, in_s)
             out[name] = d if E.reduces_in_agg(a) else dt.List(d)
         return out
+    if isinstance(node, L.LUnpivot):
+        in_s = node_schema(node.input)
+        on, index = unpivot_columns(node, in_s)
+        out = Schema([(n, in_s[n]) for n in index])
+        value_dt = None
+        for c in on:
+            value_dt = in_s[c] if value_dt is None else supertype(value_dt, in_s[c])
+        out[node.variable_name] = dt.String()
+        out[node.value_name] = value_dt if value_dt is not None else dt.Null()
+        return out
+    if isinstance(node, L.LMapFunction):
+        in_s = node_schema(node.input)
+        return in_s if node.schema_fn is None else node.schema_fn(in_s)
     raise NotImplementedError(f"{type(node).__name__} is not ported yet")
+
+
+def unpivot_columns(node: L.LUnpivot, in_s: Schema) -> tuple[list[str], list[str]]:
+    """(on, index) of an unpivot: ``on`` every column but the index ones
+    when None."""
+    missing = [n for n in (*node.index, *(node.on or ())) if n not in in_s]
+    if missing:
+        raise ColumnNotFoundError(f"{missing[0]!r} not found; available: {in_s.names()}")
+    on = list(node.on) if node.on is not None else [n for n in in_s.names() if n not in set(node.index)]
+    return on, list(node.index)
 
 
 def _join_schema(node: L.LJoin) -> Schema:

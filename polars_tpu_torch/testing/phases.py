@@ -1337,3 +1337,89 @@ def check_nested(out, want: dict, levels: list, label: str, floats=(), strings=(
             raise AssertionError(f"{label} {name}: first difference at row {bad} of {got.shape[0]}: "
                                  f"{got[bad]!r} against {w[bad]!r}")
     return worst
+
+
+RESHAPE_COLUMNS = ["l_orderkey", "l_suppkey", "l_returnflag", "l_shipmode", "l_quantity", "l_extendedprice",
+                   "l_discount", "l_tax"]
+RESHAPE_MEASURES = ["l_quantity", "l_extendedprice", "l_discount", "l_tax"]
+RESHAPE_PIVOT_VALUES = ["l_quantity", "l_extendedprice"]
+
+
+def reshape_plans(pl, line) -> dict:
+    """``reshape.pivot`` (a supplier x ship-mode matrix of the summed
+    quantity and price; the pivot collects at its node, so building the
+    plan runs it) and ``reshape.unpivot`` (four measures in long form, then
+    per measure and return flag the sum, the mean and the count), each a
+    function that gives the LazyFrame to collect."""
+    c = pl.col
+
+    def pivot():
+        return line.lazy().pivot(on="l_shipmode", index="l_suppkey", values=RESHAPE_PIVOT_VALUES,
+                                 aggregate_function="sum", sort_columns=True).sort("l_suppkey")
+
+    def unpivot():
+        return (line.lazy().unpivot(on=RESHAPE_MEASURES, index=["l_orderkey", "l_returnflag"])
+                .group_by("variable", "l_returnflag")
+                .agg(c("value").sum().alias("sum"), c("value").mean().alias("mean"), pl.len())
+                .sort("variable", "l_returnflag"))
+
+    return {"pivot": pivot, "unpivot": unpivot}
+
+
+def reshape_oracle(line: dict) -> dict:
+    """The reshape phase in numpy: per (supplier, ship mode) cell the sums by
+    ``bincount`` over ``supplier * modes + mode`` (a cell with no line is
+    null), per (measure, return flag) the sums and counts by ``bincount``
+    over the flag's codes."""
+    mode_levels, mode = _text_codes(line["l_shipmode"])
+    supp, supp_idx = np.unique(line["l_suppkey"], return_inverse=True)
+    k = len(mode_levels)
+    cell = supp_idx.reshape(-1) * k + mode
+    count = np.bincount(cell, minlength=len(supp) * k).reshape(len(supp), k)
+    pivot: dict = {"l_suppkey": supp}
+    for v in RESHAPE_PIVOT_VALUES:
+        sums = np.bincount(cell, weights=line[v], minlength=len(supp) * k).reshape(len(supp), k)
+        for j, m in enumerate(mode_levels):  # _text_codes' levels are sorted, as sort_columns orders them
+            pivot[f"{v}_{m}"] = np.where(count[:, j] > 0, sums[:, j], np.nan)
+    flag_levels, flag = _text_codes(line["l_returnflag"])
+    n = np.bincount(flag, minlength=len(flag_levels))
+    rows = {"variable": [], "l_returnflag": [], "sum": [], "mean": [], "len": []}
+    for v in sorted(RESHAPE_MEASURES):
+        s = np.bincount(flag, weights=line[v], minlength=len(flag_levels))
+        for j, f in enumerate(flag_levels):
+            if n[j]:
+                rows["variable"].append(v)
+                rows["l_returnflag"].append(f)
+                rows["sum"].append(s[j])
+                rows["mean"].append(s[j] / n[j])
+                rows["len"].append(int(n[j]))
+    return {"pivot": pivot, "unpivot": {k2: np.asarray(v2) for k2, v2 in rows.items()},
+            "long_rows": len(mode) * len(RESHAPE_MEASURES)}
+
+
+def check_reshape(out, want: dict, label: str, floats=(), strings=()) -> float:
+    """``out`` against the oracle column by column: ``strings`` and the
+    rest exactly, ``floats`` to rtol 1e-9 with nulls where the oracle has
+    NaN. The largest relative error."""
+    worst = 0.0
+    if out.columns != list(want):
+        raise AssertionError(f"{label}: columns {out.columns} != {list(want)}")
+    for name, w in want.items():
+        col = out._get(name)
+        got = np.asarray(col.to_pylist(), dtype=object) if name in strings else np.asarray(col.to_numpy())
+        w = np.asarray(w)
+        if got.shape != w.shape:
+            raise AssertionError(f"{label} {name}: {got.shape[0]} rows, the oracle has {w.shape[0]}")
+        if name in floats:
+            got = got.astype(np.float64)
+            if not np.array_equal(np.isnan(got), np.isnan(w)):
+                raise AssertionError(f"{label} {name}: nulls differ from the oracle's")
+            ok = ~np.isnan(w)
+            err = np.abs(got[ok] - w[ok]) / np.maximum(np.abs(w[ok]), 1e-300)
+            if not np.all(err <= 1e-9):
+                raise AssertionError(f"{label} {name}: largest relative error {err.max()}")
+            worst = max(worst, float(err.max(initial=0.0)))
+        elif not np.array_equal(got, w):
+            bad = int(np.flatnonzero(got != w)[0])
+            raise AssertionError(f"{label} {name}: first difference at row {bad}: {got[bad]!r} against {w[bad]!r}")
+    return worst

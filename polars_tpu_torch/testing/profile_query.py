@@ -4,7 +4,8 @@ with ``pdsh.run_params``), or one of ``chip_smoke.py``'s phases
 ``tz.orders``, ``stats.flags``, ``stats.supp``, ``stats.casts``,
 ``window.cust``, ``window.line``, ``rolling.quotes``, ``rolling.bars``,
 ``rolling.trades``, ``recode.line``, ``recode.sample``, ``strings.cust``,
-``strings.line``, ``nested.orders`` and ``nested.explode``
+``strings.line``, ``nested.orders``, ``nested.explode``, ``reshape.pivot``
+and ``reshape.unpivot``
 (``testing/phases.py``; ``stats.flags`` through its lazy plan).
 
 Builds the SF10 frames of the columns the query reads
@@ -31,7 +32,8 @@ optimized plan, or with ``--no-optimization`` the plan as written
 Run from the repository root on a machine with a CUDA device:
     python3 -m polars_tpu_torch.testing.profile_query [--query q3 [q5 ... temporal asof range tz.ship tz.orders
         stats.flags stats.supp stats.casts window.cust window.line rolling.quotes rolling.bars
-        rolling.trades recode.line recode.sample strings.cust strings.line nested.orders nested.explode]]
+        rolling.trades recode.line recode.sample strings.cust strings.line nested.orders nested.explode
+        reshape.pivot reshape.unpivot]]
         [--scale 10] [--runs 5]
         [--no-optimization]
 """
@@ -154,7 +156,8 @@ def profile_query(torch, query: str, run, rows: dict, scale: float, runs: int, t
 
 PHASES = ("temporal", "asof", "range", "tz.ship", "tz.orders", "stats.flags", "stats.supp", "stats.casts",
           "window.cust", "window.line", "rolling.quotes", "rolling.bars", "rolling.trades", "recode.line",
-          "recode.sample", "strings.cust", "strings.line", "nested.orders", "nested.explode")
+          "recode.sample", "strings.cust", "strings.line", "nested.orders", "nested.explode", "reshape.pivot",
+          "reshape.unpivot")
 
 
 def main() -> int:
@@ -187,7 +190,8 @@ def main() -> int:
            **{f"rolling.{part}": {} for part in ("quotes", "bars", "trades")},
            **{f"recode.{part}": {"lineitem": P.RECODE_COLUMNS} for part in ("line", "sample")},
            "strings.cust": P.STRINGS_CUST_COLUMNS, "strings.line": {"lineitem": P.STRINGS_LINE_COLUMNS},
-           **{f"nested.{part}": {"lineitem": P.NESTED_COLUMNS} for part in ("orders", "explode")}}
+           **{f"nested.{part}": {"lineitem": P.NESTED_COLUMNS} for part in ("orders", "explode")},
+           **{f"reshape.{part}": {"lineitem": P.RESHAPE_COLUMNS} for part in ("pivot", "unpivot")}}
     need: dict[str, dict] = {}  # table -> the columns any chosen query reads
     for q in args.query:
         for t, cs in (own[q] if q in own else QUERY_COLUMNS[q]).items():
@@ -223,6 +227,10 @@ def main() -> int:
         elif q.startswith("nested."):
             line = tables["lineitem"]
             run = lambda q=q: P.nested_plans(pl, line)[q.split(".")[1]]  # noqa: E731
+            rows = {"lineitem": line.height}
+        elif q.startswith("reshape."):
+            line = tables["lineitem"]
+            run = P.reshape_plans(pl, line)[q.split(".")[1]]
             rows = {"lineitem": line.height}
         elif q == "strings.cust":
             cust, orders = tables["customer"], tables["orders"]

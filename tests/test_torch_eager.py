@@ -48,39 +48,38 @@ REFERENCE_FILES = ["test_dataframe.py", "test_series.py", "test_lazyframe.py", "
                    "conformance/test_conf_window.py", "test_rolling_window.py", "test_dynamic.py", "test_strings.py",
                    "conformance/test_conf_strings2.py", "conformance/test_conf_enum.py", "test_highcard_strings.py",
                    "test_list.py", "test_list_namespace.py", "test_struct.py",
-                   "conformance/test_conf_concat_explode.py"]
+                   "conformance/test_conf_concat_explode.py", "test_pivot.py", "test_parity_batch.py",
+                   "test_api_tail.py", "test_expr_tail.py", "conformance/test_conf_ops2.py"]
 
 # the test functions that wait for a later item of ROADMAP queue 1 ("not
 # to port": ROADMAP's list of what the port leaves out)
-_ITEM_4B = "4b (reshaping, generators, map functions, the concat kinds, functions/eager and parity)"
-_ITEM_6 = "6 (streaming: collect(engine='streaming'))"
+_ITEM_6 = "6 (streaming: collect(engine='streaming'), sinks)"
 _ITEM_5 = "5 (scans, IO and pandas/Arrow interchange)"
+_ITEM_7 = "7 (SQL, serialization, Expr.meta, profiling, extension types)"
 WAITING = {
     ("test_dataframe", "test_init_pandas"): _ITEM_5,
     ("test_dataframe", "test_init_arrow"): _ITEM_5,
-    ("test_dataframe", "test_concat_diagonal"): _ITEM_4B,
     ("test_dataframe", "test_to_numpy_pandas_dicts"): _ITEM_5,
-    ("test_dataframe", "test_unpivot"): _ITEM_4B,
     ("test_series", "test_to_frame_numpy_jax"): "not to port (to_jax gives a JAX array)",
     ("test_lazyframe", "test_profile"): "7 (LazyFrame.profile, the engine's node timer)",
-    ("test_lazyframe", "test_map_batches"): _ITEM_4B,
     ("test_lazyframe", "test_explain_contains_pushdown"): _ITEM_5,
-    ("test_exprs", "test_map_batches"): _ITEM_4B,
-    ("test_exprs", "test_map_elements"): _ITEM_4B,
-    ("test_exprs", "test_arg_where_lowers_to_fused_filter"): _ITEM_4B,
-    ("test_exprs", "test_extend_constant_no_value_readback"): _ITEM_4B,
-    ("test_conf_ops", "test_unpivot"): _ITEM_4B,
-    ("test_conf_ops", "test_pivot"): _ITEM_4B,
-    ("test_conf_ops", "test_transpose"): _ITEM_4B,
-    ("test_conf_ops", "test_extend_constant"): _ITEM_4B,
-    ("test_conf_ops", "test_repeat_by"): _ITEM_4B,
-    ("test_conf_ops", "test_mode_multi_value"): _ITEM_4B,
-    ("test_conf_ops", "test_from_epoch_eager"): _ITEM_4B,
     ("test_conf_strings2", "test_file_like_io"): _ITEM_5,
     ("test_highcard_strings", "test_ingest_scaling_flat_vs_int"): _ITEM_5,
     ("test_list", "test_explode_streams_through_chain"): _ITEM_6,
-    ("test_conf_concat_explode", "test_concat_diagonal"): _ITEM_4B,
-    ("test_conf_concat_explode", "test_concat_horizontal_and_align"): _ITEM_4B,
+    ("test_parity_batch", "test_frame_sql"): _ITEM_7,
+    ("test_parity_batch", "test_align_frames_and_misc"): _ITEM_7 + ": pl.sql_expr",
+    ("test_parity_batch", "test_interop_long_tail"): _ITEM_5 + ": read_ipc_stream, scan_arrow_c_stream",
+    ("test_parity_batch", "test_io_long_tail"): _ITEM_5,
+    ("test_parity_batch", "test_partitioned_sink"): _ITEM_6,
+    ("test_parity_batch", "test_groups_list_and_categories"): _ITEM_5 + ": ScanCastOptions, CredentialProvider*",
+    ("test_parity_batch", "test_extension_types"): _ITEM_7,
+    ("test_api_tail", "test_series_describe_dummies_sql"): _ITEM_7 + ": Series.sql",
+    ("test_api_tail", "test_frame_serialize_roundtrip"): _ITEM_7,
+    ("test_api_tail", "test_frame_write_database_sqlite"): _ITEM_5,
+    ("test_api_tail", "test_frame_write_ipc_stream"): _ITEM_5,
+    ("test_api_tail", "test_lazy_sink_batches"): _ITEM_6,
+    ("test_expr_tail", "test_expr_serialize_roundtrip"): _ITEM_7,
+    ("test_expr_tail", "test_meta_tail"): _ITEM_7,
 }
 
 
@@ -172,7 +171,84 @@ def test_reference_eager_cases(tmp_path):
     assert not failed, "\n".join(failed)
     assert not stale, "\n".join(stale)
     assert not set(WAITING) - seen, f"WAITING names functions the files lack: {sorted(set(WAITING) - seen)}"
-    assert len(passed) + len(WAITING) == 415 and len(passed) >= 390, (len(passed), len(WAITING))
+    assert len(passed) + len(WAITING) == 520 and len(passed) >= 497, (len(passed), len(WAITING))
+    _check_refusal_table()
+
+
+def _reference_names() -> dict[str, set[str]]:
+    """The public names of the JAX package's ``DataFrame``, ``LazyFrame``,
+    ``Expr`` and ``Series`` (their class bodies, and ``Series.x = ...``
+    after it) and of its package (its module-level imports and
+    assignments), read with ``ast`` (nothing of it runs)."""
+    import ast
+
+    pkg = ROOT.parent / "polars_tpu"
+
+    def module_level(tree) -> list:
+        out, todo = [], list(tree.body)
+        while todo:
+            n = todo.pop()
+            if isinstance(n, (ast.Try, ast.If)):
+                todo += n.body + getattr(n, "orelse", []) + [s for h in getattr(n, "handlers", []) for s in h.body]
+            else:
+                out.append(n)
+        return out
+
+    names: dict[str, set[str]] = {}
+    for rel, cls in (("core/frame.py", "DataFrame"), ("lazyframe.py", "LazyFrame"), ("expr/expr.py", "Expr"),
+                     ("core/series.py", "Series")):
+        tree = ast.parse((pkg / rel).read_text())
+        got = set()
+        for n in module_level(tree):
+            if isinstance(n, ast.ClassDef) and n.name == cls:
+                got |= {b.name for b in n.body if isinstance(b, (ast.FunctionDef, ast.AsyncFunctionDef))}
+            if isinstance(n, ast.Assign):
+                got |= {t.attr for t in n.targets if isinstance(t, ast.Attribute) and
+                        isinstance(t.value, ast.Name) and t.value.id == cls}
+        names[cls] = {n for n in got if not n.startswith("_")}
+    got = set()
+    for n in module_level(ast.parse((pkg / "__init__.py").read_text())):
+        if isinstance(n, (ast.ImportFrom, ast.Import)):
+            got |= {a.asname or a.name.split(".")[0] for a in n.names}
+        elif isinstance(n, ast.Assign):
+            got |= {t.id for t in n.targets if isinstance(t, ast.Name)}
+    names["package"] = {n for n in got if not n.startswith("_") and n != "annotations"}
+    return names
+
+
+def _check_refusal_table() -> None:
+    """Every public name of the JAX package's four classes and package is
+    in the port: implemented, or a stub of ``polars_tpu_torch/later.py``
+    that raises ``NotImplementedError`` naming its ROADMAP item (none of
+    them item 4b, which this slice finished). Every stub names something
+    the JAX package has, so the table cannot go stale."""
+    from polars_tpu_torch import later
+    from polars_tpu_torch.core.frame import DataFrame
+    from polars_tpu_torch.core.series import Series
+    from polars_tpu_torch.expr.expr import Expr
+    from polars_tpu_torch.lazyframe import LazyFrame
+
+    owners = {"DataFrame": DataFrame, "LazyFrame": LazyFrame, "Expr": Expr, "Series": Series, "package": plt}
+    ref = _reference_names()
+    for owner, obj in owners.items():
+        stubs = {n for names in later.LATER[owner].values() for n in names}
+        assert stubs <= ref[owner], f"later.py names what the JAX package's {owner} lacks: {stubs - ref[owner]}"
+        for name in sorted(ref[owner]):
+            raw = vars(obj).get(name) if owner != "package" else getattr(obj, name, None)
+            if raw is None and owner == "Series":  # an Expr method, run over the Series
+                raw = vars(Expr).get(name)
+            if raw is None:
+                raw = next((vars(c)[name] for c in getattr(obj, "__mro__", ())[1:] if name in vars(c)), None)
+            assert raw is not None, f"{owner}.{name} is neither ported nor in later.py"
+            fn = raw.fget if isinstance(raw, property) else raw
+            item = getattr(fn, "later_item", None)
+            assert (item is not None) == (name in stubs), f"{owner}.{name}: stub {item!r}, table {name in stubs}"
+    for owner, items in later.LATER.items():
+        assert not any(item.startswith("4b") for item in items), owner
+    with pytest.raises(NotImplementedError, match="item 7"):
+        plt.DataFrame({"a": [1]}).sql("select a from self")
+    with pytest.raises(NotImplementedError, match="item 5"):
+        plt.read_parquet("x.parquet")
 
 
 # -- the differential against polars_tpu ----------------------------------------------------------
@@ -607,6 +683,51 @@ def _list_exprs(pl) -> list:
             c("ls").list.join("-").alias("joined")]
 
 
+def _set_oracle(kind: str, a: list | None, b: list) -> list | None:
+    """Polars' set operations: the distinct elements in order of first
+    appearance, those of ``a`` before those of ``b``."""
+    if a is None:
+        return None
+    sa, sb = list(dict.fromkeys(a)), list(dict.fromkeys(b))
+    return {"set_union": list(dict.fromkeys(sa + sb)), "set_intersection": [v for v in sa if v in sb],
+            "set_difference": [v for v in sa if v not in sb],
+            "set_symmetric_difference": [v for v in sa if v not in sb] + [v for v in sb if v not in sa]}[kind]
+
+
+def _check_list_literal_arguments(ft, fj, data: dict) -> None:
+    """A Python list as a list function's argument is a one-row List
+    literal for every row (it raised "unsupported literal shape" before):
+    each set operation, ``is_in`` and ``list.contains`` against such a
+    literal, through both packages where the reference is right and
+    against Python where it is not (its ``list.concat`` with a literal
+    gives one row, its ``list.contains`` of a literal list refuses, its
+    ``is_in`` a List literal; ROADMAP section 3). A ``struct.drop`` of a
+    missing field raises (the port ignored it), as do ``struct.field`` and
+    ``with_fields`` reading one."""
+    c, cj = plt.col, plj.col
+    kinds = ("set_union", "set_intersection", "set_difference", "set_symmetric_difference")
+    lit_b = [3, None, 9, 3]
+    got = ft.select([getattr(c("li").list, k)(lit_b).alias(k) for k in kinds])
+    for k in kinds:
+        assert got[k].to_list() == [_set_oracle(k, x, lit_b) for x in data["li"]], k
+    want = fj.select([getattr(cj("li").list, k)([3, 9]).alias(k) for k in ("set_intersection", "set_difference")])
+    _assert_frames_match(ft.select([getattr(c("li").list, k)([3, 9]).alias(k)
+                                    for k in ("set_intersection", "set_difference")]), want, label="set literal")
+    cat = ft.select(c("li").list.concat([7]).alias("cat"), c("li").list.concat(plt.lit(plt.Series([[7, 8]]))).alias("c2"))
+    assert cat["cat"].to_list() == [None if x is None else x + [7] for x in data["li"]]
+    assert cat["c2"].to_list() == [None if x is None else x + [7, 8] for x in data["li"]]
+    member = ft.select(c("x").is_in(plt.lit(plt.Series([[1, 2, 3]]))).alias("in_lit"),
+                       c("li").list.contains(plt.lit(3)).alias("has3"))
+    assert member["in_lit"].to_list() == [None if v is None else v in (1, 2, 3) for v in data["x"]]
+    assert member["has3"].to_list() == [None if x is None else 3 in x for x in data["li"]]
+    s = plt.DataFrame({"s": [{"a": 1, "b": 2, "c": 3}, None]})
+    assert s.select(c("s").struct.drop(["b"]))["s"].to_list() == [{"a": 1, "c": 3}, None]
+    for bad in (c("s").struct.drop(["zzz"]), c("s").struct.field("zzz"),
+                c("s").struct.with_fields(plt.field("zzz") + 1)):
+        with pytest.raises(plt.PolarsError):
+            s.select(bad)
+
+
 def _check_nested_differential() -> None:
     """List, Array and Struct columns through both packages over seeded
     lists (null elements, empty and null lists): the list functions in one
@@ -632,6 +753,7 @@ def _check_nested_differential() -> None:
     assert few["none"].to_list() == [None if x is None else [] for x in data["li"]]
     assert few["has_e"].to_list() == [None if x is None else "e" in x for x in data["ls"]]
     assert few["evsum"].to_list() == [None if x is None else [sum(v for v in x if v is not None)] for x in data["li"]]
+    _check_list_literal_arguments(ft, fj, data)
 
     # explode and implode: a null or empty list gives one null row
     _assert_frames_match(ft.explode("li", "lj").select("k", "li", "lj"), fj.explode("li", "lj").select("k", "li", "lj"),
@@ -675,7 +797,7 @@ def _check_nested_differential() -> None:
     # a gather of one index in a window: each group's value at it, on its rows
     firsts = {k: data["li"][data["k"].index(k)] for k in set(data["k"])}
     assert ft.select(c("li").gather(0).over("k"))["li"].to_list() == [firsts[k] for k in data["k"]]
-    # ordering or comparing by a nested value's content is item 4b: refused,
+    # ordering or comparing by a nested value's content is item 4c: refused,
     # never ordered by the word that points into its child
     lx = ft.select("x", "li", "k", s=plt.struct("x", "k"))
     for run in (lambda: lx.sort("li"), lambda: lx.sort("s"), lambda: lx.group_by("li").agg(c("x").sum()),
@@ -685,7 +807,7 @@ def _check_nested_differential() -> None:
                 lambda: lx.select(c("x").sum().over("li")), lambda: lx.select(c("li").max()),
                 lambda: lx.select(c("li").mean()), lambda: lx.select(c("s").rle_id()), lambda: lx.select(c("li").hash()),
                 lambda: lx.with_row_index("i").rolling("i", period="2i").agg(c("li").max())):
-        with pytest.raises(plt.InvalidOperationError, match="item 4b"):
+        with pytest.raises(plt.InvalidOperationError, match="item 4c"):
             run()
     assert lx.unique(subset=["k"], keep="first", maintain_order=True)["li"].to_list() == \
         [data["li"][data["k"].index(k)] for k in dict.fromkeys(data["k"])]

@@ -2,7 +2,10 @@
 ``polars_tpu``: ``unique`` (every ``keep``, with and without ``subset`` and
 ``maintain_order``), ``rename`` (a mapping and a callable), ``drop``,
 ``with_row_index`` (with an offset), lazy ``concat`` (vertical, relaxed and
-horizontal, string columns of different dictionaries) and ``cache``.
+horizontal, string columns of different dictionaries) and ``cache``; and
+the reshaping, the concat kinds, a user's functions, the generators and
+the expressions of ROADMAP item 4b (``_check_reshape_differential``), with
+the chip's ``reshape`` phase at a small size.
 
 The same numpy-seeded frames go through both packages, on the CPU. Integers,
 strings and counts must be equal, floats to rtol 1e-9. ``unique(keep="any")``
@@ -309,3 +312,257 @@ def test_cache_and_the_frameops_phase_at_a_small_size():
             assert sum(repr(k) == "EColumn(name='l_orderkey')" for k in traced) == per_order, traced
     finally:
         X._trace_groupby = inner
+    _check_reshape_phase(raw)
+    _check_reshape_differential()
+
+
+def _check_reshape_phase(raw: dict) -> None:
+    """The chip's ``reshape`` phase (``testing/phases.py``) over a small
+    lineitem: both packages' frames and the phase's numpy oracle (keys,
+    counts and strings exact, sums and means to rtol 1e-9)."""
+    from test_torch_eager import _release_compiled_programs
+
+    from polars_tpu_torch.testing import phases
+
+    _release_compiled_programs()
+    cols = {k: raw[k] for k in phases.RESHAPE_COLUMNS}
+    want = phases.reshape_oracle(cols)
+    pt = phases.reshape_plans(plt, plt.DataFrame(cols, device="cpu"))
+    pj = phases.reshape_plans(plj, plj.DataFrame(cols))
+    for name, floats, strings in (("pivot", list(want["pivot"])[1:], ()),
+                                  ("unpivot", ("sum", "mean"), ("variable", "l_returnflag"))):
+        got = pt[name]().collect()
+        phases.check_reshape(got, want[name], f"reshape.{name}", floats=floats, strings=strings)
+        _assert_frames_match(got, pj[name]().collect())
+
+
+def _reshape_data(seed: int, n: int = 24) -> dict:
+    """Keys with repeats and nulls, a String key, floats with nulls, dates."""
+    import datetime as dtm
+
+    rng = np.random.default_rng(seed)
+    return {"ix": rng.integers(0, 5, n).tolist(), "on": [["a", "b", "c"][int(i)] for i in rng.integers(0, 3, n)],
+            "v": [None if rng.random() < 0.15 else float(np.round(rng.normal() * 10, 3)) for _ in range(n)],
+            "w": rng.integers(-50, 50, n).tolist(), "g": rng.integers(0, 3, n).tolist(),
+            "d0": [dtm.date(2024, 1, 1) + dtm.timedelta(days=int(x)) for x in rng.integers(0, 20, n)],
+            "span": rng.integers(0, 4, n).tolist()}
+
+
+def _pivot_oracle(data: dict, values: list, agg) -> dict:
+    """Polars' pivot in Python: a row per ``ix`` in order of first
+    appearance, a column per (value, ``on`` value) in order of first
+    appearance, each cell ``agg`` of its rows' non-null values (null for a
+    cell without rows)."""
+    rows = list(zip(data["ix"], data["on"], *[data[v] for v in values]))
+    ixs, ons = list(dict.fromkeys(data["ix"])), list(dict.fromkeys(data["on"]))
+    out = {"ix": ixs}
+    for j, v in enumerate(values):
+        for o in ons:
+            cells = [[r[2 + j] for r in rows if r[0] == i and r[1] == o] for i in ixs]
+            name = o if len(values) == 1 else f"{v}_{o}"
+            out[name] = [agg([x for x in cell if x is not None]) if cell else None for cell in cells]
+    return out
+
+
+def _check_reshape_differential() -> None:
+    """Reshaping, the concat kinds, a user's functions, the generators and
+    the expressions of ROADMAP item 4b on seeded frames, through both
+    packages where the reference compiles little and against Python
+    oracles as well (integers, strings, dates and null masks exact,
+    floats to rtol 1e-9). Where the reference differs from Polars the port
+    is held to Polars (ROADMAP section 3): ``pivot`` without an aggregation
+    over a cell of several rows raises (the reference takes the first); a
+    lazy diagonal concat aligns its inputs (the reference fails); a head
+    stays above a user's function of the whole column (the reference hands
+    it the first rows only); ``is_sorted`` per group beside another
+    aggregation reads each group in its order (the reference does not);
+    ``value_counts(normalize=True)`` names its share "proportion" (the
+    reference: "count"). Values drawn at random (``sample``,
+    ``shuffle``) are held to their properties."""
+    import datetime as dtm
+
+    from test_torch_eager import _release_compiled_programs
+
+    _release_compiled_programs()
+    data = _reshape_data(11)
+    ft, fj = plt.DataFrame(data, device="cpu"), plj.DataFrame(data)
+    c, cj = plt.col, plj.col
+    n = len(data["w"])
+
+    def both(make, sort=None):
+        """``make(pl, frame)`` through both packages, the same frame."""
+        got, want = make(plt, ft), make(plj, fj)
+        if sort is not None:
+            got, want = got.sort(sort), want.sort(sort)
+        _assert_frames_match(got, want)
+        return got
+
+    # pivot: several values, an aggregation per cell, sorted columns
+    _assert_frames_match(ft.pivot("on", index="ix", values=["v", "w"], aggregate_function="sum"),
+                         fj.pivot("on", index="ix", values=["v", "w"], aggregate_function="sum"))
+    for agg, fn in (("max", max), ("len", len), ("mean", lambda xs: sum(xs) / len(xs) if xs else None)):
+        got = ft.pivot("on", index="ix", values=["v"] if agg == "mean" else ["w"], aggregate_function=agg)
+        want = _pivot_oracle(data, ["v"] if agg == "mean" else ["w"], fn)
+        g = got.to_dict(as_series=False)
+        assert list(g) == list(want), agg
+        for k in want:
+            np.testing.assert_allclose(np.asarray(g[k], float), np.asarray(want[k], float), rtol=1e-9, err_msg=k)
+    srt = ft.pivot("on", values="w", index="ix", aggregate_function="first", sort_columns=True)
+    assert srt.columns == ["ix", "a", "b", "c"]
+    sums = both(lambda pl, f: f.select("on", "w").pivot("on", values="w", aggregate_function="sum", sort_columns=True))
+    assert sums.rows() == [tuple(sum(x for x, o in zip(data["w"], data["on"]) if o == k) for k in "abc")]  # no index
+    with pytest.raises(plt.ComputeError, match="multiple elements"):  # Polars; the reference takes the first
+        ft.pivot("on", index="ix", values="w")
+
+    # unpivot / melt (rows of the first on column, then the second), transpose
+    unp = both(lambda pl, f: f.unpivot(["v", "w"], index=["ix", "on"]))  # the reference: a select per column
+    assert unp.schema["value"] == plt.Float64()
+    assert unp.rows() == [(i, o, "v", v) for i, o, v in zip(data["ix"], data["on"], data["v"])] + \
+        [(i, o, "w", float(x)) for i, o, x in zip(data["ix"], data["on"], data["w"])]
+    long = both(lambda pl, f: f.melt(id_vars="on", value_vars=["w", "g"])).rows()
+    assert long == [(o, "w", w) for o, w in zip(data["on"], data["w"])] + \
+        [(o, "g", g) for o, g in zip(data["on"], data["g"])]
+    keep = ft.lazy().unpivot(["w", "g"], index="ix").filter(c("value") > 0).collect().rows()
+    assert keep == [r for r in zip(data["ix"] * 2, ["w"] * n + ["g"] * n, data["w"] + data["g"]) if r[2] > 0]
+    _assert_frames_match(ft.select("ix", "w", "g").transpose(include_header=True),
+                         fj.select("ix", "w", "g").transpose(include_header=True))
+
+    # the concat kinds, of frames and of lazy frames (built from the data: no reference compile)
+    def frame(pl, cols, rows):
+        return pl.DataFrame({k: [data[src][r] for r in rows] for k, src in cols.items()})
+
+    head5, tail4 = range(5), range(n - 4, n)
+
+    def halves(pl):
+        return frame(pl, {"ix": "ix", "w": "w"}, head5), frame(pl, {"ix": "ix", "v": "v", "on": "on"}, tail4)
+
+    def keyed(pl):  # the first row of each key, sorted by it
+        firsts = [{data["ix"][r]: r for r in reversed(rows)} for rows in (head5, tail4)]
+        return [frame(pl, cols, [f[k] for k in sorted(f)]) for cols, f in
+                zip(({"ix": "ix", "w": "w"}, {"ix": "ix", "v": "v", "on": "on"}), firsts)]
+
+    a, b = halves(plt)
+    ra, rb = a.rows(named=True), b.rows(named=True)
+    names = ["ix", "w", "v", "on"]
+    diag = [{k: r.get(k) for k in names} for r in ra + rb]
+    assert both(lambda pl, f: pl.concat(halves(pl), how="diagonal")).rows(named=True) == diag
+    assert plt.concat([a.lazy(), b.lazy()], how="diagonal").collect().rows(named=True) == diag
+    relaxed = both(lambda pl, f: pl.concat([halves(pl)[0], frame(pl, {"ix": "ix", "w": "v"}, tail4)],
+                                           how="diagonal_relaxed"))
+    assert relaxed.schema["w"] == plt.Float64() and relaxed["w"].to_list() == \
+        [float(x) for x in data["w"][:5]] + data["v"][-4:]
+    assert both(lambda pl, f: pl.concat([frame(pl, {"w": "w"}, range(4)), frame(pl, {"on": "on"}, tail4)],
+                                        how="horizontal")).rows() == list(zip(data["w"][:4], data["on"][-4:]))
+    both(lambda pl, f: pl.concat([frame(pl, {"w": "w"}, head5), frame(pl, {"w": "v"}, tail4)], how="vertical_relaxed"))
+    la, lb = keyed(plt)
+    aligned = both(lambda pl, f: pl.concat(keyed(pl), how="align"))
+    wa, wb = dict(la.select("ix", "w").rows()), {r[0]: r[1:] for r in lb.rows()}
+    assert aligned.rows() == [(k, wa.get(k), *wb.get(k, (None, None))) for k in sorted(set(wa) | set(wb))]
+    assert la["ix"].to_list() == sorted(set(data["ix"][:5])) and lb["ix"].to_list() == sorted(set(data["ix"][-4:]))
+
+    # a user's functions in a select and in a group-by
+    udf = both(lambda pl, f: f.select(pl.col("w").map_batches(lambda s: s * 2).alias("w2"),
+                                      pl.col("v").map_elements(lambda x: x + 1.0, return_dtype=pl.Float64).alias("v1"),
+                                      pl.map_batches(["w", "g"], lambda ss: ss[0] + ss[1]).alias("wg")))
+    assert udf.rows() == [(w * 2, None if v is None else v + 1.0, w + g) for w, v, g in
+                          zip(data["w"], data["v"], data["g"])]
+    dots = both(lambda pl, f: f.group_by("g").agg(pl.map_groups(["w", "ix"], lambda ss: float((ss[0] * ss[1]).sum()),
+                                                                returns_scalar=True).alias("dot")).sort("g"))
+    assert dots.rows() == [(g, float(sum(w * i for w, i, g2 in zip(data["w"], data["ix"], data["g"]) if g2 == g)))
+                           for g in sorted(set(data["g"]))]
+    first3 = both(lambda pl, f: f.lazy().map_batches(lambda d: d.select("w", "g").head(3),
+                                                     schema={"w": pl.Int64, "g": pl.Int64}).collect())
+    assert first3.rows() == list(zip(data["w"][:3], data["g"][:3]))
+    with pytest.raises(plt.SchemaError):  # Polars' validate_output_schema: the input's schema when none is given
+        ft.lazy().map_batches(lambda d: d.select("w", "g")).collect()
+    mean = np.mean([x for x in data["v"] if x is not None])  # the head stays above a whole-column function
+    centred = ft.lazy().select(c("v").map_batches(lambda s: s - s.mean())).head(3).collect()["v"].to_list()
+    np.testing.assert_allclose(np.asarray(centred, float), np.asarray(
+        [None if x is None else x - mean for x in data["v"][:3]], float), rtol=1e-9)
+    assert "Slice" in ft.lazy().select(c("v").map_elements(lambda x: x)).head(3).explain().splitlines()[1]
+    sums = both(lambda pl, f: f.select(pl.col("w").rolling_map(lambda s: s.sum(), 3)))  # the input's dtype
+    assert sums.schema["w"] == plt.Int64() and sums["w"].to_list() == [None, None] + \
+        [sum(data["w"][i - 2:i + 1]) for i in range(2, n)]
+
+    # generators: ranges per row, a lazy date range from column bounds
+    _assert_frames_match(ft.select(plt.int_ranges(c("g"), c("g") + c("span")).alias("ir"),
+                                   plt.date_ranges(c("d0"), c("d0") + plt.duration(days=c("span"))).alias("dr"),
+                                   plt.linear_spaces(c("g"), 5.0, 3).alias("ls")),
+                         fj.select(plj.int_ranges(cj("g"), cj("g") + cj("span")).alias("ir"),
+                                   plj.date_ranges(cj("d0"), cj("d0") + plj.duration(days=cj("span"))).alias("dr"),
+                                   plj.linear_spaces(cj("g"), 5.0, 3).alias("ls")))
+    steps = plt.DataFrame({"a": [3, 4], "s": [None, 2], "z": [1, 0], "k": [2, -1]}, device="cpu")
+    assert steps.select(plt.int_ranges(0, "a", "s")).to_series().to_list() == [None, [0, 2]]  # a null step: null
+    for bad in (plt.int_ranges(0, "a", "z"), c("a").repeat_by("k")):  # read with the total, before it is used
+        with pytest.raises(plt.ComputeError, match="zero|negative"):
+            steps.select(bad)
+    lo, hi = min(data["d0"]), max(data["d0"])
+    assert both(lambda pl, f: f.lazy().select(pl.date_range(pl.col("d0").min(), pl.col("d0").max(), "3d").alias("r"))
+                .collect())["r"].to_list() == [lo + dtm.timedelta(days=3 * k) for k in range((hi - lo).days // 3 + 1)]
+    assert both(lambda pl, f: pl.select(pl.datetime_range(dtm.datetime(2024, 1, 1), dtm.datetime(2024, 1, 2), "5h",
+                                                          closed="left"))).to_series().to_list() == \
+        [dtm.datetime(2024, 1, 1) + dtm.timedelta(hours=5 * k) for k in range(5)]
+
+    # the expressions of item 4b, through both packages (a select per output length) and against Python
+    s_t, w = plt.Series("w", data["w"], device="cpu"), data["w"]
+    runs = [(len(list(grp)), k) for k, grp in itertools.groupby(w)]
+    assert both(lambda pl, f: f.select(pl.col("w").rle())).to_series().to_list() == \
+        [{"len": m, "value": k} for m, k in runs]
+    assert s_t.rle().to_list() == [{"len": m, "value": k} for m, k in runs]
+    assert both(lambda pl, f: f.select(pl.col("w").extend_constant(7, 3))).to_series().to_list() == w + [7, 7, 7]
+    assert both(lambda pl, f: f.select(pl.col("w").reshape((-1, 4)))).to_series().to_list() == \
+        [w[i:i + 4] for i in range(0, n, 4)]
+    top = max(w.count(x) for x in w)
+    assert both(lambda pl, f: f.select(pl.col("w").mode()), sort="w").to_series().to_list() == \
+        sorted({x for x in w if w.count(x) == top})
+    edges = [-50, -10, 0, 10, 50]
+    assert both(lambda pl, f: f.select(pl.col("w").hist(bins=edges))).to_series().to_list() == \
+        [sum(1 for x in w if (lo_ < x <= hi_) or (i == 0 and x == lo_)) for i, (lo_, hi_) in
+         enumerate(zip(edges, edges[1:]))]
+    assert both(lambda pl, f: f.select(pl.arg_where(pl.col("w") > 10))).to_series().to_list() == \
+        [i for i, x in enumerate(w) if x > 10]
+    assert both(lambda pl, f: f.select(pl.col("w").is_sorted(), pl.col("w").sort().is_sorted().alias("s"))).row(0) \
+        == (w == sorted(w), True)
+    counts = both(lambda pl, f: f.select(pl.col("ix").value_counts()).unnest("ix"), sort="ix")
+    assert dict(counts.rows()) == {i: data["ix"].count(i) for i in set(data["ix"])}
+    rows = both(lambda pl, f: f.select(pl.col("on").repeat_by("span"), pl.cum_fold(0, lambda x, y: x + y, ["w", "g"]),
+                                       pl.cum_sum_horizontal("w", "ix"),
+                                       pl.rolling_cov("w", "ix", window_size=4), pl.from_epoch("w", "d").alias("e")))
+    assert rows["on"].to_list() == [[o] * k for o, k in zip(data["on"], data["span"])]
+    assert rows.select("cum_fold", "cum_sum").rows() == [({"w": x, "g": x + g}, {"w": x, "ix": x + i}) for x, g, i in
+                                                         zip(w, data["g"], data["ix"])]
+    both(lambda pl, f: f.select(pl.rolling_corr("w", "ix", window_size=4).alias("rc"), pl.row_index().alias("ri"),
+                                pl.cum_reduce(lambda x, y: x + y, ["w", "g"]).alias("cr"),
+                                pl.concat_arr("w", "g").alias("ca"), pl.col("w").repeat_by(2).alias("w2"),
+                                pl.struct("w", "g").name.prefix_fields("p_").alias("sp")))
+    both(lambda pl, f: f.select("w", pl.col("w").extend_constant(1, 2).sum().alias("s"),
+                                pl.col("w").sample(5, seed=1).len().alias("n")))
+    both(lambda pl, f: pl.select(pl.time_range(interval="5h").alias("t"), pl.repeat(3, 5).alias("r")))
+    shares = ft.select(c("on").value_counts(sort=True, normalize=True)).unnest("on")  # the reference: "count"
+    assert shares.rows() == sorted(((o, data["on"].count(o) / n) for o in set(data["on"])), key=lambda r: -r[1])
+    assert shares.columns == ["on", "proportion"]
+    both(lambda pl, f: f.group_by("g").agg(pl.col("ix").mode().alias("m")), sort="g")
+    # the reference's is_sorted per group beside another aggregation is wrong (ROADMAP section 3)
+    got = ft.group_by("g").agg(c("ix").mode().alias("m"), c("w").is_sorted().alias("s")).sort("g")
+    for g, m, srt_ in got.rows():
+        xs = [i for i, g2 in zip(data["ix"], data["g"]) if g2 == g]
+        assert m == sorted({x for x in xs if xs.count(x) == max(xs.count(y) for y in xs)}), g
+        ws = [x for x, g2 in zip(w, data["g"]) if g2 == g]
+        assert srt_ == (ws == sorted(ws)), g
+    sample = s_t.sample(10, seed=3)
+    assert len(sample) == 10 and sample.to_list() == s_t.sample(10, seed=3).to_list()
+    idx = list(range(n))
+    assert sorted(plt.Series("i", idx, device="cpu").sample(10, seed=4).to_list()) == \
+        plt.Series("i", idx, device="cpu").sample(10, seed=4).to_list()  # without replacement: distinct, in order
+    assert len(set(plt.Series("i", idx, device="cpu").sample(10, seed=4).to_list())) == 10
+    assert sorted(s_t.shuffle(seed=5).to_list()) == sorted(w)
+
+    # frame helpers
+    assert both(lambda pl, f: f.select("w").unstack(step=5)).rows()[0] == tuple(w[i] for i in range(0, n, 5))
+    dummies = both(lambda pl, f: f.select("on").to_dummies())
+    assert dummies.columns == ["on_a", "on_b", "on_c"]
+    assert dummies.rows() == [tuple(int(o == x) for x in "abc") for o in data["on"]]
+    upd = both(lambda pl, f: f.select("ix", "w").update(pl.DataFrame({"ix": [0, 3], "w": [100, None]}), on="ix"))
+    assert upd["w"].to_list() == [100 if i == 0 else x for i, x in zip(data["ix"], w)]
+    merged = both(lambda pl, f: f.select("w").sort("w").merge_sorted(f.select("w").sort("w").head(3), "w"))
+    assert merged["w"].to_list() == sorted(w + sorted(w)[:3])
