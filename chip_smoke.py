@@ -200,6 +200,21 @@ Phases, each printed as one JSON line:
                 K1, K2 over 12 slots). Each against the numpy oracle of
                 testing/phases.py (keys, counts and strings exactly, sums
                 and means to rtol 1e-9), with its host reads.
+ 22. nestkeys — nested values as keys at SF10, two lines: nestkeys.baskets:
+                per order of 60M lines the sorted distinct ship modes (15M
+                Lists of 1-7 strings, unique per group by its first rows),
+                then a group-by on the List (content ranks by refinement
+                over positions, kernels/nested_keys.py; the sorted
+                group-by, K1), sorted by the set; beside it over the orders
+                in key order the distinct sets, the distinct content hashes,
+                is_first_distinct and == of a List with its shift (its
+                "stats"); nestkeys.struct: 60M lines grouped by a Struct of
+                (return flag, line status, ship mode) with sums and counts
+                (K1), 15M orders sorted by a Struct of (priority, date)
+                descending with rle_id of the key, and the Struct's distinct
+                count (K2). Each against the numpy oracle of
+                testing/phases.py (keys, lists and counts exactly, sums to
+                rtol 1e-9), with its host reads.
 Every collect runs the optimized plan. Each PDS-H query and each frameops
 query also runs its plan as written (collect(no_optimization=True)): a
 warm-up, then 6 collects as written and 6 optimized, in turns with the
@@ -220,7 +235,7 @@ then the kernels line, the card's name and power limit, and the final line
 
 Run from the repository root:
     python3 chip_smoke.py [--scale 10] [--seed 42] [--only q1 filter q3 q4 ... q22 joins temporal asof rolling range
-        frameops tz stats window recode strings nested reshape]
+        frameops tz stats window recode strings nested reshape nestkeys]
 (``--only`` runs the build and kernel phases and the named query phases, for
 an A/B of a few queries against a parent tree). It needs a CUDA device and
 nvcc; it never imports JAX or polars_tpu.
@@ -260,7 +275,7 @@ Q3_DAYS = day(1995, 3, 15)
 Q4_FROM, Q4_TO = day(1993, 7, 1), day(1993, 10, 1)
 PHASES = ["q1", "filter", "q3", "q4", "q5", "q6", "q10", "q12", "q14", "q18", "q19", "q11", "q15", "q17", "q20",
           "q2", "q7", "q8", "q9", "q13", "q16", "q21", "q22", "joins", "temporal", "asof", "rolling", "range",
-          "frameops", "tz", "stats", "window", "recode", "strings", "nested", "reshape"]
+          "frameops", "tz", "stats", "window", "recode", "strings", "nested", "reshape", "nestkeys"]
 # the columns the phases outside PDS-H read of each table (asof makes its own)
 PHASE_COLUMNS = {
     "joins": {"customer": ["c_custkey", "c_mktsegment"], "orders": ["o_orderkey", "o_custkey", "o_orderdate"],
@@ -293,6 +308,9 @@ PHASE_COLUMNS = {
     # testing/phases.RESHAPE_COLUMNS
     "reshape": {"lineitem": ["l_orderkey", "l_suppkey", "l_returnflag", "l_shipmode", "l_quantity",
                              "l_extendedprice", "l_discount", "l_tax"]},
+    # testing/phases.NESTKEYS_LINE_COLUMNS, NESTKEYS_ORDER_COLUMNS
+    "nestkeys": {"lineitem": ["l_orderkey", "l_extendedprice", "l_quantity", "l_shipmode", "l_returnflag",
+                              "l_linestatus"], "orders": ["o_orderkey", "o_orderpriority", "o_orderdate"]},
 }
 _MADE_COLUMNS = ("l_shipts", "o_orderts")  # made from the generated columns (testing/phases.py)
 
@@ -2609,6 +2627,75 @@ def phase_reshape(torch, pl, line, raw: dict) -> dict:
     return results
 
 
+# -- nestkeys phase (plans and oracle: polars_tpu_torch/testing/phases.py) --------------------
+
+
+def _with_parts(main: dict, parts: dict) -> tuple[dict, dict]:
+    """One line for a phase of several plans: ``main``'s run with the
+    launches and kept kernel calls of ``parts`` added, and each part's own
+    figures (warm time, host reads, peak memory, launches)."""
+    r = dict(main)
+    r["launches"] = {k: v + sum(p["launches"][k] for p in parts.values()) for k, v in main["launches"].items()}
+    r["kernel_calls"] = main["kernel_calls"] + [c for p in parts.values() for c in p["kernel_calls"]]
+    if not (r["launches"]["groupagg_sums"] and r["launches"]["compact"]):
+        raise AssertionError(f"the phase did not launch every kernel of its path: {r['launches']}")
+    info = {name: {"warm_wall_s": p["warm_wall_s"], "warm_walls_s": p["warm_walls_s"],
+                   "first_collect_s": p["first_collect_s"], "launches": p["launches"], "host_reads": p["host_reads"],
+                   "peak_device_bytes": p["peak_device_bytes"]} for name, p in parts.items()}
+    return r, info
+
+
+def phase_nestkeys(torch, pl, frames: dict, raw: dict) -> dict:
+    """Nested values by their content at SF10, each plan through its main
+    path against ``testing/phases.nestkeys_oracle``: ``nestkeys.baskets``
+    (15M Lists of ship modes made per order, grouped by the List: content
+    ranks, the sorted group-by, K1, K2 at its end; with its stats: n_unique,
+    the content hash, is_first_distinct and List ==) and ``nestkeys.struct``
+    (60M lines grouped by a Struct, K1; 15M orders sorted by a Struct, with
+    rle_id; the Struct's distinct count, K2)."""
+    P = _phases()
+    t0 = time.perf_counter()
+    want = P.nestkeys_oracle(raw["lineitem"], raw["orders"])
+    oracle_s = time.perf_counter() - t0
+    line, orders = frames["lineitem"], frames["orders"]
+    results = {}
+
+    def plan(name):
+        return lambda: P.nestkeys_plans(pl, line if name.startswith(("basket", "struct_groups")) else None,
+                                        orders if name.startswith(("struct_rank", "struct_distinct")) else None)[name]
+
+    r = run_phase(torch, "nestkeys.baskets", plan("baskets"))
+    out = r["out"]
+    _check_schema(out, [("modes", "List(String)"), ("orders", "UInt32"), ("rev", "Float64"), ("lines", "UInt32")],
+                  "nestkeys.baskets")
+    worst = P.check_nestkeys(out, want["baskets"], "nestkeys.baskets", floats=("rev",), lists=("modes",))
+    s = run_phase(torch, "nestkeys.basket_stats", plan("basket_stats"), need=())
+    _check_schema(s["out"], [(c, "UInt32") for c in ("distinct", "hashes", "firsts", "repeats")],
+                  "nestkeys.basket_stats")
+    P.check_nestkeys(s["out"], want["basket_stats"], "nestkeys.basket_stats")
+    r, parts = _with_parts(r, {"stats": s})
+    results["baskets"] = phase_result("nestkeys.baskets", r, out, {"lineitem": line.height}, worst,
+                                      lists=want["orders_with_lines"], sets=out.height, parts=parts,
+                                      oracle_s=oracle_s)
+
+    r = run_phase(torch, "nestkeys.struct", plan("struct_groups"))
+    out = r["out"]
+    _check_schema(out, [("l_returnflag", "String"), ("l_linestatus", "String"), ("l_shipmode", "String"),
+                        ("qty", "Float64"), ("rev", "Float64"), ("n", "UInt32")], "nestkeys.struct")
+    worst = P.check_nestkeys(out, want["struct_groups"], "nestkeys.struct", floats=("qty", "rev"),
+                             strings=("l_returnflag", "l_linestatus", "l_shipmode"))
+    rank = run_phase(torch, "nestkeys.struct_rank", plan("struct_rank"), need=())
+    _check_schema(rank["out"], [("o_orderkey", "Int64"), ("run", "UInt32")], "nestkeys.struct_rank")
+    P.check_nestkeys(rank["out"], want["struct_rank"], "nestkeys.struct_rank")
+    distinct = run_phase(torch, "nestkeys.struct_distinct", plan("struct_distinct"), need=())
+    P.check_nestkeys(distinct["out"], want["struct_distinct"], "nestkeys.struct_distinct")
+    r, parts = _with_parts(r, {"rank": rank, "distinct": distinct})
+    results["struct"] = phase_result("nestkeys.struct", r, out, {"lineitem": line.height, "orders": orders.height},
+                                     worst, groups=out.height, distinct_keys=int(want["struct_distinct"]["len"][0]),
+                                     parts=parts)
+    return results
+
+
 # -- strings phase (plans and oracle: polars_tpu_torch/testing/phases.py) ---------------------
 
 
@@ -2724,6 +2811,9 @@ def main() -> int:
         elif name == "reshape":
             for sub, res in phase_reshape(torch, pl, frames["reshape"]["lineitem"], raw).items():
                 runs[f"reshape.{sub}"] = res
+        elif name == "nestkeys":
+            for sub, res in phase_nestkeys(torch, pl, frames["nestkeys"], raw).items():
+                runs[f"nestkeys.{sub}"] = res
         else:  # Q3's K2 call runs 50 times, each against the first
             runs[name] = phase_query(torch, name, frames, raw, args.scale, k2_repeats=50 if name == "q3" else 1)
     del frames, raw, line, taq

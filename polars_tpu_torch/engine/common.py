@@ -180,6 +180,8 @@ def take_lut(lut, codes: torch.Tensor) -> torch.Tensor:
     """``lut[codes]`` for a host lookup table (a numpy array indexed by
     dictionary code), on the codes' device; codes are clamped into it."""
     t = torch.as_tensor(lut).to(codes.device)
+    if t.shape[0] == 0:  # an empty dictionary: every code is under a null
+        return torch.zeros(codes.shape, dtype=t.dtype, device=codes.device)
     return t.index_select(0, codes.clamp(0, max(len(lut) - 1, 0)).reshape(-1).long()).reshape(codes.shape)
 
 

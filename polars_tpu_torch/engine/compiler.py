@@ -116,21 +116,70 @@ def _eval_expr_uncached(node: E.ENode, ctx: EvalCtx) -> Val:
 # ---------------------------------------------------------------------------
 
 
+def _group_sources(ctx: EvalCtx, idx: Val) -> tuple[torch.Tensor, torch.Tensor]:
+    """(for each row, the row its group's gather reads there; where it takes
+    part). Per-row indices: each kept row's own index, within its group
+    (negative from the group's end), a null index a null element. A literal
+    of m indices: the k-th row of a group in group order takes the k-th
+    index, and the rows past m take no part. An index past its group's end
+    fails the segment at its count read."""
+    o = P.group_order(ctx)
+    n = o.n
+    pos = torch.arange(n, dtype=torch.int64, device=ctx.device) - o.start
+    size = o.end - o.start + 1
+    if idx.domain == ROW:
+        i = o.to_group(idx.values.to(torch.int64))
+        ok = o.kept if idx.validity is None else o.kept & o.to_group(idx.validity)
+    else:
+        lit = idx.values.reshape(-1).to(torch.int64)
+        m = lit.shape[0]
+        at = pos.clamp(0, max(m - 1, 0))
+        i = lit.index_select(0, at) if m else pos
+        ok = o.kept & (pos < m)
+        if idx.validity is not None and m:
+            ok = ok & idx.validity.reshape(-1).index_select(0, at)
+    i = torch.where(i < 0, i + size, i)
+    ctx.add_flag((ok & ((i < 0) | (i >= size))).any(), "gather indices are out of bounds", ComputeError)
+    src = o.perm.index_select(0, torch.minimum(o.start + i.clamp(min=0), o.end).clamp(0, max(n - 1, 0))) \
+        if n else pos
+    return o.to_rows(src), o.to_rows(ok)
+
+
+def _gathered(v: Val, src: torch.Tensor, ok: torch.Tensor) -> Val:
+    """``v`` at the rows ``src``, null where ``ok`` does not hold."""
+    if v.values.shape[0] == 0:
+        return v.with_(values=v.values.new_zeros(src.shape[0]), validity=torch.zeros_like(ok), domain=ROW)
+    validity = ok if v.validity is None else ok & v.validity.index_select(0, src)
+    return v.with_(values=v.values.index_select(0, src), validity=validity, domain=ROW)
+
+
 def _gather_in_groups(node: E.EGather, ctx: EvalCtx) -> Val:
     """A gather in each group: in a group-by, a List per group of its rows
     at the indices (negative from the group's end), in the group's row
     order; in a window, one index gives each group's value at it, which
-    its rows take. An index past a group's end fails the segment at its
-    count read."""
+    its rows take, and per-row indices or several indices (as many as the
+    group's rows) give each row its own. An index past a group's end fails
+    the segment at its count read."""
     from polars_tpu_torch.engine.fn_nested import pack
 
     v = P.row_domain(ctx, eval_expr(node.input, ctx))
     idx = eval_expr(node.indices, ctx)
-    if idx.domain not in (SCALAR, SERIES):
-        raise NotImplementedError("a gather in each group by per-row indices (port queue: item 4c)")
-    if ctx.in_window and idx.domain != SCALAR:
-        raise NotImplementedError("a gather of several indices in a window (port queue: item 4c)")
     g = ctx.groups
+    if idx.domain == ROW or (ctx.in_window and idx.domain == SERIES):
+        if ctx.in_window and idx.domain == SERIES:
+            o = P.group_order(ctx)
+            live = o.to_rows(o.kept)
+            ctx.add_flag((live & (o.to_rows(o.end - o.start + 1) != idx.values.shape[0])).any(),
+                         "the length of the window expression did not match that of the group", ComputeError)
+        src, ok = _group_sources(ctx, idx)
+        out = _gathered(v, src, ok)
+        if ctx.in_window:
+            return out
+        # a List per group: the group's rows in group order, each its gather
+        o = P.group_order(ctx)
+        counts = G.group_counts(g, ctx.rowmask)
+        child = out.with_(values=o.to_group(out.values), validity=o.to_group(out.validity))
+        return Val(pack(torch.cumsum(counts, 0) - counts, counts), None, dt.List(v.dtype), None, GROUP, child)
     o = P.group_order(ctx)
     counts = G.group_counts(g, ctx.rowmask)
     cap, dev = g.capacity, ctx.device
@@ -250,6 +299,8 @@ def eval_piece(node: E.ENode, ctx: EvalCtx) -> tuple[Val, torch.Tensor | None]:
         start = (total + node.offset).clamp(min=0) if node.offset < 0 else total.clamp(max=node.offset)
         stop = total if node.length is None else torch.minimum(start + node.length, total)
         return v, keep & (rank > start) & (rank <= stop)
+    if isinstance(node, E.EWindow):  # mapping_strategy="explode"
+        return _window_explode(node, ctx)
     if isinstance(node, E.EFunction) and node.name == "explode":
         from polars_tpu_torch.engine.fn_nested import explode_piece
 
@@ -293,6 +344,24 @@ def _eval_window(node: E.EWindow, ctx: EvalCtx) -> Val:
     scalar broadcasts. The groups of one key tuple are made once per
     context, and so is the group order of one (keys, order) pair: windows
     over the same keys share their sorts."""
+    if node.mapping_strategy == "explode":
+        raise InvalidOperationError("over(mapping_strategy='explode') changes the column's length: it applies in "
+                                    "a select")
+    inner = _window_ctx(node, ctx)
+    res = eval_expr(node.function, inner)
+    reject_series(res)
+    if node.mapping_strategy == "join":  # each row takes its group's values as a List
+        from polars_tpu_torch.engine.fn_nested import implode, one_per_list
+
+        res = one_per_list(res) if res.domain == GROUP else implode(inner, res, GROUP)
+    if res.domain == GROUP:
+        return _group_to_rows(res, inner)
+    return res
+
+
+def _window_ctx(node: E.EWindow, ctx: EvalCtx) -> EvalCtx:
+    """The context of a window's function: the groups of its keys, made
+    once per key tuple, with its ``order_by`` words."""
     if ctx.groups is not None:
         raise InvalidOperationError("over() inside a group-by aggregation is not supported")
     if ctx.windows is None:
@@ -312,15 +381,40 @@ def _eval_window(node: E.EWindow, ctx: EvalCtx) -> Val:
             gctx = dataclasses.replace(base, order_words=words)
         inner = EvalCtx(cols=ctx.cols, rowmask=ctx.rowmask, groups=gctx, memo={}, flags=ctx.flags, in_window=True)
         ctx.windows[(node.partition_by, node.order_by, node.order_descending)] = inner
+    return inner
+
+
+def _window_explode(node: E.EWindow, ctx: EvalCtx) -> tuple[Val, torch.Tensor]:
+    """``over(mapping_strategy="explode")`` as a piece of its own length:
+    each group's results one after another, the groups in the order of
+    their first rows (``group_by(..., maintain_order=True).agg(...)
+    .explode(...)``), a group's rows in row order. Per-row results are
+    moved by one stable sort of the kept rows by their group's first row;
+    one result per group fills the first ``num_groups`` slots of the
+    window's group space (capacity = rows)."""
+    inner = _window_ctx(node, ctx)
     res = eval_expr(node.function, inner)
     reject_series(res)
-    if node.mapping_strategy == "join":  # each row takes its group's values as a List
-        from polars_tpu_torch.engine.fn_nested import implode, one_per_list
-
-        res = one_per_list(res) if res.domain == GROUP else implode(inner, res, GROUP)
+    gctx, rowmask = inner.groups, ctx.rowmask
+    first, has = G.seg_first_idx(rowmask, gctx.gids, gctx.capacity)
+    n = rowmask.shape[0]
     if res.domain == GROUP:
-        return _group_to_rows(res, inner)
-    return res
+        order = stable_argsort_words([torch.where(has, first, n)])  # groups by their first row
+        keep = torch.arange(gctx.capacity, device=rowmask.device) < gctx.num_groups
+        return res.with_(values=res.values.index_select(0, order), domain=ROW,
+                         validity=None if res.validity is None else res.validity.index_select(0, order)), keep
+    if res.domain == SCALAR:
+        res = res.with_(values=res.values.expand(n), domain=ROW,
+                        validity=None if res.validity is None else res.validity.expand(n))
+    dropped = (~rowmask).to(torch.int8)
+    src = stable_argsort_words([dropped, first.index_select(0, gctx.gids.clamp(0, max(n - 1, 0)).long())])
+    dst = stable_argsort_words([dropped])  # the kept rows' places, in order
+
+    def moved(t: torch.Tensor) -> torch.Tensor:
+        return torch.empty_like(t).index_copy_(0, dst, t.index_select(0, src))
+
+    return res.with_(values=moved(res.values), validity=None if res.validity is None else moved(res.validity)), \
+        rowmask
 
 
 def _eval_cast(node: E.ECast, ctx: EvalCtx) -> Val:
@@ -817,6 +911,10 @@ def _eval_compare(op: str, a: Val, b: Val, dom: str) -> Val:
         from polars_tpu_torch.engine.fn_nested import struct_equal
 
         return struct_equal(op, a, b)
+    if isinstance(a.dtype, (dt.List, dt.Array)) and isinstance(b.dtype, (dt.List, dt.Array)) and op in ("==", "!="):
+        from polars_tpu_torch.engine.fn_nested import list_equal
+
+        return list_equal(op, a, b, dom)
     if isinstance(a.dtype, dt.NestedType) or isinstance(b.dtype, dt.NestedType):
         raise InvalidOperationError(f"cannot compare {a.dtype!r} with {b.dtype!r}")
     if (a.table is not None) != (b.table is not None):
@@ -951,10 +1049,17 @@ def _agg_domain(ctx: EvalCtx) -> str:
 def _agg_input(node: E.ENode, ctx: EvalCtx) -> tuple[Val, torch.Tensor]:
     """An aggregation's input and the rows it aggregates: a filter narrows
     the row mask, a slice keeps a window of each group's rows (in their
-    current order), and a node over such an input runs over its rows (a
-    sort within the group, say)."""
+    current order), ``unique`` keeps each group's first row of each value
+    (a List or Struct by its content), and a node over such an input runs
+    over its rows (a sort within the group, say)."""
     if not E.changes_length(node):
         return eval_expr(node, ctx), ctx.rowmask
+    if isinstance(node, E.EFunction) and node.name == "unique":
+        from polars_tpu_torch.engine.fn_core import distinct_flags
+
+        v, mask = _agg_input(node.inputs[0], ctx)
+        first = distinct_flags(_sub_ctx(ctx, mask, {}), v, "is_first_distinct")
+        return v, mask & first.values
     if isinstance(node, E.EFilter):
         v, mask = _agg_input(node.input, ctx)
         p = eval_expr(node.by, ctx)
@@ -975,8 +1080,12 @@ def _agg_input(node: E.ENode, ctx: EvalCtx) -> tuple[Val, torch.Tensor]:
         if node.length is not None:
             keep = keep & (pos < first + node.length)
         return v, mask & o.to_rows(keep)
-    if isinstance(node, E.EGather):
-        raise NotImplementedError("an aggregation of a gather in each group (port queue: item 4c)")
+    if isinstance(node, E.EGather):  # each taking row carries the value its index reads
+        v, mask = _agg_input(node.input, ctx)
+        sub = _sub_ctx(ctx, mask, {})
+        idx = eval_expr(node.indices, sub)
+        src, ok = _group_sources(sub, idx if idx.domain != SCALAR else idx.with_(domain=SERIES))
+        return _gathered(P.row_domain(ctx, v), src, ok), mask & ok
     if isinstance(node, E.ESeriesLit):
         raise InvalidOperationError("a literal Series under an aggregation")
     kids = node.children()
@@ -1059,6 +1168,8 @@ def _eval_agg(node: E.EAgg, ctx: EvalCtx) -> Val:
         m, has = G.seg_mean(vals, data_mask, gids, cap)
         out_dt = _agg_out_dtype(node, v.dtype)
         return Val(mean_values(m, v.dtype, out_dt), has, out_dt, None, dom)
+    if kind in ("min", "max") and v.dtype.is_nested():
+        return _nested_extreme(kind, v, data_mask, gctx, dom)
     if kind in ("min", "max"):
         v = ensure_ordinal_val(v)  # an unordered dictionary: the text's order
         # without nulls, a group has a value where it has rows: the groups'
@@ -1174,7 +1285,8 @@ def _group_runs(v: Val, mask: torch.Tensor, gctx: GroupCtx) -> tuple[torch.Tenso
     v = ensure_ordinal_val(v)
     cap = gctx.capacity
     g = torch.where(mask, gctx.gids.to(torch.int64), cap)
-    word = order_word(v.values, v.dtype)
+    c = content_val(v)  # a nested value: its content's rank
+    word = order_word(c.values, c.dtype)
     perm = stable_argsort_words([g, word])
     gs, ws = g.index_select(0, perm), word.index_select(0, perm)
     start = torch.ones_like(gs, dtype=torch.bool)
@@ -1216,7 +1328,8 @@ def _eval_is_sorted(node: E.EAgg, v: Val, rowmask: torch.Tensor, gctx: GroupCtx,
     g = torch.where(rowmask, gctx.gids.to(torch.int64), cap)
     perm = torch.sort(g, stable=True).indices
     gs = g.index_select(0, perm)
-    word = order_word(v.values, v.dtype).index_select(0, perm)
+    c = content_val(v)  # a nested value: its content's rank
+    word = order_word(c.values, c.dtype).index_select(0, perm)
     valid = torch.ones_like(gs, dtype=torch.bool) if v.validity is None else v.validity.index_select(0, perm)
     pair = (gs[1:] == gs[:-1]) & (gs[1:] < cap)
     a, b, va, vb = word[:-1], word[1:], valid[:-1], valid[1:]
@@ -1369,13 +1482,39 @@ def _float_input(v: Val) -> torch.Tensor:
     return float_values(v.values, v.dtype, torch.float64)
 
 
+def content_val(v: Val) -> Val:
+    """A nested value as the Int64 rank of its content (its order and its
+    equalities, ``kernels/nested_keys.content_rank``); a flat one as it is."""
+    if not v.dtype.is_nested():
+        return v
+    from polars_tpu_torch.kernels.nested_keys import content_rank
+
+    return Val(content_rank(v), v.validity, dt.Int64(), None, v.domain)
+
+
+def _nested_extreme(kind: str, v: Val, data_mask: torch.Tensor, gctx: GroupCtx, dom: str) -> Val:
+    """``min``/``max`` of a List, Array or Struct by its content: the least
+    or greatest content rank per group, and a row holding it
+    (``kernels/nested_keys.rank_rows``), with its child."""
+    from polars_tpu_torch.kernels.nested_keys import rank_rows
+
+    n = v.values.shape[0]
+    r = content_val(v)
+    best = G.seg_extreme(kind, r, data_mask, gctx.gids, gctx.capacity)  # out of [0, n) for a group without values
+    idx = rank_rows(r.values, data_mask).index_select(0, torch.where((best >= 0) & (best < n), best, n))
+    has = idx < n
+    values = v.values.index_select(0, idx.clamp(max=max(n - 1, 0))) if n else \
+        torch.zeros(gctx.capacity, dtype=v.values.dtype, device=v.values.device)
+    return v.with_(values=values, validity=has, domain=dom)
+
+
 def _eval_arg_extreme(kind: str, v: Val, data_mask: torch.Tensor, gctx: GroupCtx, rowmask: torch.Tensor,
                       dom: str) -> Val:
     """The position within its group of the group's first least
     (``arg_min``) or greatest (``arg_max``, NaN greatest) value, counting
     the group's null rows as positions; null for a group without values."""
     gids, cap = gctx.gids, gctx.capacity
-    v = ensure_ordinal_val(v)  # an unordered dictionary: the text's order
+    v = ensure_ordinal_val(content_val(v))  # an unordered dictionary: the text's order
     ext = G.seg_extreme("min" if kind == "arg_min" else "max", v, data_mask, gids, cap)
     ids = gids.clamp(0, cap - 1).long()
     best = ext.index_select(0, ids)

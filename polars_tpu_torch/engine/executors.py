@@ -38,7 +38,8 @@ from polars_tpu_torch.engine.join_traced import trace_join
 from polars_tpu_torch.engine.sort import apply_perm, sort_perm
 from polars_tpu_torch.engine.strings import concat_vals
 from polars_tpu_torch.errors import ComputeError, InvalidOperationError, ShapeError
-from polars_tpu_torch.kernels.argsort import boundaries_from_words, key_words, stable_argsort_words
+from polars_tpu_torch.kernels.argsort import boundaries_from_words, stable_argsort_words
+from polars_tpu_torch.kernels.nested_keys import val_words
 from polars_tpu_torch.kernels.compact import compact_count, compact_scatter
 from polars_tpu_torch.kernels.groupagg import groupagg_sums
 from polars_tpu_torch.plan import exprs as E
@@ -223,7 +224,7 @@ def _distinct_rowmask(keys: list[Val], rowmask: torch.Tensor, keep: str) -> torc
     nothing."""
     words = [(~rowmask).to(torch.int8)]
     for k in keys:
-        kw = key_words(k.values, k.dtype)
+        kw = val_words(k)
         if k.validity is not None:
             words.append((~k.validity).to(torch.int8))
             kw = [torch.where(k.validity, w, torch.zeros((), dtype=w.dtype, device=w.device)) for w in kw]
@@ -347,6 +348,35 @@ def _decode_dense_key(gctx, sizes: list[int], i: int) -> torch.Tensor:
     return torch.div(gctx.slots, stride, rounding_mode="floor") % (sizes[i] + 1) - 1
 
 
+def _dense_parts(kv: Val) -> list[Val] | None:
+    """The dictionary-coded or Boolean values a key groups by on the dense
+    path: the key itself, or a Struct's validity (as a Boolean) and its
+    fields at its rows, a null Struct's fields made null so that its rows
+    are one group; None for any other key."""
+    if kv.table is not None or isinstance(kv.dtype, dt.Boolean):
+        return [kv]
+    if not isinstance(kv.dtype, dt.Struct) or not kv.dtype.fields:
+        return None
+    from polars_tpu_torch.kernels.nested_keys import struct_fields
+
+    fields = struct_fields(kv)
+    if not all(f.table is not None or isinstance(f.dtype, dt.Boolean) for f in fields):
+        return None
+    if kv.validity is None:
+        return fields
+    own = Val(kv.validity, None, dt.Boolean(), None, kv.domain)
+    return [own, *(f.with_(validity=kv.validity if f.validity is None else f.validity & kv.validity)
+                   for f in fields)]
+
+
+def _decoded_key(gctx, sizes: list[int], i: int, part: Val) -> Val:
+    """Part i of the dense keys, per group, from the group's dense slot."""
+    code = _decode_dense_key(gctx, sizes, i)
+    values = (code.clamp(min=0) > 0) if isinstance(part.dtype, dt.Boolean) else \
+        code.clamp(min=0).to(part.values.dtype)
+    return Val(values, None if part.validity is None else code >= 0, part.dtype, part.table, ROW)
+
+
 def _trace_groupby(tt: TTable, node: L.LGroupBy, tc: _TraceCtx) -> TTable:
     schema = tt.schema()
     keys = expand_exprs(node.keys, schema)
@@ -357,24 +387,19 @@ def _trace_groupby(tt: TTable, node: L.LGroupBy, tc: _TraceCtx) -> TTable:
         if kv.domain == SCALAR:
             raise ShapeError("scalar group keys not supported")
 
-    # dense (perfect-hash) path for dictionary-coded/bool keys
-    sizes = []
-    dense_ok = bool(key_vals)
-    for _, kv in key_vals:
-        if kv.table is not None:
-            sizes.append(max(len(kv.table), 1))
-        elif isinstance(kv.dtype, dt.Boolean):
-            sizes.append(2)
-        else:
-            dense_ok = False
-            break
+    # dense (perfect-hash) path for dictionary-coded/bool keys, a Struct of
+    # such fields by its fields (and its validity)
+    parts = [_dense_parts(kv) for _, kv in key_vals]
+    flat = [p for ps in parts if ps is not None for p in ps]
+    dense_ok = bool(key_vals) and all(ps is not None for ps in parts)
+    sizes = [max(len(p.table), 1) if p.table is not None else 2 for p in flat]
     if dense_ok:
         prod = 1
         for s in sizes:
             prod *= s + 1
         dense_ok = prod <= DENSE_MAX_CAP
     if dense_ok:
-        gctx = G.dense_group_ctx([kv for _, kv in key_vals], tt.rowmask, sizes)
+        gctx = G.dense_group_ctx(flat, tt.rowmask, sizes)
     else:
         gctx = G.sorted_group_ctx([kv for _, kv in key_vals], tt.rowmask)
     if node.maintain_order:
@@ -383,18 +408,25 @@ def _trace_groupby(tt: TTable, node: L.LGroupBy, tc: _TraceCtx) -> TTable:
     out_cols: dict[str, Val] = {}
     if dense_ok:
         # keys decoded from each group's dense slot: no pass over the rows
-        for i, (name, kv) in enumerate(key_vals):
-            code = _decode_dense_key(gctx, sizes, i)
-            values = (code.clamp(min=0) > 0) if isinstance(kv.dtype, dt.Boolean) else code.clamp(min=0).to(kv.values.dtype)
-            validity = None if kv.validity is None else code >= 0
-            out_cols[name] = Val(values, validity, kv.dtype, kv.table, ROW)
+        at = 0
+        for (name, kv), ps in zip(key_vals, parts):
+            decoded = [_decoded_key(gctx, sizes, at + j, p) for j, p in enumerate(ps)]
+            at += len(ps)
+            if not isinstance(kv.dtype, dt.Struct):
+                out_cols[name] = decoded[0]
+                continue
+            validity = None
+            if kv.validity is not None:  # the first part: the Struct's own validity
+                validity, decoded = decoded[0].values, decoded[1:]
+            ids = torch.arange(gctx.capacity, dtype=torch.int64, device=tt.rowmask.device)
+            out_cols[name] = Val(ids, validity, kv.dtype, None, ROW, tuple(decoded))
     else:
-        # keys read at each group's first row
+        # keys read at each group's first row (a nested key with its child)
         rep_idx, rep_has = G.seg_first_idx(tt.rowmask, gctx.gids, gctx.capacity)
         for name, kv in key_vals:
             values = kv.values.index_select(0, rep_idx)
             validity = None if kv.validity is None else kv.validity.index_select(0, rep_idx) & rep_has
-            out_cols[name] = Val(values, validity, kv.dtype, kv.table, ROW)
+            out_cols[name] = kv.with_(values=values, validity=validity, domain=ROW)
 
     gctx_ctx = EvalCtx(
         cols=dict(tt.cols), rowmask=tt.rowmask, groups=gctx, memo={}, flags=tc.flags,
@@ -505,7 +537,7 @@ def _batch_aggs(aggs, ctx: EvalCtx) -> dict:
             if not E.is_elementwise(sub.input):
                 continue
             v = eval_expr(sub.input, ctx)
-            if v.domain != ROW or v.table is not None or isinstance(v.dtype, dt.Time):
+            if v.domain != ROW or v.table is not None or isinstance(v.dtype, dt.Time) or v.dtype.is_nested():
                 continue  # evaluated on its own by compiler._eval_agg
             seen.add(sub)
             if sub.kind in ("min", "max"):

@@ -495,7 +495,7 @@ def _make_duration(ctx, args, opts):
 # -- distinct flags -----------------------------------------------------------------------
 
 
-def _distinct_flags(ctx, v: Val, kind: str) -> Val:
+def distinct_flags(ctx, v: Val, kind: str) -> Val:
     """``is_duplicated``/``is_unique``/``is_first_distinct``/``is_last_distinct``
     (the JAX package's ``_distinct_flags``, ``fn_core.py:340-381``): one
     stable sort of each segment by (null, value) and a compare with the
@@ -519,7 +519,7 @@ def _distinct_flags(ctx, v: Val, kind: str) -> Val:
 def _register_distinct(kind: str) -> None:
     @register(kind, BOOL, elementwise=False)
     def _(ctx, args, opts):
-        return _distinct_flags(ctx, args[0], kind)
+        return distinct_flags(ctx, args[0], kind)
 
 
 for _kind in ("is_duplicated", "is_unique", "is_first_distinct", "is_last_distinct"):
@@ -1035,10 +1035,12 @@ def _search_sorted_groups(ctx, v: Val, vv: torch.Tensor, ev: torch.Tensor, elem:
 def _rle_id(ctx, args, opts):
     """The run of equal values each row belongs to, numbered from 0 in each
     segment (the kept rows, a window's group): a run ends where the value or
-    its validity changes; nulls make one run."""
+    its validity changes; nulls make one run. A nested value compares by
+    its content's rank."""
+    from polars_tpu_torch.engine.compiler import content_val
     from polars_tpu_torch.engine.fn_position import group_order, row_domain
 
-    v = row_domain(ctx, args[0])
+    v = content_val(row_domain(ctx, args[0]))
     o = group_order(ctx)
     n = o.n
     vals = o.to_group(v.values)
@@ -1229,24 +1231,32 @@ def _string_hashes(table) -> np.ndarray:
                                        signed=True) for u in table.values.tolist()), np.int64, len(table))
 
 
+def _flat_hash(v: Val, seed: int) -> torch.Tensor:
+    """splitmix64 of each value with the seed: a string by its text, each
+    dictionary entry once; nulls to the sentinel."""
+    from polars_tpu_torch.kernels.hashing import _NULL_HASH, hash_column, splitmix64
+
+    if v.table is None:
+        return hash_column(v.values, v.validity, seed)
+    entry = v.table.memo(("hash",), lambda: _string_hashes(v.table))
+    h = splitmix64(take_lut(entry, v.values) + seed)
+    return h if v.validity is None else torch.where(v.validity, h, _NULL_HASH)
+
+
 @register("hash", dt.UInt64())
 def _hash(ctx, args, opts):
     """splitmix64 of each value with the seed (``kernels/hashing.py``): a
     number, date or Boolean bit for bit as the JAX package hashes it; a
     string by its text, each dictionary entry once, never by its code (the
-    JAX package hashes the code, ROADMAP section 3). Nulls hash to a fixed
-    sentinel."""
-    from polars_tpu_torch.kernels.hashing import _NULL_HASH, hash_column, splitmix64
+    JAX package hashes the code, ROADMAP section 3); a List, Array or
+    Struct by its content (``kernels/nested_keys.content_hash``: equal
+    contents hash equal in any frame, where the JAX package hashes the word
+    into the child). Nulls hash to a fixed sentinel."""
+    from polars_tpu_torch.kernels.nested_keys import content_hash
 
     v = args[0]
     seed = int(opts.get("seed", 0))
-    if v.table is not None:
-        entry = v.table.memo(("hash",), lambda: _string_hashes(v.table))
-        h = splitmix64(take_lut(entry, v.values) + seed)
-        if v.validity is not None:
-            h = torch.where(v.validity, h, _NULL_HASH)
-    else:
-        h = hash_column(v.values, v.validity, seed)
+    h = content_hash(v, seed, _flat_hash) if v.dtype.is_nested() else _flat_hash(v, seed)
     return Val(h, None, dt.UInt64(), None, v.domain)
 
 

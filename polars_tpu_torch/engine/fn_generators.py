@@ -7,12 +7,19 @@ Each row's length comes from its bounds on the device; one host read of
 the total (with the flag of a bad argument: a zero step, a negative
 count) sizes the child, which is the starts repeated by
 ``repeat_interleave`` plus each element's place in its list times the
-step. A null bound gives a null list. Fixed intervals only: a calendar one
-(months, quarters, years) per row is refused (ROADMAP item 4c); a scalar
-``date_range`` steps months on the host (``engine/hostops.generate``).
+step. A null bound gives a null list. A calendar interval (months,
+quarters, years, with any fixed part) steps by civil-date arithmetic on the
+device (:func:`_calendar_range`): element k is the start's date ``k *
+months`` later, its day clamped at the month's end as Polars clamps it, plus
+``k`` fixed parts. ``datetime_ranges`` with a time zone steps a calendar
+interval or whole days on the zone's wall clock and a sub-day interval in
+UTC, as Polars does (``kernels/timezone.py``). A scalar ``date_range`` steps
+months on the host (``engine/hostops.generate``).
 """
 
 from __future__ import annotations
+
+import re
 
 import torch
 
@@ -20,7 +27,7 @@ from polars_tpu_torch import datatypes as dt
 from polars_tpu_torch.engine.common import SCALAR, Val, combine_validity
 from polars_tpu_torch.engine.fn_nested import make_list
 from polars_tpu_torch.engine.registry import register
-from polars_tpu_torch.errors import ComputeError, InvalidOperationError
+from polars_tpu_torch.errors import ComputeError
 
 
 def _rows(args: list[Val]) -> list[Val]:
@@ -105,11 +112,72 @@ def _int_ranges(ctx, args, opts):
 def _interval(interval: str, dtype: dt.DataType) -> int:
     from polars_tpu_torch.engine.rolling import interval_ticks
 
-    try:
-        return interval_ticks(interval, dtype)
-    except InvalidOperationError:
-        raise InvalidOperationError(f"a range per row by the calendar interval {interval!r} is not ported yet "
-                                    "(port queue: item 4c)") from None
+    return interval_ticks(interval, dtype)
+
+
+_MONTHS = {"mo": 1, "q": 3, "y": 12}
+
+
+def _split_calendar(interval: str) -> tuple[int, str]:
+    """(the months of an interval, its fixed rest): ``mo``, ``q`` (three
+    months) and ``y`` (twelve)."""
+    months = sum(int(n) * _MONTHS[u] for n, u in re.findall(r"(\d+)(mo|q|y)", interval))
+    return months, re.sub(r"\d+(mo|q|y)", "", interval)
+
+
+def _calendar_range(owner: Val, a: torch.Tensor, b: torch.Tensor, validity, months: int, fixed: int,
+                    per_day: int, closed: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """(lens, the elements) of the ranges from ``a`` to ``b`` (ticks, ``per_day``
+    to a day) by ``months`` and ``fixed`` ticks: element k is the start's
+    civil date moved ``k * months`` months, its day clamped at the month's
+    end, at the start's time of day, plus ``k * fixed``. The last k is
+    found by 32 halvings of [-1, the months between the bounds / months],
+    with no host read (k past that bound lies in a later month than ``b``)."""
+    from polars_tpu_torch.kernels.fastmath import floordiv_any
+    from polars_tpu_torch.kernels.temporal import civil_from_days, days_from_civil, days_in_month
+
+    days = floordiv_any(a, per_day)
+    tod = a - days * per_day
+    y, m, d = civil_from_days(days)
+    base = y.to(torch.int64) * 12 + m.to(torch.int64) - 1
+    by, bm, _ = civil_from_days(floordiv_any(b, per_day))
+    span = by.to(torch.int64) * 12 + bm.to(torch.int64) - 1 - base
+
+    def at(k, base, d, tod):
+        mi = base + k * months
+        yy = floordiv_any(mi, 12)
+        mm = mi - yy * 12 + 1
+        dd = torch.minimum(d.to(torch.int64), days_in_month(yy, mm).to(torch.int64))
+        return days_from_civil(yy, mm, dd).to(torch.int64) * per_day + tod + k * fixed
+
+    def within(t):
+        return t <= b if closed in ("both", "right") else t < b
+
+    lo_k = torch.full_like(a, -1)
+    hi_k = torch.where(span >= 0, floordiv_any(span.clamp(min=0), months), -1) + 1
+    for _ in range(32):
+        mid = floordiv_any(lo_k + hi_k, 2)
+        ok = within(at(mid, base, d, tod)) & (mid > lo_k)
+        lo_k, hi_k = torch.where(ok, mid, lo_k), torch.where(ok | (mid <= lo_k), hi_k, mid)
+    first = torch.zeros_like(a) if closed in ("both", "left") else torch.ones_like(a)
+    lens, own, k = _ranges(owner, a, first, lo_k, validity)
+    return lens, at(k, base.index_select(0, own), d.index_select(0, own), tod.index_select(0, own))
+
+
+def _stepped(lo: Val, hi: Val, interval: str, target: dt.DataType, per_day: int, closed: str,
+             out: dt.DataType) -> Val:
+    """The ranges from ``lo`` to ``hi`` by ``interval`` (fixed or calendar),
+    as a List of ``target``."""
+    months, rest = _split_calendar(interval)
+    if not months:
+        step = torch.tensor(_interval(interval, target), device=lo.values.device)
+        return _fixed_range(lo, lo, hi, step, closed, out, target)
+    fixed = _interval(rest, target) if rest else 0
+    validity = combine_validity(lo.validity, hi.validity)
+    lens, values = _calendar_range(lo, lo.values.to(torch.int64), hi.values.to(torch.int64), validity, months,
+                                   fixed, per_day, closed)
+    child = Val(values.to(dt.dtype_to_torch(target)), None, target)
+    return make_list(lo.with_(validity=validity, dtype=out), lens, child, out)
 
 
 def _date_ranges_dt(dts, opts):
@@ -119,20 +187,48 @@ def _date_ranges_dt(dts, opts):
 @register("date_ranges", _date_ranges_dt)
 def _date_ranges(ctx, args, opts):
     lo, hi = _rows([_as(a, dt.Date()) for a in args])
-    step = torch.tensor(_interval(opts.get("interval", "1d"), dt.Date()), device=lo.values.device)
-    return _fixed_range(lo, lo, hi, step, opts.get("closed", "both"), dt.List(dt.Date()), dt.Date())
+    return _stepped(lo, hi, opts.get("interval", "1d"), dt.Date(), 1, opts.get("closed", "both"),
+                    dt.List(dt.Date()))
 
 
 def _datetime_ranges_dt(dts, opts):
-    return dt.List(dt.Datetime(opts.get("time_unit") or "us"))
+    return dt.List(dt.Datetime(opts.get("time_unit") or "us", opts.get("time_zone")))
 
 
 @register("datetime_ranges", _datetime_ranges_dt)
 def _datetime_ranges(ctx, args, opts):
-    target = dt.Datetime(opts.get("time_unit") or "us")
-    lo, hi = _rows([_as(a, target) for a in args])
-    step = torch.tensor(_interval(opts.get("interval", "1d"), target), device=lo.values.device)
-    return _fixed_range(lo, lo, hi, step, opts.get("closed", "both"), dt.List(target), target)
+    """Per row, the Datetimes from ``start`` to ``end``. With ``time_zone``
+    the bounds are wall times of the zone (an aware bound is read on its
+    wall clock): a calendar interval or whole days step on the wall clock
+    and each element is localized (one that does not exist there, or
+    exists twice, fails the segment at its count read, as Polars raises);
+    a sub-day interval steps the localized bounds in UTC."""
+    from polars_tpu_torch.kernels.timezone import local_from_utc, utc_from_local
+
+    tu, tz = opts.get("time_unit") or "us", opts.get("time_zone")
+    naive = dt.Datetime(tu)
+    closed, interval = opts.get("closed", "both"), opts.get("interval", "1d")
+    bounds = []
+    for a in args:
+        x = _as(a, dt.Datetime(tu, getattr(a.dtype, "time_zone", None)) if isinstance(a.dtype, dt.Datetime)
+                else naive)
+        if tz is not None and getattr(x.dtype, "time_zone", None):
+            x = x.with_(values=local_from_utc(x.values.to(torch.int64), tu, x.dtype.time_zone))
+        bounds.append(x.with_(dtype=naive))
+    lo, hi = _rows(bounds)
+    per_day = dt.TICKS_PER_SECOND[tu] * 86_400
+    out = dt.List(dt.Datetime(tu, tz))
+    months, rest = _split_calendar(interval)
+    if tz is None:
+        return _stepped(lo, hi, interval, naive, per_day, closed, out)
+    if not months and _interval(interval, naive) % per_day:  # sub-day: steps of elapsed time, in UTC
+        lo, hi = (x.with_(values=utc_from_local(x.values.to(torch.int64), tu, tz)[0]) for x in (lo, hi))
+        return _stepped(lo, hi, interval, naive, per_day, closed, out)
+    res = _stepped(lo, hi, interval, naive, per_day, closed, out)
+    utc, ambiguous, missing = utc_from_local(res.child.values, tu, tz)
+    ctx.add_flag((ambiguous | missing).any(), f"a datetime of the range is ambiguous or non-existent in time zone "
+                 f"{tz}", ComputeError)
+    return res.with_(child=res.child.with_(values=utc))
 
 
 def _time_ranges_dt(dts, opts):

@@ -775,10 +775,11 @@ def _list_gather(ctx, args, opts):
 def _list_sample(ctx, args, opts):
     """A sample of each list: ``n`` elements or a ``fraction`` of each
     list's length, without replacement, in a random order (``shuffle``) or
-    in list order, from a generator seeded by ``seed``."""
+    in list order, from a generator seeded by ``seed``; with replacement,
+    one draw per element of the output."""
     v = args[0]
     if opts.get("with_replacement"):
-        raise NotImplementedError("list.sample with replacement (port queue: item 4c)")
+        return _sample_with_replacement(ctx, v, opts)
     el = elements(ctx, v)
     e = element_val(v, el)
     gen = torch.Generator(device=el.owner.device)
@@ -798,6 +799,34 @@ def _list_sample(ctx, args, opts):
         picked = torch.zeros(el.total, dtype=torch.bool, device=rank.device).index_copy_(0, perm, chosen)
         return filter_elements(v, el, e, picked)
     return filter_elements(v, el, gather_val(e, perm), chosen)
+
+
+def _sample_with_replacement(ctx, v: Val, opts: dict) -> Val:
+    """Each list's ``n`` (or ``fraction`` of its length) elements drawn with
+    replacement: one ``torch.rand`` per output element from a generator
+    seeded by ``seed``, on the device; one host read of the output's size.
+    A valid empty list asked for elements fails at the segment's count
+    read, as Polars raises."""
+    starts, lens = unpack(v.values)
+    if v.validity is not None:
+        lens = torch.where(v.validity, lens, 0)
+    if opts.get("fraction") is not None:
+        want = torch.floor(lens.to(torch.float64) * float(opts["fraction"])).to(torch.int64)
+    else:
+        want = torch.full_like(lens, int(opts.get("n") or 0))
+    empty = (want > 0) & (lens == 0)
+    if v.validity is not None:
+        want, empty = torch.where(v.validity, want, 0), empty & v.validity
+    ctx.add_flag(empty.any(), "cannot take a sample from an empty list", ShapeError)
+    n, dev = lens.shape[0], lens.device
+    total = int(want.sum()) if n else 0
+    owner = torch.repeat_interleave(_iota(n, dev), want, output_size=total)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(opts["seed"]) if opts.get("seed") is not None else 0)
+    ln = lens.index_select(0, owner)
+    draw = torch.floor(torch.rand(total, generator=gen, device=dev, dtype=torch.float64) * ln.to(torch.float64))
+    pick = torch.minimum(draw.to(torch.int64), (ln - 1).clamp(min=0))
+    return make_list(v, want, gather_val(v.child, starts.index_select(0, owner) + pick))
 
 
 def _to_array_dt(dts, opts):
@@ -850,6 +879,8 @@ def _join_dt(dts, opts):
 register("list.join", _join_dt)(raises("list.join runs on the host between segments (engine/hostops.py)"))
 register("struct.json_encode", dt.String())(
     raises("struct.json_encode runs on the host between segments (engine/hostops.py)"))
+register("str.json_decode", lambda dts, opts: opts.get("dtype") or dt.Unknown(), elementwise=False)(
+    raises("str.json_decode runs on the host between segments (engine/hostops.py)"))
 
 
 # ---------------------------------------------------------------------------
@@ -1082,6 +1113,26 @@ def struct_equal(op: str, a: Val, b: Val) -> Val:
     if op == "!=":
         out = ~out
     return Val(out, combine_validity(a.validity, b.validity), dt.Boolean(), None, dom)
+
+
+def list_equal(op: str, a: Val, b: Val, dom: str) -> Val:
+    """``==``/``!=`` of two List or Array values by their content (a null
+    element equals a null element): both ranked together over one child
+    (``kernels/nested_keys.joint_words``); null where either side is."""
+    from polars_tpu_torch.kernels.nested_keys import joint_words
+    from polars_tpu_torch.plan.schema_resolve import supertype
+
+    ra, rb = joint_words([a, b], supertype(a.dtype, b.dtype))
+    out = None
+    for x, y in zip(ra, rb):
+        eq = x == y
+        out = eq if out is None else out & eq
+    if op == "!=":
+        out = ~out
+    validity = combine_validity(a.validity, b.validity)
+    if validity is not None and validity.shape != out.shape:
+        validity = validity.expand(out.shape)
+    return Val(out, validity, dt.Boolean(), None, dom)
 
 
 def on_one_child(vals: list[Val]) -> list[Val]:

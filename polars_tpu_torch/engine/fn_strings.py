@@ -1,6 +1,6 @@
 """String and Binary functions over dictionary-coded columns (the port of
 ``polars_tpu/engine/fn_strings.py``, l.74-722, and the ``bin.*`` functions
-from l.750; ``json_decode`` waits for ROADMAP item 4c).
+from l.750; ``json_decode`` parses on the host, ``engine/hostops.py``).
 
 Device tensors hold int32 codes; a string op runs once per dictionary value
 on the host, and its result becomes a lookup table gathered by the codes on

@@ -24,6 +24,7 @@ import torch
 from polars_tpu_torch.engine.cast import float_values, order_word
 from polars_tpu_torch.engine.common import GroupCtx, Val
 from polars_tpu_torch.kernels.argsort import boundaries_from_words, key_words, stable_argsort_words
+from polars_tpu_torch.kernels.nested_keys import val_words
 from polars_tpu_torch.kernels.fastmath import div_any
 from polars_tpu_torch.kernels.groupagg import groupagg_sums
 
@@ -106,7 +107,7 @@ def sorted_group_ctx(keys: list[Val], rowmask: torch.Tensor) -> GroupCtx:
     n = rowmask.shape[0]
     words: list[torch.Tensor] = [(~rowmask).to(torch.int8)]  # masked rows last
     for k in keys:
-        kw = key_words(k.values, k.dtype)
+        kw = val_words(k)
         if k.validity is not None:
             words.append((~k.validity).to(torch.int8))  # nulls first
             kw = [torch.where(k.validity, w, torch.zeros((), dtype=w.dtype, device=w.device)) for w in kw]
@@ -281,7 +282,7 @@ def seg_nunique(v: Val, mask: torch.Tensor, gids: torch.Tensor, cap: int) -> tor
     nulls of different storage apart, ROADMAP §3)."""
     g = torch.where(mask, gids, cap)
     words = [g]
-    kw = key_words(v.values, v.dtype)
+    kw = val_words(v)
     if v.validity is not None:
         words.append((~v.validity).to(torch.int8))
         kw = [torch.where(v.validity, w, torch.zeros((), dtype=w.dtype, device=w.device)) for w in kw]

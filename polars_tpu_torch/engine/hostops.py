@@ -137,6 +137,8 @@ def host_call(df: DataFrame, node: E.ENode) -> Column:
                                 node.opt("ignore_nulls", True))
     if node.name == "struct.json_encode":
         return json_encode_column(_eval_column(df, node.inputs[0]))
+    if node.name == "str.json_decode":
+        return json_decode_column(_eval_column(df, node.inputs[0]), node.opt("dtype"))
     if isinstance(node, E.EAgg):  # str.join: the input's text joined into one string
         return str_join_column(_eval_column(df, node.input), node.opt("delimiter", ""),
                                node.opt("ignore_nulls", True))
@@ -569,6 +571,28 @@ def json_encode_column(col: Column) -> Column:
 
     out = [None if r is None else json.dumps(r, separators=(",", ":"), default=str) for r in col.to_pylist()]
     return Column.from_values(col.name, out, dt.String(), device=col.buffer.device)
+
+
+def json_decode_column(col: Column, dtype: dt.DataType | None) -> Column:
+    """Each string parsed as JSON: each dictionary value once on the host
+    (null where it does not parse), the parsed values made one column of
+    ``dtype`` (else of the type they infer) with one copy to the device,
+    and the rows gathered from it by their codes there."""
+    import json
+
+    from polars_tpu_torch.engine.gather import gather_column
+
+    def parse(text):
+        try:
+            return json.loads(text)
+        except ValueError:
+            return None
+
+    values = [parse(t) for t in col.table.values.tolist()] if col.table is not None else []
+    entries = Column.from_values(col.name, values, dtype, device=col.buffer.device)
+    if not values:  # no dictionary value: every row is null
+        entries = Column.from_values(col.name, [None], entries.dtype, device=col.buffer.device)
+    return gather_column(entries, col.buffer.values.to(torch.int64), col.buffer.validity)
 
 
 def _text_column(col: Column, texts: list[str], inv: torch.Tensor, validity) -> Column:

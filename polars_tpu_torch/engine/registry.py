@@ -31,25 +31,28 @@ ELEMENTWISE_FNS: set[str] = set()
 
 # The functions besides the ``list.``, ``arr.`` and ``struct.`` namespaces
 # that take a List, Array or Struct input: they move, test or merge whole
-# values and keep their children. ``NESTED_LATER_ARGS`` take one only after
-# their first input (the set of ``is_in``, each row's patterns). Any other
-# function refuses such an input rather than compute on the words that
-# index the child.
+# values and keep their children, or order, compare and hash them by their
+# content (``kernels/nested_keys.py``). ``NESTED_LATER_ARGS`` take one only
+# after their first input (each row's patterns). Any other function is not
+# defined on such an input and raises, as Polars does.
 NESTED_FNS = frozenset({
-    "as_struct", "backward_fill", "coalesce", "concat_list", "cum_count", "explode", "fill_null",
-    "fill_null_with_strategy", "forward_fill", "is_not_null", "is_null", "reverse", "set_sorted", "shift",
-    "shift_fill",
+    "append", "arg_sort", "arg_sort_by", "as_struct", "backward_fill", "coalesce", "concat_list", "cum_count",
+    "explode", "extend_constant", "fill_null", "fill_null_with_strategy", "forward_fill", "hash", "is_duplicated",
+    "is_first_distinct", "is_in", "is_last_distinct", "is_not_null", "is_null", "is_unique", "rank", "repeat_by",
+    "reverse", "rle", "rle_id", "row_position", "sample", "set_sorted", "shift", "shift_fill", "shuffle", "unique",
+    "unique_counts", "value_counts",
 })
-NESTED_LATER_ARGS = frozenset({"is_in", "str.extract_many", "str.find_many"})
+NESTED_LATER_ARGS = frozenset({"str.extract_many", "str.find_many"})
 
 
 def refuse_nested_input(name: str, dtypes: list) -> None:
-    """Raise where ``name`` would read a nested input's words as values."""
+    """Raise where ``name`` is not defined on a nested input (it would read
+    the words that index the child as values)."""
     if name.startswith(("list.", "arr.", "struct.")) or name in NESTED_FNS:
         return
     for i, d in enumerate(dtypes):
         if d.is_nested() and not (i and name in NESTED_LATER_ARGS):
-            raise InvalidOperationError(f"{name} of {d!r} is not ported yet (ROADMAP item 4c)")
+            raise InvalidOperationError(f"`{name}` operation not supported for dtype `{d!r}`")
 
 
 def register(name: str, dtype_rule: Any, *, elementwise: bool = True):

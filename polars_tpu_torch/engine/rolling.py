@@ -465,10 +465,19 @@ def rolling_frames(df, index: str, period_ticks: int, offset_ticks: int, closed:
         if kind not in SUPPORTED:
             raise InvalidOperationError(f"rolling agg {kind!r} unsupported")
         scol = df._get(src)
-        if scol.dtype.is_nested() and kind not in ("first", "last", "count", "len"):
-            raise InvalidOperationError(f"rolling {kind} of {scol.dtype!r} is not ported yet (ROADMAP item 4c)")
-        col = order.column(scol.buffer.values, scol.buffer.validity, scol.dtype)
+        values, vdtype = scol.buffer.values, scol.dtype
+        if scol.dtype.is_nested() and kind in ("min", "max"):  # by content: the least or greatest rank's value
+            from polars_tpu_torch.engine.common import col_to_val
+            from polars_tpu_torch.kernels.nested_keys import content_rank, rank_rows
+
+            values, vdtype = content_rank(col_to_val(scol)), dt.Int64()
+        elif scol.dtype.is_nested() and kind not in ("first", "last", "count", "len"):
+            raise InvalidOperationError(f"`rolling_{kind}` operation not supported for dtype `{scol.dtype!r}`")
+        col = order.column(values, scol.buffer.validity, vdtype)
         out, cnt, extra = col.agg(kind, lo, hi, ddof=ddof, max_width=order.n)
+        if vdtype is not scol.dtype:  # each rank back to a valid row that holds it
+            rep = rank_rows(values, scol.buffer.validity).clamp(max=max(df.height - 1, 0))
+            out = scol.buffer.values.index_select(0, rep.index_select(0, out.to(torch.int64).clamp(0, df.height)))
         ok = valid if kind in ("count", "len") else (cnt >= max(minp or 1, 1)) & valid
         if extra is not None:
             ok = ok & extra
@@ -476,5 +485,5 @@ def rolling_frames(df, index: str, period_ticks: int, offset_ticks: int, closed:
         out_cols.append(Column(out_name, out_dtype, Buffer(values, None if kind in ("count", "len") and
                                                            icol.buffer.validity is None else ok, df.height),
                                scol.table if kind in ("first", "last", "min", "max") else None,
-                               scol.child if kind in ("first", "last") else None))
+                               scol.child if kind in ("first", "last", "min", "max") else None))
     return DataFrame._from_columns(out_cols, df.height, device=df.device)

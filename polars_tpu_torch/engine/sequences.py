@@ -121,10 +121,13 @@ def sequence_column(df: DataFrame, node: E.EFunction) -> Column:
 
 
 def _rle(col: Column) -> Column:
-    """Runs of equal values (a null equals a null): one struct per run,
-    its length and its value; one read of the run count."""
+    """Runs of equal values (a null equals a null; a List, Array or Struct
+    value by its content): one struct per run, its length and its value;
+    one read of the run count."""
+    from polars_tpu_torch.engine.common import col_to_val
     from polars_tpu_torch.engine.gather import gather_column
     from polars_tpu_torch.kernels.compact import compact_count, compact_scatter
+    from polars_tpu_torch.kernels.nested_keys import content_rank
 
     n, dev = len(col), col.buffer.device
     dtype = _rle_dt([col.dtype], {})
@@ -132,7 +135,8 @@ def _rle(col: Column) -> Column:
         return _struct(col.name, [Column.from_values("len", [], dt.UInt32(), device=dev), col.rename("value")],
                        dtype)
     buf = col.buffer
-    same = buf.values[1:] == buf.values[:-1]
+    word = content_rank(col_to_val(col)) if col.dtype.is_nested() else buf.values
+    same = word[1:] == word[:-1]
     if buf.validity is not None:
         va, vb = buf.validity[1:], buf.validity[:-1]
         same = (same & va & vb) | (~va & ~vb)

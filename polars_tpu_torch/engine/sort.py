@@ -11,7 +11,8 @@ import torch
 
 from polars_tpu_torch.engine.common import Val
 from polars_tpu_torch.engine.strings import ensure_ordinal_val
-from polars_tpu_torch.kernels.argsort import key_words, stable_argsort_words
+from polars_tpu_torch.kernels.argsort import stable_argsort_words
+from polars_tpu_torch.kernels.nested_keys import val_words
 
 
 def sort_words_for_key(v: Val, desc: bool, nulls_last: bool, rowmask: torch.Tensor | None) -> list[torch.Tensor]:
@@ -19,7 +20,7 @@ def sort_words_for_key(v: Val, desc: bool, nulls_last: bool, rowmask: torch.Tens
     nulls < values < nulls-last nulls < out-of-mask rows. Without nulls and
     without a row mask there is no rank word."""
     v = ensure_ordinal_val(v)  # an unordered dictionary: its codes as ranks of the text
-    words = key_words(v.values, v.dtype, descending=desc)
+    words = val_words(v, descending=desc)  # a nested value: its content
     if v.validity is None and rowmask is None:
         return words
     if v.validity is None:

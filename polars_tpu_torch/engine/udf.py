@@ -15,6 +15,7 @@ the row numbers gives each group's range; one read of the ranges).
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any
 
 import numpy as np
@@ -24,7 +25,7 @@ from polars_tpu_torch import datatypes as dt
 from polars_tpu_torch.core.buffer import Buffer
 from polars_tpu_torch.core.column import Column
 from polars_tpu_torch.core.frame import DataFrame
-from polars_tpu_torch.errors import ComputeError, InvalidOperationError, SchemaError
+from polars_tpu_torch.errors import ComputeError, SchemaError
 from polars_tpu_torch.plan import exprs as E
 from polars_tpu_torch.plan import logical as L
 
@@ -127,13 +128,92 @@ def has_udf(node: L.LGroupBy) -> bool:
     return any(isinstance(n, E.EAnonymous) for a in node.aggs for n in E.walk(a))
 
 
+def _replace_udfs(node: E.ENode, swap: dict) -> E.ENode:
+    """``node`` with each user's function of ``swap`` replaced by its
+    stand-in."""
+    if isinstance(node, E.EAnonymous):
+        return swap[node]
+    changes = {}
+    for f in dataclasses.fields(node):
+        v = getattr(node, f.name)
+        if isinstance(v, E.ENode):
+            changes[f.name] = _replace_udfs(v, swap)
+        elif isinstance(v, tuple) and v and all(isinstance(x, E.ENode) for x in v):
+            changes[f.name] = tuple(_replace_udfs(x, swap) for x in v)
+    return dataclasses.replace(node, **changes) if changes else node
+
+
+def _per_group(fn: E.EAnonymous, cols: list[Column], names: list[str], bounds: list) -> list:
+    """``fn`` called on each group's Series (each a cut of the columns in
+    group order): a value per group where it ``returns_scalar``, else its
+    output's values."""
+    from polars_tpu_torch.core.series import Series
+
+    results = []
+    for start, length in bounds:
+        series = [Series._from_column(c.rename(nm).with_buffer(Buffer(
+            c.buffer.values[start:start + length],
+            None if c.buffer.validity is None else c.buffer.validity[start:start + length], length)))
+            for c, nm in zip(cols, names)]
+        r = fn.function(_argument(fn, series))
+        if fn.returns_scalar:
+            if isinstance(r, Series):
+                r = r.to_list()[0] if len(r) else None
+            results.append(r.item() if hasattr(r, "item") else r)
+        else:
+            results.append(as_column(r, "", "cpu").to_pylist())
+    return results
+
+
+def _udfs_under_expressions(df: DataFrame, aggs: list, order: torch.Tensor, lens: torch.Tensor,
+                            bounds: list) -> list[Column]:
+    """Aggregations with a user's function under a larger expression: the
+    frame in group order, each function's per-group results beside it (a
+    scalar result repeated over its group's rows and read as the group's
+    ``first``; any other as many values as the group has rows), and the
+    expressions, the functions replaced, run by the device's group-by over
+    a group number."""
+    from polars_tpu_torch.engine.gather import gather_column, gather_frame
+    from polars_tpu_torch.engine.hostops import _eval_columns
+    from polars_tpu_torch.engine.run import execute_plan
+
+    dev = df.device
+    group_of_row = torch.repeat_interleave(torch.arange(lens.shape[0], dtype=torch.int64, device=lens.device), lens)
+    cols = gather_frame(list(df._columns), order)
+    cols.append(Column("__udf_g", dt.Int64(), Buffer(group_of_row.to(dev), None)))
+    swap = {}
+    for a in aggs:
+        for fn in E.walk(a):
+            if not isinstance(fn, E.EAnonymous) or fn in swap:
+                continue
+            name = f"__udf_{len(swap)}"
+            inputs = gather_frame(_eval_columns(df, fn.input), order)
+            results = _per_group(fn, inputs, [E.output_name(i) or c.name for c, i in zip(inputs, fn.input)], bounds)
+            if fn.returns_scalar:
+                per_group = Column.from_values(name, results, fn.return_dtype, device=dev, strict=False)
+                cols.append(gather_column(per_group, group_of_row.to(dev)).rename(name))
+                swap[fn] = E.EAgg(E.EColumn(name), "first")
+                continue
+            if [len(r) for r in results] != [n for _, n in bounds]:
+                raise ComputeError("a user's function under a larger expression in a group-by must return as many "
+                                   "values as its group has rows")
+            flat = [x for r in results for x in r]
+            cols.append(Column.from_values(name, flat, fn.return_dtype, device=dev, strict=False))
+            swap[fn] = E.EColumn(name)
+    frame = DataFrame._from_columns(cols, len(group_of_row), device=dev)
+    scan = L.LDataFrameScan(df=frame, ident=0)
+    out = execute_plan(L.LGroupBy(scan, (E.EColumn("__udf_g"),), tuple(_replace_udfs(a, swap) for a in aggs), True))
+    return list(out._columns[1:])
+
+
 def exec_groupby_udf(node: L.LGroupBy) -> DataFrame:
     """A group-by whose aggregations call a user's function: the others run
     as one group-by that also implodes the row numbers (device); each UDF's
     inputs are gathered in group order once and handed to it group by
     group. A UDF that ``returns_scalar`` gives a value per group, any other
-    a List per group."""
-    from polars_tpu_torch.core.series import Series
+    a List per group; a UDF under a larger expression gives its per-group
+    results to the device, which evaluates what surrounds it
+    (:func:`_udfs_under_expressions`)."""
     from polars_tpu_torch.engine.common import col_to_val
     from polars_tpu_torch.engine.fn_nested import unpack
     from polars_tpu_torch.engine.gather import gather_frame
@@ -152,32 +232,24 @@ def exec_groupby_udf(node: L.LGroupBy) -> DataFrame:
     ranges = base._get("__udf_rows")
     starts, lens = unpack(col_to_val(ranges).values)
     order = ranges.child.buffer.values.to(torch.int64)  # the row numbers in group order
-    bounds = torch.stack([starts, lens], 1).cpu().numpy()  # the one read of the groups' ranges
+    bounds = torch.stack([starts, lens], 1).cpu().numpy().tolist()  # the one read of the groups' ranges
     extra = []
+    nested = []
     for a in udfs:
         fn = a
         while isinstance(fn, E.EAlias):
             fn = fn.input
         if not isinstance(fn, E.EAnonymous):
-            raise InvalidOperationError("a user's function under a larger expression in a group-by is not ported")
+            nested.append(a)
+            continue
         cols = gather_frame(_eval_columns(df, fn.input), order)
         names = [E.output_name(i) or c.name for c, i in zip(cols, fn.input)]
-        results = []
-        for start, length in bounds.tolist():
-            series = [Series._from_column(c.rename(nm).with_buffer(Buffer(
-                c.buffer.values[start:start + length],
-                None if c.buffer.validity is None else c.buffer.validity[start:start + length], length)))
-                for c, nm in zip(cols, names)]
-            r = fn.function(_argument(fn, series))
-            if fn.returns_scalar:
-                if isinstance(r, Series):
-                    r = r.to_list()[0] if len(r) else None
-                results.append(r.item() if hasattr(r, "item") else r)
-            else:
-                results.append(as_column(r, "", "cpu").to_pylist())
+        results = _per_group(fn, cols, names, bounds)
         name = E.output_name(a) or "map"
         out_dtype = fn.return_dtype if fn.returns_scalar else (dt.List(fn.return_dtype) if fn.return_dtype else None)
         extra.append(Column.from_values(name, results, out_dtype, device=df.device, strict=False))
+    if nested:
+        extra.extend(_udfs_under_expressions(df, nested, order, lens, bounds))
     by_name = {c.name: c for c in list(base._columns) + extra}
     names = [E.output_name(k) or "literal" for k in keys] + [E.output_name(a) or "literal" for a in aggs]
     return DataFrame._from_columns([by_name[n] for n in names], base.height, device=df.device)

@@ -1088,10 +1088,10 @@ class Expr:
         order within a group), mapped back to the rows: an aggregation is
         broadcast to its group's rows, a positional function keeps its
         rows; with ``mapping_strategy="join"`` each row takes its group's
-        values as a List. ``"explode"`` reorders the rows and is not
-        ported."""
-        if mapping_strategy not in ("group_to_rows", "join"):
-            raise NotImplementedError(f"over(mapping_strategy={mapping_strategy!r}) is not ported")
+        values as a List; with ``"explode"`` each group's results follow
+        one another, a column of its own length (in a select)."""
+        if mapping_strategy not in ("group_to_rows", "join", "explode"):
+            raise InvalidOperationError(f"unknown mapping_strategy {mapping_strategy!r}")
         parts = tuple(parse_into_expr(p) for p in _flat((partition_by, *more_exprs)))
         order: tuple = ()
         if order_by is not None:

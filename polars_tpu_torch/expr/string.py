@@ -1,8 +1,8 @@
-"""String expression namespace (the port of ``polars_tpu/expr/string.py``),
-but for ``json_decode`` (ROADMAP item 4c). Ops run
-once per dictionary value on the host and map through the codes on the
-device (see ``engine/fn_strings.py``); ``join``/``concat`` make one string
-per group on the host (``engine/hostops.py``)."""
+"""String expression namespace (the port of ``polars_tpu/expr/string.py``).
+Ops run once per dictionary value on the host and map through the codes on
+the device (see ``engine/fn_strings.py``); ``join``/``concat`` make one
+string per group, and ``json_decode`` parses each dictionary value once, on
+the host (``engine/hostops.py``)."""
 
 from __future__ import annotations
 
@@ -13,10 +13,6 @@ from polars_tpu_torch.errors import InvalidOperationError
 
 if TYPE_CHECKING:
     from polars_tpu_torch.expr.expr import Expr
-
-# the functions that wait for a later item
-_ITEM_4B = frozenset({"json_decode"})
-
 
 def _str_seq(x: Any) -> list:
     if x is None:
@@ -222,9 +218,12 @@ class ExprStringNamespace:
     def decode(self, encoding: str, *, strict: bool = True) -> Expr:
         return self._fn("decode", encoding=encoding, strict=strict)
 
+    def json_decode(self, dtype: Any = None, *, infer_schema_length: int | None = 100) -> Expr:
+        """Each string parsed as JSON (null where it does not parse), as
+        ``dtype``, else as the parsed values infer it."""
+        return self._fn("json_decode", dtype=dt.parse_into_dtype(dtype) if dtype is not None else None)
+
     def __getattr__(self, name: str):
         if name.startswith("_"):
             raise AttributeError(name)
-        if name in _ITEM_4B:
-            raise NotImplementedError(f"str.{name} is not ported yet (port queue: item 4c)")
         raise AttributeError(f"str.{name}")

@@ -384,11 +384,10 @@ def date_ranges(start: Any, end: Any, interval: str = "1d", *, closed: str = "bo
 
 def datetime_ranges(start: Any, end: Any, interval: str = "1d", *, closed: str = "both", time_unit: str = "us",
                     time_zone: str | None = None, eager: bool = False):
-    """Per row, the Datetimes from ``start`` to ``end`` by ``interval``."""
-    if time_zone is not None:
-        raise NotImplementedError("datetime_ranges with a time zone is not ported yet (port queue: item 4c)")
+    """Per row, the Datetimes from ``start`` to ``end`` by ``interval`` (in
+    ``time_zone``'s wall clock where one is given)."""
     return _per_row("datetime_ranges", "datetime_range", [start, end], eager, interval=interval, closed=closed,
-                    time_unit=time_unit)
+                    time_unit=time_unit, time_zone=time_zone)
 
 
 def time_ranges(start: Any = None, end: Any = None, interval: str = "1h", *, closed: str = "both",

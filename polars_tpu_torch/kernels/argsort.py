@@ -25,10 +25,11 @@ _NARROW = (torch.int8, torch.int16, torch.int32)
 
 def refuse_nested_key(dtype: dt.DataType, what: str = "a sort, group or distinct key") -> None:
     """A List, Array or Struct value is a word into its child, not its
-    content: ordering or comparing it by that word would be silently wrong."""
+    content: ordering or comparing it by that word would be silently wrong,
+    so its words come from ``kernels/nested_keys.val_words``."""
     if dtype.is_nested():
-        raise InvalidOperationError(f"{what} of dtype {dtype!r} is not ported yet: ordering or comparing "
-                                    "nested values by their content is ROADMAP item 4c")
+        raise InvalidOperationError(f"{what} of dtype {dtype!r} orders by its content: "
+                                    "kernels/nested_keys.val_words gives its words")
 
 
 def key_words(values: torch.Tensor, dtype: dt.DataType, *, descending: bool = False) -> list[torch.Tensor]:

@@ -366,7 +366,7 @@ HOST_FNS = frozenset({"dt.to_string", "rolling_map", "rolling_median_by", "rolli
                       "int_range", "temporal_range", "extend_constant", "append", "sample", "shuffle", "rle",
                       "value_counts", "hist", "reshape",
                       "repeat_value", "shrink_dtype", "unique", "unique_counts", "concat_str",
-                      "cat.get_categories", "list.join", "struct.json_encode"})
+                      "cat.get_categories", "list.join", "struct.json_encode", "str.json_decode"})
 # aggregations that make their text on the host (``engine/hostops.py``)
 HOST_AGGS = frozenset({"str_concat"})
 
@@ -456,7 +456,9 @@ def changes_length(node: ENode) -> bool:
         return len(node.column) != 1
     if isinstance(node, EFunction) and node.name == "is_in":  # its right side is a set
         return changes_length(node.inputs[0])
-    if isinstance(node, (EAgg, EWindow)):
+    if isinstance(node, EWindow):
+        return node.mapping_strategy == "explode"
+    if isinstance(node, EAgg):
         return False
     return any(changes_length(c) for c in node.children())
 

@@ -25,7 +25,6 @@ from polars_tpu_torch.errors import (
     InvalidOperationError,
     SchemaError,
 )
-from polars_tpu_torch.kernels.argsort import refuse_nested_key
 from polars_tpu_torch.plan import exprs as E
 from polars_tpu_torch.plan import logical as L
 
@@ -587,15 +586,17 @@ def binary_dtype(op: str, lt: dt.DataType, rt: dt.DataType) -> dt.DataType:
 _SMALL_INTS = ("Int8", "Int16", "UInt8", "UInt16")
 
 
-# the aggregations that take a whole List, Array or Struct value
-_NESTED_AGGS = frozenset({"first", "last", "item", "count", "len", "null_count", "implode", "agg_groups"})
+# the aggregations that take a whole List, Array or Struct value (those
+# that order or compare one, by its content: ``kernels/nested_keys.py``)
+_NESTED_AGGS = frozenset({"first", "last", "item", "count", "len", "null_count", "implode", "agg_groups",
+                          "min", "max", "arg_min", "arg_max", "n_unique", "mode", "is_sorted"})
 
 
 def agg_dtype(node: E.EAgg, schema: Schema) -> dt.DataType:
     in_dt = expr_dtype(node.input, schema)
     k = node.kind
     if in_dt.is_nested() and k not in _NESTED_AGGS:
-        raise InvalidOperationError(f"{k} of {in_dt!r} is not ported yet (ROADMAP item 4c)")
+        raise InvalidOperationError(f"`{k}` operation not supported for dtype `{in_dt!r}`")
     name = type(in_dt).__name__
     if k == "sum":
         if isinstance(in_dt, dt.Boolean):
@@ -709,11 +710,9 @@ def _node_schema(node: L.LNode) -> Schema:
             missing = [n for n in node.subset or () if n not in in_s]
             if missing:
                 raise ColumnNotFoundError(f"{missing[0]!r} not found; available: {in_s.names()}")
-            for n in in_s.names() if node.subset is None else node.subset:
-                refuse_nested_key(in_s[n], "a distinct key")
         if isinstance(node, L.LSort):
             for e in expand_exprs(node.by, in_s):
-                refuse_nested_key(expr_dtype(e, in_s), "a sort key")
+                expr_dtype(e, in_s)
         return in_s
     if isinstance(node, L.LUnion):
         schemas = [node_schema(i) for i in node.inputs_]
@@ -759,7 +758,9 @@ def _node_schema(node: L.LNode) -> Schema:
         for side, keys in ((node.input_left, node.left_on), (node.input_right, node.right_on)):
             side_s = node_schema(side)
             for e in keys:
-                refuse_nested_key(expr_dtype(e, side_s), "a join key")
+                d = expr_dtype(e, side_s)
+                if d.is_nested():  # as Polars and the JAX package
+                    raise InvalidOperationError(f"cannot join on dtype {d!r}")
         return _join_schema(node)
     if isinstance(node, (L.LJoinWhere, L.LAsofJoin)):
         # every left column, then the right ones (an asof join drops the
@@ -786,7 +787,6 @@ def _node_schema(node: L.LNode) -> Schema:
         out = Schema()
         for k in expand_exprs(node.keys, in_s):
             out[E.output_name(k) or "literal"] = expr_dtype(k, in_s)
-            refuse_nested_key(out[E.output_name(k) or "literal"], "a group key")
         for a in expand_exprs(node.aggs, in_s):
             name = E.output_name(a) or "literal"
             if name in out:

@@ -1423,3 +1423,131 @@ def check_reshape(out, want: dict, label: str, floats=(), strings=()) -> float:
             bad = int(np.flatnonzero(got != w)[0])
             raise AssertionError(f"{label} {name}: first difference at row {bad}: {got[bad]!r} against {w[bad]!r}")
     return worst
+
+
+NESTKEYS_LINE_COLUMNS = ["l_orderkey", "l_extendedprice", "l_quantity", "l_shipmode", "l_returnflag",
+                         "l_linestatus"]
+NESTKEYS_ORDER_COLUMNS = ["o_orderkey", "o_orderpriority", "o_orderdate"]
+
+
+def nestkeys_plans(pl, line, orders) -> dict:
+    """Nested values as keys, each a LazyFrame: ``baskets`` (which sets of
+    ship modes orders use: per order the sorted distinct modes, a List,
+    then the orders, revenue and lines per set, sorted by the set),
+    ``basket_stats`` (over the orders in key order: the distinct sets, the
+    distinct hashes of them, the first rows of each set and the orders
+    whose set equals the previous order's), ``struct_rank`` (the orders
+    sorted by a Struct of priority and date, descending, with the run of
+    each key), ``struct_groups`` (the lines grouped by a Struct of return
+    flag, line status and ship mode, unnested) and ``struct_distinct``
+    (the distinct (priority, date) Structs, counted)."""
+    c = pl.col
+    out = {}
+    if line is not None:
+        per_order = line.lazy().group_by("l_orderkey").agg(
+            modes=c("l_shipmode").unique().sort(), rev=c("l_extendedprice").sum(), n=pl.len())
+        out["baskets"] = (per_order.group_by("modes")
+                          .agg(orders=pl.len(), rev=c("rev").sum(), lines=c("n").sum()).sort("modes"))
+        out["basket_stats"] = per_order.sort("l_orderkey").select(
+            distinct=c("modes").n_unique(), hashes=c("modes").hash().n_unique(),
+            firsts=c("modes").is_first_distinct().sum(), repeats=(c("modes") == c("modes").shift(1)).sum())
+        key = pl.struct("l_returnflag", "l_linestatus", "l_shipmode").alias("key")
+        out["struct_groups"] = (line.lazy().group_by(key)
+                                .agg(qty=c("l_quantity").sum(), rev=c("l_extendedprice").sum(), n=pl.len())
+                                .sort("key").unnest("key"))
+    if orders is not None:
+        key = pl.struct("o_orderpriority", "o_orderdate").alias("key")
+        out["struct_rank"] = (orders.lazy().select("o_orderkey", key)
+                              .sort("key", descending=True, maintain_order=True)
+                              .select("o_orderkey", run=c("key").rle_id()))
+        out["struct_distinct"] = orders.lazy().select(key).unique().select(pl.len())
+    return out
+
+
+def nestkeys_oracle(line: dict | None, orders: dict | None) -> dict:
+    """The nestkeys plans in numpy. Per order (the lines sorted by order
+    key, as ``testing/pdsh.generate_pdsh`` makes them) one 7-bit mask of
+    its ship modes by ``np.bitwise_or.reduceat``; ``np.unique`` of the
+    masks; the sets (at most 127) ordered in Python as lists of mode names,
+    the order of Polars' List sort. The Struct sort by ``np.lexsort`` over
+    the codes (stable, so ties keep the orders' order), the groups and the
+    distinct pairs by ``np.unique`` of one combined code. Keys and counts
+    exact, sums of money in f64."""
+    out: dict = {}
+    if line is not None:
+        key = line["l_orderkey"]
+        if np.any(key[1:] < key[:-1]):
+            raise ValueError("the oracle expects the lines sorted by order key")
+        start = np.flatnonzero(np.r_[True, key[1:] != key[:-1]])
+        n = np.diff(np.r_[start, len(key)])
+        mode_levels, mode = _text_codes(line["l_shipmode"])
+        masks = np.bitwise_or.reduceat(np.left_shift(1, mode), start)
+        rev = np.add.reduceat(line["l_extendedprice"], start)
+        uniq, inv = np.unique(masks, return_inverse=True)
+        inv = inv.reshape(-1)
+        sets = [[mode_levels[b] for b in range(len(mode_levels)) if (int(m) >> b) & 1] for m in uniq]
+        order = sorted(range(len(sets)), key=lambda i: sets[i])
+        out["baskets"] = {
+            "modes": [sets[i] for i in order],
+            "orders": np.bincount(inv, minlength=len(uniq))[order],
+            "rev": np.bincount(inv, weights=rev, minlength=len(uniq))[order],
+            "lines": np.bincount(inv, weights=n, minlength=len(uniq)).astype(np.int64)[order],
+        }
+        out["basket_stats"] = {"distinct": np.asarray([len(uniq)]), "hashes": np.asarray([len(uniq)]),
+                               "firsts": np.asarray([len(uniq)]),
+                               "repeats": np.asarray([int(np.sum(masks[1:] == masks[:-1]))])}
+        out["orders_with_lines"] = len(start)
+        flag_levels, flag = _text_codes(line["l_returnflag"])
+        status_levels, status = _text_codes(line["l_linestatus"])
+        k_s, k_m = len(status_levels), len(mode_levels)
+        combined = (flag * k_s + status) * k_m + mode
+        cells, cinv = np.unique(combined, return_inverse=True)
+        cinv = cinv.reshape(-1)
+        out["struct_groups"] = {
+            "l_returnflag": [flag_levels[v] for v in (cells // (k_s * k_m)).tolist()],
+            "l_linestatus": [status_levels[v] for v in ((cells // k_m) % k_s).tolist()],
+            "l_shipmode": [mode_levels[v] for v in (cells % k_m).tolist()],
+            "qty": np.bincount(cinv, weights=line["l_quantity"], minlength=len(cells)),
+            "rev": np.bincount(cinv, weights=line["l_extendedprice"], minlength=len(cells)),
+            "n": np.bincount(cinv, minlength=len(cells)),
+        }
+    if orders is not None:
+        _, prio = _text_codes(orders["o_orderpriority"])
+        date = np.asarray(orders["o_orderdate"]).astype("datetime64[D]").astype(np.int64)
+        order = np.lexsort((-date, -prio))
+        p, d = prio[order], date[order]
+        change = np.r_[True, (p[1:] != p[:-1]) | (d[1:] != d[:-1])]
+        out["struct_rank"] = {"o_orderkey": np.asarray(orders["o_orderkey"])[order],
+                              "run": np.cumsum(change) - 1}
+        out["struct_distinct"] = {"len": np.asarray([int(change.sum())])}
+    return out
+
+
+def check_nestkeys(out, want: dict, label: str, floats=(), lists=(), strings=()) -> float:
+    """``out`` against the oracle column by column: ``lists`` and
+    ``strings`` as Python values, the rest as numpy arrays, exactly but
+    ``floats`` (rtol 1e-9). The largest relative error."""
+    worst = 0.0
+    if out.columns != list(want):
+        raise AssertionError(f"{label}: columns {out.columns} != {list(want)}")
+    for name, w in want.items():
+        col = out._get(name)
+        if name in lists or name in strings:
+            got = col.to_pylist()
+            if got != list(w):
+                bad = next(i for i, (a, b) in enumerate(zip(got + [None], list(w) + [None])) if a != b)
+                raise AssertionError(f"{label} {name}: first difference at row {bad} of {len(got)} "
+                                     f"(the oracle has {len(w)})")
+            continue
+        got, w = np.asarray(col.to_numpy()), np.asarray(w)
+        if got.shape != w.shape:
+            raise AssertionError(f"{label} {name}: {got.shape[0]} rows, the oracle has {w.shape[0]}")
+        if name in floats:
+            err = np.abs(got.astype(np.float64) - w) / np.maximum(np.abs(w), 1e-300)
+            if not np.all(err <= 1e-9):
+                raise AssertionError(f"{label} {name}: largest relative error {err.max()}")
+            worst = max(worst, float(err.max(initial=0.0)))
+        elif not np.array_equal(got, w):
+            bad = int(np.flatnonzero(got != w)[0])
+            raise AssertionError(f"{label} {name}: first difference at row {bad}: {got[bad]!r} against {w[bad]!r}")
+    return worst

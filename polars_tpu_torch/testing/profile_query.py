@@ -4,8 +4,10 @@ with ``pdsh.run_params``), or one of ``chip_smoke.py``'s phases
 ``tz.orders``, ``stats.flags``, ``stats.supp``, ``stats.casts``,
 ``window.cust``, ``window.line``, ``rolling.quotes``, ``rolling.bars``,
 ``rolling.trades``, ``recode.line``, ``recode.sample``, ``strings.cust``,
-``strings.line``, ``nested.orders``, ``nested.explode``, ``reshape.pivot``
-and ``reshape.unpivot``
+``strings.line``, ``nested.orders``, ``nested.explode``, ``reshape.pivot``,
+``reshape.unpivot`` and the plans of the ``nestkeys`` phase
+(``nestkeys.baskets``, ``nestkeys.basket_stats``, ``nestkeys.struct_groups``,
+``nestkeys.struct_rank``, ``nestkeys.struct_distinct``)
 (``testing/phases.py``; ``stats.flags`` through its lazy plan).
 
 Builds the SF10 frames of the columns the query reads
@@ -33,7 +35,8 @@ Run from the repository root on a machine with a CUDA device:
     python3 -m polars_tpu_torch.testing.profile_query [--query q3 [q5 ... temporal asof range tz.ship tz.orders
         stats.flags stats.supp stats.casts window.cust window.line rolling.quotes rolling.bars
         rolling.trades recode.line recode.sample strings.cust strings.line nested.orders nested.explode
-        reshape.pivot reshape.unpivot]]
+        reshape.pivot reshape.unpivot nestkeys.baskets nestkeys.basket_stats nestkeys.struct_groups
+        nestkeys.struct_rank nestkeys.struct_distinct]]
         [--scale 10] [--runs 5]
         [--no-optimization]
 """
@@ -157,7 +160,8 @@ def profile_query(torch, query: str, run, rows: dict, scale: float, runs: int, t
 PHASES = ("temporal", "asof", "range", "tz.ship", "tz.orders", "stats.flags", "stats.supp", "stats.casts",
           "window.cust", "window.line", "rolling.quotes", "rolling.bars", "rolling.trades", "recode.line",
           "recode.sample", "strings.cust", "strings.line", "nested.orders", "nested.explode", "reshape.pivot",
-          "reshape.unpivot")
+          "reshape.unpivot", "nestkeys.baskets", "nestkeys.basket_stats", "nestkeys.struct_groups",
+          "nestkeys.struct_rank", "nestkeys.struct_distinct")
 
 
 def main() -> int:
@@ -191,7 +195,10 @@ def main() -> int:
            **{f"recode.{part}": {"lineitem": P.RECODE_COLUMNS} for part in ("line", "sample")},
            "strings.cust": P.STRINGS_CUST_COLUMNS, "strings.line": {"lineitem": P.STRINGS_LINE_COLUMNS},
            **{f"nested.{part}": {"lineitem": P.NESTED_COLUMNS} for part in ("orders", "explode")},
-           **{f"reshape.{part}": {"lineitem": P.RESHAPE_COLUMNS} for part in ("pivot", "unpivot")}}
+           **{f"reshape.{part}": {"lineitem": P.RESHAPE_COLUMNS} for part in ("pivot", "unpivot")},
+           **{f"nestkeys.{part}": {"lineitem": P.NESTKEYS_LINE_COLUMNS}
+              for part in ("baskets", "basket_stats", "struct_groups")},
+           **{f"nestkeys.{part}": {"orders": P.NESTKEYS_ORDER_COLUMNS} for part in ("struct_rank", "struct_distinct")}}
     need: dict[str, dict] = {}  # table -> the columns any chosen query reads
     for q in args.query:
         for t, cs in (own[q] if q in own else QUERY_COLUMNS[q]).items():
@@ -232,6 +239,10 @@ def main() -> int:
             line = tables["lineitem"]
             run = P.reshape_plans(pl, line)[q.split(".")[1]]
             rows = {"lineitem": line.height}
+        elif q.startswith("nestkeys."):
+            line, orders = tables.get("lineitem"), tables.get("orders")
+            run = lambda q=q: P.nestkeys_plans(pl, line, orders)[q.split(".")[1]]  # noqa: E731
+            rows = {t: f.height for t, f in (("lineitem", line), ("orders", orders)) if f is not None}
         elif q == "strings.cust":
             cust, orders = tables["customer"], tables["orders"]
             run = lambda: P.strings_plans(pl, cust, orders, None)["cust"]  # noqa: E731

@@ -6,7 +6,10 @@ of ``polars_tpu_torch``, on the CPU (``device="cpu"``).
   files of the JAX package (``REFERENCE_FILES``) with ``polars_tpu``
   rebound to the port. Every function passes but those of ``WAITING``,
   each with the ROADMAP queue item that brings what it needs, and each of
-  those must still fail, so that the table cannot go stale.
+  those must still fail, so that the table cannot go stale. It then runs
+  the List, Array and Struct checks (``_check_nested_differential``,
+  ``_check_content_keys_differential``: nested values by their content;
+  ``_check_item_4c_rest``; ``_check_nestkeys_phase_plans``).
 - ``test_math_casts_aggs_differential`` runs frames with nulls, NaN, the
   infinities, the integer extremes and unsigned columns through both
   packages in a few wide selects and group-bys (dense and sorted). Where
@@ -18,6 +21,12 @@ of ``polars_tpu_torch``, on the CPU (``device="cpu"``).
 - ``test_stats_phase_plans`` runs the three plans of ``chip_smoke.py``'s
   ``stats`` phase at SF 0.003 through both packages and against the numpy
   oracle of ``testing/phases.py``.
+- The other ``_check_*`` functions of this file run in a test of their
+  topic in another port test file (windows, sorts, recoding, strings and
+  the leftovers in ``test_torch_exprs.py``, rolling in
+  ``test_torch_join_range_asof.py``, dynamic group-bys in
+  ``test_torch_temporal.py``, empty group-bys in ``test_torch_q3q4.py``),
+  each once, with ``port_on_cpu``.
 
 Integers, keys, strings and null masks are equal; Float64 agrees to rtol
 1e-9 and Float32 to one unit in its last place.
@@ -25,8 +34,10 @@ Integers, keys, strings and null masks are equal; Float64 agrees to rtol
 
 from __future__ import annotations
 
+import contextlib
 import datetime as dtm
 import inspect
+import itertools
 import math
 import pathlib
 import re
@@ -173,6 +184,11 @@ def test_reference_eager_cases(tmp_path):
     assert not set(WAITING) - seen, f"WAITING names functions the files lack: {sorted(set(WAITING) - seen)}"
     assert len(passed) + len(WAITING) == 520 and len(passed) >= 497, (len(passed), len(WAITING))
     _check_refusal_table()
+    _release_compiled_programs()
+    _check_nested_differential()
+    _check_content_keys_differential()
+    _check_item_4c_rest()
+    _check_nestkeys_phase_plans()
 
 
 def _reference_names() -> dict[str, set[str]]:
@@ -529,13 +545,16 @@ def test_math_casts_aggs_differential():
     # the two-pass variance keeps its digits where a sum of squares would not
     assert plt.Series([1e9 + 1, 1e9 + 2, 1e9 + 3]).var() == 1.0 == plj.Series([1e9 + 1, 1e9 + 2, 1e9 + 3]).var()
 
-    _check_zero_row_group_bys()
-    _check_window_position_differential()
-    _check_rolling_differential()
-    _check_recode_differential(lj, lt)
-    _check_strings_differential(lj, lt)
-    _check_expression_leftovers(lj, lt)
-    _check_nested_differential()
+
+@contextlib.contextmanager
+def port_on_cpu():
+    """The port's default device set to the CPU for the checks of this file
+    that another port test file runs (its own fixture sets it here)."""
+    prev = plt.set_default_device("cpu")
+    try:
+        yield
+    finally:
+        plt.set_default_device(prev)
 
 
 def _check_expression_leftovers(lj, lt) -> None:
@@ -797,18 +816,23 @@ def _check_nested_differential() -> None:
     # a gather of one index in a window: each group's value at it, on its rows
     firsts = {k: data["li"][data["k"].index(k)] for k in set(data["k"])}
     assert ft.select(c("li").gather(0).over("k"))["li"].to_list() == [firsts[k] for k in data["k"]]
-    # ordering or comparing by a nested value's content is item 4c: refused,
-    # never ordered by the word that points into its child
+    # a nested value orders, groups and compares by its content, never by
+    # the word that points into its child (_check_content_keys_differential
+    # holds each consumer to Python); a join on one raises, as the
+    # reference and Polars do, and so does a mean of one
     lx = ft.select("x", "li", "k", s=plt.struct("x", "k"))
-    for run in (lambda: lx.sort("li"), lambda: lx.sort("s"), lambda: lx.group_by("li").agg(c("x").sum()),
-                lambda: lx.group_by("s").agg(c("x").sum()), lambda: lx.unique(), lambda: lx.unique(subset=["s"]),
-                lambda: lx.join(lx, on="li"), lambda: lx.join(lx, on="s"), lambda: lx.select(c("li").sort()),
-                lambda: lx.select(c("li").n_unique()), lambda: lx.select(c("s").is_duplicated()),
-                lambda: lx.select(c("x").sum().over("li")), lambda: lx.select(c("li").max()),
-                lambda: lx.select(c("li").mean()), lambda: lx.select(c("s").rle_id()), lambda: lx.select(c("li").hash()),
-                lambda: lx.with_row_index("i").rolling("i", period="2i").agg(c("li").max())):
-        with pytest.raises(plt.InvalidOperationError, match="item 4c"):
+    by_li = sorted(range(len(data["x"])), key=lambda i: _content_key(data["li"][i]))
+    assert lx.sort("li", maintain_order=True)["x"].to_list() == [data["x"][i] for i in by_li]
+    distinct = len({repr(_content_key(v)) for v in data["li"]})
+    assert lx.select(c("li").n_unique()).item() == distinct == lx.group_by("li").agg(c("x").sum()).height
+    assert lx.unique(subset=["s"]).height == len(set(zip(data["x"], data["k"])))
+    assert lx.with_row_index("i").rolling("i", period="2i").agg(c("li").max())["li"].to_list() == [
+        max(data["li"][max(i - 1, 0):i + 1], key=_content_key) for i in range(len(data["li"]))]
+    for run in (lambda: lx.join(lx, on="li"), lambda: lx.join(lx, on="s")):
+        with pytest.raises(plt.InvalidOperationError, match="cannot join on dtype"):
             run()
+    with pytest.raises(plt.InvalidOperationError, match="not supported for dtype"):
+        lx.select(c("li").mean())
     assert lx.unique(subset=["k"], keep="first", maintain_order=True)["li"].to_list() == \
         [data["li"][data["k"].index(k)] for k in dict.fromkeys(data["k"])]
     with pytest.raises(plt.InvalidOperationError, match="strategy='zero'"):
@@ -872,6 +896,369 @@ def _check_nested_differential() -> None:
     assert "[" in repr(ft.select("li").head(3)) and "{" in repr(st.head(2))
     arr = plt.DataFrame({"a": [[1, 2], [3, None]]}, schema={"a": plt.Array(plt.Int64, 2)})
     assert arr.select(c("a").arr.sum(), c("a").arr.get(1).alias("g"))["g"].to_list() == [2, None]
+
+
+# -- nested values by their content, and the rest of item 4b (ROADMAP item 4c) ----------------
+
+
+def _content_key(v):
+    """Polars' order of a value, nested or not: a List element by element,
+    a list that is a prefix of another first, a Struct field by field, and
+    a null least at any place (the order ``kernels/nested_keys.py``
+    writes). Equal contents give equal keys."""
+    if v is None:
+        return (0,)
+    if isinstance(v, dict):
+        return (1, [_content_key(x) for x in v.values()])
+    if isinstance(v, list):
+        return (1, [_content_key(x) for x in v])
+    return (1, v)
+
+
+def _sorted_rows(values: list, descending: bool, nulls_last: bool) -> list[int]:
+    """The row order of a stable sort by content; top-level nulls first
+    unless ``nulls_last``, whatever ``descending`` is."""
+    rows = [i for i, v in enumerate(values) if v is not None]
+    rows = sorted(rows, key=lambda i: _content_key(values[i]), reverse=descending)
+    nulls = [i for i, v in enumerate(values) if v is None]
+    return rows + nulls if nulls_last else nulls + rows
+
+
+def _content_data(seed: int, n: int = 28) -> dict:
+    """Lists with null elements, empty lists, null lists and lists that are
+    prefixes of others; lists of strings; a Struct with a null field and a
+    List field; fixed-width Arrays; a group key and values."""
+    rng = np.random.default_rng(seed)
+    pool = [[1, 2], [1, 2, 3], [1], [], [None], [1, None], [2], [None, 1], [3, 0], [1, 2]]
+    spool = [["b", "a"], ["a"], ["a", None], [], ["b"], ["a", "b"]]
+
+    def pick(p, null):
+        return None if rng.random() < null else list(p[int(rng.integers(len(p)))])
+
+    li = [pick(pool, 0.12) for _ in range(n)]
+    return {
+        "li": li, "lj": [pick(pool, 0.1) for _ in range(n)], "ls": [pick(spool, 0.1) for _ in range(n)],
+        "s": [None if rng.random() < 0.1 else {"a": None if rng.random() < 0.2 else int(rng.integers(0, 3)),
+                                                "b": ["x", "y", None][int(rng.integers(3))],
+                                                "l": pick(pool[:4], 0.2)} for _ in range(n)],
+        "ar": [[int(rng.integers(0, 2)), int(rng.integers(0, 3))] for _ in range(n)],
+        "sd": [None if rng.random() < 0.15 else {"c": [None, "p", "q"][int(rng.integers(3))],
+                                                  "f": [None, True, False][int(rng.integers(3))]} for _ in range(n)],
+        "k": rng.integers(0, 3, n).tolist(), "x": rng.integers(0, 50, n).tolist(),
+    }
+
+
+@contextlib.contextmanager
+def _list_ranking(refines: bool):
+    """Force one of the two ways a List is ranked
+    (``kernels/nested_keys._refines``): a frame of the CPU tests is too small
+    for refinement to be chosen, the card's SF10 columns take it."""
+    from polars_tpu_torch.kernels import nested_keys
+
+    prev = nested_keys._refines
+    nested_keys._refines = lambda longest, total: refines
+    try:
+        yield
+    finally:
+        nested_keys._refines = prev
+
+
+def _check_content_column(ft, data: dict, col: str) -> None:
+    """One column of ``_content_data`` by its content through the port,
+    held to Python: sorts, group-by, distinct, flags, ranks and the
+    functions of a column of its own length."""
+    c = plt.col
+    n = len(data["x"])
+    vals = data[col]
+    for desc, nl in ((False, False), (True, True), (True, False)):
+        order = _sorted_rows(vals, desc, nl)
+        got = ft.sort(col, descending=desc, nulls_last=nl, maintain_order=True)
+        assert got["x"].to_list() == [data["x"][i] for i in order], (col, desc, nl)
+        assert got[col].to_list() == [vals[i] for i in order], (col, desc, nl)
+    keys = [repr(_content_key(v)) for v in vals]
+    first = list(dict.fromkeys(keys))
+    g = ft.group_by(col, maintain_order=True).agg(plt.len(), c("x").sum())
+    assert g[col].to_list() == [vals[keys.index(k)] for k in first], col
+    assert g["len"].to_list() == [keys.count(k) for k in first], col
+    assert g["x"].to_list() == [sum(x for x, kk in zip(data["x"], keys) if kk == k) for k in first], col
+    assert ft.unique(subset=[col], keep="first", maintain_order=True)["x"].to_list() == [
+        data["x"][keys.index(k)] for k in first], col
+    flags = ft.select(c(col).n_unique().alias("nu"), c(col).is_duplicated().alias("dup"),
+                      c(col).is_unique().alias("uq"), c(col).is_first_distinct().alias("fd"),
+                      c(col).is_last_distinct().alias("ld"), c(col).rle_id().alias("run"),
+                      c(col).unique(maintain_order=True).alias("u").implode(),
+                      c("x").sum().over(col).alias("ov"), c(col).is_in(c(col).implode()).alias("isin"))
+    assert flags["nu"].to_list() == [len(first)] * n, col
+    assert flags["dup"].to_list() == [keys.count(k) > 1 for k in keys], col
+    assert flags["uq"].to_list() == [keys.count(k) == 1 for k in keys], col
+    assert flags["fd"].to_list() == [keys.index(k) == i for i, k in enumerate(keys)], col
+    assert flags["ld"].to_list() == [n - 1 - keys[::-1].index(k) == i for i, k in enumerate(keys)], col
+    runs = np.cumsum([i == 0 or keys[i] != keys[i - 1] for i in range(n)]) - 1
+    assert flags["run"].to_list() == runs.tolist(), col
+    assert flags["u"].to_list()[0] == [vals[keys.index(k)] for k in first], col
+    assert flags["ov"].to_list() == [sum(x for x, kk in zip(data["x"], keys) if kk == k) for k in keys], col
+    assert flags["isin"].to_list() == [None if v is None else True for v in vals], col
+    order = ft.select(c(col).arg_sort().alias("as"), c(col).arg_sort(descending=True, nulls_last=True).alias("asd"),
+                      c(col).rank("dense").alias("rk"), c(col).rank("min", descending=True).alias("rkm"),
+                      c(col).cum_count().alias("cc"), plt.arg_sort_by(col, "x").alias("asb"))
+    ck = [_content_key(v) for v in vals]
+    dense = {repr(k): i + 1 for i, k in enumerate(sorted({repr(k): k for k in ck if k != (0,)}.values()))}
+    assert order["as"].to_list() == _sorted_rows(vals, False, False), col
+    assert order["asd"].to_list() == _sorted_rows(vals, True, True), col
+    assert order["rk"].to_list() == [None if v is None else dense[repr(k)] for v, k in zip(vals, ck)], col
+    assert order["rkm"].to_list() == [None if v is None else 1 + sum(kk != (0,) and kk > k for kk in ck)
+                                      for v, k in zip(vals, ck)], col
+    assert order["cc"].to_list() == np.cumsum([v is not None for v in vals]).tolist(), col
+    assert order["asb"].to_list() == sorted(range(n), key=lambda i: (ck[i], data["x"][i])), col
+    # the functions of a column of its own length, over a nested value
+    starts = [i for i in range(n) if i == 0 or keys[i] != keys[i - 1]]
+    assert ft.select(c(col).rle())[col].to_list() == [
+        {"len": e - i, "value": vals[i]} for i, e in zip(starts, starts[1:] + [n])], col
+    counts = ft.select(c(col).value_counts(sort=True))[col].to_list()
+    assert [(repr(_content_key(d[col])), d["count"]) for d in counts] == sorted(
+        ((k, keys.count(k)) for k in first), key=lambda kc: -kc[1]), col
+    assert ft.select(c(col).unique_counts())[col].to_list() == [keys.count(k) for k in first], col
+    assert ft.select(c(col).extend_constant(None, 2))[col].to_list() == vals + [None, None], col
+    assert ft.select(c(col).append(c(col).reverse()))[col].to_list() == vals + vals[::-1], col
+    assert ft.select(c(col).repeat_by("k"))[col].to_list() == [[v] * k for v, k in zip(vals, data["k"])], col
+    shuf = ft.select(c(col).shuffle(seed=3))[col].to_list()
+    assert shuf == ft.select(c(col).shuffle(seed=3))[col].to_list(), col
+    assert sorted(map(repr, map(_content_key, shuf))) == sorted(keys), col
+    for repl in (False, True):
+        picked = ft.select(c(col).sample(n=n // 2, with_replacement=repl, seed=5))[col].to_list()
+        assert len(picked) == n // 2 and {repr(_content_key(v)) for v in picked} <= set(keys), (col, repl)
+
+
+def _check_content_keys_differential() -> None:
+    """List, Array and Struct values by their content through the port (a
+    Struct of dictionary-coded and Boolean fields by the dense group-by),
+    held to a Python oracle of Polars' semantics (``_content_key``): the
+    reference orders, groups, compares and hashes them by the word into
+    their child (ROADMAP section 3), and is held to that fault on the
+    probe frame of ROADMAP section 3. Sort (descending with ``nulls_last`` too),
+    group-by, ``unique``, ``n_unique``, the distinct flags, ``rle_id``,
+    ``hash`` (equal for equal contents built in two frames), ``==`` of two
+    columns, ``is_in`` a List of such values, ``over`` a List key, a Struct's
+    ``min``/``max``/``arg_min``/``arg_max``; a join on a nested key raises in
+    both packages."""
+    c = plt.col
+    # ROADMAP section 3's probe: by content in the port, by the word in the reference
+    probe = {"a": [[1, 2], [3], [1, 2], None, [3]],
+             "s": [{"x": 1, "y": "a"}, {"x": 2, "y": "b"}, {"x": 1, "y": "a"}, {"x": 1, "y": None},
+                   {"x": 2, "y": "b"}], "v": [5, 4, 3, 2, 1]}
+    pt, pj = plt.DataFrame(probe), plj.DataFrame(probe)
+
+    def probes(pl):
+        col = pl.col
+        return [col("a").n_unique().alias("nu_a"), col("s").n_unique().alias("nu_s"),
+                col("a").is_duplicated().sum().alias("dup"), (col("a") == col("a").shift(2)).alias("eq")]
+
+    got, ref = pt.select(probes(plt)), pj.select(probes(plj))
+    assert got["nu_a"][0] == 3 == got["nu_s"][0] != ref["nu_a"][0]  # the aggregates broadcast
+    assert got["dup"][0] == 4 != ref["dup"][0]
+    assert got["eq"].to_list() == [None, None, True, None, False] != ref["eq"].to_list()
+    assert pt.group_by("a").agg(c("v").sum()).sort("a").rows() == [(None, 2), ([1, 2], 8), ([3], 5)]
+    assert pt.group_by("s", maintain_order=True).agg(plt.len()).rows() == [
+        ({"x": 1, "y": "a"}, 2), ({"x": 2, "y": "b"}, 2), ({"x": 1, "y": None}, 1)]
+    assert pj.group_by("a").agg(plj.col("v").sum()).height == 5  # five groups with empty keys
+    assert pt.select(c("s").max(), c("s").min().alias("mn")).rows() == [({"x": 2, "y": "b"}, {"x": 1, "y": None})]
+    assert pt.select(c("a").hash())["a"].to_list()[0] == pt.select(c("a").hash())["a"].to_list()[2]
+    for pl, f in ((plt, pt), (plj, pj)):
+        with pytest.raises(pl.InvalidOperationError, match="cannot join on dtype"):
+            f.join(f, on="a")
+
+    data = _content_data(41)
+    ft = plt.DataFrame(data, schema_overrides={"ar": plt.Array(plt.Int64, 2)})
+    n = len(data["x"])
+    for refines, col in itertools.product((False, True), ("li", "ls", "s", "ar", "sd")):  # sd: the dense group-by
+        with _list_ranking(refines):
+            _check_content_column(ft, data, col)
+
+    # == of two columns; equal contents hash equal in another frame, whose
+    # child is laid out otherwise
+    eq = ft.select((c("li") == c("lj")).alias("eq"), (c("li") != c("lj")).alias("ne"),
+                   c("li").eq_missing(c("lj")).alias("eqm"), (c("s") == c("s").reverse()).alias("seq"))
+    assert eq["eq"].to_list() == [None if a is None or b is None else a == b for a, b in zip(data["li"], data["lj"])]
+    assert eq["ne"].to_list() == [None if a is None or b is None else a != b for a, b in zip(data["li"], data["lj"])]
+    assert eq["eqm"].to_list() == [a == b for a, b in zip(data["li"], data["lj"])]
+    assert eq["seq"].to_list() == [None if a is None or b is None else a == b
+                                   for a, b in zip(data["s"], data["s"][::-1])]
+    for col in ("li", "ls", "s"):
+        vals = data[col]
+        other = plt.DataFrame({col: [vals[0], None] + vals[::-1]})
+        h1 = dict(zip(map(repr, vals), ft.select(c(col).hash(7))[col].to_list()))
+        h2 = dict(zip(map(repr, [vals[0], None] + vals[::-1]), other.select(c(col).hash(7))[col].to_list()))
+        assert h1 == {k: h2[k] for k in h1}, col
+        assert len(set(h1.values())) == len(h1), col  # distinct contents, distinct hashes
+    # a Struct's extremes by content, null rows left out, per group too
+    s = data["s"]
+    live = [i for i, v in enumerate(s) if v is not None]
+    lo = min(live, key=lambda i: _content_key(s[i]))
+    hi = max(live, key=lambda i: _content_key(s[i]))
+    hi = min(i for i in live if _content_key(s[i]) == _content_key(s[hi]))
+    got = ft.select(c("s").min().alias("mn"), c("s").max().alias("mx"), c("s").arg_min().alias("amn"),
+                    c("s").arg_max().alias("amx"), c("li").max().alias("lmx"))
+    assert got.rows() == [(s[lo], s[hi], lo, hi, max((v for v in data["li"] if v is not None), key=_content_key))]
+    per = ft.group_by("k").agg(c("s").max(), c("li").min()).sort("k")
+    for k, smax, lmin in per.rows():
+        rows = [i for i in range(n) if data["k"][i] == k]
+        sv = [s[i] for i in rows if s[i] is not None]
+        lv = [data["li"][i] for i in rows if data["li"][i] is not None]
+        assert smax == (max(sv, key=_content_key) if sv else None), k
+        assert lmin == (min(lv, key=_content_key) if lv else None), k
+    # rolling extremes by content: a null row never stands for an empty
+    # list, though a left join leaves its word pointing at content
+    keep = [k for k in range(n) if data["x"][k] > 25]
+    right = plt.DataFrame({"x": [data["x"][k] for k in keep], "m": [data["li"][k] for k in keep]},
+                          schema_overrides={"m": plt.List(plt.Int64)})
+    roll = ft.with_row_index("i").join(right.unique("x", keep="first"), on="x", how="left").sort("i").rolling(
+        "i", period="3i").agg(c("m").min().alias("mn"), c("m").max().alias("mx"))
+    masked = [next((data["li"][k] for k in keep if data["x"][k] == x), None) for x in data["x"]]
+    for i, (mn, mx) in enumerate(zip(roll["mn"].to_list(), roll["mx"].to_list())):
+        live = [v for v in masked[max(i - 2, 0):i + 1] if v is not None]
+        assert (mn, mx) == ((min(live, key=_content_key), max(live, key=_content_key)) if live else (None, None)), i
+    left = plt.DataFrame({"k": [1, 2, 3, 4], "i": [0, 1, 2, 3]}).join(
+        plt.DataFrame({"k": [1, 3, 4], "m": [[5, 6], [], [9]]}), on="k", how="left").sort("i")
+    assert left.rolling("i", period="2i").agg(c("m").min())["m"].to_list() == [[5, 6], [5, 6], [], []]
+    # lists of thousands of elements rank by prefix doubling, in a few passes
+    long = list(range(3000))
+    vals = [long + [1], long, None, long[:-1] + [0], long, [0], [], long[:-1] + [None]]
+    lf = plt.DataFrame({"li": vals, "x": list(range(len(vals)))})
+    for desc, nl in ((False, False), (True, True)):
+        assert lf.sort("li", descending=desc, nulls_last=nl)["x"].to_list() == _sorted_rows(vals, desc, nl)
+    distinct = len({repr(_content_key(v)) for v in vals})
+    assert lf.select(c("li").n_unique(), c("li").is_first_distinct().sum().alias("fd")).row(0) == (distinct, distinct)
+
+
+def _check_item_4c_rest() -> None:
+    """The rest of item 4b through the port: against the reference where it
+    is right (``str.json_decode``, a gather in each group by per-row
+    indices and its aggregation, the monthly ``date_ranges`` not from a
+    month's end, a user's function under ``+ 1`` in a group-by), and
+    against Python where it is wrong (``over(mapping_strategy="explode")``
+    is read as ``group_to_rows`` there; ``date_ranges`` from the 31st
+    raises there; ``datetime_ranges`` with ``time_zone`` is naive there) or
+    draws otherwise (``list.sample(with_replacement=True)``: properties)."""
+    c, cj = plt.col, plj.col
+    d = {"k": [2, 1, 2, 1, 3, 2], "v": [5, 4, 3, 2, 1, 9], "i": [1, 0, -1, 0, 0, 2]}
+    ft, fj = plt.DataFrame(d), plj.DataFrame(d)
+
+    # over(mapping_strategy="explode"): each group's results after another,
+    # the groups in order of their first rows
+    got = ft.select(c("v").sort(descending=True).over("k", mapping_strategy="explode").alias("sd"))
+    ref = fj.select(cj("v").sort(descending=True).over("k", mapping_strategy="explode").alias("sd"))
+    groups = list(dict.fromkeys(d["k"]))
+    want = [v for g in groups for v in sorted((v for v, k in zip(d["v"], d["k"]) if k == g), reverse=True)]
+    assert got["sd"].to_list() == want != ref["sd"].to_list()
+    agg = ft.lazy().filter(c("v") != 3).select(c("v").sum().over("k", mapping_strategy="explode")).collect()
+    assert agg["v"].to_list() == [sum(v for v, k in zip(d["v"], d["k"]) if k == g and v != 3) for g in groups]
+
+    # a gather in each group by per-row indices; its aggregations against
+    # Python (the reference sums other rows, and recurses without end on
+    # the three in one agg)
+    _assert_frames_match(ft.group_by("k", maintain_order=True).agg(c("v").gather(c("i"))),
+                         fj.group_by("k", maintain_order=True).agg(cj("v").gather(cj("i"))), label="gather per row")
+    members = {g: [v for v, k in zip(d["v"], d["k"]) if k == g] for g in groups}
+    picked = {g: [members[g][i] for i, k in zip(d["i"], d["k"]) if k == g] for g in groups}
+    aggs = ft.group_by("k", maintain_order=True).agg(c("v").gather(c("i")).sum().alias("gs"),
+                                                     c("v").gather(c("i")).max().alias("gm"),
+                                                     c("v").gather(0).sum().alias("g0"))
+    assert aggs.rows() == [(g, sum(picked[g]), max(picked[g]), members[g][0]) for g in groups]
+    assert fj.group_by("k", maintain_order=True).agg(cj("v").gather(cj("i")).sum())["v"].to_list() != [
+        sum(picked[g]) for g in groups]
+    assert ft.select(c("v").gather(c("i")).over("k"))["v"].to_list() == [
+        members[k][i] for k, i in zip(d["k"], d["i"])]
+    two = plt.DataFrame({"k": [1, 1, 2, 2], "v": [1, 2, 3, 4]})
+    assert two.select(c("v").gather([1, 0]).over("k"))["v"].to_list() == [2, 1, 4, 3]
+    nulls = plt.DataFrame({"k": [1, 1, 2], "v": [1, 2, 3], "i": [None, 1, -1]})
+    assert nulls.group_by("k", maintain_order=True).agg(c("v").gather(c("i")))["v"].to_list() == [[None, 2], [3]]
+    with pytest.raises(plt.ComputeError, match="out of bounds"):
+        ft.group_by("k").agg(c("v").gather(c("i") + 5))
+
+    # str.json_decode: each dictionary value parsed once
+    texts = {"j": ['{"a": 1, "b": [1, 2]}', None, '{"a": 2, "b": []}', '{"a": 1, "b": [1, 2]}', "oops"]}
+    st = {"a": plt.Int64, "b": plt.List(plt.Int64)}
+    _assert_frames_match(plt.DataFrame(texts).select(c("j").str.json_decode(), c("j").str.json_decode(
+        plt.Struct(st)).alias("typed")), plj.DataFrame(texts).select(cj("j").str.json_decode(), cj("j").str.json_decode(
+            plj.Struct({"a": plj.Int64, "b": plj.List(plj.Int64)})).alias("typed")), label="json_decode")
+
+    # list.sample with replacement: each value from its list, the lengths,
+    # the same draw for the same seed, an empty list asked for values raises
+    lists = plt.DataFrame({"l": [[1, 2, 3], [4], None, [5, 6]]})
+    draw = lists.select(c("l").list.sample(n=3, with_replacement=True, seed=7))["l"].to_list()
+    assert draw == lists.select(c("l").list.sample(n=3, with_replacement=True, seed=7))["l"].to_list()
+    for out, src in zip(draw, [[1, 2, 3], [4], None, [5, 6]]):
+        assert (out is None) == (src is None) and (out is None or (len(out) == 3 and set(out) <= set(src)))
+    frac = lists.select(c("l").list.sample(fraction=2.0, with_replacement=True, seed=1))["l"].to_list()
+    assert [None if x is None else len(x) for x in frac] == [6, 2, None, 4]
+    with pytest.raises(plt.ShapeError, match="empty list"):
+        plt.DataFrame({"l": [[1], []]}).select(c("l").list.sample(n=1, with_replacement=True))
+
+    # calendar intervals in the ranges per row
+    days = {"a": [dtm.date(2023, 11, 15), dtm.date(2024, 2, 1), None], "b": [dtm.date(2024, 5, 20)] * 3}
+    for iv in ("1mo", "2mo", "1y"):
+        _assert_frames_match(plt.DataFrame(days).select(plt.date_ranges("a", "b", iv)),
+                             plj.DataFrame(days).select(plj.date_ranges("a", "b", iv)), label=f"date_ranges {iv}")
+
+    def months_from(start, end, k):
+        out, i = [], 0
+        while True:
+            y, m = divmod(start.month - 1 + i * k, 12)
+            y += start.year
+            nxt = dtm.date(y, m + 1, min(start.day, [31, 29 if y % 4 == 0 and (y % 100 or y % 400 == 0) else 28, 31,
+                                                         30, 31, 30, 31, 31, 30, 31, 30, 31][m]))
+            if nxt > end:
+                return out
+            out.append(nxt)
+            i += 1
+
+    end31 = {"a": [dtm.date(2024, 1, 31), dtm.date(2023, 8, 31)], "b": [dtm.date(2024, 6, 30), dtm.date(2024, 3, 1)]}
+    got = plt.DataFrame(end31).select(plt.date_ranges("a", "b", "1mo", closed="left"))["date_range"].to_list()
+    assert got == [months_from(a, b, 1)[:-1] if months_from(a, b, 1)[-1] == b else months_from(a, b, 1)
+                   for a, b in zip(end31["a"], end31["b"])]
+    with pytest.raises(Exception):
+        plj.DataFrame(end31).select(plj.date_ranges("a", "b", "1mo"))
+    quarters = plt.DataFrame(days).select(plt.date_ranges("a", "b", "1q"))["date_range"].to_list()
+    assert quarters == [None if a is None else months_from(a, b, 3) for a, b in zip(days["a"], days["b"])]
+    # datetime_ranges with a time zone: days on the wall clock, hours in UTC
+    from zoneinfo import ZoneInfo
+
+    ny = ZoneInfo("America/New_York")
+    w = {"a": [dtm.datetime(2024, 3, 8, 12)], "b": [dtm.datetime(2024, 3, 11, 12)]}
+    out = plt.DataFrame(w).select(plt.datetime_ranges("a", "b", "1d", time_zone="America/New_York").alias("d"))
+    assert out.schema["d"] == plt.List(plt.Datetime("us", "America/New_York"))
+    assert out["d"].to_list()[0] == [dtm.datetime(2024, 3, d, 12, tzinfo=ny) for d in range(8, 12)]
+    hours = plt.DataFrame(w).select(plt.datetime_ranges("a", "b", "36h", time_zone="America/New_York"))
+    start = dtm.datetime(2024, 3, 8, 12, tzinfo=ny).astimezone(dtm.timezone.utc)
+    end = dtm.datetime(2024, 3, 11, 12, tzinfo=ny).astimezone(dtm.timezone.utc)
+    steps = [start + dtm.timedelta(hours=36 * j) for j in range(4)]
+    assert hours.to_series().to_list()[0] == [t.astimezone(ny) for t in steps if t <= end]
+    assert plj.DataFrame(w).select(plj.datetime_ranges("a", "b", "1d", time_zone="America/New_York")).to_series(
+        ).dtype != out.schema["d"]
+
+    # a user's function under a larger expression in a group-by
+    def udf(col):
+        return (col("v").map_batches(lambda s: s * 2) + 1).sum().alias("u")
+
+    _assert_frames_match(ft.group_by("k", maintain_order=True).agg(udf(c), c("v").sum().alias("s")),
+                         fj.group_by("k", maintain_order=True).agg(udf(cj), cj("v").sum().alias("s")), label="udf + 1")
+
+
+def _check_nestkeys_phase_plans(scale: float = 0.002) -> None:
+    """The plans of ``chip_smoke.py``'s ``nestkeys`` phase at a small scale,
+    against the numpy oracle of ``testing/phases.py`` only: the reference
+    groups, sorts and counts nested values by the word into their child
+    (ROADMAP section 3)."""
+    from polars_tpu_torch.testing import pdsh
+    from polars_tpu_torch.testing import phases as P
+
+    raw = pdsh.generate_pdsh(scale, tables=("orders", "lineitem"))
+    line = plt.DataFrame({k: raw["lineitem"][k] for k in P.NESTKEYS_LINE_COLUMNS})
+    orders = plt.DataFrame({k: raw["orders"][k] for k in P.NESTKEYS_ORDER_COLUMNS})
+    want = P.nestkeys_oracle(raw["lineitem"], raw["orders"])
+    for name, lf in P.nestkeys_plans(plt, line, orders).items():
+        P.check_nestkeys(lf.collect(), want[name], f"nestkeys.{name}", floats=("rev", "qty"), lists=("modes",),
+                         strings=("l_returnflag", "l_linestatus", "l_shipmode"))
 
 
 def _check_zero_row_group_bys() -> None:
@@ -1340,14 +1727,21 @@ def _position_frame(seed: int, n: int) -> dict:
             "f": nulls(f), "p": rng.integers(0, 3, n).tolist()}
 
 
-def _check_window_position_differential() -> None:
+_POSITION_SCHEMA = {"g": "String", "t": "Int64", "x": "Int64", "f": "Float64", "p": "Int64"}
+_POSITION_FRAMES = ((5, 40), (6, 23), (7, 0))  # (seed, rows); the first also through the reference
+
+
+def _check_window_position_differential(frames=_POSITION_FRAMES, filters=(False, True)) -> None:
     """Every order and position function, without ``over``, with it and
     with ``over(order_by=)``, each with and without a filter before it,
-    through the port and a Python oracle of Polars' semantics, and for the
-    first frame through the reference too (one select per filter), but
-    where it is wrong (``_position_fault``). The probes of the reference's
-    faults are among the cases."""
-    schema = {"g": "String", "t": "Int64", "x": "Int64", "f": "Float64", "p": "Int64"}
+    through the port and a Python oracle of Polars' semantics over
+    ``frames`` of ``_POSITION_FRAMES``, as written and filtered
+    (``filters``), and for the first frame through the reference too (one
+    select per filter), but where it is wrong (``_position_fault``). The probes of the reference's
+    faults are among the cases (the reference's probes are
+    :func:`_check_position_probes`, the expression-level sort, filter,
+    slice and gather :func:`_check_sort_filter_slice_gather`)."""
+    schema = _POSITION_SCHEMA
     contexts = ("plain", "over", "over_t")
 
     def exprs(pl):
@@ -1358,17 +1752,17 @@ def _check_window_position_differential() -> None:
                 out.append(e.alias(f"{case}:{ctx}"))
         return out
 
-    for seed, n in ((5, 40), (6, 23), (7, 0)):
+    for seed, n in frames:
         data = _position_frame(seed, n)
         lt = plt.DataFrame(data, schema={k: getattr(plt, d) for k, d in schema.items()}).lazy()
         lj = plj.DataFrame(data, schema={k: getattr(plj, d) for k, d in schema.items()}).lazy()
-        for filtered in (False, True):
+        for filtered in filters:
             keep = [p != 0 for p in data["p"]] if filtered else [True] * n
             rows = {k: [v for v, kp in zip(col, keep) if kp] for k, col in data.items()}
             t = lt.filter(plt.col("p") != 0) if filtered else lt
             got = t.select(exprs(plt)).collect()
             ref = None
-            if seed == 5:
+            if (seed, n) == _POSITION_FRAMES[0]:
                 ref = (lj.filter(plj.col("p") != 0) if filtered else lj).select(exprs(plj)).collect()
             for ctx in contexts:
                 for case, (_, oracle) in _position_cases(plt).items():
@@ -1379,8 +1773,6 @@ def _check_window_position_differential() -> None:
                     if ref is not None and _position_fault(case, ctx, filtered) is None:
                         assert repr(got[name].dtype) == repr(ref[name].dtype), label
                         assert _values_match(g, ref[name].to_list()), (label, g, ref[name].to_list())
-    _check_position_probes()
-    _check_sort_filter_slice_gather(_position_frame(5, 40), schema)
 
 
 def _rolling_frame(seed: int, n: int) -> dict:
@@ -1570,22 +1962,38 @@ def _host_rolling_cases(pl) -> list:
             c("y").rolling_rank_by("t", "5i", method="min").alias("rank_by")]
 
 
-def _check_rolling_differential() -> None:
-    """``_rolling_cases`` in one wide select per frame through both packages
-    (three frames, one with no rows), but where the reference is wrong
-    (``_ROLLING_FAULTS``: there a Python oracle, and the reference must
-    still differ from it); then the dynamic and rolling group-bys: calendar
-    and fixed windows, ``label``, ``closed``, ``include_boundaries``,
-    ``offset``, ``start_by="datapoint"``, an integer index, groups;
-    ``LazyFrame.rolling`` with ``offset``, ``closed`` and groups."""
-    schema = {"g": "String", "t": "Int64", "ts": "Datetime", "x": "Float64", "y": "Float64", "i": "Int64"}
-    ref_wrong = dict.fromkeys(_ROLLING_FAULTS, False)
-    for seed, n in ((21, 37), (22, 12), (23, 0)):
-        data = _rolling_frame(seed, n)
-        lt = plt.DataFrame(data, schema={k: getattr(plt, d) for k, d in schema.items()})
-        lj = plj.DataFrame(data, schema={k: getattr(plj, d) for k, d in schema.items()})
+_ROLLING_SCHEMA = {"g": "String", "t": "Int64", "ts": "Datetime", "x": "Float64", "y": "Float64", "i": "Int64"}
+
+
+def _rolling_frames(seed: int, n: int):
+    data = _rolling_frame(seed, n)
+    return (data, plt.DataFrame(data, schema={k: getattr(plt, d) for k, d in _ROLLING_SCHEMA.items()}),
+            plj.DataFrame(data, schema={k: getattr(plj, d) for k, d in _ROLLING_SCHEMA.items()}))
+
+
+_ROLLING_FRAMES = ((21, 37), (22, 12), (23, 0))  # (seed, rows); every fault shows on the first
+
+
+def _check_host_rolling_differential() -> None:
+    """``_host_rolling_cases`` (the rolling functions the port runs on the
+    host) in one select per frame through both packages, over the three
+    frames of :func:`_check_rolling_differential`."""
+    for seed, n in _ROLLING_FRAMES:
+        _, lt, lj = _rolling_frames(seed, n)
         _assert_frames_match(lt.select(_host_rolling_cases(plt)), lj.select(_host_rolling_cases(plj)),
                              label=f"rolling on the host n={n}")
+
+
+def _check_rolling_differential(frames=_ROLLING_FRAMES) -> None:
+    """``_rolling_cases`` in one wide select per frame through both packages
+    (``frames`` of ``_ROLLING_FRAMES``: three, one with no rows), but where
+    the reference is wrong (``_ROLLING_FAULTS``: there a Python oracle, and
+    on the first frame, where each fault shows, the reference must still
+    differ from it). The dynamic and rolling group-bys are
+    :func:`_check_dynamic_differential`."""
+    for seed, n in frames:
+        data, lt, lj = _rolling_frames(seed, n)
+        ref_wrong = dict.fromkeys(_ROLLING_FAULTS, False)
         got, want = lt.lazy().select(_rolling_cases(plt)).collect(), lj.lazy().select(_rolling_cases(plj)).collect()
         faults = list(_ROLLING_FAULTS)
         _assert_frames_match(got.drop(faults), want.drop(faults), label=f"rolling n={n}")
@@ -1593,8 +2001,7 @@ def _check_rolling_differential() -> None:
             expect = oracle(data)
             assert _values_match(got[name].to_list(), expect), (name, n, got[name].to_list(), expect)
             ref_wrong[name] |= not _values_match(want[name].to_list(), expect)
-    assert all(ref_wrong.values()), ref_wrong
-    _check_dynamic_differential()
+        assert (seed, n) != _ROLLING_FRAMES[0] or all(ref_wrong.values()), ref_wrong
 
 
 def _dynamic_cases(pl) -> list:
@@ -1622,6 +2029,10 @@ def _dynamic_cases(pl) -> list:
 
 
 def _check_dynamic_differential() -> None:
+    """The dynamic and rolling group-bys through both packages: calendar
+    and fixed windows, ``label``, ``closed``, ``include_boundaries``,
+    ``offset``, ``start_by="datapoint"``, an integer index, groups;
+    ``LazyFrame.rolling`` with ``offset``, ``closed`` and groups."""
     rng = np.random.default_rng(31)
     n = 60
     minutes = np.sort(rng.integers(0, 60 * 24 * 200, n))
@@ -1665,9 +2076,12 @@ def _resizing_cases(pl) -> list:
     ]
 
 
-def _check_sort_filter_slice_gather(data: dict, schema: dict) -> None:
+def _check_sort_filter_slice_gather(data: dict | None = None, schema: dict | None = None) -> None:
     """``_resizing_cases`` through both packages, as written and after a
-    filter (a row mask in the port), frames equal."""
+    filter (a row mask in the port), frames equal (by default over the
+    first frame of :func:`_check_window_position_differential`)."""
+    if data is None:
+        data, schema = _position_frame(5, 40), _POSITION_SCHEMA
     lt = plt.DataFrame(data, schema={k: getattr(plt, d) for k, d in schema.items()}).lazy()
     lj = plj.DataFrame(data, schema={k: getattr(plj, d) for k, d in schema.items()}).lazy()
     for (label, qt), (_, qj) in zip(_resizing_cases(plt), _resizing_cases(plj)):
@@ -2050,12 +2464,18 @@ def _check_recode_differential(lj, lt) -> None:
         nn.select(c("a").replace_strict({1: 10}))
     with pytest.raises(Exception):
         plj.DataFrame({"a": [1, 2, None]}).select(plj.col("a").replace_strict({1: 10, 2: 20})).to_dicts()
-    # item(), the unique functions outside a select, search_sorted, shrink_dtype
+    # item(), unique per group (its first rows of each value) and in a
+    # window (a column of another length), search_sorted, shrink_dtype
     assert plt.DataFrame({"a": [7]}).select(c("a").item())["a"].to_list() == [7]
     with pytest.raises(plt.InvalidOperationError, match="item"):
         plt.DataFrame({"a": [1, 2]}).select(c("a").item())
-    with pytest.raises(plt.InvalidOperationError, match="only in a select"):
-        lt.group_by("g").agg(c("h").unique().len())
+    per = lt.group_by("g", maintain_order=True).agg(c("h").unique().len().alias("n"), c("h").unique().alias("u"))
+    groups = list(dict.fromkeys(lt["g"].to_list()))
+    assert per["u"].to_list() == [list(dict.fromkeys(h for h, g in zip(lt["h"].to_list(), lt["g"].to_list())
+                                                     if g == k)) for k in groups]
+    assert per["n"].to_list() == [len(u) for u in per["u"].to_list()]
+    with pytest.raises(plt.ShapeError, match="lengths"):
+        lt.select(c("h").unique().over("g"))
     srt = [1, 3, 5, 5, 7, None]
     for side in ("any", "left", "right"):
         for v in (0, 5, 8):

@@ -5,6 +5,16 @@ frame: ``is_in``, ``is_between``, when/then/otherwise, ``str.starts_with``,
 expression right-hand side, ``str.slice``, and the ``n_unique``, ``first``
 and ``last`` aggregations.
 
+Tests of this file also run, by topic, checks that
+``tests/test_torch_eager.py`` keeps: the order and position functions with
+and without ``over`` (``_check_window_position_differential``: its first
+frame, through the reference too, as written in one test, filtered in
+another with the other two frames), the
+expression-level sort, filter, slice and gather and the position probes,
+the recoding functions and Decimal (``_check_recode_differential``), the
+string functions (``_check_strings_differential``) and the expression
+leftovers (``_check_expression_leftovers``).
+
 The port runs on the CPU (``device="cpu"``). Keys, strings, booleans and
 counts must be equal; floats agree to rtol 1e-9.
 """
@@ -16,6 +26,10 @@ import pytest
 
 import polars_tpu as plj
 import polars_tpu_torch as plt
+from test_torch_eager import (_POSITION_FRAMES, _check_expression_leftovers, _check_position_probes,
+                              _check_recode_differential, _check_sort_filter_slice_gather,
+                              _check_strings_differential, _check_window_position_differential, _frames,
+                              _release_compiled_programs, port_on_cpu)
 
 
 def _assert_frames_match(got, want, *, rtol=1e-9):
@@ -108,6 +122,10 @@ def test_is_in_filters_and_negates(frame):
     _check(frame, lambda pl, df: df.lazy().filter(pl.col("s").is_in(["apple", "bean", "b"]))
            .group_by("k").agg(hi=pl.col("s").is_in(["apple", "b"]).cast(pl.Int64).sum(),
                               lo=(~pl.col("s").is_in(["apple", "b"])).cast(pl.Int64).sum()).sort("k"), min_rows=3)
+    with port_on_cpu():
+        _release_compiled_programs()
+        lj, lt = _frames(11)
+        _check_recode_differential(lj, lt)
 
 
 # -- is_between ---------------------------------------------------------------------
@@ -218,6 +236,10 @@ def test_one_row_select(frame, case, filtered):
 def test_aggregates_broadcast_in_with_columns(frame):
     _check(frame, lambda pl, df: df.lazy().with_columns(
         (pl.col("v") - pl.col("v").mean()).alias("centered"), pl.col("i").max().alias("imax")))
+    with port_on_cpu():
+        _release_compiled_programs()
+        lj, lt = _frames(11)
+        _check_expression_leftovers(lj, lt)
 
 
 # -- str.contains, ends_with, slice ------------------------------------------------------
@@ -259,6 +281,10 @@ def test_string_predicates_and_slices(words):
             a.str.slice(0, 0).alias("s00"),
         )
     _check(words, plan)
+    with port_on_cpu():
+        _release_compiled_programs()
+        _check_sort_filter_slice_gather()
+        _check_position_probes()
 
 
 def test_contains_invalid_pattern(words):
@@ -268,6 +294,10 @@ def test_contains_invalid_pattern(words):
         with pytest.raises(pl.ComputeError, match="invalid regex"):
             df.lazy().select(pl.col("a").str.contains("(a")).collect()
     _check(words, lambda pl, df: df.lazy().select(pl.col("a").str.contains("(a", strict=False).alias("c")))
+    with port_on_cpu():
+        _release_compiled_programs()
+        lj, lt = _frames(11)
+        _check_strings_differential(lj, lt)
 
 
 def test_slice_result_groups_and_compares(words):
@@ -277,6 +307,9 @@ def test_slice_result_groups_and_compares(words):
            .with_columns(pl.col("a").str.slice(0, 2).alias("p"))
            .filter(pl.col("p").is_in(["ap", "ba", ""]) | (pl.col("p") > "c"))
            .group_by("p").agg(pl.len()).sort("p"), min_rows=3)
+    with port_on_cpu():
+        _release_compiled_programs()
+        _check_window_position_differential(_POSITION_FRAMES[:1], filters=(False,))
 
 
 # -- n_unique, first, last -----------------------------------------------------------------
@@ -315,3 +348,7 @@ def test_n_unique_counts_nulls_as_one_value():
     got = q.group_by("g").agg(plt.col("d").n_unique().alias("nu")).sort("g").collect()
     assert got.to_dict(as_series=False) == {"g": [1, 2], "nu": [2, 1]}
     assert q.select(plt.col("d").n_unique()).collect()["d"].to_list() == [2]
+    with port_on_cpu():
+        _release_compiled_programs()
+        _check_window_position_differential(_POSITION_FRAMES[:1], filters=(True,))
+        _check_window_position_differential(_POSITION_FRAMES[1:])

@@ -16,7 +16,11 @@ key matches as if the key were its stored 0 (``engine/join.py``
 left row whose group the right side lacks takes the next group's match.
 
 Each test loops over its cases inside (a failure names its case), so the
-suite's item count grows by a few items only.
+suite's item count grows by a few items only. Two of them also run the
+rolling checks that ``tests/test_torch_eager.py`` keeps
+(``_check_rolling_differential``, a frame each, and
+``_check_host_rolling_differential``; its frame of no rows runs in
+``tests/test_torch_temporal.py``).
 """
 
 from __future__ import annotations
@@ -29,6 +33,8 @@ import pytest
 
 import polars_tpu as plj
 import polars_tpu_torch as plt
+from test_torch_eager import (_ROLLING_FRAMES, _check_host_rolling_differential, _check_rolling_differential,
+                              _release_compiled_programs)
 
 
 @pytest.fixture(autouse=True)
@@ -227,6 +233,8 @@ def test_asof_join_by():
     _each(itertools.product([["sym"], ["sym", "venue"]], ["backward", "forward", "nearest"]),
           lambda c: _check_asof_by(*c))
     _check_asof_by_group_the_right_side_lacks()
+    _release_compiled_programs()
+    _check_rolling_differential(_ROLLING_FRAMES[:1])
 
 
 _EPOCH_US = np.datetime64("2024-03-01T09:30:00", "us").astype(np.int64)
@@ -403,6 +411,9 @@ def test_asof_errors():
                 a.join_asof(b, on="t")
             with pytest.raises(plt.InvalidOperationError, match="asof join keys must have one dtype"):
                 a.lazy().join_asof(b.lazy(), on="t").collect()
+    _release_compiled_programs()
+    _check_rolling_differential(_ROLLING_FRAMES[1:2])
+    _check_host_rolling_differential()
 
 
 def test_chip_phases_at_a_small_size():

@@ -4,7 +4,9 @@ sort-based group-by, slices and top-k sorts, string literals and compares.
 The same data, made from a numpy seed, goes through ``polars_tpu`` (JAX on
 the CPU) and ``polars_tpu_torch`` (``device="cpu"``). Keys, dates, strings
 and counts must be equal; floats agree to rtol 1e-9 (the two engines sum in
-different orders).
+different orders). ``test_sorted_group_ctx_puts_all_nulls_in_one_group``
+also runs the group-bys over no rows that ``tests/test_torch_eager.py``
+keeps (``_check_zero_row_group_bys``).
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from polars_tpu_torch.engine import groupby as GT
 from polars_tpu_torch.engine.common import Val as ValT
 from polars_tpu_torch.kernels import argsort as AT
 from polars_tpu_torch.testing import pdsh as pdsh_torch
+from test_torch_eager import _check_zero_row_group_bys, _release_compiled_programs
 
 Q3_COLS = {
     "customer": ["c_custkey", "c_mktsegment"],
@@ -225,6 +228,8 @@ def test_sorted_group_ctx_puts_all_nulls_in_one_group():
     jax_groups = jax.jit(lambda f, v, m: GJ.sorted_group_ctx([ValJ(f, v, plj.Float64())], m).num_groups)(
         jnp.asarray(f), jnp.asarray(valid), jnp.asarray(rowmask))
     assert int(jax_groups) > int(g.num_groups)
+    _release_compiled_programs()
+    _check_zero_row_group_bys()
 
 
 def test_boundaries_from_words_matches_jax():

@@ -19,6 +19,12 @@ Datetime's fixed intervals (``truncate``, ``round``, ``offset_by`` by
 "1h", "15m", "1w"), which the reference scales by 1,000; ``offset_by``
 with two units ("3d12h"), which it rejects; the mean of a Date, which it
 reads as milliseconds; a ``timedelta`` whose float seconds round down.
+
+``test_week_groups_like_the_temporal_phase`` also runs the dynamic and
+rolling group-bys that ``tests/test_torch_eager.py`` keeps
+(``_check_dynamic_differential``), and ``test_civil_round_trip`` its
+rolling functions over a frame of no rows (``_check_rolling_differential``
+over the last of ``_ROLLING_FRAMES``).
 """
 
 from __future__ import annotations
@@ -32,6 +38,8 @@ import pytest
 import polars_tpu as plj
 import polars_tpu_torch as plt
 from polars_tpu_torch.kernels import temporal as T
+from test_torch_eager import (_ROLLING_FRAMES, _check_dynamic_differential, _check_rolling_differential,
+                              _release_compiled_programs)
 
 
 @pytest.fixture(autouse=True)
@@ -138,6 +146,8 @@ def test_civil_round_trip():
     y, m, d = T.civil_from_days(days)
     assert torch.equal(T.days_from_civil(y, m, d), days)
     assert int(y.min()) == 1600 and int(y.max()) == 2399
+    _release_compiled_programs()
+    _check_rolling_differential(_ROLLING_FRAMES[2:])  # the rolling functions over a frame of no rows
 
 
 # -- the cases of tests/test_temporal.py, through both packages ------------------------------
@@ -557,3 +567,5 @@ def test_week_groups_like_the_temporal_phase():
     want = phases.temporal_plan(plj, plj.DataFrame(line)).collect()
     _assert_frames_match(phases.temporal_plan(plt, plt.DataFrame(line, device="cpu")).collect(), want)
     assert want.height > 50
+    _release_compiled_programs()
+    _check_dynamic_differential()
