@@ -215,6 +215,21 @@ Phases, each printed as one JSON line:
                 count (K2). Each against the numpy oracle of
                 testing/phases.py (keys, lists and counts exactly, sums to
                 rtol 1e-9), with its host reads.
+ 23. io       — database IO and a Parquet scan at SF10, two lines: PDS-H
+                supplier (100,000 rows) and nation in a sqlite3 database,
+                read onto the card by read_database (the open in-memory
+                connection) and read_database_uri (a sqlite:// file copy),
+                timed; io.database: joined with the 60M lineitem rows on
+                the card, 1995-1996 kept, summed per nation (K1 dense at 25
+                groups, K2); io.scan: the same over scan_parquet of a file
+                of six lineitem columns sorted by ship date (60 row groups;
+                the date range prunes row groups and the plan's four
+                columns are read), with the scan's metrics. Each
+                against the numpy oracle of testing/phases.py (names and
+                counts exactly, sums to rtol 1e-9), with its host reads and
+                peak memory. It asserts that the package imported neither
+                pyarrow nor pandas; where pyarrow is missing, a scan must
+                raise ImportError naming it, and io.scan does not run.
 Every collect runs the optimized plan. Each PDS-H query and each frameops
 query also runs its plan as written (collect(no_optimization=True)): a
 warm-up, then 6 collects as written and 6 optimized, in turns with the
@@ -235,7 +250,7 @@ then the kernels line, the card's name and power limit, and the final line
 
 Run from the repository root:
     python3 chip_smoke.py [--scale 10] [--seed 42] [--only q1 filter q3 q4 ... q22 joins temporal asof rolling range
-        frameops tz stats window recode strings nested reshape nestkeys]
+        frameops tz stats window recode strings nested reshape nestkeys io]
 (``--only`` runs the build and kernel phases and the named query phases, for
 an A/B of a few queries against a parent tree). It needs a CUDA device and
 nvcc; it never imports JAX or polars_tpu.
@@ -275,7 +290,7 @@ Q3_DAYS = day(1995, 3, 15)
 Q4_FROM, Q4_TO = day(1993, 7, 1), day(1993, 10, 1)
 PHASES = ["q1", "filter", "q3", "q4", "q5", "q6", "q10", "q12", "q14", "q18", "q19", "q11", "q15", "q17", "q20",
           "q2", "q7", "q8", "q9", "q13", "q16", "q21", "q22", "joins", "temporal", "asof", "rolling", "range",
-          "frameops", "tz", "stats", "window", "recode", "strings", "nested", "reshape", "nestkeys"]
+          "frameops", "tz", "stats", "window", "recode", "strings", "nested", "reshape", "nestkeys", "io"]
 # the columns the phases outside PDS-H read of each table (asof makes its own)
 PHASE_COLUMNS = {
     "joins": {"customer": ["c_custkey", "c_mktsegment"], "orders": ["o_orderkey", "o_custkey", "o_orderdate"],
@@ -311,6 +326,9 @@ PHASE_COLUMNS = {
     # testing/phases.NESTKEYS_LINE_COLUMNS, NESTKEYS_ORDER_COLUMNS
     "nestkeys": {"lineitem": ["l_orderkey", "l_extendedprice", "l_quantity", "l_shipmode", "l_returnflag",
                               "l_linestatus"], "orders": ["o_orderkey", "o_orderpriority", "o_orderdate"]},
+    # testing/phases.IO_FILE_COLUMNS; supplier and nation go to its sqlite3 database
+    "io": {"lineitem": ["l_suppkey", "l_shipdate", "l_extendedprice", "l_discount", "l_quantity", "l_tax"],
+           "supplier": ["s_suppkey", "s_name", "s_nationkey", "s_acctbal"], "nation": ["n_nationkey", "n_name"]},
 }
 _MADE_COLUMNS = ("l_shipts", "o_orderts")  # made from the generated columns (testing/phases.py)
 
@@ -2734,6 +2752,103 @@ def phase_strings(torch, pl, frames: dict, raw: dict) -> dict:
     return results
 
 
+# -- io phase (database, plan and oracle: polars_tpu_torch/testing/phases.py) ------------------
+
+
+def phase_io(torch, pl, line, raw: dict) -> dict:
+    """Database IO and a Parquet scan at SF10: PDS-H ``supplier`` (100,000
+    rows) and ``nation`` in a ``sqlite3`` database, read onto the card by
+    ``read_database`` over the open in-memory connection and by
+    ``read_database_uri`` from a file copy, then joined with 60M lineitem
+    rows (1995-1996 kept by a row mask) and summed per nation (K1 dense at
+    25 groups, K2 at the segment's end), against
+    ``testing/phases.io_oracle``: ``io.database`` over the lineitem frame on
+    the card, ``io.scan`` over ``scan_parquet`` of a date-clustered file of
+    it (the date range and the projection pushed into the scan, each column
+    decoded on the host and copied once). The package imports neither
+    pyarrow nor pandas; where pyarrow is missing, the scan must raise
+    ``ImportError`` naming it and ``io.scan`` does not run."""
+    import importlib.util
+    import os
+    import tempfile
+
+    from polars_tpu_torch.io import scan_exec
+
+    P = _phases()
+    loaded = [m for m in ("pyarrow", "pandas") if m in sys.modules]
+    if loaded:
+        raise AssertionError(f"import polars_tpu_torch imported {loaded}")
+    t0 = time.perf_counter()
+    want = P.io_oracle(raw["lineitem"], raw["supplier"], raw["nation"])
+    oracle_s = time.perf_counter() - t0
+    results = {}
+
+    def check(label: str, r: dict) -> float:
+        out = r["out"]
+        _check_schema(out, [("n_name", "String"), ("revenue", "Float64"), ("lines", "UInt32")], label)
+        if out["n_name"].to_list() != list(want["n_name"]):
+            raise AssertionError(f"{label}: nations {out['n_name'].to_list()} != {list(want['n_name'])}")
+        return check_columns(out, want, exact=("lines",), floats=("revenue",), label=label)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        db_path, pq_path = os.path.join(tmp, "pdsh.sqlite"), os.path.join(tmp, "lineitem.parquet")
+        t0 = time.perf_counter()
+        conn = P.io_database(raw["supplier"], raw["nation"], db_path)
+        sqlite_build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        supp = pl.read_database(P.IO_SUPPLIER_QUERY, conn)
+        torch.cuda.synchronize()
+        read_database_s = time.perf_counter() - t0
+        conn.close()
+        t0 = time.perf_counter()
+        nat = pl.read_database_uri(P.IO_NATION_QUERY, f"sqlite://{db_path}")
+        torch.cuda.synchronize()
+        read_database_uri_s = time.perf_counter() - t0
+        for frame, table in ((supp, "supplier"), (nat, "nation")):
+            if frame.device.type != "cuda" or frame.height != len(next(iter(raw[table].values()))):
+                raise AssertionError(f"io: {table} read {frame.height} rows onto {frame.device}")
+        _check_schema(supp, [("s_suppkey", "Int64"), ("s_name", "String"), ("s_nationkey", "Int64"),
+                             ("s_acctbal", "Float64")], "io.supplier")
+        if supp["s_name"].to_list()[:3] != list(raw["supplier"]["s_name"][:3]):
+            raise AssertionError("io: the supplier names read back differ")
+        r = run_phase(torch, "io.database", lambda: P.io_plan(pl, line, supp, nat))
+        results["database"] = phase_result(
+            "io.database", r, r["out"], {"lineitem": line.height, "supplier": supp.height, "nation": nat.height},
+            check("io.database", r), groups=r["out"].height, warm_ms=r["warm_wall_s"] * 1e3,
+            peak_device_gb=r["peak_device_bytes"] / 1e9, read_database_s=read_database_s,
+            read_database_uri_s=read_database_uri_s, sqlite_build_s=sqlite_build_s, oracle_s=oracle_s,
+            pyarrow_installed=importlib.util.find_spec("pyarrow") is not None)
+
+        if importlib.util.find_spec("pyarrow") is None:
+            try:
+                pl.scan_parquet(pq_path).collect()
+            except ImportError as e:
+                if "pyarrow" not in str(e):
+                    raise
+                return results
+            raise AssertionError("scan_parquet ran without pyarrow")
+        t0 = time.perf_counter()
+        written = P.io_write_parquet(raw["lineitem"], pq_path)
+        write_s = time.perf_counter() - t0
+        r = run_phase(torch, "io.scan", lambda: P.io_plan(pl, pl.scan_parquet(pq_path), supp, nat))
+        scan_exec.reset_scan_metrics()
+        P.io_plan(pl, pl.scan_parquet(pq_path), supp, nat).collect()
+        torch.cuda.synchronize()
+        metrics = scan_exec.scan_metrics()
+        if not 0 < metrics["row_groups_kept"] < metrics["row_groups_total"]:
+            raise AssertionError(f"io.scan: the date range pruned no row group: {metrics}")
+        plan = P.io_plan(pl, pl.scan_parquet(pq_path), supp, nat).explain()
+        scan_line = next(ln for ln in plan.splitlines() if "Scan parquet" in ln)
+        if "σ" not in scan_line or "π 4/6" not in scan_line:
+            raise AssertionError(f"io.scan: the predicate or projection is not in the scan: {scan_line}")
+        results["scan"] = phase_result(
+            "io.scan", r, r["out"], {"lineitem": line.height, "supplier": supp.height, "nation": nat.height},
+            check("io.scan", r), groups=r["out"].height, warm_ms=r["warm_wall_s"] * 1e3,
+            peak_device_gb=r["peak_device_bytes"] / 1e9, parquet_write_s=write_s, file=written,
+            scan_metrics=metrics, scan_line=scan_line.strip())
+    return results
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2814,6 +2929,9 @@ def main() -> int:
         elif name == "nestkeys":
             for sub, res in phase_nestkeys(torch, pl, frames["nestkeys"], raw).items():
                 runs[f"nestkeys.{sub}"] = res
+        elif name == "io":
+            for sub, res in phase_io(torch, pl, frames["io"]["lineitem"], raw).items():
+                runs[f"io.{sub}"] = res
         else:  # Q3's K2 call runs 50 times, each against the first
             runs[name] = phase_query(torch, name, frames, raw, args.scale, k2_repeats=50 if name == "q3" else 1)
     del frames, raw, line, taq

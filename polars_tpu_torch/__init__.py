@@ -18,6 +18,10 @@ runs between fused segments). Every collect runs the plan the optimizer
 ``LazyFrame.explain`` shows it. Plain tensor work is
 PyTorch; the group aggregation (K1) and the segment-end compaction (K2) are
 CUDA kernels written for sm_90a (``csrc/``), built with nvcc at first use.
+Files are read and written on the host (``io/``: Parquet with its pushdowns,
+CSV, IPC, NDJSON, databases, Delta, Arrow and pandas interchange), each
+column copied once to the frame's device; pyarrow and pandas are imported
+only by the functions that need them.
 
 Entry points run on ``cuda`` unless the caller asks for the CPU
 (``DataFrame(..., device="cpu")`` or :func:`set_default_device`). The port
@@ -87,7 +91,9 @@ from polars_tpu_torch.errors import (
 )
 from polars_tpu_torch.expr.expr import Expr
 from polars_tpu_torch.functions.eager import concat
-from polars_tpu_torch.functions.interop import QueryOptFlags, defer, from_repr, from_torch, json_normalize
+from polars_tpu_torch.functions.interop import (
+    CompatLevel, FileProviderArgs, QueryOptFlags, defer, from_arrow, from_pandas, from_repr, from_torch, json_normalize,
+)
 from polars_tpu_torch.functions.lazy import (  # noqa: A004
     all, all_horizontal, any, any_horizontal, approx_n_unique, arange, arg_sort_by, arg_where, coalesce, col,
     concat_arr, concat_list, concat_str, corr, count, cov, cum_count, cum_sum, date, date_range, date_ranges, datetime,
@@ -104,6 +110,17 @@ from polars_tpu_torch.functions.parity import (
     union, using_string_cache,
 )
 from polars_tpu_torch.functions.parity import list_ as list  # noqa: A004
+from polars_tpu_torch.io import (
+    read_avro, read_clipboard, read_csv, read_csv_batched, read_database, read_database_uri, read_delta, read_excel,
+    read_ipc, read_ipc_schema, read_ipc_stream, read_json, read_lines, read_ndjson, read_ods, read_parquet,
+    read_parquet_metadata, read_parquet_schema, scan_arrow_c_stream, scan_csv, scan_delta, scan_iceberg, scan_ipc,
+    scan_lines, scan_ndjson, scan_parquet, scan_pyarrow_dataset,
+)
+from polars_tpu_torch.io.cloud import (
+    Catalog, CredentialProvider, CredentialProviderAWS, CredentialProviderAzure, CredentialProviderFunction,
+    CredentialProviderFunctionReturn, CredentialProviderGCP,
+)
+from polars_tpu_torch.io.scan_options import ScanCastOptions
 from polars_tpu_torch.lazyframe import LazyFrame
 from polars_tpu_torch.later import install as _install, package_stubs as _package_stubs
 
@@ -127,5 +144,11 @@ __all__ = [
     "date_ranges", "datetime_ranges", "escape_regex", "explain_all", "from_epoch", "int_ranges", "linear_space",
     "linear_spaces", "map_batches", "map_groups", "merge_sorted", "rolling_corr", "rolling_cov", "row_index",
     "set_random_seed", "time", "time_range", "time_ranges", "union", "defer", "from_repr", "from_torch",
-    "json_normalize",
+    "json_normalize", "Catalog", "CompatLevel", "CredentialProvider", "CredentialProviderAWS",
+    "CredentialProviderAzure", "CredentialProviderFunction", "CredentialProviderFunctionReturn",
+    "CredentialProviderGCP", "FileProviderArgs", "ScanCastOptions", "from_arrow", "from_pandas", "read_avro",
+    "read_clipboard", "read_csv", "read_csv_batched", "read_database", "read_database_uri", "read_delta",
+    "read_excel", "read_ipc", "read_ipc_schema", "read_ipc_stream", "read_json", "read_lines", "read_ndjson",
+    "read_ods", "read_parquet", "read_parquet_metadata", "read_parquet_schema", "scan_arrow_c_stream", "scan_csv",
+    "scan_delta", "scan_iceberg", "scan_ipc", "scan_lines", "scan_ndjson", "scan_parquet", "scan_pyarrow_dataset",
 ]

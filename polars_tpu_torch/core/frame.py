@@ -851,6 +851,82 @@ class DataFrame:
             return np.empty((0, 0))
         return np.column_stack(arrs) if len(arrs) > 1 else arrs[0].reshape(-1, 1)
 
+    # -- interchange and files (io/) --------------------------------------------
+
+    def to_arrow(self) -> Any:
+        import pyarrow as pa
+
+        from polars_tpu_torch.io._arrow import column_to_arrow
+
+        return pa.table({c.name: column_to_arrow(c) for c in self._columns})
+
+    def to_pandas(self) -> Any:
+        import pandas as pd
+
+        return pd.DataFrame({c.name: c.to_numpy() for c in self._columns})
+
+    def __arrow_c_stream__(self, requested_schema: Any = None) -> Any:
+        """Arrow PyCapsule C-stream export."""
+        return self.to_arrow().__arrow_c_stream__(requested_schema)
+
+    def __dataframe__(self, nan_as_null: bool = False, allow_copy: bool = True) -> Any:
+        """The dataframe interchange protocol, through the Arrow table."""
+        return self.to_arrow().__dataframe__(nan_as_null, allow_copy)
+
+    def write_parquet(self, file: Any, **kwargs: Any) -> None:
+        from polars_tpu_torch.io.parquet import write_parquet
+
+        write_parquet(self, file, **kwargs)
+
+    def write_csv(self, file: Any = None, **kwargs: Any):
+        from polars_tpu_torch.io.csv import write_csv
+
+        return write_csv(self, file, **kwargs)
+
+    def write_ipc(self, file: Any, **kwargs: Any) -> None:
+        from polars_tpu_torch.io.ipc import write_ipc
+
+        write_ipc(self, file, **kwargs)
+
+    def write_ipc_stream(self, file: Any, **kwargs: Any) -> None:
+        from polars_tpu_torch.io.ipc import write_ipc_stream
+
+        write_ipc_stream(self, file, **kwargs)
+
+    def write_ndjson(self, file: Any = None, **kwargs: Any):
+        from polars_tpu_torch.io.ndjson import write_ndjson
+
+        return write_ndjson(self, file, **kwargs)
+
+    def write_json(self, file: Any = None, **kwargs: Any):
+        from polars_tpu_torch.io.ndjson import write_json
+
+        return write_json(self, file, **kwargs)
+
+    def write_database(self, table_name: str, connection: Any, *, if_table_exists: str = "fail",
+                       engine: str = "sqlalchemy", **kwargs: Any) -> int:
+        from polars_tpu_torch.io.database import write_database
+
+        return write_database(self, table_name, connection, if_table_exists=if_table_exists)
+
+    def write_avro(self, file: Any, compression: str = "uncompressed", **kwargs: Any) -> None:
+        _needs("write_avro", "fastavro")
+
+    def write_excel(self, workbook: Any = None, worksheet: Any = None, **kwargs: Any):
+        _needs("write_excel", "xlsxwriter")
+
+    def write_clipboard(self, *, separator: str = "\t", **kwargs: Any) -> None:
+        from polars_tpu_torch.io.extra import _missing_dep
+
+        _missing_dep("write_clipboard", "a clipboard backend (headless environment)")
+
+    def write_delta(self, target: Any, *, mode: str = "error", **kwargs: Any):
+        _needs("write_delta", "deltalake").write_deltalake(target, self.to_arrow(), mode=mode, **kwargs)
+
+    def write_iceberg(self, target: Any, *, mode: str = "append", **kwargs: Any):
+        _needs("write_iceberg", "pyiceberg")
+        raise NotImplementedError("write_iceberg: writing an Iceberg table is not supported")
+
     def equals(self, other: DataFrame, *, null_equal: bool = True) -> bool:
         """Same columns, dtypes and values (NaN equals NaN; null equals null
         with ``null_equal``)."""
@@ -875,6 +951,18 @@ class DataFrame:
 
     def __str__(self) -> str:
         return self.__repr__()
+
+
+def _needs(fn: str, module: str):
+    """``module``, imported, or the optional dependency's ``ImportError``."""
+    import importlib
+
+    try:
+        return importlib.import_module(module)
+    except ImportError:
+        from polars_tpu_torch.io.extra import _missing_dep
+
+        _missing_dep(fn, module)
 
 
 def _repeat(col: Column, n: int) -> Column:
@@ -920,6 +1008,13 @@ def _build_columns(data: Any, schema: Any, schema_overrides: Mapping[str, Any] |
     names = [n for n, _ in items]
     dtypes = {n: d for n, d in items if d is not None}
     dtypes.update({n: dt.parse_into_dtype(d) for n, d in (schema_overrides or {}).items()})
+    kind = (type(data).__module__.split(".")[0], type(data).__name__)
+    if kind == ("pandas", "DataFrame"):
+        data = _pandas_columns(data)
+    elif kind in (("pyarrow", "Table"), ("pyarrow", "RecordBatch")):
+        from polars_tpu_torch.io._arrow import arrow_to_columns
+
+        return arrow_to_columns(data, dtypes, device=device)
 
     def build(name: str, values: Any) -> Column:
         d = dtypes.get(name)
@@ -961,6 +1056,21 @@ def _build_columns(data: Any, schema: Any, schema_overrides: Mapping[str, Any] |
             return [build(names[i] if names else f"column_{i}", list(c)) for i, c in enumerate(data)]
         return [build(names[0] if names else "column_0", data)]
     raise TypeError(f"cannot create DataFrame from {type(data).__name__}")
+
+
+def _pandas_columns(pdf: Any) -> dict:
+    """A pandas frame's columns as numpy arrays (NaN a null, as for any
+    numpy input; pandas' missing-value sentinels in object and string
+    columns None)."""
+    import pandas as pd
+
+    out = {}
+    for k in pdf.columns:
+        arr = pdf[k].to_numpy()
+        if arr.dtype.kind in ("O", "U", "T"):
+            arr = np.asarray([None if pd.isna(x) else x for x in arr], dtype=object)
+        out[str(k)] = arr
+    return out
 
 
 def _cast_column(col: Column, dtype: dt.DataType, strict: bool) -> Column:

@@ -425,6 +425,16 @@ class Series:
         col = self._column if name is None else self._column.rename(name)
         return DataFrame._from_columns([col], len(col))
 
+    def to_arrow(self) -> Any:
+        from polars_tpu_torch.io._arrow import column_to_arrow
+
+        return column_to_arrow(self._column)
+
+    def to_pandas(self) -> Any:
+        import pandas as pd
+
+        return pd.Series(self.to_numpy(), name=self.name)
+
     def item(self, index: int | None = None) -> Any:
         if index is None:
             if len(self) != 1:

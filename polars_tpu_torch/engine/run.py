@@ -1,7 +1,7 @@
 """Plan execution entry (the port of ``polars_tpu/engine/run.py``'s
 ``execute_plan``, ``_execute_node``, ``_exec_join``, ``_exec_join_where``,
 ``_and_all`` and ``_exec_asof``, and its ``plan_cache_scope``, for in-memory
-scans, fused segments, host-sized joins, range joins, asof joins, common
+and file scans (``io/scan_exec.py``), fused segments, host-sized joins, range joins, asof joins, common
 subplans and selects that call a host function (``engine/hostops.py``);
 every other node kind belongs to a later slice).
 
@@ -57,6 +57,11 @@ def _execute_node(node: L.LNode) -> DataFrame:
         if node.projection is not None:
             df = DataFrame._from_columns([df._get(n) for n in node.projection], df.height, device=df.device)
         return df
+
+    if isinstance(node, L.LScan):
+        from polars_tpu_torch.io.scan_exec import execute_scan
+
+        return execute_scan(node)
 
     if _is_fusable(node):
         leaves: list[tuple[L.LNode, DataFrame]] = []

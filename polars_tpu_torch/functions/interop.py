@@ -1,8 +1,13 @@
 """``QueryOptFlags`` (the port of the class in
 ``polars_tpu/functions/interop.py``; reference: py-polars
-lazyframe/opt_flags.py)."""
+lazyframe/opt_flags.py), the interchange constructors (``from_torch``,
+``from_arrow``, ``from_pandas``, ``from_repr``, ``json_normalize``,
+``defer``) and ``CompatLevel`` and ``FileProviderArgs``."""
 
 from __future__ import annotations
+
+import dataclasses
+from typing import Any
 
 _PASSES = (
     "predicate_pushdown", "projection_pushdown", "simplify_expression", "slice_pushdown", "comm_subplan_elim",
@@ -196,3 +201,53 @@ def defer(function, *, schema, validate_schema: bool = True):
         return out
 
     return DataFrame(schema=want).lazy().map_batches(make, schema=want)
+
+
+class CompatLevel:
+    """Arrow format compat level (reference: _utils/compat_level.py)."""
+
+    def __init__(self, level: int = 1) -> None:
+        self._level = level
+
+    @classmethod
+    def newest(cls) -> CompatLevel:
+        return cls(1)
+
+    @classmethod
+    def oldest(cls) -> CompatLevel:
+        return cls(0)
+
+
+@dataclasses.dataclass
+class FileProviderArgs:
+    """Arguments handed to a custom ``file_path_provider`` callback of a
+    partitioned write (the JAX package's ``io/partition.py``)."""
+
+    index: int
+    part: int
+    in_part_index: int
+    keys: dict[str, Any]
+
+
+def from_arrow(data, **kwargs):
+    """A DataFrame of an Arrow table or record batch, or a Series of an
+    Arrow array, on the default device."""
+    import pyarrow as pa
+
+    from polars_tpu_torch.core.frame import DataFrame
+
+    if isinstance(data, (pa.Table, pa.RecordBatch)):
+        return DataFrame(data, **kwargs)
+    if isinstance(data, (pa.Array, pa.ChunkedArray)):
+        from polars_tpu_torch.config import resolve_device
+        from polars_tpu_torch.core.series import Series
+        from polars_tpu_torch.io._arrow import arrow_array_to_column
+
+        return Series._from_column(arrow_array_to_column("", data, device=resolve_device(kwargs.get("device"))))
+    raise TypeError(f"cannot create from {type(data).__name__}")
+
+
+def from_pandas(df, **kwargs):
+    from polars_tpu_torch.core.frame import DataFrame
+
+    return DataFrame(df, **kwargs)

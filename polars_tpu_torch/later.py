@@ -12,7 +12,6 @@ from __future__ import annotations
 
 from typing import Any
 
-ITEM_5 = "5 (scans, IO and Arrow/pandas interchange)"
 ITEM_6 = "6 (streaming, sinks and cancellation)"
 ITEM_7 = "7 (SQL, serialization, profiling, plugins and extension types)"
 NOT_TO_PORT = "not to port"
@@ -21,9 +20,6 @@ NOT_TO_PORT = "not to port"
 # (properties) are in PROPERTIES
 LATER: dict[str, dict[str, tuple[str, ...]]] = {
     "DataFrame": {
-        ITEM_5: ("to_arrow", "to_pandas", "write_avro", "write_clipboard", "write_csv", "write_database",
-                 "write_delta", "write_excel", "write_iceberg", "write_ipc", "write_ipc_stream", "write_json",
-                 "write_ndjson", "write_parquet"),
         ITEM_7: ("deserialize", "serialize", "sql"),
         NOT_TO_PORT: ("plot", "style", "to_jax"),
     },
@@ -37,19 +33,10 @@ LATER: dict[str, dict[str, tuple[str, ...]]] = {
         ITEM_7: ("deserialize", "ext", "from_json", "meta", "meta_output_name", "register_plugin"),
     },
     "Series": {
-        ITEM_5: ("to_arrow", "to_pandas"),
         ITEM_7: ("sql",),
         NOT_TO_PORT: ("plot", "to_jax"),
     },
     "package": {
-        ITEM_5: ("Catalog", "CompatLevel", "CredentialProvider", "CredentialProviderAWS", "CredentialProviderAzure",
-                 "CredentialProviderFunction", "CredentialProviderFunctionReturn", "CredentialProviderGCP",
-                 "FileProviderArgs", "ScanCastOptions", "read_avro", "read_clipboard",
-                 "read_csv", "read_csv_batched", "read_database", "read_database_uri", "read_delta", "read_excel",
-                 "read_ipc", "read_ipc_schema", "read_ipc_stream", "read_json", "read_lines", "read_ndjson",
-                 "read_ods", "read_parquet", "read_parquet_metadata", "read_parquet_schema", "scan_arrow_c_stream",
-                 "scan_csv", "scan_delta", "scan_iceberg", "scan_ipc", "scan_lines", "scan_ndjson", "scan_parquet",
-                 "scan_pyarrow_dataset"),
         ITEM_6: ("CancelToken", "PartitionBy"),
         ITEM_7: ("BaseExtension", "Extension", "SQLContext", "get_extension_type", "plugins",
                  "register_extension_type", "sql_expr", "unregister_extension_type"),
@@ -57,6 +44,8 @@ LATER: dict[str, dict[str, tuple[str, ...]]] = {
     },
 }
 PROPERTIES = frozenset({"plot", "style", "meta", "ext"})
+# package names that are modules in the JAX package: their attributes are stubs
+MODULES = frozenset({"plugins"})
 
 
 def _stub(owner: str, name: str, item: str):
@@ -80,7 +69,25 @@ def install(owner: str, cls: type) -> None:
             setattr(cls, name, property(stub) if name in PROPERTIES else stub)
 
 
+class _ModuleStub:
+    """A module of the JAX package that the port lacks: calling it, or any
+    function read from it, raises as a stub does."""
+
+    def __init__(self, name: str, item: str) -> None:
+        self.__name__ = name
+        self.later_item = item
+        self._call = _stub("polars_tpu_torch", name, item)
+
+    def __call__(self, *args: Any, **kwargs: Any):
+        return self._call(*args, **kwargs)
+
+    def __getattr__(self, attr: str):
+        if attr.startswith("__"):
+            raise AttributeError(attr)
+        return _stub(f"polars_tpu_torch.{self.__name__}", attr, self.later_item)
+
+
 def package_stubs() -> dict[str, Any]:
     """The package's stubs, by name."""
-    return {name: _stub("polars_tpu_torch", name, item) for item, names in LATER["package"].items()
-            for name in names}
+    return {name: _ModuleStub(name, item) if name in MODULES else _stub("polars_tpu_torch", name, item)
+            for item, names in LATER["package"].items() for name in names}

@@ -299,10 +299,15 @@ class LazyFrame:
         return self.with_columns(*exprs, **named_exprs)
 
     def _device(self):
-        """The device of the plan's first frame."""
+        """The device of the plan's first frame (a file scan reads onto the
+        default device)."""
         node = self._node
-        while not isinstance(node, L.LDataFrameScan):
+        while not isinstance(node, (L.LDataFrameScan, L.LScan)):
             node = node.inputs()[0]
+        if isinstance(node, L.LScan):
+            from polars_tpu_torch.config import resolve_device
+
+            return resolve_device(None)
         return node.df.device
 
     def cast(self, dtypes: Any, *, strict: bool = True) -> LazyFrame:

@@ -15,6 +15,22 @@ def explain_plan(node: L.LNode, indent: int = 0) -> str:
         detail = f" [{node.df.width} cols, {node.df.height} rows]"
         if node.projection:
             detail += f" π {list(node.projection)}"
+    elif isinstance(node, L.LScan):
+        # the pushed projection as columns read of the file's, the pushed
+        # predicate and row limit
+        detail = f" {node.fmt}: {list(node.sources)[:2]}"
+        if node.projection is not None:
+            try:
+                from polars_tpu_torch.io.scan_schema import scan_schema
+
+                total = len(scan_schema(node))
+            except Exception:  # noqa: BLE001 (the source may be gone when the plan is shown)
+                total = len(node.projection)
+            detail += f" π {len(node.projection)}/{total} {list(node.projection)}"
+        if node.predicate is not None:
+            detail += f" σ {node.predicate!r}"
+        if node.n_rows is not None:
+            detail += f" n_rows={node.n_rows}"
     elif isinstance(node, (L.LSelect, L.LWithColumns)):
         detail = f" {len(node.expressions)} exprs"
     elif isinstance(node, L.LFilter):

@@ -1,6 +1,5 @@
 """Logical plan nodes (the port of ``polars_tpu/plan/logical.py``, trimmed to
-the node kinds the port executes; file scans and sinks come with later
-slices)."""
+the node kinds the port executes; sinks come with a later slice)."""
 
 from __future__ import annotations
 
@@ -29,6 +28,30 @@ class LDataFrameScan(LNode):
 
     def __hash__(self) -> int:
         return hash(("LDataFrameScan", self.ident, self.projection))
+
+
+@dataclass(frozen=True)
+class LScan(LNode):
+    """File scan (reference: DslPlan::Scan + UnifiedScanArgs,
+    dsl/file_scan/mod.rs:517): the predicate, projection and row limit the
+    optimizer pushes into it go to the reader (``io/scan_exec.py``)."""
+
+    sources: tuple[str, ...]
+    fmt: str  # "parquet" | "csv" | "ipc" | "ndjson" | "pyarrow_dataset"
+    options: tuple[tuple[str, Any], ...] = ()
+    projection: tuple[str, ...] | None = None
+    predicate: ENode | None = None  # pushed-down scan predicate
+    n_rows: int | None = None
+    row_index: tuple[str, int] | None = None
+
+    def opt(self, key: str, default: Any = None) -> Any:
+        for k, v in self.options:
+            if k == key:
+                return v
+        return default
+
+    def exprs(self) -> tuple[ENode, ...]:
+        return (self.predicate,) if self.predicate is not None else ()
 
 
 @dataclass(frozen=True)

@@ -1,8 +1,9 @@
 """Predicate pushdown (the port of
 ``polars_tpu/plan/optimizer/predicate_pushdown.py``; reference:
 plans/optimizer/predicate_pushdown/, with the left/right classification of
-join/mod.rs). File scans, which take the predicate themselves, come with
-the Parquet slice.
+join/mod.rs). A file scan takes the predicates that reach it as its own
+(``LScan.predicate``): the reader prunes files, row groups and pages by it
+and then filters the decoded rows by all of it (``io/scan_exec.py``).
 
 A predicate moves below ``unique`` only where every column it reads is in
 the ``subset`` (with no subset, every column counts), as Polars has it:
@@ -59,6 +60,12 @@ def _push(node: L.LNode, preds: list[E.ENode]) -> L.LNode:
         pushable = [p for p in conj if E.is_elementwise(p)]
         blocked = [p for p in conj if not E.is_elementwise(p)]
         return _with_filters(_push(node.input, preds + pushable), blocked)
+
+    if isinstance(node, L.LScan):
+        if preds:
+            existing = [node.predicate] if node.predicate is not None else []
+            return L.update(node, predicate=_join_conjuncts(existing + preds))
+        return node
 
     if isinstance(node, L.LDataFrameScan):
         return _with_filters(node, preds)

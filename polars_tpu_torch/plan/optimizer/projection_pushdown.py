@@ -2,8 +2,8 @@
 ``polars_tpu/plan/optimizer/projection_pushdown.py``; reference:
 plans/optimizer/projection_pushdown/): the set of columns each node needs
 travels down to the in-memory scans, so a segment carries, gathers and
-compacts only the columns the query reads. The projection a file scan takes
-comes with the Parquet slice. A strict ``drop`` over a pruned input drops
+compacts only the columns the query reads; a file scan reads only those
+columns and the ones its pushed predicate reads. A strict ``drop`` over a pruned input drops
 what it still finds (``polars_tpu`` keeps it strict, and then raises for a
 column its own pushdown removed), and each input of a vertical concat is
 cut to the same columns (in ``polars_tpu`` one that keeps a column for its
@@ -30,6 +30,16 @@ def _kept(exprs, needed: set[str]) -> tuple[E.ENode, ...]:
 
 def _push(node: L.LNode, needed: set[str] | None) -> L.LNode:
     """``needed=None`` means every column is needed."""
+    if isinstance(node, L.LScan):
+        if needed is not None:
+            from polars_tpu_torch.io.scan_schema import scan_schema
+
+            pred_roots = set(E.root_column_names(node.predicate)) if node.predicate is not None else set()
+            ri = {node.row_index[0]} if node.row_index else set()
+            keep = (needed | pred_roots) - ri
+            return L.update(node, projection=tuple(n for n in scan_schema(node).names() if n in keep))
+        return node
+
     if isinstance(node, L.LDataFrameScan):
         if needed is not None:
             proj = tuple(c.name for c in node.df._columns if c.name in needed)

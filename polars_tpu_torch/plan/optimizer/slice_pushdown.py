@@ -6,8 +6,8 @@ aggregation, a window, a position function (``shift``, ``rank``,
 ``cum_sum``) or an expression-level sort, filter or slice reads other rows
 than its own. (The JAX package's guard, ``_length_changing``, stops only at
 aggregations, slices, filters and sorts, so it moves a head below
-``rank()``, ``shift(-1)`` or a window: ROADMAP section 3.) The limit a file
-scan takes comes with the Parquet slice."""
+``rank()``, ``shift(-1)`` or a window: ROADMAP section 3.) A head over a
+file scan without a predicate becomes the scan's row limit (``n_rows``)."""
 
 from __future__ import annotations
 
@@ -20,6 +20,9 @@ from polars_tpu_torch.plan import logical as L
 def push_slices(node: L.LNode) -> L.LNode:
     if isinstance(node, L.LSlice) and node.offset == 0 and node.length is not None:
         inner = node.input
+        if isinstance(inner, L.LScan) and inner.predicate is None:
+            n = node.length if inner.n_rows is None else min(inner.n_rows, node.length)
+            return L.update(inner, n_rows=n)
         if isinstance(inner, L.LSort) and inner.limit is None:
             return push_slices(dataclasses.replace(inner, limit=node.length))
         if isinstance(inner, (L.LSelect, L.LWithColumns, L.LRename, L.LDrop)):

@@ -695,6 +695,15 @@ def _node_schema(node: L.LNode) -> Schema:
         if node.projection is not None:
             return Schema([(n, s[n]) for n in node.projection])
         return s
+    if isinstance(node, L.LScan):
+        from polars_tpu_torch.io.scan_schema import scan_schema
+
+        s = scan_schema(node)
+        if node.projection is not None:
+            s = Schema([(n, s[n]) for n in node.projection if n in s])
+        if node.row_index is not None:
+            s = Schema([(node.row_index[0], dt.UInt32()), *s.items()])
+        return s
     if isinstance(node, L.LSelect):
         in_s = node_schema(node.input)
         return exprs_schema(expand_exprs(node.expressions, in_s), in_s)

@@ -90,6 +90,15 @@ with ``testing/profile_query.py``:
   their lines, the quantity and the number paired in a Struct
   (``pl.struct``) and unnested again, then per ship mode the lines, the
   price sum and mean, and the quantity, number and word sums.
+- ``io``: the tables of a reporting database joined with the facts.
+  PDS-H ``supplier`` and ``nation`` live in a ``sqlite3`` database (in
+  memory, and a copy in a file): ``read_database`` reads the suppliers over
+  the open connection and ``read_database_uri`` the nations from the file's
+  ``sqlite://`` URI onto the device, where lineitem of 1995-1996 is joined
+  to both and summed per nation (revenue and lines). ``io.database`` takes
+  lineitem from the device; ``io.scan`` from a Parquet file of it clustered
+  by ship date in 60 row groups (``io_write_parquet``), whose
+  scan takes the date range and the four columns the plan reads.
 """
 
 from __future__ import annotations
@@ -1551,3 +1560,82 @@ def check_nestkeys(out, want: dict, label: str, floats=(), lists=(), strings=())
             bad = int(np.flatnonzero(got != w)[0])
             raise AssertionError(f"{label} {name}: first difference at row {bad}: {got[bad]!r} against {w[bad]!r}")
     return worst
+
+
+# -- io ---------------------------------------------------------------------------------------
+
+IO_LINE_COLUMNS = ["l_suppkey", "l_shipdate", "l_extendedprice", "l_discount"]
+IO_FILE_COLUMNS = IO_LINE_COLUMNS + ["l_quantity", "l_tax"]  # the Parquet file's: two the plan does not read
+IO_SINCE, IO_UNTIL = dtm.date(1995, 1, 1), dtm.date(1997, 1, 1)
+IO_SUPPLIER_QUERY = "select s_suppkey, s_name, s_nationkey, s_acctbal from supplier order by s_suppkey"
+IO_NATION_QUERY = "select n_nationkey, n_name from nation order by n_nationkey"
+
+
+def io_database(supplier: dict, nation: dict, path: str):
+    """An in-memory ``sqlite3`` database of the generator's ``supplier`` and
+    ``nation`` (the columns the queries read), and a copy of it in the file
+    ``path``; the open in-memory connection."""
+    import sqlite3
+
+    conn = sqlite3.connect(":memory:")
+    conn.execute("create table supplier (s_suppkey integer primary key, s_name text, s_nationkey integer, "
+                 "s_acctbal real)")
+    conn.executemany("insert into supplier values (?, ?, ?, ?)", zip(
+        np.asarray(supplier["s_suppkey"]).tolist(), list(supplier["s_name"]),
+        np.asarray(supplier["s_nationkey"]).tolist(), np.asarray(supplier["s_acctbal"]).tolist()))
+    conn.execute("create table nation (n_nationkey integer primary key, n_name text)")
+    conn.executemany("insert into nation values (?, ?)",
+                     zip(np.asarray(nation["n_nationkey"]).tolist(), list(nation["n_name"])))
+    conn.commit()
+    copy = sqlite3.connect(path)
+    conn.backup(copy)
+    copy.close()
+    return conn
+
+
+def io_plan(pl, line, supplier, nation):
+    return (
+        line.lazy()
+        .filter((pl.col("l_shipdate") >= IO_SINCE) & (pl.col("l_shipdate") < IO_UNTIL))
+        .join(supplier.lazy(), left_on="l_suppkey", right_on="s_suppkey", validate="m:1")
+        .join(nation.lazy(), left_on="s_nationkey", right_on="n_nationkey", validate="m:1")
+        .group_by("n_name")
+        .agg(revenue=(pl.col("l_extendedprice") * (1 - pl.col("l_discount"))).sum(), lines=pl.len())
+        .sort("n_name")
+    )
+
+
+def io_write_parquet(line: dict, path: str, row_groups: int = 60) -> dict:
+    """``IO_FILE_COLUMNS`` of lineitem as one Parquet file, sorted by ship
+    date (a date-clustered fact table) in ``row_groups`` row groups (1M rows
+    each at SF10), with pyarrow; its size and row groups."""
+    import os
+
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    days = np.asarray(line["l_shipdate"]).astype("datetime64[D]").astype(np.int64)
+    order = np.argsort((days - days.min()).astype(np.int16), kind="stable")  # a radix sort: 7 years of days
+    table = pa.table({c: pa.array(np.asarray(line[c]).take(order)) for c in IO_FILE_COLUMNS})
+    pq.write_table(table, path, row_group_size=max(-(-len(order) // row_groups), 1000), use_dictionary=False)
+    return {"bytes": os.path.getsize(path), "row_groups": pq.ParquetFile(path).metadata.num_row_groups}
+
+
+def io_oracle(line: dict, supplier: dict, nation: dict) -> dict:
+    """``io_plan`` in numpy: each kept line's nation by two lookups, then
+    one weighted count per nation."""
+    days = np.asarray(line["l_shipdate"]).astype("datetime64[D]").astype(np.int64)
+    lo, hi = ((d - EPOCH).days for d in (IO_SINCE, IO_UNTIL))
+    keep = (days >= lo) & (days < hi)
+    supp_key = np.asarray(supplier["s_suppkey"])
+    nation_of = np.full(int(supp_key.max()) + 1, -1, np.int64)
+    nation_of[supp_key] = np.asarray(supplier["s_nationkey"])
+    nat = nation_of[np.asarray(line["l_suppkey"])[keep]]
+    rev = np.asarray(line["l_extendedprice"])[keep] * (1 - np.asarray(line["l_discount"])[keep])
+    keys = np.asarray(nation["n_nationkey"])
+    sums = np.bincount(nat, weights=rev, minlength=int(keys.max()) + 1)[keys]
+    counts = np.bincount(nat, minlength=int(keys.max()) + 1)[keys]
+    names = np.asarray(nation["n_name"], dtype=object)
+    order = np.argsort(names.astype(str), kind="stable")
+    order = order[counts[order] > 0]
+    return {"n_name": names[order], "revenue": sums[order], "lines": counts[order].astype(np.uint32)}

@@ -7,7 +7,10 @@ with ``pdsh.run_params``), or one of ``chip_smoke.py``'s phases
 ``strings.line``, ``nested.orders``, ``nested.explode``, ``reshape.pivot``,
 ``reshape.unpivot`` and the plans of the ``nestkeys`` phase
 (``nestkeys.baskets``, ``nestkeys.basket_stats``, ``nestkeys.struct_groups``,
-``nestkeys.struct_rank``, ``nestkeys.struct_distinct``)
+``nestkeys.struct_rank``, ``nestkeys.struct_distinct``) and of the ``io``
+phase (``io.database``: lineitem on the card joined with ``supplier`` and
+``nation`` read from ``sqlite3``; ``io.scan``: the same over
+``scan_parquet`` of a file of lineitem written first, which needs pyarrow)
 (``testing/phases.py``; ``stats.flags`` through its lazy plan).
 
 Builds the SF10 frames of the columns the query reads
@@ -36,7 +39,7 @@ Run from the repository root on a machine with a CUDA device:
         stats.flags stats.supp stats.casts window.cust window.line rolling.quotes rolling.bars
         rolling.trades recode.line recode.sample strings.cust strings.line nested.orders nested.explode
         reshape.pivot reshape.unpivot nestkeys.baskets nestkeys.basket_stats nestkeys.struct_groups
-        nestkeys.struct_rank nestkeys.struct_distinct]]
+        nestkeys.struct_rank nestkeys.struct_distinct io.database io.scan]]
         [--scale 10] [--runs 5]
         [--no-optimization]
 """
@@ -45,8 +48,10 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import re
 import sys
+import tempfile
 import time
 
 # device kernel name -> kind, first match wins
@@ -161,7 +166,7 @@ PHASES = ("temporal", "asof", "range", "tz.ship", "tz.orders", "stats.flags", "s
           "window.cust", "window.line", "rolling.quotes", "rolling.bars", "rolling.trades", "recode.line",
           "recode.sample", "strings.cust", "strings.line", "nested.orders", "nested.explode", "reshape.pivot",
           "reshape.unpivot", "nestkeys.baskets", "nestkeys.basket_stats", "nestkeys.struct_groups",
-          "nestkeys.struct_rank", "nestkeys.struct_distinct")
+          "nestkeys.struct_rank", "nestkeys.struct_distinct", "io.database", "io.scan")
 
 
 def main() -> int:
@@ -198,12 +203,15 @@ def main() -> int:
            **{f"reshape.{part}": {"lineitem": P.RESHAPE_COLUMNS} for part in ("pivot", "unpivot")},
            **{f"nestkeys.{part}": {"lineitem": P.NESTKEYS_LINE_COLUMNS}
               for part in ("baskets", "basket_stats", "struct_groups")},
-           **{f"nestkeys.{part}": {"orders": P.NESTKEYS_ORDER_COLUMNS} for part in ("struct_rank", "struct_distinct")}}
+           **{f"nestkeys.{part}": {"orders": P.NESTKEYS_ORDER_COLUMNS} for part in ("struct_rank", "struct_distinct")},
+           **{f"io.{part}": {"lineitem": P.IO_LINE_COLUMNS} for part in ("database", "scan")}}
     need: dict[str, dict] = {}  # table -> the columns any chosen query reads
     for q in args.query:
         for t, cs in (own[q] if q in own else QUERY_COLUMNS[q]).items():
             need.setdefault(t, {}).update(dict.fromkeys(cs))
-    raw = pdsh.generate_pdsh(args.scale, seed=args.seed, tables=tuple(need)) if need else {}
+    io_queries = [q for q in args.query if q.startswith("io.")]
+    gen = tuple(dict.fromkeys([*need, *(("supplier", "nation") if io_queries else ())]))
+    raw = pdsh.generate_pdsh(args.scale, seed=args.seed, tables=gen) if gen else {}
     if "temporal" in args.query or "tz.ship" in args.query:
         P.add_shipts(raw["lineitem"], args.seed)
         need["lineitem"]["l_shipts"] = None
@@ -211,6 +219,15 @@ def main() -> int:
         P.add_orderts(raw["orders"], args.seed)
         need["orders"]["o_orderts"] = None
     tables = {t: pl.DataFrame({c: raw[t][c] for c in cs}, device="cuda") for t, cs in need.items()}
+    tmp = tempfile.TemporaryDirectory()
+    if io_queries:  # supplier and nation through sqlite3, lineitem's file for the scan
+        db_path, pq_path = os.path.join(tmp.name, "pdsh.sqlite"), os.path.join(tmp.name, "lineitem.parquet")
+        conn = P.io_database(raw["supplier"], raw["nation"], db_path)
+        supp = pl.read_database(P.IO_SUPPLIER_QUERY, conn)
+        conn.close()
+        nat = pl.read_database_uri(P.IO_NATION_QUERY, f"sqlite://{db_path}")
+        if "io.scan" in io_queries:
+            P.io_write_parquet(raw["lineitem"], pq_path)
     del raw
     taq = None
     for q in args.query:
@@ -268,11 +285,19 @@ def main() -> int:
             else:
                 run = lambda q=q: P.rolling_plans(pl, frames)[q.split(".")[1]]  # noqa: E731
             rows = {side: f.height for side, f in frames.items()}
+        elif q.startswith("io."):
+            line = tables["lineitem"]
+            if q == "io.database":
+                run = lambda: P.io_plan(pl, line, supp, nat)  # noqa: E731
+            else:
+                run = lambda: P.io_plan(pl, pl.scan_parquet(pq_path), supp, nat)  # noqa: E731
+            rows = {"lineitem": line.height, "supplier": supp.height, "nation": nat.height}
         else:
             f = pdsh.frames_for(q, tables)
             params = pdsh.run_params(q, args.scale)
             run, rows = (lambda: pdsh.query(q, f, **params)), {t: d.height for t, d in f.items()}
         profile_query(torch, q, run, rows, args.scale, args.runs, args.top, args.no_optimization)
+    tmp.cleanup()
     return 0
 
 
